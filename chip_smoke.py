@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the uc2_torch ITM pair-scoring path on one CUDA card.
+"""Drive the uc2_torch paths on one CUDA card: ITM pair scoring and the
+mlm pretraining step.
 
     python3 chip_smoke.py        # from the root of the repository
 
-Phases, each of which stops the run with a non-zero exit when it fails:
+Phases; a failed check is reported where it happens and the run exits
+non-zero at the end, without the result lines:
   1. device: the card's name and power limit, then the kernels' build
      (nvcc, sm_90a) with its time and the compiler's register report;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card at uc2-base scoring shapes (B = 64, 12 heads of 64, H = 768,
-     F = 3072, bf16 inputs from a seed, padding masks), with times, the
-     least time the card could take, and a library yardstick where one
-     PyTorch call computes the same function;
+     card at the shapes its path gives it (scoring: B = 64; training:
+     (B, L) = (208, 98), (160, 128), (128, 162) at dropout 0.1 and 0;
+     12 heads of 64, H = 768, F = 3072, bf16 inputs from a seed, padding
+     masks), with times, the least time the card could take, and a
+     library yardstick where one PyTorch call computes the same function;
+     the training kernels' dropout mask against the plain Philox mask;
   3. slice: full-width uc2-base (12 layers, random weights from a seed)
      runs full_retrieval_eval over a synthetic gallery that fills the
      three region-count buckets (joint L = 98, 128, 162); every kernel's
      launch count must match the routing, one batch per bucket is held
      against the eager PyTorch path, and pairs/s per bucket are timed;
-  4. a JSON line of per-kernel numbers, then the last line
+  4. train: full-width uc2-base mlm steps (dropout 0.1, the optimizer of
+     config/uc2_pretrain.json) at the three training buckets, 1 warm-up
+     and 5 timed steps each on masked, collated batches of a synthetic
+     corpus; launches of the training kernels per step, finite losses, a
+     bitwise repeat of one step, the step's time breakdown, and one step
+     of the kernel path against the eager path at dropout 0;
+  5. a JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 Without a GPU it exits non-zero before printing any result.
 """
@@ -33,17 +43,27 @@ import torch
 import torch.nn.functional as F
 
 from uc2_torch.config import UC2Config
+from uc2_torch.data.collate import BucketSpec, collate_batch
+from uc2_torch.data.masking import mlm_example
 from uc2_torch.data.memdb import synth_gallery
 from uc2_torch.evalu import retrieval
+from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
-from uc2_torch.ops.flash_attention import (flash_attention,
-                                           flash_attention_plain)
+from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain, flash_attention_train_bwd,
+    flash_attention_train_bwd_plain, flash_attention_train_fwd,
+    flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_block_plain,
                                        fused_ffn_profitable)
+from uc2_torch.ops.philox import keep_mask
+from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
+from uc2_torch.training.step import train_step
 
 # H100 SXM published peaks (dense bf16 tensor rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
@@ -58,10 +78,39 @@ ATOL, RTOL = 2e-2, 2.0 ** -7
 # rank scores after 12 bf16 layers, kernel path vs the eager bf16 path
 SCORE_TOL = 5e-2
 KERNELS = (flash_attention, fused_attn_block, fused_ffn_block)
+TRAIN_KERNELS = (flash_attention_train_fwd, flash_attention_train_bwd)
+# training buckets (B, regions), 62 text tokens, 24 prediction slots
+# (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
+TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
+TRAIN_TXT, TRAIN_SLOTS, TIMED_STEPS = 62, 24, 5
+TRAIN_SEED = 1234
+# one training step, kernel path vs eager path at dropout 0 from the same
+# weights, 12 bf16 layers (H100 readings: loss 2.6e-4 apart, grad norm
+# 5.4e-4 relative; limits about 5x that). The gradients of each layer's
+# Q, K and V projection weights, which the attention backward's dq, dk and
+# dv feed, are held block by block in relative norm to 2^-5, so a dq or dk
+# wrong only in scale shows there before AdamW hides it.
+# Adam's first update is ~lr * sign(g), so an update may differ by up to
+# 2 lr where a gradient near 0 flips sign; at most 1% of the updates may
+# differ by more than lr / 10
+STEP_LOSS_TOL, STEP_NORM_RTOL, STEP_FLIP_SHARE = 1.3e-3, 2.7e-3, 1e-2
+STEP_QKV_RTOL = 2.0 ** -5
+FAILURES = []
 
 
 def fail(msg: str):
+    """Record a failed check; the run goes on and exits non-zero at the end."""
+    print(f"chip_smoke: FAILED: {msg}")
+    FAILURES.append(msg)
+
+
+def fatal(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def reset_launches():
+    for k in KERNELS + TRAIN_KERNELS:
+        k.launches = 0
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -94,7 +143,8 @@ def compare(what: str, out, ref) -> float:
         (err <= ATOL + RTOL * ref.abs()).all())
     max_err = err.max().item()
     print(f"  {what}: max|kernel - plain| = {max_err:.4e} "
-          f"(tolerance 2e-2 + 2^-7*|plain|) {'ok' if ok else 'FAIL'}")
+          f"(max|plain| {ref.abs().max().item():.3e}; tolerance 2e-2 + "
+          f"2^-7*|plain|) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{what} disagrees with its plain version")
     return max_err
@@ -121,7 +171,7 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
+        fatal(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device 0: "
@@ -253,7 +303,7 @@ def phase_slice(card):
     per_bucket = np.bincount(np.searchsorted(edges, nbbs),
                              minlength=len(edges))
     if (per_bucket < B).any():
-        fail(f"a bucket holds fewer than {B} images: {per_bucket}")
+        fatal(f"a bucket holds fewer than {B} images: {per_bucket}")
     n_txt, L_of = len(txt_db.ids), [TXT_LEN + e for e in edges]
     batches = [n_txt * -(-int(c) // B) for c in per_bucket]
     layers = cfg.num_hidden_layers
@@ -268,8 +318,7 @@ def phase_slice(card):
             nb for nb, L in zip(batches, L_of) if fused_ffn_profitable(L)),
     }
 
-    for k in KERNELS:
-        k.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics, (m, txt_ids, img_ids) = retrieval.full_retrieval_eval(
@@ -277,7 +326,8 @@ def phase_slice(card):
         return_matrix=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in KERNELS + TRAIN_KERNELS}
+    expect.update({k.__name__: 0 for k in TRAIN_KERNELS})
     print(f"  buckets (L={L_of}): {per_bucket.tolist()} images, "
           f"{batches} scored batches of {B}")
     print(f"  launches {launches}, expected {expect}")
@@ -320,7 +370,374 @@ def phase_slice(card):
         print(f"  L={TXT_LEN + nb}: kernel path {ms_k:.3f} ms/batch = "
               f"{B / ms_k * 1e3:.1f} pairs/s; eager bf16 {ms_p:.3f} ms/batch "
               f"= {B / ms_p * 1e3:.1f} pairs/s [{card}]")
-    return launches
+    return {k.__name__: launches[k.__name__] for k in KERNELS}
+
+
+TRAIN_ROWS = {
+    "flash_attention_train_fwd": dict(
+        name="flash_attention_train_fwd", route="cuda",
+        source="uc2_torch/csrc/attention_train.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:289"),
+    "flash_attention_train_bwd": dict(
+        name="flash_attention_train_bwd", route="cuda",
+        source="uc2_torch/csrc/attention_train.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:311"),
+}
+
+
+def compare_norm(what: str, out, ref, rtol: float) -> float:
+    """||out - ref|| / ||ref|| <= rtol; returns max|out - ref|."""
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    ok = bool(torch.isfinite(out).all()) and rel <= rtol
+    print(f"  {what}: ||kernel - ref|| / ||ref|| = {rel:.3e} (max|kernel - "
+          f"ref| {(out - ref).abs().max().item():.3e}, max|ref| "
+          f"{ref.abs().max().item():.3e}; tolerance {rtol:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what} disagrees")
+    return (out - ref).abs().max().item()
+
+
+def plain_autograd(q, k, v, bias, rate, g):
+    """dq, dk, dv, dbias by autograd through the plain forward."""
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+    out = flash_attention_train_plain(*ins, TRAIN_SEED, rate)
+    return torch.autograd.grad(out, ins, g)
+
+
+def library_train_ms(q, k, v, bias, g, rate):
+    """Yardstick: scaled_dot_product_attention with the same mask and
+    dropout (its own RNG), forward, and its autograd backward."""
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    bias16, gt = bias.bfloat16(), g.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias16,
+                                              dropout_p=rate)
+    try:
+        fwd_ms = time_ms(fwd)
+        out = fwd()
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), gt, retain_graph=True))
+    except RuntimeError as e:      # no backend takes this mask and dropout
+        print(f"    library: scaled_dot_product_attention refused: {e}")
+        return None, None
+    return fwd_ms, bwd_ms
+
+
+def phase_train_kernels(gen):
+    """#5 and #6 against their plain versions at the training shapes; the
+    rows' times are those of B = 128, L = 162, rate 0.1."""
+    print("== training attention kernels vs plain (#5 forward, #6 backward;"
+          " plain: fp32 compute on the same bf16 inputs)")
+    rows = {k: dict(v) for k, v in TRAIN_ROWS.items()}
+    fwd_row, bwd_row = rows.values()
+    names = ("dq", "dk", "dv", "dbias")
+    for b, L in ((208, 98), (160, 128), (128, 162)):
+        q, k, v, bias = heads(gen, b, L)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            args = (q, k, v, bias, TRAIN_SEED, rate)
+            tag = f"B={b} L={L} rate={rate}"
+            ef = compare(f"#5 {tag}", flash_attention_train_fwd(*args),
+                         flash_attention_train_plain(*args))
+            got = flash_attention_train_bwd(*args, g)
+            eb = max(compare(f"#6 {nm} {tag}", a, w) for nm, a, w in zip(
+                names, got, flash_attention_train_bwd_plain(*args, g)))
+            # autograd of the plain forward rounds the gradient of its bf16
+            # probabilities to bf16 (2^-9 relative), which the kernel and
+            # the reference's formula do not; dbias sums n * L such terms,
+            # so it is held in norm to 2^-7 there
+            auto = plain_autograd(q, k, v, bias, rate, g)
+            for nm, a, w in zip(names[:3], got, auto):
+                compare(f"#6 {nm} vs autograd of plain fwd {tag}", a, w)
+            compare_norm(f"#6 dbias vs autograd of plain fwd {tag}", got[3],
+                         auto[3], 2.0 ** -7)
+            fwd_row["max_abs_err"] = max(fwd_row.get("max_abs_err", 0.0), ef)
+            bwd_row["max_abs_err"] = max(bwd_row.get("max_abs_err", 0.0), eb)
+            if (b, L, rate) != (128, 162, 0.1):
+                continue
+            lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
+            act = b * L * H * 2
+            for row, kern, plain, nbytes, flops, lib in (
+                    (fwd_row, lambda: flash_attention_train_fwd(*args),
+                     lambda: flash_attention_train_plain(*args),
+                     4 * act + b * L * 4, 4 * b * N * L * L * D, lib_f),
+                    (bwd_row, lambda: flash_attention_train_bwd(*args, g),
+                     lambda: flash_attention_train_bwd_plain(*args, g),
+                     7 * act + b * L * 4 + b * N * L * 4,
+                     10 * b * N * L * L * D, lib_b)):
+                row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+                           library_ms=lib)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                lib_s = "n/a" if lib is None else f"{lib:.4f}"
+                print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, "
+                      f"plain {row['plain_ms']:.4f} ms, library {lib_s} ms, "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # the mask, exactly: q = k = 0, bias 0, v = I makes the output the
+    # dropped, rescaled probabilities (L = d = 64, rate 0.5)
+    L, rate = 64, 0.5
+    z = torch.zeros(1, L, 1, D, device="cuda").bfloat16()
+    eye = torch.eye(L, device="cuda").bfloat16().reshape(1, L, 1, D)
+    out = flash_attention_train_fwd(z, z, eye, torch.zeros(1, 1, 1, L,
+                                                           device="cuda"),
+                                    TRAIN_SEED, rate)[0, :, 0, :]
+    keep = keep_mask(TRAIN_SEED, rate, 1, 1, L, L, "cuda")[0, 0]
+    same = torch.equal(out != 0, keep) and bool((out[keep] == 2.0 / L).all())
+    print(f"  mask check (L = d = 64, rate 0.5): kernel zeros == plain "
+          f"Philox mask bit for bit: {same} (kept share "
+          f"{keep.float().mean().item():.4f})")
+    if not same:
+        fail("the training kernel's dropout mask is not the Philox mask")
+    return rows
+
+
+def mlm_batches(cfg, txt_db, img_db, lo, Nb, B, n, seed):
+    """``n`` mlm batches of bucket (lo, Nb] regions, collated to
+    (62 text tokens, Nb regions, B rows, 24 slots), on the card. Captions
+    whose images fall in the bucket are cycled (and masked anew)."""
+    rng = np.random.default_rng(seed)
+    ids = [t for t in txt_db.ids
+           if lo < img_db.name2nbb[txt_db.txt2img[t]] <= Nb]
+    spec = BucketSpec(TRAIN_TXT, Nb, B, TRAIN_SLOTS)
+    out = []
+    for i in range(n):
+        exs = []
+        for j in range(B):
+            rec = txt_db[ids[(i * B + j) % len(ids)]]
+            feat, bb7 = img_db[rec["img_fname"]]
+            exs.append(mlm_example(rec["input_ids"], feat, bb7, rng,
+                                   cfg.vocab_size))
+        out.append({k: torch.from_numpy(a).to("cuda")
+                    for k, a in collate_batch(exs, spec).items()})
+    return out, len(ids)
+
+
+def pretrain_optimizer(model):
+    """The optimizer of config/uc2_pretrain.json."""
+    with open("config/uc2_pretrain.json") as f:
+        pc = json.load(f)
+    return build_optimizer(
+        model, get_lr_schedule(pc["decay"], pc["learning_rate"],
+                               pc["warmup_steps"], pc["num_train_steps"]),
+        weight_decay=pc["weight_decay"], betas=pc["betas"],
+        grad_norm=pc["grad_norm"], optim=pc["optim"])
+
+
+# kernel groups of the step breakdown, by marks in the kernel's name
+KERNEL_GROUPS = (
+    ("training attention kernels", ("attn_train",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_step(model, opt, batch, rng, card):
+    """Device time of one step by kernel, from torch.profiler; None when
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, batch, rng)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():      # device activities: kernels, copies
+        us = getattr(e, "self_device_time_total", 0)
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith(("Command Buffer", "Optimizer."))):
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    if not rows:
+        print("  profiler: no device time recorded (not measured)")
+        return None
+    busy = sum(r[0] for r in rows)
+    attn = sum(r[0] for r in rows if "attn_train" in r[2])
+    groups = {}
+    for ms, _, key in rows:
+        group = next((g for g, marks in KERNEL_GROUPS if any(
+            m in key for m in marks)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    import os
+    os.makedirs("build", exist_ok=True)
+    with open("build/train_profile.txt", "w") as f:
+        f.write(f"[{card}] one mlm step, B=128 L=162: wall {wall:.3f} ms\n")
+        for ms, cnt, key in rows:
+            f.write(f"{ms:10.3f} ms {cnt:6d}x  {key}\n")
+    print(f"  profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}), training "
+          f"attention kernels {attn:.3f} ms")
+    print("  device time by kernel group: " + ", ".join(
+        f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items(),
+                                               key=lambda x: -x[1])))
+    for ms, cnt, key in rows[:12]:
+        print(f"    {ms:9.3f} ms {cnt:5d}x  {key[:90]}")
+    return busy
+
+
+def phase_train(card, train_rows):
+    """The mlm step at full width on the three training buckets; returns
+    the training kernels' launches over the timed runs. ``train_rows``:
+    the kernel phase's rows of #5 and #6 (their times per call)."""
+    print("== train: uc2-base mlm steps on the card (dropout 0.1, "
+          "config/uc2_pretrain.json optimizer)")
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention=True)
+    t0 = time.perf_counter()
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    txt_db, img_db = synth_gallery(seed=1, n_imgs=N_IMGS, txt_per_img=2,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    print(f"  model ({sum(p.numel() for p in model.parameters())} params) "
+          f"and corpus ({len(txt_db.ids)} captions of {N_IMGS} images) "
+          f"ready in {time.perf_counter() - t0:.1f} s")
+    layers = cfg.num_hidden_layers
+    total = dict.fromkeys((k.__name__ for k in TRAIN_KERNELS), 0)
+    lo = 0
+    for B_, Nb in TRAIN_BUCKETS:
+        L = TRAIN_TXT + Nb
+        batches, n_caps = mlm_batches(cfg, txt_db, img_db, lo, Nb, B_,
+                                      1 + TIMED_STEPS, seed=Nb)
+        lo = Nb
+        model.load_state_dict(start)
+        opt = pretrain_optimizer(model)
+        rng = DropoutRng(TRAIN_SEED, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times, mets = [], []
+        for i, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            mets.append(train_step(model, opt, batch, rng))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {k.__name__: k.launches for k in KERNELS + TRAIN_KERNELS}
+        steps = len(batches)
+        want = {k.__name__: 0 for k in KERNELS}
+        want.update({k.__name__: layers * steps for k in TRAIN_KERNELS})
+        for k in TRAIN_KERNELS:
+            total[k.__name__] += counts[k.__name__]
+        losses = [(m["loss"].item(), m["grad_norm"].item(),
+                   m["n_units"].item()) for m in mets]
+        ms = sum(times[1:]) / TIMED_STEPS
+        print(f"  L={L} B={B_} ({n_caps} captions in the bucket): "
+              f"{ms:.3f} ms/step = {B_ / ms * 1e3:.1f} examples/s over "
+              f"{TIMED_STEPS} steps (warm-up {times[0]:.1f} ms; steps "
+              f"{', '.join(f'{t:.2f}' for t in times[1:])}), peak memory "
+              f"{peak:.2f} GiB [{card}]")
+        print(f"    loss / grad norm / slots per step: "
+              + "; ".join(f"{a:.4f} / {b:.4f} / {int(c)}"
+                          for a, b, c in losses))
+        print(f"    launches {counts} over {steps} steps = "
+              f"{counts['flash_attention_train_fwd'] / steps:g} + "
+              f"{counts['flash_attention_train_bwd'] / steps:g} per step, "
+              f"expected {want}")
+        if counts != want:
+            fail(f"training launches at L={L} do not match 12 + 12 a step")
+        if not all(np.isfinite(x) for r in losses for x in r[:2]):
+            fail(f"a loss or grad norm at L={L} is not finite")
+
+    # bitwise repeat, time breakdown and kernel vs eager at the last bucket
+    batch = batches[0]
+    res = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        m = train_step(model, pretrain_optimizer(model), batch,
+                       DropoutRng(7, "cuda"))
+        res.append((m["loss"], m["grad_norm"]))
+    same = all(torch.equal(a, b) for a, b in zip(*res))
+    print(f"  repeat of one step (L={L}, same weights and seeds): loss "
+          f"{res[0][0].item():.6f} / {res[1][0].item():.6f}, grad norm "
+          f"{res[0][1].item():.6f} / {res[1][1].item():.6f}; bitwise equal: "
+          f"{same}")
+    if not same:
+        fail("one step with the same seeds is not bitwise repeatable")
+
+    model.load_state_dict(start)
+    opt = pretrain_optimizer(model)
+    train_step(model, opt, batch, DropoutRng(8, "cuda"))     # warm
+    busy = profile_step(model, opt, batch, DropoutRng(9, "cuda"), card)
+    emb = model.roberta.embeddings.word_embeddings.weight
+    h = torch.randn(B_, TRAIN_SLOTS, H, device="cuda").bfloat16()
+    h.requires_grad_(True)
+
+    def lm_head():
+        logits = model.cls(h, emb)
+        lm_heads.cross_entropy_with_logits(
+            logits, batch["txt_labels"], batch["masked_weight"]).sum(
+            ).backward()
+    lm_ms = time_ms(lm_head, iters=5, warmup=1)
+    # the decoder product alone: fp32 output of the bf16 product (the
+    # port's einsum_f32 forward) against upcasting both operands to fp32
+    x = model.cls.transform(h.reshape(-1, H)).detach()
+    table = emb.detach().to(x.dtype)
+    with torch.no_grad():
+        mm_ms = time_ms(lambda: lm_heads.einsum_f32("...h,vh->...v", x,
+                                                    table), iters=5)
+        up_ms = time_ms(lambda: x.float() @ table.float().t(), iters=3)
+    print(f"  LM decoder product alone ({x.shape[0]} x {cfg.vocab_size} x "
+          f"{H}): bf16 operands, fp32 output {mm_ms:.3f} ms; both upcast to "
+          f"fp32 (TF32 off) {up_ms:.3f} ms [{card}]")
+    del x, table
+    attn_ms = layers * sum(r["ms"] for r in train_rows.values())
+    print(f"  LM head + CE, forward and backward (B*M = "
+          f"{B_ * TRAIN_SLOTS} rows x {cfg.vocab_size} tokens): {lm_ms:.3f} "
+          f"ms; training attention kernels: {layers} x (#5 + #6) = "
+          f"{attn_ms:.3f} "
+          f"ms per step at L={L} [{card}]")
+    del opt, h
+    model.zero_grad(set_to_none=True)
+
+    # kernel path vs eager path, one step at dropout 0 from one start
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    lr = 4e-5
+    out = {}
+    for impl in ("pallas-train", "xla"):
+        m_ = UC2ForPretraining(cfg0.replace(use_pallas_attention=impl),
+                               device="cuda", seed=0)
+        m_.load_state_dict(start)
+        opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
+                              betas=(0.9, 0.98), grad_norm=5.0)
+        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"))
+        # .grad after the step holds the clipped gradients: the clip (5.0)
+        # is inactive at this step's grad norm (~4.35), checked below
+        qkv = [m_.roberta.layer[i].attention.qkv.weight.grad.split(H)
+               for i in range(layers)]
+        out[impl] = (met["loss"].item(), met["grad_norm"].item(),
+                     torch.cat([(p.detach() - start[n]).flatten()
+                                for n, p in m_.named_parameters()]), qkv)
+        del m_, opt
+        torch.cuda.empty_cache()
+    (lk, nk, dk, gk), (le, ne, de, ge) = out["pallas-train"], out["xla"]
+    diff = (dk - de).abs()
+    flips = (diff > lr / 10).float().mean().item()
+    qkv_rel = [max(((a[j] - b[j]).norm() / b[j].norm()).item()
+                   for a, b in zip(gk, ge)) for j in range(3)]
+    ok = (abs(lk - le) <= STEP_LOSS_TOL and abs(nk - ne) <= STEP_NORM_RTOL * ne
+          and max(nk, ne) < 5.0 and max(qkv_rel) <= STEP_QKV_RTOL
+          and diff.max().item() <= 2.05 * lr and flips <= STEP_FLIP_SHARE)
+    print(f"  one step at dropout 0, L={L}, kernel path (pallas-train) vs "
+          f"eager (xla): loss {lk:.6f} vs {le:.6f}, grad norm {nk:.6f} vs "
+          f"{ne:.6f}, worst layer's ||dW - dW_eager|| / ||dW_eager|| of the "
+          f"Q / K / V projections {qkv_rel[0]:.3e} / {qkv_rel[1]:.3e} / "
+          f"{qkv_rel[2]:.3e}, max|update difference| "
+          f"{diff.max().item():.3e} (lr {lr:g}), share of updates differing "
+          f"by > lr/10: {flips:.2e} (tolerance: loss {STEP_LOSS_TOL:g}, grad "
+          f"norm {STEP_NORM_RTOL:g} relative, Q/K/V {STEP_QKV_RTOL:.3e}, "
+          f"updates 2.05 lr, share {STEP_FLIP_SHARE:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the kernel training step disagrees with the eager step")
+    return total, busy
 
 
 def main() -> int:
@@ -331,9 +748,16 @@ def main() -> int:
     name, card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
+    train_rows = phase_train_kernels(gen)
+    rows.update(train_rows)
     launches = phase_slice(card)
+    train_launches, _ = phase_train(card, train_rows)
+    launches.update(train_launches)
     for r in rows.values():
         r["launches"] = launches[r["name"]]
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
+        return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

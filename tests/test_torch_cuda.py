@@ -1,7 +1,9 @@
 """uc2_torch CUDA kernels against their plain versions at edge shapes the
-retrieval path does not reach (L = 1, ragged query and row tiles, B = 1,
-strided and contiguous heads), the wrappers' refusals on CUDA tensors, and
-the encoder's kernel path against its eager path. Needs a CUDA device
+main paths do not reach (L = 1, ragged query and row tiles, B = 1,
+strided and contiguous heads, the training kernels' length limit), the
+wrappers' refusals on CUDA tensors, the training kernels' dropout mask
+against the plain Philox mask bit for bit, and the encoder's kernel paths
+(scoring and one training step) against its eager path. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -14,8 +16,16 @@ import torch
 
 from uc2_torch.config import UC2Config
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
-from uc2_torch.ops.flash_attention import (flash_attention,
-                                           flash_attention_plain)
+from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.ops.flash_attention import (
+    TRAIN_MAX_LEN, flash_attention, flash_attention_plain,
+    flash_attention_train, flash_attention_train_bwd,
+    flash_attention_train_bwd_plain, flash_attention_train_fwd,
+    flash_attention_train_plain)
+from uc2_torch.ops.philox import keep_mask
+from uc2_torch.training.optim import build_optimizer, constant
+from uc2_torch.training.step import train_step
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
                                        fused_ffn_block, fused_ffn_block_plain)
@@ -102,9 +112,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q2, k2, v2 = _heads(gen, 1, 513, strided=False)     # past the limit
     with pytest.raises(ValueError):
         flash_attention(q2, k2, v2, _bias(gen, 1, 513))
-    q.requires_grad_(True)                                # no backward
-    with pytest.raises(RuntimeError):
-        flash_attention(q, k, v, bias)
+    x = torch.zeros(2, 16, H, device="cuda").bfloat16().requires_grad_(True)
+    wo = torch.zeros(H, H, device="cuda").bfloat16()
+    vh = [torch.zeros(H, device="cuda") for _ in range(3)]
+    with pytest.raises(RuntimeError):                    # no backward
+        fused_attn_block(q, k, v, bias, x, wo, *vh)
+    q.requires_grad_(True)             # flash_attention has the eager one
+    flash_attention(q, k, v, bias).float().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
     x = torch.randn(4, H, 2, device="cuda").bfloat16().transpose(1, 2)
     w1 = torch.zeros(128, H, device="cuda").bfloat16()
     w2 = torch.zeros(H, 128, device="cuda").bfloat16()
@@ -142,3 +157,119 @@ def test_encoder_kernel_path_matches_eager_path(gen, impl, Nb):
     want = eager.scores(batch)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-2
+
+
+# the training kernels: forward and backward against their plain versions
+TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, TRAIN_MAX_LEN)]
+
+
+def _close_report(what, out, ref, atol=ATOL, rtol=RTOL):
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    assert torch.isfinite(out).all(), what
+    assert (err <= atol + rtol * ref.abs()).all(), (what, err.max().item())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", TRAIN_CASES)
+def test_attention_train_kernels_match_plain(gen, B, L, rate):
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    seed = 1234 + L
+    _close_report("fwd", flash_attention_train_fwd(q, k, v, bias, seed, rate),
+                  flash_attention_train_plain(q, k, v, bias, seed, rate))
+    got = flash_attention_train_bwd(q, k, v, bias, seed, rate, g)
+    want = flash_attention_train_bwd_plain(q, k, v, bias, seed, rate, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close_report(name, a, b)
+
+
+def test_attention_train_mask_is_the_plain_philox_mask(gen):
+    """q = k = 0, bias 0, v = I (L = d = 64): the output is the dropped,
+    rescaled probability matrix, so its zeros are the dropped scores."""
+    L, rate, seed = 64, 0.5, 77
+    q = torch.zeros(1, L, 1, D, device="cuda").bfloat16()
+    v = torch.eye(L, device="cuda").bfloat16().reshape(1, L, 1, D)
+    bias = torch.zeros(1, 1, 1, L, device="cuda")
+    out = flash_attention_train_fwd(q, q, v, bias, seed, rate)
+    keep = keep_mask(seed, rate, 1, 1, L, L, "cuda")[0, 0]
+    assert torch.equal(out[0, :, 0, :] != 0, keep)
+    assert torch.all(out[0, :, 0, :][keep] == 2.0 / L)
+
+
+def test_attention_train_autograd_runs_both_kernels(gen):
+    q, k, v = _heads(gen, 2, 40, strided=True)
+    bias = _bias(gen, 2, 40)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (flash_attention_train_fwd.launches,
+              flash_attention_train_bwd.launches)
+    out = flash_attention_train(q, k, v, bias, 5, 0.1)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert (flash_attention_train_fwd.launches - before[0],
+            flash_attention_train_bwd.launches - before[1]) == (1, 1)
+    want = flash_attention_train_bwd_plain(q, k, v, bias, 5, 0.1, g)
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        _close_report("grad", a, b)
+
+
+def test_attention_train_wrappers_refuse(gen):
+    q, k, v = _heads(gen, 1, TRAIN_MAX_LEN + 1, strided=False)
+    bias = _bias(gen, 1, TRAIN_MAX_LEN + 1)
+    with pytest.raises(ValueError):                      # past the limit
+        flash_attention_train_fwd(q, k, v, bias, 1, 0.1)
+    q, k, v = _heads(gen, 2, 16, strided=False)
+    bias = _bias(gen, 2, 16)
+    with pytest.raises(TypeError):                       # fp32 activations
+        flash_attention_train_fwd(q.float(), k.float(), v.float(), bias, 1,
+                                  0.1)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, n, L, d] data
+    with pytest.raises(ValueError):                      # bad strides
+        flash_attention_train_fwd(qt, k, v, bias, 1, 0.1)
+    with pytest.raises(ValueError):
+        flash_attention_train_bwd(qt, k, v, bias, 1, 0.1, q)
+
+
+def test_train_step_kernel_path_matches_eager_path(gen):
+    """One AdamW step at rate 0 from the same weights: "pallas-train" (the
+    training kernels) against "xla" (eager attention)."""
+    cfg = UC2Config(vocab_size=1000, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    max_position_embeddings=130, img_dim=64,
+                    dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0,
+                    use_pallas_attention="pallas-train")
+    B, Lt, Nb, M = 4, 30, 20, 6
+    mask = torch.ones(B, Lt + Nb, dtype=torch.long, device="cuda")
+    mask[0, 20:Lt] = 0
+    batch = {"input_ids": torch.randint(4, 1000, (B, Lt), generator=gen,
+                                        device="cuda"),
+             "img_feat": torch.randn(B, Nb, 64, generator=gen, device="cuda"),
+             "img_pos_feat": torch.rand(B, Nb, 7, generator=gen,
+                                        device="cuda"),
+             "attn_mask": mask,
+             "masked_pos": torch.randint(1, 20, (B, M), generator=gen,
+                                         device="cuda"),
+             "masked_weight": torch.ones(B, M, device="cuda"),
+             "txt_labels": torch.randint(4, 1000, (B, M), generator=gen,
+                                         device="cuda")}
+    out = {}
+    for impl in ("pallas-train", "xla"):
+        model = UC2ForPretraining(cfg.replace(use_pallas_attention=impl),
+                                  device="cuda", seed=3)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = build_optimizer(model, constant(1e-3), grad_norm=5.0)
+        m = train_step(model, opt, batch, DropoutRng(0, "cuda"))
+        out[impl] = (m["loss"].item(), m["grad_norm"].item(),
+                     {n: p.detach() - start[n]
+                      for n, p in model.named_parameters()})
+    (lk, nk, dk), (le, ne, de) = out["pallas-train"], out["xla"]
+    assert abs(lk - le) <= 1e-2 and abs(nk - ne) <= 2e-2 * ne
+    # Adam's first update is ~lr * sign(g): a gradient near 0 may flip sign
+    # between the two bf16 paths (a difference of up to 2 lr); few may
+    diff = torch.cat([(dk[n] - de[n]).abs().flatten() for n in dk])
+    assert diff.max().item() <= 2.05e-3
+    assert (diff > 1e-4).float().mean().item() <= 1e-2

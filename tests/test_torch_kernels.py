@@ -1,6 +1,8 @@
 """uc2_torch kernel modules on the CPU: each wrapper's plain version against
 the reference package's Pallas kernel (interpret mode) at fp32, with the
-JAX kernel tests' own bar, and the wrapper's input checks."""
+JAX kernel tests' own bar, and the wrapper's input checks; the training
+attention's dropout (Philox known answers, keep statistics, the backward
+as the gradient of the forward) and ``einsum_f32``."""
 
 import numpy as np
 import pytest
@@ -9,9 +11,16 @@ import jax.numpy as jnp
 
 from uc2_tpu.ops.attention import _xla_attention
 from uc2_tpu.ops import fused_block as jfb
-from uc2_torch.ops.flash_attention import flash_attention
+from uc2_tpu.ops.flash_attention import flash_attention_train as jax_fat
+from uc2_tpu.ops.mp import einsum_f32 as jax_einsum_f32
+from uc2_torch.ops.flash_attention import (
+    flash_attention, flash_attention_train, flash_attention_train_bwd,
+    flash_attention_train_bwd_plain, flash_attention_train_fwd,
+    flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block, fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
+from uc2_torch.ops.mp import einsum_f32
+from uc2_torch.ops.philox import keep_mask, philox4x32
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -151,3 +160,129 @@ def test_gates_match_reference():
         assert fused_block_profitable(L, 12) == jfb.fused_block_profitable(
             L, 12)
         assert fused_ffn_profitable(L) == jfb.fused_ffn_profitable(L)
+
+
+# ------------------------------------------------- training attention (#5, #6)
+
+
+def _train_inputs(seed, B=2, L=128, n=2, d=32):
+    """The inputs of tests/test_flash_train.py: keys kept w.p. 0.8 and the
+    first four always."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_f32(rng, B, L, n, d) for _ in range(3))
+    mask = (rng.random((B, L)) < 0.8).astype(np.float32)
+    mask[:, :4] = 1.0
+    return q, k, v, ((1.0 - mask) * -10000.0)[:, None, None, :]
+
+
+def test_flash_attention_train_plain_matches_pallas():
+    """rate 0: forward at 2e-5 and dq, dk, dv, dbias at 2e-4 against the
+    Pallas training kernels in interpret mode (the JAX test's bars)."""
+    import jax
+    q, k, v, bias = _train_inputs(0)
+    w = np.random.default_rng(1).standard_normal(q.shape).astype(np.float32)
+
+    def jax_loss(*a):     # rate 0.0, interpret=True (positional: static)
+        return jnp.sum(jax_fat(*a, jnp.int32(7), 0.0, True) * w)
+
+    want_out = np.asarray(jax_fat(*map(jnp.asarray, (q, k, v, bias)),
+                                  jnp.int32(7), 0.0, True))
+    want_grads = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, bias)))
+    ts = [t.requires_grad_(True) for t in _t(q, k, v, bias)]
+    before = (flash_attention_train_fwd.launches,
+              flash_attention_train_bwd.launches)
+    out = flash_attention_train(*ts, 7, 0.0)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, want, name in zip(ts, want_grads, ("dq", "dk", "dv", "dbias")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4, err_msg=name)
+    assert (flash_attention_train_fwd.launches,       # CPU: no launches
+            flash_attention_train_bwd.launches) == before
+
+
+def test_flash_attention_train_bwd_plain_is_the_gradient():
+    """rate 0.3, float64: the backward formula is the gradient of the
+    forward under one seed (so both draw the same mask)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 6, 2, 4)))
+               .requires_grad_(True) for _ in range(3))
+    mask = np.ones((1, 6))
+    mask[0, 4:] = 0.0
+    bias = torch.from_numpy(((1.0 - mask) * -10000.0)[:, None, None, :]
+                            ).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda *a: flash_attention_train(*a, 11, 0.3), (q, k, v, bias))
+    g = torch.from_numpy(rng.standard_normal((1, 6, 2, 4)))
+    out = flash_attention_train_plain(q, k, v, bias, 11, 0.3)
+    auto = torch.autograd.grad(out, (q, k, v, bias), g)
+    for a, b in zip(flash_attention_train_bwd_plain(q, k, v, bias, 11, 0.3,
+                                                    g), auto):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+
+
+def test_dropout_statistics_by_the_identity_trick():
+    """q = k = 0, bias 0, v = I (L = d): the output is the dropped and
+    rescaled probability matrix (tests/test_flash_train.py:61)."""
+    rate, L = 0.5, 128
+    q = torch.zeros(1, L, 1, L)
+    v = torch.eye(L).reshape(1, L, 1, L)
+    bias = torch.zeros(1, 1, 1, L)
+    out = flash_attention_train(q, q, v, bias, 3, rate)
+    pd = out.reshape(L, L).numpy()
+    nz = pd[pd > 1e-9]
+    np.testing.assert_allclose(nz, 1.0 / (L * (1.0 - rate)), rtol=1e-6)
+    assert abs((pd > 1e-9).mean() - (1.0 - rate)) < 0.03
+    assert torch.equal(out, flash_attention_train(q, q, v, bias, 3, rate))
+    assert not torch.equal(out, flash_attention_train(q, q, v, bias, 4, rate))
+    assert np.array_equal(pd > 1e-9,
+                          keep_mask(3, rate, 1, 1, L, L)[0, 0].numpy())
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    """Random123's published Philox4x32-10 known-answer vectors."""
+    words = philox4x32(*(torch.tensor([c], dtype=torch.int64) for c in ctr),
+                       *key)
+    assert tuple(int(w) for w in words) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("spec,sa,sb", [
+    ("...h,vh->...v", (3, 5, 16), (40, 16)),
+    ("blnd,bmnd->bnlm", (2, 7, 3, 8), (2, 7, 3, 8)),
+])
+def test_einsum_f32_matches_reference(spec, sa, sb, dtype):
+    import jax
+    rng = np.random.default_rng(len(spec))
+    a, b = _f32(rng, *sa), _f32(rng, *sb)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ja, jb = jnp.asarray(a, jdt), jnp.asarray(b, jdt)
+    out_shape = jax.eval_shape(lambda x, y: jax_einsum_f32(spec, x, y),
+                               ja, jb).shape
+    w = _f32(rng, *out_shape)
+    want = np.asarray(jax_einsum_f32(spec, ja, jb))
+    wga, wgb = jax.grad(lambda x, y: jnp.sum(jax_einsum_f32(spec, x, y) * w),
+                        argnums=(0, 1))(ja, jb)
+    ta = torch.from_numpy(a).to(tdt).requires_grad_(True)
+    tb = torch.from_numpy(b).to(tdt).requires_grad_(True)
+    out = einsum_f32(spec, ta, tb)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), want, **TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    # bf16 gradients: both round the same fp32 sums to bf16 (one ulp apart
+    # at most where the sums' order differs)
+    gt = TOL if dtype == "float32" else dict(rtol=2.0 ** -7, atol=1e-2)
+    for got, ref in ((ta.grad, wga), (tb.grad, wgb)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)), **gt)

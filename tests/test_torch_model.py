@@ -153,9 +153,11 @@ def test_unported_attention_values_raise(params, impl):
 
 
 def test_training_and_int8_raise(params):
-    b = {k: torch.from_numpy(v) for k, v in _batch(10, 7).items()}
+    """What is not ported yet raises: int8 serving and activation
+    recomputation (remat). Training itself runs (tests/test_torch_train.py)."""
     with pytest.raises(NotImplementedError):
-        _port(False, params).roberta(**b, deterministic=False)
+        UC2ForImageTextRetrieval(UC2Config(remat="full", **TINY),
+                                 device="cpu")
     with pytest.raises(NotImplementedError):
         UC2ForImageTextRetrieval(UC2Config(quant="int8", **TINY),
                                  device="cpu")

@@ -18,6 +18,8 @@ from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config
 from uc2_torch.models.convert import params_from_jax, params_to_jax
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_torch.ops.dropout import DropoutRng
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=100, hidden_size=32, num_hidden_layers=2,
@@ -52,8 +54,15 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
         UC2ForImageTextRetrieval(cfg)                  # default: cuda
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        UC2ForPretraining(cfg)
+    with pytest.raises(RuntimeError):
+        DropoutRng(0)
     model = UC2ForImageTextRetrieval(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    model = UC2ForPretraining(cfg, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert DropoutRng(0, "cpu").device.device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
 

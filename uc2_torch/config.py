@@ -24,8 +24,10 @@ class UC2Config:
     keeps the reference package's values: False/"xla" runs the eager
     PyTorch chain, True/"pallas" routes through the hand-written kernels
     (``ops/flash_attention.py``, ``ops/fused_block.py``) at the shapes the
-    gates pick, "fused-force" forces both fused blocks in every layer.
-    "flash" and the training kernels raise in this package for now.
+    gates pick, "pallas-train" also keeps training attention on the
+    training kernels at dropout 0, "fused-force" forces both fused blocks
+    in every inference layer. "flash", ``remat`` and ``quant="int8"``
+    raise in this package for now.
     """
 
     vocab_size: int = 250002

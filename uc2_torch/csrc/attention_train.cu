@@ -1,0 +1,554 @@
+// Training attention with attention-probs dropout: forward and backward.
+//
+// Replace the TPU kernels uc2_tpu/ops/flash_attention.py
+// _attn_train_fwd_kernel (launched by _fwd_train / flash_attention_train)
+// and _attn_train_bwd_kernel (launched by _bwd_train), which every layer
+// of the uc2-base mlm step runs (attention dropout 0.1).
+//
+// Dropout: the TPU kernels draw a per-grid-cell PRNG stream, so their
+// forward and backward had to share one grid geometry. Here the keep bit of
+// score (b, h, i, j) is Philox4x32-10 of its global index (philox.cuh), so
+// the two kernels below use different tiles and still draw the same mask.
+//
+// Forward (#5): as attention.cu, one block of 4 warps per (64 query rows,
+// head, batch row), fp32 score rows in shared memory; the softmax phase is
+// replaced by one that takes four adjacent keys per lane (one Philox call
+// gives all four bits) and rounds Pd = keep ? P / (1 - rate) : 0 to bf16.
+// Bound on an H100 by bytes: at B = 128, L = 162 it reads q, k, v and
+// writes the context, 127 MB (38 us at 3.35 TB/s) against 10.3 GFLOP.
+//
+// Backward (#6): one block of 8 warps per (head, batch row). K and V stay
+// in shared memory; the block walks 64-row query tiles and for each
+// recomputes the fp32 scores, P and the mask, then
+//   D   = rowsum(dP * P),  dP = keep ? (g . V^T) / (1 - rate) : 0
+//   dV += Pd^T . g                    (Pd rounded to bf16)
+//   dS  = P * (dP - D)                (g . V^T recomputed: no second tile)
+//   dK += dS^T . Q,  dQ = dS . K      (dS rounded to bf16)
+// and writes that tile's dQ. dK and dV of all keys accumulate in fp32
+// registers (warp w owns key rows 16w.. and 16(w + 8)..), which is what
+// caps the kernel at L = 256; dbias partials (dS summed over queries)
+// accumulate in shared memory per m-tile and are written once per head,
+// for the wrapper to sum over heads. No atomics: one seed gives the same
+// bits every run. Bound by bytes: 223 MB at B = 128, L = 162 (66 us)
+// against 25.8 GFLOP.
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace uc2 {
+
+constexpr int TRAIN_MAX_LEN = 256;  // the backward's register-resident dK, dV
+
+struct Dropout {
+  uint32_t seed;    // Philox key word 0
+  uint32_t thresh;  // keep when bits >= thresh
+  float keep_scale; // 1 / (1 - rate)
+};
+
+// four consecutive bf16 from four floats (8-byte store)
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(a, b), pack2(c, d));
+}
+
+// Four transposed 8x8 bf16 tiles from shared memory: lane l gives the row
+// address of row (l & 7) of tile (l >> 3); register r holds tile r's column
+// (lane / 4), rows 2 (lane % 4) and 2 (lane % 4) + 1.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// One softmax row held by a warp in 4-key groups: lane takes keys
+// 4 (lane + 32 u) .. + 3. Loads the fp32 scores of row srow and leaves
+// e = exp(s - max) / sum in place of them in registers.
+template <int NG>
+__device__ __forceinline__ void softmax_groups(const float* srow, int Lp,
+                                               float4 (&e)[NG]) {
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < NG; ++u) {
+    const int c = 4 * (lane + 32 * u);
+    e[u] = c < Lp ? *reinterpret_cast<const float4*>(srow + c)
+                  : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    mx = fmaxf(mx, fmaxf(fmaxf(e[u].x, e[u].y), fmaxf(e[u].z, e[u].w)));
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < NG; ++u) {
+    e[u].x = expf(e[u].x - mx);
+    e[u].y = expf(e[u].y - mx);
+    e[u].z = expf(e[u].z - mx);
+    e[u].w = expf(e[u].w - mx);
+    sum += (e[u].x + e[u].y) + (e[u].z + e[u].w);
+  }
+  const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+  for (int u = 0; u < NG; ++u) {
+    e[u].x *= inv;
+    e[u].y *= inv;
+    e[u].z *= inv;
+    e[u].w *= inv;
+  }
+}
+
+// keep ? p * keep_scale : 0 for the four keys of a group
+__device__ __forceinline__ float4 drop4(float4 p, uint32_t kb, float s) {
+  return make_float4(kb & 1 ? p.x * s : 0.f, kb & 2 ? p.y * s : 0.f,
+                     kb & 4 ? p.z * s : 0.f, kb & 8 ? p.w * s : 0.f);
+}
+
+// --------------------------------------------------------------- forward
+// Softmax phase of the forward with dropout (replaces attn_softmax): the
+// bf16 Pd overwrites the front of each row once every lane has read it.
+template <int WARPS, int QT, int NC>
+__device__ void attn_softmax_dropout(int L, int q0, uint32_t bh, Dropout dr,
+                                     uint8_t* smem) {
+  constexpr int NG = (NC + 3) / 4;
+  const int Lp = padded_len(L);
+  const int SF = score_stride(Lp);
+  const AttnSmem sm = attn_smem(smem, Lp, QT);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < QT; r += WARPS) {
+    float* srow = sm.S + r * SF;
+    float4 e[NG];
+    softmax_groups<NG>(srow, Lp, e);
+    __syncwarp();
+    bf16* prow = reinterpret_cast<bf16*>(srow);
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      const int c = 4 * (lane + 32 * u);
+      if (c < Lp) {
+        const float4 pd = drop4(e[u], keep_bits4(dr.seed, dr.thresh, c >> 2, q0 + r, bh),
+                                dr.keep_scale);
+        store4(prow + c, pd.x, pd.y, pd.z, pd.w);
+      }
+    }
+  }
+}
+
+template <int WARPS, int QT, int NC, bool DROP>
+__global__ void __launch_bounds__(WARPS * 32)
+    attn_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          bf16* __restrict__ out, int L, int n, int rs, float scale,
+                          Dropout dr) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
+  bf16* o = out + ((size_t)b * L + q0) * n * HEAD_DIM + (size_t)h * HEAD_DIM;
+  attn_scores<WARPS, QT>(q + base, k + base, rs, bias + (size_t)b * L, L, q0, scale, smem);
+  if constexpr (DROP)
+    attn_softmax_dropout<WARPS, QT, NC>(L, q0, (uint32_t)(b * n + h), dr, smem);
+  else
+    attn_softmax<WARPS, QT, NC>(L, smem);
+  attn_pv<WARPS, QT>(v + base, rs, L, smem, o, n * HEAD_DIM, min(QT, L - q0));
+}
+
+// -------------------------------------------------------------- backward
+constexpr int BWD_WARPS = 8, BWD_QT = 64;
+
+// Shared memory of the backward at padded length Lp, in this order:
+__host__ __device__ inline int bwd_p_stride(int Lp) { return Lp + 8; }  // bf16
+struct BwdSmem {
+  float* bias;   // [Lp]
+  bf16* K;       // [Lp][K_STRIDE]
+  bf16* V;       // [Lp][K_STRIDE]
+  bf16* Q;       // [QT][K_STRIDE] this tile's queries
+  bf16* G;       // [QT][K_STRIDE] this tile's output gradient
+  float* S;      // [QT][score_stride(Lp)] scores, then P (fp32)
+  bf16* P;       // [QT][bwd_p_stride(Lp)] Pd, then dS (bf16)
+  uint8_t* M;    // [QT][Lp / 4] keep bits, 4 keys a byte
+  float* D;      // [2][QT] halves of rowsum(dP * P)
+  float* dbias;  // [4][Lp] dS summed over the queries of each m-tile
+};
+
+__host__ __device__ inline size_t bwd_smem_bytes(int Lp) {
+  return (size_t)Lp * 4 + 2 * (size_t)Lp * K_STRIDE * 2 + 2 * (size_t)BWD_QT * K_STRIDE * 2 +
+         (size_t)BWD_QT * score_stride(Lp) * 4 + (size_t)BWD_QT * bwd_p_stride(Lp) * 2 +
+         (size_t)BWD_QT * (Lp / 4) + 2 * BWD_QT * 4 + 4 * (size_t)Lp * 4;
+}
+
+__device__ inline BwdSmem bwd_smem(uint8_t* smem, int Lp) {
+  BwdSmem s;
+  s.bias = reinterpret_cast<float*>(smem);
+  s.K = reinterpret_cast<bf16*>(s.bias + Lp);
+  s.V = s.K + Lp * K_STRIDE;
+  s.Q = s.V + Lp * K_STRIDE;
+  s.G = s.Q + BWD_QT * K_STRIDE;
+  s.S = reinterpret_cast<float*>(s.G + BWD_QT * K_STRIDE);
+  s.P = reinterpret_cast<bf16*>(s.S + BWD_QT * score_stride(Lp));
+  s.M = reinterpret_cast<uint8_t*>(s.P + BWD_QT * bwd_p_stride(Lp));
+  s.D = reinterpret_cast<float*>(s.M + BWD_QT * (Lp / 4));
+  s.dbias = s.D + 2 * BWD_QT;
+  return s;
+}
+
+// A fragments (rows m*16 + g, + 8; columns 16 ks + 2t, + 8) of a [rows][K_STRIDE] tile
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[HEAD_DIM / 16][4], const bf16* tile,
+                                             int m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* r0 = tile + (m * 16 + g) * K_STRIDE + t * 2;
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
+    a[ks][0] = ld32(r0 + ks * 16);
+    a[ks][1] = ld32(r0 + 8 * K_STRIDE + ks * 16);
+    a[ks][2] = ld32(r0 + ks * 16 + 8);
+    a[ks][3] = ld32(r0 + 8 * K_STRIDE + ks * 16 + 8);
+  }
+}
+
+// c = A . B for one 16 x 8 tile: A fragments over the head dim, B the 8
+// rows [8 j, 8 j + 8) of a [keys][K_STRIDE] tile (K or V), k contiguous
+__device__ __forceinline__ void rows_times_keys(float (&c)[4], const uint32_t (&a)[HEAD_DIM / 16][4],
+                                                const bf16* keys, int j) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
+    const bf16* kr = keys + (j * 8 + g) * K_STRIDE + ks * 16 + t * 2;
+    mma16816(c, a[ks], ld32(kr), ld32(kr + 8));
+  }
+}
+
+// acc[kk][nt] += X^T . Y over this tile's 64 queries, for the key m-tiles
+// warp + 8 kk: X is the [QT][xs] bf16 tile P (Pd or dS, keys along a row),
+// Y the [QT][K_STRIDE] tile G or Q (head dim along a row).
+template <int KM>
+__device__ __forceinline__ void accumulate_keys(float (&acc)[KM][8][4], const bf16* X, int xs,
+                                                const bf16* Y, int n_mtiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int qs = 0; qs < BWD_QT / 16; ++qs) {
+    uint32_t bfr[8][2];
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, Y + (qs * 16 + (mi & 1) * 8 + rr) * K_STRIDE + (2 * np + (mi >> 1)) * 8);
+      bfr[2 * np][0] = r[0];
+      bfr[2 * np][1] = r[1];
+      bfr[2 * np + 1][0] = r[2];
+      bfr[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KM; ++kk) {
+      const int km = warp + BWD_WARPS * kk;
+      if (km < n_mtiles) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, X + (qs * 16 + (mi >> 1) * 8 + rr) * xs + km * 16 + (mi & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mma16816(acc[kk][nt], a, bfr[nt][0], bfr[nt][1]);
+      }
+    }
+  }
+}
+
+template <int NC, bool DROP>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
+    attn_train_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          const bf16* __restrict__ gout, bf16* __restrict__ dq,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* __restrict__ dbias_part, int L, int n, int rs,
+                          float scale, Dropout dr) {
+  constexpr int QT = BWD_QT, NG = (NC + 3) / 4, KM = NC <= 4 ? 1 : 2;
+  static_assert(NC * 32 <= TRAIN_MAX_LEN, "score chunks");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int Lp = padded_len(L), SF = score_stride(Lp), PS = bwd_p_stride(Lp);
+  const int MS = Lp / 4, n_mtiles = Lp / 16;
+  const BwdSmem sm = bwd_smem(smem, Lp);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m = warp & 3, jp = warp >> 2;  // score tiles: m-tile m, key tiles j = jp mod 2
+  const uint32_t bh = (uint32_t)(b * n + h);
+  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
+  const int grs = n * HEAD_DIM;  // token stride of g, dq, dk, dv
+  const size_t gbase = (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+
+  for (int i = tid; i < Lp; i += BWD_WARPS * 32)
+    sm.bias[i] = i < L ? bias[(size_t)b * L + i] : -INFINITY;
+  for (int i = tid; i < 4 * Lp; i += BWD_WARPS * 32) sm.dbias[i] = 0.f;
+  for (int i = tid; i < Lp * 8; i += BWD_WARPS * 32) {
+    const int key = i >> 3, c = (i & 7) * 8;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (key < L) {
+      kv = *reinterpret_cast<const uint4*>(k + base + (size_t)key * rs + c);
+      vv = *reinterpret_cast<const uint4*>(v + base + (size_t)key * rs + c);
+    }
+    *reinterpret_cast<uint4*>(sm.K + key * K_STRIDE + c) = kv;
+    *reinterpret_cast<uint4*>(sm.V + key * K_STRIDE + c) = vv;
+  }
+  float dka[KM][8][4], dva[KM][8][4];
+#pragma unroll
+  for (int kk = 0; kk < KM; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[kk][nt][e] = dva[kk][nt][e] = 0.f;
+
+  // dP of one score from g . v^T and the stored keep bits
+  auto dprob = [&](float dpd, int row, int col) -> float {
+    if constexpr (DROP)
+      return (sm.M[row * MS + (col >> 2)] >> (col & 3)) & 1 ? dpd * dr.keep_scale : 0.f;
+    else
+      return dpd;
+  };
+
+  for (int q0 = 0; q0 < L; q0 += QT) {
+    __syncthreads();  // staging done; the previous tile's readers are done
+    for (int i = tid; i < QT * 8; i += BWD_WARPS * 32) {
+      const int r = i >> 3, c = (i & 7) * 8, row = q0 + r;
+      uint4 qv = make_uint4(0u, 0u, 0u, 0u), gv = qv;
+      if (row < L) {
+        qv = *reinterpret_cast<const uint4*>(q + base + (size_t)row * rs + c);
+        gv = *reinterpret_cast<const uint4*>(gout + gbase + (size_t)row * grs + c);
+      }
+      *reinterpret_cast<uint4*>(sm.Q + r * K_STRIDE + c) = qv;
+      *reinterpret_cast<uint4*>(sm.G + r * K_STRIDE + c) = gv;
+    }
+    __syncthreads();
+
+    // 1. scores * scale + bias into S
+    {
+      uint32_t qa[HEAD_DIM / 16][4];
+      load_a_frags(qa, sm.Q, m);
+      for (int j = jp; j < Lp / 8; j += 2) {
+        float c[4];
+        rows_times_keys(c, qa, sm.K, j);
+        const int key = j * 8 + t * 2;
+        const float b0 = sm.bias[key], b1 = sm.bias[key + 1];
+        float* s0 = sm.S + (m * 16 + g) * SF + key;
+        *reinterpret_cast<float2*>(s0) = make_float2(c[0] * scale + b0, c[1] * scale + b1);
+        *reinterpret_cast<float2*>(s0 + 8 * SF) =
+            make_float2(c[2] * scale + b0, c[3] * scale + b1);
+      }
+    }
+    __syncthreads();
+
+    // 2. P (fp32, in place in S), Pd (bf16) and the keep bits, a row per warp
+    for (int r = warp; r < QT; r += BWD_WARPS) {
+      float* srow = sm.S + r * SF;
+      float4 e[NG];
+      softmax_groups<NG>(srow, Lp, e);
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        const int c = 4 * (lane + 32 * u);
+        if (c < Lp) {
+          *reinterpret_cast<float4*>(srow + c) = e[u];
+          float4 pd = e[u];
+          if constexpr (DROP) {
+            const uint32_t kb = keep_bits4(dr.seed, dr.thresh, c >> 2, q0 + r, bh);
+            pd = drop4(e[u], kb, dr.keep_scale);
+            sm.M[r * MS + (c >> 2)] = (uint8_t)kb;
+          }
+          store4(sm.P + r * PS + c, pd.x, pd.y, pd.z, pd.w);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. D = rowsum(dP * P), from this warp's key tiles, halves in D[jp]
+    {
+      uint32_t ga[HEAD_DIM / 16][4];
+      load_a_frags(ga, sm.G, m);
+      float part[2] = {0.f, 0.f};
+      for (int j = jp; j < Lp / 8; j += 2) {
+        float c[4];
+        rows_times_keys(c, ga, sm.V, j);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+          for (int lo = 0; lo < 2; ++lo) {
+            const int row = m * 16 + g + 8 * hi, col = j * 8 + t * 2 + lo;
+            part[hi] += dprob(c[2 * hi + lo], row, col) * sm.S[row * SF + col];
+          }
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float s = part[hi];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (t == 0) sm.D[jp * QT + m * 16 + g + 8 * hi] = s;
+      }
+    }
+
+    // 4. dV += Pd^T . g
+    accumulate_keys<KM>(dva, sm.P, PS, sm.G, n_mtiles);
+    __syncthreads();  // D is complete; every reader of Pd is done
+
+    // 5. dS = P * (dP - D) over Pd, and dS summed over this m-tile's queries
+    {
+      uint32_t ga[HEAD_DIM / 16][4];
+      load_a_frags(ga, sm.G, m);
+      float dsum[2];
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = m * 16 + g + 8 * hi;
+        dsum[hi] = sm.D[row] + sm.D[QT + row];
+      }
+      for (int j = jp; j < Lp / 8; j += 2) {
+        float c[4];
+        rows_times_keys(c, ga, sm.V, j);
+        float cs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int row = m * 16 + g + 8 * hi, col = j * 8 + t * 2;
+          float ds[2];
+#pragma unroll
+          for (int lo = 0; lo < 2; ++lo) {
+            ds[lo] = sm.S[row * SF + col + lo] * (dprob(c[2 * hi + lo], row, col + lo) - dsum[hi]);
+            cs[lo] += ds[lo];
+          }
+          *reinterpret_cast<uint32_t*>(sm.P + row * PS + col) = pack2(ds[0], ds[1]);
+        }
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo) {
+          float s = cs[lo];
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (g == 0) sm.dbias[m * Lp + j * 8 + t * 2 + lo] += s;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 6. dK += dS^T . Q
+    accumulate_keys<KM>(dka, sm.P, PS, sm.Q, n_mtiles);
+
+    // 7. dQ = dS . K * scale: m-tile m, head-dim tiles 4 jp .. 4 jp + 3
+    {
+      float acc[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.f;
+      const int mi = lane >> 3, rr = lane & 7;
+      const bf16* pr = sm.P + (m * 16 + g) * PS + t * 2;
+      for (int kk = 0; kk < Lp / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = ld32(pr + kk * 16);
+        a[1] = ld32(pr + 8 * PS + kk * 16);
+        a[2] = ld32(pr + kk * 16 + 8);
+        a[3] = ld32(pr + 8 * PS + kk * 16 + 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, sm.K + (kk * 16 + (mi & 1) * 8 + rr) * K_STRIDE +
+                               (4 * jp + 2 * np + (mi >> 1)) * 8);
+          mma16816(acc[2 * np], a, r[0], r[1]);
+          mma16816(acc[2 * np + 1], a, r[2], r[3]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int col = (4 * jp + p) * 8 + t * 2;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int row = q0 + m * 16 + g + 8 * hi;
+          if (row < L)
+            *reinterpret_cast<uint32_t*>(dq + gbase + (size_t)row * grs + col) =
+                pack2(acc[p][2 * hi] * scale, acc[p][2 * hi + 1] * scale);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < KM; ++kk) {
+    const int km = warp + BWD_WARPS * kk;
+    if (km >= n_mtiles) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = nt * 8 + t * 2;
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int key = km * 16 + g + 8 * hi;
+        if (key < L) {
+          const size_t o = gbase + (size_t)key * grs + col;
+          *reinterpret_cast<uint32_t*>(dk + o) =
+              pack2(dka[kk][nt][2 * hi] * scale, dka[kk][nt][2 * hi + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + o) =
+              pack2(dva[kk][nt][2 * hi], dva[kk][nt][2 * hi + 1]);
+        }
+      }
+    }
+  }
+  if (dbias_part != nullptr) {
+    __syncthreads();
+    for (int c = tid; c < L; c += BWD_WARPS * 32)
+      dbias_part[(size_t)bh * L + c] =
+          ((sm.dbias[c] + sm.dbias[Lp + c]) + sm.dbias[2 * Lp + c]) + sm.dbias[3 * Lp + c];
+  }
+}
+
+// Call launch(std::integral_constant<int, NC>(), std::bool_constant<DROP>())
+// for the chunk count of L (L <= TRAIN_MAX_LEN) and the dropout flag.
+template <typename Launch>
+inline int with_train_variant(int L, int drop, Launch launch) {
+  auto go = [&](auto nc) {
+    return drop ? launch(nc, std::true_type()) : launch(nc, std::false_type());
+  };
+  if (L < 1 || L > TRAIN_MAX_LEN) return (int)cudaErrorInvalidValue;
+  switch (score_chunks(L)) {
+    case 2: return go(std::integral_constant<int, 2>());
+    case 4: return go(std::integral_constant<int, 4>());
+    case 6: return go(std::integral_constant<int, 6>());
+    default: return go(std::integral_constant<int, 8>());
+  }
+}
+
+}  // namespace uc2
+
+// q, k, v: [B, L, n, 64] bf16, tokens rs elements apart; bias [B, L] fp32;
+// out [B, L, n, 64] bf16 contiguous. drop = 0 skips the mask (rate 0).
+// Returns cudaGetLastError().
+extern "C" int uc2_attn_train_fwd(const void* q, const void* k, const void* v,
+                                  const void* bias, void* out, int B, int L, int n,
+                                  int rs, float scale, unsigned seed, unsigned thresh,
+                                  float keep_scale, int drop, void* stream) {
+  using namespace uc2;
+  constexpr int WARPS = 4, QT = 64;
+  const size_t smem = attend_smem_bytes(QT, L);
+  const Dropout dr{seed, thresh, keep_scale};
+  return with_train_variant(L, drop, [&](auto nc, auto dp) {
+    auto kernel = attn_train_fwd_kernel<WARPS, QT, decltype(nc)::value, decltype(dp)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((L + QT - 1) / QT, n, B);
+    kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const float*>(bias),
+        static_cast<bf16*>(out), L, n, rs, scale, dr);
+    return (int)cudaGetLastError();
+  });
+}
+
+// q, k, v as above; g, dq, dk, dv [B, L, n, 64] bf16 contiguous;
+// dbias_part [B, n, L] fp32 or null (not written). Returns cudaGetLastError().
+extern "C" int uc2_attn_train_bwd(const void* q, const void* k, const void* v,
+                                  const void* bias, const void* g, void* dq, void* dk,
+                                  void* dv, void* dbias_part, int B, int L, int n,
+                                  int rs, float scale, unsigned seed, unsigned thresh,
+                                  float keep_scale, int drop, void* stream) {
+  using namespace uc2;
+  const size_t smem = bwd_smem_bytes(padded_len(L));
+  const Dropout dr{seed, thresh, keep_scale};
+  return with_train_variant(L, drop, [&](auto nc, auto dp) {
+    auto kernel = attn_train_bwd_kernel<decltype(nc)::value, decltype(dp)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(n, B);
+    kernel<<<grid, BWD_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const float*>(bias),
+        static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(dbias_part), L, n, rs, scale, dr);
+    return (int)cudaGetLastError();
+  });
+}

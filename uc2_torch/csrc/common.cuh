@@ -108,45 +108,52 @@ __host__ __device__ inline size_t attend_smem_bytes(int QT, int L) {
          (k_bytes > vt_bytes ? k_bytes : vt_bytes);
 }
 
-// softmax(q.k^T * scale + bias) . v for one (batch, head) and query rows
-// [q0, q0 + QT), computed by the whole block (WARPS warps); NC >= score_chunks(L).
-//   qh, kh, vh: token 0 of this batch row and head; tokens are rs apart
-//   bias_row:   the additive key bias of this batch row, [L] fp32
-//   out:        row q0 of the context; rows are out_rs apart; the first
-//               out_rows rows are written, as bf16
-// Scores and softmax are fp32; the probabilities are rounded to bf16
-// before P.V, as the TPU kernel does. Keys past L (padding to a multiple
-// of 16) get -inf and zero K/V rows, so they carry no weight.
-template <int WARPS, int QT, int NC>
-__device__ void attend_head(const bf16* __restrict__ qh,
-                            const bf16* __restrict__ kh,
-                            const bf16* __restrict__ vh, int rs,
+// The attention routine below works in three phases, so that a variant can
+// replace one of them (the training forward replaces the softmax):
+//   attn_scores   bias row and K into shared memory, fp32 score rows
+//                 q.k^T * scale + bias of query rows [q0, q0 + QT);
+//   attn_softmax  max-shifted fp32 softmax of each row, rounded to bf16 in
+//                 place (the TPU kernel's rounding point);
+//   attn_pv       V^T into the K region, context = P . V, stored as bf16.
+// Keys past L (padding to a multiple of 16) get -inf and zero K/V rows, so
+// they carry no weight. Shared memory: attend_smem_bytes(QT, L).
+struct AttnSmem {
+  float* bias;  // [Lp]
+  float* S;     // [QT][score_stride(Lp)] fp32 scores, then bf16 probabilities
+  bf16* KV;     // K [Lp][K_STRIDE], then V^T [HEAD_DIM][vt_stride(Lp)]
+};
+
+__device__ __forceinline__ AttnSmem attn_smem(uint8_t* smem, int Lp, int QT) {
+  float* bias = reinterpret_cast<float*>(smem);
+  float* S = bias + Lp;
+  return {bias, S, reinterpret_cast<bf16*>(S + QT * score_stride(Lp))};
+}
+
+//   qh, kh:   token 0 of this batch row and head; tokens are rs apart
+//   bias_row: the additive key bias of this batch row, [L] fp32
+template <int WARPS, int QT>
+__device__ void attn_scores(const bf16* __restrict__ qh,
+                            const bf16* __restrict__ kh, int rs,
                             const float* __restrict__ bias_row, int L, int q0,
-                            float scale, uint8_t* smem, bf16* out, int out_rs,
-                            int out_rows) {
+                            float scale, uint8_t* smem) {
   constexpr int MT = QT / 16;        // 16-row m-tiles
   constexpr int WPM = WARPS / MT;    // warps sharing one m-tile
-  constexpr int NPW = 8 / WPM;       // 8-wide head-dim tiles per warp in P.V
-  static_assert(WARPS % MT == 0 && 8 % WPM == 0, "warp layout");
-  static_assert(NC * 32 <= MAX_LEN, "score chunks");
+  static_assert(WARPS % MT == 0, "warp layout");
   const int Lp = padded_len(L);
   const int SF = score_stride(Lp);
-  const int VS = vt_stride(Lp);
-  float* bias_s = reinterpret_cast<float*>(smem);
-  float* S = bias_s + Lp;
-  bf16* KV = reinterpret_cast<bf16*>(S + QT * SF);
+  const AttnSmem sm = attn_smem(smem, Lp, QT);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m = warp % MT, wj = warp / MT;
 
   __syncthreads();  // the previous user of this shared memory is done
   for (int i = tid; i < Lp; i += WARPS * 32)
-    bias_s[i] = i < L ? bias_row[i] : -INFINITY;
+    sm.bias[i] = i < L ? bias_row[i] : -INFINITY;
   for (int i = tid; i < Lp * 8; i += WARPS * 32) {
     const int key = i >> 3, c = (i & 7) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (key < L) val = *reinterpret_cast<const uint4*>(kh + (size_t)key * rs + c);
-    *reinterpret_cast<uint4*>(KV + key * K_STRIDE + c) = val;
+    *reinterpret_cast<uint4*>(sm.KV + key * K_STRIDE + c) = val;
   }
   uint32_t qa[HEAD_DIM / 16][4];
   const int r0 = q0 + m * 16 + g, r1 = r0 + 8;
@@ -165,22 +172,30 @@ __device__ void attend_head(const bf16* __restrict__ qh,
     float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
-      const bf16* kr = KV + (j * 8 + g) * K_STRIDE + ks * 16 + t * 2;
+      const bf16* kr = sm.KV + (j * 8 + g) * K_STRIDE + ks * 16 + t * 2;
       mma16816(c, qa[ks], ld32(kr), ld32(kr + 8));
     }
     const int key = j * 8 + t * 2;
-    const float b0 = bias_s[key], b1 = bias_s[key + 1];
-    float* s0 = S + (m * 16 + g) * SF + key;
+    const float b0 = sm.bias[key], b1 = sm.bias[key + 1];
+    float* s0 = sm.S + (m * 16 + g) * SF + key;
     *reinterpret_cast<float2*>(s0) = make_float2(c[0] * scale + b0, c[1] * scale + b1);
     *reinterpret_cast<float2*>(s0 + 8 * SF) =
         make_float2(c[2] * scale + b0, c[3] * scale + b1);
   }
   __syncthreads();
+}
 
-  // max-shifted softmax, one row per warp at a time; the bf16
-  // probabilities overwrite the front of the row once every lane has read it
+// NC >= score_chunks(L). One row per warp at a time; the bf16
+// probabilities overwrite the front of the row once every lane has read it.
+template <int WARPS, int QT, int NC>
+__device__ void attn_softmax(int L, uint8_t* smem) {
+  static_assert(NC * 32 <= MAX_LEN, "score chunks");
+  const int Lp = padded_len(L);
+  const int SF = score_stride(Lp);
+  const AttnSmem sm = attn_smem(smem, Lp, QT);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < QT; r += WARPS) {
-    float* srow = S + r * SF;
+    float* srow = sm.S + r * SF;
     float e[NC];
     float mx = -INFINITY;
 #pragma unroll
@@ -206,23 +221,42 @@ __device__ void attend_head(const bf16* __restrict__ qh,
       if (c < Lp) prow[c] = __float2bfloat16(e[i] * inv);
     }
   }
-  // V^T into the K region: every warp passed the score loop above
+}
+
+//   vh:  token 0 of this batch row and head's values; tokens rs apart
+//   out: row q0 of the context; rows are out_rs apart; the first out_rows
+//        rows are written, as bf16
+template <int WARPS, int QT>
+__device__ void attn_pv(const bf16* __restrict__ vh, int rs, int L,
+                        uint8_t* smem, bf16* out, int out_rs, int out_rows) {
+  constexpr int MT = QT / 16;
+  constexpr int WPM = WARPS / MT;
+  constexpr int NPW = 8 / WPM;       // 8-wide head-dim tiles per warp
+  static_assert(8 % WPM == 0, "warp layout");
+  const int Lp = padded_len(L);
+  const int SF = score_stride(Lp);
+  const int VS = vt_stride(Lp);
+  const AttnSmem sm = attn_smem(smem, Lp, QT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m = warp % MT, wj = warp / MT;
+
+  // V^T into the K region: every warp passed the score loop's barrier
   for (int i = tid; i < Lp * 8; i += WARPS * 32) {
     const int key = i >> 3, c = (i & 7) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (key < L) val = *reinterpret_cast<const uint4*>(vh + (size_t)key * rs + c);
     const bf16* pv = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) KV[(c + u) * VS + key] = pv[u];
+    for (int u = 0; u < 8; ++u) sm.KV[(c + u) * VS + key] = pv[u];
   }
   __syncthreads();
 
-  // context = P . V for this warp's m-tile and NPW head-dim tiles
   float acc[NPW][4];
 #pragma unroll
   for (int p = 0; p < NPW; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.f;
-  const uint32_t* Pw = reinterpret_cast<const uint32_t*>(S);
-  const uint32_t* Vw = reinterpret_cast<const uint32_t*>(KV);
+  const uint32_t* Pw = reinterpret_cast<const uint32_t*>(sm.S);
+  const uint32_t* Vw = reinterpret_cast<const uint32_t*>(sm.KV);
   const int pa = (m * 16 + g) * SF, pb = pa + 8 * SF;
   for (int kk = 0; kk < Lp / 16; ++kk) {
     uint32_t a[4];
@@ -245,6 +279,21 @@ __device__ void attend_head(const bf16* __restrict__ qh,
     if (rb < out_rows)
       *reinterpret_cast<uint32_t*>(out + (size_t)rb * out_rs + col) = pack2(acc[p][2], acc[p][3]);
   }
+}
+
+// softmax(q.k^T * scale + bias) . v for one (batch, head) and query rows
+// [q0, q0 + QT), computed by the whole block (WARPS warps); NC >=
+// score_chunks(L). Arguments as the three phases above.
+template <int WARPS, int QT, int NC>
+__device__ void attend_head(const bf16* __restrict__ qh,
+                            const bf16* __restrict__ kh,
+                            const bf16* __restrict__ vh, int rs,
+                            const float* __restrict__ bias_row, int L, int q0,
+                            float scale, uint8_t* smem, bf16* out, int out_rs,
+                            int out_rows) {
+  attn_scores<WARPS, QT>(qh, kh, rs, bias_row, L, q0, scale, smem);
+  attn_softmax<WARPS, QT, NC>(L, smem);
+  attn_pv<WARPS, QT>(vh, rs, L, smem, out, out_rs, out_rows);
 }
 
 // Call launch(std::integral_constant<int, NC>()) with NC = score_chunks(L),

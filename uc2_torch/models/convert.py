@@ -7,6 +7,9 @@ keys are the same path joined by dots, with ``layer_i`` as ``layer.i``,
 Dense ``kernel`` as the nn.Linear ``weight`` (transposed to [out, in];
 the fused QKV stays one [3H, H] matrix, [q | k | v] along the output), and
 the embedding tables as ``<name>.weight``. Both directions are exact.
+The full pretraining tree (``roberta``, ``cls``, ``feat_regress``,
+``region_classifier``, ``itm_output``, ``nce_output``) maps the same way;
+the tied LM decoder has no key of its own in either package.
 """
 
 from __future__ import annotations

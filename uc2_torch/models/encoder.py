@@ -9,6 +9,13 @@ statistics, and the QKV projection is one fused [H, 3H] matmul.
 Module names follow the reference's parameter tree (``layer_0`` becomes
 ``layer.0``), and linear weights are in ``nn.Linear`` layout ([out, in]);
 ``models/convert.py`` maps one onto the other.
+
+Training (``deterministic=False``) takes a ``DropoutRng`` (``ops/dropout.py``)
+and drops at the reference's sites: hidden dropout after both embedding
+LayerNorms, after the attention out-projection and after the FFN down
+projection, and attention-probs dropout inside attention
+(``ops/attention.py``). The fused inference blocks run only when
+deterministic, as in the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from torch import nn
 
 from uc2_torch.config import UC2Config
 from uc2_torch.ops.attention import multi_head_attention, resolve_impl
+from uc2_torch.ops.dropout import dropout
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
@@ -83,7 +91,8 @@ class TextEmbeddings(nn.Module):
         self.LayerNorm = LayerNorm(H, cfg.layer_norm_eps, compute_dtype(cfg),
                                    device)
 
-    def forward(self, input_ids, type_embeddings, position_ids=None):
+    def forward(self, input_ids, type_embeddings, position_ids=None,
+                rng=None):
         cfg = self.config
         if position_ids is None:
             if cfg.position_style == "bert":
@@ -95,7 +104,7 @@ class TextEmbeddings(nn.Module):
                     input_ids, cfg.pad_token_id)
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids) + type_embeddings)
-        return self.LayerNorm(x)
+        return dropout(self.LayerNorm(x), cfg.hidden_dropout_prob, rng)
 
 
 class ImageEmbeddings(nn.Module):
@@ -106,6 +115,7 @@ class ImageEmbeddings(nn.Module):
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
+        self.config = cfg
         H, dt = cfg.hidden_size, compute_dtype(cfg)
         eps = cfg.layer_norm_eps
         self.img_linear = Dense(cfg.img_dim, H, dt, device)
@@ -117,7 +127,7 @@ class ImageEmbeddings(nn.Module):
             torch.zeros(2, cfg.img_dim, device=device))
 
     def forward(self, img_feat, img_pos_feat, type_embeddings,
-                img_masks=None):
+                img_masks=None, rng=None):
         if img_masks is not None:
             mask_emb = torch.cat([torch.zeros_like(self.mask_embedding[:1]),
                                   self.mask_embedding[1:]])
@@ -125,7 +135,7 @@ class ImageEmbeddings(nn.Module):
         x = (self.img_layer_norm(self.img_linear(img_feat))
              + self.pos_layer_norm(self.pos_linear(img_pos_feat))
              + type_embeddings)
-        return self.LayerNorm(x)
+        return dropout(self.LayerNorm(x), self.config.hidden_dropout_prob, rng)
 
 
 class SelfAttention(nn.Module):
@@ -145,20 +155,29 @@ class SelfAttention(nn.Module):
         q, k, v = self.qkv(x).split(H, dim=-1)
         return (q.view(B, L, n, d), k.view(B, L, n, d), v.view(B, L, n, d))
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, rng=None):
+        """``rng`` is None when deterministic. Attention gets it only when
+        there is probs dropout or the impl is "pallas-train", as in the
+        reference (which then keeps the training kernel at rate 0)."""
+        cfg = self.config
         q, k, v = self.heads(x)
-        ctx = multi_head_attention(
-            q, k, v, attn_bias,
-            use_pallas=self.config.use_pallas_attention)
+        rate = cfg.attention_probs_dropout_prob if rng is not None else 0.0
+        if not (rate > 0.0 or cfg.use_pallas_attention == "pallas-train"):
+            rng = None
+        ctx = multi_head_attention(q, k, v, attn_bias, dropout_rate=rate,
+                                   rng=rng, use_pallas=cfg.use_pallas_attention)
         return ctx.reshape(x.shape)
 
 
 class EncoderLayer(nn.Module):
     """Post-LN transformer block; in-block LayerNorms use
-    ``block_layer_norm_eps``. Routing follows the reference: the fused
-    attention block where ``fused_block_profitable`` (or "fused-force")
-    says so, else attention -> out-projection -> LN; then the fused FFN
-    block where ``fused_ffn_profitable`` says so, else the eager chain."""
+    ``block_layer_norm_eps``. Routing follows the reference: when
+    deterministic (``rng`` None), the fused attention block where
+    ``fused_block_profitable`` (or "fused-force") says so, else attention
+    -> out-projection -> LN; then the fused FFN block where
+    ``fused_ffn_profitable`` says so, else the eager chain. In training
+    the unfused chains run, with hidden dropout after the out-projection
+    and after the FFN."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
@@ -172,13 +191,14 @@ class EncoderLayer(nn.Module):
         self.output_dense = Dense(Fi, H, dt, device)
         self.output_LayerNorm = LayerNorm(H, eps, dt, device)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, rng=None):
         cfg = self.config
         dt = compute_dtype(cfg)
         eps = cfg.block_layer_norm_eps
+        rate = cfg.hidden_dropout_prob
         impl = resolve_impl(cfg.use_pallas_attention)
         force = impl == "fused-force"
-        fusable = force or impl in ("pallas", "pallas-train")
+        fusable = rng is None and (force or impl in ("pallas", "pallas-train"))
         L = x.shape[1]
         if fusable and (force or fused_block_profitable(
                 L, cfg.num_attention_heads)):
@@ -188,8 +208,9 @@ class EncoderLayer(nn.Module):
                                  od.bias, ln.weight, ln.bias, eps=eps)
         else:
             attn_out = self.attention_output_dense(
-                self.attention(x, attn_bias))
-            x = self.attention_output_LayerNorm(attn_out + x)
+                self.attention(x, attn_bias, rng))
+            x = self.attention_output_LayerNorm(dropout(attn_out, rate, rng)
+                                                + x)
         if fusable and (force or fused_ffn_profitable(L)):
             inter, down = self.intermediate_dense, self.output_dense
             ln = self.output_LayerNorm
@@ -197,7 +218,7 @@ class EncoderLayer(nn.Module):
                                    down.weight.to(dt), down.bias, ln.weight,
                                    ln.bias, eps=eps)
         h = self.output_dense(gelu(self.intermediate_dense(x)))
-        return self.output_LayerNorm(h + x)
+        return self.output_LayerNorm(dropout(h, rate, rng) + x)
 
 
 class Pooler(nn.Module):
@@ -213,12 +234,14 @@ class Pooler(nn.Module):
 
 
 class UC2Model(nn.Module):
-    """Joint vision-language encoder, inference forward.
+    """Joint vision-language encoder.
 
     Inputs as the reference's UC2Model: input_ids [B, Lt], img_feat
     [B, Nb, img_dim], img_pos_feat [B, Nb, 7], attn_mask [B, Lt + Nb]
     (1 = valid), and optional position_ids, img_masks, txt_type_ids,
     img_type_ids. Returns (sequence_output [B, Lt + Nb, H], pooled [B, H]).
+    ``deterministic=False`` trains: dropout on, drawn from ``rng`` (a
+    ``DropoutRng``), which is then required.
     """
 
     def __init__(self, cfg: UC2Config, device=None):
@@ -227,8 +250,8 @@ class UC2Model(nn.Module):
             raise NotImplementedError("uc2_torch: quant='int8' is not "
                                       "ported yet")
         if cfg.remat != "none":
-            raise NotImplementedError("uc2_torch: remat applies to training, "
-                                      "which is not ported yet")
+            raise NotImplementedError("uc2_torch: remat (activation "
+                                      "recomputation) is not ported yet")
         self.config = cfg
         self.token_type_embeddings = nn.Embedding(
             cfg.type_vocab_size, cfg.hidden_size, device=device)
@@ -240,10 +263,13 @@ class UC2Model(nn.Module):
 
     def forward(self, input_ids=None, position_ids=None, img_feat=None,
                 img_pos_feat=None, attn_mask=None, img_masks=None,
-                txt_type_ids=None, img_type_ids=None, deterministic=True):
-        if not deterministic:
-            raise NotImplementedError("uc2_torch: dropout (training) is not "
-                                      "ported yet")
+                txt_type_ids=None, img_type_ids=None, deterministic=True,
+                rng=None):
+        if deterministic:
+            rng = None
+        elif rng is None:
+            raise ValueError("uc2_torch: a training forward "
+                             "(deterministic=False) needs a DropoutRng")
         dt = compute_dtype(self.config)
         parts = []
         if input_ids is not None:
@@ -251,16 +277,35 @@ class UC2Model(nn.Module):
                 txt_type_ids = torch.zeros_like(input_ids)
             parts.append(self.embeddings(
                 input_ids, self.token_type_embeddings(txt_type_ids),
-                position_ids))
+                position_ids, rng))
         if img_feat is not None:
             if img_type_ids is None:
                 img_type_ids = torch.ones(img_feat.shape[:2], dtype=torch.long,
                                           device=img_feat.device)
             parts.append(self.img_embeddings(
                 img_feat.to(dt), img_pos_feat.to(dt),
-                self.token_type_embeddings(img_type_ids), img_masks))
+                self.token_type_embeddings(img_type_ids), img_masks, rng))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         attn_bias = ((1.0 - attn_mask.float()) * -10000.0)[:, None, None, :]
         for layer in self.layer:
-            x = layer(x, attn_bias)
+            x = layer(x, attn_bias, rng)
         return x, self.pooler(x)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, gen: torch.Generator, std: float):
+    """Initialise ``model`` as the reference does: normal(0, std) Linear
+    weights and embedding tables, zero biases, unit LayerNorm scales, and
+    normal(0, std) MRM mask embeddings, drawn from ``gen`` in module
+    order."""
+    for mod in model.modules():
+        if isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Embedding)):
+            mod.weight.normal_(0.0, std, generator=gen)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+    for mod in model.modules():
+        if isinstance(mod, ImageEmbeddings):
+            mod.mask_embedding.normal_(0.0, std, generator=gen)

@@ -11,7 +11,7 @@ from torch import nn
 from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config
 from uc2_torch.models import heads as H
-from uc2_torch.models.encoder import LayerNorm, UC2Model
+from uc2_torch.models.encoder import UC2Model, init_weights
 
 
 class UC2ForImageTextRetrieval(nn.Module):
@@ -37,24 +37,11 @@ class UC2ForImageTextRetrieval(nn.Module):
         self.itm_output = H.ItmHead(config, dev)
         self.rank_output = H.RankHead(config, dev)
         if params is None:
-            self.init_weights(torch.Generator(device=dev).manual_seed(seed))
+            init_weights(self, torch.Generator(device=dev).manual_seed(seed),
+                         config.initializer_range)
         else:
             from uc2_torch.models.convert import load_params
             load_params(self, params)
-
-    @torch.no_grad()
-    def init_weights(self, gen: torch.Generator):
-        std = self.config.initializer_range
-        for mod in self.modules():
-            if isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
-        self.roberta.img_embeddings.mask_embedding.normal_(0.0, std,
-                                                           generator=gen)
 
     @torch.no_grad()
     def scores(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

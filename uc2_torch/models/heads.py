@@ -1,12 +1,88 @@
-"""Output heads over the pooled CLS vector (port of the ITM and rank heads
-of uc2_tpu/models/heads.py)."""
+"""Output heads and losses (port of uc2_tpu/models/heads.py).
+
+Weight tying is explicit, as in the reference: the LM decoder is the
+encoder's word-embedding table, passed in by the caller, so the head owns
+no copy (and the parameter trees of the two packages line up). The region
+heads and ``NceHead`` only hold their parameters, so that a full reference
+pretraining tree loads; their forwards come with their objectives.
+"""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uc2_torch.config import UC2Config
-from uc2_torch.models.encoder import Dense, compute_dtype
+from uc2_torch.models.encoder import Dense, LayerNorm, compute_dtype, gelu
+from uc2_torch.ops.mp import einsum_f32
+
+
+class _Transform(nn.Module):
+    """dense -> gelu -> LayerNorm, the front of every pretraining head."""
+
+    def __init__(self, cfg: UC2Config, eps: float, device=None):
+        super().__init__()
+        dt = compute_dtype(cfg)
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size, dt, device)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps, dt, device)
+
+    def transform(self, h):
+        return self.layer_norm(gelu(self.dense(h)))
+
+
+class RobertaLMHead(_Transform):
+    """dense -> gelu -> LN(config eps) -> decoder tied to the word
+    embeddings + bias. ``valid_ids`` restricts the output vocabulary (the
+    mmxlm-soft/vmlm-soft objectives); ``transform_only`` stops before the
+    decoder (the chunked CE computes it itself). Logits are fp32; the
+    decoder product's backward runs in the compute dtype (``einsum_f32``)."""
+
+    def __init__(self, cfg: UC2Config, device=None):
+        super().__init__(cfg, cfg.layer_norm_eps, device)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
+
+    def forward(self, h, embedding_table, valid_ids=None,
+                transform_only: bool = False):
+        x = self.transform(h)
+        if transform_only:
+            return x
+        table, bias = embedding_table, self.bias
+        if valid_ids is not None:
+            idx = torch.as_tensor(valid_ids, device=table.device).long()
+            table, bias = table[idx], bias[idx]
+        logits = einsum_f32("...h,vh->...v", x, table.to(x.dtype))
+        return logits + bias.float()
+
+
+class RegionFeatureRegression(_Transform):
+    """Parameters of the mrfr head (dense -> gelu -> LN(1e-12) -> the
+    transposed img_linear weight, tied, + bias); its forward comes with the
+    objective."""
+
+    def __init__(self, cfg: UC2Config, device=None):
+        super().__init__(cfg, cfg.block_layer_norm_eps, device)
+        self.bias = nn.Parameter(torch.zeros(cfg.img_dim, device=device))
+
+
+class RegionClassification(_Transform):
+    """Parameters of the mrc head (dense -> gelu -> LN(1e-12) ->
+    linear(img_label_dim)); its forward comes with the objective."""
+
+    def __init__(self, cfg: UC2Config, device=None):
+        super().__init__(cfg, cfg.block_layer_norm_eps, device)
+        self.out = Dense(cfg.hidden_size, cfg.img_label_dim,
+                         compute_dtype(cfg), device)
+
+
+class NceHead(_Transform):
+    """Parameters of the mrm-nce projection (dense -> gelu -> LN(1e-12) ->
+    linear(img_dim)); its forward comes with the objective."""
+
+    def __init__(self, cfg: UC2Config, device=None):
+        super().__init__(cfg, cfg.block_layer_norm_eps, device)
+        self.out = Dense(cfg.hidden_size, cfg.img_dim, compute_dtype(cfg),
+                         device)
 
 
 class ItmHead(nn.Module):
@@ -29,3 +105,48 @@ class RankHead(nn.Module):
 
     def forward(self, pooled):
         return self.out(pooled).float()
+
+
+def cross_entropy_with_logits(logits, labels, weights=None):
+    """Per-element CE: logits [..., V] (fp32), labels [...] int. Returns
+    logsumexp - gold logit, times ``weights`` when given."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.logsumexp(logits, dim=-1) - gold
+    return loss if weights is None else loss * weights
+
+
+def _chunk_lse(h, tbl, b, m, s):
+    """Online logsumexp step over one vocabulary chunk."""
+    logits = einsum_f32("...h,vh->...v", h.to(tbl.dtype), tbl) + b.float()
+    new_m = torch.maximum(m, logits.max(dim=-1).values)
+    s = s * torch.exp(m - new_m) + torch.exp(logits - new_m[:, None]).sum(-1)
+    return new_m, s
+
+
+def chunked_softmax_cross_entropy(h, table, bias, labels, weights,
+                                  n_chunks: int = 8):
+    """CE over a large vocabulary without the [N, V] logits: the decoder
+    table is streamed in ``n_chunks`` chunks with an online logsumexp, each
+    chunk recomputed in the backward (``torch.utils.checkpoint``), as the
+    reference's ``jax.checkpoint``-ed scan.
+
+    h [N, H] (head transform output), table [V, H], bias [V], labels [N],
+    weights [N]. Returns the per-element weighted CE [N]."""
+    N, H = h.shape
+    V = table.shape[0]
+    pad = (-V) % n_chunks
+    if pad:
+        table = torch.cat([table, table.new_zeros(pad, H)])
+        # padded rows must never win the logsumexp
+        bias = torch.cat([bias, bias.new_full((pad,), -1e30)])
+    C = table.shape[0] // n_chunks
+    labels = labels.long()
+    gold = ((h.float() * table[labels].float()).sum(-1) + bias[labels])
+    m = torch.full((N,), -torch.inf, device=h.device)
+    s = torch.zeros(N, device=h.device)
+    for i in range(n_chunks):
+        m, s = checkpoint(_chunk_lse, h, table[i * C:(i + 1) * C],
+                          bias[i * C:(i + 1) * C], m, s, use_reentrant=False)
+    loss = m + torch.log(s) - gold
+    return loss if weights is None else loss * weights

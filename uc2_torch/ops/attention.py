@@ -1,13 +1,14 @@
 """Multi-head attention of the UC2 encoder (port of uc2_tpu/ops/attention.py).
 
 ``xla_attention`` is the eager chain: scores/sqrt(d) + additive bias in
-fp32, fp32 softmax, probabilities cast to the value dtype, context in the
-value dtype. ``multi_head_attention`` dispatches on the config's
-``use_pallas_attention`` value exactly as the reference package does, with
-one difference: there is no device switch and no fallback. The kernel
-path goes through ``ops/flash_attention.flash_attention``, whose wrapper
-launches the CUDA kernel on a CUDA tensor (or raises) and takes the plain
-version only for a CPU tensor.
+fp32 (``einsum_f32``: fp32 forward, compute-dtype backward), fp32 softmax,
+optional probs dropout, probabilities cast to the value dtype, context in
+the value dtype. ``multi_head_attention`` dispatches on the config's
+``use_pallas_attention`` value exactly as the reference package does on a
+TPU, with one difference: there is no device switch and no fallback. The
+kernel paths go through ``ops/flash_attention``, whose wrappers launch the
+CUDA kernels on CUDA tensors (or raise) and take the plain versions only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from uc2_torch.ops.mp import einsum_f32
 
 _IMPLS = {False: "xla", True: "pallas"}
 
@@ -27,38 +30,51 @@ def resolve_impl(use_pallas) -> str:
     return impl
 
 
-def xla_attention(q, k, v, bias):
+def xla_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None):
     """q, k, v [B, L, n, d]; bias [B, 1, 1, L] additive. Returns
     [B, L, n, d] in v's dtype. Products and softmax run in fp32 on the
-    (possibly bf16) inputs; the probabilities are rounded to v's dtype
-    before P.V, as the reference's einsum chain does."""
+    (possibly bf16) inputs; with ``rng`` (a ``DropoutRng``) and a positive
+    rate the probabilities are dropped with a mask drawn from
+    ``rng.device``; they are rounded to v's dtype before P.V, as the
+    reference's einsum chain does."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    scores = torch.einsum("blnd,bmnd->bnlm", q.float(), k.float())
+    scores = einsum_f32("blnd,bmnd->bnlm", q, k)
     scores = scores * scale + bias.float()
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    ctx = torch.einsum("bnlm,bmnd->blnd", probs.float(), v.float())
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and rng is not None:
+        keep = torch.rand(probs.shape, generator=rng.device,
+                          device=probs.device) >= dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros((), device=probs.device))
+    ctx = einsum_f32("bnlm,bmnd->blnd", probs.to(v.dtype), v)
     return ctx.to(v.dtype)
 
 
-def multi_head_attention(q, k, v, bias, dropout_rng=None, use_pallas=False):
-    """Dispatch between attention backends.
+def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
+                         use_pallas=False):
+    """Dispatch between attention backends, as uc2_tpu/ops/attention.py
+    ``multi_head_attention`` routes on a TPU.
 
-    False/"xla" -> ``xla_attention``; True/"pallas"/"pallas-train"/
-    "fused-force" -> the inference kernel (``flash_attention``). "flash"
-    (the reference's wrapper of jax's library kernel) and the training
-    branch (a dropout generator, i.e. attention-probs dropout) are not
-    ported yet and raise."""
+    ``rng`` (a ``DropoutRng``) is given on the training path when there is
+    probs dropout or the impl is "pallas-train". Then "pallas" (rate > 0)
+    and "pallas-train" (any rate) run ``flash_attention_train``, the
+    training kernels, with a seed drawn from ``rng.host``. Otherwise a
+    kernel impl at rate 0 runs ``flash_attention`` (the inference kernel,
+    whose backward is the eager recompute), and everything else the eager
+    ``xla_attention``. "flash" (the reference's wrapper of jax's library
+    TPU kernel) has no counterpart yet and raises."""
     impl = resolve_impl(use_pallas)
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "uc2_torch: attention with dropout (the training kernels) is "
-            "not ported yet")
     if impl == "flash":
         raise NotImplementedError(
             "uc2_torch: use_pallas_attention='flash' (jax's library TPU "
             "kernel) has no counterpart in the port yet")
     if impl != "xla":
-        from uc2_torch.ops.flash_attention import flash_attention
-        return flash_attention(q, k, v, bias)
-    return xla_attention(q, k, v, bias)
+        from uc2_torch.ops import flash_attention as fa
+        if rng is not None and ((dropout_rate > 0.0 and impl in (
+                "pallas", "pallas-train")) or impl == "pallas-train"):
+            return fa.flash_attention_train(q, k, v, bias, rng.kernel_seed(),
+                                            float(dropout_rate))
+        if dropout_rate == 0.0:
+            return fa.flash_attention(q, k, v, bias)
+    return xla_attention(q, k, v, bias, dropout_rate, rng)

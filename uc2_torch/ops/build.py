@@ -27,13 +27,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uc2_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # C entry points: name -> argument types (every pointer and the stream as
-# c_void_p, so ctypes never truncates them to 32 bits)
+# c_void_p, so ctypes never truncates them to 32 bits; seeds and dropout
+# thresholds as unsigned 32-bit ints)
 _SIGNATURES = {
     "uc2_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "uc2_fused_attn_block": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
     "uc2_fused_ffn_block": [_P] * 8 + [_I, _I, _F, _P],
+    "uc2_attn_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
+    "uc2_attn_train_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,169 @@
+"""Optimizer and learning-rate schedules (port of uc2_tpu/training/optim.py).
+
+``build_optimizer`` gives the reference's optax chain
+``clip_by_global_norm(grad_norm) -> adamw(schedule, mask=decay_mask)`` as
+``torch.optim.AdamW`` over two parameter groups (decay, and no decay on
+biases and LayerNorm parameters), with the same update:
+
+* the learning rate of update t is ``schedule(t)``, t counted from 0, as
+  optax counts;
+* clipping is optax's ``g / norm * max_norm`` when norm >= max_norm (no
+  ``+ 1e-6`` as in ``torch.nn.utils.clip_grad_norm_``);
+* AdamW with decoupled decay (``p - lr * (m_hat / (sqrt(v_hat) + eps) +
+  wd * p)``), the same algorithm as ``optax.adamw``.
+
+The update runs outside any kernel, in PyTorch's own optimizer code. Only
+adamw is ported; adam and adamax raise until a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Callable, Dict, Iterable, Sequence
+
+import torch
+
+
+# -------------------------------------------------------------- schedules
+def warmup_linear(lr: float, warmup: int, total: int) -> Callable:
+    """Linear warm-up to ``lr`` over ``warmup`` steps, then linear decay to
+    0 at ``total``, floored at 1e-8."""
+    def f(step):
+        w = max(warmup, 1)
+        warm = step / w
+        decay = max(0.0, (total - step) / max(total - warmup, 1))
+        return max(lr * (warm if step < warmup else decay), 1e-8)
+    return f
+
+
+def noam(lr: float, warmup: int) -> Callable:
+    """Inverse-square-root schedule, floored at 1e-8."""
+    def f(step):
+        w = max(warmup, 1)
+        mult = step / w if step <= w else (w ** 0.5) * max(step, 1.0) ** -0.5
+        return max(lr * mult, 1e-8)
+    return f
+
+
+def constant(lr: float) -> Callable:
+    return lambda step: lr
+
+
+def vqa_schedule(lr: float, warm_int: int, decay_int: int, decay_start: int,
+                 decay_rate: float) -> Callable:
+    """MCAN staircase: 1/4, 1/2, 3/4 of lr over three warm-up intervals,
+    then lr, decayed by ``decay_rate`` every ``decay_int`` steps from
+    ``decay_start``; floored at 1e-8."""
+    def f(step):
+        if step < warm_int:
+            mult = 0.25
+        elif step < 2 * warm_int:
+            mult = 0.5
+        elif step < 3 * warm_int:
+            mult = 0.75
+        elif step >= decay_start:
+            mult = decay_rate ** math.ceil((step - decay_start) / decay_int)
+        else:
+            mult = 1.0
+        return max(lr * mult, 1e-8)
+    return f
+
+
+def get_lr_schedule(decay: str, lr: float, warmup_steps: int = 0,
+                    num_train_steps: int = 0, **vqa_kw) -> Callable:
+    """The schedule named by a config's ``decay`` field."""
+    if decay == "linear":
+        return warmup_linear(lr, warmup_steps, num_train_steps)
+    if decay == "invsqrt":
+        return noam(lr, warmup_steps)
+    if decay == "constant":
+        return constant(lr)
+    if decay == "vqa":
+        return vqa_schedule(lr, vqa_kw["warm_int"], vqa_kw["decay_int"],
+                            vqa_kw["decay_st"], vqa_kw["decay_rate"])
+    raise ValueError(f"unknown decay {decay}")
+
+
+# ------------------------------------------------------------- param masks
+_NO_DECAY = re.compile(r"(LayerNorm|layer_norm)")
+
+
+def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
+    """True where weight decay applies: every parameter except biases and
+    LayerNorm parameters (the reference's rule on its tree paths, applied
+    to the port's dotted names)."""
+    return {n: not (n.rsplit(".", 1)[-1] == "bias" or _NO_DECAY.search(n))
+            for n in names}
+
+
+# -------------------------------------------------------------- optimizer
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32, on the device."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class Optimizer:
+    """AdamW with global-norm clipping and a schedule, as the reference's
+    optax chain. ``step()`` consumes the ``.grad`` of every parameter
+    (a parameter the loss did not reach gets a zero gradient, as JAX
+    gives it) and returns the global norm of the unclipped gradients."""
+
+    def __init__(self, model: torch.nn.Module, learning_rate_fn: Callable,
+                 weight_decay: float, betas: Sequence[float], eps: float,
+                 grad_norm: float):
+        named = list(model.named_parameters())
+        mask = decay_mask(n for n, _ in named)
+        self.params = [p for _, p in named]
+        self.lr_fn = learning_rate_fn
+        self.grad_norm = grad_norm
+        self.count = 0
+        self.opt = torch.optim.AdamW(
+            [{"params": [p for n, p in named if mask[n]],
+              "weight_decay": weight_decay},
+             {"params": [p for n, p in named if not mask[n]],
+              "weight_decay": 0.0}],
+            lr=learning_rate_fn(0), betas=tuple(betas), eps=eps)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        if self.grad_norm and self.grad_norm > 0:
+            # optax: g if norm < max_norm else g / norm * max_norm
+            clip = norm >= self.grad_norm
+            div = torch.where(clip, norm, torch.ones_like(norm))
+            mul = torch.where(clip, torch.full_like(norm, self.grad_norm),
+                              torch.ones_like(norm))
+            for g in grads:
+                g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
+        lr = float(self.lr_fn(self.count))
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.count += 1
+        return norm
+
+
+def build_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
+                    weight_decay: float = 0.01,
+                    betas: Sequence[float] = (0.9, 0.98),
+                    eps: float = 1e-6, grad_norm: float = -1.0,
+                    optim: str = "adamw") -> Optimizer:
+    """AdamW with bias/LayerNorm exempt from decay and optional global-norm
+    clipping (the reference's ``build_optimizer`` with optim="adamw")."""
+    if optim in ("adam", "adamax"):
+        raise NotImplementedError(f"uc2_torch: optim={optim!r} is not "
+                                  f"ported yet (adamw is)")
+    if optim != "adamw":
+        raise ValueError(f"invalid optimizer {optim!r}")
+    return Optimizer(model, learning_rate_fn, weight_decay, betas, eps,
+                     grad_norm)
