@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the uc2_torch paths on one CUDA card: ITM pair scoring and the
-mlm pretraining step.
+"""Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
+pretraining step, and the pretraining task mix of config/uc2_pretrain.json
+(itm, mlm, vmlm, tlm) with the training FFN kernels.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -26,7 +27,19 @@ non-zero at the end, without the result lines:
      corpus; launches of the training kernels per step, finite losses, a
      bitwise repeat of one step, the step's time breakdown, and one step
      of the kernel path against the eager path at dropout 0;
-  5. a JSON line of per-kernel numbers, then the last line
+  5. FFN kernels: the training FFN block's forward (#9) and backward (#10)
+     against their plain versions (and #10 against autograd of the plain
+     forward) at the training buckets' rows, rates 0.1 and 0, with times
+     and bounds, and #9's dropout mask against the plain Philox mask;
+  6. mix: full-width uc2-base steps of the four tasks of
+     config/uc2_pretrain.json (itm, mlm, vmlm in German, tlm with 'mix'
+     co-masking) at L = 162, B = 128 under "pallas-train" with
+     UC2_FFN_TRAIN=1, on batches from the port's datasets and collate over
+     a synthetic pretraining corpus: 1 warm-up and 3 timed steps each,
+     launches of #5, #6, #9 and #10 per step (12 each), a bitwise repeat of
+     a vmlm step, itm and vmlm steps against the eager path at dropout 0,
+     and the mlm step with and without the FFN kernels;
+  7. a JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 Without a GPU it exits non-zero before printing any result.
 """
@@ -34,6 +47,7 @@ Without a GPU it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -43,15 +57,20 @@ import torch
 import torch.nn.functional as F
 
 from uc2_torch.config import UC2Config
-from uc2_torch.data.collate import BucketSpec, collate_batch
-from uc2_torch.data.masking import mlm_example
-from uc2_torch.data.memdb import synth_gallery
+from uc2_torch.data import datasets
+from uc2_torch.data.collate import BucketSpec
+from uc2_torch.data.labels import LabelVocab, hash_tokenize
+from uc2_torch.data.memdb import synth_gallery, synth_pretrain_corpus
 from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+from uc2_torch.models.encoder import gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
-from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.ops.dropout import DropoutRng, dropout
+from uc2_torch.ops.ffn_train import (
+    fused_ffn_block_train_bwd, fused_ffn_block_train_bwd_plain,
+    fused_ffn_block_train_fwd, fused_ffn_block_train_plain)
 from uc2_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_attention_train_bwd,
     flash_attention_train_bwd_plain, flash_attention_train_fwd,
@@ -61,7 +80,7 @@ from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_block_plain,
                                        fused_ffn_profitable)
-from uc2_torch.ops.philox import keep_mask
+from uc2_torch.ops.philox import ffn_keep_mask, keep_mask
 from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
 from uc2_torch.training.step import train_step
 
@@ -79,6 +98,8 @@ ATOL, RTOL = 2e-2, 2.0 ** -7
 SCORE_TOL = 5e-2
 KERNELS = (flash_attention, fused_attn_block, fused_ffn_block)
 TRAIN_KERNELS = (flash_attention_train_fwd, flash_attention_train_bwd)
+FFN_KERNELS = (fused_ffn_block_train_fwd, fused_ffn_block_train_bwd)
+ALL_KERNELS = KERNELS + TRAIN_KERNELS + FFN_KERNELS
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
 # (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
 TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
@@ -109,8 +130,12 @@ def fatal(msg: str):
 
 
 def reset_launches():
-    for k in KERNELS + TRAIN_KERNELS:
+    for k in ALL_KERNELS:
         k.launches = 0
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in ALL_KERNELS}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -326,8 +351,8 @@ def phase_slice(card):
         return_matrix=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS + TRAIN_KERNELS}
-    expect.update({k.__name__: 0 for k in TRAIN_KERNELS})
+    launches = launch_counts()
+    expect.update({k.__name__: 0 for k in TRAIN_KERNELS + FFN_KERNELS})
     print(f"  buckets (L={L_of}): {per_bucket.tolist()} images, "
           f"{batches} scored batches of {B}")
     print(f"  launches {launches}, expected {expect}")
@@ -495,25 +520,22 @@ def phase_train_kernels(gen):
     return rows
 
 
-def mlm_batches(cfg, txt_db, img_db, lo, Nb, B, n, seed):
-    """``n`` mlm batches of bucket (lo, Nb] regions, collated to
-    (62 text tokens, Nb regions, B rows, 24 slots), on the card. Captions
-    whose images fall in the bucket are cycled (and masked anew)."""
-    rng = np.random.default_rng(seed)
-    ids = [t for t in txt_db.ids
+def on_card(batch):
+    return {k: torch.from_numpy(a).to("cuda") for k, a in batch.items()}
+
+
+def mlm_batches(txt_db, img_db, lo, Nb, B, n, seed):
+    """``n`` mlm batches (MlmDataset, collate_batch) of the captions whose
+    images have (lo, Nb] regions, collated to (62 text tokens, Nb regions,
+    B rows, 24 slots), on the card. The captions are cycled (and masked
+    anew)."""
+    ds = datasets.MlmDataset(txt_db, img_db)
+    idx = [i for i, t in enumerate(ds.ids)
            if lo < img_db.name2nbb[txt_db.txt2img[t]] <= Nb]
+    order = [idx[k % len(idx)] for k in range(n * B)]
     spec = BucketSpec(TRAIN_TXT, Nb, B, TRAIN_SLOTS)
-    out = []
-    for i in range(n):
-        exs = []
-        for j in range(B):
-            rec = txt_db[ids[(i * B + j) % len(ids)]]
-            feat, bb7 = img_db[rec["img_fname"]]
-            exs.append(mlm_example(rec["input_ids"], feat, bb7, rng,
-                                   cfg.vocab_size))
-        out.append({k: torch.from_numpy(a).to("cuda")
-                    for k, a in collate_batch(exs, spec).items()})
-    return out, len(ids)
+    return ([on_card(b) for b in datasets.batches(
+        ds, spec, order, np.random.default_rng(seed))], len(idx))
 
 
 def pretrain_optimizer(model):
@@ -537,6 +559,19 @@ KERNEL_GROUPS = (
 )
 
 
+def device_rows(prof):
+    """(ms, count, name) of each device activity (kernels, copies) that a
+    torch.profiler run recorded."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith(("Command Buffer", "Optimizer."))):
+            rows.append((us / 1e3, e.count, e.key))
+    return rows
+
+
 def profile_step(model, opt, batch, rng, card):
     """Device time of one step by kernel, from torch.profiler; None when
     the profiler sees no device time."""
@@ -547,13 +582,7 @@ def profile_step(model, opt, batch, rng, card):
         train_step(model, opt, batch, rng)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():      # device activities: kernels, copies
-        us = getattr(e, "self_device_time_total", 0)
-        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
-                and not getattr(e, "is_user_annotation", False)
-                and not e.key.startswith(("Command Buffer", "Optimizer."))):
-            rows.append((us / 1e3, e.count, e.key))
+    rows = device_rows(prof)
     rows.sort(reverse=True)
     if not rows:
         print("  profiler: no device time recorded (not measured)")
@@ -565,7 +594,6 @@ def profile_step(model, opt, batch, rng, card):
         group = next((g for g, marks in KERNEL_GROUPS if any(
             m in key for m in marks)), "other")
         groups[group] = groups.get(group, 0.0) + ms
-    import os
     os.makedirs("build", exist_ok=True)
     with open("build/train_profile.txt", "w") as f:
         f.write(f"[{card}] one mlm step, B=128 L=162: wall {wall:.3f} ms\n")
@@ -603,7 +631,7 @@ def phase_train(card, train_rows):
     lo = 0
     for B_, Nb in TRAIN_BUCKETS:
         L = TRAIN_TXT + Nb
-        batches, n_caps = mlm_batches(cfg, txt_db, img_db, lo, Nb, B_,
+        batches, n_caps = mlm_batches(txt_db, img_db, lo, Nb, B_,
                                       1 + TIMED_STEPS, seed=Nb)
         lo = Nb
         model.load_state_dict(start)
@@ -619,9 +647,9 @@ def phase_train(card, train_rows):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts = {k.__name__: k.launches for k in KERNELS + TRAIN_KERNELS}
+        counts = launch_counts()
         steps = len(batches)
-        want = {k.__name__: 0 for k in KERNELS}
+        want = {k.__name__: 0 for k in KERNELS + FFN_KERNELS}
         want.update({k.__name__: layers * steps for k in TRAIN_KERNELS})
         for k in TRAIN_KERNELS:
             total[k.__name__] += counts[k.__name__]
@@ -740,19 +768,388 @@ def phase_train(card, train_rows):
     return total, busy
 
 
+FFN_ROWS = {
+    "fused_ffn_block_train_fwd": dict(
+        name="fused_ffn_block_train_fwd", route="cuda",
+        source="uc2_torch/csrc/ffn_train.cu",
+        replaces="uc2_tpu/ops/ffn_train.py:68"),
+    "fused_ffn_block_train_bwd": dict(
+        name="fused_ffn_block_train_bwd", route="cuda",
+        source="uc2_torch/csrc/ffn_train.cu",
+        replaces="uc2_tpu/ops/ffn_train.py:90"),
+}
+FFN_SEED = 4321
+# #10's weight and vector gradients sum ~20k rows in another order than
+# the plain version: held in relative norm to 1e-3; against autograd of the
+# plain forward, which rounds dh to bf16 where the reference's formula
+# rounds dy2 and da, to 2^-7
+FFN_GRAD_RTOL, FFN_AUTO_RTOL = 1e-3, 2.0 ** -7
+FFN_GRADS = ("dW1", "db1", "dW2", "db2", "dgamma", "dbeta")
+
+
+def ffn_weights(gen, F=FF):
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.05).bfloat16()
+    return (w(F, H), vec(gen, F, 0.02), w(H, F), vec(gen, H, 0.02),
+            vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1))
+
+
+def ffn_plain_autograd(x, w1, b1, w2, b2, gamma, beta, rate, dy):
+    """The seven gradients by autograd through the plain forward."""
+    ins = [t.detach().requires_grad_(True)
+           for t in (x, w1, b1, w2, b2, gamma, beta)]
+    out = fused_ffn_block_train_plain(*ins, FFN_SEED, rate)
+    return torch.autograd.grad(out, ins, dy)
+
+
+def phase_ffn_kernels(gen):
+    """#9 and #10 against their plain versions at the training buckets'
+    rows; the rows' times are those of B = 128, L = 162, rate 0.1."""
+    print("== training FFN kernels vs plain (#9 forward, #10 backward; plain: "
+          "fp32 compute on the same bf16 inputs)")
+    rows_out = {k: dict(v) for k, v in FFN_ROWS.items()}
+    fwd_row, bwd_row = rows_out.values()
+    w1, b1, w2, b2, gamma, beta = ffn_weights(gen)
+    for b, L in ((208, 98), (160, 128), (128, 162)):
+        rows = b * L
+        x = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            args = (x, w1, b1, w2, b2, gamma, beta, FFN_SEED, rate)
+            bargs = (x, w1, b1, w2, b2, gamma, FFN_SEED, rate, 1e-12, dy)
+            tag = f"rows={rows} (B={b} L={L}) rate={rate}"
+            ef = compare(f"#9 {tag}", fused_ffn_block_train_fwd(*args),
+                         fused_ffn_block_train_plain(*args))
+            got = fused_ffn_block_train_bwd(*bargs)
+            want = fused_ffn_block_train_bwd_plain(*bargs)
+            eb = compare(f"#10 dx {tag}", got[0], want[0])
+            for nm, a, w in zip(FFN_GRADS, got[1:], want[1:]):
+                compare_norm(f"#10 {nm} {tag}", a, w, FFN_GRAD_RTOL)
+            auto = ffn_plain_autograd(x, w1, b1, w2, b2, gamma, beta, rate,
+                                      dy)
+            compare(f"#10 dx vs autograd of plain fwd {tag}", got[0], auto[0])
+            for nm, a, w in zip(FFN_GRADS, got[1:], auto[1:]):
+                compare_norm(f"#10 {nm} vs autograd of plain fwd {tag}", a, w,
+                             FFN_AUTO_RTOL)
+            fwd_row["max_abs_err"] = max(fwd_row.get("max_abs_err", 0.0), ef)
+            bwd_row["max_abs_err"] = max(bwd_row.get("max_abs_err", 0.0), eb)
+            if (b, L, rate) != (128, 162, 0.1):
+                continue
+            weights = 2 * H * FF * 2
+            for row, kern, plain, nbytes, flops in (
+                    (fwd_row, lambda: fused_ffn_block_train_fwd(*args),
+                     lambda: fused_ffn_block_train_plain(*args),
+                     2 * rows * H * 2 + weights + (FF + 3 * H) * 4,
+                     4 * rows * H * FF),
+                    (bwd_row, lambda: fused_ffn_block_train_bwd(*bargs),
+                     lambda: fused_ffn_block_train_bwd_plain(*bargs),
+                     3 * rows * H * 2 + weights + 2 * H * FF * 4
+                     + (2 * FF + 6 * H) * 4,
+                     12 * rows * H * FF)):
+                row.update(ms=time_ms(kern, iters=10),
+                           plain_ms=time_ms(plain, iters=3), library_ms=None)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, "
+                      f"plain {row['plain_ms']:.4f} ms, library none (no "
+                      f"single PyTorch call computes it), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            print(f"    #10 without the recompute (8 rows H F = "
+                  f"{8 * rows * H * FF / 1e9:.1f} GFLOP) would be bound at "
+                  f"{8 * rows * H * FF / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+    # the mask, exactly: x = 0, W2 = 0, b2 = 1, gamma = 1, beta = 0 make
+    # each pre-LN row 2 where kept and 0 where dropped (rate 0.5)
+    rows, rate = 4096, 0.5
+    out = fused_ffn_block_train_fwd(
+        torch.zeros(rows, H, device="cuda").bfloat16(), w1, b1,
+        torch.zeros_like(w2), torch.ones(H, device="cuda"),
+        torch.ones(H, device="cuda"), torch.zeros(H, device="cuda"), FFN_SEED,
+        rate)
+    keep = ffn_keep_mask(FFN_SEED, rate, rows, H, "cuda")
+    mixed = keep.any(1) & ~keep.all(1)
+    same = torch.equal((out > 0)[mixed], keep[mixed])
+    print(f"  mask check ({rows} rows x {H}, rate 0.5): sign of #9's output "
+          f"== plain Philox mask bit for bit: {same} ({rows - int(mixed.sum())}"
+          f" rows that keep all or nothing skipped; kept share "
+          f"{keep.float().mean().item():.4f})")
+    if not same:
+        fail("the training FFN kernel's dropout mask is not the Philox mask")
+    return rows_out
+
+
+# the pretraining mix: one bucket (62 text tokens, 100 regions, B = 128),
+# each task's slots (config/uc2_pretrain.json tasks; vmlm's from
+# VmlmDataset.slot_budget)
+MIX_TASKS = ("itm", "mlm", "vmlm", "tlm")
+MIX_B, MIX_NB, MIX_STEPS = 128, 100, 3
+# dropout 0, one step of the kernel path ("pallas-train" + UC2_FFN_TRAIN=1)
+# against the eager path ("xla") for itm and vmlm: |loss difference|, grad
+# norm (relative), and the worst layer's W1 and W2 gradients (fed by #10)
+# in relative norm. Limits about 5x the first H100 readings (itm 1.5e-5,
+# 9.0e-3, 2.5e-2; vmlm 1.5e-4, 1.3e-4, 1.3e-2); an fp32 eager step is
+# printed beside them as the anchor of both bf16 paths
+MIX_LIMITS = {"itm": (1e-4, 4.5e-2, 2.0 ** -3),
+              "vmlm": (7.5e-4, 6.4e-4, 2.0 ** -4)}
+
+
+def mix_batches(cfg, n, seed):
+    """``n`` batches of each task of the mix on the card, from the port's
+    datasets and collate over a synthetic paired corpus (the cc_de
+    dataset of config/uc2_pretrain.json runs all four tasks)."""
+    with open("config/uc2_pretrain.json") as f:
+        pc = json.load(f)
+    txt_db, img_db = synth_pretrain_corpus(seed, n_imgs=N_IMGS,
+                                           txt_per_img=2,
+                                           vocab=cfg.vocab_size,
+                                           img_dim=cfg.img_dim)
+    vocab = LabelVocab(tokenize=hash_tokenize)
+    rng = np.random.default_rng(seed)
+    sets = {
+        "itm": datasets.ItmDataset(txt_db, img_db,
+                                   neg_sample_p=pc["itm_neg_prob"]),
+        "mlm": datasets.MlmDataset(txt_db, img_db),
+        "vmlm": datasets.VmlmDataset(txt_db, img_db, label_vocab=vocab,
+                                     lang="de"),
+        "tlm": datasets.TlmDataset(txt_db, img_db,
+                                   comasking_mode=pc["comasking_mode"]),
+    }
+    sets["itm"].new_epoch(rng)
+    out = {}
+    for task, ds in sets.items():
+        M = (0 if task == "itm" else type(ds).slot_budget(TRAIN_TXT, MIX_NB)
+             if task == "vmlm" else TRAIN_SLOTS)
+        spec = BucketSpec(TRAIN_TXT, MIX_NB, MIX_B, M)
+        idx = rng.permutation(len(ds))[:n * MIX_B]
+        out[task] = [on_card(b)
+                     for b in datasets.batches(ds, spec, idx, rng)]
+    return out, len(txt_db.ids)
+
+
+def ffn_grads(model):
+    """Each layer's W1 and W2 gradients."""
+    return [(lay.intermediate_dense.weight.grad,
+             lay.output_dense.weight.grad) for lay in model.roberta.layer]
+
+
+def phase_mix(card, train_busy, ffn_rows):
+    """The four tasks of the mix under "pallas-train" with UC2_FFN_TRAIN=1
+    (set here and restored after); returns #9/#10's launches over the
+    tasks' timed runs."""
+    print("== mix: uc2-base steps of itm / mlm / vmlm (de) / tlm (mix) on the "
+          "card under pallas-train with UC2_FFN_TRAIN=1 (dropout 0.1, "
+          "config/uc2_pretrain.json optimizer)")
+    saved = os.environ.get("UC2_FFN_TRAIN")
+    os.environ["UC2_FFN_TRAIN"] = "1"
+    try:
+        return _phase_mix(card, train_busy, ffn_rows)
+    finally:
+        if saved is None:
+            os.environ.pop("UC2_FFN_TRAIN")
+        else:
+            os.environ["UC2_FFN_TRAIN"] = saved
+
+
+def _phase_mix(card, train_busy, ffn_rows):
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention="pallas-train")
+    t0 = time.perf_counter()
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batches, n_txt = mix_batches(cfg, 1 + MIX_STEPS, seed=2)
+    L = TRAIN_TXT + MIX_NB
+    print(f"  model and corpus ({n_txt} paired captions of {N_IMGS} images), "
+          f"batches of (Lt={TRAIN_TXT}, Nb={MIX_NB}, B={MIX_B}) ready in "
+          f"{time.perf_counter() - t0:.1f} s; label vocabulary: hash ids")
+    layers = cfg.num_hidden_layers
+    per_step = {k.__name__: 0 for k in KERNELS}
+    per_step.update({k.__name__: layers for k in TRAIN_KERNELS + FFN_KERNELS})
+    total = dict.fromkeys((k.__name__ for k in FFN_KERNELS), 0)
+    for task in MIX_TASKS:
+        model.load_state_dict(start)
+        opt = pretrain_optimizer(model)
+        rng = DropoutRng(TRAIN_SEED, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, mets = [], []
+        for i, batch in enumerate(batches[task]):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launches()
+            t1 = time.perf_counter()
+            mets.append(train_step(model, opt, batch, rng, task=task))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = launch_counts()
+        for k in FFN_KERNELS:
+            total[k.__name__] += counts[k.__name__]
+        want = {k: v * MIX_STEPS for k, v in per_step.items()}
+        stats = [(m["loss"].item(), m["grad_norm"].item(),
+                  m["n_units"].item()) for m in mets]
+        ms = sum(times[1:]) / MIX_STEPS
+        M = batches[task][0].get("masked_pos")
+        print(f"  {task} L={L} B={MIX_B} M={0 if M is None else M.shape[1]}:"
+              f" {ms:.3f} ms/step = {MIX_B / ms * 1e3:.1f} examples/s over "
+              f"{MIX_STEPS} steps (warm-up {times[0]:.1f} ms; steps "
+              f"{', '.join(f'{t:.2f}' for t in times[1:])}), peak memory "
+              f"{peak:.2f} GiB (LM head unchunked) [{card}]")
+        print(f"    loss / grad norm / units per step: "
+              + "; ".join(f"{a:.4f} / {b:.4f} / {int(c)}" for a, b, c in stats))
+        print(f"    launches over the timed steps {counts}, expected {want}")
+        if counts != want:
+            fail(f"{task}: launches are not 12 each of #5, #6, #9 and #10 a "
+                 f"step")
+        if not all(np.isfinite(x) for r in stats for x in r[:2]):
+            fail(f"{task}: a loss or grad norm is not finite")
+
+    # a bitwise repeat of one vmlm step
+    res = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        m = train_step(model, pretrain_optimizer(model), batches["vmlm"][0],
+                       DropoutRng(7, "cuda"), task="vmlm")
+        res.append((m["loss"], m["grad_norm"]))
+    same = all(torch.equal(a, b) for a, b in zip(*res))
+    print(f"  repeat of one vmlm step (same weights and seeds): loss "
+          f"{res[0][0].item():.6f} / {res[1][0].item():.6f}, grad norm "
+          f"{res[0][1].item():.6f} / {res[1][1].item():.6f}; bitwise equal: "
+          f"{same}")
+    if not same:
+        fail("one vmlm step with the same seeds is not bitwise repeatable")
+
+    # the mlm step with the eager FFN (UC2_FFN_TRAIN unset) and with #9/#10
+    ab = {}
+    for env in ("unset", "1", "1", "unset"):
+        if env == "1":
+            os.environ["UC2_FFN_TRAIN"] = "1"
+        else:
+            os.environ.pop("UC2_FFN_TRAIN")
+        model.load_state_dict(start)
+        opt = pretrain_optimizer(model)
+        rng = DropoutRng(TRAIN_SEED, "cuda")
+        train_step(model, opt, batches["mlm"][0], rng)      # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in batches["mlm"][1:]:
+            train_step(model, opt, batch, rng)
+        torch.cuda.synchronize()
+        ab.setdefault(env, []).append((time.perf_counter() - t1) * 1e3
+                                      / MIX_STEPS)
+    os.environ["UC2_FFN_TRAIN"] = "1"
+    kern_ms = layers * (ffn_rows["fused_ffn_block_train_fwd"]["ms"]
+                        + ffn_rows["fused_ffn_block_train_bwd"]["ms"])
+    eager_ms = eager_ffn_ms(model)
+    eager = ("not measured" if eager_ms is None else
+             f"{layers} x {eager_ms:.3f} = {layers * eager_ms:.3f} ms")
+    if eager_ms is not None and train_busy is not None:
+        eager += (f" ({layers * eager_ms / train_busy:.1%} of the profiled "
+                  f"mlm step's {train_busy:.3f} ms device time)")
+    print(f"  A/B mlm step at L={L}, B={MIX_B} (runs in turns unset, set, "
+          f"set, unset): eager FFN {', '.join(f'{t:.3f}' for t in ab['unset'])}"
+          f" ms/step; FFN kernels #9/#10 "
+          f"{', '.join(f'{t:.3f}' for t in ab['1'])} ms/step [{card}]")
+    print(f"  FFN device time per step: {layers} x (#9 + #10) = {kern_ms:.3f} "
+          f"ms (CUDA events, kernel phase); eager FFN block forward + "
+          f"backward (profiler, kernels only) {eager} [{card}]")
+
+    # dropout 0: one itm and one vmlm step, kernel path vs eager path
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    lr = 4e-5
+    for task, (loss_tol, norm_rtol, w_rtol) in MIX_LIMITS.items():
+        out = {}
+        for impl, dt in (("pallas-train", "bfloat16"), ("xla", "bfloat16"),
+                         ("xla", "float32")):
+            m_ = UC2ForPretraining(
+                cfg0.replace(use_pallas_attention=impl, dtype=dt),
+                device="cuda", seed=0)
+            m_.load_state_dict(start)
+            opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
+                                  betas=(0.9, 0.98), grad_norm=5.0)
+            reset_launches()
+            met = train_step(m_, opt, batches[task][0], DropoutRng(0, "cuda"),
+                             task=task)
+            out[impl, dt] = (met["loss"].item(), met["grad_norm"].item(),
+                             [(a.clone(), b.clone()) for a, b in ffn_grads(m_)],
+                             fused_ffn_block_train_bwd.launches)
+            del m_, opt
+            torch.cuda.empty_cache()
+        kern, eager, f32 = out.values()
+
+        def apart(a, b):
+            """|loss diff|, relative grad norm diff, worst W1 / W2 layer."""
+            w = [max(((x[j] - y[j]).norm() / y[j].norm()).item()
+                     for x, y in zip(a[2], b[2])) for j in range(2)]
+            return abs(a[0] - b[0]), abs(a[1] - b[1]) / b[1], w[0], w[1]
+
+        d = apart(kern, eager)
+        ok = (d[0] <= loss_tol and d[1] <= norm_rtol and max(d[2:]) <= w_rtol
+              and (kern[3], eager[3]) == (layers, 0))
+        print(f"  {task}, one step at dropout 0, kernel path (pallas-train, "
+              f"#9/#10 launched {kern[3]} times) vs eager (xla): loss "
+              f"{kern[0]:.6f} vs {eager[0]:.6f} (|diff| {d[0]:.3e}), grad "
+              f"norm {kern[1]:.6f} vs {eager[1]:.6f} (relative {d[1]:.3e}), "
+              f"worst layer's ||dW - dW_eager|| / ||dW_eager|| of W1 / W2 "
+              f"{d[2]:.3e} / {d[3]:.3e} (tolerance: loss {loss_tol:g}, grad "
+              f"norm {norm_rtol:g} relative, W1/W2 {w_rtol:.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        for what, run in (("kernel", kern), ("eager bf16", eager)):
+            a = apart(run, f32)
+            print(f"    {what} vs eager fp32 (loss {f32[0]:.6f}, grad norm "
+                  f"{f32[1]:.6f}): loss {a[0]:.3e}, grad norm {a[1]:.3e} "
+                  f"relative, W1 / W2 {a[2]:.3e} / {a[3]:.3e}")
+        if not ok:
+            fail(f"the {task} kernel step disagrees with the eager step")
+    return total
+
+
+def eager_ffn_ms(model):
+    """Device time (torch.profiler, kernels only, so host launch gaps do
+    not count) of the eager FFN chain of one layer, forward and backward,
+    at the mix bucket's shape; None when the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+    lay = model.roberta.layer[0]
+    x = torch.randn(MIX_B, TRAIN_TXT + MIX_NB, H, device="cuda").bfloat16()
+    x.requires_grad_(True)
+    g = torch.randn_like(x)
+    rng = DropoutRng(3, "cuda")
+    rate = model.config.hidden_dropout_prob
+    params = [x] + [p for mod in (lay.intermediate_dense, lay.output_dense,
+                                  lay.output_LayerNorm)
+                    for p in (mod.weight, mod.bias)]
+
+    def step():
+        h = lay.output_dense(gelu(lay.intermediate_dense(x)))
+        out = lay.output_LayerNorm(dropout(h, rate, rng) + x)
+        torch.autograd.grad(out, params, g)
+    step()
+    torch.cuda.synchronize()
+    iters = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[0] for r in rows) / iters if rows else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    os.environ.pop("UC2_FFN_TRAIN", None)   # the mix phase sets it itself
     name, card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
     train_rows = phase_train_kernels(gen)
     rows.update(train_rows)
+    ffn_rows = phase_ffn_kernels(gen)
+    rows.update(ffn_rows)
     launches = phase_slice(card)
-    train_launches, _ = phase_train(card, train_rows)
+    train_launches, busy = phase_train(card, train_rows)
     launches.update(train_launches)
+    launches.update(phase_mix(card, busy, ffn_rows))
     for r in rows.values():
         r["launches"] = launches[r["name"]]
     if FAILURES:

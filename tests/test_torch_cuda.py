@@ -2,8 +2,9 @@
 main paths do not reach (L = 1, ragged query and row tiles, B = 1,
 strided and contiguous heads, the training kernels' length limit), the
 wrappers' refusals on CUDA tensors, the training kernels' dropout mask
-against the plain Philox mask bit for bit, and the encoder's kernel paths
-(scoring and one training step) against its eager path. Needs a CUDA device
+against the plain Philox mask bit for bit, the training FFN kernels (#9,
+#10) against their plain versions and for a bitwise repeat, and the
+encoder's kernel paths (scoring and training steps) against its eager path. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -29,6 +30,11 @@ from uc2_torch.training.step import train_step
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
                                        fused_ffn_block, fused_ffn_block_plain)
+from uc2_torch.ops.ffn_train import (
+    fused_ffn_block_train, fused_ffn_block_train_bwd,
+    fused_ffn_block_train_bwd_plain, fused_ffn_block_train_fwd,
+    fused_ffn_block_train_plain)
+from uc2_torch.ops.philox import ffn_keep_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -273,3 +279,157 @@ def test_train_step_kernel_path_matches_eager_path(gen):
     diff = torch.cat([(dk[n] - de[n]).abs().flatten() for n in dk])
     assert diff.max().item() <= 2.05e-3
     assert (diff > 1e-4).float().mean().item() <= 1e-2
+
+
+# the training FFN kernels (#9 forward, #10 backward)
+FFN_ROWS = [1, 17, 31, 33, 20736]
+# dW1, dW2 and the vector gradients are sums over every row, taken in
+# another order than the plain version's: held in relative norm
+FFN_GRAD_RTOL = 1e-3
+
+
+def _ffn_args(gen, rows, F=3072):
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.05).bfloat16()
+    x = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    return (x, w(F, H), _vec(gen, F, 0.02), w(H, F), _vec(gen, H, 0.02),
+            _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1))
+
+
+def _rel(a, b):
+    torch.cuda.synchronize()
+    a, b = a.float(), b.float()
+    assert torch.isfinite(a).all()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", FFN_ROWS)
+def test_ffn_train_kernels_match_plain(gen, rows, rate):
+    args = _ffn_args(gen, rows)
+    seed = 99 + rows
+    _close_report("fwd", fused_ffn_block_train_fwd(*args, seed, rate),
+                  fused_ffn_block_train_plain(*args, seed, rate))
+    dy = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    bwd_args = (*args[:6], seed, rate, 1e-12, dy)
+    got = fused_ffn_block_train_bwd(*bwd_args)
+    want = fused_ffn_block_train_bwd_plain(*bwd_args)
+    _close_report("dx", got[0], want[0])
+    for name, a, b in zip(("dW1", "db1", "dW2", "db2", "dgamma", "dbeta"),
+                          got[1:], want[1:]):
+        assert _rel(a, b) <= FFN_GRAD_RTOL, (name, _rel(a, b))
+
+
+def test_ffn_train_bwd_is_bitwise_repeatable(gen):
+    args = _ffn_args(gen, 2000)
+    dy = torch.randn(2000, H, generator=gen, device="cuda").bfloat16()
+    a, b = (fused_ffn_block_train_bwd(*args[:6], 5, 0.1, 1e-12, dy)
+            for _ in range(2))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_ffn_train_mask_is_the_plain_philox_mask(gen):
+    """x = 0, W2 = 0, b2 = 1, gamma = 1, beta = 0, rate 0.5: the pre-LN
+    row is 2 where kept and 0 where dropped, so the output is positive
+    exactly where the mask keeps (rows that keep all or nothing skipped)."""
+    rows, rate, seed = 256, 0.5, 41
+    x, w1, b1, _, _, _, _ = _ffn_args(gen, rows, F=256)
+    x.zero_()
+    w2 = torch.zeros(H, 256, device="cuda").bfloat16()
+    out = fused_ffn_block_train_fwd(
+        x, w1, b1, w2, torch.ones(H, device="cuda"),
+        torch.ones(H, device="cuda"), torch.zeros(H, device="cuda"), seed,
+        rate)
+    keep = ffn_keep_mask(seed, rate, rows, H, "cuda")
+    mixed = keep.any(1) & ~keep.all(1)
+    assert mixed.sum() > rows // 2
+    assert torch.equal((out > 0)[mixed], keep[mixed])
+
+
+def test_ffn_train_autograd_runs_both_kernels(gen):
+    x, w1, b1, w2, b2, gamma, beta = _ffn_args(gen, 96, F=256)
+    leaves = [t.requires_grad_(True) for t in (x, w1, b1, w2, b2, gamma,
+                                                beta)]
+    before = (fused_ffn_block_train_fwd.launches,
+              fused_ffn_block_train_bwd.launches)
+    out = fused_ffn_block_train(*leaves, 3, 0.1)
+    dy = torch.randn_like(out)
+    out.backward(dy)
+    assert (fused_ffn_block_train_fwd.launches - before[0],
+            fused_ffn_block_train_bwd.launches - before[1]) == (1, 1)
+    want = fused_ffn_block_train_bwd_plain(*(t.detach() for t in leaves[:6]),
+                                           3, 0.1, 1e-12, dy)
+    _close_report("dx", x.grad, want[0])
+    assert w1.grad.dtype == torch.bfloat16 and b1.grad.dtype == torch.float32
+    for a, b in zip((w1.grad, b1.grad, w2.grad, b2.grad, gamma.grad,
+                     beta.grad), want[1:]):
+        assert _rel(a, b) <= 2.0 ** -7        # dW rounded to bf16
+
+
+def test_ffn_train_wrappers_refuse(gen):
+    x, w1, b1, w2, b2, gamma, beta = _ffn_args(gen, 64, F=256)
+    dy = torch.zeros_like(x)
+    with pytest.raises(TypeError):                       # fp32 x
+        fused_ffn_block_train_fwd(x.float(), w1, b1, w2, b2, gamma, beta, 1,
+                                  0.1)
+    with pytest.raises(TypeError):
+        fused_ffn_block_train_bwd(x.float(), w1, b1, w2, b2, gamma, 1, 0.1,
+                                  1e-12, dy.float())
+    h = 64                                               # H != 768
+    small = (x[:, :h].contiguous(), w1[:, :h].contiguous(), b1,
+             w2[:h].contiguous(), b2[:h].contiguous(), gamma[:h].contiguous(),
+             beta[:h].contiguous())
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_fwd(*small, 1, 0.1)
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_bwd(*small[:6], 1, 0.1, 1e-12,
+                                  dy[:, :h].contiguous())
+    xt = torch.zeros(H, 64, device="cuda").bfloat16().t()   # not contiguous
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_fwd(xt, w1, b1, w2, b2, gamma, beta, 1, 0.1)
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_bwd(xt, w1, b1, w2, b2, gamma, 1, 0.1, 1e-12,
+                                  dy)
+    with pytest.raises(ValueError):                      # F not a multiple of 128
+        fused_ffn_block_train_fwd(x, w1[:192].contiguous(), b1[:192].contiguous(),
+                                  w2[:, :192].contiguous(), b2, gamma, beta,
+                                  1, 0.1)
+
+
+def test_train_step_ffn_kernel_path_matches_eager_path(gen, monkeypatch):
+    """One AdamW step at rate 0 from the same weights: "pallas-train" with
+    UC2_FFN_TRAIN=1 (#5, #6, #9 and #10 in every layer) against "xla"."""
+    monkeypatch.setenv("UC2_FFN_TRAIN", "1")
+    cfg = UC2Config(vocab_size=1000, num_hidden_layers=2,
+                    intermediate_size=256, max_position_embeddings=130,
+                    img_dim=64, dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0,
+                    use_pallas_attention="pallas-train")
+    B, Lt, Nb, M = 4, 30, 20, 6
+    mask = torch.ones(B, Lt + Nb, dtype=torch.long, device="cuda")
+    mask[0, 20:Lt] = 0
+    batch = {"input_ids": torch.randint(4, 1000, (B, Lt), generator=gen,
+                                        device="cuda"),
+             "img_feat": torch.randn(B, Nb, 64, generator=gen, device="cuda"),
+             "img_pos_feat": torch.rand(B, Nb, 7, generator=gen,
+                                        device="cuda"),
+             "attn_mask": mask,
+             "masked_pos": torch.randint(1, 20, (B, M), generator=gen,
+                                         device="cuda"),
+             "masked_weight": torch.ones(B, M, device="cuda"),
+             "txt_labels": torch.randint(4, 1000, (B, M), generator=gen,
+                                         device="cuda")}
+    out = {}
+    for impl in ("pallas-train", "xla"):
+        model = UC2ForPretraining(cfg.replace(use_pallas_attention=impl),
+                                  device="cuda", seed=3)
+        before = (fused_ffn_block_train_fwd.launches,
+                  fused_ffn_block_train_bwd.launches)
+        opt = build_optimizer(model, constant(1e-3), grad_norm=5.0)
+        m = train_step(model, opt, batch, DropoutRng(0, "cuda"))
+        launched = (fused_ffn_block_train_fwd.launches - before[0],
+                    fused_ffn_block_train_bwd.launches - before[1])
+        assert launched == ((2, 2) if impl == "pallas-train" else (0, 0))
+        out[impl] = (m["loss"].item(), m["grad_norm"].item())
+    (lk, nk), (le, ne) = out["pallas-train"], out["xla"]
+    assert abs(lk - le) <= 1e-2 and abs(nk - ne) <= 2e-2 * ne

@@ -1,8 +1,9 @@
 """uc2_torch kernel modules on the CPU: each wrapper's plain version against
 the reference package's Pallas kernel (interpret mode) at fp32, with the
 JAX kernel tests' own bar, and the wrapper's input checks; the training
-attention's dropout (Philox known answers, keep statistics, the backward
-as the gradient of the forward) and ``einsum_f32``."""
+attention's and the training FFN block's dropout (Philox known answers,
+keep statistics, each backward as the gradient of its forward) and
+``einsum_f32``."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 
 from uc2_tpu.ops.attention import _xla_attention
 from uc2_tpu.ops import fused_block as jfb
+from uc2_tpu.ops.ffn_train import fused_ffn_block_train as jax_fft
 from uc2_tpu.ops.flash_attention import flash_attention_train as jax_fat
 from uc2_tpu.ops.mp import einsum_f32 as jax_einsum_f32
 from uc2_torch.ops.flash_attention import (
@@ -19,8 +21,13 @@ from uc2_torch.ops.flash_attention import (
     flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block, fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
+from uc2_torch.ops.ffn_train import (
+    fused_ffn_block_train, fused_ffn_block_train_bwd,
+    fused_ffn_block_train_bwd_plain, fused_ffn_block_train_fwd,
+    fused_ffn_block_train_plain)
 from uc2_torch.ops.mp import einsum_f32
-from uc2_torch.ops.philox import keep_mask, philox4x32
+from uc2_torch.ops.philox import (ffn_dropout_bits, ffn_keep_mask, keep_mask,
+                                  philox4x32)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -286,3 +293,121 @@ def test_einsum_f32_matches_reference(spec, sa, sb, dtype):
         assert got.dtype == tdt
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(ref.astype(jnp.float32)), **gt)
+
+
+# ------------------------------------------------- training FFN block (#9, #10)
+FFN_NAMES = ("x", "w1", "b1", "w2", "b2", "gamma", "beta")
+
+
+def _ffn_inputs(seed, B, L, H=64, F=128):
+    """The inputs of tests/test_ffn_train.py, weights in the reference's
+    [in, out] layout."""
+    rng = np.random.default_rng(seed)
+    return (_f32(rng, B, L, H), _f32(rng, H, F, scale=0.05),
+            _f32(rng, F, scale=0.01), _f32(rng, F, H, scale=0.05),
+            _f32(rng, H, scale=0.01), 1.0 + _f32(rng, H, scale=0.1),
+            _f32(rng, H, scale=0.1))
+
+
+def _linear_layout(x, w1, b1, w2, b2, g, be):
+    return (x, np.ascontiguousarray(w1.T), b1, np.ascontiguousarray(w2.T),
+            b2, g, be)
+
+
+@pytest.mark.parametrize("B,L", [(2, 16), (1, 9)])
+def test_fused_ffn_block_train_plain_matches_pallas(B, L):
+    """rate 0: the output at 2e-5 and all seven gradients at 5e-4 against
+    the Pallas kernels in interpret mode (tests/test_ffn_train.py's bars),
+    on a row count that fills the kernel's tile and on a ragged one."""
+    import jax
+    args = _ffn_inputs(0, B, L)
+
+    def jax_loss(*a):
+        return jnp.sum(jnp.sin(jax_fft(*a, 0, 0.0, 1e-12, True)))
+
+    want = np.asarray(jax_fft(*map(jnp.asarray, args), 0, 0.0, 1e-12, True))
+    want_grads = jax.grad(jax_loss, argnums=tuple(range(7)))(
+        *map(jnp.asarray, args))
+    ts = [t.requires_grad_(True) for t in _t(*_linear_layout(*args))]
+    before = (fused_ffn_block_train_fwd.launches,
+              fused_ffn_block_train_bwd.launches)
+    out = fused_ffn_block_train(*ts, 0, 0.0)
+    np.testing.assert_allclose(out.detach().numpy(), want, **TOL)
+    torch.sin(out).sum().backward()
+    for t, w, name in zip(ts, want_grads, FFN_NAMES):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w.T if name in ("w1", "w2")
+                                   else w, rtol=5e-4, atol=5e-4, err_msg=name)
+    assert (fused_ffn_block_train_fwd.launches,        # CPU: no launches
+            fused_ffn_block_train_bwd.launches) == before
+
+
+def test_fused_ffn_block_train_bwd_plain_is_the_gradient():
+    """rate 0.3, float64: the backward formula is the gradient of the
+    forward under one seed (so both draw the same mask)."""
+    rng = np.random.default_rng(5)
+    H, F = 8, 12
+    args = [torch.from_numpy(a) for a in (
+        rng.standard_normal((1, 6, H)), rng.standard_normal((F, H)) * 0.3,
+        rng.standard_normal(F) * 0.1, rng.standard_normal((H, F)) * 0.3,
+        rng.standard_normal(H) * 0.1, 1.0 + rng.standard_normal(H) * 0.1,
+        rng.standard_normal(H) * 0.1)]
+    for a in args:
+        a.requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda *a: fused_ffn_block_train(*a, 11, 0.3), args)
+    dy = torch.from_numpy(rng.standard_normal((1, 6, H)))
+    out = fused_ffn_block_train_plain(*args, 11, 0.3)
+    auto = torch.autograd.grad(out, args, dy)
+    got = fused_ffn_block_train_bwd_plain(*args[:6], 11, 0.3, 1e-12, dy)
+    for a, b, name in zip(got, auto, FFN_NAMES):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+
+
+def test_ffn_dropout_share_scale_and_stream():
+    """The keep share, the 1/(1 - rate) scale on y2 = h.W2^T + b2 before
+    the residual, one mask per seed, and the words: Philox4x32-10 of the
+    counter (col // 4, row, 0, 1) under the key (seed, 0)."""
+    rows, H, F, rate = 40, 64, 128, 0.3
+    keep = ffn_keep_mask(5, rate, 512, H)
+    assert abs(keep.float().mean().item() - (1.0 - rate)) < 0.01
+    assert torch.equal(keep, ffn_keep_mask(5, rate, 512, H))
+    assert not torch.equal(keep, ffn_keep_mask(6, rate, 512, H))
+    x, w1, b1, w2, b2, g, be = _ffn_inputs(1, 1, rows)
+    x64 = x.reshape(rows, H).astype(np.float64)
+    a = x64 @ w1 + b1
+    from scipy.special import erf
+    h = 0.5 * a * (1.0 + erf(a / np.sqrt(2.0)))
+    k = ffn_keep_mask(9, rate, rows, H).numpy()
+    y = np.where(k, (h @ w2 + b2) / (1.0 - rate), 0.0) + x64
+    y = (y - y.mean(-1, keepdims=True)) / np.sqrt(y.var(-1, keepdims=True)
+                                                  + 1e-12)
+    got = fused_ffn_block_train_plain(*_t(*_linear_layout(x, w1, b1, w2, b2,
+                                                          g, be)), 9, rate)
+    np.testing.assert_allclose(got.reshape(rows, H).numpy(), y * g + be,
+                               rtol=1e-4, atol=1e-4)
+    bits = ffn_dropout_bits(5, 3, 10)
+    for r in range(3):
+        for c in range(10):
+            words = philox4x32(*(torch.tensor([v], dtype=torch.int64)
+                                 for v in (c // 4, r, 0, 1)), 5, 0)
+            assert int(words[c % 4]) == int(bits[r, c])
+
+
+def test_ffn_train_wrappers_raise_on_inputs_they_do_not_take():
+    H, F = 32, 64
+    args = [torch.zeros(2, 5, H), torch.zeros(F, H), torch.zeros(F),
+            torch.zeros(H, F), torch.zeros(H), torch.ones(H), torch.zeros(H)]
+    bad_w2 = list(args)
+    bad_w2[3] = torch.zeros(F, H)        # reference layout, not [out, in]
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_fwd(*bad_w2, 1, 0.1)
+    with pytest.raises(ValueError):      # neither CPU nor CUDA
+        fused_ffn_block_train_fwd(*[t.to("meta") for t in args], 1, 0.1)
+    for seed, rate in ((-1, 0.1), (2 ** 32, 0.1), (1, 1.0), (1, -0.1)):
+        with pytest.raises(ValueError):
+            fused_ffn_block_train(*args, seed, rate)
+    with pytest.raises(ValueError):      # dy of another shape
+        fused_ffn_block_train_bwd(*args[:6], 1, 0.1, 1e-12,
+                                  torch.zeros(2, 4, H))

@@ -49,17 +49,6 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
   *reinterpret_cast<uint2*>(p) = make_uint2(pack2(a, b), pack2(c, d));
 }
 
-// Four transposed 8x8 bf16 tiles from shared memory: lane l gives the row
-// address of row (l & 7) of tile (l >> 3); register r holds tile r's column
-// (lane / 4), rows 2 (lane % 4) and 2 (lane % 4) + 1.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
 // One softmax row held by a warp in 4-key groups: lane takes keys
 // 4 (lane + 32 u) .. + 3. Loads the fp32 scores of row srow and leaves
 // e = exp(s - max) / sum in place of them in registers.

@@ -57,6 +57,19 @@ __device__ __forceinline__ float2 unpack2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// Four transposed 8x8 bf16 tiles from shared memory: lane l gives the row
+// address of row (l & 7) of tile (l >> 3); register r holds tile r's column
+// (lane / 4), rows 2 (lane % 4) and 2 (lane % 4) + 1. From a tile stored
+// k-major (k rows, n contiguous) this is an mma B fragment (or, for A, the
+// fragment of A^T).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
 // 16-byte asynchronous copy global -> shared (cp.async, bypassing L1)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -324,7 +337,10 @@ __device__ __forceinline__ int out_col(int warp, int j) {
 //   out = LayerNorm(acc + vbias + residual) * gamma + beta
 // with fp32 two-pass statistics (mean, then mean squared deviation), and
 // writes the first `rows` rows as bf16. `res` may point to global or
-// shared memory; `red` is 8*32 floats of shared scratch.
+// shared memory; `red` is 8*32 floats of shared scratch. With ADD_BIAS
+// false, acc already holds its bias (the training FFN block adds it before
+// its dropout) and vbias is not read.
+template <bool ADD_BIAS = true>
 __device__ __forceinline__ void residual_layernorm(
     float (&acc)[2][12][4], const float* __restrict__ vbias, const bf16* res,
     int res_rs, const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -337,14 +353,20 @@ __device__ __forceinline__ void residual_layernorm(
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
       const int col = out_col(warp, j) + t * 2;
-      const float b0 = vbias[col], b1 = vbias[col + 1];
+      const float b0 = ADD_BIAS ? vbias[col] : 0.f;
+      const float b1 = ADD_BIAS ? vbias[col + 1] : 0.f;
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int r = m * 16 + g + 8 * hi;
         const float2 xr = r < rows ? unpack2(res + (size_t)r * res_rs + col)
                                    : make_float2(0.f, 0.f);
-        acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
-        acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
+        if (ADD_BIAS) {
+          acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
+          acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
+        } else {
+          acc[m][j][2 * hi] += xr.x;
+          acc[m][j][2 * hi + 1] += xr.y;
+        }
         part[m][hi] += acc[m][j][2 * hi] + acc[m][j][2 * hi + 1];
       }
     }

@@ -8,7 +8,9 @@
 // launch is word j % 4 of philox4x32_10((j / 4, i, b * n + h, 0), (seed, 0)),
 // kept when the word is >= the threshold floor(rate * 2^32). It depends on
 // the seed and the score's global index only, never on a tile, so the
-// forward and the backward kernel draw the same mask.
+// forward and the backward kernel draw the same mask. The training FFN
+// block's output mask (ffn_keep_bits4) is keyed the same way on the global
+// (row, column) of its [rows, H] output.
 #pragma once
 
 #include <stdint.h>
@@ -35,6 +37,17 @@ __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed, uint32_t thresh,
                                                uint32_t grp, uint32_t i,
                                                uint32_t bh) {
   const uint4 w = philox4x32_10(make_uint4(grp, i, bh, 0u), seed, 0u);
+  return (uint32_t)(w.x >= thresh) | ((uint32_t)(w.y >= thresh) << 1) |
+         ((uint32_t)(w.z >= thresh) << 2) | ((uint32_t)(w.w >= thresh) << 3);
+}
+
+// Keep bits of output row `row`, columns 4 * grp .. 4 * grp + 3, of the
+// training FFN block's [rows, H] output dropout: counter (grp, row, 0, 1),
+// key (seed, 0); counter word 3 = 1 keeps this stream apart from the
+// attention scores'. Bit r is set when column 4 * grp + r is kept.
+__device__ __forceinline__ uint32_t ffn_keep_bits4(uint32_t seed, uint32_t thresh,
+                                                   uint32_t grp, uint32_t row) {
+  const uint4 w = philox4x32_10(make_uint4(grp, row, 0u, 1u), seed, 0u);
   return (uint32_t)(w.x >= thresh) | ((uint32_t)(w.y >= thresh) << 1) |
          ((uint32_t)(w.z >= thresh) << 2) | ((uint32_t)(w.w >= thresh) << 3);
 }

@@ -1,5 +1,7 @@
-"""Static-shape batch assembly for the mlm family (a copy of the mlm part
-of uc2_tpu/data/collate.py ``collate_batch``).
+"""Static-shape batch assembly for the ported objectives (a copy of
+uc2_tpu/data/collate.py ``collate_batch``, ``BucketSpec`` and
+``default_buckets``, for the fields of mlm, tlm, tlm-ni, vmlm/mmxlm and
+itm).
 
 Every batch is padded to one bucket shape (Lt text tokens, Nb regions,
 B rows) and its prediction slots are fixed-size arrays:
@@ -28,17 +30,42 @@ class BucketSpec:
     batch_size: int
     max_masked: int = 0   # M: prediction slots
 
+    @property
+    def joint_len(self):
+        return self.txt_len + self.num_bb
+
+
+def default_buckets(max_txt_len: int = 60, max_bb: int = 100,
+                    tokens_per_batch: int = 10240,
+                    mask_frac: float = 0.5) -> List[BucketSpec]:
+    """Three buckets with about ``tokens_per_batch`` joint tokens per batch
+    (the original token-count batching at fixed shapes); batch sizes are
+    multiples of 8."""
+    shapes = [(max_txt_len // 3 + 2, min(36, max_bb)),
+              (max_txt_len * 2 // 3 + 2, min(64, max_bb)),
+              (max_txt_len + 2, max_bb)]
+    out = []
+    for lt, nb in shapes:
+        b = max(8, int(tokens_per_batch / (lt + nb)) // 8 * 8)
+        m = max(8, int((lt + nb) * mask_frac) // 8 * 8)
+        out.append(BucketSpec(lt, nb, b, m))
+    return out
+
 
 def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
                   pad_token_id: int = 1) -> Dict[str, np.ndarray]:
-    """Assemble a static-shape mlm batch from examples with ``input_ids``
-    [L], optional ``position_ids`` [L], ``img_feat`` [nbb, D],
-    ``img_pos_feat`` [nbb, 7] and ``txt_labels`` [L] (-1 = not a slot).
+    """Assemble a static-shape batch from examples with ``input_ids`` [L]
+    and, optionally, ``position_ids`` [L], ``img_feat`` [nbb, D],
+    ``img_pos_feat`` [nbb, 7], ``img_masks`` [nbb] bool (masked regions),
+    ``txt_labels`` [L] (-1 = not a slot), ``img_txt_labels`` [nbb] (the
+    token to predict at a masked region), ``img_mask_tgt`` [nbb] bool (the
+    regions that get slots, else ``img_masks``) and ``target`` (itm).
 
     Returns input_ids, attn_mask (text then regions), ex_mask (1 for real
-    rows), img_feat and img_pos_feat when any example has an image,
-    position_ids when any has them, and with ``spec.max_masked`` the slot
-    arrays (text slots in order, truncated at M)."""
+    rows), img_feat and img_pos_feat when any example has an image (masked
+    regions' features zeroed), img_masks, targets and position_ids when any
+    example has them, and with ``spec.max_masked`` the slot arrays: text
+    slots first, then region slots at joint index Lt + i, truncated at M."""
     B = spec.batch_size
     Lt, Nb, M = spec.txt_len, spec.num_bb, spec.max_masked
     if len(examples) > B:
@@ -57,6 +84,10 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         out["img_pos_feat"] = np.zeros((B, Nb, 7), np.float32)
     if any("position_ids" in e for e in examples):
         out["position_ids"] = np.full((B, Lt), pad_token_id, np.int32)
+    if any("img_masks" in e for e in examples):
+        out["img_masks"] = np.zeros((B, Nb), bool)
+    if any("target" in e for e in examples):
+        out["targets"] = np.zeros((B,), np.int32)
     if M:
         out["masked_pos"] = np.zeros((B, M), np.int32)
         out["masked_weight"] = np.zeros((B, M), np.float32)
@@ -70,18 +101,43 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         out["ex_mask"][b] = 1.0
         if "position_ids" in e:
             out["position_ids"][b, :L] = np.asarray(e["position_ids"])[:Lt]
+        nbb = 0
         if "img_feat" in e:
             feat = np.asarray(e["img_feat"])[:Nb]
             nbb = feat.shape[0]
             out["img_feat"][b, :nbb] = feat
             out["img_pos_feat"][b, :nbb] = np.asarray(e["img_pos_feat"])[:Nb]
             out["attn_mask"][b, Lt:Lt + nbb] = 1
-        if M and "txt_labels" in e:
+        if "img_masks" in e:
+            masks = np.asarray(e["img_masks"])
+            out["img_masks"][b, :nbb] = masks[:Nb]
+            # masked regions' input features are zeroed; the model adds
+            # the mask embedding on top
+            out["img_feat"][b, :nbb][masks[:nbb]] = 0.0
+        if "target" in e:
+            out["targets"][b] = e["target"]
+        if not M:
+            continue
+        txt_pos: List[int] = []
+        txt_lab: List[int] = []
+        if "txt_labels" in e:
             tl = np.asarray(e["txt_labels"])[:Lt]
-            pos = np.flatnonzero(tl != -1)[:M]
-            k = len(pos)
-            out["masked_pos"][b, :k] = pos
-            out["masked_weight"][b, :k] = 1.0
-            # label padding stays 0; weight 0 kills the padded slots' loss
-            out["txt_labels"][b, :k] = tl[pos]
+            p = np.flatnonzero(tl != -1)
+            txt_pos, txt_lab = p.tolist(), tl[p].tolist()
+        region_idx: List[int] = []
+        reg_lab: List[int] = []
+        tgt_key = ("img_mask_tgt" if "img_mask_tgt" in e
+                   else "img_masks" if "img_masks" in e else None)
+        if tgt_key is not None and "img_txt_labels" in e:
+            region_idx = np.flatnonzero(np.asarray(e[tgt_key])[:Nb]).tolist()
+            reg_lab = np.asarray(e["img_txt_labels"])[region_idx].tolist()
+        # text slots first, then regions, truncated at M
+        n_txt = min(len(txt_pos), M)
+        n_reg = min(len(region_idx), M - n_txt)
+        k = n_txt + n_reg
+        out["masked_pos"][b, :k] = txt_pos[:n_txt] + [
+            Lt + i for i in region_idx[:n_reg]]
+        out["masked_weight"][b, :k] = 1.0
+        # label padding stays 0; weight 0 kills the padded slots' loss
+        out["txt_labels"][b, :k] = txt_lab[:n_txt] + reg_lab[:n_reg]
     return out

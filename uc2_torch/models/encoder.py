@@ -27,6 +27,7 @@ from torch import nn
 from uc2_torch.config import UC2Config
 from uc2_torch.ops.attention import multi_head_attention, resolve_impl
 from uc2_torch.ops.dropout import dropout
+from uc2_torch.ops.ffn_train import ffn_train_enabled, fused_ffn_block_train
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
@@ -177,7 +178,9 @@ class EncoderLayer(nn.Module):
     -> out-projection -> LN; then the fused FFN block where
     ``fused_ffn_profitable`` says so, else the eager chain. In training
     the unfused chains run, with hidden dropout after the out-projection
-    and after the FFN."""
+    and after the FFN, except that under "pallas-train" with
+    ``UC2_FFN_TRAIN=1`` the FFN is the training FFN block
+    (``ops/ffn_train.py``, kernels #9/#10), as in the reference."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
@@ -211,12 +214,17 @@ class EncoderLayer(nn.Module):
                 self.attention(x, attn_bias, rng))
             x = self.attention_output_LayerNorm(dropout(attn_out, rate, rng)
                                                 + x)
+        inter, down = self.intermediate_dense, self.output_dense
+        ln = self.output_LayerNorm
         if fusable and (force or fused_ffn_profitable(L)):
-            inter, down = self.intermediate_dense, self.output_dense
-            ln = self.output_LayerNorm
             return fused_ffn_block(x, inter.weight.to(dt), inter.bias,
                                    down.weight.to(dt), down.bias, ln.weight,
                                    ln.bias, eps=eps)
+        if rng is not None and impl == "pallas-train" and ffn_train_enabled():
+            seed = rng.kernel_seed() if rate > 0 else 0
+            return fused_ffn_block_train(x, inter.weight.to(dt), inter.bias,
+                                         down.weight.to(dt), down.bias,
+                                         ln.weight, ln.bias, seed, rate, eps)
         h = self.output_dense(gelu(self.intermediate_dense(x)))
         return self.output_LayerNorm(dropout(h, rate, rng) + x)
 

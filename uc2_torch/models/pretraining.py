@@ -1,5 +1,6 @@
 """UC2 pretraining model: encoder + task heads (port of
-uc2_tpu/models/pretraining.py, the mlm family of objectives).
+uc2_tpu/models/pretraining.py: the mlm family, vmlm/mmxlm and
+itm without optimal transport).
 
 The module tree matches the reference's parameter tree ``{"roberta",
 "cls", "feat_regress", "region_classifier", "itm_output",
@@ -64,22 +65,21 @@ class UC2ForPretraining(nn.Module):
             from uc2_torch.models.convert import load_params
             load_params(self, params)
 
-    def _encode(self, batch, deterministic, rng, with_image=True):
+    def _encode(self, batch, deterministic, rng, with_image=True,
+                img_masks=None):
         return self.roberta(
             input_ids=batch.get("input_ids"),
             position_ids=batch.get("position_ids"),
             img_feat=batch.get("img_feat") if with_image else None,
             img_pos_feat=batch.get("img_pos_feat") if with_image else None,
             attn_mask=batch["attn_mask"],
+            img_masks=img_masks,
             img_type_ids=batch.get("img_type_ids"),
             deterministic=deterministic, rng=rng)
 
-    def forward_mlm(self, batch, deterministic=True, rng=None,
-                    with_image=True):
-        """MLM / TLM (with the image unless ``with_image=False``, the
-        tlm-ni task): predict the masked text tokens. Returns (loss_sum,
-        n_slots) for the caller to reduce."""
-        seq, _ = self._encode(batch, deterministic, rng, with_image)
+    def _lm_loss(self, seq, batch):
+        """The tied LM head at the prediction slots and its CE weighted by
+        ``masked_weight``: (loss_sum, n_slots)."""
         h = gather_slots(seq, batch["masked_pos"])
         emb = self.roberta.embeddings.word_embeddings.weight
         w = batch["masked_weight"]
@@ -95,9 +95,41 @@ class UC2ForPretraining(nn.Module):
                                            batch["txt_labels"], w)
         return loss.sum(), w.sum()
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError("uc2_torch: only the mlm/tlm/tlm-ni "
-                                  "objectives are ported so far")
+    def forward_mlm(self, batch, deterministic=True, rng=None,
+                    with_image=True):
+        """MLM / TLM (with the image unless ``with_image=False``, the
+        tlm-ni task): predict the masked text tokens. Returns (loss_sum,
+        n_slots) for the caller to reduce."""
+        seq, _ = self._encode(batch, deterministic, rng, with_image)
+        return self._lm_loss(seq, batch)
 
-    forward_mmxlm = forward_mmxlm_soft = forward_mrfr = _not_ported
-    forward_mrm_nce = forward_mrc = forward_itm = _not_ported
+    def forward_mmxlm(self, batch, deterministic=True, rng=None):
+        """Masked-region-to-token with hard targets (vmlm; mmxlm masks text
+        too, folded into the slots by the collate): the masked regions get
+        ``mask_embedding``, and the LM head predicts label-word tokens at
+        the slots. Returns (loss_sum, n_slots)."""
+        seq, _ = self._encode(batch, deterministic, rng,
+                              img_masks=batch["img_masks"])
+        return self._lm_loss(seq, batch)
+
+    def forward_itm(self, batch, deterministic=True, rng=None,
+                    compute_ot=False):
+        """Image-text matching: the ITM head on the pooled output, CE
+        against ``targets``. Returns (loss_sum, B) with B the padded batch
+        size, as the reference reduces. The optimal-transport term (IPOT)
+        is not ported yet."""
+        if compute_ot:
+            raise NotImplementedError("uc2_torch: itm with optimal transport "
+                                      "(itm-ot) is not ported yet")
+        _, pooled = self._encode(batch, deterministic, rng)
+        scores = self.itm_output(pooled)
+        loss = H.cross_entropy_with_logits(scores, batch["targets"])
+        return loss.sum(), scores.shape[0]
+
+    def _not_ported(self, *args, **kwargs):
+        raise NotImplementedError("uc2_torch: only the mlm, tlm, tlm-ni, "
+                                  "vmlm/mmxlm and itm objectives are ported "
+                                  "so far")
+
+    forward_mmxlm_soft = forward_mrfr = forward_mrm_nce = forward_mrc = \
+        _not_ported

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "uc2_fused_ffn_block": [_P] * 8 + [_I, _I, _F, _P],
     "uc2_attn_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
     "uc2_attn_train_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
+    "uc2_ffn_train_fwd": [_P] * 8 + [_I, _I, _F, _U, _U, _F, _I, _P],
+    "uc2_ffn_train_bwd": [_P] * 15 + [_I] * 3 + [_F, _U, _U, _F, _I, _P],
 }
 
 _lib = None
@@ -122,6 +124,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.uc2_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uc2_cuda_error_string.restype = ctypes.c_char_p
+        lib.uc2_ffn_train_bwd_workspace.argtypes = [_I] * 3
+        lib.uc2_ffn_train_bwd_workspace.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

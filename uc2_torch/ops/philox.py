@@ -1,5 +1,5 @@
-"""Philox4x32-10 counter-based random bits, and the attention dropout mask
-drawn from them (the plain version of ``csrc/philox.cuh``).
+"""Philox4x32-10 counter-based random bits, and the attention and FFN
+dropout masks drawn from them (the plain version of ``csrc/philox.cuh``).
 
 The training attention kernels (``csrc/attention_train.cu``) replace the
 reference's per-grid-cell TPU PRNG stream
@@ -82,3 +82,25 @@ def keep_mask(seed: int, rate: float, B: int, n: int, Lq: int, Lk: int,
               device=None) -> torch.Tensor:
     """Bool [B, n, Lq, Lk]: True where the score is kept."""
     return dropout_bits(seed, B, n, Lq, Lk, device) >= keep_threshold(rate)
+
+
+def ffn_dropout_bits(seed: int, rows: int, H: int,
+                     device=None) -> torch.Tensor:
+    """The 32-bit words of the training FFN block's [rows, H] output:
+    element (r, c) takes word c % 4 of Philox4x32-10 of the counter
+    (c // 4, r, 0, 1) under the key (seed, 0). Counter word 3 = 1 keeps
+    this stream apart from the attention scores'. [rows, H] int64."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    groups = (H + 3) // 4
+    c0 = torch.arange(groups, dtype=torch.int64, device=dev)
+    c1 = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    words = philox4x32(c0, c1, zero, zero + 1, check_seed(seed), 0)
+    bits = torch.stack([w.expand(rows, groups) for w in words], dim=-1)
+    return bits.reshape(rows, 4 * groups)[:, :H]
+
+
+def ffn_keep_mask(seed: int, rate: float, rows: int, H: int,
+                  device=None) -> torch.Tensor:
+    """Bool [rows, H]: True where the FFN block's output is kept."""
+    return ffn_dropout_bits(seed, rows, H, device) >= keep_threshold(rate)

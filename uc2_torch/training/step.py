@@ -1,11 +1,13 @@
-"""The training step (port of uc2_tpu/training/step.py for the mlm family).
+"""The training step (port of uc2_tpu/training/step.py for the mlm family,
+vmlm/mmxlm and itm).
 
 ``train_step`` runs forward, loss, backward and the optimizer update of
 one batch, or of a stacked ``[A, B, ...]`` batch whose A micro-batches
 are accumulated into one update (the reference's ``accumulated_grads``:
 gradients and metrics are the mean over the micro-batches). Losses reduce
 as the reference's: the weighted sum over the prediction slots divided by
-max(n_slots, 1).
+max(n_slots, 1), and for itm the sum over the rows divided by the padded
+batch size.
 """
 
 from __future__ import annotations
@@ -16,21 +18,35 @@ import torch
 
 from uc2_torch.training.optim import Optimizer
 
-_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}   # task -> with_image
+_MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
 
 
 def make_loss_fn(task: str) -> Callable:
     """loss_fn(model, batch, rng) -> (scalar loss, metrics) for a
-    ``UC2ForPretraining`` model; ``rng`` None means deterministic."""
+    ``UC2ForPretraining`` model; ``rng`` None means deterministic. Tasks:
+    mlm, tlm, tlm-ni, vmlm and mmxlm (loss over the prediction slots) and
+    itm (loss over the padded batch rows, as the reference reduces it)."""
     base = task.split("_")[0]
-    if base not in _TASKS:
+    if base in _MLM_TASKS:
+        def forward(model, batch, rng):
+            return model.forward_mlm(batch, deterministic=rng is None,
+                                     rng=rng, with_image=_MLM_TASKS[base])
+    elif base in ("vmlm", "mmxlm"):
+        def forward(model, batch, rng):
+            return model.forward_mmxlm(batch, deterministic=rng is None,
+                                       rng=rng)
+    elif base == "itm":
+        def forward(model, batch, rng):
+            s, b = model.forward_itm(batch, deterministic=rng is None,
+                                     rng=rng)
+            return s, torch.full((), float(b), device=s.device)
+    else:
         raise NotImplementedError(f"uc2_torch: task {task!r} is not ported "
-                                  f"yet (mlm, tlm and tlm-ni are)")
-    with_image = _TASKS[base]
+                                  f"yet (mlm, tlm, tlm-ni, vmlm, mmxlm and "
+                                  f"itm are)")
 
     def loss_fn(model, batch, rng):
-        s, n = model.forward_mlm(batch, deterministic=rng is None, rng=rng,
-                                 with_image=with_image)
+        s, n = forward(model, batch, rng)
         loss = s / torch.clamp(n, min=1.0)
         return loss, {"loss": loss.detach(), "n_units": n.detach()}
 
