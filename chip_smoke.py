@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
-pretraining step, and the pretraining task mix of config/uc2_pretrain.json
-(itm, mlm, vmlm, tlm) with the training FFN kernels.
+pretraining step, the pretraining task mix of config/uc2_pretrain.json
+(itm, mlm, vmlm, tlm) with the training FFN kernels, and mlm pretraining on
+long captions (joint L up to 512).
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -31,7 +32,12 @@ non-zero at the end, without the result lines:
      against their plain versions (and #10 against autograd of the plain
      forward) at the training buckets' rows, rates 0.1 and 0, with times
      and bounds, and #9's dropout mask against the plain Philox mask;
-  6. mix: full-width uc2-base steps of the four tasks of
+  6. long-L kernels: #4 (the inference forward that streams K and V)
+     against its plain version at (B, L) = (16, 512), (4, 419), (4, 450),
+     timed beside #1 and SDPA at (16, 512); #5 and the split #6 (and each
+     split part) against their plain versions at (24, 339) and (16, 512),
+     rates 0.1 and 0, a bitwise repeat of #6, the mask at L = 512;
+  7. mix: full-width uc2-base steps of the four tasks of
      config/uc2_pretrain.json (itm, mlm, vmlm in German, tlm with 'mix'
      co-masking) at L = 162, B = 128 under "pallas-train" with
      UC2_FFN_TRAIN=1, on batches from the port's datasets and collate over
@@ -39,7 +45,16 @@ non-zero at the end, without the result lines:
      launches of #5, #6, #9 and #10 per step (12 each), a bitwise repeat of
      a vmlm step, itm and vmlm steps against the eager path at dropout 0,
      and the mlm step with and without the FFN kernels;
-  7. a JSON line of per-kernel numbers, then the last line
+  8. long captions: full-width uc2-base mlm steps on captions of up to 410
+     tokens, the three buckets of default_buckets(410, 100, 10240) (joint
+     L = 174, 339, 512 at B = 56, 24, 16) interleaved as MetaLoader ->
+     PrefetchLoader give them: under "pallas" at dropout 0.1, ms/step,
+     examples/s and peak memory per bucket, 12 launches each of #5 and #6
+     a step (#6 split above L = 256), finite losses, a bitwise repeat of
+     an L = 512 step; then at dropout 0 one step per bucket (12 launches
+     of #4 at L = 512, of #1 below) against the eager path, and the
+     kernel path's ms/step there;
+  9. a JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
 Without a GPU it exits non-zero before printing any result.
 """
@@ -58,9 +73,12 @@ import torch.nn.functional as F
 
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets
-from uc2_torch.data.collate import BucketSpec
+from uc2_torch.data.collate import BucketSpec, default_buckets
 from uc2_torch.data.labels import LabelVocab, hash_tokenize
-from uc2_torch.data.memdb import synth_gallery, synth_pretrain_corpus
+from uc2_torch.data.loader import (MetaLoader, PrefetchLoader, TaskLoader,
+                                   task_batch_to_device)
+from uc2_torch.data.memdb import (MemImgDb, MemTxtDb, synth_gallery,
+                                  synth_pretrain_corpus)
 from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
@@ -72,9 +90,13 @@ from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train_bwd, fused_ffn_block_train_bwd_plain,
     fused_ffn_block_train_fwd, fused_ffn_block_train_plain)
 from uc2_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain, flash_attention_train_bwd,
-    flash_attention_train_bwd_plain, flash_attention_train_fwd,
-    flash_attention_train_plain)
+    SINGLE_BWD_MAX_LEN, flash_attention, flash_attention_long,
+    flash_attention_long_plain, flash_attention_plain,
+    flash_attention_train_bwd, flash_attention_train_bwd_dkdv,
+    flash_attention_train_bwd_dkdv_plain, flash_attention_train_bwd_dq,
+    flash_attention_train_bwd_dq_plain, flash_attention_train_bwd_plain,
+    flash_attention_train_fwd, flash_attention_train_plain,
+    flash_attention_v3, uses_long_kernel)
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
                                        fused_block_profitable,
@@ -99,7 +121,10 @@ SCORE_TOL = 5e-2
 KERNELS = (flash_attention, fused_attn_block, fused_ffn_block)
 TRAIN_KERNELS = (flash_attention_train_fwd, flash_attention_train_bwd)
 FFN_KERNELS = (fused_ffn_block_train_fwd, fused_ffn_block_train_bwd)
-ALL_KERNELS = KERNELS + TRAIN_KERNELS + FFN_KERNELS
+# #4 and the split parts of #6 (joint L > 256)
+LONG_KERNELS = (flash_attention_long, flash_attention_train_bwd_dq,
+                flash_attention_train_bwd_dkdv)
+ALL_KERNELS = KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
 # (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
 TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
@@ -136,6 +161,11 @@ def reset_launches():
 
 def launch_counts():
     return {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+def no_launches():
+    """Every kernel's count at 0: the base of an expected count."""
+    return {k.__name__: 0 for k in ALL_KERNELS}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -210,7 +240,9 @@ def phase_device():
     build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s -> {path}")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:   # the kernel, mangled
+            print("  " + line.split("'")[1][:90])
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
     return name, card
 
@@ -258,7 +290,7 @@ def phase_kernels(gen):
         q, k, v, bias = heads(gen, b, L)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bias16 = bias.bfloat16()
-        run_case(rows, "flash_attention", b, L, flash_attention,
+        run_case(rows, "flash_attention", b, L, flash_attention_v3,
                  flash_attention_plain, (q, k, v, bias),
                  4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
                  library=lambda: F.scaled_dot_product_attention(
@@ -332,7 +364,8 @@ def phase_slice(card):
     n_txt, L_of = len(txt_db.ids), [TXT_LEN + e for e in edges]
     batches = [n_txt * -(-int(c) // B) for c in per_bucket]
     layers = cfg.num_hidden_layers
-    expect = {
+    expect = no_launches()
+    expect.update({
         "flash_attention": layers * sum(
             nb for nb, L in zip(batches, L_of)
             if not fused_block_profitable(L, N)),
@@ -341,7 +374,7 @@ def phase_slice(card):
             if fused_block_profitable(L, N)),
         "fused_ffn_block": layers * sum(
             nb for nb, L in zip(batches, L_of) if fused_ffn_profitable(L)),
-    }
+    })
 
     reset_launches()
     torch.cuda.synchronize()
@@ -352,7 +385,6 @@ def phase_slice(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    expect.update({k.__name__: 0 for k in TRAIN_KERNELS + FFN_KERNELS})
     print(f"  buckets (L={L_of}): {per_bucket.tolist()} images, "
           f"{batches} scored batches of {B}")
     print(f"  launches {launches}, expected {expect}")
@@ -649,7 +681,7 @@ def phase_train(card, train_rows):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         counts = launch_counts()
         steps = len(batches)
-        want = {k.__name__: 0 for k in KERNELS + FFN_KERNELS}
+        want = no_launches()
         want.update({k.__name__: layers * steps for k in TRAIN_KERNELS})
         for k in TRAIN_KERNELS:
             total[k.__name__] += counts[k.__name__]
@@ -960,7 +992,7 @@ def _phase_mix(card, train_busy, ffn_rows):
           f"batches of (Lt={TRAIN_TXT}, Nb={MIX_NB}, B={MIX_B}) ready in "
           f"{time.perf_counter() - t0:.1f} s; label vocabulary: hash ids")
     layers = cfg.num_hidden_layers
-    per_step = {k.__name__: 0 for k in KERNELS}
+    per_step = no_launches()
     per_step.update({k.__name__: layers for k in TRAIN_KERNELS + FFN_KERNELS})
     total = dict.fromkeys((k.__name__ for k in FFN_KERNELS), 0)
     for task in MIX_TASKS:
@@ -1133,23 +1165,391 @@ def eager_ffn_ms(model):
     return sum(r[0] for r in rows) / iters if rows else None
 
 
+# ------------------------------------------------------------ long captions
+LONG_ROWS = {
+    "flash_attention_long": dict(
+        name="flash_attention_long", route="cuda",
+        source="uc2_torch/csrc/attention_long.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:33"),
+    "flash_attention_train_bwd_dq": dict(
+        name="flash_attention_train_bwd_dq", route="cuda",
+        source="uc2_torch/csrc/attention_train.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:311"),
+    "flash_attention_train_bwd_dkdv": dict(
+        name="flash_attention_train_bwd_dkdv", route="cuda",
+        source="uc2_torch/csrc/attention_train.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:311"),
+}
+STATS = ("row max", "1 / row sum", "D")
+
+
+def phase_long_kernels(gen):
+    """#4 against its plain version at (B, L) = (16, 512), (4, 419) and
+    (4, 450), timed beside #1 and SDPA at (16, 512); #5 and the split #6
+    (and each split part on its own) against their plain versions at
+    (24, 339) and (16, 512), rates 0.1 and 0, with a bitwise repeat of #6;
+    the forward's mask at L = 512. The rows' times are those of
+    (16, 512), rate 0.1."""
+    print("== long-L attention kernels vs plain (#4 inference forward; #5 "
+          "and the split #6 beyond L = 256; plain: fp32 compute on the same "
+          "bf16 inputs)")
+    rows = {k: dict(v) for k, v in LONG_ROWS.items()}
+    for b, L in ((16, 512), (4, 419), (4, 450)):
+        q, k, v, bias = heads(gen, b, L)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bias16 = bias.bfloat16()
+        report = (b, L) == (16, 512)
+        run_case(rows, "flash_attention_long", b, L, flash_attention_long,
+                 flash_attention_long_plain, (q, k, v, bias),
+                 4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
+                 library=lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=bias16), report=report)
+        if report:
+            v3_ms = time_ms(lambda: flash_attention_v3(q, k, v, bias))
+            print(f"    #1 (batch-blocked, flash_attention_v3) at B={b} L={L}:"
+                  f" {v3_ms:.4f} ms; #4 / #1 = "
+                  f"{rows['flash_attention_long']['ms'] / v3_ms:.3f}")
+    dq_row, kv_row = (rows["flash_attention_train_bwd_dq"],
+                      rows["flash_attention_train_bwd_dkdv"])
+    names = ("dq", "dk", "dv", "dbias")
+    for b, L in ((24, 339), (16, 512)):
+        q, k, v, bias = heads(gen, b, L)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            args = (q, k, v, bias, TRAIN_SEED, rate)
+            tag = f"B={b} L={L} rate={rate}"
+            compare(f"#5 {tag}", flash_attention_train_fwd(*args),
+                    flash_attention_train_plain(*args))
+            got = flash_attention_train_bwd(*args, g)
+            for nm, a, w in zip(names, got,
+                                flash_attention_train_bwd_plain(*args, g)):
+                compare(f"#6 (split) {nm} {tag}", a, w)
+            auto = plain_autograd(q, k, v, bias, rate, g)
+            for nm, a, w in zip(names[:3], got, auto):
+                compare(f"#6 (split) {nm} vs autograd of plain fwd {tag}", a,
+                        w)
+            compare_norm(f"#6 (split) dbias vs autograd of plain fwd {tag}",
+                         got[3], auto[3], 2.0 ** -7)
+            again = flash_attention_train_bwd(*args, g)
+            same = all(torch.equal(a, w) for a, w in zip(got, again))
+            print(f"  #6 (split) {tag}: two calls bitwise equal: {same}")
+            if not same:
+                fail(f"the split #6 at {tag} is not bitwise repeatable")
+            # each part on the same inputs as its plain version
+            dq, st = flash_attention_train_bwd_dq(*args, g)
+            pdq, pst = flash_attention_train_bwd_dq_plain(*args, g)
+            e1 = compare(f"#6 dq part dq {tag}", dq, pdq)
+            for i, nm in enumerate(STATS):
+                e1 = max(e1, compare(f"#6 dq part {nm} {tag}", st[i], pst[i]))
+            part = flash_attention_train_bwd_dkdv(*args, g, pst)
+            want = flash_attention_train_bwd_dkdv_plain(*args, g, pst)
+            e2 = max(compare(f"#6 dk/dv part {nm} {tag}", a, w) for nm, a, w in
+                     zip(("dk", "dv", "dbias partials"), part, want))
+            dq_row["max_abs_err"] = max(dq_row.get("max_abs_err", 0.0), e1)
+            kv_row["max_abs_err"] = max(kv_row.get("max_abs_err", 0.0), e2)
+            if rate == 0.0:
+                continue
+            act = b * L * H * 2
+            fwd_ms = time_ms(lambda: flash_attention_train_fwd(*args))
+            bwd_ms = time_ms(lambda: flash_attention_train_bwd(*args, g))
+            lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
+            fb, _ = bound(4 * act + b * L * 4, 4 * b * N * L * L * D)
+            bb, _ = bound(7 * act + b * L * 4 + b * N * L * 4,
+                          10 * b * N * L * L * D)
+            lib = ("n/a" if lib_f is None
+                   else f"{lib_f:.4f} / {lib_b:.4f} ms")
+            print(f"    {tag}: #5 {fwd_ms:.4f} ms (bound {fb:.4f}), #6 (dq + "
+                  f"dk/dv parts) {bwd_ms:.4f} ms (bound {bb:.4f}); SDPA "
+                  f"forward / autograd backward {lib}")
+            if (b, L) != (16, 512):
+                continue
+            for row, kern, plain, nbytes, flops in (
+                    (dq_row, lambda: flash_attention_train_bwd_dq(*args, g),
+                     lambda: flash_attention_train_bwd_dq_plain(*args, g),
+                     5 * act + b * L * 4 + 3 * b * N * L * 4,
+                     6 * b * N * L * L * D),
+                    (kv_row,
+                     lambda: flash_attention_train_bwd_dkdv(*args, g, pst),
+                     lambda: flash_attention_train_bwd_dkdv_plain(*args, g,
+                                                                  pst),
+                     6 * act + b * L * 4 + 4 * b * N * L * 4,
+                     8 * b * N * L * L * D)):
+                row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+                           library_ms=None)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, "
+                      f"plain {row['plain_ms']:.4f} ms, library none (no "
+                      f"single PyTorch call computes a part), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # the mask, exactly, at L = 512: q = k = 0, bias 0, v = the first 64
+    # columns of I make output column c the dropped, rescaled P[:, c]
+    L, rate = 512, 0.5
+    z = torch.zeros(1, L, 1, D, device="cuda").bfloat16()
+    eye = torch.eye(L, D, device="cuda").bfloat16().reshape(1, L, 1, D)
+    out = flash_attention_train_fwd(z, z, eye, torch.zeros(1, 1, 1, L,
+                                                           device="cuda"),
+                                    TRAIN_SEED, rate)[0, :, 0, :]
+    keep = keep_mask(TRAIN_SEED, rate, 1, 1, L, L, "cuda")[0, 0, :, :D]
+    same = torch.equal(out != 0, keep) and bool((out[keep] == 2.0 / L).all())
+    print(f"  mask check (L = 512, keys 0..63, rate 0.5): #5's zeros == plain "
+          f"Philox mask bit for bit: {same}")
+    if not same:
+        fail("the training kernel's dropout mask at L = 512 is not the "
+             "Philox mask")
+    return rows
+
+
+# pretrain.py's buckets for captions of up to 410 tokens, 100 regions and
+# config/uc2_pretrain.json's 10240 tokens a batch: joint L = 174 / 339 / 512
+# at B = 56 / 24 / 16 (default_buckets)
+LONG_TXT, LONG_BB, LONG_TOKENS, LONG_SEED = 410, 100, 10240, 5
+LONG_STEPS = 3        # timed steps per bucket, after each bucket's first
+LONG_MAX_STEPS = 48   # the stream must give every bucket 1 + LONG_STEPS
+# dropout 0, one step per bucket, "pallas" (#1 or #4 forward, the eager
+# recompute backward) against "xla" (eager): |loss difference|, grad norm
+# (relative), and the deepest layer's (layer 0's) Q, K and V projection
+# gradients in relative norm; set before the first run to the train
+# phase's limits for the mlm step (whose kernel path also replaced the
+# backward)
+LONG_LIMITS = (STEP_LOSS_TOL, STEP_NORM_RTOL, STEP_QKV_RTOL)
+
+
+def long_corpus(cfg, seed):
+    """Long captions, as pretrain.py reads them with --max_txt_len 410: 768
+    paired captions of 3..200 words a language over 96 images of 10..100
+    regions, and 512 of 3..45 words over 64 images of 10..36 regions (so
+    that the L = 174 bucket fills its batches of 56 about as often as the
+    others fill theirs); texts of more than 410 tokens are dropped."""
+    parts = [synth_pretrain_corpus(seed, n_imgs=96, txt_per_img=8,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim,
+                                   max_words=200),
+             synth_pretrain_corpus(seed + 1, n_imgs=64, txt_per_img=8,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim,
+                                   max_bb=36, max_words=45)]
+    records, feats = {}, {}
+    for i, (txt, img) in enumerate(parts):
+        for name, rec in txt.records.items():
+            records[f"{i}/{name}"] = dict(rec,
+                                          img_fname=f"{i}/{rec['img_fname']}")
+        feats.update({f"{i}/{k}": f for k, f in img.feats.items()})
+    return (MemTxtDb(records, vocab=cfg.vocab_size, max_txt_len=LONG_TXT),
+            MemImgDb(feats))
+
+
+def phase_long(card):
+    """Long-caption mlm steps at full width, fed by MetaLoader ->
+    PrefetchLoader: under "pallas" at dropout 0.1 (#5 and #6, split above
+    L = 256), then one step per bucket at dropout 0 (#1 or #4) against
+    the eager path; returns the launches of #4 and the split parts."""
+    print("== long captions: uc2-base mlm steps on the card at joint L = 174 "
+          "/ 339 / 512 under \"pallas\" (dropout 0.1, config/uc2_pretrain.json "
+          "optimizer), batches from MetaLoader -> PrefetchLoader")
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention="pallas")
+    t0 = time.perf_counter()
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    txt_db, img_db = long_corpus(cfg, LONG_SEED)
+    task = TaskLoader("mlm", datasets.MlmDataset(txt_db, img_db),
+                      default_buckets(LONG_TXT, LONG_BB, LONG_TOKENS),
+                      seed=LONG_SEED)
+    specs = task.buckets
+    bucket_of = {s.joint_len: i for i, s in enumerate(specs)}
+    print(f"  model and corpus ({len(txt_db.ids)} of {len(txt_db.records)} "
+          f"captions within {LONG_TXT} tokens) ready in "
+          f"{time.perf_counter() - t0:.1f} s; buckets (Lt, Nb, B, M) "
+          f"{[(s.txt_len, s.num_bb, s.batch_size, s.max_masked) for s in specs]}")
+    layers = cfg.num_hidden_layers
+    opt = pretrain_optimizer(model)
+    rng = DropoutRng(TRAIN_SEED, "cuda")
+    runs = [dict(times=[], peak=0.0, stats=[], bad=0) for _ in specs]
+    first = {}
+    pre = PrefetchLoader(MetaLoader({"mlm": task}, seed=LONG_SEED), depth=2,
+                         device_put=task_batch_to_device("cuda"))
+    order = []
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        while min(len(r["times"]) for r in runs) < 1 + LONG_STEPS:
+            if len(order) == LONG_MAX_STEPS:
+                fatal(f"{LONG_MAX_STEPS} steps gave a bucket fewer than "
+                      f"{1 + LONG_STEPS} batches: {[len(r['times']) for r in runs]}")
+            _, batch = next(pre)
+            L = batch["attn_mask"].shape[1]
+            bi = bucket_of[L]
+            order.append(bi)
+            first.setdefault(bi, batch)
+            before = launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            met = train_step(model, opt, batch, rng)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            after = launch_counts()
+            want = no_launches()
+            split = layers if L > SINGLE_BWD_MAX_LEN else 0
+            want.update(flash_attention_train_fwd=layers,
+                        flash_attention_train_bwd=layers,
+                        flash_attention_train_bwd_dq=split,
+                        flash_attention_train_bwd_dkdv=split)
+            r = runs[bi]
+            r["bad"] += {k: after[k] - before[k] for k in after} != want
+            r["times"].append(ms)
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated() / 2 ** 30)
+            r["stats"].append((met["loss"].item(), met["grad_norm"].item(),
+                               met["n_units"].item()))
+    finally:
+        pre.close()
+    counts = launch_counts()
+    print(f"  {len(order)} steps in the stream's order (bucket per step): "
+          f"{order}")
+    for spec, r in zip(specs, runs):
+        L = spec.joint_len
+        split = L > SINGLE_BWD_MAX_LEN
+        ms = sum(r["times"][1:]) / (len(r["times"]) - 1)
+        print(f"  L={L} B={spec.batch_size} M={spec.max_masked}: {ms:.3f} "
+              f"ms/step = {spec.batch_size / ms * 1e3:.1f} examples/s over "
+              f"{len(r['times']) - 1} steps (first {r['times'][0]:.1f} ms; "
+              f"steps {', '.join(f'{t:.2f}' for t in r['times'][1:])}), peak "
+              f"memory {r['peak']:.2f} GiB [{card}]")
+        print(f"    loss / grad norm / slots per step: " + "; ".join(
+            f"{a:.4f} / {b:.4f} / {int(c)}" for a, b, c in r["stats"]))
+        print(f"    launches per step: {layers} each of #5 and #6"
+              + (f", #6 as the split pair ({layers} each of its parts)"
+                 if split else " (the single kernel)")
+              + f", no other kernel: {'ok' if not r['bad'] else 'FAIL'} "
+              f"({r['bad']} steps off)")
+        if r["bad"]:
+            fail(f"long captions, L={L}: launches are not {layers} each of "
+                 f"#5 and #6 a step")
+        if not all(np.isfinite(x) for s in r["stats"] for x in s[:2]):
+            fail(f"long captions, L={L}: a loss or grad norm is not finite")
+    print(f"  launches over the run {counts}")
+
+    # a bitwise repeat of one L = 512 step
+    batch = first[bucket_of[specs[-1].joint_len]]
+    res = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        m = train_step(model, pretrain_optimizer(model), batch,
+                       DropoutRng(7, "cuda"))
+        res.append((m["loss"], m["grad_norm"]))
+    same = all(torch.equal(a, b) for a, b in zip(*res))
+    print(f"  repeat of one L={specs[-1].joint_len} step (same weights and "
+          f"seeds): loss {res[0][0].item():.6f} / {res[1][0].item():.6f}, grad "
+          f"norm {res[0][1].item():.6f} / {res[1][1].item():.6f}; bitwise "
+          f"equal: {same}")
+    if not same:
+        fail("one long-caption step with the same seeds is not bitwise "
+             "repeatable")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # dropout 0: one step per bucket, "pallas" against "xla"; then the
+    # kernel path's ms/step on the same batch
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    paths = {impl: UC2ForPretraining(cfg0.replace(use_pallas_attention=impl),
+                                     device="cuda", seed=0)
+             for impl in ("pallas", "xla")}
+    loss_tol, norm_rtol, qkv_rtol = LONG_LIMITS
+    lr = 4e-5
+    reset_launches()
+    for bi, spec in enumerate(specs):
+        L = spec.joint_len
+        out = {}
+        for impl, m_ in paths.items():
+            m_.load_state_dict(start)
+            m_.zero_grad(set_to_none=True)
+            opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
+                                  betas=(0.9, 0.98), grad_norm=5.0)
+            rng0 = DropoutRng(0, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            met = train_step(m_, opt, first[bi], rng0)
+            qkv = [g.clone() for g in
+                   m_.roberta.layer[0].attention.qkv.weight.grad.split(H)]
+            times = []
+            for _ in range(LONG_STEPS if impl == "pallas" else 0):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                train_step(m_, opt, first[bi], rng0)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            after = launch_counts()
+            out[impl] = (met["loss"].item(), met["grad_norm"].item(), qkv,
+                         {k: after[k] - before[k] for k in after}, times,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+            del opt
+        (lk, nk, gk, ck, times, peak), (le, ne, ge, ce, _, _) = out.values()
+        want = no_launches()
+        want["flash_attention_long" if uses_long_kernel(N, L)
+             else "flash_attention"] = layers * (1 + LONG_STEPS)
+        rel = [((a - b).norm() / b.norm()).item() for a, b in zip(gk, ge)]
+        ok = (abs(lk - le) <= loss_tol and abs(nk - ne) <= norm_rtol * ne
+              and max(rel) <= qkv_rtol and ck == want and ce == no_launches())
+        print(f"  L={L}, one step at dropout 0, kernel path (\"pallas\": "
+              f"{ck['flash_attention']} launches of #1, "
+              f"{ck['flash_attention_long']} of #4 over {1 + LONG_STEPS} "
+              f"steps) vs eager (\"xla\"): loss "
+              f"{lk:.6f} vs {le:.6f} (|diff| {abs(lk - le):.3e}), grad norm "
+              f"{nk:.6f} vs {ne:.6f} (relative {abs(nk - ne) / ne:.3e}), "
+              f"layer 0's ||dW - dW_eager|| / ||dW_eager|| of Q / K / V "
+              f"{rel[0]:.3e} / {rel[1]:.3e} / {rel[2]:.3e} (tolerance: loss "
+              f"{loss_tol:g}, grad norm {norm_rtol:g} relative, Q/K/V "
+              f"{qkv_rtol:.3e}; launches {layers} a step of "
+              f"{'#4' if uses_long_kernel(N, L) else '#1'}) "
+              f"{'ok' if ok else 'FAIL'}")
+        ms = sum(times) / len(times)
+        print(f"    kernel path at dropout 0: {ms:.3f} ms/step = "
+              f"{spec.batch_size / ms * 1e3:.1f} examples/s over {len(times)} "
+              f"steps after the compared one (steps "
+              f"{', '.join(f'{t:.2f}' for t in times)}), peak memory "
+              f"{peak:.2f} GiB [{card}]")
+        if not ok:
+            fail(f"long captions, L={L}: the dropout-0 kernel step disagrees "
+                 f"with the eager step or launched other kernels")
+    zero = launch_counts()
+    print(f"  launches over the dropout-0 steps {zero}")
+    del paths
+    torch.cuda.empty_cache()
+    return {"flash_attention_long": zero["flash_attention_long"],
+            "flash_attention_train_bwd_dq":
+                counts["flash_attention_train_bwd_dq"],
+            "flash_attention_train_bwd_dkdv":
+                counts["flash_attention_train_bwd_dkdv"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
     os.environ.pop("UC2_FFN_TRAIN", None)   # the mix phase sets it itself
-    name, card = phase_device()
+    start = time.perf_counter()
+
+    def timed(phase, *args):
+        """Run one phase and print its wall time."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    name, card = timed(phase_device)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase_kernels(gen)
-    train_rows = phase_train_kernels(gen)
+    rows = timed(phase_kernels, gen)
+    train_rows = timed(phase_train_kernels, gen)
     rows.update(train_rows)
-    ffn_rows = phase_ffn_kernels(gen)
+    ffn_rows = timed(phase_ffn_kernels, gen)
     rows.update(ffn_rows)
-    launches = phase_slice(card)
-    train_launches, busy = phase_train(card, train_rows)
+    rows.update(timed(phase_long_kernels, gen))
+    launches = timed(phase_slice, card)
+    train_launches, busy = timed(phase_train, card, train_rows)
     launches.update(train_launches)
-    launches.update(phase_mix(card, busy, ffn_rows))
+    launches.update(timed(phase_mix, card, busy, ffn_rows))
+    launches.update(timed(phase_long, card))
+    print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]
     if FAILURES:

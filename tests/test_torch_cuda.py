@@ -1,10 +1,13 @@
 """uc2_torch CUDA kernels against their plain versions at edge shapes the
 main paths do not reach (L = 1, ragged query and row tiles, B = 1,
-strided and contiguous heads, the training kernels' length limit), the
-wrappers' refusals on CUDA tensors, the training kernels' dropout mask
-against the plain Philox mask bit for bit, the training FFN kernels (#9,
-#10) against their plain versions and for a bitwise repeat, and the
-encoder's kernel paths (scoring and training steps) against its eager path. Needs a CUDA device
+strided and contiguous heads, the training kernels' length limits: the
+single backward kernel's last length, the split pair's first and the
+encoder's 512), the long-L inference kernel (#4) and the dispatch between
+it and #1, the wrappers' refusals on CUDA tensors, the training kernels'
+dropout mask against the plain Philox mask bit for bit, the split
+backward's bitwise repeat, the training FFN kernels (#9, #10) against
+their plain versions and for a bitwise repeat, and the encoder's kernel
+paths (scoring and training steps) against its eager path. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -20,10 +23,13 @@ from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops.dropout import DropoutRng
 from uc2_torch.ops.flash_attention import (
-    TRAIN_MAX_LEN, flash_attention, flash_attention_plain,
-    flash_attention_train, flash_attention_train_bwd,
-    flash_attention_train_bwd_plain, flash_attention_train_fwd,
-    flash_attention_train_plain)
+    SINGLE_BWD_MAX_LEN, flash_attention, flash_attention_long,
+    flash_attention_long_plain, flash_attention_plain, flash_attention_train,
+    flash_attention_train_bwd, flash_attention_train_bwd_dkdv,
+    flash_attention_train_bwd_dkdv_plain, flash_attention_train_bwd_dq,
+    flash_attention_train_bwd_dq_plain, flash_attention_train_bwd_plain,
+    flash_attention_train_fwd, flash_attention_train_plain,
+    flash_attention_v3)
 from uc2_torch.ops.philox import keep_mask
 from uc2_torch.training.optim import build_optimizer, constant
 from uc2_torch.training.step import train_step
@@ -84,7 +90,52 @@ def _vec(gen, n, scale, offset=0.0):
 def test_flash_attention_kernel_matches_plain(gen, B, L, strided):
     q, k, v = _heads(gen, B, L, strided)
     bias = _bias(gen, B, L)
-    _close(flash_attention(q, k, v, bias), flash_attention_plain(q, k, v, bias))
+    _close(flash_attention_v3(q, k, v, bias),
+           flash_attention_plain(q, k, v, bias))
+
+
+# kernel #4: the rows of the dispatch's long side, ragged query and key
+# tiles, B = 1 and 3
+@pytest.mark.parametrize("B,L,strided", [(1, 419, True), (3, 450, False),
+                                         (3, 512, True), (1, 512, False),
+                                         (1, 1, True), (2, 97, True)])
+def test_flash_attention_long_kernel_matches_plain(gen, B, L, strided):
+    q, k, v = _heads(gen, B, L, strided)
+    bias = _bias(gen, B, L)
+    before = flash_attention_long.launches
+    _close(flash_attention_long(q, k, v, bias),
+           flash_attention_long_plain(q, k, v, bias))
+    assert flash_attention_long.launches == before + 1
+
+
+def test_flash_attention_routes_as_the_reference(gen):
+    """#1 up to L = 418 at 12 heads, #4 from 419 (n L^2 4 B > 8 MiB); the
+    eager-recompute backward behind both."""
+    for L, long in ((418, False), (419, True)):
+        q, k, v = _heads(gen, 1, L, strided=True)
+        bias = _bias(gen, 1, L)
+        before = (flash_attention.launches, flash_attention_long.launches)
+        _close(flash_attention(q, k, v, bias),
+               flash_attention_plain(q, k, v, bias))
+        assert (flash_attention.launches - before[0],
+                flash_attention_long.launches - before[1]) == (
+                    (0, 1) if long else (1, 0))
+    q.requires_grad_(True)
+    flash_attention(q, k, v, bias).float().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+
+
+def test_flash_attention_long_refuses(gen):
+    q, k, v = _heads(gen, 1, 419, strided=False)
+    bias = _bias(gen, 1, 419)
+    with pytest.raises(ValueError):                      # head_dim 32
+        flash_attention_long(*(t[..., :32].contiguous() for t in (q, k, v)),
+                             bias)
+    q2, k2, v2 = _heads(gen, 1, 513, strided=False)     # past the limit
+    with pytest.raises(ValueError):
+        flash_attention_long(q2, k2, v2, _bias(gen, 1, 513))
+    with pytest.raises(TypeError):                       # fp32 activations
+        flash_attention_long(q.float(), k.float(), v.float(), bias)
 
 
 @pytest.mark.parametrize("B,L", [(1, 1), (2, 33), (1, 300), (1, 512)])
@@ -166,7 +217,7 @@ def test_encoder_kernel_path_matches_eager_path(gen, impl, Nb):
 
 
 # the training kernels: forward and backward against their plain versions
-TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, TRAIN_MAX_LEN)]
+TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, SINGLE_BWD_MAX_LEN)]
 
 
 def _close_report(what, out, ref, atol=ATOL, rtol=RTOL):
@@ -223,10 +274,12 @@ def test_attention_train_autograd_runs_both_kernels(gen):
 
 
 def test_attention_train_wrappers_refuse(gen):
-    q, k, v = _heads(gen, 1, TRAIN_MAX_LEN + 1, strided=False)
-    bias = _bias(gen, 1, TRAIN_MAX_LEN + 1)
+    q, k, v = _heads(gen, 1, 513, strided=False)
+    bias = _bias(gen, 1, 513)
     with pytest.raises(ValueError):                      # past the limit
         flash_attention_train_fwd(q, k, v, bias, 1, 0.1)
+    with pytest.raises(ValueError):
+        flash_attention_train_bwd(q, k, v, bias, 1, 0.1, q)
     q, k, v = _heads(gen, 2, 16, strided=False)
     bias = _bias(gen, 2, 16)
     with pytest.raises(TypeError):                       # fp32 activations
@@ -237,6 +290,70 @@ def test_attention_train_wrappers_refuse(gen):
         flash_attention_train_fwd(qt, k, v, bias, 1, 0.1)
     with pytest.raises(ValueError):
         flash_attention_train_bwd(qt, k, v, bias, 1, 0.1, q)
+    with pytest.raises(ValueError):                      # the split pair
+        flash_attention_train_bwd_dq(q, k, v, bias, 1, 0.1, q)  # below 257
+    q, k, v = _heads(gen, 1, 300, strided=False)
+    with pytest.raises(ValueError):                      # head_dim 32
+        flash_attention_train_bwd(*(t[..., :32].contiguous()
+                                    for t in (q, k, v)), _bias(gen, 1, 300),
+                                  1, 0.1, q[..., :32].contiguous())
+
+
+# beyond the single backward kernel: #5 and the split #6
+LONG_TRAIN_CASES = [(1, 257), (2, 339), (1, 512)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", LONG_TRAIN_CASES)
+def test_attention_train_long_kernels_match_plain(gen, B, L, rate):
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    seed = 99 + L
+    _close_report("fwd", flash_attention_train_fwd(q, k, v, bias, seed, rate),
+                  flash_attention_train_plain(q, k, v, bias, seed, rate))
+    before = [f.launches for f in (flash_attention_train_bwd,
+                                   flash_attention_train_bwd_dq,
+                                   flash_attention_train_bwd_dkdv)]
+    got = flash_attention_train_bwd(q, k, v, bias, seed, rate, g)
+    assert [f.launches - b for f, b in zip(
+        (flash_attention_train_bwd, flash_attention_train_bwd_dq,
+         flash_attention_train_bwd_dkdv), before)] == [1, 1, 1]
+    want = flash_attention_train_bwd_plain(q, k, v, bias, seed, rate, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_report(name, a, b)
+    # dbias sums n * L terms per key in another order: in relative norm
+    assert _rel(got[3], want[3]) <= 1e-3
+    # each part against its plain version on the same inputs
+    dq, stats = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate, g)
+    pdq, pstats = flash_attention_train_bwd_dq_plain(q, k, v, bias, seed,
+                                                     rate, g)
+    _close_report("dq part", dq, pdq)
+    for i in range(3):
+        _close_report(f"stats {i}", stats[i], pstats[i])
+    dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate,
+                                                 g, pstats)
+    pdk, pdv, pdbp = flash_attention_train_bwd_dkdv_plain(
+        q, k, v, bias, seed, rate, g, pstats)
+    _close_report("dk part", dk, pdk)
+    _close_report("dv part", dv, pdv)
+    assert _rel(dbp, pdbp) <= 1e-3
+    # no atomics: a second call gives the same bits
+    again = flash_attention_train_bwd(q, k, v, bias, seed, rate, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_train_mask_at_512_is_the_plain_philox_mask(gen):
+    """q = k = 0, bias 0, v = the first 64 columns of I: output column c of
+    row i is Pd[i, c] for c < 64 (keys 0..63 of 512)."""
+    L, rate, seed = 512, 0.5, 78
+    q = torch.zeros(1, L, 1, D, device="cuda").bfloat16()
+    v = torch.eye(L, D, device="cuda").bfloat16().reshape(1, L, 1, D)
+    bias = torch.zeros(1, 1, 1, L, device="cuda")
+    out = flash_attention_train_fwd(q, q, v, bias, seed, rate)[0, :, 0, :]
+    keep = keep_mask(seed, rate, 1, 1, L, L, "cuda")[0, 0, :, :D]
+    assert torch.equal(out != 0, keep)
+    assert torch.all(out[keep] == 2.0 / L)
 
 
 def test_train_step_kernel_path_matches_eager_path(gen):

@@ -1,7 +1,7 @@
 """Static-shape batch assembly for the ported objectives (a copy of
-uc2_tpu/data/collate.py ``collate_batch``, ``BucketSpec`` and
-``default_buckets``, for the fields of mlm, tlm, tlm-ni, vmlm/mmxlm and
-itm).
+uc2_tpu/data/collate.py ``collate_batch``, ``BucketSpec``,
+``default_buckets`` and ``pick_bucket``, for the fields of mlm, tlm,
+tlm-ni, vmlm/mmxlm and itm).
 
 Every batch is padded to one bucket shape (Lt text tokens, Nb regions,
 B rows) and its prediction slots are fixed-size arrays:
@@ -17,7 +17,7 @@ packer gives the same arrays).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -50,6 +50,16 @@ def default_buckets(max_txt_len: int = 60, max_bb: int = 100,
         m = max(8, int((lt + nb) * mask_frac) // 8 * 8)
         out.append(BucketSpec(lt, nb, b, m))
     return out
+
+
+def pick_bucket(buckets: Sequence[BucketSpec], txt_len: int,
+                num_bb: int) -> Optional[int]:
+    """Index of the smallest bucket that fits (buckets sorted ascending),
+    or None."""
+    for i, s in enumerate(buckets):
+        if txt_len <= s.txt_len and num_bb <= s.num_bb:
+            return i
+    return None
 
 
 def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,

@@ -26,13 +26,19 @@ def special_ids(vocab: int = 250002):
 class MemTxtDb:
     """Tokenized texts: ``ids``, ``id2len``, ``db[id] -> {"input_ids",
     "img_fname", ...}``, ``combine_inputs``, ``txt2img``, ``img2txts`` and
-    the meta fields ``cls_``, ``sep``, ``mask`` and ``v_range``."""
+    the meta fields ``cls_``, ``sep``, ``mask`` and ``v_range``.
+
+    As the reference's TxtTokDb, ``ids`` holds only the texts of at most
+    ``max_txt_len`` tokens (-1: all); longer ones are dropped, not
+    truncated, while ``id2len``, ``txt2img`` and ``img2txts`` keep every
+    record."""
 
     def __init__(self, records: Dict[str, Dict], cls_: int = CLS,
-                 sep: int = SEP, vocab: int = 250002):
+                 sep: int = SEP, vocab: int = 250002, max_txt_len: int = -1):
         self.records = records
-        self.ids: List[str] = list(records)
         self.id2len = {t: len(r["input_ids"]) for t, r in records.items()}
+        self.ids: List[str] = [t for t, n in self.id2len.items()
+                               if max_txt_len == -1 or n <= max_txt_len]
         self.cls_ = cls_
         self.sep = sep
         meta = special_ids(vocab)
@@ -117,7 +123,8 @@ def _bb7(bb):
 def synth_pretrain_corpus(seed: int, n_imgs: int, txt_per_img: int,
                           vocab: int = 250002, img_dim: int = 2048,
                           n_classes: int = 1601, min_bb: int = 10,
-                          max_bb: int = 100, max_words: int = 12
+                          max_bb: int = 100, max_words: int = 12,
+                          max_txt_len: int = -1
                           ) -> Tuple[MemTxtDb, MemImgDb]:
     """A pretraining corpus drawn as uc2_tpu/data/synth.py ``synth_corpus``
     draws one, in the same order from the same seed: per image (named
@@ -128,7 +135,8 @@ def synth_pretrain_corpus(seed: int, n_imgs: int, txt_per_img: int,
     ``paired=True`` records): 3..max_words words per language, 1-2
     subtokens per word, word alignments (each lang1 word aligned with
     probability 0.8 to one lang2 word) and the raw layout lang1 [SEP, SEP]
-    lang2, the fields that tlm's co-masking reads."""
+    lang2, the fields that tlm's co-masking reads. ``max_txt_len`` is the
+    text database's length filter (``MemTxtDb``)."""
     rng = np.random.default_rng(seed)
     v_range = special_ids(vocab)["v_range"]
     fnames = [f"coco_{i:06d}.npz" for i in range(n_imgs)]
@@ -166,4 +174,5 @@ def synth_pretrain_corpus(seed: int, n_imgs: int, txt_per_img: int,
                 "input_ids_lang2": ids2, "word2ids_lang1": w2i_1,
                 "word2ids_lang2": w2i_2, "lang1_lang2_walign": walign,
                 "langs": ["en", "de"], "input_ids": ids1 + [SEP, SEP] + ids2}
-    return MemTxtDb(records, vocab=vocab), MemImgDb(feats, soft)
+    return (MemTxtDb(records, vocab=vocab, max_txt_len=max_txt_len),
+            MemImgDb(feats, soft))

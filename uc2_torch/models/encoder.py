@@ -20,6 +20,8 @@ deterministic, as in the reference.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -180,7 +182,9 @@ class EncoderLayer(nn.Module):
     the unfused chains run, with hidden dropout after the out-projection
     and after the FFN, except that under "pallas-train" with
     ``UC2_FFN_TRAIN=1`` the FFN is the training FFN block
-    (``ops/ffn_train.py``, kernels #9/#10), as in the reference."""
+    (``ops/ffn_train.py``, kernels #9/#10), as in the reference. Where
+    the reference would run the QKV-in-kernel block (kernel #7, selected
+    by ``UC2_ATTN_V2`` on the fused route) this raises: #7 is not ported."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
@@ -205,6 +209,12 @@ class EncoderLayer(nn.Module):
         L = x.shape[1]
         if fusable and (force or fused_block_profitable(
                 L, cfg.num_attention_heads)):
+            if os.environ.get("UC2_ATTN_V2"):
+                raise NotImplementedError(
+                    "uc2_torch: UC2_ATTN_V2 selects the attention block with "
+                    "the QKV projection in the kernel (kernel #7, "
+                    "uc2_tpu/ops/fused_block.py fused_attn_block_v2), which "
+                    "the port has no counterpart of yet")
             q, k, v = self.attention.heads(x)
             od, ln = self.attention_output_dense, self.attention_output_LayerNorm
             x = fused_attn_block(q, k, v, attn_bias, x, od.weight.to(dt),

@@ -1,20 +1,30 @@
 """Attention kernels (port of uc2_tpu/ops/flash_attention.py).
 
-* ``flash_attention``: the inference forward, kernel in
-  ``csrc/attention.cu``; its backward is the eager recompute through
+* ``flash_attention``: the inference forward. It routes as the reference's
+  ``_fwd_dispatch``: kernel #1 (``flash_attention_v3``, batch-blocked,
+  ``csrc/attention.cu``) while one batch row's fp32 [n, L, L] scores fit
+  8 MiB, kernel #4 (``flash_attention_long``, K/V streamed,
+  ``csrc/attention_long.cu``) above (``uses_long_kernel``: L >= 419 at 12
+  heads). Both backwards are the eager recompute through
   ``xla_attention``, as the reference's ``_fa_bwd``.
 * ``flash_attention_train``: training attention with probs dropout inside
-  the kernels, forward ``flash_attention_train_fwd`` and backward
-  ``flash_attention_train_bwd`` (``csrc/attention_train.cu``). The
-  dropout mask is Philox4x32-10 keyed on (seed, global score index)
-  (``ops/philox.py``), so the backward redraws the forward's mask.
+  the kernels, forward ``flash_attention_train_fwd`` (#5) and backward
+  ``flash_attention_train_bwd`` (#6; ``csrc/attention_train.cu``), both
+  for joint lengths 1..512. The backward is one kernel up to L = 256 and,
+  above, the split pair ``flash_attention_train_bwd_dq`` and
+  ``flash_attention_train_bwd_dkdv``. The dropout mask is Philox4x32-10
+  keyed on (seed, global score index) (``ops/philox.py``), so every
+  backward kernel redraws the forward's mask.
 
 Each kernel wrapper launches its CUDA kernel on CUDA tensors and counts
-the launch in ``<wrapper>.launches``; on CPU tensors it runs the plain
-PyTorch version beside it (``flash_attention_plain``,
-``flash_attention_train_plain``, ``flash_attention_train_bwd_plain``).
-Any other input raises: there is no fallback from a CUDA tensor to a
-plain version.
+the launch in ``<wrapper>.launches`` (#1's in ``flash_attention.launches``;
+``flash_attention_train_bwd.launches`` counts each backward, single kernel
+or split pair); on CPU tensors it runs the plain PyTorch version beside it
+(``flash_attention_plain``, ``flash_attention_long_plain``,
+``flash_attention_train_plain``, ``flash_attention_train_bwd_plain``,
+``flash_attention_train_bwd_dq_plain``,
+``flash_attention_train_bwd_dkdv_plain``). Any other input raises: there is
+no fallback from a CUDA tensor to a plain version.
 """
 
 from __future__ import annotations
@@ -29,9 +39,30 @@ from uc2_torch.ops.philox import check_seed, keep_mask, keep_threshold
 
 HEAD_DIM = 64        # head width the kernels take
 MAX_LEN = 512        # joint-length limit of the encoder
-TRAIN_MAX_LEN = 256  # the training backward keeps dK, dV of every key on chip
+# the single backward kernel keeps dK, dV of every key in registers up to
+# this length; longer rows take the split pair
+SINGLE_BWD_MAX_LEN = 256
+LONG_KERNEL_BYTES = 8 * 1024 * 1024
 
 flash_attention_plain = xla_attention
+
+
+def uses_long_kernel(n: int, L: int) -> bool:
+    """True where the reference's ``_fwd_dispatch`` takes ``_fwd_pallas``
+    (#4) over the batch-blocked kernel: one batch row's fp32 scores,
+    n * L * L * 4 bytes, above 8 MiB."""
+    return n * L * L * 4 > LONG_KERNEL_BYTES
+
+
+def flash_attention_long_plain(q, k, v, bias):
+    """Kernel #4's function (the reference's ``_attn_kernel``) in plain
+    PyTorch: fp32 scores * (1 / sqrt(d)) + bias, a max-shifted softmax
+    normalised in fp32 and rounded to v's dtype, P.v with fp32 sums,
+    returned in v's dtype."""
+    p = _probs(q, k, bias)
+    ct = p.dtype
+    ctx = torch.einsum("bnlm,bmnd->blnd", p.to(v.dtype).to(ct), v.to(ct))
+    return ctx.to(v.dtype)
 
 
 def check_heads(q, k, v, bias):
@@ -104,15 +135,27 @@ def _check_len(what: str, d: int, L: int, limit: int):
 
 
 # ------------------------------------------------------------- inference
-def _flash_attention_kernel(q, k, v, bias):
+def _v3_kernel(q, k, v, bias):
     B, L, n, d = q.shape
-    _check_len("flash_attention", d, L, MAX_LEN)
+    _check_len("flash_attention_v3", d, L, MAX_LEN)
     rs = heads_row_stride(q, k, v)
     out = torch.empty((B, L, n, d), dtype=q.dtype, device=q.device)
     build.launch("uc2_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), B, L, n, rs,
                  1.0 / math.sqrt(d), device=q.device)
     flash_attention.launches += 1
+    return out
+
+
+def _long_kernel(q, k, v, bias):
+    B, L, n, d = q.shape
+    _check_len("flash_attention_long", d, L, MAX_LEN)
+    rs = heads_row_stride(q, k, v)
+    out = torch.empty((B, L, n, d), dtype=q.dtype, device=q.device)
+    build.launch("uc2_attn_long_fwd", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, L, n, rs,
+                 1.0 / math.sqrt(d), device=q.device)
+    flash_attention_long.launches += 1
     return out
 
 
@@ -129,33 +172,57 @@ def _grads_of(fn, inputs, needs, g):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward, eager-recompute backward (the reference's
-    ``_fa_bwd``: the vjp of ``_xla_attention``)."""
+    """Kernel forward (``kernel``: #1 or #4), eager-recompute backward (the
+    reference's ``_fa_bwd``: the vjp of ``_xla_attention``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
+    def forward(ctx, q, k, v, bias, kernel):
         ctx.save_for_backward(q, k, v, bias)
-        return _flash_attention_kernel(q, k, v, bias)
+        return kernel(q, k, v, bias)
 
     @staticmethod
     def backward(ctx, g):
-        return _grads_of(xla_attention, ctx.saved_tensors,
-                         ctx.needs_input_grad, g)
+        return (*_grads_of(xla_attention, ctx.saved_tensors,
+                           ctx.needs_input_grad[:4], g), None)
+
+
+def _inference(what, kernel, plain, q, k, v, bias):
+    check_heads(q, k, v, bias)
+    dev = check_device((q, k, v, bias), what)
+    if dev.type == "cpu":
+        return plain(q, k, v, bias)
+    check_kernel_inputs(what, bf16=(q, k, v), fp32=(bias,),
+                        has_backward=True)
+    return _FlashAttention.apply(q, k, v, bias, kernel)
+
+
+def flash_attention_v3(q, k, v, bias):
+    """Kernel #1, the batch-blocked forward, at any L up to 512: q, k, v
+    [B, L, n, d]; bias [B, 1, 1, L] additive fp32. Returns
+    softmax(q.k^T/sqrt(d) + bias).v as [B, L, n, d]."""
+    return _inference("flash_attention_v3", _v3_kernel, flash_attention_plain,
+                      q, k, v, bias)
+
+
+def flash_attention_long(q, k, v, bias):
+    """Kernel #4, the forward that streams K and V, at any L up to 512;
+    arguments and result as ``flash_attention_v3``."""
+    return _inference("flash_attention_long", _long_kernel,
+                      flash_attention_long_plain, q, k, v, bias)
 
 
 def flash_attention(q, k, v, bias):
     """q, k, v [B, L, n, d]; bias [B, 1, 1, L] additive fp32.
-    Returns softmax(q.k^T/sqrt(d) + bias).v as [B, L, n, d]."""
+    Returns softmax(q.k^T/sqrt(d) + bias).v as [B, L, n, d], from kernel #4
+    where ``uses_long_kernel`` says so and from kernel #1 elsewhere."""
     check_heads(q, k, v, bias)
-    dev = check_device((q, k, v, bias), "flash_attention")
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, bias)
-    check_kernel_inputs("flash_attention", bf16=(q, k, v), fp32=(bias,),
-                        has_backward=True)
-    return _FlashAttention.apply(q, k, v, bias)
+    if uses_long_kernel(q.shape[2], q.shape[1]):
+        return flash_attention_long(q, k, v, bias)
+    return flash_attention_v3(q, k, v, bias)
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0        # kernel #1's launches
+flash_attention_long.launches = 0
 
 
 # -------------------------------------------------------------- training
@@ -164,13 +231,18 @@ def _sum_dtype(t):
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _probs(q, k, bias):
-    """Max-shifted softmax of q.k^T/sqrt(d) + bias in the sum dtype,
-    [B, n, L, L]."""
+def _scores(q, k, bias):
+    """q.k^T/sqrt(d) + bias in the sum dtype, [B, n, L, L]."""
     ct = _sum_dtype(q)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("blnd,bmnd->bnlm", q.to(ct), k.to(ct))
-    return torch.softmax(s * scale + bias.to(ct), dim=-1)
+    return s * scale + bias.to(ct)
+
+
+def _probs(q, k, bias):
+    """Max-shifted softmax of q.k^T/sqrt(d) + bias in the sum dtype,
+    [B, n, L, L]."""
+    return torch.softmax(_scores(q, k, bias), dim=-1)
 
 
 def _keep(seed, rate, q):
@@ -183,6 +255,16 @@ def _check_rate(rate: float) -> float:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     return rate
+
+
+def _dprobs(g, v, keep, rate):
+    """dP = keep ? (g.v^T)/(1 - rate) : 0 in the sum dtype, [B, n, L, L]."""
+    ct = _sum_dtype(g)
+    dp = torch.einsum("blnd,bmnd->bnlm", g.to(ct), v.to(ct))
+    if keep is None:
+        return dp
+    return torch.where(keep, dp * (1.0 / (1.0 - rate)),
+                       torch.zeros((), dtype=ct, device=dp.device))
 
 
 def flash_attention_train_plain(q, k, v, bias, seed: int, rate: float):
@@ -216,9 +298,7 @@ def flash_attention_train_bwd_plain(q, k, v, bias, seed: int, rate: float,
     pd = p if keep is None else torch.where(keep, p * (1.0 / (1.0 - rate)),
                                             zero)
     dv = torch.einsum("bnlm,blnd->bmnd", pd.to(g.dtype).to(ct), g.to(ct))
-    dp = torch.einsum("blnd,bmnd->bnlm", g.to(ct), v.to(ct))
-    if keep is not None:
-        dp = torch.where(keep, dp * (1.0 / (1.0 - rate)), zero)
+    dp = _dprobs(g, v, keep, rate)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dsl = ds.to(q.dtype).to(ct)
     dq = torch.einsum("bnlm,bmnd->blnd", dsl, k.to(ct)) * scale
@@ -228,11 +308,58 @@ def flash_attention_train_bwd_plain(q, k, v, bias, seed: int, rate: float,
             db.to(bias.dtype))
 
 
+def flash_attention_train_bwd_dq_plain(q, k, v, bias, seed: int,
+                                       rate: float, g):
+    """The split backward's first kernel in plain PyTorch: (dq, stats),
+    stats [3, B, n, L] in the sum dtype holding each query row's score max,
+    1 / sum_k exp(s - max) and D = sum_k dP * P; dq as in
+    ``flash_attention_train_bwd_plain``."""
+    s = _scores(q, k, bias)
+    mx = s.amax(dim=-1)
+    inv = 1.0 / torch.exp(s - mx[..., None]).sum(dim=-1)
+    p = torch.softmax(s, dim=-1)
+    keep = _keep(seed, rate, q) if rate > 0.0 else None
+    dp = _dprobs(g, v, keep, rate)
+    D = (dp * p).sum(dim=-1)
+    ds = p * (dp - D[..., None])
+    ct = p.dtype
+    dq = torch.einsum("bnlm,bmnd->blnd", ds.to(q.dtype).to(ct),
+                      k.to(ct)) / math.sqrt(q.shape[-1])
+    return dq.to(q.dtype), torch.stack([mx, inv, D])
+
+
+def flash_attention_train_bwd_dkdv_plain(q, k, v, bias, seed: int,
+                                         rate: float, g, stats):
+    """The split backward's second kernel in plain PyTorch: (dk, dv,
+    dbias_part) from the first's statistics, with P = exp(s - max) * (1 /
+    sum) and dbias_part [B, n, L] = dS summed over the queries (the wrapper
+    of #6 sums it over heads)."""
+    mx, inv, D = stats
+    s = _scores(q, k, bias)
+    p = torch.exp(s - mx[..., None]) * inv[..., None]
+    ct = p.dtype
+    zero = torch.zeros((), dtype=ct, device=p.device)
+    keep = _keep(seed, rate, q) if rate > 0.0 else None
+    pd = p if keep is None else torch.where(keep, p * (1.0 / (1.0 - rate)),
+                                            zero)
+    dv = torch.einsum("bnlm,blnd->bmnd", pd.to(g.dtype).to(ct), g.to(ct))
+    ds = p * (_dprobs(g, v, keep, rate) - D[..., None])
+    dk = torch.einsum("bnlm,blnd->bmnd", ds.to(q.dtype).to(ct),
+                      q.to(ct)) / math.sqrt(q.shape[-1])
+    return dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=2).to(bias.dtype)
+
+
 def _train_kernel_checks(what, q, k, v, bias):
     check_kernel_inputs(what, bf16=(q, k, v), fp32=(bias,),
                         has_backward=True)
-    _check_len(what, q.shape[3], q.shape[1], TRAIN_MAX_LEN)
+    _check_len(what, q.shape[3], q.shape[1], MAX_LEN)
     return heads_row_stride(q, k, v)
+
+
+def _drop_args(seed: int, rate: float):
+    """The kernels' dropout arguments: seed, threshold, 1 / (1 - rate) and
+    whether to drop at all."""
+    return (seed, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
 
 
 def flash_attention_train_fwd(q, k, v, bias, seed: int, rate: float):
@@ -249,8 +376,7 @@ def flash_attention_train_fwd(q, k, v, bias, seed: int, rate: float):
     out = torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
     build.launch("uc2_attn_train_fwd", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, L, n, rs,
-                 1.0 / math.sqrt(d), seed, keep_threshold(rate),
-                 1.0 / (1.0 - rate), int(rate > 0.0), device=dev)
+                 1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
     flash_attention_train_fwd.launches += 1
     return out
 
@@ -258,16 +384,92 @@ def flash_attention_train_fwd(q, k, v, bias, seed: int, rate: float):
 flash_attention_train_fwd.launches = 0
 
 
+def _bwd_checks(what, q, k, v, bias, g, seed, rate):
+    check_heads(q, k, v, bias)
+    if g.shape != q.shape:
+        raise ValueError(f"g must be {tuple(q.shape)}, got {tuple(g.shape)}")
+    dev = check_device((q, k, v, bias, g), what)
+    return dev, check_seed(seed), _check_rate(rate)
+
+
+def _split_checks(what, q, k, v, bias, g):
+    rs = _train_kernel_checks(what, q, k, v, bias)
+    check_kernel_inputs(what, bf16=(g,), has_backward=True)
+    if q.shape[1] <= SINGLE_BWD_MAX_LEN:
+        raise ValueError(f"{what}: the split backward takes joint lengths "
+                         f"{SINGLE_BWD_MAX_LEN + 1}..{MAX_LEN}, got "
+                         f"{q.shape[1]}")
+    return rs
+
+
+def flash_attention_train_bwd_dq(q, k, v, bias, seed: int, rate: float, g):
+    """The split backward's first kernel (#6 at 256 < L <= 512): (dq,
+    stats) for the output gradient g, stats [3, B, n, L] fp32 as
+    ``flash_attention_train_bwd_dq_plain`` defines them."""
+    dev, seed, rate = _bwd_checks("flash_attention_train_bwd_dq", q, k, v,
+                                  bias, g, seed, rate)
+    if dev.type == "cpu":
+        return flash_attention_train_bwd_dq_plain(q, k, v, bias, seed, rate,
+                                                  g)
+    rs = _split_checks("flash_attention_train_bwd_dq", q, k, v, bias, g)
+    B, L, n, d = q.shape
+    g = g.contiguous()
+    dq = torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
+    stats = torch.empty((3, B, n, L), dtype=torch.float32, device=dev)
+    build.launch("uc2_attn_train_bwd_dq", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                 stats.data_ptr(), B, L, n, rs, 1.0 / math.sqrt(d),
+                 *_drop_args(seed, rate), device=dev)
+    flash_attention_train_bwd_dq.launches += 1
+    return dq, stats
+
+
+flash_attention_train_bwd_dq.launches = 0
+
+
+def flash_attention_train_bwd_dkdv(q, k, v, bias, seed: int, rate: float, g,
+                                   stats, need_dbias: bool = True):
+    """The split backward's second kernel: (dk, dv, dbias_part) from the
+    first's ``stats``; dbias_part [B, n, L] fp32 (None unless
+    ``need_dbias``) is dS summed over the queries of each head."""
+    dev, seed, rate = _bwd_checks("flash_attention_train_bwd_dkdv", q, k, v,
+                                  bias, g, seed, rate)
+    B, L, n, d = q.shape
+    if tuple(stats.shape) != (3, B, n, L) or stats.device != dev:
+        raise ValueError(f"stats must be [3, B, n, L] = {(3, B, n, L)} on "
+                         f"{dev}, got {tuple(stats.shape)} on {stats.device}")
+    if dev.type == "cpu":
+        dk, dv, dbp = flash_attention_train_bwd_dkdv_plain(
+            q, k, v, bias, seed, rate, g, stats)
+        return dk, dv, (dbp if need_dbias else None)
+    rs = _split_checks("flash_attention_train_bwd_dkdv", q, k, v, bias, g)
+    check_kernel_inputs("flash_attention_train_bwd_dkdv", fp32=(stats,),
+                        has_backward=True)
+    g = g.contiguous()
+    dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
+              for _ in range(2))
+    dbp = (torch.empty((B, n, L), dtype=torch.float32, device=dev)
+           if need_dbias else None)
+    build.launch("uc2_attn_train_bwd_dkdv", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                 stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 0 if dbp is None else dbp.data_ptr(), B, L, n, rs,
+                 1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
+    flash_attention_train_bwd_dkdv.launches += 1
+    return dk, dv, dbp
+
+
+flash_attention_train_bwd_dkdv.launches = 0
+
+
 def flash_attention_train_bwd(q, k, v, bias, seed: int, rate: float, g,
                               need_dbias: bool = True):
     """Kernel #6: the training attention backward, (dq, dk, dv, dbias) for
     the output gradient g [B, L, n, d]; dbias is None unless
-    ``need_dbias``. The mask is redrawn from ``seed``."""
-    check_heads(q, k, v, bias)
-    if g.shape != q.shape:
-        raise ValueError(f"g must be {tuple(q.shape)}, got {tuple(g.shape)}")
-    dev = check_device((q, k, v, bias, g), "flash_attention_train_bwd")
-    seed, rate = check_seed(seed), _check_rate(rate)
+    ``need_dbias``. The mask is redrawn from ``seed``. One kernel up to
+    L = 256, the split pair above; either counts as one launch of #6."""
+    dev, seed, rate = _bwd_checks("flash_attention_train_bwd", q, k, v, bias,
+                                  g, seed, rate)
     if dev.type == "cpu":
         dq, dk, dv, db = flash_attention_train_bwd_plain(q, k, v, bias, seed,
                                                          rate, g)
@@ -277,16 +479,21 @@ def flash_attention_train_bwd(q, k, v, bias, seed: int, rate: float, g,
                         has_backward=True)
     B, L, n, d = q.shape
     g = g.contiguous()
-    dq, dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
-                  for _ in range(3))
-    dbp = (torch.empty((B, n, L), dtype=torch.float32, device=dev)
-           if need_dbias else None)
-    build.launch("uc2_attn_train_bwd", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(),
-                 0 if dbp is None else dbp.data_ptr(), B, L, n, rs,
-                 1.0 / math.sqrt(d), seed, keep_threshold(rate),
-                 1.0 / (1.0 - rate), int(rate > 0.0), device=dev)
+    if L > SINGLE_BWD_MAX_LEN:
+        dq, stats = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate, g)
+        dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed,
+                                                     rate, g, stats,
+                                                     need_dbias)
+    else:
+        dq, dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
+                      for _ in range(3))
+        dbp = (torch.empty((B, n, L), dtype=torch.float32, device=dev)
+               if need_dbias else None)
+        build.launch("uc2_attn_train_bwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     0 if dbp is None else dbp.data_ptr(), B, L, n, rs,
+                     1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
     flash_attention_train_bwd.launches += 1
     db = None if dbp is None else dbp.sum(dim=1).reshape(B, 1, 1, L)
     return dq, dk, dv, db
