@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
 pretraining step, the pretraining task mix of config/uc2_pretrain.json
-(itm, mlm, vmlm, tlm) with the training FFN kernels, and mlm pretraining on
-long captions (joint L up to 512).
+(itm, mlm, vmlm, tlm) with the training FFN kernels, mlm pretraining on
+long captions (joint L up to 512), and the two routes of the attention
+dispatch beyond the default: scoring with UC2_ATTN_V2=1 (the QKV
+projection inside the attention block) and use_pallas_attention="flash"
+(scoring, and training at attention dropout 0).
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -54,13 +57,35 @@ non-zero at the end, without the result lines:
      an L = 512 step; then at dropout 0 one step per bucket (12 launches
      of #4 at L = 512, of #1 below) against the eager path, and the
      kernel path's ms/step there;
-  9. a JSON line of per-kernel numbers, then the last line
+  9. route kernels: #7 against its plain version at (B, L) = (64, 128)
+     and (64, 162); #12 (and its row statistics) at (64, 128), (64, 162)
+     and (16, 512), timed beside SDPA with a boolean segment mask on the
+     padded tensors; #12a and #12b each against its plain version on the
+     same inputs at (160, 128), (128, 162) and (16, 512), the three
+     through autograd against the plain backward, a bitwise repeat, and
+     their times beside SDPA's autograd backward;
+ 10. routes: full-width uc2-base full_retrieval_eval over a gallery that
+     gives each region-count bucket one batch of 64 images, with
+     UC2_ATTN_V2=1 under "pallas" (12 launches of #7 a batch at L = 128
+     and 162, none of #2; #1 at L = 98; #3 everywhere) and under "flash"
+     (12 of #12 a batch at L = 128 and 162, no other kernel); one batch
+     per bucket against the eager path, and ms/batch in turns beside the
+     default route;
+ 11. flash train: full-width mlm steps under "flash" at attention
+     dropout 0 (hidden dropout 0.1) at (B, L) = (160, 128), (128, 162)
+     and the long phase's (16, 512) batch: 12 launches each of #12, #12a
+     and #12b a step, finite losses, ms/step in turns beside "pallas" and
+     "pallas-train", a bitwise repeat, one step against the eager path at
+     dropout 0;
+ 12. a JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
+The phases run in the order 1, 2, 5, 6, 9, 3, 10, 4, 7, 8, 11, 12.
 Without a GPU it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -97,12 +122,19 @@ from uc2_torch.ops.flash_attention import (
     flash_attention_train_bwd_dq_plain, flash_attention_train_bwd_plain,
     flash_attention_train_fwd, flash_attention_train_plain,
     flash_attention_v3, uses_long_kernel)
+from uc2_torch.ops.attention import STOCK_FLASH_MIN_LEN
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
+                                       fused_attn_block_v2,
+                                       fused_attn_block_v2_plain,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_block_plain,
                                        fused_ffn_profitable)
 from uc2_torch.ops.philox import ffn_keep_mask, keep_mask
+from uc2_torch.ops.segment_flash import (
+    padded_len, segment_flash_attention, segment_flash_bwd_dkdv,
+    segment_flash_bwd_dkdv_plain, segment_flash_bwd_dq,
+    segment_flash_bwd_dq_plain, segment_flash_fwd, segment_flash_plain)
 from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
 from uc2_torch.training.step import train_step
 
@@ -124,7 +156,12 @@ FFN_KERNELS = (fused_ffn_block_train_fwd, fused_ffn_block_train_bwd)
 # #4 and the split parts of #6 (joint L > 256)
 LONG_KERNELS = (flash_attention_long, flash_attention_train_bwd_dq,
                 flash_attention_train_bwd_dkdv)
-ALL_KERNELS = KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
+# #7 (UC2_ATTN_V2) and #12 / #12a / #12b ("flash")
+ROUTE_KERNELS = (fused_attn_block_v2, segment_flash_fwd, segment_flash_bwd_dq,
+                 segment_flash_bwd_dkdv)
+SEGMENT_KERNELS = ROUTE_KERNELS[1:]
+ALL_KERNELS = (KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
+               + ROUTE_KERNELS)
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
 # (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
 TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
@@ -642,6 +679,55 @@ def profile_step(model, opt, batch, rng, card):
     return busy
 
 
+def step_vs_eager(cfg0, impl, batch, start, L):
+    """One step at dropout 0 from the weights ``start``: the kernel path
+    ``impl`` against the eager path ("xla"), held to the mlm step's limits
+    (STEP_*). Returns the kernel path's launches."""
+    layers = cfg0.num_hidden_layers
+    lr = 4e-5
+    out = {}
+    for path in (impl, "xla"):
+        m_ = UC2ForPretraining(cfg0.replace(use_pallas_attention=path),
+                               device="cuda", seed=0)
+        m_.load_state_dict(start)
+        opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
+                              betas=(0.9, 0.98), grad_norm=5.0)
+        reset_launches()
+        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"))
+        # .grad after the step holds the clipped gradients: the clip (5.0)
+        # is inactive at this step's grad norm (~4.35), checked below
+        qkv = [m_.roberta.layer[i].attention.qkv.weight.grad.split(H)
+               for i in range(layers)]
+        out[path] = (met["loss"].item(), met["grad_norm"].item(),
+                     torch.cat([(p.detach() - start[n]).flatten()
+                                for n, p in m_.named_parameters()]), qkv,
+                     launch_counts())
+        del m_, opt
+        torch.cuda.empty_cache()
+    (lk, nk, dk, gk, ck), (le, ne, de, ge, _) = out[impl], out["xla"]
+    diff = (dk - de).abs()
+    flips = (diff > lr / 10).float().mean().item()
+    qkv_rel = [max(((a[j] - b[j]).norm() / b[j].norm()).item()
+                   for a, b in zip(gk, ge)) for j in range(3)]
+    ok = (abs(lk - le) <= STEP_LOSS_TOL and abs(nk - ne) <= STEP_NORM_RTOL * ne
+          and max(nk, ne) < 5.0 and max(qkv_rel) <= STEP_QKV_RTOL
+          and diff.max().item() <= 2.05 * lr and flips <= STEP_FLIP_SHARE)
+    print(f"  one step at dropout 0, L={L}, kernel path ({impl}) vs "
+          f"eager (xla): loss {lk:.6f} vs {le:.6f}, grad norm {nk:.6f} vs "
+          f"{ne:.6f}, worst layer's ||dW - dW_eager|| / ||dW_eager|| of the "
+          f"Q / K / V projections {qkv_rel[0]:.3e} / {qkv_rel[1]:.3e} / "
+          f"{qkv_rel[2]:.3e}, max|update difference| "
+          f"{diff.max().item():.3e} (lr {lr:g}), share of updates differing "
+          f"by > lr/10: {flips:.2e} (tolerance: loss {STEP_LOSS_TOL:g}, grad "
+          f"norm {STEP_NORM_RTOL:g} relative, Q/K/V {STEP_QKV_RTOL:.3e}, "
+          f"updates 2.05 lr, share {STEP_FLIP_SHARE:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the kernel training step ({impl}, L={L}) disagrees with the "
+             f"eager step")
+    return ck
+
+
 def phase_train(card, train_rows):
     """The mlm step at full width on the three training buckets; returns
     the training kernels' launches over the timed runs. ``train_rows``:
@@ -759,44 +845,7 @@ def phase_train(card, train_rows):
     # kernel path vs eager path, one step at dropout 0 from one start
     cfg0 = cfg.replace(hidden_dropout_prob=0.0,
                        attention_probs_dropout_prob=0.0)
-    lr = 4e-5
-    out = {}
-    for impl in ("pallas-train", "xla"):
-        m_ = UC2ForPretraining(cfg0.replace(use_pallas_attention=impl),
-                               device="cuda", seed=0)
-        m_.load_state_dict(start)
-        opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
-                              betas=(0.9, 0.98), grad_norm=5.0)
-        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"))
-        # .grad after the step holds the clipped gradients: the clip (5.0)
-        # is inactive at this step's grad norm (~4.35), checked below
-        qkv = [m_.roberta.layer[i].attention.qkv.weight.grad.split(H)
-               for i in range(layers)]
-        out[impl] = (met["loss"].item(), met["grad_norm"].item(),
-                     torch.cat([(p.detach() - start[n]).flatten()
-                                for n, p in m_.named_parameters()]), qkv)
-        del m_, opt
-        torch.cuda.empty_cache()
-    (lk, nk, dk, gk), (le, ne, de, ge) = out["pallas-train"], out["xla"]
-    diff = (dk - de).abs()
-    flips = (diff > lr / 10).float().mean().item()
-    qkv_rel = [max(((a[j] - b[j]).norm() / b[j].norm()).item()
-                   for a, b in zip(gk, ge)) for j in range(3)]
-    ok = (abs(lk - le) <= STEP_LOSS_TOL and abs(nk - ne) <= STEP_NORM_RTOL * ne
-          and max(nk, ne) < 5.0 and max(qkv_rel) <= STEP_QKV_RTOL
-          and diff.max().item() <= 2.05 * lr and flips <= STEP_FLIP_SHARE)
-    print(f"  one step at dropout 0, L={L}, kernel path (pallas-train) vs "
-          f"eager (xla): loss {lk:.6f} vs {le:.6f}, grad norm {nk:.6f} vs "
-          f"{ne:.6f}, worst layer's ||dW - dW_eager|| / ||dW_eager|| of the "
-          f"Q / K / V projections {qkv_rel[0]:.3e} / {qkv_rel[1]:.3e} / "
-          f"{qkv_rel[2]:.3e}, max|update difference| "
-          f"{diff.max().item():.3e} (lr {lr:g}), share of updates differing "
-          f"by > lr/10: {flips:.2e} (tolerance: loss {STEP_LOSS_TOL:g}, grad "
-          f"norm {STEP_NORM_RTOL:g} relative, Q/K/V {STEP_QKV_RTOL:.3e}, "
-          f"updates 2.05 lr, share {STEP_FLIP_SHARE:g}) "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail("the kernel training step disagrees with the eager step")
+    step_vs_eager(cfg0, "pallas-train", batch, start, L)
     return total, busy
 
 
@@ -962,6 +1011,24 @@ def ffn_grads(model):
              lay.output_dense.weight.grad) for lay in model.roberta.layer]
 
 
+@contextlib.contextmanager
+def env_set(name, value):
+    """The environment variable ``name`` set to ``value`` (None: unset)
+    inside the block, restored after."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
 def phase_mix(card, train_busy, ffn_rows):
     """The four tasks of the mix under "pallas-train" with UC2_FFN_TRAIN=1
     (set here and restored after); returns #9/#10's launches over the
@@ -969,15 +1036,8 @@ def phase_mix(card, train_busy, ffn_rows):
     print("== mix: uc2-base steps of itm / mlm / vmlm (de) / tlm (mix) on the "
           "card under pallas-train with UC2_FFN_TRAIN=1 (dropout 0.1, "
           "config/uc2_pretrain.json optimizer)")
-    saved = os.environ.get("UC2_FFN_TRAIN")
-    os.environ["UC2_FFN_TRAIN"] = "1"
-    try:
+    with env_set("UC2_FFN_TRAIN", "1"):
         return _phase_mix(card, train_busy, ffn_rows)
-    finally:
-        if saved is None:
-            os.environ.pop("UC2_FFN_TRAIN")
-        else:
-            os.environ["UC2_FFN_TRAIN"] = saved
 
 
 def _phase_mix(card, train_busy, ffn_rows):
@@ -1320,27 +1380,33 @@ def long_corpus(cfg, seed):
     regions, and 512 of 3..45 words over 64 images of 10..36 regions (so
     that the L = 174 bucket fills its batches of 56 about as often as the
     others fill theirs); texts of more than 410 tokens are dropped."""
-    parts = [synth_pretrain_corpus(seed, n_imgs=96, txt_per_img=8,
-                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim,
-                                   max_words=200),
-             synth_pretrain_corpus(seed + 1, n_imgs=64, txt_per_img=8,
-                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim,
-                                   max_bb=36, max_words=45)]
+    return merge_corpora(
+        [synth_pretrain_corpus(seed, n_imgs=96, txt_per_img=8,
+                               vocab=cfg.vocab_size, img_dim=cfg.img_dim,
+                               max_words=200),
+         synth_pretrain_corpus(seed + 1, n_imgs=64, txt_per_img=8,
+                               vocab=cfg.vocab_size, img_dim=cfg.img_dim,
+                               max_bb=36, max_words=45)],
+        vocab=cfg.vocab_size, max_txt_len=LONG_TXT)
+
+
+def merge_corpora(parts, **txt_kw):
+    """One (MemTxtDb, MemImgDb) of several, names prefixed by part."""
     records, feats = {}, {}
     for i, (txt, img) in enumerate(parts):
         for name, rec in txt.records.items():
             records[f"{i}/{name}"] = dict(rec,
                                           img_fname=f"{i}/{rec['img_fname']}")
         feats.update({f"{i}/{k}": f for k, f in img.feats.items()})
-    return (MemTxtDb(records, vocab=cfg.vocab_size, max_txt_len=LONG_TXT),
-            MemImgDb(feats))
+    return MemTxtDb(records, **txt_kw), MemImgDb(feats)
 
 
 def phase_long(card):
     """Long-caption mlm steps at full width, fed by MetaLoader ->
     PrefetchLoader: under "pallas" at dropout 0.1 (#5 and #6, split above
     L = 256), then one step per bucket at dropout 0 (#1 or #4) against
-    the eager path; returns the launches of #4 and the split parts."""
+    the eager path; returns the launches of #4 and the split parts, and
+    the first batch of the L = 512 bucket."""
     print("== long captions: uc2-base mlm steps on the card at joint L = 174 "
           "/ 339 / 512 under \"pallas\" (dropout 0.1, config/uc2_pretrain.json "
           "optimizer), batches from MetaLoader -> PrefetchLoader")
@@ -1514,11 +1580,374 @@ def phase_long(card):
     print(f"  launches over the dropout-0 steps {zero}")
     del paths
     torch.cuda.empty_cache()
-    return {"flash_attention_long": zero["flash_attention_long"],
-            "flash_attention_train_bwd_dq":
-                counts["flash_attention_train_bwd_dq"],
-            "flash_attention_train_bwd_dkdv":
-                counts["flash_attention_train_bwd_dkdv"]}
+    return ({"flash_attention_long": zero["flash_attention_long"],
+             "flash_attention_train_bwd_dq":
+                 counts["flash_attention_train_bwd_dq"],
+             "flash_attention_train_bwd_dkdv":
+                 counts["flash_attention_train_bwd_dkdv"]},
+            first[bucket_of[specs[-1].joint_len]])
+
+
+# ------------------------------------------- the UC2_ATTN_V2 and flash routes
+ROUTE_ROWS = {
+    "fused_attn_block_v2": dict(
+        name="fused_attn_block_v2", route="cuda",
+        source="uc2_torch/csrc/fused_attn_block_v2.cu",
+        replaces="uc2_tpu/ops/fused_block.py:138"),
+    "segment_flash_fwd": dict(
+        name="segment_flash_fwd", route="cuda",
+        source="uc2_torch/csrc/attention_segment.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:342"),
+    "segment_flash_bwd_dq": dict(
+        name="segment_flash_bwd_dq", route="cuda",
+        source="uc2_torch/csrc/attention_segment.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
+    "segment_flash_bwd_dkdv": dict(
+        name="segment_flash_bwd_dkdv", route="cuda",
+        source="uc2_torch/csrc/attention_segment.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+}
+
+
+def fill_row(row, tag, kern, plain, nbytes, flops, library_ms=None,
+             library="none (no single PyTorch call computes it)"):
+    """Time a kernel and its plain version into its JSON row."""
+    row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+               library_ms=library_ms)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    lib = library if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def sdpa_segment_inputs(q, k, v, bias, g=None):
+    """The yardstick's inputs: q, k, v (and g) zero-padded to Lp as
+    [B, n, Lp, d] and a boolean mask of segment equality [B, 1, Lp, Lp],
+    as the library kernel sees them."""
+    L = q.shape[1]
+    Lp = padded_len(L)
+
+    def pad(t):
+        return F.pad(t, (0, 0, 0, 0, 0, Lp - L)).transpose(1, 2).contiguous()
+    seg = F.pad(bias[:, 0, 0] >= -1.0, (0, Lp - L), value=False)
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    return (*(pad(t) for t in (q, k, v)), mask, None if g is None else pad(g))
+
+
+def phase_route_kernels(gen):
+    """#7 against its plain version at the fused scoring buckets (B = 64,
+    L = 128, 162); #12 at (64, 128), (64, 162) and (16, 512); #12a and #12b
+    each against its plain version on the same inputs at the "flash" mlm
+    shapes (160, 128), (128, 162), (16, 512), the autograd Function (all
+    three kernels) against the plain backward, and a bitwise repeat. The
+    rows' times are those of (64, 162) for #7 and #12 and (128, 162) for
+    #12a and #12b."""
+    print("== route kernels vs plain (#7 the block with the QKV projection "
+          "inside; #12 / #12a / #12b the \"flash\" route's segment-masked "
+          "attention; plain: fp32 compute on the same bf16 inputs)")
+    rows = {k: dict(v) for k, v in ROUTE_ROWS.items()}
+    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.05).bfloat16()
+    wqkv, bqkv, wo = w(3 * H, H), vec(gen, 3 * H, 0.05), w(H, H)
+    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    for L in (128, 162):
+        x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+        bias = heads(gen, B, L)[3]
+        run_case(rows, "fused_attn_block_v2", B, L, fused_attn_block_v2,
+                 fused_attn_block_v2_plain,
+                 (x, wqkv, bqkv, bias, wo, bo, gamma, beta, N),
+                 2 * B * L * H * 2 + 4 * H * H * 2 + (6 * H + L * B) * 4,
+                 2 * B * L * H * 4 * H + 4 * B * N * L * L * D,
+                 report=L == 162)
+    fwd = rows["segment_flash_fwd"]
+    for b, L in ((B, 128), (B, 162), (16, 512)):
+        q, k, v, bias = heads(gen, b, L)
+        (out, st), (pout, pst) = (f(q, k, v, bias) for f in (
+            segment_flash_fwd, segment_flash_plain))
+        tag = f"B={b} L={L}"
+        err = max(compare(f"#12 {tag}", out, pout),
+                  compare(f"#12 row max {tag}", st[0], pst[0]),
+                  compare(f"#12 row sum {tag}", st[1], pst[1]))
+        fwd["max_abs_err"] = max(fwd.get("max_abs_err", 0.0), err)
+        if (b, L) == (B, 162):
+            qp, kp, vp, mask, _ = sdpa_segment_inputs(q, k, v, bias)
+            fill_row(fwd, tag, lambda: segment_flash_fwd(q, k, v, bias),
+                     lambda: segment_flash_plain(q, k, v, bias),
+                     4 * b * L * H * 2 + b * L * 4 + 2 * b * N * L * 4,
+                     4 * b * N * L * L * D,
+                     time_ms(lambda: F.scaled_dot_product_attention(
+                         qp, kp, vp, attn_mask=mask)))
+    dq_row, kv_row = rows["segment_flash_bwd_dq"], rows["segment_flash_bwd_dkdv"]
+    for b, L in ((160, 128), (128, 162), (16, 512)):
+        q, k, v, bias = heads(gen, b, L)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        tag = f"B={b} L={L}"
+        pout, pst = segment_flash_plain(q, k, v, bias)
+        dq, di = segment_flash_bwd_dq(q, k, v, bias, pout, g, pst)
+        pdq, pdi = segment_flash_bwd_dq_plain(q, k, v, bias, pout, g, pst)
+        e1 = max(compare(f"#12a dq {tag}", dq, pdq),
+                 compare(f"#12a di {tag}", di, pdi))
+        dk, dv = segment_flash_bwd_dkdv(q, k, v, bias, g, pst, pdi)
+        pdk, pdv = segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pst, pdi)
+        e2 = max(compare(f"#12b dk {tag}", dk, pdk),
+                 compare(f"#12b dv {tag}", dv, pdv))
+        dq_row["max_abs_err"] = max(dq_row.get("max_abs_err", 0.0), e1)
+        kv_row["max_abs_err"] = max(kv_row.get("max_abs_err", 0.0), e2)
+        # the three kernels through autograd against the plain backward,
+        # the summed gradients in relative norm as #6's
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        segment_flash_attention(*leaves, bias).backward(g)
+        for nm, a, want in zip(("dq", "dk", "dv"), (t.grad for t in leaves),
+                               (pdq, pdk, pdv)):
+            compare_norm(f"#12 -> #12a/#12b autograd {nm} {tag}", a, want,
+                         1e-3)
+        again = segment_flash_bwd_dq(q, k, v, bias, pout, g, pst)
+        again += segment_flash_bwd_dkdv(q, k, v, bias, g, pst, pdi)
+        same = all(torch.equal(a, w_) for a, w_ in zip((dq, di, dk, dv),
+                                                       again))
+        print(f"  #12a/#12b {tag}: two calls bitwise equal: {same}")
+        if not same:
+            fail(f"#12a/#12b at {tag} are not bitwise repeatable")
+        if (b, L) != (128, 162):
+            continue
+        qp, kp, vp, mask, gp = sdpa_segment_inputs(q, k, v, bias, g)
+        qp, kp, vp = (t.requires_grad_(True) for t in (qp, kp, vp))
+        sd_out = F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask)
+        lib = time_ms(lambda: torch.autograd.grad(sd_out, (qp, kp, vp), gp,
+                                                  retain_graph=True))
+        act = b * L * H * 2
+        vecs = b * L * 4 + 3 * b * N * L * 4     # bias, m, l, di
+        fill_row(dq_row, tag,
+                 lambda: segment_flash_bwd_dq(q, k, v, bias, pout, g, pst),
+                 lambda: segment_flash_bwd_dq_plain(q, k, v, bias, pout, g,
+                                                    pst),
+                 6 * act + vecs, 6 * b * N * L * L * D, lib,
+                 library="SDPA autograd backward (the pair's yardstick)")
+        fill_row(kv_row, tag,
+                 lambda: segment_flash_bwd_dkdv(q, k, v, bias, g, pst, pdi),
+                 lambda: segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pst,
+                                                      pdi),
+                 6 * act + vecs, 8 * b * N * L * L * D, lib)
+        print(f"    SDPA (boolean segment mask, Lp = {padded_len(L)}) "
+              f"autograd backward {lib:.4f} ms: the yardstick of #12a + "
+              f"#12b together")
+    return rows
+
+
+def route_gallery(cfg, seed):
+    """A gallery that fills each region-count bucket with one batch: B
+    images a bucket (region counts uniform inside it), one caption each;
+    3 B texts x 3 scored batches per text."""
+    parts, lo = [], 10
+    for hi in retrieval.bucket_edges(TXT_LEN, NUM_BB):
+        parts.append(synth_gallery(seed + hi, n_imgs=B, txt_per_img=1,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim,
+                                   min_bb=lo, max_bb=hi))
+        lo = hi + 1
+    return merge_corpora(parts, vocab=cfg.vocab_size)
+
+
+def phase_routes(card):
+    """full_retrieval_eval at full width under the two routes: "pallas"
+    with UC2_ATTN_V2=1 (#7 at L >= 128, #1 below, #3 everywhere) and
+    "flash" (#12 at L >= 128, the eager chain below, no fused block); one
+    batch per bucket against the eager path, and pairs/s per bucket beside
+    the default route ("pallas" without UC2_ATTN_V2). Returns the
+    launches of #7 and #12."""
+    print("== routes: uc2-base full_retrieval_eval with UC2_ATTN_V2=1 under "
+          "\"pallas\" (#7) and under \"flash\" (#12)")
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention=True)
+    t0 = time.perf_counter()
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    others = {}
+    for impl in ("flash", False):
+        others[impl] = UC2ForImageTextRetrieval(
+            cfg.replace(use_pallas_attention=impl), device="cuda")
+        others[impl].load_state_dict(model.state_dict())
+    flash, plain = others["flash"], others[False]
+    txt_db, img_db = route_gallery(cfg, seed=3)
+    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
+    nbbs = np.asarray(list(img_db.name2nbb.values()))
+    per_bucket = np.bincount(np.searchsorted(edges, nbbs),
+                             minlength=len(edges))
+    n_txt, L_of = len(txt_db.ids), [TXT_LEN + e for e in edges]
+    batches = [n_txt * -(-int(c) // B) for c in per_bucket]
+    print(f"  models and gallery ({len(nbbs)} images, {n_txt} texts; "
+          f"buckets L={L_of}: {per_bucket.tolist()} images, {batches} "
+          f"scored batches of {B}) ready in {time.perf_counter() - t0:.1f} s")
+    if (per_bucket != B).any():
+        fatal(f"the routes' gallery does not give each bucket {B} images")
+    layers = cfg.num_hidden_layers
+    fused = [fused_block_profitable(L, N) for L in L_of]
+    want = {"v2": dict(
+        flash_attention=layers * sum(nb for nb, f in zip(batches, fused)
+                                     if not f),
+        fused_attn_block_v2=layers * sum(nb for nb, f in zip(batches, fused)
+                                         if f),
+        fused_ffn_block=layers * sum(nb for nb, L in zip(batches, L_of)
+                                     if fused_ffn_profitable(L))),
+        "flash": dict(segment_flash_fwd=layers * sum(
+            nb for nb, L in zip(batches, L_of) if L >= STOCK_FLASH_MIN_LEN))}
+    launched = {}
+    for route, mod, v2 in (("v2", model, "1"), ("flash", flash, None)):
+        expect = no_launches()
+        expect.update(want[route])
+        with env_set("UC2_ATTN_V2", v2):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, (m, txt_ids, img_ids) = retrieval.full_retrieval_eval(
+                mod, txt_db, img_db, TXT_LEN, NUM_BB, batch_size=B,
+                return_matrix=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched[route] = launch_counts()
+        print(f"  {route}: launches {launched[route]}, expected {expect}")
+        if launched[route] != expect:
+            fail(f"{route}: launch counts do not match the routing")
+        if m.shape != (n_txt, len(nbbs)) or not np.isfinite(m).all():
+            fail(f"{route}: score matrix is {m.shape} or not finite")
+        print(f"  {route}: R@K {json.dumps(metrics)}; eval wall {wall:.2f} s "
+              f"for {sum(batches)} batches ({sum(batches) * B / wall:.1f} "
+              f"pairs/s) [{card}]")
+        bucket_of = np.searchsorted(edges, [img_db.name2nbb[i]
+                                            for i in img_ids])
+        col = {im: j for j, im in enumerate(img_ids)}
+        for bi, nb in enumerate(edges):
+            ids_b = [im for im, bk in zip(img_ids, bucket_of) if bk == bi]
+            batch, n = bucket_batch(img_db, ids_b, txt_db, txt_ids[0], nb)
+            with env_set("UC2_ATTN_V2", v2):
+                s_k = mod.scores(batch)[:n]
+            s_p = plain.scores(batch)[:n]
+            in_matrix = torch.from_numpy(m[0, [col[i] for i in ids_b[:n]]])
+            d_kp = (s_k - s_p).abs().max().item()
+            d_mat = (s_k.cpu() - in_matrix).abs().max().item()
+            print(f"  {route} L={TXT_LEN + nb}: |kernel - eager bf16| "
+                  f"{d_kp:.4e}, |batch - matrix| {d_mat:.4e} (tolerance "
+                  f"{SCORE_TOL})")
+            if not (d_kp <= SCORE_TOL and d_mat <= SCORE_TOL):
+                fail(f"{route}: scores at L={TXT_LEN + nb} disagree")
+            # in turns: default route, this route, this route, default
+            times = {}
+            for which in ("default", route, route, "default"):
+                with env_set("UC2_ATTN_V2", v2 if which == route else None):
+                    fn = model if which == "default" else mod
+                    times.setdefault(which, []).append(time_ms(
+                        lambda: fn.scores(batch), iters=5))
+            print(f"  {route} L={TXT_LEN + nb}: " + "; ".join(
+                f"{w_} " + ", ".join(f"{t:.3f}" for t in ts) + " ms/batch = "
+                + ", ".join(f"{B / t * 1e3:.1f}" for t in ts) + " pairs/s"
+                for w_, ts in times.items()) + f" [{card}]")
+    del model, others, flash, plain
+    torch.cuda.empty_cache()
+    return {"fused_attn_block_v2": launched["v2"]["fused_attn_block_v2"],
+            "segment_flash_fwd": launched["flash"]["segment_flash_fwd"]}
+
+
+# "flash" training at attention dropout 0 (hidden dropout 0.1): the mlm
+# buckets at L = 128 and 162 (bench.py TRAIN_BUCKETS) and the long-caption
+# bucket at L = 512 (Lp = L)
+FLASH_STEPS = 2       # timed steps per shape and route, after one warm-up
+
+
+def phase_flash_train(card, long_batch):
+    """mlm steps under "flash" at attention dropout 0: 12 launches each of
+    #12, #12a and #12b a step, finite losses, a bitwise repeat, one step
+    against the eager path at dropout 0; ms/step beside "pallas" (#1 or #4
+    with the eager-recompute backward at rate 0) and "pallas-train" (#5 /
+    #6 at rate 0) on the same batches. Returns the launches of #12, #12a
+    and #12b over the "flash" steps."""
+    print("== flash train: uc2-base mlm steps under \"flash\" at attention "
+          "dropout 0 (hidden dropout 0.1, config/uc2_pretrain.json optimizer)")
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", attention_probs_dropout_prob=0.0)
+    t0 = time.perf_counter()
+    paths = {impl: UC2ForPretraining(cfg.replace(use_pallas_attention=impl),
+                                     device="cuda", seed=0)
+             for impl in ("flash", "pallas", "pallas-train")}
+    start = {k: v.clone() for k, v in paths["flash"].state_dict().items()}
+    txt_db, img_db = synth_gallery(seed=1, n_imgs=N_IMGS, txt_per_img=2,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    n_steps = 1 + FLASH_STEPS
+    shapes = [(160, 128, mlm_batches(txt_db, img_db, 36, 66, 160, n_steps,
+                                     seed=66)[0]),
+              (128, 162, mlm_batches(txt_db, img_db, 66, 100, 128, n_steps,
+                                     seed=100)[0]),
+              (long_batch["attn_mask"].shape[0],
+               long_batch["attn_mask"].shape[1], [long_batch] * n_steps)]
+    print(f"  models and batches ready in {time.perf_counter() - t0:.1f} s")
+    layers = cfg.num_hidden_layers
+    total = dict.fromkeys((k.__name__ for k in SEGMENT_KERNELS), 0)
+    for b, L, batches in shapes:
+        times = {}
+        for impl in ("pallas", "flash", "flash", "pallas-train"):
+            m_ = paths[impl]
+            m_.load_state_dict(start)
+            opt = pretrain_optimizer(m_)
+            rng = DropoutRng(TRAIN_SEED, "cuda")
+            torch.cuda.synchronize()
+            reset_launches()
+            ts, losses = [], []
+            for batch in batches:
+                t1 = time.perf_counter()
+                met = train_step(m_, opt, batch, rng)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+                losses.append((met["loss"].item(), met["grad_norm"].item()))
+            m_.zero_grad(set_to_none=True)
+            del opt
+            counts = launch_counts()
+            times.setdefault(impl, []).append(sum(ts[1:]) / FLASH_STEPS)
+            if impl != "flash":
+                continue
+            expect = no_launches()
+            expect.update({k.__name__: layers * n_steps
+                           for k in SEGMENT_KERNELS})
+            for k in SEGMENT_KERNELS:
+                total[k.__name__] += counts[k.__name__]
+            print(f"  L={L} B={b}, flash run {len(times['flash'])}: loss / "
+                  f"grad norm per step "
+                  + "; ".join(f"{a:.4f} / {c:.4f}" for a, c in losses)
+                  + f"; launches {layers} each of #12, #12a, #12b a step: "
+                  f"{'ok' if counts == expect else 'FAIL ' + str(counts)}")
+            if counts != expect:
+                fail(f"flash train, L={L}: launches are not {layers} each "
+                     f"of #12, #12a and #12b a step")
+            if not all(np.isfinite(x) for r in losses for x in r):
+                fail(f"flash train, L={L}: a loss or grad norm is not finite")
+        print(f"  L={L} B={b}, ms/step over {FLASH_STEPS} steps after a "
+              f"warm-up, in turns: " + "; ".join(
+                  f"{impl} " + ", ".join(f"{t:.3f}" for t in ts)
+                  for impl, ts in times.items())
+              + f" (= {b / np.mean(times['flash']) * 1e3:.1f} examples/s "
+              f"under flash) [{card}]")
+    # a bitwise repeat of one step at L = 162
+    _, L, batches = shapes[1]
+    res = []
+    for _ in range(2):
+        paths["flash"].load_state_dict(start)
+        m = train_step(paths["flash"], pretrain_optimizer(paths["flash"]),
+                       batches[0], DropoutRng(7, "cuda"))
+        res.append((m["loss"], m["grad_norm"]))
+    same = all(torch.equal(a, c) for a, c in zip(*res))
+    print(f"  repeat of one L={L} step (same weights and seeds): loss "
+          f"{res[0][0].item():.6f} / {res[1][0].item():.6f}, grad norm "
+          f"{res[0][1].item():.6f} / {res[1][1].item():.6f}; bitwise equal: "
+          f"{same}")
+    if not same:
+        fail("one flash step with the same seeds is not bitwise repeatable")
+    del paths
+    torch.cuda.empty_cache()
+    # dropout 0 everywhere: one step against the eager path, the mlm step's
+    # limits (STEP_*)
+    ck = step_vs_eager(cfg.replace(hidden_dropout_prob=0.0), "flash",
+                       batches[0], start, L)
+    want = {k.__name__: layers for k in SEGMENT_KERNELS}
+    if {k: ck[k] for k in want} != want:
+        fail(f"flash step at dropout 0: launches {ck}, expected {want}")
+    return total
 
 
 def main() -> int:
@@ -1544,11 +1973,16 @@ def main() -> int:
     ffn_rows = timed(phase_ffn_kernels, gen)
     rows.update(ffn_rows)
     rows.update(timed(phase_long_kernels, gen))
+    rows.update(timed(phase_route_kernels, gen))
     launches = timed(phase_slice, card)
+    launches.update(timed(phase_routes, card))
     train_launches, busy = timed(phase_train, card, train_rows)
     launches.update(train_launches)
     launches.update(timed(phase_mix, card, busy, ffn_rows))
-    launches.update(timed(phase_long, card))
+    long_launches, long_batch = timed(phase_long, card)
+    launches.update(long_launches)
+    for kernel, n in timed(phase_flash_train, card, long_batch).items():
+        launches[kernel] = launches.get(kernel, 0) + n
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

@@ -6,8 +6,12 @@ encoder's 512), the long-L inference kernel (#4) and the dispatch between
 it and #1, the wrappers' refusals on CUDA tensors, the training kernels'
 dropout mask against the plain Philox mask bit for bit, the split
 backward's bitwise repeat, the training FFN kernels (#9, #10) against
-their plain versions and for a bitwise repeat, and the encoder's kernel
-paths (scoring and training steps) against its eager path. Needs a CUDA device
+their plain versions and for a bitwise repeat, the QKV-in-kernel
+attention block (#7) and the segment-masked attention of the "flash"
+route (#12, #12a, #12b: all rows valid, most rows invalid, a first key
+block masked for whole rows, a bitwise repeat of the backward), and the
+encoder's kernel paths (scoring and training steps, "flash" and
+``UC2_ATTN_V2`` included) against its eager path. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -41,6 +45,9 @@ from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train_bwd_plain, fused_ffn_block_train_fwd,
     fused_ffn_block_train_plain)
 from uc2_torch.ops.philox import ffn_keep_mask
+from uc2_torch.ops.fused_block import (fused_attn_block_v2,
+                                       fused_attn_block_v2_plain)
+from uc2_torch.ops import segment_flash as sf
 
 pytestmark = pytest.mark.cuda
 
@@ -550,3 +557,208 @@ def test_train_step_ffn_kernel_path_matches_eager_path(gen, monkeypatch):
         out[impl] = (m["loss"].item(), m["grad_norm"].item())
     (lk, nk), (le, ne) = out["pallas-train"], out["xla"]
     assert abs(lk - le) <= 1e-2 and abs(nk - ne) <= 2e-2 * ne
+
+
+# kernel #7: the attention block with the QKV projection inside
+def _v2_args(gen, B, L):
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.05).bfloat16()
+    x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+    return (x, w(3 * H, H), _vec(gen, 3 * H, 0.05), _bias(gen, B, L), w(H, H),
+            _vec(gen, H, 0.02), _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1), N)
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 45), (1, 128), (2, 162),
+                                 (1, 257), (1, 512)])
+def test_fused_attn_block_v2_kernel_matches_plain(gen, B, L):
+    """L = 45 and 162 end in a ragged query tile; 257 and 512 take the
+    widest score rows."""
+    args = _v2_args(gen, B, L)
+    before = fused_attn_block_v2.launches
+    _close(fused_attn_block_v2(*args), fused_attn_block_v2_plain(*args))
+    assert fused_attn_block_v2.launches == before + 1
+
+
+def test_fused_attn_block_v2_refuses(gen):
+    x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n = _v2_args(gen, 1, 16)
+    with pytest.raises(TypeError):                       # fp32 activations
+        fused_attn_block_v2(x.float(), w_qkv, b_qkv, bias, wo, bo, gamma,
+                            beta, n)
+    with pytest.raises(ValueError):                      # head_dim 128
+        fused_attn_block_v2(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, 6)
+    args = _v2_args(gen, 1, 513)                        # past the limit
+    with pytest.raises(ValueError):
+        fused_attn_block_v2(*args)
+    with pytest.raises(RuntimeError):                    # no backward
+        fused_attn_block_v2(x.requires_grad_(True), w_qkv, b_qkv, bias, wo,
+                            bo, gamma, beta, n)
+
+
+# kernels #12, #12a, #12b: the "flash" route's segment-masked attention
+def _segment_bias(B, L, case):
+    """'valid': every key; 'invalid': most keys invalid (all but the first
+    10 of each row); 'first_block': keys from 128 on invalid, so the
+    invalid rows see their whole first 128-key block masked."""
+    mask = torch.ones(B, L, device="cuda")
+    if case == "invalid":
+        mask[:, 10:] = 0.0
+    elif case == "first_block":
+        mask[:, 128:] = 0.0
+    return ((1.0 - mask) * -10000.0)[:, None, None, :].contiguous()
+
+
+SEGMENT_CASES = [(2, 128, "valid"), (2, 128, "invalid"), (1, 129, "valid"),
+                 (1, 129, "invalid"), (3, 162, "valid"), (3, 162, "invalid"),
+                 (1, 200, "first_block"), (1, 384, "valid"),
+                 (2, 384, "invalid"), (1, 512, "valid"),
+                 (1, 512, "invalid")]
+
+
+@pytest.mark.parametrize("B,L,case", SEGMENT_CASES)
+def test_segment_flash_kernels_match_plain(gen, B, L, case):
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _segment_bias(B, L, case)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    pout, pstats = sf.segment_flash_plain(q, k, v, bias)
+    _close_report("out", out, pout)
+    _close_report("m", stats[0], pstats[0])
+    _close_report("l", stats[1], pstats[1])
+    # each backward kernel on the same inputs as its plain version
+    dq, di = sf.segment_flash_bwd_dq(q, k, v, bias, pout, g, pstats)
+    pdq, pdi = sf.segment_flash_bwd_dq_plain(q, k, v, bias, pout, g, pstats)
+    _close_report("dq", dq, pdq)
+    _close_report("di", di, pdi)
+    dk, dv = sf.segment_flash_bwd_dkdv(q, k, v, bias, g, pstats, pdi)
+    pdk, pdv = sf.segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pstats, pdi)
+    _close_report("dk", dk, pdk)
+    _close_report("dv", dv, pdv)
+    # the autograd Function: #12, then #12a and #12b
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = [f.launches for f in (sf.segment_flash_fwd,
+                                   sf.segment_flash_bwd_dq,
+                                   sf.segment_flash_bwd_dkdv)]
+    sf.segment_flash_attention(*leaves, bias).backward(g)
+    assert [f.launches - b for f, b in zip(
+        (sf.segment_flash_fwd, sf.segment_flash_bwd_dq,
+         sf.segment_flash_bwd_dkdv), before)] == [1, 1, 1]
+    want = (pdq, *sf.segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pstats,
+                                                  pdi))
+    for name, a, b in zip(("dq", "dk", "dv"), (t.grad for t in leaves), want):
+        _close_report(f"autograd {name}", a, b)
+
+
+def test_segment_flash_backward_is_bitwise_repeatable(gen):
+    q, k, v = _heads(gen, 2, 300, strided=True)
+    bias = _segment_bias(2, 300, "invalid")
+    g = torch.randn(2, 300, N, D, generator=gen, device="cuda").bfloat16()
+    out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    runs = []
+    for _ in range(2):
+        dq, di = sf.segment_flash_bwd_dq(q, k, v, bias, out, g, stats)
+        runs.append((dq, di, *sf.segment_flash_bwd_dkdv(q, k, v, bias, g,
+                                                        stats, di)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_segment_flash_wrappers_refuse(gen):
+    q, k, v = _heads(gen, 1, 130, strided=False)
+    bias = _segment_bias(1, 130, "valid")
+    with pytest.raises(TypeError):                       # fp32 activations
+        sf.segment_flash_fwd(q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError):                      # head_dim 32
+        sf.segment_flash_fwd(*(t[..., :32].contiguous() for t in (q, k, v)),
+                             bias)
+    q2, k2, v2 = _heads(gen, 1, 513, strided=False)     # past the limit
+    with pytest.raises(ValueError):
+        sf.segment_flash_fwd(q2, k2, v2, _segment_bias(1, 513, "valid"))
+    out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    with pytest.raises(TypeError):                       # fp32 gradient
+        sf.segment_flash_bwd_dq(q, k, v, bias, out, out.float(), stats)
+    with pytest.raises(ValueError):                      # stats of another L
+        sf.segment_flash_bwd_dq(q, k, v, bias, out, out, stats[..., :64])
+
+
+@pytest.mark.parametrize("route,Nb", [("v2", 66), ("v2", 100), ("flash", 66),
+                                      ("flash", 100)])
+def test_encoder_v2_and_flash_paths_match_eager_path(gen, monkeypatch, route,
+                                                     Nb):
+    """Scoring at full width (2 layers): under "pallas" with UC2_ATTN_V2=1,
+    #7 and #3 in every layer and no #2; under "flash", #12 in every layer
+    and none of the fused blocks; scores against the eager path."""
+    if route == "v2":
+        monkeypatch.setenv("UC2_ATTN_V2", "1")
+    impl = True if route == "v2" else "flash"
+    cfg = UC2Config(vocab_size=1000, num_hidden_layers=2,
+                    max_position_embeddings=130, img_dim=64,
+                    dtype="bfloat16", use_pallas_attention=impl)
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=1)
+    eager = UC2ForImageTextRetrieval(cfg.replace(use_pallas_attention=False),
+                                     device="cuda")
+    eager.load_state_dict(model.state_dict())
+    B, Lt = 4, 62
+    mask = torch.ones(B, Lt + Nb, dtype=torch.long, device="cuda")
+    mask[0, 20:Lt] = 0
+    mask[1, Lt + Nb // 2:] = 0
+    ids = torch.randint(4, 1000, (B, Lt), generator=gen, device="cuda")
+    ids[0, 20:] = 1
+    batch = {"input_ids": ids,
+             "img_feat": torch.randn(B, Nb, 64, generator=gen, device="cuda"),
+             "img_pos_feat": torch.rand(B, Nb, 7, generator=gen,
+                                        device="cuda"),
+             "attn_mask": mask}
+    kernels = (fused_attn_block_v2, fused_attn_block, fused_ffn_block,
+               sf.segment_flash_fwd, flash_attention)
+    before = [f.launches for f in kernels]
+    got = model.scores(batch)
+    launched = [f.launches - b for f, b in zip(kernels, before)]
+    assert launched == ([2, 0, 2, 0, 0] if route == "v2"
+                        else [0, 0, 0, 2, 0])
+    assert torch.isfinite(got).all()
+    assert (got - eager.scores(batch)).abs().max().item() <= 5e-2
+
+
+def test_train_step_flash_path_matches_eager_path(gen):
+    """One AdamW step at attention dropout 0 from the same weights at joint
+    L = 130: "flash" (#12, #12a, #12b in every layer) against "xla"."""
+    cfg = UC2Config(vocab_size=1000, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    max_position_embeddings=130, img_dim=64,
+                    dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0,
+                    use_pallas_attention="flash")
+    B, Lt, Nb, M = 4, 30, 100, 6
+    mask = torch.ones(B, Lt + Nb, dtype=torch.long, device="cuda")
+    mask[0, 20:Lt] = 0
+    mask[1, Lt + 60:] = 0
+    batch = {"input_ids": torch.randint(4, 1000, (B, Lt), generator=gen,
+                                        device="cuda"),
+             "img_feat": torch.randn(B, Nb, 64, generator=gen, device="cuda"),
+             "img_pos_feat": torch.rand(B, Nb, 7, generator=gen,
+                                        device="cuda"),
+             "attn_mask": mask,
+             "masked_pos": torch.randint(1, 20, (B, M), generator=gen,
+                                         device="cuda"),
+             "masked_weight": torch.ones(B, M, device="cuda"),
+             "txt_labels": torch.randint(4, 1000, (B, M), generator=gen,
+                                         device="cuda")}
+    kernels = (sf.segment_flash_fwd, sf.segment_flash_bwd_dq,
+               sf.segment_flash_bwd_dkdv)
+    out = {}
+    for impl in ("flash", "xla"):
+        model = UC2ForPretraining(cfg.replace(use_pallas_attention=impl),
+                                  device="cuda", seed=3)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        before = [f.launches for f in kernels]
+        opt = build_optimizer(model, constant(1e-3), grad_norm=5.0)
+        m = train_step(model, opt, batch, DropoutRng(0, "cuda"))
+        launched = [f.launches - b for f, b in zip(kernels, before)]
+        assert launched == ([2, 2, 2] if impl == "flash" else [0, 0, 0])
+        out[impl] = (m["loss"].item(), m["grad_norm"].item(),
+                     {n: p.detach() - start[n]
+                      for n, p in model.named_parameters()})
+    (lk, nk, dk), (le, ne, de) = out["flash"], out["xla"]
+    assert abs(lk - le) <= 1e-2 and abs(nk - ne) <= 2e-2 * ne
+    diff = torch.cat([(dk[n] - de[n]).abs().flatten() for n in dk])
+    assert diff.max().item() <= 2.05e-3
+    assert (diff > 1e-4).float().mean().item() <= 1e-2

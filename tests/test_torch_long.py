@@ -217,7 +217,10 @@ def test_long_caption_mlm_loss_and_grads_match_reference(monkeypatch):
 
 
 def test_attn_v2_route_raises_until_kernel_7_is_ported(monkeypatch):
-    cfg = UC2Config(vocab_size=100, hidden_size=32, num_hidden_layers=1,
+    """Kernel #7 is ported: with UC2_ATTN_V2 set, every layer on the fused
+    route runs the QKV-in-kernel block (#7) and not #2; without it, #2 and
+    not #7 (the variable is read at every forward)."""
+    cfg = UC2Config(vocab_size=100, hidden_size=32, num_hidden_layers=2,
                     num_attention_heads=2, intermediate_size=64,
                     max_position_embeddings=40, img_dim=16, dtype="float32",
                     use_pallas_attention="fused-force")
@@ -225,11 +228,27 @@ def test_attn_v2_route_raises_until_kernel_7_is_ported(monkeypatch):
     batch = {"input_ids": torch.full((2, 6), 5), "img_feat": torch.zeros(
         2, 4, 16), "img_pos_feat": torch.zeros(2, 4, 7),
         "attn_mask": torch.ones(2, 10, dtype=torch.long)}
-    monkeypatch.delenv("UC2_ATTN_V2", raising=False)
-    assert torch.isfinite(model.scores(batch)).all()
-    monkeypatch.setenv("UC2_ATTN_V2", "1")
-    with pytest.raises(NotImplementedError, match="#7"):
-        model.scores(batch)
+    from uc2_torch.models import encoder
+    calls = {"v1": 0, "v2": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(encoder, "fused_attn_block",
+                        counted("v1", encoder.fused_attn_block))
+    monkeypatch.setattr(encoder, "fused_attn_block_v2",
+                        counted("v2", encoder.fused_attn_block_v2))
+    for env, want in (("1", {"v1": 0, "v2": 2}), (None, {"v1": 2, "v2": 0})):
+        if env is None:
+            monkeypatch.delenv("UC2_ATTN_V2", raising=False)
+        else:
+            monkeypatch.setenv("UC2_ATTN_V2", env)
+        calls.update(v1=0, v2=0)
+        assert torch.isfinite(model.scores(batch)).all()
+        assert calls == want, env
 
 
 # ------------------------------------------------------------ data side

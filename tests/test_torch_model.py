@@ -145,11 +145,40 @@ def test_layer_routing_follows_the_gates(params, monkeypatch, impl, L,
 
 
 @pytest.mark.parametrize("impl", ["flash", "bogus"])
-def test_unported_attention_values_raise(params, impl):
-    b = {k: torch.from_numpy(v) for k, v in _batch(10, 7).items()}
-    err = NotImplementedError if impl == "flash" else ValueError
-    with pytest.raises(err):
-        _port(impl, params).scores(b)
+def test_unported_attention_values_raise(params, monkeypatch, impl):
+    """An unknown value raises. "flash", ported since, routes as the
+    reference's wrapper of jax's library kernel: the segment-masked
+    attention (kernels #12/#12a/#12b) at L >= 128, the eager chain below,
+    and no fused block anywhere."""
+    if impl == "bogus":
+        b = {k: torch.from_numpy(v) for k, v in _batch(10, 7).items()}
+        with pytest.raises(ValueError):
+            _port(impl, params).scores(b)
+        return
+    from uc2_torch.ops import attention, segment_flash
+    calls = {"segment": 0, "xla": 0, "block": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(segment_flash, "segment_flash_attention",
+                        counted("segment",
+                                segment_flash.segment_flash_attention))
+    monkeypatch.setattr(attention, "xla_attention",
+                        counted("xla", attention.xla_attention))
+    for name in ("fused_attn_block", "fused_attn_block_v2",
+                 "fused_ffn_block"):
+        monkeypatch.setattr(port_encoder, name,
+                            counted("block", getattr(port_encoder, name)))
+    for (Lt, Nb), want in (((10, 7), {"segment": 0, "xla": 2, "block": 0}),
+                           ((62, 66), {"segment": 2, "xla": 0, "block": 0})):
+        calls.update(segment=0, xla=0, block=0)
+        b = {k: torch.from_numpy(v) for k, v in _batch(Lt, Nb).items()}
+        assert torch.isfinite(_port(impl, params).scores(b)).all()
+        assert calls == want, (Lt, Nb)
 
 
 def test_training_and_int8_raise(params):

@@ -26,8 +26,11 @@ class UC2Config:
     (``ops/flash_attention.py``, ``ops/fused_block.py``) at the shapes the
     gates pick, "pallas-train" also keeps training attention on the
     training kernels at dropout 0, "fused-force" forces both fused blocks
-    in every inference layer. "flash", ``remat`` and ``quant="int8"``
-    raise in this package for now.
+    in every inference layer, "flash" runs the counterpart of jax's
+    library TPU kernel (``ops/segment_flash.py``) at L >= 128 wherever
+    attention has no dropout (inference, and training at attention
+    dropout 0). ``remat`` and ``quant="int8"`` raise in this package for
+    now.
     """
 
     vocab_size: int = 250002

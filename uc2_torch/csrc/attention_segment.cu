@@ -1,0 +1,559 @@
+// Segment-masked flash attention, forward (#12) and backward (#12a dQ,
+// #12b dK/dV): the function of jax's library TPU kernel
+// (jax/experimental/pallas/ops/tpu/flash_attention.py: the forward body
+// _flash_attention_kernel_single_batch(_single_step), the backward bodies
+// _flash_attention_dq_kernel and _flash_attention_dkv_kernel), which the
+// reference's _stock_flash_attention (uc2_tpu/ops/attention.py) runs under
+// use_pallas_attention="flash".
+//
+// The function (uc2_torch/ops/segment_flash.py spells it out): the
+// sequence padded to Lp = 128 * ceil(L / 128) with zero keys and values;
+// segment ids 1 for a key with additive bias >= -1, else 0 (padded keys
+// 0); s = (q . k^T) * scale + (segments agree ? 0 : -0.7 FLT_MAX), the
+// mask finite so that a block masked for a whole row is wiped by the next
+// block's rescale instead of turning into NaN; an online softmax over
+// 128-key blocks with p = exp(s - m) rounded to bf16 unnormalised and the
+// accumulator rescaled by alpha l_prev / l_next and (p . v) / l_next, or,
+// with one block (Lp = 128), p normalised before the rounding. The
+// padding here is virtual: q, k, v are read as [B, L, n, 64] (strided
+// views into the fused QKV projection), keys past L are zero rows of
+// segment 0 in shared memory, and query rows past L, which the reference
+// computes and slices off (their output gradient is 0, so they add
+// nothing to dK and dV), are skipped. The row statistics m and l go to
+// [2][B, n, L] fp32.
+//
+// Forward (#12): FA2-style, one block of 4 warps per (64 query rows,
+// head, batch row), each warp 16 rows whose Q fragments stay in registers;
+// the 128-key blocks of K and V stream through a two-stage cp.async ring
+// (74 KB) as attention_long.cu (#4) streams its tiles. Per block: the
+// scores of the warp's rows against the 128 keys in registers, the block
+// max and sum merged across a row's four lanes, P rounded to bf16 into
+// mma A fragments straight from the score registers, P . V into a second
+// accumulator that is folded into the first with the reference's two
+// scale factors.
+//
+// Backward, split as #6's long-L pair (attention_train.cu), without
+// atomics so a step repeats bit for bit:
+//   #12a, per (64 query rows, head, batch row), 4 warps: di = rowsum(o *
+//     dO) in fp32 from the bf16 output (written for #12b), then over the
+//     streamed key blocks, 16 keys at a time: s, p = exp(s - m) * (1 / l),
+//     dP = dO . v^T, dS = (dP - di) p scale rounded to bf16, dQ += dS . K;
+//   #12b, per (64 keys, head, batch row), 4 warps of 16 keys whose K and V
+//     fragments stay in registers: over the streamed query tiles (Q, dO
+//     and the rows' m, 1 / l, di, segment), 16 queries at a time, S^T =
+//     K . Q^T, P^T, dP^T = V . dO^T, dS^T; dV += P^T (bf16) . dO and dK +=
+//     dS^T (bf16) . Q in fp32 registers.
+// Both recompute P with the same fp32 operations from the same m and l.
+//
+// What bounds them on an H100: bytes. #12 at (B, L) = (64, 162) reads q,
+// k, v and writes o, 63.7 MB (0.019 ms at 3.35 TB/s) against 10.3 GFLOP;
+// #12a + #12b at (128, 162) read q, k, v, o, dO and write dq, dk, dv,
+// 255 MB (0.076 ms). mma.sync, 16-row warps and the two passes over the
+// scores keep the kernels above that; wgmma is later work.
+#include "common.cuh"
+
+namespace uc2 {
+
+constexpr int SEG_BLOCK = 128;  // the library kernel's key block
+constexpr int SEG_TILE = 64;    // query rows (#12, #12a) or keys (#12b) per CUDA block
+constexpr int SEG_WARPS = 4;    // 16 rows each
+constexpr float SEG_MASK = (float)(-0.7 * 3.4028234663852886e38);  // -0.7 * FLT_MAX
+
+// shared memory of #12 and #12a: two stages of K and V blocks and their
+// key segments
+constexpr size_t SEG_KV_SMEM = 2 * 2 * (size_t)SEG_BLOCK * K_STRIDE * 2 + 2 * SEG_BLOCK * 4;
+
+__device__ __forceinline__ int segment_of(const float* bias_row, int i, int L) {
+  return i < L && bias_row[i] >= -1.f;
+}
+
+// Stage key block j (keys 128 j ..) of one head into buffer buf: K and V
+// rows by cp.async (zero past L) and the keys' segments; commits a group.
+__device__ __forceinline__ void stage_kv_block(bf16* sK, bf16* sV, int* sSeg,
+                                               const bf16* __restrict__ k,
+                                               const bf16* __restrict__ v, size_t base,
+                                               int rs, const float* bias_row, int L, int j,
+                                               int buf) {
+  const int k0 = j * SEG_BLOCK;
+  for (int i = threadIdx.x; i < SEG_BLOCK * 8; i += SEG_WARPS * 32) {
+    const int r = i >> 3, c = (i & 7) * 8, key = k0 + r;
+    bf16* dk = sK + (buf * SEG_BLOCK + r) * K_STRIDE + c;
+    bf16* dv = sV + (buf * SEG_BLOCK + r) * K_STRIDE + c;
+    if (key < L) {
+      cp_async16(dk, k + base + (size_t)key * rs + c);
+      cp_async16(dv, v + base + (size_t)key * rs + c);
+    } else {
+      *reinterpret_cast<uint4*>(dk) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  for (int i = threadIdx.x; i < SEG_BLOCK; i += SEG_WARPS * 32)
+    sSeg[buf * SEG_BLOCK + i] = segment_of(bias_row, k0 + i, L);
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// A fragments of rows r0, r1 (64 wide, zero past L) of a [tokens][rs] tensor
+__device__ __forceinline__ void row_frags(uint32_t (&a)[HEAD_DIM / 16][4], const bf16* p, int rs,
+                                          int r0, int r1, int L) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
+    const int c = ks * 16 + t * 2;
+    a[ks][0] = r0 < L ? ldg32(p + (size_t)r0 * rs + c) : 0u;
+    a[ks][1] = r1 < L ? ldg32(p + (size_t)r1 * rs + c) : 0u;
+    a[ks][2] = r0 < L ? ldg32(p + (size_t)r0 * rs + c + 8) : 0u;
+    a[ks][3] = r1 < L ? ldg32(p + (size_t)r1 * rs + c + 8) : 0u;
+  }
+}
+
+// c = A . B^T for one 16 x 8 tile: B the rows [row, row + 8) of a
+// [rows][K_STRIDE] tile (head dim contiguous)
+__device__ __forceinline__ void tile_dot(float (&c)[4], const uint32_t (&a)[HEAD_DIM / 16][4],
+                                         const bf16* rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
+    const bf16* kr = rows + g * K_STRIDE + ks * 16 + t * 2;
+    mma16816(c, a[ks], ld32(kr), ld32(kr + 8));
+  }
+}
+
+// acc[0..7] += A . Y for a 16-deep A fragment and the 16 rows [row, row + 16)
+// of a [rows][K_STRIDE] tile Y (64 wide), read through ldmatrix.trans
+__device__ __forceinline__ void frag_times_rows(float (&acc)[HEAD_DIM / 8][4], const uint32_t (&a)[4],
+                                                const bf16* rows) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int np = 0; np < HEAD_DIM / 16; ++np) {
+    uint32_t r[4];
+    ldsm_x4_trans(r, rows + ((mi & 1) * 8 + rr) * K_STRIDE + (2 * np + (mi >> 1)) * 8);
+    mma16816(acc[2 * np], a, r[0], r[1]);
+    mma16816(acc[2 * np + 1], a, r[2], r[3]);
+  }
+}
+
+// ----------------------------------------------------------------- #12
+__global__ void __launch_bounds__(SEG_WARPS * 32)
+    segment_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const float* __restrict__ bias,
+                             bf16* __restrict__ out, float* __restrict__ stats, int L, int n,
+                             int rs, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + 2 * SEG_BLOCK * K_STRIDE;
+  int* sSeg = reinterpret_cast<int*>(sV + 2 * SEG_BLOCK * K_STRIDE);
+  const int q0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
+  const float* bias_row = bias + (size_t)b * L;
+  const int n_blocks = (L + SEG_BLOCK - 1) / SEG_BLOCK;
+  const bool single = n_blocks == 1;  // the library kernel's one-step path
+
+  stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, 0, 0);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  uint32_t qa[HEAD_DIM / 16][4];
+  row_frags(qa, q + base, rs, r0, r1, L);
+  const int seg_q[2] = {segment_of(bias_row, r0, L), segment_of(bias_row, r1, L)};
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HEAD_DIM / 8][4];
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p) o[p][0] = o[p][1] = o[p][2] = o[p][3] = 0.f;
+
+  for (int j = 0; j < n_blocks; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_blocks) {
+      stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kb = sK + buf * SEG_BLOCK * K_STRIDE;
+    const bf16* vb = sV + buf * SEG_BLOCK * K_STRIDE;
+    const int* sb = sSeg + buf * SEG_BLOCK;
+
+    // masked scores of the warp's 16 rows against the block's 128 keys
+    float s[SEG_BLOCK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
+      tile_dot(s[nt], qa, kb + nt * 8 * K_STRIDE);
+      const int key = nt * 8 + t * 2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = s[nt][e] * scale + (seg_q[e >> 1] == sb[key + (e & 1)] ? 0.f : SEG_MASK);
+    }
+    // online softmax: block max, p = exp(s - m_next), the rescale factors
+    float keep_f[2], new_f[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float mc = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < SEG_BLOCK / 8; ++nt)
+        mc = fmaxf(mc, fmaxf(s[nt][2 * hi], s[nt][2 * hi + 1]));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      const float m_next = fmaxf(m[hi], mc);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
+        s[nt][2 * hi] = expf(s[nt][2 * hi] - m_next);
+        s[nt][2 * hi + 1] = expf(s[nt][2 * hi + 1] - m_next);
+        sum += s[nt][2 * hi] + s[nt][2 * hi + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float l_corr = expf(m[hi] - m_next) * l[hi];
+      const float l_next = sum + l_corr;
+      const float inv = l_next == 0.f ? 1.f : 1.f / l_next;
+      if (single) {  // p / l rounded; the context is that product alone
+#pragma unroll
+        for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
+          s[nt][2 * hi] = s[nt][2 * hi] / l_next;
+          s[nt][2 * hi + 1] = s[nt][2 * hi + 1] / l_next;
+        }
+        keep_f[hi] = 0.f;
+        new_f[hi] = 1.f;
+      } else {
+        keep_f[hi] = l_corr * inv;
+        new_f[hi] = inv;
+      }
+      m[hi] = m_next;
+      l[hi] = l_next;
+    }
+    // P (bf16) . V into oc, then o = o * keep + oc * new
+    float oc[HEAD_DIM / 8][4];
+#pragma unroll
+    for (int p = 0; p < HEAD_DIM / 8; ++p) oc[p][0] = oc[p][1] = oc[p][2] = oc[p][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < SEG_BLOCK / 16; ++kk) {
+      const uint32_t a[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+                             pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      frag_times_rows(oc, a, vb + kk * 16 * K_STRIDE);
+    }
+#pragma unroll
+    for (int p = 0; p < HEAD_DIM / 8; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[p][e] = o[p][e] * keep_f[e >> 1] + oc[p][e] * new_f[e >> 1];
+    __syncthreads();  // buffer buf is staged again at block j + 2
+  }
+
+  const int grs = n * HEAD_DIM;
+  bf16* ob = out + (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p) {
+    const int col = p * 8 + t * 2;
+    if (r0 < L) *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * grs + col) = pack2(o[p][0], o[p][1]);
+    if (r1 < L) *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * grs + col) = pack2(o[p][2], o[p][3]);
+  }
+  if (t == 0) {
+    const size_t bnl = (size_t)gridDim.z * n * L;
+    float* st = stats + ((size_t)b * n + h) * L;
+    if (r0 < L) st[r0] = m[0], st[bnl + r0] = l[0];
+    if (r1 < L) st[r1] = m[1], st[bnl + r1] = l[1];
+  }
+}
+
+// ---------------------------------------------------------------- #12a
+__global__ void __launch_bounds__(SEG_WARPS * 32)
+    segment_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const float* __restrict__ bias,
+                                const bf16* __restrict__ out, const bf16* __restrict__ gout,
+                                const float* __restrict__ stats, bf16* __restrict__ dq,
+                                float* __restrict__ di_out, int L, int n, int rs,
+                                float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + 2 * SEG_BLOCK * K_STRIDE;
+  int* sSeg = reinterpret_cast<int*>(sV + 2 * SEG_BLOCK * K_STRIDE);
+  const int q0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
+  const int grs = n * HEAD_DIM;  // token stride of out, g and dq
+  const size_t gbase = (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+  const float* bias_row = bias + (size_t)b * L;
+  const int n_blocks = (L + SEG_BLOCK - 1) / SEG_BLOCK;
+
+  stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, 0, 0);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  uint32_t qa[HEAD_DIM / 16][4], ga[HEAD_DIM / 16][4], oa[HEAD_DIM / 16][4];
+  row_frags(qa, q + base, rs, r0, r1, L);
+  row_frags(ga, gout + gbase, grs, r0, r1, L);
+  row_frags(oa, out + gbase, grs, r0, r1, L);
+  const int seg_q[2] = {segment_of(bias_row, r0, L), segment_of(bias_row, r1, L)};
+
+  // di = rowsum(o * dO) of rows r0 (hi 0) and r1 (hi 1), in fp32
+  float di[2] = {0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 of = bf16x2_to_float2(oa[ks][e]), gf = bf16x2_to_float2(ga[ks][e]);
+      di[e & 1] += of.x * gf.x + of.y * gf.y;
+    }
+  const size_t bnl = (size_t)gridDim.z * n * L;
+  const size_t row_base = ((size_t)b * n + h) * L;
+  float mrow[2], inv_l[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    di[hi] += __shfl_xor_sync(0xffffffffu, di[hi], 1);
+    di[hi] += __shfl_xor_sync(0xffffffffu, di[hi], 2);
+    const int r = hi ? r1 : r0;
+    mrow[hi] = r < L ? stats[row_base + r] : 0.f;
+    inv_l[hi] = r < L ? 1.f / stats[bnl + row_base + r] : 0.f;
+    if (t == 0 && r < L) di_out[row_base + r] = di[hi];
+  }
+
+  float acc[HEAD_DIM / 8][4];
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.f;
+  for (int j = 0; j < n_blocks; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_blocks) {
+      stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, j + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kb = sK + buf * SEG_BLOCK * K_STRIDE;
+    const bf16* vb = sV + buf * SEG_BLOCK * K_STRIDE;
+    const int* sb = sSeg + buf * SEG_BLOCK;
+#pragma unroll 2
+    for (int kk = 0; kk < SEG_BLOCK / 16; ++kk) {
+      float ds[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int row = kk * 16 + nt * 8;
+        float s[4], dp[4];
+        tile_dot(s, qa, kb + row * K_STRIDE);
+        tile_dot(dp, ga, vb + row * K_STRIDE);
+        const int key = row + t * 2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hi = e >> 1;
+          const float sc =
+              s[e] * scale + (seg_q[hi] == sb[key + (e & 1)] ? 0.f : SEG_MASK);
+          const float p = expf(sc - mrow[hi]) * inv_l[hi];
+          ds[nt][e] = (dp[e] - di[hi]) * p * scale;
+        }
+      }
+      const uint32_t a[4] = {pack2(ds[0][0], ds[0][1]), pack2(ds[0][2], ds[0][3]),
+                             pack2(ds[1][0], ds[1][1]), pack2(ds[1][2], ds[1][3])};
+      frag_times_rows(acc, a, kb + kk * 16 * K_STRIDE);
+    }
+    __syncthreads();  // buffer buf is staged again at block j + 2
+  }
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p) {
+    const int col = p * 8 + t * 2;
+    if (r0 < L) *reinterpret_cast<uint32_t*>(dq + gbase + (size_t)r0 * grs + col) = pack2(acc[p][0], acc[p][1]);
+    if (r1 < L) *reinterpret_cast<uint32_t*>(dq + gbase + (size_t)r1 * grs + col) = pack2(acc[p][2], acc[p][3]);
+  }
+}
+
+// ---------------------------------------------------------------- #12b
+// shared memory: two stages of the query tile (Q, dO) and its rows' m,
+// 1 / l, di and segment
+struct QTileSmem {
+  bf16* Q;      // [2][SEG_TILE][K_STRIDE]
+  bf16* G;      // [2][SEG_TILE][K_STRIDE]
+  float* rowf;  // [2][3][SEG_TILE]: m, 1 / l, di
+  int* seg;     // [2][SEG_TILE]
+};
+constexpr size_t SEG_Q_SMEM = 2 * 2 * (size_t)SEG_TILE * K_STRIDE * 2 + 2 * 3 * SEG_TILE * 4 +
+                              2 * SEG_TILE * 4;
+
+__global__ void __launch_bounds__(SEG_WARPS * 32)
+    segment_flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const float* __restrict__ bias,
+                                  const bf16* __restrict__ gout, const float* __restrict__ stats,
+                                  const float* __restrict__ di_in, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, int L, int n, int rs, float scale) {
+  __shared__ __align__(16) uint8_t smem[SEG_Q_SMEM];
+  QTileSmem sm;
+  sm.Q = reinterpret_cast<bf16*>(smem);
+  sm.G = sm.Q + 2 * SEG_TILE * K_STRIDE;
+  sm.rowf = reinterpret_cast<float*>(sm.G + 2 * SEG_TILE * K_STRIDE);
+  sm.seg = reinterpret_cast<int*>(sm.rowf + 2 * 3 * SEG_TILE);
+  const int k0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
+  const int grs = n * HEAD_DIM;
+  const size_t gbase = (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+  const float* bias_row = bias + (size_t)b * L;
+  const size_t bnl = (size_t)gridDim.z * n * L;
+  const size_t row_base = ((size_t)b * n + h) * L;
+  const int n_tiles = (L + SEG_TILE - 1) / SEG_TILE;
+
+  // query tile i into buffer buf: Q and dO rows (zero past L), and the rows'
+  // m, 1 / l, di, segment (0, 0, 0, 0 past L: P = 0 there)
+  auto stage = [&](int i, int buf) {
+    const int r0 = i * SEG_TILE;
+    for (int x = tid; x < SEG_TILE * 8; x += SEG_WARPS * 32) {
+      const int r = x >> 3, c = (x & 7) * 8, row = r0 + r;
+      bf16* dq_ = sm.Q + (buf * SEG_TILE + r) * K_STRIDE + c;
+      bf16* dg = sm.G + (buf * SEG_TILE + r) * K_STRIDE + c;
+      if (row < L) {
+        cp_async16(dq_, q + base + (size_t)row * rs + c);
+        cp_async16(dg, gout + gbase + (size_t)row * grs + c);
+      } else {
+        *reinterpret_cast<uint4*>(dq_) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dg) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    for (int x = tid; x < SEG_TILE; x += SEG_WARPS * 32) {
+      const int row = r0 + x;
+      const bool in = row < L;
+      float* rf = sm.rowf + buf * 3 * SEG_TILE;
+      rf[x] = in ? stats[row_base + row] : 0.f;
+      rf[SEG_TILE + x] = in ? 1.f / stats[bnl + row_base + row] : 0.f;
+      rf[2 * SEG_TILE + x] = in ? di_in[row_base + row] : 0.f;
+      sm.seg[buf * SEG_TILE + x] = segment_of(bias_row, row, L);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
+  const bool active = k0 + warp * 16 < L;
+  uint32_t ka[HEAD_DIM / 16][4], va[HEAD_DIM / 16][4];
+  row_frags(ka, k + base, rs, kr0, kr1, L);
+  row_frags(va, v + base, rs, kr0, kr1, L);
+  const int seg_k[2] = {segment_of(bias_row, kr0, L), segment_of(bias_row, kr1, L)};
+  float dka[HEAD_DIM / 8][4], dva[HEAD_DIM / 8][4];
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[p][e] = dva[p][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_tiles) {
+      stage(i + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qb = sm.Q + buf * SEG_TILE * K_STRIDE;
+    const bf16* gb = sm.G + buf * SEG_TILE * K_STRIDE;
+    const float* rf = sm.rowf + buf * 3 * SEG_TILE;
+    const int* sq = sm.seg + buf * SEG_TILE;
+    if (active) {
+#pragma unroll 2
+      for (int qc = 0; qc < SEG_TILE / 16; ++qc) {
+        float pt[2][4], dst[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int qrow = qc * 16 + nt * 8;
+          float s[4], dp[4];
+          tile_dot(s, ka, qb + qrow * K_STRIDE);   // S^T: keys x queries
+          tile_dot(dp, va, gb + qrow * K_STRIDE);  // dP^T = V . dO^T
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = qrow + t * 2 + (e & 1);
+            const float sc =
+                s[e] * scale + (seg_k[e >> 1] == sq[col] ? 0.f : SEG_MASK);
+            const float p = expf(sc - rf[col]) * rf[SEG_TILE + col];
+            pt[nt][e] = p;
+            dst[nt][e] = (dp[e] - rf[2 * SEG_TILE + col]) * p * scale;
+          }
+        }
+        const uint32_t ap[4] = {pack2(pt[0][0], pt[0][1]), pack2(pt[0][2], pt[0][3]),
+                                pack2(pt[1][0], pt[1][1]), pack2(pt[1][2], pt[1][3])};
+        const uint32_t as[4] = {pack2(dst[0][0], dst[0][1]), pack2(dst[0][2], dst[0][3]),
+                                pack2(dst[1][0], dst[1][1]), pack2(dst[1][2], dst[1][3])};
+        frag_times_rows(dva, ap, gb + qc * 16 * K_STRIDE);
+        frag_times_rows(dka, as, qb + qc * 16 * K_STRIDE);
+      }
+    }
+    __syncthreads();  // buffer buf is staged again at tile i + 2
+  }
+#pragma unroll
+  for (int p = 0; p < HEAD_DIM / 8; ++p) {
+    const int col = p * 8 + t * 2;
+    if (kr0 < L) {
+      const size_t o = gbase + (size_t)kr0 * grs + col;
+      *reinterpret_cast<uint32_t*>(dk + o) = pack2(dka[p][0], dka[p][1]);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack2(dva[p][0], dva[p][1]);
+    }
+    if (kr1 < L) {
+      const size_t o = gbase + (size_t)kr1 * grs + col;
+      *reinterpret_cast<uint32_t*>(dk + o) = pack2(dka[p][2], dka[p][3]);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack2(dva[p][2], dva[p][3]);
+    }
+  }
+}
+
+}  // namespace uc2
+
+// q, k, v: [B, L, n, 64] bf16, tokens rs elements apart; bias [B, L] fp32;
+// out [B, L, n, 64] bf16 contiguous; stats [2][B, n, L] fp32 (m, l);
+// 1 <= L <= 512. Returns cudaGetLastError().
+extern "C" int uc2_segment_flash_fwd(const void* q, const void* k, const void* v,
+                                     const void* bias, void* out, void* stats, int B, int L,
+                                     int n, int rs, float scale, void* stream) {
+  using namespace uc2;
+  if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(segment_flash_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SEG_KV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
+  segment_flash_fwd_kernel<<<grid, SEG_WARPS * 32, SEG_KV_SMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<float*>(stats), L,
+      n, rs, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, bias as above; out, g, dq [B, L, n, 64] bf16 contiguous; stats
+// as the forward wrote them; di [B, n, L] fp32 (written). Returns
+// cudaGetLastError().
+extern "C" int uc2_segment_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                        const void* bias, const void* out, const void* g,
+                                        const void* stats, void* dq, void* di, int B, int L,
+                                        int n, int rs, float scale, void* stream) {
+  using namespace uc2;
+  if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(segment_flash_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SEG_KV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
+  segment_flash_bwd_dq_kernel<<<grid, SEG_WARPS * 32, SEG_KV_SMEM,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<const bf16*>(out),
+      static_cast<const bf16*>(g), static_cast<const float*>(stats), static_cast<bf16*>(dq),
+      static_cast<float*>(di), L, n, rs, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v, bias, g as above; stats and di as #12 and #12a wrote them;
+// dk, dv [B, L, n, 64] bf16 contiguous. Returns cudaGetLastError().
+extern "C" int uc2_segment_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                                          const void* bias, const void* g, const void* stats,
+                                          const void* di, void* dk, void* dv, int B, int L,
+                                          int n, int rs, float scale, void* stream) {
+  using namespace uc2;
+  if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
+  segment_flash_bwd_dkdv_kernel<<<grid, SEG_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<const bf16*>(g),
+      static_cast<const float*>(stats), static_cast<const float*>(di), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, n, rs, scale);
+  return (int)cudaGetLastError();
+}

@@ -236,12 +236,13 @@ __device__ void attn_softmax(int L, uint8_t* smem) {
   }
 }
 
-//   vh:  token 0 of this batch row and head's values; tokens rs apart
+// The product phase of attn_pv, once V^T [HEAD_DIM][vt_stride(Lp)] is in
+// the K/V region (zero or finite past L) and the bf16 probabilities in S:
 //   out: row q0 of the context; rows are out_rs apart; the first out_rows
 //        rows are written, as bf16
 template <int WARPS, int QT>
-__device__ void attn_pv(const bf16* __restrict__ vh, int rs, int L,
-                        uint8_t* smem, bf16* out, int out_rs, int out_rows) {
+__device__ void attn_pv_product(int L, uint8_t* smem, bf16* out, int out_rs,
+                                int out_rows) {
   constexpr int MT = QT / 16;
   constexpr int WPM = WARPS / MT;
   constexpr int NPW = 8 / WPM;       // 8-wide head-dim tiles per warp
@@ -250,20 +251,9 @@ __device__ void attn_pv(const bf16* __restrict__ vh, int rs, int L,
   const int SF = score_stride(Lp);
   const int VS = vt_stride(Lp);
   const AttnSmem sm = attn_smem(smem, Lp, QT);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m = warp % MT, wj = warp / MT;
-
-  // V^T into the K region: every warp passed the score loop's barrier
-  for (int i = tid; i < Lp * 8; i += WARPS * 32) {
-    const int key = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (key < L) val = *reinterpret_cast<const uint4*>(vh + (size_t)key * rs + c);
-    const bf16* pv = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) sm.KV[(c + u) * VS + key] = pv[u];
-  }
-  __syncthreads();
 
   float acc[NPW][4];
 #pragma unroll
@@ -292,6 +282,29 @@ __device__ void attn_pv(const bf16* __restrict__ vh, int rs, int L,
     if (rb < out_rows)
       *reinterpret_cast<uint32_t*>(out + (size_t)rb * out_rs + col) = pack2(acc[p][2], acc[p][3]);
   }
+}
+
+//   vh:  token 0 of this batch row and head's values; tokens rs apart
+//   out, out_rs, out_rows: as attn_pv_product
+template <int WARPS, int QT>
+__device__ void attn_pv(const bf16* __restrict__ vh, int rs, int L,
+                        uint8_t* smem, bf16* out, int out_rs, int out_rows) {
+  const int Lp = padded_len(L);
+  const int VS = vt_stride(Lp);
+  const AttnSmem sm = attn_smem(smem, Lp, QT);
+  const int tid = threadIdx.x;
+
+  // V^T into the K region: every warp passed the score loop's barrier
+  for (int i = tid; i < Lp * 8; i += WARPS * 32) {
+    const int key = i >> 3, c = (i & 7) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (key < L) val = *reinterpret_cast<const uint4*>(vh + (size_t)key * rs + c);
+    const bf16* pv = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) sm.KV[(c + u) * VS + key] = pv[u];
+  }
+  __syncthreads();
+  attn_pv_product<WARPS, QT>(L, smem, out, out_rs, out_rows);
 }
 
 // softmax(q.k^T * scale + bias) . v for one (batch, head) and query rows

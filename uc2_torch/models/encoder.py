@@ -31,6 +31,7 @@ from uc2_torch.ops.attention import multi_head_attention, resolve_impl
 from uc2_torch.ops.dropout import dropout
 from uc2_torch.ops.ffn_train import ffn_train_enabled, fused_ffn_block_train
 from uc2_torch.ops.fused_block import (fused_attn_block,
+                                       fused_attn_block_v2,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
 
@@ -182,9 +183,10 @@ class EncoderLayer(nn.Module):
     the unfused chains run, with hidden dropout after the out-projection
     and after the FFN, except that under "pallas-train" with
     ``UC2_FFN_TRAIN=1`` the FFN is the training FFN block
-    (``ops/ffn_train.py``, kernels #9/#10), as in the reference. Where
-    the reference would run the QKV-in-kernel block (kernel #7, selected
-    by ``UC2_ATTN_V2`` on the fused route) this raises: #7 is not ported."""
+    (``ops/ffn_train.py``, kernels #9/#10), as in the reference. On the
+    fused route, ``UC2_ATTN_V2`` (read at every forward, as the reference
+    reads it at trace time) selects the attention block with the QKV
+    projection inside the kernel (``fused_attn_block_v2``, kernel #7)."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
@@ -209,16 +211,17 @@ class EncoderLayer(nn.Module):
         L = x.shape[1]
         if fusable and (force or fused_block_profitable(
                 L, cfg.num_attention_heads)):
-            if os.environ.get("UC2_ATTN_V2"):
-                raise NotImplementedError(
-                    "uc2_torch: UC2_ATTN_V2 selects the attention block with "
-                    "the QKV projection in the kernel (kernel #7, "
-                    "uc2_tpu/ops/fused_block.py fused_attn_block_v2), which "
-                    "the port has no counterpart of yet")
-            q, k, v = self.attention.heads(x)
             od, ln = self.attention_output_dense, self.attention_output_LayerNorm
-            x = fused_attn_block(q, k, v, attn_bias, x, od.weight.to(dt),
-                                 od.bias, ln.weight, ln.bias, eps=eps)
+            if os.environ.get("UC2_ATTN_V2"):
+                qkv = self.attention.qkv
+                x = fused_attn_block_v2(x, qkv.weight.to(dt), qkv.bias,
+                                        attn_bias, od.weight.to(dt), od.bias,
+                                        ln.weight, ln.bias,
+                                        cfg.num_attention_heads, eps=eps)
+            else:
+                q, k, v = self.attention.heads(x)
+                x = fused_attn_block(q, k, v, attn_bias, x, od.weight.to(dt),
+                                     od.bias, ln.weight, ln.bias, eps=eps)
         else:
             attn_out = self.attention_output_dense(
                 self.attention(x, attn_bias, rng))

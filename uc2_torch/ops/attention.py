@@ -6,9 +6,10 @@ optional probs dropout, probabilities cast to the value dtype, context in
 the value dtype. ``multi_head_attention`` dispatches on the config's
 ``use_pallas_attention`` value exactly as the reference package does on a
 TPU, with one difference: there is no device switch and no fallback. The
-kernel paths go through ``ops/flash_attention``, whose wrappers launch the
-CUDA kernels on CUDA tensors (or raise) and take the plain versions only
-for CPU tensors.
+kernel paths go through ``ops/flash_attention`` and, for "flash",
+``ops/segment_flash`` (``stock_flash_attention``), whose wrappers launch
+the CUDA kernels on CUDA tensors (or raise) and take the plain versions
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -51,6 +52,20 @@ def xla_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None):
     return ctx.to(v.dtype)
 
 
+STOCK_FLASH_MIN_LEN = 128   # below, the reference's wrapper runs the eager chain
+
+
+def stock_flash_attention(q, k, v, bias):
+    """The counterpart of the reference's ``_stock_flash_attention``:
+    ``xla_attention`` at L < 128, else the segment-masked library kernel's
+    function (``ops/segment_flash.py``; kernels #12, #12a, #12b), which
+    differs from ``xla_attention`` at invalid query rows."""
+    if q.shape[1] < STOCK_FLASH_MIN_LEN:
+        return xla_attention(q, k, v, bias)
+    from uc2_torch.ops.segment_flash import segment_flash_attention
+    return segment_flash_attention(q, k, v, bias)
+
+
 def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
                          use_pallas=False):
     """Dispatch between attention backends, as uc2_tpu/ops/attention.py
@@ -63,12 +78,9 @@ def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
     kernel impl at rate 0 runs ``flash_attention`` (the inference kernel,
     whose backward is the eager recompute), and everything else the eager
     ``xla_attention``. "flash" (the reference's wrapper of jax's library
-    TPU kernel) has no counterpart yet and raises."""
+    TPU kernel) runs ``stock_flash_attention`` at rate 0 (inference, and
+    training at attention dropout 0) and the eager chain with dropout."""
     impl = resolve_impl(use_pallas)
-    if impl == "flash":
-        raise NotImplementedError(
-            "uc2_torch: use_pallas_attention='flash' (jax's library TPU "
-            "kernel) has no counterpart in the port yet")
     if impl != "xla":
         from uc2_torch.ops import flash_attention as fa
         if rng is not None and ((dropout_rate > 0.0 and impl in (
@@ -76,5 +88,7 @@ def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
             return fa.flash_attention_train(q, k, v, bias, rng.kernel_seed(),
                                             float(dropout_rate))
         if dropout_rate == 0.0:
+            if impl == "flash":
+                return stock_flash_attention(q, k, v, bias)
             return fa.flash_attention(q, k, v, bias)
     return xla_attention(q, k, v, bias, dropout_rate, rng)

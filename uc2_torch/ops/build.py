@@ -42,6 +42,10 @@ _SIGNATURES = {
     "uc2_attn_train_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
     "uc2_ffn_train_fwd": [_P] * 8 + [_I, _I, _F, _U, _U, _F, _I, _P],
     "uc2_ffn_train_bwd": [_P] * 15 + [_I] * 3 + [_F, _U, _U, _F, _I, _P],
+    "uc2_fused_attn_block_v2": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
+    "uc2_segment_flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "uc2_segment_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "uc2_segment_flash_bwd_dkdv": [_P] * 9 + [_I] * 4 + [_F, _P],
 }
 
 _lib = None

@@ -3,6 +3,9 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
 
 * ``fused_attn_block``: LayerNorm(x + attention(q, k, v, bias).Wo^T + bo),
   kernel in ``csrc/fused_attn_block.cu``;
+* ``fused_attn_block_v2``: the same block with the QKV projection inside
+  the kernel (the reference's ``UC2_ATTN_V2`` route), kernel in
+  ``csrc/fused_attn_block_v2.cu``;
 * ``fused_ffn_block``: LayerNorm(gelu(x.W1^T + b1).W2^T + b2 + x) (erf gelu),
   kernel in ``csrc/fused_ffn_block.cu``; the [rows, F] intermediate never
   reaches device memory.
@@ -94,6 +97,69 @@ def fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta,
 
 
 fused_attn_block.launches = 0
+
+
+def fused_attn_block_v2_plain(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta,
+                              n: int, eps: float = 1e-12):
+    """#7's function: q, k, v = bf16(fp32(x.W^T) + b) (the bias is added in
+    fp32 before rounding, unlike the eager chain's Dense), then as
+    ``fused_attn_block_plain``."""
+    B, L, H = x.shape
+    qkv = (x.float() @ w_qkv.float().t() + b_qkv.float()).to(x.dtype)
+    q, k, v = (t.reshape(B, L, n, H // n) for t in qkv.split(H, dim=-1))
+    return fused_attn_block_plain(q, k, v, bias, x, wo, bo, gamma, beta, eps)
+
+
+def fused_attn_block_v2(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n: int,
+                        eps: float = 1e-12):
+    """One encoder attention block with the QKV projection in the kernel
+    (kernel #7): x [B, L, H] block input; w_qkv [3H, H] ([out, in], the
+    rows of q, then k, then v; head h's at rows h*d .. h*d + d - 1 of
+    each), b_qkv [3H]; bias [B, 1, 1, L] additive mask; wo [H, H], bo [H];
+    gamma, beta [H]; n heads. Returns LayerNorm(x + attention.wo^T + bo) as
+    [B, L, H] in x's dtype; the [B, L, 3H] projection never reaches device
+    memory.
+    """
+    if x.dim() != 3:
+        raise ValueError(f"fused_attn_block_v2: x must be [B, L, H], got "
+                         f"{tuple(x.shape)}")
+    B, L, H = x.shape
+    if (tuple(w_qkv.shape) != (3 * H, H)
+            or tuple(b_qkv.shape) != (3 * H,) or tuple(wo.shape) != (H, H)
+            or tuple(bias.shape) != (B, 1, 1, L)
+            or any(tuple(p.shape) != (H,) for p in (bo, gamma, beta))
+            or H % n):
+        raise ValueError(f"fused_attn_block_v2: w_qkv must be [3H, H], "
+                         f"b_qkv [3H], bias [B, 1, 1, L], wo [H, H] and bo, "
+                         f"gamma, beta [H], with H = {H} a multiple of n = "
+                         f"{n}")
+    dev = check_device((x, w_qkv, b_qkv, bias, wo, bo, gamma, beta),
+                       "fused_attn_block_v2")
+    if dev.type == "cpu":
+        return fused_attn_block_v2_plain(x, w_qkv, b_qkv, bias, wo, bo, gamma,
+                                         beta, n, eps)
+    check_kernel_inputs("fused_attn_block_v2", bf16=(x, w_qkv, wo),
+                        fp32=(b_qkv, bias, bo, gamma, beta))
+    if H // n != HEAD_DIM or H != HIDDEN:
+        raise ValueError(f"fused_attn_block_v2: the kernel takes head_dim "
+                         f"{HEAD_DIM} and hidden {HIDDEN}, got {H // n}, {H}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"fused_attn_block_v2: the kernel takes joint "
+                         f"lengths 1..{MAX_LEN}, got {L}")
+    if not all(t.is_contiguous() for t in (x, w_qkv, wo)):
+        raise ValueError("fused_attn_block_v2: x, w_qkv and wo must be "
+                         "contiguous")
+    out = torch.empty_like(x)
+    build.launch("uc2_fused_attn_block_v2", x.data_ptr(), w_qkv.data_ptr(),
+                 b_qkv.data_ptr(), bias.data_ptr(), wo.data_ptr(),
+                 bo.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 out.data_ptr(), B, L, n, 1.0 / math.sqrt(HEAD_DIM),
+                 float(eps), device=dev)
+    fused_attn_block_v2.launches += 1
+    return out
+
+
+fused_attn_block_v2.launches = 0
 
 
 def fused_ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
