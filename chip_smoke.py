@@ -2,10 +2,11 @@
 """Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
 pretraining step, the pretraining task mix of config/uc2_pretrain.json
 (itm, mlm, vmlm, tlm) with the training FFN kernels, mlm pretraining on
-long captions (joint L up to 512), and the two routes of the attention
+long captions (joint L up to 512), the two routes of the attention
 dispatch beyond the default: scoring with UC2_ATTN_V2=1 (the QKV
 projection inside the attention block) and use_pallas_attention="flash"
-(scoring, and training at attention dropout 0).
+(scoring, and training at attention dropout 0), and the port's kernel lab
+(python -m uc2_torch.lab, every mode) with the two kernels only it runs.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -77,17 +78,30 @@ non-zero at the end, without the result lines:
      and #12b a step, finite losses, ms/step in turns beside "pallas" and
      "pallas-train", a bitwise repeat, one step against the eager path at
      dropout 0;
- 12. a JSON line of per-kernel numbers, then the last line
+ 12. lab kernels: #8 (the whole encoder layer) against its plain version
+     at (B, L) = (64, 98), (64, 128), (64, 162) and (8, 512), #11 (attention
+     with unnormalised bf16 probabilities) at (64, 98) and (64, 162) on
+     heads that are views into one projection, each timed with its bound
+     (#11 beside SDPA) and repeated bit for bit;
+ 13. lab: uc2_torch.lab.main for each of its six modes (op, block, block2,
+     ffn, layer, ce) at the lab's default shapes (B = 64, L = 162; the ce
+     race at N = 1536, V = 250002) and --iters 10, its output echoed:
+     every racer prints a RESULT line, none FAILED, each maxerr within
+     the mode's limit (LAB_MAXERR), #8 launched only in layer and #11 only
+     in op;
+ 14. a JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}}.
-The phases run in the order 1, 2, 5, 6, 9, 3, 10, 4, 7, 8, 11, 12.
+The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +110,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from uc2_torch import lab
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets
 from uc2_torch.data.collate import BucketSpec, default_buckets
@@ -129,7 +144,11 @@ from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_v2_plain,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_block_plain,
-                                       fused_ffn_profitable)
+                                       fused_ffn_profitable,
+                                       fused_layer_block,
+                                       fused_layer_block_plain)
+from uc2_torch.ops.lab_attention import (attention_bf16_probs,
+                                         attention_bf16_probs_plain)
 from uc2_torch.ops.philox import ffn_keep_mask, keep_mask
 from uc2_torch.ops.segment_flash import (
     padded_len, segment_flash_attention, segment_flash_bwd_dkdv,
@@ -160,8 +179,10 @@ LONG_KERNELS = (flash_attention_long, flash_attention_train_bwd_dq,
 ROUTE_KERNELS = (fused_attn_block_v2, segment_flash_fwd, segment_flash_bwd_dq,
                  segment_flash_bwd_dkdv)
 SEGMENT_KERNELS = ROUTE_KERNELS[1:]
+# #8 and #11, which only the kernel lab runs
+LAB_KERNELS = (fused_layer_block, attention_bf16_probs)
 ALL_KERNELS = (KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
-               + ROUTE_KERNELS)
+               + ROUTE_KERNELS + LAB_KERNELS)
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
 # (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
 TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
@@ -205,18 +226,7 @@ def no_launches():
     return {k.__name__: 0 for k in ALL_KERNELS}
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+time_ms = lab.time_ms      # CUDA events around chained calls, after a warm-up
 
 
 def bound(nbytes: float, flops: float):
@@ -1950,6 +1960,134 @@ def phase_flash_train(card, long_batch):
     return total
 
 
+LAB_ROWS = {
+    "fused_layer_block": dict(
+        name="fused_layer_block", route="cuda",
+        source="uc2_torch/csrc/fused_layer_block.cu",
+        replaces="uc2_tpu/ops/fused_block.py:326"),
+    "attention_bf16_probs": dict(
+        name="attention_bf16_probs", route="cuda",
+        source="uc2_torch/csrc/attention_bf16.cu",
+        replaces="scripts/kernel_lab.py:38"),
+}
+
+
+def repeat_bitwise(what: str, fn, first):
+    """Fail unless a second call of ``fn`` gives ``first`` bit for bit."""
+    same = torch.equal(fn(), first)
+    print(f"  {what}: two calls bitwise equal: {same}")
+    if not same:
+        fail(f"{what} is not bitwise repeatable")
+
+
+def phase_lab_kernels(gen):
+    """#8 against its plain version at B = 64, L = 98, 128, 162 and at
+    (8, 512), on random weights at the lab's scales; #11 at (64, 98) and
+    (64, 162) on heads that are views into one projection. Each timed at
+    (64, 162) with its bound, #11 beside SDPA, and repeated bit for bit."""
+    print("== lab kernels vs plain (#8 the whole encoder layer; #11 attention "
+          "with unnormalised bf16 probabilities; plain: fp32 compute on the "
+          "same bf16 inputs)")
+    rows = {k: dict(v) for k, v in LAB_ROWS.items()}
+    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.02).bfloat16()
+    wo, w1, w2 = w(H, H), w(FF, H), w(H, FF)
+    bo, b1, b2 = vec(gen, H, 0.01), vec(gen, FF, 0.01), vec(gen, H, 0.01)
+    g1, be1 = vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    g2, be2 = vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    for b, L in ((B, 98), (B, 128), (B, 162), (8, 512)):
+        q, k, v, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        args = (q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+        run_case(rows, "fused_layer_block", b, L, fused_layer_block,
+                 fused_layer_block_plain, args,
+                 5 * b * L * H * 2 + b * L * 4 + (H * H + 2 * H * FF) * 2
+                 + (6 * H + FF) * 4,
+                 4 * b * N * L * L * D + 2 * b * L * H * H + 4 * b * L * H * FF,
+                 report=(b, L) == (B, 162))
+        repeat_bitwise(f"#8 B={b} L={L}", lambda: fused_layer_block(*args),
+                       fused_layer_block(*args))
+    for L in (98, 162):
+        q, k, v, bias = heads(gen, B, L)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bias16 = bias.bfloat16()
+        run_case(rows, "attention_bf16_probs", B, L, attention_bf16_probs,
+                 attention_bf16_probs_plain, (q, k, v, bias),
+                 4 * B * L * H * 2 + B * L * 4, 4 * B * N * L * L * D,
+                 library=lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=bias16),
+                 report=L == 162)
+        repeat_bitwise(f"#11 B={B} L={L}",
+                       lambda: attention_bf16_probs(q, k, v, bias),
+                       attention_bf16_probs(q, k, v, bias))
+    return rows
+
+
+# the lab's racers by mode, and the largest maxerr each mode may print (set
+# before the first run): every output is bf16 and held against the mode's
+# eager chain, which rounds at other points. op: attention outputs of up
+# to ~4, a few bf16 ulps (2^-6 each) and #11's unnormalised rounding
+# (2^-8 of a probability); the blocks: LayerNorm outputs of up to ~5
+# (ulp 2^-5) after intermediate sums the eager chain rounds to bf16; ce:
+# gradients of up to ~0.25 in bf16 (ulp 2^-10), chunked against full.
+LAB_RACERS = {"op": ("v3", "v3bb1", "v3bb4", "v4bf16", "v4qs", "xla", "sdpa"),
+              "block": ("fusedblock", "xlablock"),
+              "block2": ("v1chain", "v2inkernel"),
+              "ffn": ("xlaffn", "fusedffn"),
+              "layer": ("xlalayer", "split2", "onekernel"),
+              "ce": ("xlace_grad", "chunked8_grad", "matmul_roofline")}
+LAB_MAXERR = {"op": 2.0 ** -4, "block": 2.0 ** -2, "block2": 2.0 ** -2,
+              "ffn": 2.0 ** -2, "layer": 2.0 ** -2, "ce": 2.0 ** -8}
+LAB_ITERS = 10
+RESULT_LINE = re.compile(r"^RESULT (\S+): (.*)$")
+
+
+def phase_lab(card):
+    """``python -m uc2_torch.lab`` in every mode at its default shapes
+    (through ``lab.main``, output captured and echoed): every racer's RESULT
+    line, no FAILED, each maxerr within LAB_MAXERR, #8 launched only by
+    the layer mode and #11 only by the op mode. Returns their launches."""
+    print(f"== lab: uc2_torch.lab, every mode, --iters {LAB_ITERS} [{card}]")
+    launched = {}
+    for mode in lab.MODES:
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = lab.main(["--mode", mode, "--iters", str(LAB_ITERS)])
+        torch.cuda.synchronize()
+        out = buf.getvalue()
+        print(out, end="")
+        launched[mode] = {k.__name__: k.launches for k in LAB_KERNELS
+                          + (flash_attention, fused_attn_block,
+                             fused_attn_block_v2, fused_ffn_block)}
+        print(f"  {mode}: rc {rc}, {time.perf_counter() - t0:.1f} s, "
+              f"launches {launched[mode]}")
+        results = dict(m.groups() for m in map(RESULT_LINE.match,
+                                               out.splitlines()) if m)
+        if rc != 0:
+            fail(f"lab --mode {mode} exited {rc}")
+        for name in LAB_RACERS[mode]:
+            res = results.get(name)
+            if res is None or res.startswith("FAILED"):
+                fail(f"lab --mode {mode}: racer {name}: {res or 'missing'}")
+                continue
+            err = re.search(r"maxerr=(\S+)", res).group(1)
+            if err != "n/a" and not float(err) <= LAB_MAXERR[mode]:
+                fail(f"lab --mode {mode}: {name} maxerr {err} above "
+                     f"{LAB_MAXERR[mode]}")
+    for kern, mode in ((fused_layer_block, "layer"),
+                       (attention_bf16_probs, "op")):
+        name = kern.__name__
+        others = {m: c[name] for m, c in launched.items() if m != mode}
+        if launched[mode][name] <= 0 or any(others.values()):
+            fail(f"{name} launched {launched[mode][name]} times in {mode} "
+                 f"and {others} elsewhere; expected only in {mode}")
+    torch.cuda.empty_cache()
+    return {"fused_layer_block": launched["layer"]["fused_layer_block"],
+            "attention_bf16_probs": launched["op"]["attention_bf16_probs"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1974,6 +2112,7 @@ def main() -> int:
     rows.update(ffn_rows)
     rows.update(timed(phase_long_kernels, gen))
     rows.update(timed(phase_route_kernels, gen))
+    rows.update(timed(phase_lab_kernels, gen))
     launches = timed(phase_slice, card)
     launches.update(timed(phase_routes, card))
     train_launches, busy = timed(phase_train, card, train_rows)
@@ -1983,6 +2122,7 @@ def main() -> int:
     launches.update(long_launches)
     for kernel, n in timed(phase_flash_train, card, long_batch).items():
         launches[kernel] = launches.get(kernel, 0) + n
+    launches.update(timed(phase_lab, card))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

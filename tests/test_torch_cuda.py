@@ -9,9 +9,11 @@ backward's bitwise repeat, the training FFN kernels (#9, #10) against
 their plain versions and for a bitwise repeat, the QKV-in-kernel
 attention block (#7) and the segment-masked attention of the "flash"
 route (#12, #12a, #12b: all rows valid, most rows invalid, a first key
-block masked for whole rows, a bitwise repeat of the backward), and the
+block masked for whole rows, a bitwise repeat of the backward), the
 encoder's kernel paths (scoring and training steps, "flash" and
-``UC2_ATTN_V2`` included) against its eager path. Needs a CUDA device
+``UC2_ATTN_V2`` included) against its eager path, and the two kernels of
+the kernel lab: the whole encoder layer (#8) and attention with
+unnormalised bf16 probabilities (#11). Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -48,6 +50,10 @@ from uc2_torch.ops.philox import ffn_keep_mask
 from uc2_torch.ops.fused_block import (fused_attn_block_v2,
                                        fused_attn_block_v2_plain)
 from uc2_torch.ops import segment_flash as sf
+from uc2_torch.ops.fused_block import (fused_layer_block,
+                                       fused_layer_block_plain)
+from uc2_torch.ops.lab_attention import (attention_bf16_probs,
+                                         attention_bf16_probs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -762,3 +768,85 @@ def test_train_step_flash_path_matches_eager_path(gen):
     diff = torch.cat([(dk[n] - de[n]).abs().flatten() for n in dk])
     assert diff.max().item() <= 2.05e-3
     assert (diff > 1e-4).float().mean().item() <= 1e-2
+
+
+# kernel #8: the whole encoder layer
+def _layer_args(gen, B, L, strided=True, F=3072):
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.02).bfloat16()
+    q, k, v = _heads(gen, B, L, strided)
+    x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+    return (q, k, v, _bias(gen, B, L), x, w(H, H), _vec(gen, H, 0.01),
+            _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1), w(F, H),
+            _vec(gen, F, 0.01), w(H, F), _vec(gen, H, 0.01),
+            _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1))
+
+
+@pytest.mark.parametrize("B,L,strided", [(1, 1, True), (2, 98, True),
+                                         (2, 128, False), (3, 162, True),
+                                         (1, 257, False), (1, 512, True)])
+def test_fused_layer_block_kernel_matches_plain(gen, B, L, strided):
+    """L = 1, 98, 162 and 257 end in a padded query tile; 512 takes the
+    widest score rows and the largest shared memory (192 KB)."""
+    args = _layer_args(gen, B, L, strided)
+    before = fused_layer_block.launches
+    out = fused_layer_block(*args)
+    _close(out, fused_layer_block_plain(*args))
+    assert fused_layer_block.launches == before + 1
+    assert torch.equal(fused_layer_block(*args), out)        # bitwise repeat
+
+
+def test_fused_layer_block_takes_other_ffn_widths(gen):
+    args = _layer_args(gen, 2, 40, F=1024)
+    _close(fused_layer_block(*args), fused_layer_block_plain(*args))
+
+
+def test_fused_layer_block_refuses(gen):
+    args = list(_layer_args(gen, 1, 16))
+    bad = list(args)
+    bad[4] = bad[4].float()                               # fp32 activations
+    with pytest.raises(TypeError):
+        fused_layer_block(*bad)
+    bad = list(args)
+    bad[7] = bad[7].bfloat16()                            # bf16 LayerNorm
+    with pytest.raises(TypeError):
+        fused_layer_block(*bad)
+    long_args = _layer_args(gen, 1, 513)                  # past the limit
+    with pytest.raises(ValueError):
+        fused_layer_block(*long_args)
+    # hidden 512 (8 heads of 64): not the kernel's 768
+    q, k, v = (t[:, :, :8].contiguous() for t in args[:3])
+    Hs = 512
+    small = (q, k, v, args[3], args[4][..., :Hs].contiguous(),
+             args[5][:Hs, :Hs].contiguous(), *(a[:Hs] for a in args[6:9]),
+             args[9][:, :Hs].contiguous(), args[10],
+             args[11][:Hs].contiguous(), *(a[:Hs] for a in args[12:]))
+    with pytest.raises(ValueError):
+        fused_layer_block(*small)
+    with pytest.raises(RuntimeError):                     # no backward
+        fused_layer_block(*args[:4], args[4].requires_grad_(True), *args[5:])
+
+
+# kernel #11: attention with unnormalised bf16 probabilities
+@pytest.mark.parametrize("B,L,strided", [(1, 1, True), (2, 98, True),
+                                         (2, 162, False), (1, 512, True)])
+def test_attention_bf16_probs_kernel_matches_plain(gen, B, L, strided):
+    q, k, v = _heads(gen, B, L, strided)
+    bias = _bias(gen, B, L)
+    before = attention_bf16_probs.launches
+    out = attention_bf16_probs(q, k, v, bias)
+    _close(out, attention_bf16_probs_plain(q, k, v, bias))
+    assert attention_bf16_probs.launches == before + 1
+    assert torch.equal(attention_bf16_probs(q, k, v, bias), out)
+
+
+def test_attention_bf16_probs_refuses(gen):
+    q, k, v = _heads(gen, 1, 16, strided=True)
+    bias = _bias(gen, 1, 16)
+    with pytest.raises(TypeError):
+        attention_bf16_probs(q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError):                       # head_dim 32
+        attention_bf16_probs(*(t[..., :32] for t in (q, k, v)), bias)
+    q, k, v = _heads(gen, 1, 513, strided=True)
+    with pytest.raises(ValueError):
+        attention_bf16_probs(q, k, v, _bias(gen, 1, 513))

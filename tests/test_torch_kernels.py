@@ -20,7 +20,8 @@ from uc2_torch.ops.flash_attention import (
     flash_attention_train_bwd_plain, flash_attention_train_fwd,
     flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block, fused_block_profitable,
-                                       fused_ffn_block, fused_ffn_profitable)
+                                       fused_ffn_block, fused_ffn_profitable,
+                                       fused_layer_profitable)
 from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train, fused_ffn_block_train_bwd,
     fused_ffn_block_train_bwd_plain, fused_ffn_block_train_fwd,
@@ -167,6 +168,8 @@ def test_gates_match_reference():
         assert fused_block_profitable(L, 12) == jfb.fused_block_profitable(
             L, 12)
         assert fused_ffn_profitable(L) == jfb.fused_ffn_profitable(L)
+        assert fused_layer_profitable(L, 12) == jfb.fused_layer_profitable(
+            L, 12)
 
 
 # ------------------------------------------------- training attention (#5, #6)

@@ -1,7 +1,7 @@
 // Shared device code of the uc2_torch kernels (sm_90a): bf16 tensor-core
 // products through mma.sync.m16n8k16, warp reductions, the per-head
-// attention routine that attention.cu and fused_attn_block.cu both run, and
-// the residual + LayerNorm epilogue of the two fused blocks.
+// attention routine that attention.cu and the fused blocks run, the fused
+// blocks' out-projection, and their residual + LayerNorm epilogue.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
@@ -344,20 +344,58 @@ __device__ __forceinline__ int out_col(int warp, int j) {
   return (j >> 1) * 128 + warp * 16 + (j & 1) * 8;
 }
 
-// Epilogue of both fused blocks, for a block of 8 warps over 32 rows of
+// y = ctx . Wo^T for the fused blocks, a block of 8 warps over a [32,
+// HIDDEN] bf16 context tile in shared memory (rows ROW_STRIDE apart); wo
+// [HIDDEN, HIDDEN] ([out, in]) is read from device memory (L2). acc[m][j]
+// gets rows m*16 + g (+8) and columns out_col(warp, j) + 2t (+1), fp32.
+__device__ __forceinline__ void ctx_out_projection(const bf16* ctx,
+                                                   const bf16* __restrict__ wo,
+                                                   float (&acc)[2][12][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  const uint32_t* Cw = reinterpret_cast<const uint32_t*>(ctx);
+  constexpr int CW = ROW_STRIDE / 2;
+  for (int ks = 0; ks < HIDDEN / 16; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int r = m * 16 + g;
+      a[m][0] = Cw[r * CW + ks * 8 + t];
+      a[m][1] = Cw[(r + 8) * CW + ks * 8 + t];
+      a[m][2] = Cw[r * CW + ks * 8 + t + 4];
+      a[m][3] = Cw[(r + 8) * CW + ks * 8 + t + 4];
+    }
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const bf16* wr = wo + (size_t)(out_col(warp, j) + g) * HIDDEN + ks * 16 + t * 2;
+      const uint32_t b0 = ldg32(wr), b1 = ldg32(wr + 8);
+      mma16816(acc[0][j], a[0], b0, b1);
+      mma16816(acc[1][j], a[1], b0, b1);
+    }
+  }
+}
+
+// Epilogue of the fused blocks, for a block of 8 warps over 32 rows of
 // HIDDEN columns. acc[m][j] is this warp's product tile for rows
 // m*16 + g (+8) and columns out_col(warp, j) + 2t (+1). Computes
 //   out = LayerNorm(acc + vbias + residual) * gamma + beta
 // with fp32 two-pass statistics (mean, then mean squared deviation), and
-// writes the first `rows` rows as bf16. `res` may point to global or
-// shared memory; `red` is 8*32 floats of shared scratch. With ADD_BIAS
-// false, acc already holds its bias (the training FFN block adds it before
-// its dropout) and vbias is not read.
-template <bool ADD_BIAS = true>
+// writes the first `rows` rows as bf16, rows out_rs apart. `res` may point
+// to global or shared memory; `red` is 8*32 floats of shared scratch. With
+// ADD_BIAS false, acc already holds its bias (the training FFN block adds
+// it before its dropout) and vbias is not read; with ADD_RES false there is
+// no residual and res is not read. With KEEP (the whole-layer block, whose
+// FFN takes the fp32 LayerNorm output as its residual), acc ends holding
+// the fp32 output and all 32 rows are written.
+template <bool ADD_BIAS = true, bool ADD_RES = true, bool KEEP = false>
 __device__ __forceinline__ void residual_layernorm(
     float (&acc)[2][12][4], const float* __restrict__ vbias, const bf16* res,
     int res_rs, const float* __restrict__ gamma, const float* __restrict__ beta,
-    float eps, bf16* __restrict__ out, int rows, float* red) {
+    float eps, bf16* __restrict__ out, int rows, float* red, int out_rs = HIDDEN) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -371,14 +409,19 @@ __device__ __forceinline__ void residual_layernorm(
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int r = m * 16 + g + 8 * hi;
-        const float2 xr = r < rows ? unpack2(res + (size_t)r * res_rs + col)
-                                   : make_float2(0.f, 0.f);
-        if (ADD_BIAS) {
-          acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
-          acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
-        } else {
-          acc[m][j][2 * hi] += xr.x;
-          acc[m][j][2 * hi + 1] += xr.y;
+        if constexpr (ADD_RES) {
+          const float2 xr = r < rows ? unpack2(res + (size_t)r * res_rs + col)
+                                     : make_float2(0.f, 0.f);
+          if (ADD_BIAS) {
+            acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
+            acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
+          } else {
+            acc[m][j][2 * hi] += xr.x;
+            acc[m][j][2 * hi + 1] += xr.y;
+          }
+        } else if (ADD_BIAS) {
+          acc[m][j][2 * hi] += b0;
+          acc[m][j][2 * hi + 1] += b1;
         }
         part[m][hi] += acc[m][j][2 * hi] + acc[m][j][2 * hi + 1];
       }
@@ -434,10 +477,17 @@ __device__ __forceinline__ void residual_layernorm(
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int r = m * 16 + g + 8 * hi;
-        if (r < rows) {
+        if constexpr (KEEP) {
           const float y0 = (acc[m][j][2 * hi] - mean[m][hi]) * rstd[m][hi];
           const float y1 = (acc[m][j][2 * hi + 1] - mean[m][hi]) * rstd[m][hi];
-          *reinterpret_cast<uint32_t*>(out + (size_t)r * HIDDEN + col) =
+          acc[m][j][2 * hi] = y0 * g0 + e0;
+          acc[m][j][2 * hi + 1] = y1 * g1 + e1;
+          *reinterpret_cast<uint32_t*>(out + (size_t)r * out_rs + col) =
+              pack2(acc[m][j][2 * hi], acc[m][j][2 * hi + 1]);
+        } else if (r < rows) {
+          const float y0 = (acc[m][j][2 * hi] - mean[m][hi]) * rstd[m][hi];
+          const float y1 = (acc[m][j][2 * hi + 1] - mean[m][hi]) * rstd[m][hi];
+          *reinterpret_cast<uint32_t*>(out + (size_t)r * out_rs + col) =
               pack2(y0 * g0 + e0, y1 * g1 + e1);
         }
       }

@@ -1,6 +1,7 @@
 // The weight walk shared by the FFN-block kernels: the inference block
-// (#3, fused_ffn_block.cu) and the training block's forward and backward
-// (#9, #10, ffn_train.cu).
+// (#3, fused_ffn_block.cu), the training block's forward and backward
+// (#9, #10, ffn_train.cu) and the whole-layer block (#8,
+// fused_layer_block.cu).
 //
 // One block of 8 warps owns a tile of 32 rows of x (staged in shared
 // memory) and walks the intermediate width F in chunks of 64. Per chunk
@@ -92,12 +93,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 
 // The forward walk, after ffn_walk_prologue and with x staged in xs:
 // acc = gelu_erf(x . W1^T + b1) . W2^T (no b2), fp32, the GELU output
-// rounded to bf16 where the TPU kernels round it. acc[m][j] holds rows
-// m*16 + g (+8) and columns out_col(warp, j) + 2t (+1) (common.cuh). With
-// STORE_H, each chunk's bf16 GELU tile is also written to h_out (row 0 of
-// the block's rows of a [*, F] matrix; the first `rows` rows). Ends with
-// every copy landed.
-template <bool STORE_H>
+// rounded to bf16 where the TPU kernels round it; with SEEDED the products
+// are added to what acc holds (the whole-layer block's x2 + b2). acc[m][j]
+// holds rows m*16 + g (+8) and columns out_col(warp, j) + 2t (+1)
+// (common.cuh). With STORE_H, each chunk's bf16 GELU tile is also written
+// to h_out (row 0 of the block's rows of a [*, F] matrix; the first `rows`
+// rows). Ends with every copy landed.
+template <bool STORE_H, bool SEEDED = false>
 __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16* ring,
                                                  const bf16* __restrict__ w1,
                                                  const float* __restrict__ b1,
@@ -107,10 +109,12 @@ __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16*
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (F / FFN_CHUNK) * CHUNK_TILES;
+  if constexpr (!SEEDED) {
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int j = 0; j < 12; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+      for (int j = 0; j < 12; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  }
   float hacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   const uint32_t* Xw = reinterpret_cast<const uint32_t*>(xs);
   const uint32_t* Hw = reinterpret_cast<const uint32_t*>(hs);

@@ -49,33 +49,8 @@ __global__ void __launch_bounds__(BLOCK_WARPS * 32)
   __syncthreads();
 
   // y = ctx . Wo^T: this warp's 96 output columns (out_col) for all 32 rows
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   float acc[2][12][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 12; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-  const uint32_t* Cw = reinterpret_cast<const uint32_t*>(ctx);
-  constexpr int CW = ROW_STRIDE / 2;
-  for (int ks = 0; ks < HIDDEN / 16; ++ks) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int r = m * 16 + g;
-      a[m][0] = Cw[r * CW + ks * 8 + t];
-      a[m][1] = Cw[(r + 8) * CW + ks * 8 + t];
-      a[m][2] = Cw[r * CW + ks * 8 + t + 4];
-      a[m][3] = Cw[(r + 8) * CW + ks * 8 + t + 4];
-    }
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const bf16* wr = wo + (size_t)(out_col(warp, j) + g) * HIDDEN + ks * 16 + t * 2;
-      const uint32_t b0 = ldg32(wr), b1 = ldg32(wr + 8);
-      mma16816(acc[0][j], a[0], b0, b1);
-      mma16816(acc[1][j], a[1], b0, b1);
-    }
-  }
+  ctx_out_projection(ctx, wo, acc);
   const size_t row0 = (size_t)b * L + q0;
   residual_layernorm(acc, bo, x + row0 * HIDDEN, HIDDEN, gamma, beta, eps,
                      out + row0 * HIDDEN, rows, red);

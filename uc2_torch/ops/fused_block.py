@@ -8,7 +8,11 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
   ``csrc/fused_attn_block_v2.cu``;
 * ``fused_ffn_block``: LayerNorm(gelu(x.W1^T + b1).W2^T + b2 + x) (erf gelu),
   kernel in ``csrc/fused_ffn_block.cu``; the [rows, F] intermediate never
-  reaches device memory.
+  reaches device memory;
+* ``fused_layer_block``: the whole encoder layer from the projected heads
+  (the attention block, then the FFN block on its fp32 output), kernel in
+  ``csrc/fused_layer_block.cu``. Its gate is off, as the reference's: only
+  the kernel lab (``uc2_torch/lab.py --mode layer``) runs it.
 
 Weights are in ``nn.Linear`` layout ([out, in]). Each wrapper launches its
 kernel on CUDA tensors and counts the launch (``<wrapper>.launches``); on
@@ -17,7 +21,7 @@ where the kernels round (probabilities and context to the compute dtype,
 the GELU output to x's dtype) and accumulate in fp32, so on bf16 inputs
 they are a tight reference for the kernels.
 
-The two gates are copied unchanged from the reference package, so the
+The gates are copied unchanged from the reference package, so the
 port routes the same kernels at the same shapes. They were measured on a
 TPU; whether they pay on an H100 is still to be measured.
 """
@@ -46,12 +50,27 @@ def layer_norm_f32(y, gamma, beta, eps):
     return (y - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
 
 
-def fused_attn_block_plain(q, k, v, bias, x, wo, bo, gamma, beta,
-                           eps: float = 1e-12):
+def _attn_block_f32(q, k, v, bias, x, wo, bo, gamma, beta, eps):
+    """LayerNorm(x + ctx.wo^T + bo) in fp32, the context rounded to wo's
+    dtype."""
     B, L, n, d = q.shape
     ctx = xla_attention(q, k, v, bias).to(wo.dtype).reshape(B, L, n * d)
     y = ctx.float() @ wo.float().t() + bo.float() + x.float()
-    return layer_norm_f32(y, gamma, beta, eps).to(x.dtype)
+    return layer_norm_f32(y, gamma, beta, eps)
+
+
+def _ffn_block_f32(x, res, w1, b1, w2, b2, gamma, beta, eps):
+    """LayerNorm(gelu(x.W1^T + b1).W2^T + b2 + res) in fp32 (erf gelu), the
+    GELU output rounded to x's dtype."""
+    h = F.gelu(x.float() @ w1.float().t() + b1.float()).to(x.dtype)
+    y = h.float() @ w2.float().t() + b2.float() + res
+    return layer_norm_f32(y, gamma, beta, eps)
+
+
+def fused_attn_block_plain(q, k, v, bias, x, wo, bo, gamma, beta,
+                           eps: float = 1e-12):
+    return _attn_block_f32(q, k, v, bias, x, wo, bo, gamma, beta,
+                           eps).to(x.dtype)
 
 
 def fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta,
@@ -163,9 +182,8 @@ fused_attn_block_v2.launches = 0
 
 
 def fused_ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
-    h = F.gelu(x.float() @ w1.float().t() + b1.float()).to(x.dtype)  # erf form
-    y = h.float() @ w2.float().t() + b2.float() + x.float()
-    return layer_norm_f32(y, gamma, beta, eps).to(x.dtype)
+    return _ffn_block_f32(x, x.float(), w1, b1, w2, b2, gamma, beta,
+                          eps).to(x.dtype)
 
 
 def fused_ffn_block(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
@@ -204,6 +222,73 @@ def fused_ffn_block(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
 
 
 fused_ffn_block.launches = 0
+
+
+def fused_layer_block_plain(q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2,
+                            b2, g2, be2, eps: float = 1e-12):
+    """#8's function, rounding where the reference's ``_layer_kernel``
+    rounds: x2 = the attention block's fp32 LayerNorm output, the FFN's
+    input bf16(x2) (x's dtype), and its residual x2 in fp32. So it is not
+    ``fused_ffn_block_plain(fused_attn_block_plain(...))``, whose FFN adds
+    the attention block's rounded output."""
+    x2 = _attn_block_f32(q, k, v, bias, x, wo, bo, g1, be1, eps)
+    return _ffn_block_f32(x2.to(x.dtype), x2, w1, b1, w2, b2, g2, be2,
+                          eps).to(x.dtype)
+
+
+def fused_layer_block(q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2,
+                      be2, eps: float = 1e-12):
+    """One whole encoder layer, fused (kernel #8): q, k, v [B, L, n, d]
+    post-projection heads; bias [B, 1, 1, L] additive mask; x [B, L, H]
+    the layer's input; wo [H, H], w1 [F, H], w2 [H, F] ([out, in]); bo, g1,
+    be1, b2, g2, be2 [H]; b1 [F]. Returns
+    LN2(gelu(bf16(x2).w1^T + b1).w2^T + b2 + x2), x2 = LN1(x + ctx.wo^T +
+    bo) in fp32, as [B, L, H] in x's dtype.
+    """
+    check_heads(q, k, v, bias)
+    B, L, n, d = q.shape
+    H, Fi = n * d, w1.shape[0]
+    if (tuple(x.shape) != (B, L, H) or tuple(wo.shape) != (H, H)
+            or tuple(w1.shape) != (Fi, H) or tuple(w2.shape) != (H, Fi)
+            or tuple(b1.shape) != (Fi,)
+            or any(tuple(p.shape) != (H,) for p in (bo, g1, be1, b2, g2,
+                                                    be2))):
+        raise ValueError(f"fused_layer_block: x must be [B, L, {H}], wo "
+                         f"[{H}, {H}], w1 [F, {H}], w2 [{H}, F], b1 [F] and "
+                         f"bo, g1, be1, b2, g2, be2 [{H}]")
+    args = (q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    dev = check_device(args, "fused_layer_block")
+    if dev.type == "cpu":
+        return fused_layer_block_plain(*args, eps)
+    check_kernel_inputs("fused_layer_block", bf16=(q, k, v, x, wo, w1, w2),
+                        fp32=(bias, bo, g1, be1, b1, b2, g2, be2))
+    if d != HEAD_DIM or H != HIDDEN or Fi % FFN_CHUNK or not Fi:
+        raise ValueError(f"fused_layer_block: the kernel takes head_dim "
+                         f"{HEAD_DIM}, hidden {HIDDEN} and an intermediate "
+                         f"width that is a positive multiple of {FFN_CHUNK}, "
+                         f"got {d}, {H}, {Fi}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"fused_layer_block: the kernel takes joint lengths "
+                         f"1..{MAX_LEN}, got {L}")
+    if not all(t.is_contiguous() for t in (x, wo, w1, w2)):
+        raise ValueError("fused_layer_block: x, wo, w1 and w2 must be "
+                         "contiguous")
+    rs = heads_row_stride(q, k, v)
+    out = torch.empty_like(x)
+    build.launch("uc2_fused_layer_block", *(t.data_ptr() for t in args),
+                 out.data_ptr(), B, L, n, rs, Fi, 1.0 / math.sqrt(d),
+                 float(eps), device=dev)
+    fused_layer_block.launches += 1
+    return out
+
+
+fused_layer_block.launches = 0
+
+
+def fused_layer_profitable(L: int, n: int) -> bool:
+    """Gate of the whole-layer fusion, copied from the reference package:
+    always off (on the TPU the one kernel lost to the split #2 -> #3)."""
+    return False
 
 
 def fused_ffn_profitable(L: int) -> bool:

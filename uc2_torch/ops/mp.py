@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 
-def _mm_f32(a2, b2):
+def mm_f32(a2, b2):
     """a2 [M, K] @ b2 [K, N] with fp32 output."""
     if a2.is_cuda and a2.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(a2, b2, out_dtype=torch.float32)
@@ -29,7 +29,7 @@ def _mm_f32(a2, b2):
 
 def _forward(spec: str, a, b):
     if spec == "...h,vh->...v":          # x . W^T, the heads' decoders
-        out = _mm_f32(a.reshape(-1, a.shape[-1]), b.t())
+        out = mm_f32(a.reshape(-1, a.shape[-1]), b.t())
         return out.reshape(*a.shape[:-1], b.shape[0])
     return torch.einsum(spec, a.float(), b.float())
 
