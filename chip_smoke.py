@@ -20,7 +20,8 @@ non-zero at the end, without the result lines:
      12 heads of 64, H = 768, F = 3072, bf16 inputs from a seed, padding
      masks), with times, the least time the card could take, and a
      library yardstick where one PyTorch call computes the same function;
-     the training kernels' dropout mask against the plain Philox mask;
+     #5 beside SDPA's forward and its bound at each training shape; the
+     training kernels' dropout mask against the plain Philox mask;
   3. slice: full-width uc2-base (12 layers, random weights from a seed)
      runs full_retrieval_eval over a synthetic gallery that fills the
      three region-count buckets (joint L = 98, 128, 162); every kernel's
@@ -36,11 +37,16 @@ non-zero at the end, without the result lines:
      against their plain versions (and #10 against autograd of the plain
      forward) at the training buckets' rows, rates 0.1 and 0, with times
      and bounds, and #9's dropout mask against the plain Philox mask;
-  6. long-L kernels: #4 (the inference forward that streams K and V)
-     against its plain version at (B, L) = (16, 512), (4, 419), (4, 450),
-     timed beside #1 and SDPA at (16, 512); #5 and the split #6 (and each
-     split part) against their plain versions at (24, 339) and (16, 512),
-     rates 0.1 and 0, a bitwise repeat of #6, the mask at L = 512;
+  6. long-L kernels: #4 and #5, one streamed core, against their plain
+     versions at the edges of its tiles (L = 1 .. 512, B = 3, fused-QKV
+     views, rates 0.1 and 0), each call repeated bit for bit, #5 at rate
+     0 bitwise equal to #4; #4 at (B, L) = (16, 512), (4, 419), (4, 450)
+     beside SDPA and its bound, replayed from a CUDA graph (its device
+     time alone) and on the host's clock beside #1's wrapper (and #1 timed
+     at (16, 512)); #5 beside SDPA at (56, 174), (24, 339) and
+     (16, 512); the split #6 (and each split part) against its plain
+     version at (24, 339) and (16, 512), rates 0.1 and 0, a bitwise repeat
+     of #6, the mask at L = 512;
   7. mix: full-width uc2-base steps of the four tasks of
      config/uc2_pretrain.json (itm, mlm, vmlm in German, tlm with 'mix'
      co-masking) at L = 162, B = 128 under "pallas-train" with
@@ -93,6 +99,11 @@ non-zero at the end, without the result lines:
      {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
+
+`python3 chip_smoke.py --times` runs phase 1 and then only times #5 and
+#4 at the main path's shapes as phase 6 does (no result lines); a copy of
+this script in another tree of the port times that tree's kernels, so an
+A/B of two trees fits in one call.
 """
 
 from __future__ import annotations
@@ -237,16 +248,21 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(what: str, out, ref) -> float:
+def close(out, ref):
+    """(within two bf16 ulps + 2e-2 of the plain version, max error)."""
     torch.cuda.synchronize()
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     ok = bool(torch.isfinite(out).all()) and bool(
         (err <= ATOL + RTOL * ref.abs()).all())
-    max_err = err.max().item()
+    return ok, err.max().item()
+
+
+def compare(what: str, out, ref) -> float:
+    ok, max_err = close(out, ref)
     print(f"  {what}: max|kernel - plain| = {max_err:.4e} "
-          f"(max|plain| {ref.abs().max().item():.3e}; tolerance 2e-2 + "
-          f"2^-7*|plain|) {'ok' if ok else 'FAIL'}")
+          f"(max|plain| {ref.float().abs().max().item():.3e}; tolerance "
+          f"2e-2 + 2^-7*|plain|) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{what} disagrees with its plain version")
     return max_err
@@ -294,11 +310,43 @@ def phase_device():
     return name, card
 
 
+def ratios(ms, lib, lo) -> str:
+    """kernel / library and kernel / bound, printed beside the times."""
+    vs = "n/a" if lib is None else f"{ms / lib:.2f}"
+    return f"kernel / library {vs}, kernel / bound {ms / lo:.1f}"
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean ms per call of ``fn`` replayed from one CUDA graph of ``iters``
+    calls: the device's time without the host's work between launches
+    (the wrapper's checks, its C entry's set-up, the launch itself)."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, iters=5) / iters
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Mean ms of the host's clock per call of ``fn`` with the launches
+    queued and not waited for: the host's work a call costs, where the
+    device keeps up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 def run_case(rows, name, b, L, kernel, plain, args, nbytes, flops,
-             library=None, report=False):
+             library=None, report=False, graph=False):
     """Hold one kernel call against its plain version, time both (and the
-    library yardstick), and fold the numbers into the kernel's JSON row;
-    the row's times are those of the case marked ``report``."""
+    library yardstick, and with ``graph`` the kernel replayed from a CUDA
+    graph), and fold the numbers into the kernel's JSON row; the row's
+    times are those of the case marked ``report``."""
     err = compare(f"{name} B={b} L={L}", kernel(*args), plain(*args))
     t = dict(ms=time_ms(lambda: kernel(*args)),
              plain_ms=time_ms(lambda: plain(*args)),
@@ -306,7 +354,13 @@ def run_case(rows, name, b, L, kernel, plain, args, nbytes, flops,
     t["bound_ms"], t["bound_by"] = bound(nbytes, flops)
     lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
     print(f"    kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"library {lib} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+          f"library {lib} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+          f"; {ratios(t['ms'], t['library_ms'], t['bound_ms'])}")
+    if graph:
+        g_ms = graph_ms(lambda: kernel(*args))
+        print(f"    kernel replayed from a CUDA graph {g_ms:.4f} ms "
+              f"(kernel / bound {g_ms / t['bound_ms']:.1f}); host clock per "
+              f"call {host_ms(lambda: kernel(*args)):.4f} ms")
     row = rows[name]
     row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
     if report:
@@ -480,7 +534,7 @@ def phase_slice(card):
 TRAIN_ROWS = {
     "flash_attention_train_fwd": dict(
         name="flash_attention_train_fwd", route="cuda",
-        source="uc2_torch/csrc/attention_train.cu",
+        source="uc2_torch/csrc/attention_stream.cuh",
         replaces="uc2_tpu/ops/flash_attention.py:289"),
     "flash_attention_train_bwd": dict(
         name="flash_attention_train_bwd", route="cuda",
@@ -513,23 +567,41 @@ def plain_autograd(q, k, v, bias, rate, g):
 
 def library_train_ms(q, k, v, bias, g, rate):
     """Yardstick: scaled_dot_product_attention with the same mask and
-    dropout (its own RNG), forward, and its autograd backward."""
+    dropout (its own RNG), forward, and its autograd backward against
+    ``g`` (None: the forward only)."""
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
-    bias16, gt = bias.bfloat16(), g.transpose(1, 2)
+    bias16 = bias.bfloat16()
 
     def fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias16,
                                               dropout_p=rate)
     try:
         fwd_ms = time_ms(fwd)
+        if g is None:
+            return fwd_ms, None
         out = fwd()
         bwd_ms = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), gt, retain_graph=True))
+            out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True))
     except RuntimeError as e:      # no backend takes this mask and dropout
         print(f"    library: scaled_dot_product_attention refused: {e}")
         return None, None
     return fwd_ms, bwd_ms
+
+
+def time_fwd(tag, q, k, v, bias, g, rate):
+    """Time #5 on these inputs once, beside SDPA (``library_train_ms``)
+    and the bound, and print kernel / SDPA and kernel / bound; returns
+    (kernel ms, SDPA forward ms, SDPA backward ms)."""
+    b, L = q.shape[:2]
+    args = (q, k, v, bias, TRAIN_SEED, rate)
+    ms = time_ms(lambda: flash_attention_train_fwd(*args))
+    lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
+    lo, by = bound(4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D)
+    lib = "n/a" if lib_f is None else f"{lib_f:.4f}"
+    print(f"    #5 {tag}: kernel {ms:.4f} ms, SDPA forward {lib} ms, bound "
+          f"{lo:.4f} ms ({by}); {ratios(ms, lib_f, lo)}")
+    return ms, lib_f, lib_b
 
 
 def phase_train_kernels(gen):
@@ -562,19 +634,22 @@ def phase_train_kernels(gen):
                          auto[3], 2.0 ** -7)
             fwd_row["max_abs_err"] = max(fwd_row.get("max_abs_err", 0.0), ef)
             bwd_row["max_abs_err"] = max(bwd_row.get("max_abs_err", 0.0), eb)
-            if (b, L, rate) != (128, 162, 0.1):
+            if rate == 0.0:
                 continue
-            lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
+            fwd_ms, lib_f, lib_b = time_fwd(tag, q, k, v, bias, g, rate)
+            if (b, L) != (128, 162):
+                continue
             act = b * L * H * 2
-            for row, kern, plain, nbytes, flops, lib in (
-                    (fwd_row, lambda: flash_attention_train_fwd(*args),
+            for row, ms, plain, nbytes, flops, lib in (
+                    (fwd_row, fwd_ms,
                      lambda: flash_attention_train_plain(*args),
                      4 * act + b * L * 4, 4 * b * N * L * L * D, lib_f),
-                    (bwd_row, lambda: flash_attention_train_bwd(*args, g),
+                    (bwd_row,
+                     time_ms(lambda: flash_attention_train_bwd(*args, g)),
                      lambda: flash_attention_train_bwd_plain(*args, g),
                      7 * act + b * L * 4 + b * N * L * 4,
                      10 * b * N * L * L * D, lib_b)):
-                row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+                row.update(ms=ms, plain_ms=time_ms(plain, iters=5),
                            library_ms=lib)
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
                 lib_s = "n/a" if lib is None else f"{lib:.4f}"
@@ -1239,7 +1314,7 @@ def eager_ffn_ms(model):
 LONG_ROWS = {
     "flash_attention_long": dict(
         name="flash_attention_long", route="cuda",
-        source="uc2_torch/csrc/attention_long.cu",
+        source="uc2_torch/csrc/attention_stream.cuh",
         replaces="uc2_tpu/ops/flash_attention.py:33"),
     "flash_attention_train_bwd_dq": dict(
         name="flash_attention_train_bwd_dq", route="cuda",
@@ -1251,29 +1326,112 @@ LONG_ROWS = {
         replaces="uc2_tpu/ops/flash_attention.py:311"),
 }
 STATS = ("row max", "1 / row sum", "D")
+# where the main path launches #5 (training buckets, then long captions)
+# and #4 (the long-caption buckets at dropout 0)
+TRAIN5_SHAPES = ((208, 98), (160, 128), (128, 162), (56, 174), (24, 339),
+                 (16, 512))
+LONG4_SHAPES = ((16, 512), (4, 419), (4, 450))
+
+
+def time_long(rows, gen, b, L, report=False):
+    """#4 at (b, L) against its plain version, timed beside SDPA and its
+    bound, replayed from a CUDA graph, and on the host's clock beside #1's
+    wrapper, which launches with no tensor maps to encode; returns the
+    inputs."""
+    q, k, v, bias = heads(gen, b, L)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bias16 = bias.bfloat16()
+    run_case(rows, "flash_attention_long", b, L, flash_attention_long,
+             flash_attention_long_plain, (q, k, v, bias),
+             4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
+             library=lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=bias16), report=report, graph=True)
+    print(f"    #1 (flash_attention_v3) host clock per call "
+          f"{host_ms(lambda: flash_attention_v3(q, k, v, bias)):.4f} ms")
+    return q, k, v, bias
+
+
+def phase_stream_times(gen):
+    """``--times``: #5 at rate 0.1 at each of its main-path shapes and #4
+    at its three, timed as phase 6 times them and nothing else; copied
+    into another tree of the port (the parent commit's, say), this script
+    times that tree's kernels in the same call."""
+    for b, L in TRAIN5_SHAPES:
+        q, k, v, bias = heads(gen, b, L)
+        time_fwd(f"B={b} L={L} rate=0.1", q, k, v, bias, None, 0.1)
+    rows = {k: dict(v) for k, v in LONG_ROWS.items()}
+    for b, L in LONG4_SHAPES:
+        time_long(rows, gen, b, L)
+
+
+# joint lengths at the edges of the streamed core's 64-row query and key
+# tiles, and the main path's
+STREAM_TAILS = (1, 63, 64, 65, 127, 129, 162, 174, 257, 339, 419, 450, 511,
+                512)
+
+
+def stream_core_checks(gen):
+    """#4 and #5 share one core (csrc/attention_stream.cuh): each against
+    its plain version at STREAM_TAILS with B = 3, on views into one fused
+    QKV projection, #5 at rates 0.1 and 0; every call repeated bit for bit;
+    #5 at rate 0 bitwise equal to #4 on the same inputs. Returns #4's
+    largest error."""
+    print("  the streamed core at the tiles' edges (B = 3, fused-QKV views):")
+    e4 = 0.0
+    for L in STREAM_TAILS:
+        q, k, v, bias = heads(gen, 3, L)
+        out4 = flash_attention_long(q, k, v, bias)
+        ok4, err4 = close(out4, flash_attention_long_plain(q, k, v, bias))
+        same = torch.equal(out4, flash_attention_long(q, k, v, bias))
+        e4 = max(e4, err4)
+        line = [f"#4 {err4:.2e}"]
+        oks = [ok4]
+        for rate in (0.1, 0.0):
+            args = (q, k, v, bias, TRAIN_SEED + L, rate)
+            out5 = flash_attention_train_fwd(*args)
+            ok5, err5 = close(out5, flash_attention_train_plain(*args))
+            same = same and torch.equal(out5, flash_attention_train_fwd(*args))
+            oks.append(ok5)
+            line.append(f"#5 rate {rate} {err5:.2e}")
+        one = torch.equal(out5, out4)
+        print(f"    L={L}: max|kernel - plain| {', '.join(line)} "
+              f"{'ok' if all(oks) else 'FAIL'}; repeats bitwise: {same}; "
+              f"#5 at rate 0 == #4 bitwise: {one}")
+        if not all(oks):
+            fail(f"the streamed core at L = {L} disagrees with its plain "
+                 f"version")
+        if not same:
+            fail(f"the streamed core at L = {L} is not bitwise repeatable")
+        if not one:
+            fail(f"#5 at rate 0 and #4 differ at L = {L}")
+    return e4
 
 
 def phase_long_kernels(gen):
-    """#4 against its plain version at (B, L) = (16, 512), (4, 419) and
-    (4, 450), timed beside #1 and SDPA at (16, 512); #5 and the split #6
-    (and each split part on its own) against their plain versions at
-    (24, 339) and (16, 512), rates 0.1 and 0, with a bitwise repeat of #6;
-    the forward's mask at L = 512. The rows' times are those of
-    (16, 512), rate 0.1."""
+    """The streamed core's edge cases (``stream_core_checks``); #4 against
+    its plain version at (B, L) = (16, 512), (4, 419) and (4, 450), timed
+    beside SDPA and its bound, replayed from a CUDA graph, and on the
+    host's clock beside #1's wrapper (#1 also timed at (16, 512)); #5
+    beside SDPA at (56, 174); #5 and the split #6 (and each split part on
+    its own) against their plain versions at (24, 339) and (16, 512),
+    rates 0.1 and 0, #5 beside SDPA, a bitwise repeat of #6; the forward's
+    mask at L = 512. The rows' times are those of (16, 512), rate 0.1."""
     print("== long-L attention kernels vs plain (#4 inference forward; #5 "
           "and the split #6 beyond L = 256; plain: fp32 compute on the same "
           "bf16 inputs)")
     rows = {k: dict(v) for k, v in LONG_ROWS.items()}
-    for b, L in ((16, 512), (4, 419), (4, 450)):
-        q, k, v, bias = heads(gen, b, L)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bias16 = bias.bfloat16()
+    rows["flash_attention_long"]["max_abs_err"] = stream_core_checks(gen)
+    # #5 at the first long-caption bucket (the others below)
+    b, L, rate = 56, 174, 0.1
+    q, k, v, bias = heads(gen, b, L)
+    args = (q, k, v, bias, TRAIN_SEED, rate)
+    tag = f"B={b} L={L} rate={rate}"
+    compare(f"#5 {tag}", flash_attention_train_fwd(*args),
+            flash_attention_train_plain(*args))
+    time_fwd(tag, q, k, v, bias, None, rate)
+    for b, L in LONG4_SHAPES:
         report = (b, L) == (16, 512)
-        run_case(rows, "flash_attention_long", b, L, flash_attention_long,
-                 flash_attention_long_plain, (q, k, v, bias),
-                 4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
-                 library=lambda: F.scaled_dot_product_attention(
-                     qt, kt, vt, attn_mask=bias16), report=report)
+        q, k, v, bias = time_long(rows, gen, b, L, report)
         if report:
             v3_ms = time_ms(lambda: flash_attention_v3(q, k, v, bias))
             print(f"    #1 (batch-blocked, flash_attention_v3) at B={b} L={L}:"
@@ -1320,17 +1478,13 @@ def phase_long_kernels(gen):
             if rate == 0.0:
                 continue
             act = b * L * H * 2
-            fwd_ms = time_ms(lambda: flash_attention_train_fwd(*args))
+            _, _, lib_b = time_fwd(tag, q, k, v, bias, g, rate)
             bwd_ms = time_ms(lambda: flash_attention_train_bwd(*args, g))
-            lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
-            fb, _ = bound(4 * act + b * L * 4, 4 * b * N * L * L * D)
             bb, _ = bound(7 * act + b * L * 4 + b * N * L * 4,
                           10 * b * N * L * L * D)
-            lib = ("n/a" if lib_f is None
-                   else f"{lib_f:.4f} / {lib_b:.4f} ms")
-            print(f"    {tag}: #5 {fwd_ms:.4f} ms (bound {fb:.4f}), #6 (dq + "
-                  f"dk/dv parts) {bwd_ms:.4f} ms (bound {bb:.4f}); SDPA "
-                  f"forward / autograd backward {lib}")
+            lib = "n/a" if lib_b is None else f"{lib_b:.4f} ms"
+            print(f"    {tag}: #6 (dq + dk/dv parts) {bwd_ms:.4f} ms (bound "
+                  f"{bb:.4f}); SDPA autograd backward {lib}")
             if (b, L) != (16, 512):
                 continue
             for row, kern, plain, nbytes, flops in (
@@ -2105,6 +2259,9 @@ def main() -> int:
 
     name, card = timed(phase_device)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["--times"]:
+        timed(phase_stream_times, gen)
+        return 1 if FAILURES else 0
     rows = timed(phase_kernels, gen)
     train_rows = timed(phase_train_kernels, gen)
     rows.update(train_rows)

@@ -108,10 +108,15 @@ def test_flash_attention_kernel_matches_plain(gen, B, L, strided):
 
 
 # kernel #4: the rows of the dispatch's long side, ragged query and key
-# tiles, B = 1 and 3
+# tiles (the streamed core's 64 and 128 rows), B = 1 and 3
 @pytest.mark.parametrize("B,L,strided", [(1, 419, True), (3, 450, False),
                                          (3, 512, True), (1, 512, False),
-                                         (1, 1, True), (2, 97, True)])
+                                         (1, 1, True), (2, 97, True),
+                                         (3, 63, True), (1, 64, True),
+                                         (3, 65, True), (1, 127, True),
+                                         (3, 129, True), (3, 162, True),
+                                         (1, 174, True), (3, 257, True),
+                                         (1, 339, True), (3, 511, True)])
 def test_flash_attention_long_kernel_matches_plain(gen, B, L, strided):
     q, k, v = _heads(gen, B, L, strided)
     bias = _bias(gen, B, L)
@@ -230,7 +235,8 @@ def test_encoder_kernel_path_matches_eager_path(gen, impl, Nb):
 
 
 # the training kernels: forward and backward against their plain versions
-TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, SINGLE_BWD_MAX_LEN)]
+TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, SINGLE_BWD_MAX_LEN),
+               (3, 63), (1, 64), (3, 65), (1, 127), (3, 129), (3, 174)]
 
 
 def _close_report(what, out, ref, atol=ATOL, rtol=RTOL):
@@ -254,6 +260,21 @@ def test_attention_train_kernels_match_plain(gen, B, L, rate):
     want = flash_attention_train_bwd_plain(q, k, v, bias, seed, rate, g)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
         _close_report(name, a, b)
+
+
+@pytest.mark.parametrize("B,L", [(3, 65), (1, 162), (3, 339), (1, 512)])
+def test_attention_train_at_rate_0_is_kernel_4(gen, B, L):
+    """#4 and #5 are one streamed core: at rate 0 they give the same bits
+    on the same inputs, and each call repeats bit for bit."""
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    long_out = flash_attention_long(q, k, v, bias)
+    train_out = flash_attention_train_fwd(q, k, v, bias, 3, 0.0)
+    assert torch.equal(train_out, long_out)
+    assert torch.equal(flash_attention_long(q, k, v, bias), long_out)
+    again = flash_attention_train_fwd(q, k, v, bias, 3, 0.1)
+    assert torch.equal(flash_attention_train_fwd(q, k, v, bias, 3, 0.1),
+                       again)
 
 
 def test_attention_train_mask_is_the_plain_philox_mask(gen):
@@ -313,7 +334,8 @@ def test_attention_train_wrappers_refuse(gen):
 
 
 # beyond the single backward kernel: #5 and the split #6
-LONG_TRAIN_CASES = [(1, 257), (2, 339), (1, 512)]
+LONG_TRAIN_CASES = [(1, 257), (2, 339), (1, 512), (3, 419), (1, 450),
+                    (3, 511)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

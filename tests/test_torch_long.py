@@ -5,9 +5,10 @@ between #1 and #4, the training attention's plain versions at L = 339 and
 512 (and the split backward's two parts), the mlm loss and every gradient
 at a joint L of 512 on #4's route, the text database's length filter, and
 the bucket sampler, the task and meta loaders and the device prefetch bit
-for bit; and the encoder's refusal of the ``UC2_ATTN_V2`` route (kernel #7
-is not ported). Dropout is 0 where values are compared: the two packages
-draw different masks."""
+for bit; the training forward's plain version at rate 0 against #4's and
+both reference kernels; and the encoder's routing under ``UC2_ATTN_V2``
+(kernel #7 in every layer of the fused route). Dropout is 0 where values
+are compared: the two packages draw different masks."""
 
 import numpy as np
 import pytest
@@ -124,6 +125,40 @@ def test_train_plain_matches_pallas_at_long_L(L):
                                    rtol=2e-4, atol=2e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("L", [65, 162])
+def test_train_plain_at_rate_0_is_the_long_plain(L):
+    """#4 and #5 run one kernel core, which rests on this: at rate 0 the
+    training forward's plain version is #4's bit for bit, and both match
+    the reference kernels at fp32 1e-4: ``_fwd_train`` (interpret=True) and
+    ``_fwd_pallas`` in interpret mode."""
+    from jax.experimental.pallas import tpu as pltpu
+    q, k, v, bias = _train_inputs(L, 2, L, 2, 64)
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias)]
+    train = fa.flash_attention_train_plain(*ts, 7, 0.0)
+    assert torch.equal(train, fa.flash_attention_long_plain(*ts))
+    args = [jnp.asarray(a) for a in (q, k, v, bias)]
+    want_train = np.asarray(jax_fa._fwd_train(*args, jnp.int32(7), 0.0,
+                                              interpret=True))
+    with pltpu.force_tpu_interpret_mode():
+        want_long = np.asarray(jax_fa._fwd_pallas(*args))
+    for want in (want_train, want_long):
+        np.testing.assert_allclose(train.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,L", [(3, 1), (1, 1), (3, 65)])
+def test_heads_row_stride_of_fused_qkv_views(B, L):
+    """The kernels read q, k, v in place as views into the fused QKV
+    projection: the token stride is 3 H, also at L = 1 with B > 1, where a
+    view may report any stride for the size-1 token dim; one token in all
+    (B = L = 1) takes the heads' width."""
+    qkv = torch.zeros(B, L, 3 * 768)
+    q, k, v = (t.view(B, L, 12, 64) for t in qkv.split(768, dim=-1))
+    rs = fa.heads_row_stride(q, k, v)
+    assert rs == (3 * 768 if B > 1 or L > 1 else 768)
+    for t in (q, k, v):
+        assert B == 1 or t.stride(0) == L * rs
+
+
 @pytest.mark.parametrize("L", [339, 512])
 def test_train_bwd_plain_is_the_gradient_at_long_L(L):
     """rate 0.2, float64: the backward formula is the gradient of the
@@ -216,7 +251,7 @@ def test_long_caption_mlm_loss_and_grads_match_reference(monkeypatch):
                                    rtol=1e-4, atol=1e-4, err_msg=n)
 
 
-def test_attn_v2_route_raises_until_kernel_7_is_ported(monkeypatch):
+def test_attn_v2_route_runs_kernel_7(monkeypatch):
     """Kernel #7 is ported: with UC2_ATTN_V2 set, every layer on the fused
     route runs the QKV-in-kernel block (#7) and not #2; without it, #2 and
     not #7 (the variable is read at every forward)."""

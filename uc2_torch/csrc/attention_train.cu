@@ -1,22 +1,18 @@
-// Training attention with attention-probs dropout: forward and backward.
+// Training attention with attention-probs dropout: the backward (#6), and
+// the C entry of the forward (#5).
 //
-// Replace the TPU kernels uc2_tpu/ops/flash_attention.py
-// _attn_train_fwd_kernel (launched by _fwd_train / flash_attention_train)
-// and _attn_train_bwd_kernel (launched by _bwd_train), which every layer
-// of the uc2-base mlm step runs (attention dropout 0.1).
+// Replace the TPU kernel uc2_tpu/ops/flash_attention.py
+// _attn_train_bwd_kernel (launched by _bwd_train), which every layer of
+// the uc2-base mlm step runs (attention dropout 0.1). The forward,
+// _attn_train_fwd_kernel (launched by _fwd_train), is the streamed core of
+// attention_stream.cuh, which kernel #4 shares; uc2_attn_train_fwd below
+// only launches it.
 //
 // Dropout: the TPU kernels draw a per-grid-cell PRNG stream, so their
 // forward and backward had to share one grid geometry. Here the keep bit of
 // score (b, h, i, j) is Philox4x32-10 of its global index (philox.cuh), so
-// the two kernels below use different tiles and still draw the same mask.
-//
-// Forward (#5): as attention.cu, one block of 4 warps per (64 query rows,
-// head, batch row), fp32 score rows in shared memory; the softmax phase is
-// replaced by one that takes four adjacent keys per lane (one Philox call
-// gives all four bits) and rounds Pd = keep ? P / (1 - rate) : 0 to bf16.
-// Takes every L up to 512 (207 KB of shared memory at 512, as attention.cu).
-// Bound on an H100 by bytes: at B = 128, L = 162 it reads q, k, v and
-// writes the context, 127 MB (38 us at 3.35 TB/s) against 10.3 GFLOP.
+// the forward and the backward use different tiles and still draw the same
+// mask.
 //
 // Backward (#6) for L <= 256: one block of 8 warps per (head, batch row). K and V stay
 // in shared memory; the block walks 64-row query tiles and for each
@@ -36,7 +32,7 @@
 // Backward (#6) for 256 < L <= 512: the registers cannot hold dK and dV of
 // every key, so the work splits in two kernels, still without atomics:
 //   dQ kernel, one block of 8 warps per (64 query rows, head, batch row):
-//     the forward's score rows in shared memory (K, then V, then K again
+//     fp32 score rows in shared memory (K, then V, then K again
 //     through one region), P in place, D = rowsum(dP * P), dS = P (dP - D)
 //     in place, dQ = dS . K (dS rounded to bf16 as its A fragments are
 //     built); writes dQ and the rows' max, 1 / sum and D as [3][B, n, L]
@@ -51,18 +47,11 @@
 //     partials [B, n, L].
 // Each pass reads q, k, v and g once per block row of the other operand
 // from L2; together they recompute the scores three times.
-#include "common.cuh"
-#include "philox.cuh"
+#include "attention_stream.cuh"
 
 namespace uc2 {
 
 constexpr int TRAIN_MAX_LEN = 256;  // the single-kernel backward's register-resident dK, dV
-
-struct Dropout {
-  uint32_t seed;    // Philox key word 0
-  uint32_t thresh;  // keep when bits >= thresh
-  float keep_scale; // 1 / (1 - rate)
-};
 
 // four consecutive bf16 from four floats (8-byte store)
 __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
@@ -119,53 +108,6 @@ __device__ __forceinline__ void softmax_groups(const float* srow, int Lp,
 __device__ __forceinline__ float4 drop4(float4 p, uint32_t kb, float s) {
   return make_float4(kb & 1 ? p.x * s : 0.f, kb & 2 ? p.y * s : 0.f,
                      kb & 4 ? p.z * s : 0.f, kb & 8 ? p.w * s : 0.f);
-}
-
-// --------------------------------------------------------------- forward
-// Softmax phase of the forward with dropout (replaces attn_softmax): the
-// bf16 Pd overwrites the front of each row once every lane has read it.
-template <int WARPS, int QT, int NC>
-__device__ void attn_softmax_dropout(int L, int q0, uint32_t bh, Dropout dr,
-                                     uint8_t* smem) {
-  constexpr int NG = (NC + 3) / 4;
-  const int Lp = padded_len(L);
-  const int SF = score_stride(Lp);
-  const AttnSmem sm = attn_smem(smem, Lp, QT);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < QT; r += WARPS) {
-    float* srow = sm.S + r * SF;
-    float4 e[NG];
-    softmax_groups<NG>(srow, Lp, e);
-    __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(srow);
-#pragma unroll
-    for (int u = 0; u < NG; ++u) {
-      const int c = 4 * (lane + 32 * u);
-      if (c < Lp) {
-        const float4 pd = drop4(e[u], keep_bits4(dr.seed, dr.thresh, c >> 2, q0 + r, bh),
-                                dr.keep_scale);
-        store4(prow + c, pd.x, pd.y, pd.z, pd.w);
-      }
-    }
-  }
-}
-
-template <int WARPS, int QT, int NC, bool DROP>
-__global__ void __launch_bounds__(WARPS * 32)
-    attn_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          bf16* __restrict__ out, int L, int n, int rs, float scale,
-                          Dropout dr) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
-  bf16* o = out + ((size_t)b * L + q0) * n * HEAD_DIM + (size_t)h * HEAD_DIM;
-  attn_scores<WARPS, QT>(q + base, k + base, rs, bias + (size_t)b * L, L, q0, scale, smem);
-  if constexpr (DROP)
-    attn_softmax_dropout<WARPS, QT, NC>(L, q0, (uint32_t)(b * n + h), dr, smem);
-  else
-    attn_softmax<WARPS, QT, NC>(L, smem);
-  attn_pv<WARPS, QT>(v + base, rs, L, smem, o, n * HEAD_DIM, min(QT, L - q0));
 }
 
 // -------------------------------------------------------------- backward
@@ -887,15 +829,6 @@ inline int with_train_variant(int L, int drop, Launch launch) {
   }
 }
 
-// The same for the forward at any L up to MAX_LEN.
-template <typename Launch>
-inline int with_fwd_variant(int L, int drop, Launch launch) {
-  if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
-  return with_score_chunks(L, [&](auto nc) {
-    return drop ? launch(nc, std::true_type()) : launch(nc, std::false_type());
-  });
-}
-
 // The same for the split backward, TRAIN_MAX_LEN < L <= MAX_LEN.
 template <typename Launch>
 inline int with_split_variant(int L, int drop, Launch launch) {
@@ -910,28 +843,17 @@ inline int with_split_variant(int L, int drop, Launch launch) {
 }  // namespace uc2
 
 // q, k, v: [B, L, n, 64] bf16, tokens rs elements apart; bias [B, L] fp32;
-// out [B, L, n, 64] bf16 contiguous. drop = 0 skips the mask (rate 0).
-// Returns cudaGetLastError().
+// out [B, L, n, 64] bf16 contiguous. drop = 0 skips the mask (rate 0): the
+// launch is then kernel #4's, bit for bit. Returns cudaGetLastError().
 extern "C" int uc2_attn_train_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, int B, int L, int n,
                                   int rs, float scale, unsigned seed, unsigned thresh,
                                   float keep_scale, int drop, void* stream) {
   using namespace uc2;
-  constexpr int WARPS = 4, QT = 64;
-  const size_t smem = attend_smem_bytes(QT, L);
   const Dropout dr{seed, thresh, keep_scale};
-  return with_fwd_variant(L, drop, [&](auto nc, auto dp) {
-    auto kernel = attn_train_fwd_kernel<WARPS, QT, decltype(nc)::value, decltype(dp)::value>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((L + QT - 1) / QT, n, B);
-    kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const float*>(bias),
-        static_cast<bf16*>(out), L, n, rs, scale, dr);
-    return (int)cudaGetLastError();
-  });
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return drop ? stream::attention<true>(q, k, v, bias, out, B, L, n, rs, scale, dr, st)
+              : stream::attention<false>(q, k, v, bias, out, B, L, n, rs, scale, dr, st);
 }
 
 // q, k, v as above; g, dq, dk, dv [B, L, n, 64] bf16 contiguous;

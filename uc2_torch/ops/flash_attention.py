@@ -112,9 +112,12 @@ def heads_row_stride(q, k, v) -> int:
     last two dims are dense, as in views into the fused QKV projection.
     Raises on layouts the kernels cannot read."""
     B, L, n, d = q.shape
-    rs = q.stride(1)
+    # one token a row: the token stride is the batch stride (any stride
+    # of a size-1 dim is valid, so a view may report another)
+    rs = q.stride(1) if L > 1 else q.stride(0) if B > 1 else n * d
     for t in (q, k, v):
-        if (t.stride(3) != 1 or t.stride(2) != d or t.stride(1) != rs
+        if (t.stride(3) != 1 or t.stride(2) != d
+                or (L > 1 and t.stride(1) != rs)
                 or (B > 1 and t.stride(0) != L * rs)):
             raise ValueError("heads must be [B, L, n, d] with dense heads "
                              "and one token stride shared by q, k and v")
