@@ -20,8 +20,11 @@ non-zero at the end, without the result lines:
      12 heads of 64, H = 768, F = 3072, bf16 inputs from a seed, padding
      masks), with times, the least time the card could take, and a
      library yardstick where one PyTorch call computes the same function;
-     #5 beside SDPA's forward and its bound at each training shape; the
-     training kernels' dropout mask against the plain Philox mask;
+     #6's two passes each against its plain version (row statistics; keep
+     bits bit for bit); #5 beside SDPA's forward and #6 beside SDPA's
+     autograd backward (both also replayed from a CUDA graph) and their
+     bounds at each training shape; the training kernels' dropout mask
+     against the plain Philox mask;
   3. slice: full-width uc2-base (12 layers, random weights from a seed)
      runs full_retrieval_eval over a synthetic gallery that fills the
      three region-count buckets (joint L = 98, 128, 162); every kernel's
@@ -30,8 +33,8 @@ non-zero at the end, without the result lines:
   4. train: full-width uc2-base mlm steps (dropout 0.1, the optimizer of
      config/uc2_pretrain.json) at the three training buckets, 1 warm-up
      and 5 timed steps each on masked, collated batches of a synthetic
-     corpus; launches of the training kernels per step, finite losses, a
-     bitwise repeat of one step, the step's time breakdown, and one step
+     corpus; launches of the training kernels per step (12 each of #5 and
+     #6's two passes), finite losses, a bitwise repeat of one step, the step's time breakdown, and one step
      of the kernel path against the eager path at dropout 0;
   5. FFN kernels: the training FFN block's forward (#9) and backward (#10)
      against their plain versions (and #10 against autograd of the plain
@@ -40,27 +43,29 @@ non-zero at the end, without the result lines:
   6. long-L kernels: #4 and #5, one streamed core, against their plain
      versions at the edges of its tiles (L = 1 .. 512, B = 3, fused-QKV
      views, rates 0.1 and 0), each call repeated bit for bit, #5 at rate
-     0 bitwise equal to #4; #4 at (B, L) = (16, 512), (4, 419), (4, 450)
-     beside SDPA and its bound, replayed from a CUDA graph (its device
-     time alone) and on the host's clock beside #1's wrapper (and #1 timed
-     at (16, 512)); #5 beside SDPA at (56, 174), (24, 339) and
-     (16, 512); the split #6 (and each split part) against its plain
-     version at (24, 339) and (16, 512), rates 0.1 and 0, a bitwise repeat
-     of #6, the mask at L = 512;
+     0 and #1 bitwise equal to #4; #6 and each of its passes against
+     their plain versions at the same tails, repeated bit for bit; #4 at
+     (B, L) = (16, 512), (4, 419), (4, 450) beside SDPA and its bound,
+     replayed from a CUDA graph (its device time alone) and on the host's
+     clock beside #1's wrapper; #1 at (64, 98), (64, 162), (56, 174),
+     (24, 339) the same way; #5 and #6 (and each pass) against their
+     plain versions at (56, 174), (24, 339) and (16, 512), rates 0.1 and
+     0, timed beside SDPA as in phase 2, a bitwise repeat of #6, the mask
+     at L = 512;
   7. mix: full-width uc2-base steps of the four tasks of
      config/uc2_pretrain.json (itm, mlm, vmlm in German, tlm with 'mix'
      co-masking) at L = 162, B = 128 under "pallas-train" with
      UC2_FFN_TRAIN=1, on batches from the port's datasets and collate over
      a synthetic pretraining corpus: 1 warm-up and 3 timed steps each,
-     launches of #5, #6, #9 and #10 per step (12 each), a bitwise repeat of
-     a vmlm step, itm and vmlm steps against the eager path at dropout 0,
-     and the mlm step with and without the FFN kernels;
+     launches of #5, #6's two passes, #9 and #10 per step (12 each), a
+     bitwise repeat of a vmlm step, itm and vmlm steps against the eager
+     path at dropout 0, and the mlm step with and without the FFN kernels;
   8. long captions: full-width uc2-base mlm steps on captions of up to 410
      tokens, the three buckets of default_buckets(410, 100, 10240) (joint
      L = 174, 339, 512 at B = 56, 24, 16) interleaved as MetaLoader ->
      PrefetchLoader give them: under "pallas" at dropout 0.1, ms/step,
-     examples/s and peak memory per bucket, 12 launches each of #5 and #6
-     a step (#6 split above L = 256), finite losses, a bitwise repeat of
+     examples/s and peak memory per bucket, 12 launches each of #5 and
+     #6's two passes a step, finite losses, a bitwise repeat of
      an L = 512 step; then at dropout 0 one step per bucket (12 launches
      of #4 at L = 512, of #1 below) against the eager path, and the
      kernel path's ms/step there;
@@ -100,10 +105,13 @@ non-zero at the end, without the result lines:
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
 
-`python3 chip_smoke.py --times` runs phase 1 and then only times #5 and
-#4 at the main path's shapes as phase 6 does (no result lines); a copy of
-this script in another tree of the port times that tree's kernels, so an
-A/B of two trees fits in one call.
+`python3 chip_smoke.py --times` runs phase 1 and then only times #5, #6,
+#4 and #1 at the main path's shapes as phases 2 and 6 do, and phase 4's
+mlm step at L = 162 (no result lines); a copy of this script in another
+tree of the port (it calls only the wrappers #1, #4, #5 and #6, whose
+signatures the port keeps, #1's C entry and the model's entry points)
+times that tree's kernels and step, so an A/B of two trees fits in one
+call.
 """
 
 from __future__ import annotations
@@ -141,13 +149,13 @@ from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train_bwd, fused_ffn_block_train_bwd_plain,
     fused_ffn_block_train_fwd, fused_ffn_block_train_plain)
 from uc2_torch.ops.flash_attention import (
-    SINGLE_BWD_MAX_LEN, flash_attention, flash_attention_long,
+    flash_attention, flash_attention_long,
     flash_attention_long_plain, flash_attention_plain,
     flash_attention_train_bwd, flash_attention_train_bwd_dkdv,
     flash_attention_train_bwd_dkdv_plain, flash_attention_train_bwd_dq,
     flash_attention_train_bwd_dq_plain, flash_attention_train_bwd_plain,
     flash_attention_train_fwd, flash_attention_train_plain,
-    flash_attention_v3, uses_long_kernel)
+    flash_attention_v3, heads_row_stride, uses_long_kernel)
 from uc2_torch.ops.attention import STOCK_FLASH_MIN_LEN
 from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_plain,
@@ -181,11 +189,12 @@ ATOL, RTOL = 2e-2, 2.0 ** -7
 # rank scores after 12 bf16 layers, kernel path vs the eager bf16 path
 SCORE_TOL = 5e-2
 KERNELS = (flash_attention, fused_attn_block, fused_ffn_block)
-TRAIN_KERNELS = (flash_attention_train_fwd, flash_attention_train_bwd)
+# #5 and #6's two passes (#6 itself launches nothing: it is the two
+# passes), 12 each a training step at every L
+TRAIN_KERNELS = (flash_attention_train_fwd, flash_attention_train_bwd_dq,
+                 flash_attention_train_bwd_dkdv)
 FFN_KERNELS = (fused_ffn_block_train_fwd, fused_ffn_block_train_bwd)
-# #4 and the split parts of #6 (joint L > 256)
-LONG_KERNELS = (flash_attention_long, flash_attention_train_bwd_dq,
-                flash_attention_train_bwd_dkdv)
+LONG_KERNELS = (flash_attention_long,)
 # #7 (UC2_ATTN_V2) and #12 / #12a / #12b ("flash")
 ROUTE_KERNELS = (fused_attn_block_v2, segment_flash_fwd, segment_flash_bwd_dq,
                  segment_flash_bwd_dkdv)
@@ -258,14 +267,21 @@ def close(out, ref):
     return ok, err.max().item()
 
 
-def compare(what: str, out, ref) -> float:
+def held(what: str, out, ref, quiet: bool = False):
+    """``close``'s (ok, max error); unless ``quiet``, printed, and recorded
+    as a failure where the kernel disagrees."""
     ok, max_err = close(out, ref)
-    print(f"  {what}: max|kernel - plain| = {max_err:.4e} "
-          f"(max|plain| {ref.float().abs().max().item():.3e}; tolerance "
-          f"2e-2 + 2^-7*|plain|) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail(f"{what} disagrees with its plain version")
-    return max_err
+    if not quiet:
+        print(f"  {what}: max|kernel - plain| = {max_err:.4e} "
+              f"(max|plain| {ref.float().abs().max().item():.3e}; tolerance "
+              f"2e-2 + 2^-7*|plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{what} disagrees with its plain version")
+    return ok, max_err
+
+
+def compare(what: str, out, ref) -> float:
+    return held(what, out, ref)[1]
 
 
 def heads(gen, b, L):
@@ -316,13 +332,18 @@ def ratios(ms, lib, lo) -> str:
     return f"kernel / library {vs}, kernel / bound {ms / lo:.1f}"
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, stream=None) -> float:
     """Mean ms per call of ``fn`` replayed from one CUDA graph of ``iters``
     calls: the device's time without the host's work between launches
-    (the wrapper's checks, its C entry's set-up, the launch itself)."""
+    (the wrapper's checks, its C entry's set-up, the launch itself).
+    ``stream``: the side stream to capture on (one call runs there first)."""
     graph = torch.cuda.CUDAGraph()
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
     torch.cuda.synchronize()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(iters):
             fn()
     return time_ms(graph.replay, iters=5) / iters
@@ -344,9 +365,10 @@ def host_ms(fn, iters: int = 200) -> float:
 def run_case(rows, name, b, L, kernel, plain, args, nbytes, flops,
              library=None, report=False, graph=False):
     """Hold one kernel call against its plain version, time both (and the
-    library yardstick, and with ``graph`` the kernel replayed from a CUDA
-    graph), and fold the numbers into the kernel's JSON row; the row's
-    times are those of the case marked ``report``."""
+    library yardstick; with ``graph`` also the kernel and the library
+    replayed from CUDA graphs, and each on the host's clock), and fold the
+    numbers into the kernel's JSON row; the row's times are those of the
+    case marked ``report``."""
     err = compare(f"{name} B={b} L={L}", kernel(*args), plain(*args))
     t = dict(ms=time_ms(lambda: kernel(*args)),
              plain_ms=time_ms(lambda: plain(*args)),
@@ -358,9 +380,21 @@ def run_case(rows, name, b, L, kernel, plain, args, nbytes, flops,
           f"; {ratios(t['ms'], t['library_ms'], t['bound_ms'])}")
     if graph:
         g_ms = graph_ms(lambda: kernel(*args))
-        print(f"    kernel replayed from a CUDA graph {g_ms:.4f} ms "
-              f"(kernel / bound {g_ms / t['bound_ms']:.1f}); host clock per "
-              f"call {host_ms(lambda: kernel(*args)):.4f} ms")
+        lib_g = None
+        if library is not None:
+            try:
+                lib_g = graph_ms(library)
+            except RuntimeError as e:
+                print(f"    library: could not be captured in a CUDA graph: "
+                      f"{str(e).splitlines()[0]}")
+                torch.cuda.synchronize()
+        g_vs = "n/a" if lib_g is None else f"{g_ms / lib_g:.2f}"
+        lib_gs = "n/a" if lib_g is None else f"{lib_g:.4f}"
+        lib_h = ("n/a" if library is None else f"{host_ms(library):.4f}")
+        print(f"    from CUDA graphs: kernel {g_ms:.4f} ms, library {lib_gs} "
+              f"ms (kernel / library {g_vs}, kernel / bound "
+              f"{g_ms / t['bound_ms']:.1f}); host clock per call: kernel "
+              f"{host_ms(lambda: kernel(*args)):.4f} ms, library {lib_h} ms")
     row = rows[name]
     row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
     if report:
@@ -374,7 +408,7 @@ def phase_kernels(gen):
     rows = {
         "flash_attention": dict(
             name="flash_attention", route="cuda",
-            source="uc2_torch/csrc/attention.cu",
+            source="uc2_torch/csrc/attention_stream.cuh",
             replaces="uc2_tpu/ops/flash_attention.py:86"),
         "fused_attn_block": dict(
             name="fused_attn_block", route="cuda",
@@ -536,11 +570,16 @@ TRAIN_ROWS = {
         name="flash_attention_train_fwd", route="cuda",
         source="uc2_torch/csrc/attention_stream.cuh",
         replaces="uc2_tpu/ops/flash_attention.py:289"),
-    "flash_attention_train_bwd": dict(
-        name="flash_attention_train_bwd", route="cuda",
+    "flash_attention_train_bwd_dq": dict(
+        name="flash_attention_train_bwd_dq", route="cuda",
+        source="uc2_torch/csrc/attention_train.cu",
+        replaces="uc2_tpu/ops/flash_attention.py:311"),
+    "flash_attention_train_bwd_dkdv": dict(
+        name="flash_attention_train_bwd_dkdv", route="cuda",
         source="uc2_torch/csrc/attention_train.cu",
         replaces="uc2_tpu/ops/flash_attention.py:311"),
 }
+STATS = ("row max", "1 / row sum", "D")
 
 
 def compare_norm(what: str, out, ref, rtol: float) -> float:
@@ -565,10 +604,12 @@ def plain_autograd(q, k, v, bias, rate, g):
     return torch.autograd.grad(out, ins, g)
 
 
-def library_train_ms(q, k, v, bias, g, rate):
+def library_train_ms(q, k, v, bias, g, rate, graph=False):
     """Yardstick: scaled_dot_product_attention with the same mask and
     dropout (its own RNG), forward, and its autograd backward against
-    ``g`` (None: the forward only)."""
+    ``g`` (None: the forward only); with ``graph`` also that backward
+    replayed from a CUDA graph (None, with the reason printed, where it
+    cannot be captured). Returns (forward ms, backward ms, graph ms)."""
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
                   for t in (q, k, v))
     bias16 = bias.bfloat16()
@@ -579,83 +620,227 @@ def library_train_ms(q, k, v, bias, g, rate):
     try:
         fwd_ms = time_ms(fwd)
         if g is None:
-            return fwd_ms, None
-        out = fwd()
-        bwd_ms = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True))
+            return fwd_ms, None, None
+        # the forward on a side stream, so that its backward (which the
+        # autograd engine runs on the forward's stream) can be captured
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fwd()
+        torch.cuda.current_stream().wait_stream(side)
+        gt = g.transpose(1, 2)
+
+        def bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+        bwd_ms = time_ms(bwd)
     except RuntimeError as e:      # no backend takes this mask and dropout
         print(f"    library: scaled_dot_product_attention refused: {e}")
-        return None, None
-    return fwd_ms, bwd_ms
+        return None, None, None
+    bwd_graph = None
+    if graph:
+        try:
+            bwd_graph = graph_ms(bwd, stream=side)
+        except RuntimeError as e:
+            print(f"    library: SDPA's autograd backward could not be "
+                  f"captured in a CUDA graph: {str(e).splitlines()[0]}")
+            torch.cuda.synchronize()
+    return fwd_ms, bwd_ms, bwd_graph
 
 
-def time_fwd(tag, q, k, v, bias, g, rate):
+def time_fwd(tag, q, k, v, bias, rate):
     """Time #5 on these inputs once, beside SDPA (``library_train_ms``)
     and the bound, and print kernel / SDPA and kernel / bound; returns
-    (kernel ms, SDPA forward ms, SDPA backward ms)."""
+    (kernel ms, SDPA forward ms)."""
     b, L = q.shape[:2]
     args = (q, k, v, bias, TRAIN_SEED, rate)
     ms = time_ms(lambda: flash_attention_train_fwd(*args))
-    lib_f, lib_b = library_train_ms(q, k, v, bias, g, rate)
+    lib_f, _, _ = library_train_ms(q, k, v, bias, None, rate)
     lo, by = bound(4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D)
     lib = "n/a" if lib_f is None else f"{lib_f:.4f}"
     print(f"    #5 {tag}: kernel {ms:.4f} ms, SDPA forward {lib} ms, bound "
           f"{lo:.4f} ms ({by}); {ratios(ms, lib_f, lo)}")
-    return ms, lib_f, lib_b
+    return ms, lib_f
+
+
+def bwd_bytes_flops(b, L):
+    """#6's bound inputs: q, k, v and g read, dq, dk, dv written (bf16),
+    the bias read and the per-head dbias partials written (fp32); the
+    function's five products."""
+    return (7 * b * L * H * 2 + b * L * 4 + b * N * L * 4,
+            10 * b * N * L * L * D)
+
+
+def time_bwd(tag, q, k, v, bias, g, rate):
+    """Time #6 on these inputs chained and replayed from a CUDA graph,
+    beside SDPA's autograd backward (chained and from a graph) and the
+    bound, and print the ratios; returns (kernel ms, SDPA backward ms)."""
+    b, L = q.shape[:2]
+    args = (q, k, v, bias, TRAIN_SEED, rate)
+    ms = time_ms(lambda: flash_attention_train_bwd(*args, g))
+    g_ms = graph_ms(lambda: flash_attention_train_bwd(*args, g))
+    _, lib_b, lib_g = library_train_ms(q, k, v, bias, g, rate, graph=True)
+    lo, by = bound(*bwd_bytes_flops(b, L))
+    lib = "n/a" if lib_b is None else f"{lib_b:.4f}"
+    lib_gs = "n/a" if lib_g is None else f"{lib_g:.4f}"
+    g_vs = "n/a" if lib_g is None else f"{g_ms / lib_g:.2f}"
+    print(f"    #6 {tag}: kernel {ms:.4f} ms (graph {g_ms:.4f}), SDPA "
+          f"autograd backward {lib} ms (graph {lib_gs}), bound {lo:.4f} ms "
+          f"({by}); {ratios(ms, lib_b, lo)}; from graphs: kernel / library "
+          f"{g_vs}, kernel / bound {g_ms / lo:.1f}")
+    return ms, lib_b
+
+
+def fold_err(rows, name, err):
+    rows[name]["max_abs_err"] = max(rows[name].get("max_abs_err", 0.0), err)
+
+
+def check_passes(tag, q, k, v, bias, seed, rate, g, rows, quiet=False):
+    """#6's two passes, each against its plain version on the same inputs:
+    pass 1's dq and row statistics, and its keep bits bit for bit; pass 2's
+    dk, dv and dbias partials from the plain pass 1's statistics and bits;
+    each pass called again for a bitwise repeat. Folds the errors into the
+    passes' rows; unless ``quiet``, prints each check and records its
+    failure. Returns pass 1's plain (statistics, bits) and the results:
+    (ok, max error) of each pass, whether the bits agree, whether both
+    passes repeat bit for bit."""
+    args = (q, k, v, bias, seed, rate)
+    dq, st, bits = flash_attention_train_bwd_dq(*args, g)
+    pdq, pst, pbits = flash_attention_train_bwd_dq_plain(*args, g)
+    r1 = [held(f"#6 pass 1 dq {tag}", dq, pdq, quiet)] + [
+        held(f"#6 pass 1 {nm} {tag}", st[i], pst[i], quiet)
+        for i, nm in enumerate(STATS)]
+    if rate == 0.0:
+        ok_bits = bits is None and pbits is None
+    else:
+        ok_bits = bits is not None and torch.equal(bits, pbits)
+    part = flash_attention_train_bwd_dkdv(*args, g, pst, pbits)
+    want = flash_attention_train_bwd_dkdv_plain(*args, g, pst, pbits)
+    r2 = [held(f"#6 pass 2 {nm} {tag}", a, w, quiet) for nm, a, w in
+          zip(("dk", "dv", "dbias partials"), part, want)]
+    again = (*flash_attention_train_bwd_dq(*args, g),
+             *flash_attention_train_bwd_dkdv(*args, g, pst, pbits))
+    same = all(x is y or torch.equal(x, y)
+               for x, y in zip((dq, st, bits, *part), again))
+    if not quiet:
+        print(f"  #6 pass 1 keep bits {tag}: == plain Philox bits bit for "
+              f"bit (none at rate 0): {ok_bits}; both passes repeat "
+              f"bitwise: {same}")
+        if not ok_bits:
+            fail(f"#6 pass 1's keep bits at {tag} are not the plain ones")
+        if not same:
+            fail(f"#6's passes at {tag} are not bitwise repeatable")
+    res = {}
+    for name, r in (("flash_attention_train_bwd_dq", r1),
+                    ("flash_attention_train_bwd_dkdv", r2)):
+        res[name] = (all(ok for ok, _ in r), max(e for _, e in r))
+        fold_err(rows, name, res[name][1])
+    return pst, pbits, res, ok_bits, same
+
+
+def time_passes(tag, q, k, v, bias, g, rate, rows, pst, pbits):
+    """Each pass of #6 timed with its plain version and bound into its
+    row (no single PyTorch call computes a pass)."""
+    b, L = q.shape[:2]
+    args = (q, k, v, bias, TRAIN_SEED, rate)
+    act, stat = b * L * H * 2, 3 * b * N * L * 4
+    Lp = -(-L // 64) * 64
+    bits = b * N * Lp * Lp // 8 if rate > 0.0 else 0
+    for row, kern, plain, nbytes, flops in (
+            (rows["flash_attention_train_bwd_dq"],
+             lambda: flash_attention_train_bwd_dq(*args, g),
+             lambda: flash_attention_train_bwd_dq_plain(*args, g),
+             5 * act + b * L * 4 + stat + bits, 6 * b * N * L * L * D),
+            (rows["flash_attention_train_bwd_dkdv"],
+             lambda: flash_attention_train_bwd_dkdv(*args, g, pst, pbits),
+             lambda: flash_attention_train_bwd_dkdv_plain(*args, g, pst,
+                                                          pbits),
+             6 * act + b * L * 4 + stat + b * N * L * 4 + bits,
+             8 * b * N * L * L * D)):
+        row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
+                   library_ms=None)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library none (no single PyTorch "
+              f"call computes a pass), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+
+
+def train_attention_case(tag, q, k, v, bias, g, rate, rows):
+    """#5 and #6 on one input against their plain versions, #6 also
+    against autograd of the plain forward and for a bitwise repeat, and
+    each pass of #6 against its own (``check_passes``); folds the errors
+    into the rows; returns pass 1's plain (statistics, bits)."""
+    args = (q, k, v, bias, TRAIN_SEED, rate)
+    names = ("dq", "dk", "dv", "dbias")
+    ef = compare(f"#5 {tag}", flash_attention_train_fwd(*args),
+                 flash_attention_train_plain(*args))
+    got = flash_attention_train_bwd(*args, g)
+    eb = [compare(f"#6 {nm} {tag}", a, w) for nm, a, w in zip(
+        names, got, flash_attention_train_bwd_plain(*args, g))]
+    # autograd of the plain forward rounds the gradient of its bf16
+    # probabilities to bf16 (2^-9 relative), which the kernel and the
+    # reference's formula do not; dbias sums n * L such terms, so it is
+    # held in norm to 2^-7 there
+    auto = plain_autograd(q, k, v, bias, rate, g)
+    for nm, a, w in zip(names[:3], got, auto):
+        compare(f"#6 {nm} vs autograd of plain fwd {tag}", a, w)
+    compare_norm(f"#6 dbias vs autograd of plain fwd {tag}", got[3], auto[3],
+                 2.0 ** -7)
+    again = flash_attention_train_bwd(*args, g)
+    same = all(torch.equal(a, w) for a, w in zip(got, again))
+    print(f"  #6 {tag}: two calls bitwise equal: {same}")
+    if not same:
+        fail(f"#6 at {tag} is not bitwise repeatable")
+    fold_err(rows, "flash_attention_train_fwd", ef)
+    # #6's dq is pass 1's, its dk, dv and dbias pass 2's
+    fold_err(rows, "flash_attention_train_bwd_dq", eb[0])
+    fold_err(rows, "flash_attention_train_bwd_dkdv", max(eb[1:]))
+    return check_passes(tag, *args, g, rows)[:2]
 
 
 def phase_train_kernels(gen):
-    """#5 and #6 against their plain versions at the training shapes; the
-    rows' times are those of B = 128, L = 162, rate 0.1."""
-    print("== training attention kernels vs plain (#5 forward, #6 backward;"
-          " plain: fp32 compute on the same bf16 inputs)")
+    """``train_attention_case`` at the training shapes, rates 0.1 and 0;
+    #5 and #6 timed beside SDPA at each shape at rate 0.1 (#6 also from a
+    CUDA graph); the rows' times are those of B = 128, L = 162, rate 0.1."""
+    print("== training attention kernels vs plain (#5 forward, #6 backward "
+          "and its two passes; plain: fp32 compute on the same bf16 inputs)")
     rows = {k: dict(v) for k, v in TRAIN_ROWS.items()}
-    fwd_row, bwd_row = rows.values()
-    names = ("dq", "dk", "dv", "dbias")
     for b, L in ((208, 98), (160, 128), (128, 162)):
         q, k, v, bias = heads(gen, b, L)
         g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
         for rate in (0.1, 0.0):
-            args = (q, k, v, bias, TRAIN_SEED, rate)
             tag = f"B={b} L={L} rate={rate}"
-            ef = compare(f"#5 {tag}", flash_attention_train_fwd(*args),
-                         flash_attention_train_plain(*args))
-            got = flash_attention_train_bwd(*args, g)
-            eb = max(compare(f"#6 {nm} {tag}", a, w) for nm, a, w in zip(
-                names, got, flash_attention_train_bwd_plain(*args, g)))
-            # autograd of the plain forward rounds the gradient of its bf16
-            # probabilities to bf16 (2^-9 relative), which the kernel and
-            # the reference's formula do not; dbias sums n * L such terms,
-            # so it is held in norm to 2^-7 there
-            auto = plain_autograd(q, k, v, bias, rate, g)
-            for nm, a, w in zip(names[:3], got, auto):
-                compare(f"#6 {nm} vs autograd of plain fwd {tag}", a, w)
-            compare_norm(f"#6 dbias vs autograd of plain fwd {tag}", got[3],
-                         auto[3], 2.0 ** -7)
-            fwd_row["max_abs_err"] = max(fwd_row.get("max_abs_err", 0.0), ef)
-            bwd_row["max_abs_err"] = max(bwd_row.get("max_abs_err", 0.0), eb)
+            pst, pbits = train_attention_case(tag, q, k, v, bias, g, rate,
+                                              rows)
             if rate == 0.0:
+                if (b, L) == (128, 162):  # the passes without Philox's work
+                    time_passes(tag, q, k, v, bias, g, rate,
+                                {name: dict(row) for name, row
+                                 in TRAIN_ROWS.items()},
+                                pst, pbits)
                 continue
-            fwd_ms, lib_f, lib_b = time_fwd(tag, q, k, v, bias, g, rate)
+            fwd_ms, lib_f = time_fwd(tag, q, k, v, bias, rate)
+            bwd_ms, _ = time_bwd(tag, q, k, v, bias, g, rate)
             if (b, L) != (128, 162):
                 continue
-            act = b * L * H * 2
-            for row, ms, plain, nbytes, flops, lib in (
-                    (fwd_row, fwd_ms,
-                     lambda: flash_attention_train_plain(*args),
-                     4 * act + b * L * 4, 4 * b * N * L * L * D, lib_f),
-                    (bwd_row,
-                     time_ms(lambda: flash_attention_train_bwd(*args, g)),
-                     lambda: flash_attention_train_bwd_plain(*args, g),
-                     7 * act + b * L * 4 + b * N * L * 4,
-                     10 * b * N * L * L * D, lib_b)):
-                row.update(ms=ms, plain_ms=time_ms(plain, iters=5),
-                           library_ms=lib)
-                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-                lib_s = "n/a" if lib is None else f"{lib:.4f}"
-                print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, "
-                      f"plain {row['plain_ms']:.4f} ms, library {lib_s} ms, "
-                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            args = (q, k, v, bias, TRAIN_SEED, rate)
+            row = rows["flash_attention_train_fwd"]
+            row.update(ms=fwd_ms, library_ms=lib_f, plain_ms=time_ms(
+                lambda: flash_attention_train_plain(*args), iters=5))
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D)
+            lib_s = "n/a" if lib_f is None else f"{lib_f:.4f}"
+            print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library {lib_s} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            # #6 is its two passes: timed whole beside SDPA above, each
+            # pass in its own row below
+            plain6 = time_ms(lambda: flash_attention_train_bwd_plain(*args, g),
+                             iters=5)
+            print(f"    #6 {tag}: kernel {bwd_ms:.4f} ms, plain {plain6:.4f} "
+                  f"ms")
+            time_passes(tag, q, k, v, bias, g, rate, rows, pst, pbits)
     # the mask, exactly: q = k = 0, bias 0, v = I makes the output the
     # dropped, rescaled probabilities (L = d = 64, rate 0.5)
     L, rate = 64, 0.5
@@ -705,7 +890,7 @@ def pretrain_optimizer(model):
 
 # kernel groups of the step breakdown, by marks in the kernel's name
 KERNEL_GROUPS = (
-    ("training attention kernels", ("attn_train",)),
+    ("training attention kernels", ("attn_stream", "attn_bwd")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -742,12 +927,12 @@ def profile_step(model, opt, batch, rng, card):
         print("  profiler: no device time recorded (not measured)")
         return None
     busy = sum(r[0] for r in rows)
-    attn = sum(r[0] for r in rows if "attn_train" in r[2])
     groups = {}
     for ms, _, key in rows:
         group = next((g for g, marks in KERNEL_GROUPS if any(
             m in key for m in marks)), "other")
         groups[group] = groups.get(group, 0.0) + ms
+    attn = groups.get(KERNEL_GROUPS[0][0], 0.0)
     os.makedirs("build", exist_ok=True)
     with open("build/train_profile.txt", "w") as f:
         f.write(f"[{card}] one mlm step, B=128 L=162: wall {wall:.3f} ms\n")
@@ -868,11 +1053,12 @@ def phase_train(card, train_rows):
               + "; ".join(f"{a:.4f} / {b:.4f} / {int(c)}"
                           for a, b, c in losses))
         print(f"    launches {counts} over {steps} steps = "
-              f"{counts['flash_attention_train_fwd'] / steps:g} + "
-              f"{counts['flash_attention_train_bwd'] / steps:g} per step, "
-              f"expected {want}")
+              + " + ".join(f"{counts[k.__name__] / steps:g}"
+                           for k in TRAIN_KERNELS)
+              + f" per step, expected {want}")
         if counts != want:
-            fail(f"training launches at L={L} do not match 12 + 12 a step")
+            fail(f"training launches at L={L} are not 12 each of #5 and #6's "
+                 f"two passes a step")
         if not all(np.isfinite(x) for r in losses for x in r[:2]):
             fail(f"a loss or grad norm at L={L} is not finite")
 
@@ -918,10 +1104,12 @@ def phase_train(card, train_rows):
           f"{H}): bf16 operands, fp32 output {mm_ms:.3f} ms; both upcast to "
           f"fp32 (TF32 off) {up_ms:.3f} ms [{card}]")
     del x, table
-    attn_ms = layers * sum(r["ms"] for r in train_rows.values())
+    attn_ms = layers * sum(train_rows[k.__name__]["ms"]
+                           for k in TRAIN_KERNELS)
     print(f"  LM head + CE, forward and backward (B*M = "
           f"{B_ * TRAIN_SLOTS} rows x {cfg.vocab_size} tokens): {lm_ms:.3f} "
-          f"ms; training attention kernels: {layers} x (#5 + #6) = "
+          f"ms; training attention kernels: {layers} x (#5 + #6's two "
+          f"passes) = "
           f"{attn_ms:.3f} "
           f"ms per step at L={L} [{card}]")
     del opt, h
@@ -1173,8 +1361,8 @@ def _phase_mix(card, train_busy, ffn_rows):
               + "; ".join(f"{a:.4f} / {b:.4f} / {int(c)}" for a, b, c in stats))
         print(f"    launches over the timed steps {counts}, expected {want}")
         if counts != want:
-            fail(f"{task}: launches are not 12 each of #5, #6, #9 and #10 a "
-                 f"step")
+            fail(f"{task}: launches are not 12 each of #5, #6's two passes, "
+                 f"#9 and #10 a step")
         if not all(np.isfinite(x) for r in stats for x in r[:2]):
             fail(f"{task}: a loss or grad norm is not finite")
 
@@ -1316,28 +1504,20 @@ LONG_ROWS = {
         name="flash_attention_long", route="cuda",
         source="uc2_torch/csrc/attention_stream.cuh",
         replaces="uc2_tpu/ops/flash_attention.py:33"),
-    "flash_attention_train_bwd_dq": dict(
-        name="flash_attention_train_bwd_dq", route="cuda",
-        source="uc2_torch/csrc/attention_train.cu",
-        replaces="uc2_tpu/ops/flash_attention.py:311"),
-    "flash_attention_train_bwd_dkdv": dict(
-        name="flash_attention_train_bwd_dkdv", route="cuda",
-        source="uc2_torch/csrc/attention_train.cu",
-        replaces="uc2_tpu/ops/flash_attention.py:311"),
 }
-STATS = ("row max", "1 / row sum", "D")
-# where the main path launches #5 (training buckets, then long captions)
-# and #4 (the long-caption buckets at dropout 0)
+# where the main path launches #5 and #6 (training buckets, then long
+# captions), #4 (the long-caption buckets at dropout 0) and #1 (the L = 98
+# scoring bucket, the lab, the long-caption buckets below L = 419 at
+# dropout 0)
 TRAIN5_SHAPES = ((208, 98), (160, 128), (128, 162), (56, 174), (24, 339),
                  (16, 512))
 LONG4_SHAPES = ((16, 512), (4, 419), (4, 450))
+V3_SHAPES = ((64, 98), (64, 162), (56, 174), (24, 339))
 
 
 def time_long(rows, gen, b, L, report=False):
     """#4 at (b, L) against its plain version, timed beside SDPA and its
-    bound, replayed from a CUDA graph, and on the host's clock beside #1's
-    wrapper, which launches with no tensor maps to encode; returns the
-    inputs."""
+    bound, both also replayed from CUDA graphs and on the host's clock."""
     q, k, v, bias = heads(gen, b, L)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bias16 = bias.bfloat16()
@@ -1346,22 +1526,88 @@ def time_long(rows, gen, b, L, report=False):
              4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
              library=lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, attn_mask=bias16), report=report, graph=True)
-    print(f"    #1 (flash_attention_v3) host clock per call "
-          f"{host_ms(lambda: flash_attention_v3(q, k, v, bias)):.4f} ms")
-    return q, k, v, bias
+
+
+def time_v3(gen, b, L):
+    """#1 at (b, L) against its plain version, timed beside SDPA and its
+    bound, both also replayed from CUDA graphs and on the host's clock;
+    at the scoring shape (64, 98) also the host's clock of the C entry
+    alone, bare and through ``build.launch``. Returns the error (phase 2
+    keeps #1's row)."""
+    q, k, v, bias = heads(gen, b, L)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bias16 = bias.bfloat16()
+    rows = {"flash_attention": dict(name="flash_attention")}
+    run_case(rows, "flash_attention", b, L, flash_attention_v3,
+             flash_attention_plain, (q, k, v, bias),
+             4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D,
+             library=lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=bias16), graph=True)
+    if (b, L) == V3_SHAPES[0]:
+        out = torch.empty(b, L, N, D, dtype=q.dtype, device="cuda")
+        c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), b, L, N, heads_row_stride(q, k, v),
+                  1.0 / D ** 0.5)
+        entry = build.load().uc2_attn_fwd
+        stream = torch.cuda.current_stream().cuda_stream
+        bare = host_ms(lambda: entry(*c_args, stream))
+        bound_call = host_ms(lambda: build.launch("uc2_attn_fwd", *c_args,
+                                                  device=q.device))
+        print(f"    #1's host clock per call at B={b} L={L}: C entry alone "
+              f"{bare:.4f} ms (ctypes, four tensor-map encodes, the "
+              f"launch), through build.launch {bound_call:.4f} ms; the rest "
+              f"of the wrapper's time above is its Python checks and "
+              f"torch.autograd.Function")
+    return rows["flash_attention"]["max_abs_err"]
 
 
 def phase_stream_times(gen):
-    """``--times``: #5 at rate 0.1 at each of its main-path shapes and #4
-    at its three, timed as phase 6 times them and nothing else; copied
-    into another tree of the port (the parent commit's, say), this script
-    times that tree's kernels in the same call."""
+    """``--times``: #5 and #6 at rate 0.1 at each of their main-path
+    shapes, #4 at its three and #1 at its four, timed as phases 2 and 6
+    time them and nothing else; copied into another tree of the port (the
+    parent commit's, say), this script times that tree's kernels in the
+    same call."""
     for b, L in TRAIN5_SHAPES:
         q, k, v, bias = heads(gen, b, L)
-        time_fwd(f"B={b} L={L} rate=0.1", q, k, v, bias, None, 0.1)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        time_fwd(f"B={b} L={L} rate=0.1", q, k, v, bias, 0.1)
+        time_bwd(f"B={b} L={L} rate=0.1", q, k, v, bias, g, 0.1)
     rows = {k: dict(v) for k, v in LONG_ROWS.items()}
     for b, L in LONG4_SHAPES:
         time_long(rows, gen, b, L)
+    for b, L in V3_SHAPES:
+        time_v3(gen, b, L)
+
+
+AB_STEPS = 10         # timed mlm steps of ``--times``, after two warm-ups
+
+
+def time_mlm_step(card):
+    """``--times``: phase 4's mlm step at its L = 162 bucket (B = 128,
+    dropout 0.1, the same weights, corpus and optimizer), two warm-up
+    steps and AB_STEPS timed ones; prints each step's time, the mean and
+    the median."""
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention=True)
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    txt_db, img_db = synth_gallery(seed=1, n_imgs=N_IMGS, txt_per_img=2,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    (_, lo), (B_, Nb) = TRAIN_BUCKETS[1:]
+    batches, _ = mlm_batches(txt_db, img_db, lo, Nb, B_, 2 + AB_STEPS,
+                             seed=Nb)
+    opt = pretrain_optimizer(model)
+    rng = DropoutRng(TRAIN_SEED, "cuda")
+    times = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_step(model, opt, batch, rng)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    t = times[2:]
+    print(f"  mlm step L={TRAIN_TXT + Nb} B={B_}: mean {np.mean(t):.3f} ms, "
+          f"median {np.median(t):.3f} ms over {AB_STEPS} steps (steps "
+          f"{', '.join(f'{x:.2f}' for x in t)}) [{card}]")
 
 
 # joint lengths at the edges of the streamed core's 64-row query and key
@@ -1371,11 +1617,11 @@ STREAM_TAILS = (1, 63, 64, 65, 127, 129, 162, 174, 257, 339, 419, 450, 511,
 
 
 def stream_core_checks(gen):
-    """#4 and #5 share one core (csrc/attention_stream.cuh): each against
-    its plain version at STREAM_TAILS with B = 3, on views into one fused
-    QKV projection, #5 at rates 0.1 and 0; every call repeated bit for bit;
-    #5 at rate 0 bitwise equal to #4 on the same inputs. Returns #4's
-    largest error."""
+    """#1, #4 and #5 share one core (csrc/attention_stream.cuh): #4 and #5
+    each against its plain version at STREAM_TAILS with B = 3, on views
+    into one fused QKV projection, #5 at rates 0.1 and 0; every call
+    repeated bit for bit; #5 at rate 0 and #1 bitwise equal to #4 on the
+    same inputs. Returns #4's largest error."""
     print("  the streamed core at the tiles' edges (B = 3, fused-QKV views):")
     e4 = 0.0
     for L in STREAM_TAILS:
@@ -1394,9 +1640,10 @@ def stream_core_checks(gen):
             oks.append(ok5)
             line.append(f"#5 rate {rate} {err5:.2e}")
         one = torch.equal(out5, out4)
+        v3 = torch.equal(flash_attention_v3(q, k, v, bias), out4)
         print(f"    L={L}: max|kernel - plain| {', '.join(line)} "
               f"{'ok' if all(oks) else 'FAIL'}; repeats bitwise: {same}; "
-              f"#5 at rate 0 == #4 bitwise: {one}")
+              f"#5 at rate 0 == #4 bitwise: {one}; #1 == #4 bitwise: {v3}")
         if not all(oks):
             fail(f"the streamed core at L = {L} disagrees with its plain "
                  f"version")
@@ -1404,107 +1651,79 @@ def stream_core_checks(gen):
             fail(f"the streamed core at L = {L} is not bitwise repeatable")
         if not one:
             fail(f"#5 at rate 0 and #4 differ at L = {L}")
+        if not v3:
+            fail(f"#1 and #4 differ at L = {L}")
     return e4
 
 
-def phase_long_kernels(gen):
-    """The streamed core's edge cases (``stream_core_checks``); #4 against
+def bwd_tail_checks(gen, rows):
+    """#6 at STREAM_TAILS (the edges of its passes' 64-row tiles), B = 3,
+    on views into one fused QKV projection, rates 0.1 and 0: dq, dk, dv
+    and dbias against the plain backward, each pass against its plain
+    version (pass 1's keep bits bit for bit), and each call repeated bit
+    for bit. Folds the errors into the rows."""
+    print("  #6 at the tiles' edges (B = 3, fused-QKV views):")
+    for L in STREAM_TAILS:
+        q, k, v, bias = heads(gen, 3, L)
+        g = torch.randn(3, L, N, D, generator=gen, device="cuda").bfloat16()
+        errs, oks, same = [], [], True
+        for rate in (0.1, 0.0):
+            args = (q, k, v, bias, TRAIN_SEED + L, rate)
+            got = flash_attention_train_bwd(*args, g)
+            whole = [close(a, w) for a, w in zip(
+                got, flash_attention_train_bwd_plain(*args, g))]
+            again = flash_attention_train_bwd(*args, g)
+            _, _, res, ok_bits, same_p = check_passes(
+                f"L={L} rate={rate}", *args, g, rows, quiet=True)
+            (ok1, e1), (ok2, e2) = res.values()
+            same = (same and same_p
+                    and all(torch.equal(a, w) for a, w in zip(got, again)))
+            oks += [ok for ok, _ in whole] + [ok1, ok2, ok_bits]
+            errs.append(f"rate {rate}: #6 "
+                        f"{max(e for _, e in whole):.2e}, pass 1 {e1:.2e}, "
+                        f"pass 2 {e2:.2e}, bits "
+                        f"{'equal' if ok_bits else 'DIFFER'}")
+            # #6's dq is pass 1's, its dk, dv and dbias pass 2's
+            fold_err(rows, "flash_attention_train_bwd_dq", whole[0][1])
+            fold_err(rows, "flash_attention_train_bwd_dkdv",
+                     max(e for _, e in whole[1:]))
+        print(f"    L={L}: max|kernel - plain| {'; '.join(errs)} "
+              f"{'ok' if all(oks) else 'FAIL'}; repeats bitwise: {same}")
+        if not all(oks):
+            fail(f"#6 at L = {L} disagrees with its plain version")
+        if not same:
+            fail(f"#6 at L = {L} is not bitwise repeatable")
+
+
+def phase_long_kernels(gen, train_rows):
+    """The streamed core's edge cases (``stream_core_checks``) and #6's
+    (``bwd_tail_checks``, errors folded into ``train_rows``); #4 against
     its plain version at (B, L) = (16, 512), (4, 419) and (4, 450), timed
     beside SDPA and its bound, replayed from a CUDA graph, and on the
-    host's clock beside #1's wrapper (#1 also timed at (16, 512)); #5
-    beside SDPA at (56, 174); #5 and the split #6 (and each split part on
-    its own) against their plain versions at (24, 339) and (16, 512),
-    rates 0.1 and 0, #5 beside SDPA, a bitwise repeat of #6; the forward's
-    mask at L = 512. The rows' times are those of (16, 512), rate 0.1."""
-    print("== long-L attention kernels vs plain (#4 inference forward; #5 "
-          "and the split #6 beyond L = 256; plain: fp32 compute on the same "
-          "bf16 inputs)")
+    host's clock beside #1's wrapper; #1 timed the same way at V3_SHAPES;
+    ``train_attention_case`` at (56, 174), (24, 339) and (16, 512), rates
+    0.1 and 0, #5 and #6 timed beside SDPA at rate 0.1 (#6 also from a
+    CUDA graph); the forward's mask at L = 512. #4's row times are those
+    of (16, 512)."""
+    print("== long-L attention kernels vs plain (#4 and #1 inference "
+          "forward; #5 and #6 beyond the training buckets; plain: fp32 "
+          "compute on the same bf16 inputs)")
     rows = {k: dict(v) for k, v in LONG_ROWS.items()}
     rows["flash_attention_long"]["max_abs_err"] = stream_core_checks(gen)
-    # #5 at the first long-caption bucket (the others below)
-    b, L, rate = 56, 174, 0.1
-    q, k, v, bias = heads(gen, b, L)
-    args = (q, k, v, bias, TRAIN_SEED, rate)
-    tag = f"B={b} L={L} rate={rate}"
-    compare(f"#5 {tag}", flash_attention_train_fwd(*args),
-            flash_attention_train_plain(*args))
-    time_fwd(tag, q, k, v, bias, None, rate)
+    bwd_tail_checks(gen, train_rows)
     for b, L in LONG4_SHAPES:
-        report = (b, L) == (16, 512)
-        q, k, v, bias = time_long(rows, gen, b, L, report)
-        if report:
-            v3_ms = time_ms(lambda: flash_attention_v3(q, k, v, bias))
-            print(f"    #1 (batch-blocked, flash_attention_v3) at B={b} L={L}:"
-                  f" {v3_ms:.4f} ms; #4 / #1 = "
-                  f"{rows['flash_attention_long']['ms'] / v3_ms:.3f}")
-    dq_row, kv_row = (rows["flash_attention_train_bwd_dq"],
-                      rows["flash_attention_train_bwd_dkdv"])
-    names = ("dq", "dk", "dv", "dbias")
-    for b, L in ((24, 339), (16, 512)):
+        time_long(rows, gen, b, L, (b, L) == (16, 512))
+    e1 = max(time_v3(gen, b, L) for b, L in V3_SHAPES)
+    print(f"  #1 at {V3_SHAPES}: largest |kernel - plain| {e1:.4e}")
+    for b, L in ((56, 174), (24, 339), (16, 512)):
         q, k, v, bias = heads(gen, b, L)
         g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
         for rate in (0.1, 0.0):
-            args = (q, k, v, bias, TRAIN_SEED, rate)
             tag = f"B={b} L={L} rate={rate}"
-            compare(f"#5 {tag}", flash_attention_train_fwd(*args),
-                    flash_attention_train_plain(*args))
-            got = flash_attention_train_bwd(*args, g)
-            for nm, a, w in zip(names, got,
-                                flash_attention_train_bwd_plain(*args, g)):
-                compare(f"#6 (split) {nm} {tag}", a, w)
-            auto = plain_autograd(q, k, v, bias, rate, g)
-            for nm, a, w in zip(names[:3], got, auto):
-                compare(f"#6 (split) {nm} vs autograd of plain fwd {tag}", a,
-                        w)
-            compare_norm(f"#6 (split) dbias vs autograd of plain fwd {tag}",
-                         got[3], auto[3], 2.0 ** -7)
-            again = flash_attention_train_bwd(*args, g)
-            same = all(torch.equal(a, w) for a, w in zip(got, again))
-            print(f"  #6 (split) {tag}: two calls bitwise equal: {same}")
-            if not same:
-                fail(f"the split #6 at {tag} is not bitwise repeatable")
-            # each part on the same inputs as its plain version
-            dq, st = flash_attention_train_bwd_dq(*args, g)
-            pdq, pst = flash_attention_train_bwd_dq_plain(*args, g)
-            e1 = compare(f"#6 dq part dq {tag}", dq, pdq)
-            for i, nm in enumerate(STATS):
-                e1 = max(e1, compare(f"#6 dq part {nm} {tag}", st[i], pst[i]))
-            part = flash_attention_train_bwd_dkdv(*args, g, pst)
-            want = flash_attention_train_bwd_dkdv_plain(*args, g, pst)
-            e2 = max(compare(f"#6 dk/dv part {nm} {tag}", a, w) for nm, a, w in
-                     zip(("dk", "dv", "dbias partials"), part, want))
-            dq_row["max_abs_err"] = max(dq_row.get("max_abs_err", 0.0), e1)
-            kv_row["max_abs_err"] = max(kv_row.get("max_abs_err", 0.0), e2)
-            if rate == 0.0:
-                continue
-            act = b * L * H * 2
-            _, _, lib_b = time_fwd(tag, q, k, v, bias, g, rate)
-            bwd_ms = time_ms(lambda: flash_attention_train_bwd(*args, g))
-            bb, _ = bound(7 * act + b * L * 4 + b * N * L * 4,
-                          10 * b * N * L * L * D)
-            lib = "n/a" if lib_b is None else f"{lib_b:.4f} ms"
-            print(f"    {tag}: #6 (dq + dk/dv parts) {bwd_ms:.4f} ms (bound "
-                  f"{bb:.4f}); SDPA autograd backward {lib}")
-            if (b, L) != (16, 512):
-                continue
-            for row, kern, plain, nbytes, flops in (
-                    (dq_row, lambda: flash_attention_train_bwd_dq(*args, g),
-                     lambda: flash_attention_train_bwd_dq_plain(*args, g),
-                     5 * act + b * L * 4 + 3 * b * N * L * 4,
-                     6 * b * N * L * L * D),
-                    (kv_row,
-                     lambda: flash_attention_train_bwd_dkdv(*args, g, pst),
-                     lambda: flash_attention_train_bwd_dkdv_plain(*args, g,
-                                                                  pst),
-                     6 * act + b * L * 4 + 4 * b * N * L * 4,
-                     8 * b * N * L * L * D)):
-                row.update(ms=time_ms(kern), plain_ms=time_ms(plain, iters=5),
-                           library_ms=None)
-                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-                print(f"    {row['name']} {tag}: kernel {row['ms']:.4f} ms, "
-                      f"plain {row['plain_ms']:.4f} ms, library none (no "
-                      f"single PyTorch call computes a part), bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            train_attention_case(tag, q, k, v, bias, g, rate, train_rows)
+            if rate > 0.0:
+                time_fwd(tag, q, k, v, bias, rate)
+                time_bwd(tag, q, k, v, bias, g, rate)
     # the mask, exactly, at L = 512: q = k = 0, bias 0, v = the first 64
     # columns of I make output column c the dropped, rescaled P[:, c]
     L, rate = 512, 0.5
@@ -1567,10 +1786,10 @@ def merge_corpora(parts, **txt_kw):
 
 def phase_long(card):
     """Long-caption mlm steps at full width, fed by MetaLoader ->
-    PrefetchLoader: under "pallas" at dropout 0.1 (#5 and #6, split above
-    L = 256), then one step per bucket at dropout 0 (#1 or #4) against
-    the eager path; returns the launches of #4 and the split parts, and
-    the first batch of the L = 512 bucket."""
+    PrefetchLoader: under "pallas" at dropout 0.1 (#5 and #6's two
+    passes), then one step per bucket at dropout 0 (#1 or #4) against the
+    eager path; returns the launches of #4 and the first batch of the
+    L = 512 bucket."""
     print("== long captions: uc2-base mlm steps on the card at joint L = 174 "
           "/ 339 / 512 under \"pallas\" (dropout 0.1, config/uc2_pretrain.json "
           "optimizer), batches from MetaLoader -> PrefetchLoader")
@@ -1617,11 +1836,7 @@ def phase_long(card):
             ms = (time.perf_counter() - t1) * 1e3
             after = launch_counts()
             want = no_launches()
-            split = layers if L > SINGLE_BWD_MAX_LEN else 0
-            want.update(flash_attention_train_fwd=layers,
-                        flash_attention_train_bwd=layers,
-                        flash_attention_train_bwd_dq=split,
-                        flash_attention_train_bwd_dkdv=split)
+            want.update({k.__name__: layers for k in TRAIN_KERNELS})
             r = runs[bi]
             r["bad"] += {k: after[k] - before[k] for k in after} != want
             r["times"].append(ms)
@@ -1635,7 +1850,6 @@ def phase_long(card):
           f"{order}")
     for spec, r in zip(specs, runs):
         L = spec.joint_len
-        split = L > SINGLE_BWD_MAX_LEN
         ms = sum(r["times"][1:]) / (len(r["times"]) - 1)
         print(f"  L={L} B={spec.batch_size} M={spec.max_masked}: {ms:.3f} "
               f"ms/step = {spec.batch_size / ms * 1e3:.1f} examples/s over "
@@ -1644,14 +1858,12 @@ def phase_long(card):
               f"memory {r['peak']:.2f} GiB [{card}]")
         print(f"    loss / grad norm / slots per step: " + "; ".join(
             f"{a:.4f} / {b:.4f} / {int(c)}" for a, b, c in r["stats"]))
-        print(f"    launches per step: {layers} each of #5 and #6"
-              + (f", #6 as the split pair ({layers} each of its parts)"
-                 if split else " (the single kernel)")
-              + f", no other kernel: {'ok' if not r['bad'] else 'FAIL'} "
-              f"({r['bad']} steps off)")
+        print(f"    launches per step: {layers} each of #5 and #6's two "
+              f"passes, no other kernel: "
+              f"{'ok' if not r['bad'] else 'FAIL'} ({r['bad']} steps off)")
         if r["bad"]:
             fail(f"long captions, L={L}: launches are not {layers} each of "
-                 f"#5 and #6 a step")
+                 f"#5 and #6's two passes a step")
         if not all(np.isfinite(x) for s in r["stats"] for x in s[:2]):
             fail(f"long captions, L={L}: a loss or grad norm is not finite")
     print(f"  launches over the run {counts}")
@@ -1744,11 +1956,7 @@ def phase_long(card):
     print(f"  launches over the dropout-0 steps {zero}")
     del paths
     torch.cuda.empty_cache()
-    return ({"flash_attention_long": zero["flash_attention_long"],
-             "flash_attention_train_bwd_dq":
-                 counts["flash_attention_train_bwd_dq"],
-             "flash_attention_train_bwd_dkdv":
-                 counts["flash_attention_train_bwd_dkdv"]},
+    return ({"flash_attention_long": zero["flash_attention_long"]},
             first[bucket_of[specs[-1].joint_len]])
 
 
@@ -2261,13 +2469,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if sys.argv[1:] == ["--times"]:
         timed(phase_stream_times, gen)
+        timed(time_mlm_step, card)
         return 1 if FAILURES else 0
     rows = timed(phase_kernels, gen)
     train_rows = timed(phase_train_kernels, gen)
     rows.update(train_rows)
     ffn_rows = timed(phase_ffn_kernels, gen)
     rows.update(ffn_rows)
-    rows.update(timed(phase_long_kernels, gen))
+    rows.update(timed(phase_long_kernels, gen, train_rows))
     rows.update(timed(phase_route_kernels, gen))
     rows.update(timed(phase_lab_kernels, gen))
     launches = timed(phase_slice, card)

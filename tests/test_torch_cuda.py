@@ -1,12 +1,12 @@
 """uc2_torch CUDA kernels against their plain versions at edge shapes the
 main paths do not reach (L = 1, ragged query and row tiles, B = 1,
-strided and contiguous heads, the training kernels' length limits: the
-single backward kernel's last length, the split pair's first and the
-encoder's 512), the long-L inference kernel (#4) and the dispatch between
-it and #1, the wrappers' refusals on CUDA tensors, the training kernels'
-dropout mask against the plain Philox mask bit for bit, the split
-backward's bitwise repeat, the training FFN kernels (#9, #10) against
-their plain versions and for a bitwise repeat, the QKV-in-kernel
+strided and contiguous heads, the encoder's length limit of 512), the
+long-L inference kernel (#4), #1 bitwise equal to it, and the dispatch
+between them, the wrappers' refusals on CUDA tensors, the training
+kernels' dropout mask against the plain Philox mask bit for bit, the
+backward's two passes each against its plain version (statistics, keep
+bits bit for bit) and its bitwise repeat, the training FFN kernels (#9,
+#10) against their plain versions and for a bitwise repeat, the QKV-in-kernel
 attention block (#7) and the segment-masked attention of the "flash"
 route (#12, #12a, #12b: all rows valid, most rows invalid, a first key
 block masked for whole rows, a bitwise repeat of the backward), the
@@ -29,13 +29,13 @@ from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops.dropout import DropoutRng
 from uc2_torch.ops.flash_attention import (
-    SINGLE_BWD_MAX_LEN, flash_attention, flash_attention_long,
+    flash_attention, flash_attention_long,
     flash_attention_long_plain, flash_attention_plain, flash_attention_train,
     flash_attention_train_bwd, flash_attention_train_bwd_dkdv,
     flash_attention_train_bwd_dkdv_plain, flash_attention_train_bwd_dq,
     flash_attention_train_bwd_dq_plain, flash_attention_train_bwd_plain,
     flash_attention_train_fwd, flash_attention_train_plain,
-    flash_attention_v3)
+    flash_attention_v3, unpack_keep_bits)
 from uc2_torch.ops.philox import keep_mask
 from uc2_torch.training.optim import build_optimizer, constant
 from uc2_torch.training.step import train_step
@@ -124,6 +124,18 @@ def test_flash_attention_long_kernel_matches_plain(gen, B, L, strided):
     _close(flash_attention_long(q, k, v, bias),
            flash_attention_long_plain(q, k, v, bias))
     assert flash_attention_long.launches == before + 1
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 65), (64, 98), (2, 162),
+                                 (3, 339), (1, 512)])
+def test_flash_attention_v3_is_kernel_4(gen, B, L):
+    """#1 and #4 compute one function and launch one streamed core: the
+    same bits on the same inputs, each call repeated bit for bit."""
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    out1 = flash_attention_v3(q, k, v, bias)
+    assert torch.equal(out1, flash_attention_long(q, k, v, bias))
+    assert torch.equal(flash_attention_v3(q, k, v, bias), out1)
 
 
 def test_flash_attention_routes_as_the_reference(gen):
@@ -235,7 +247,7 @@ def test_encoder_kernel_path_matches_eager_path(gen, impl, Nb):
 
 
 # the training kernels: forward and backward against their plain versions
-TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, SINGLE_BWD_MAX_LEN),
+TRAIN_CASES = [(1, 1), (2, 17), (1, 98), (2, 162), (1, 256),
                (3, 63), (1, 64), (3, 65), (1, 127), (3, 129), (3, 174)]
 
 
@@ -295,13 +307,13 @@ def test_attention_train_autograd_runs_both_kernels(gen):
     bias = _bias(gen, 2, 40)
     for t in (q, k, v):
         t.requires_grad_(True)
-    before = (flash_attention_train_fwd.launches,
-              flash_attention_train_bwd.launches)
+    counted = (flash_attention_train_fwd, flash_attention_train_bwd_dq,
+               flash_attention_train_bwd_dkdv)
+    before = [f.launches for f in counted]
     out = flash_attention_train(q, k, v, bias, 5, 0.1)
     g = torch.randn_like(out)
     out.backward(g)
-    assert (flash_attention_train_fwd.launches - before[0],
-            flash_attention_train_bwd.launches - before[1]) == (1, 1)
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1]
     want = flash_attention_train_bwd_plain(q, k, v, bias, 5, 0.1, g)
     for a, b in zip((q.grad, k.grad, v.grad), want):
         _close_report("grad", a, b)
@@ -324,8 +336,12 @@ def test_attention_train_wrappers_refuse(gen):
         flash_attention_train_fwd(qt, k, v, bias, 1, 0.1)
     with pytest.raises(ValueError):
         flash_attention_train_bwd(qt, k, v, bias, 1, 0.1, q)
-    with pytest.raises(ValueError):                      # the split pair
-        flash_attention_train_bwd_dq(q, k, v, bias, 1, 0.1, q)  # below 257
+    dq, stats, bits = flash_attention_train_bwd_dq(q, k, v, bias, 1, 0.1, q)
+    with pytest.raises(ValueError):                      # no keep bits
+        flash_attention_train_bwd_dkdv(q, k, v, bias, 1, 0.1, q, stats, None)
+    with pytest.raises(ValueError):                      # stats of another L
+        flash_attention_train_bwd_dkdv(q, k, v, bias, 1, 0.1, q,
+                                       stats[..., :8], bits)
     q, k, v = _heads(gen, 1, 300, strided=False)
     with pytest.raises(ValueError):                      # head_dim 32
         flash_attention_train_bwd(*(t[..., :32].contiguous()
@@ -333,7 +349,47 @@ def test_attention_train_wrappers_refuse(gen):
                                   1, 0.1, q[..., :32].contiguous())
 
 
-# beyond the single backward kernel: #5 and the split #6
+def _passes_match_plain(q, k, v, bias, seed, rate, g):
+    """Each pass of #6 against its plain version on the same inputs: dq and
+    the statistics, the keep bits bit for bit; dk, dv and the dbias
+    partials from the plain pass 1's statistics and bits."""
+    dq, stats, bits = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate,
+                                                   g)
+    pdq, pstats, pbits = flash_attention_train_bwd_dq_plain(q, k, v, bias,
+                                                            seed, rate, g)
+    _close_report("dq pass", dq, pdq)
+    for i in range(3):
+        _close_report(f"stats {i}", stats[i], pstats[i])
+    if rate == 0.0:
+        assert bits is None and pbits is None
+    else:
+        torch.cuda.synchronize()
+        assert torch.equal(bits, pbits)
+        assert torch.equal(unpack_keep_bits(bits, q.shape[1]),
+                           keep_mask(seed, rate, q.shape[0], N, q.shape[1],
+                                     q.shape[1], "cuda"))
+    dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate,
+                                                 g, pstats, pbits)
+    pdk, pdv, pdbp = flash_attention_train_bwd_dkdv_plain(
+        q, k, v, bias, seed, rate, g, pstats, pbits)
+    _close_report("dk pass", dk, pdk)
+    _close_report("dv pass", dv, pdv)
+    _close_report("dbias partials", dbp, pdbp)
+    if q.shape[1] > 1:  # at L = 1, dS = P (dP - D) = 0: dbias is 0
+        assert _rel(dbp, pdbp) <= 1e-3
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 98), (1, 162), (3, 257)])
+def test_attention_train_bwd_passes_match_plain(gen, B, L, rate):
+    """#6's two passes run at every L; each holds to its plain version."""
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    _passes_match_plain(q, k, v, bias, 7 + L, rate, g)
+
+
+# the long-caption lengths and the tiles' edges beyond them
 LONG_TRAIN_CASES = [(1, 257), (2, 339), (1, 512), (3, 419), (1, 450),
                     (3, 511)]
 
@@ -347,32 +403,16 @@ def test_attention_train_long_kernels_match_plain(gen, B, L, rate):
     seed = 99 + L
     _close_report("fwd", flash_attention_train_fwd(q, k, v, bias, seed, rate),
                   flash_attention_train_plain(q, k, v, bias, seed, rate))
-    before = [f.launches for f in (flash_attention_train_bwd,
-                                   flash_attention_train_bwd_dq,
-                                   flash_attention_train_bwd_dkdv)]
+    passes = (flash_attention_train_bwd_dq, flash_attention_train_bwd_dkdv)
+    before = [f.launches for f in passes]
     got = flash_attention_train_bwd(q, k, v, bias, seed, rate, g)
-    assert [f.launches - b for f, b in zip(
-        (flash_attention_train_bwd, flash_attention_train_bwd_dq,
-         flash_attention_train_bwd_dkdv), before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(passes, before)] == [1, 1]
     want = flash_attention_train_bwd_plain(q, k, v, bias, seed, rate, g)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close_report(name, a, b)
     # dbias sums n * L terms per key in another order: in relative norm
     assert _rel(got[3], want[3]) <= 1e-3
-    # each part against its plain version on the same inputs
-    dq, stats = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate, g)
-    pdq, pstats = flash_attention_train_bwd_dq_plain(q, k, v, bias, seed,
-                                                     rate, g)
-    _close_report("dq part", dq, pdq)
-    for i in range(3):
-        _close_report(f"stats {i}", stats[i], pstats[i])
-    dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate,
-                                                 g, pstats)
-    pdk, pdv, pdbp = flash_attention_train_bwd_dkdv_plain(
-        q, k, v, bias, seed, rate, g, pstats)
-    _close_report("dk part", dk, pdk)
-    _close_report("dv part", dv, pdv)
-    assert _rel(dbp, pdbp) <= 1e-3
+    _passes_match_plain(q, k, v, bias, seed, rate, g)
     # no atomics: a second call gives the same bits
     again = flash_attention_train_bwd(q, k, v, bias, seed, rate, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))

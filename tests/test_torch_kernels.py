@@ -16,9 +16,9 @@ from uc2_tpu.ops.ffn_train import fused_ffn_block_train as jax_fft
 from uc2_tpu.ops.flash_attention import flash_attention_train as jax_fat
 from uc2_tpu.ops.mp import einsum_f32 as jax_einsum_f32
 from uc2_torch.ops.flash_attention import (
-    flash_attention, flash_attention_train, flash_attention_train_bwd,
-    flash_attention_train_bwd_plain, flash_attention_train_fwd,
-    flash_attention_train_plain)
+    flash_attention, flash_attention_train, flash_attention_train_bwd_dkdv,
+    flash_attention_train_bwd_dq, flash_attention_train_bwd_plain,
+    flash_attention_train_fwd, flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block, fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable,
                                        fused_layer_profitable)
@@ -201,7 +201,8 @@ def test_flash_attention_train_plain_matches_pallas():
         *map(jnp.asarray, (q, k, v, bias)))
     ts = [t.requires_grad_(True) for t in _t(q, k, v, bias)]
     before = (flash_attention_train_fwd.launches,
-              flash_attention_train_bwd.launches)
+              flash_attention_train_bwd_dq.launches,
+              flash_attention_train_bwd_dkdv.launches)
     out = flash_attention_train(*ts, 7, 0.0)
     np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
     (out * torch.from_numpy(w)).sum().backward()
@@ -209,7 +210,8 @@ def test_flash_attention_train_plain_matches_pallas():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
                                    rtol=2e-4, atol=2e-4, err_msg=name)
     assert (flash_attention_train_fwd.launches,       # CPU: no launches
-            flash_attention_train_bwd.launches) == before
+            flash_attention_train_bwd_dq.launches,
+            flash_attention_train_bwd_dkdv.launches) == before
 
 
 def test_flash_attention_train_bwd_plain_is_the_gradient():

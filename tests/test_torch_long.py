@@ -32,6 +32,7 @@ from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import flash_attention as fa
 from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.ops.philox import keep_mask
 from uc2_torch.training.step import make_loss_fn
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -159,30 +160,67 @@ def test_heads_row_stride_of_fused_qkv_views(B, L):
         assert B == 1 or t.stride(0) == L * rs
 
 
-@pytest.mark.parametrize("L", [339, 512])
+@pytest.mark.parametrize("L", [1, 63, 65, 98, 162, 339, 512])
 def test_train_bwd_plain_is_the_gradient_at_long_L(L):
     """rate 0.2, float64: the backward formula is the gradient of the
-    forward under one seed, and the split backward's two parts give the
-    same gradients (1e-10)."""
+    forward under one seed, and #6's two passes (rows, then keys from the
+    rows' statistics and keep bits), which run at every L, give the same
+    gradients (1e-10); the last L // 8 keys are padding."""
     rng = np.random.default_rng(L)
     q, k, v, g = (torch.from_numpy(rng.standard_normal((1, L, 2, 4)))
                   for _ in range(4))
     mask = np.ones((1, L))
-    mask[0, L - 40:] = 0.0
+    mask[0, L - L // 8:] = 0.0
     bias = torch.from_numpy(((1.0 - mask) * -10000.0)[:, None, None, :])
     ins = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
     out = fa.flash_attention_train_plain(*ins, 11, 0.2)
     auto = torch.autograd.grad(out, ins, g)
     whole = fa.flash_attention_train_bwd_plain(q, k, v, bias, 11, 0.2, g)
-    dq, stats = fa.flash_attention_train_bwd_dq(q, k, v, bias, 11, 0.2, g)
+    dq, stats, bits = fa.flash_attention_train_bwd_dq(q, k, v, bias, 11,
+                                                      0.2, g)
     dk, dv, dbp = fa.flash_attention_train_bwd_dkdv(q, k, v, bias, 11, 0.2,
-                                                    g, stats)
+                                                    g, stats, bits)
     split = (dq, dk, dv, dbp.sum(dim=1).reshape(1, 1, 1, L))
     for a, b, c in zip(whole, auto, split):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
                                    atol=1e-12)
         np.testing.assert_allclose(c.numpy(), b.numpy(), rtol=1e-10,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("B,L", [(2, 1), (2, 65), (1, 162)])
+def test_train_bwd_rows_pass_stats_and_bits(B, L):
+    """Pass 1's statistics are finite on every row, padding rows included
+    (their keys are the valid prefix), and its keep bits are the Philox
+    mask of every score on the [Lp, Lp] grid of 64-row tiles, packed 8
+    keys a byte; pass 2 reads its mask from those bits: flipping one kept
+    score's bit changes dk."""
+    rng = np.random.default_rng(B * L)
+    q, k, v, g = (torch.from_numpy(_f32(rng, B, L, 2, 64)) for _ in range(4))
+    bias = torch.from_numpy(_bias(rng, B, L))
+    bias[0, ..., L // 2 + 1:] = -10000.0     # padding tokens in batch row 0
+    rate, seed = 0.3, 5
+    dq, stats, bits = fa.flash_attention_train_bwd_dq(q, k, v, bias, seed,
+                                                      rate, g)
+    Lp = -(-L // 64) * 64
+    assert stats.shape == (3, B, 2, L) and torch.isfinite(stats).all()
+    assert (stats[1] > 0).all()
+    keep = keep_mask(seed, rate, B, 2, Lp, Lp)
+    assert bits.dtype == torch.uint8 and bits.shape == (B, 2, Lp, Lp // 8)
+    assert torch.equal(fa.unpack_keep_bits(bits, Lp), keep)
+    for i, j in ((0, 0), (L - 1, 7), (L - 1, L - 1), (Lp - 1, Lp - 1)):
+        byte = int(bits[0, 1, i, j // 8])
+        assert bool((byte >> (j % 8)) & 1) == bool(keep[0, 1, i, j])
+    dk, _, _ = fa.flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate,
+                                                 g, stats, bits)
+    flip = bits.clone()
+    i, j = map(int, torch.nonzero(keep[0, 0, :L, :L])[0])
+    flip[0, 0, i, j // 8] ^= 1 << (j % 8)
+    dk2, _, _ = fa.flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate,
+                                                  g, stats, flip)
+    assert not torch.equal(dk, dk2)
+    assert fa.flash_attention_train_bwd_dq(q, k, v, bias, seed, 0.0, g)[2] \
+        is None
 
 
 # ----------------------------------------------- the slice as a whole

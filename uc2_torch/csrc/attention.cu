@@ -1,66 +1,39 @@
-// Attention forward for inference: out = softmax(q.k^T / sqrt(d) + bias) . v
+// Attention forward for inference, kernels #1 and #4:
+// out = softmax(q.k^T / sqrt(d) + bias) . v
 //
-// Replaces the TPU kernel uc2_tpu/ops/flash_attention.py:_attn_kernel_v3
-// (launched by _fwd_pallas_v3 / flash_attention), which the encoder runs at
-// joint length L < 128 (the L = 98 retrieval bucket at uc2-base). The same
-// kernel takes every L up to 512, the encoder's joint-length limit, so it
-// also covers the range of the per-q-block TPU kernel _attn_kernel.
+// Replaces two TPU kernels of uc2_tpu/ops/flash_attention.py that the
+// reference's flash_attention chooses between in _fwd_dispatch:
+// * #1, _attn_kernel_v3 (launched by _fwd_pallas_v3), while one batch
+//   row's fp32 scores fit 8 MiB: the L = 98 scoring bucket at uc2-base,
+//   and the long-caption buckets L = 174 and 339 at dropout 0. The lab's
+//   v3, v3bb1, v3bb4 and v4qs racers run it too.
+// * #4, _attn_kernel (launched by _fwd_pallas), above that: joint
+//   L >= 419 at 12 heads, a training step at dropout 0 under "pallas" on
+//   long captions (its backward is the eager recompute).
 //
-// What bounds it on an H100: bytes. At B = 64, L = 98, 12 heads of 64 it
-// reads q, k, v and writes the context, 38.5 MB, against 1.9 GFLOP of
-// products: about 11.5 us at 3.35 TB/s versus 1.9 us of bf16 tensor work.
-// Design: one block of 4 warps per (query tile of 64 rows, head, batch row).
-// K of that (batch, head) is staged in shared memory; each warp computes
-// its 16 query rows' fp32 score rows with mma.sync into shared memory
-// (never to device memory), takes the max-shifted softmax, rounds the
-// probabilities to bf16 in place, and multiplies them by V^T, which is
-// loaded into the region K occupied. Inputs are read in their native
-// [B, L, n, d] layout (tokens may be a row stride apart, e.g. views into
-// the fused QKV projection), so no transpose pass touches device memory.
-// K and V are re-read from L2 by each query tile; that, and the serial
-// load-then-compute phases, are what a faster version would attack.
-#include "common.cuh"
-
-namespace uc2 {
-
-template <int WARPS, int QT, int NC>
-__global__ void __launch_bounds__(WARPS * 32)
-    attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ bias,
-                    bf16* __restrict__ out, int L, int n, int rs, float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
-  bf16* o = out + ((size_t)b * L + q0) * n * HEAD_DIM + (size_t)h * HEAD_DIM;
-  attend_head<WARPS, QT, NC>(q + base, k + base, v + base, rs, bias + (size_t)b * L,
-                         L, q0, scale, smem, o, n * HEAD_DIM, min(QT, L - q0));
-}
-
-}  // namespace uc2
+// The two compute one function: fp32 scores * (1 / sqrt(d)) + bias, a
+// max-shifted softmax normalised in fp32 and rounded to bf16, P . V with
+// fp32 sums, a bf16 context in the [B, L, n, d] layout; q, k, v may be
+// strided views into the fused QKV projection. Only the TPU kernels' batch
+// blocking differs, and a GPU has no use for it. So both wrappers
+// (flash_attention_v3 and flash_attention_long) launch this one entry into
+// the streamed wgmma/TMA core of attention_stream.cuh, as #5 does at rate
+// 0, and give the same bits. What bounds it on an H100 is bytes (at B = 64,
+// L = 98: q, k, v and the context, 38.5 MB, 11.5 us at 3.35 TB/s, against
+// 1.9 GFLOP); the core's design is in its header.
+#include "attention_stream.cuh"
 
 extern "C" const char* uc2_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // q, k, v: [B, L, n, 64] bf16, tokens rs elements apart; bias [B, L] fp32;
-// out [B, L, n, 64] bf16 contiguous. Returns cudaGetLastError().
+// out [B, L, n, 64] bf16 contiguous; 1 <= L <= 512. Returns
+// cudaGetLastError().
 extern "C" int uc2_attn_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, int B, int L, int n,
                             int rs, float scale, void* stream) {
   using namespace uc2;
-  constexpr int WARPS = 4, QT = 64;
-  const size_t smem = attend_smem_bytes(QT, L);
-  return with_score_chunks(L, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
-    auto kernel = attn_fwd_kernel<WARPS, QT, NC>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((L + QT - 1) / QT, n, B);
-    kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const float*>(bias),
-        static_cast<bf16*>(out), L, n, rs, scale);
-    return (int)cudaGetLastError();
-  });
+  return stream::attention<false>(q, k, v, bias, out, B, L, n, rs, scale,
+                                  Dropout{0u, 0u, 1.f}, static_cast<cudaStream_t>(stream));
 }

@@ -25,7 +25,7 @@
 // Forward (#12): FA2-style, one block of 4 warps per (64 query rows,
 // head, batch row), each warp 16 rows whose Q fragments stay in registers;
 // the 128-key blocks of K and V stream through a two-stage cp.async ring
-// (74 KB) as attention_long.cu (#4) streams its tiles. Per block: the
+// (74 KB) as attention_stream.cuh (#4) streams its tiles. Per block: the
 // scores of the warp's rows against the 128 keys in registers, the block
 // max and sum merged across a row's four lanes, P rounded to bf16 into
 // mma A fragments straight from the score registers, P . V into a second

@@ -1,28 +1,37 @@
 """Attention kernels (port of uc2_tpu/ops/flash_attention.py).
 
 * ``flash_attention``: the inference forward. It routes as the reference's
-  ``_fwd_dispatch``: kernel #1 (``flash_attention_v3``, batch-blocked,
-  ``csrc/attention.cu``) while one batch row's fp32 [n, L, L] scores fit
-  8 MiB, kernel #4 (``flash_attention_long``, K/V streamed,
-  ``csrc/attention_long.cu``) above (``uses_long_kernel``: L >= 419 at 12
-  heads). Both backwards are the eager recompute through
-  ``xla_attention``, as the reference's ``_fa_bwd``.
+  ``_fwd_dispatch``: kernel #1 (``flash_attention_v3``, replacing
+  ``_attn_kernel_v3``) while one batch row's fp32 [n, L, L] scores fit
+  8 MiB, kernel #4 (``flash_attention_long``, replacing ``_attn_kernel``)
+  above (``uses_long_kernel``: L >= 419 at 12 heads). The two TPU kernels
+  compute one function and differ only in their batch blocking, so on the
+  H100 both launch the streamed TMA/wgmma core of
+  ``csrc/attention_stream.cuh`` through one C entry (``csrc/attention.cu``)
+  and give the same bits; each counts its launches apart. Both backwards are
+  the eager recompute through ``xla_attention``, as the reference's
+  ``_fa_bwd``.
 * ``flash_attention_train``: training attention with probs dropout inside
-  the kernels, forward ``flash_attention_train_fwd`` (#5) and backward
-  ``flash_attention_train_bwd`` (#6; ``csrc/attention_train.cu``), both
-  for joint lengths 1..512. The backward is one kernel up to L = 256 and,
-  above, the split pair ``flash_attention_train_bwd_dq`` and
-  ``flash_attention_train_bwd_dkdv``. The dropout mask is Philox4x32-10
-  keyed on (seed, global score index) (``ops/philox.py``), so every
-  backward kernel redraws the forward's mask.
+  the kernels, forward ``flash_attention_train_fwd`` (#5, the same core
+  with Philox dropout) and backward ``flash_attention_train_bwd`` (#6,
+  replacing ``_attn_train_bwd_kernel``; ``csrc/attention_train.cu``), both
+  for joint lengths 1..512. The backward is two deterministic wgmma/TMA
+  passes at every L: ``flash_attention_train_bwd_dq`` (rows: dQ, each
+  row's softmax statistics and D, and the keep bits, the only Philox draw
+  of the backward) and ``flash_attention_train_bwd_dkdv`` (keys: dK, dV and
+  the per-head dbias partials from those statistics and bits). Neither
+  uses atomics, so a step repeats bit for bit. The dropout mask is
+  Philox4x32-10 keyed on (seed, global score index) (``ops/philox.py``):
+  the backward draws the forward's mask. What bounds each kernel on the
+  H100 and how its design meets it is in the kernel's source.
 
 Each kernel wrapper launches its CUDA kernel on CUDA tensors and counts
 the launch in ``<wrapper>.launches`` (#1's in ``flash_attention.launches``;
-``flash_attention_train_bwd.launches`` counts each backward, single kernel
-or split pair); on CPU tensors it runs the plain PyTorch version beside it
-(``flash_attention_plain``, ``flash_attention_long_plain``,
-``flash_attention_train_plain``, ``flash_attention_train_bwd_plain``,
-``flash_attention_train_bwd_dq_plain``,
+#6 launches nothing of its own, and its two passes count in their
+wrappers); on CPU tensors it runs the plain
+PyTorch version beside it (``flash_attention_plain``,
+``flash_attention_long_plain``, ``flash_attention_train_plain``,
+``flash_attention_train_bwd_plain``, ``flash_attention_train_bwd_dq_plain``,
 ``flash_attention_train_bwd_dkdv_plain``). Any other input raises: there is
 no fallback from a CUDA tensor to a plain version.
 """
@@ -39,9 +48,8 @@ from uc2_torch.ops.philox import check_seed, keep_mask, keep_threshold
 
 HEAD_DIM = 64        # head width the kernels take
 MAX_LEN = 512        # joint-length limit of the encoder
-# the single backward kernel keeps dK, dV of every key in registers up to
-# this length; longer rows take the split pair
-SINGLE_BWD_MAX_LEN = 256
+TILE = 64            # rows of the backward passes' tiles
+LOG2E = 1.4426950408889634
 LONG_KERNEL_BYTES = 8 * 1024 * 1024
 
 flash_attention_plain = xla_attention
@@ -138,27 +146,17 @@ def _check_len(what: str, d: int, L: int, limit: int):
 
 
 # ------------------------------------------------------------- inference
-def _v3_kernel(q, k, v, bias):
+def _stream_kernel(q, k, v, bias, what, counted):
+    """#1 or #4 (``what``) on CUDA tensors: both launch the streamed core
+    through one C entry; the launch counts in ``counted.launches``."""
     B, L, n, d = q.shape
-    _check_len("flash_attention_v3", d, L, MAX_LEN)
+    _check_len(what, d, L, MAX_LEN)
     rs = heads_row_stride(q, k, v)
     out = torch.empty((B, L, n, d), dtype=q.dtype, device=q.device)
     build.launch("uc2_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), B, L, n, rs,
                  1.0 / math.sqrt(d), device=q.device)
-    flash_attention.launches += 1
-    return out
-
-
-def _long_kernel(q, k, v, bias):
-    B, L, n, d = q.shape
-    _check_len("flash_attention_long", d, L, MAX_LEN)
-    rs = heads_row_stride(q, k, v)
-    out = torch.empty((B, L, n, d), dtype=q.dtype, device=q.device)
-    build.launch("uc2_attn_long_fwd", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, L, n, rs,
-                 1.0 / math.sqrt(d), device=q.device)
-    flash_attention_long.launches += 1
+    counted.launches += 1
     return out
 
 
@@ -175,42 +173,42 @@ def _grads_of(fn, inputs, needs, g):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward (``kernel``: #1 or #4), eager-recompute backward (the
-    reference's ``_fa_bwd``: the vjp of ``_xla_attention``)."""
+    """Kernel forward (#1 or #4, counted in ``counted``), eager-recompute
+    backward (the reference's ``_fa_bwd``: the vjp of ``_xla_attention``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, kernel):
+    def forward(ctx, q, k, v, bias, what, counted):
         ctx.save_for_backward(q, k, v, bias)
-        return kernel(q, k, v, bias)
+        return _stream_kernel(q, k, v, bias, what, counted)
 
     @staticmethod
     def backward(ctx, g):
         return (*_grads_of(xla_attention, ctx.saved_tensors,
-                           ctx.needs_input_grad[:4], g), None)
+                           ctx.needs_input_grad[:4], g), None, None)
 
 
-def _inference(what, kernel, plain, q, k, v, bias):
+def _inference(what, counted, plain, q, k, v, bias):
     check_heads(q, k, v, bias)
     dev = check_device((q, k, v, bias), what)
     if dev.type == "cpu":
         return plain(q, k, v, bias)
     check_kernel_inputs(what, bf16=(q, k, v), fp32=(bias,),
                         has_backward=True)
-    return _FlashAttention.apply(q, k, v, bias, kernel)
+    return _FlashAttention.apply(q, k, v, bias, what, counted)
 
 
 def flash_attention_v3(q, k, v, bias):
     """Kernel #1, the batch-blocked forward, at any L up to 512: q, k, v
     [B, L, n, d]; bias [B, 1, 1, L] additive fp32. Returns
     softmax(q.k^T/sqrt(d) + bias).v as [B, L, n, d]."""
-    return _inference("flash_attention_v3", _v3_kernel, flash_attention_plain,
-                      q, k, v, bias)
+    return _inference("flash_attention_v3", flash_attention,
+                      flash_attention_plain, q, k, v, bias)
 
 
 def flash_attention_long(q, k, v, bias):
     """Kernel #4, the forward that streams K and V, at any L up to 512;
     arguments and result as ``flash_attention_v3``."""
-    return _inference("flash_attention_long", _long_kernel,
+    return _inference("flash_attention_long", flash_attention_long,
                       flash_attention_long_plain, q, k, v, bias)
 
 
@@ -311,38 +309,79 @@ def flash_attention_train_bwd_plain(q, k, v, bias, seed: int, rate: float,
             db.to(bias.dtype))
 
 
+def padded_rows(L: int) -> int:
+    """L rounded up to the backward passes' 64-row tiles."""
+    return -(-L // TILE) * TILE
+
+
+def _scores2(q, k, bias):
+    """The backward passes' scores in base 2, [B, n, L, L] in the sum
+    dtype: q.k^T * (scale * log2 e) + bias * log2 e."""
+    ct = _sum_dtype(q)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("blnd,bmnd->bnlm", q.to(ct), k.to(ct))
+    return s * (scale * LOG2E) + bias.to(ct) * LOG2E
+
+
+def pack_keep_bits(keep):
+    """Bool [B, n, Lp, Lp] -> the passes' keep bits [B, n, Lp, Lp / 8]
+    uint8: bit j % 8 of byte j // 8 of row i is set where score (i, j) is
+    kept."""
+    B, n, Lq, Lk = keep.shape
+    w = keep.reshape(B, n, Lq, Lk // 8, 8).to(torch.int32)
+    shift = torch.arange(8, dtype=torch.int32, device=keep.device)
+    return (w << shift).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_keep_bits(bits, L: int):
+    """The passes' keep bits -> bool [B, n, L, L]."""
+    shift = torch.arange(8, dtype=torch.int32, device=bits.device)
+    keep = (bits.to(torch.int32)[..., None] >> shift) & 1
+    return keep.reshape(*bits.shape[:3], -1)[:, :, :L, :L].bool()
+
+
 def flash_attention_train_bwd_dq_plain(q, k, v, bias, seed: int,
                                        rate: float, g):
-    """The split backward's first kernel in plain PyTorch: (dq, stats),
-    stats [3, B, n, L] in the sum dtype holding each query row's score max,
-    1 / sum_k exp(s - max) and D = sum_k dP * P; dq as in
-    ``flash_attention_train_bwd_plain``."""
-    s = _scores(q, k, bias)
+    """Pass 1 of #6 (rows) in plain PyTorch: (dq, stats, bits) in the
+    kernel's layout. stats [3, B, n, L] in the sum dtype hold each query
+    row's max of the base-2 scores s2 (``_scores2``), 1 / sum exp2(s2 -
+    max) and D = sum dP * P; bits are the Philox keep mask of every score
+    on the [Lp, Lp] grid of the passes' 64-row tiles (``pack_keep_bits``;
+    None at rate 0); dq as in ``flash_attention_train_bwd_plain``."""
+    B, L, n, _ = q.shape
+    s = _scores2(q, k, bias)
     mx = s.amax(dim=-1)
-    inv = 1.0 / torch.exp(s - mx[..., None]).sum(dim=-1)
-    p = torch.softmax(s, dim=-1)
-    keep = _keep(seed, rate, q) if rate > 0.0 else None
+    e = torch.exp2(s - mx[..., None])
+    inv = 1.0 / e.sum(dim=-1)
+    p = e * inv[..., None]
+    keep = bits = None
+    if rate > 0.0:
+        Lp = padded_rows(L)
+        keep = keep_mask(seed, rate, B, n, Lp, Lp, q.device)
+        bits = pack_keep_bits(keep)
+        keep = keep[:, :, :L, :L]
     dp = _dprobs(g, v, keep, rate)
     D = (dp * p).sum(dim=-1)
     ds = p * (dp - D[..., None])
     ct = p.dtype
     dq = torch.einsum("bnlm,bmnd->blnd", ds.to(q.dtype).to(ct),
                       k.to(ct)) / math.sqrt(q.shape[-1])
-    return dq.to(q.dtype), torch.stack([mx, inv, D])
+    return dq.to(q.dtype), torch.stack([mx, inv, D]), bits
 
 
 def flash_attention_train_bwd_dkdv_plain(q, k, v, bias, seed: int,
-                                         rate: float, g, stats):
-    """The split backward's second kernel in plain PyTorch: (dk, dv,
-    dbias_part) from the first's statistics, with P = exp(s - max) * (1 /
-    sum) and dbias_part [B, n, L] = dS summed over the queries (the wrapper
-    of #6 sums it over heads)."""
+                                         rate: float, g, stats, bits):
+    """Pass 2 of #6 (keys) in plain PyTorch: (dk, dv, dbias_part) from pass
+    1's statistics and keep bits (the mask is read from ``bits``, not
+    redrawn; ``seed`` is not used), with P = exp2(s2 - max) * (1 / sum)
+    and dbias_part [B, n, L] = dS summed over the queries (the wrapper of
+    #6 sums it over heads)."""
     mx, inv, D = stats
-    s = _scores(q, k, bias)
-    p = torch.exp(s - mx[..., None]) * inv[..., None]
+    L = q.shape[1]
+    p = torch.exp2(_scores2(q, k, bias) - mx[..., None]) * inv[..., None]
     ct = p.dtype
     zero = torch.zeros((), dtype=ct, device=p.device)
-    keep = _keep(seed, rate, q) if rate > 0.0 else None
+    keep = None if rate == 0.0 else unpack_keep_bits(bits, L)
     pd = p if keep is None else torch.where(keep, p * (1.0 / (1.0 - rate)),
                                             zero)
     dv = torch.einsum("bnlm,blnd->bmnd", pd.to(g.dtype).to(ct), g.to(ct))
@@ -395,45 +434,45 @@ def _bwd_checks(what, q, k, v, bias, g, seed, rate):
     return dev, check_seed(seed), _check_rate(rate)
 
 
-def _split_checks(what, q, k, v, bias, g):
+def _pass_checks(what, q, k, v, bias, g):
     rs = _train_kernel_checks(what, q, k, v, bias)
     check_kernel_inputs(what, bf16=(g,), has_backward=True)
-    if q.shape[1] <= SINGLE_BWD_MAX_LEN:
-        raise ValueError(f"{what}: the split backward takes joint lengths "
-                         f"{SINGLE_BWD_MAX_LEN + 1}..{MAX_LEN}, got "
-                         f"{q.shape[1]}")
     return rs
 
 
 def flash_attention_train_bwd_dq(q, k, v, bias, seed: int, rate: float, g):
-    """The split backward's first kernel (#6 at 256 < L <= 512): (dq,
-    stats) for the output gradient g, stats [3, B, n, L] fp32 as
-    ``flash_attention_train_bwd_dq_plain`` defines them."""
+    """Pass 1 of #6 (rows): (dq, stats, bits) for the output gradient g, as
+    ``flash_attention_train_bwd_dq_plain`` defines them: stats
+    [3, B, n, L] fp32, bits [B, n, Lp, Lp / 8] uint8 (None at rate 0)."""
     dev, seed, rate = _bwd_checks("flash_attention_train_bwd_dq", q, k, v,
                                   bias, g, seed, rate)
     if dev.type == "cpu":
         return flash_attention_train_bwd_dq_plain(q, k, v, bias, seed, rate,
                                                   g)
-    rs = _split_checks("flash_attention_train_bwd_dq", q, k, v, bias, g)
+    rs = _pass_checks("flash_attention_train_bwd_dq", q, k, v, bias, g)
     B, L, n, d = q.shape
     g = g.contiguous()
     dq = torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
     stats = torch.empty((3, B, n, L), dtype=torch.float32, device=dev)
+    Lp = padded_rows(L)
+    bits = (torch.empty((B, n, Lp, Lp // 8), dtype=torch.uint8, device=dev)
+            if rate > 0.0 else None)
     build.launch("uc2_attn_train_bwd_dq", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                 stats.data_ptr(), B, L, n, rs, 1.0 / math.sqrt(d),
-                 *_drop_args(seed, rate), device=dev)
+                 stats.data_ptr(), 0 if bits is None else bits.data_ptr(),
+                 B, L, n, rs, 1.0 / math.sqrt(d), *_drop_args(seed, rate),
+                 device=dev)
     flash_attention_train_bwd_dq.launches += 1
-    return dq, stats
+    return dq, stats, bits
 
 
 flash_attention_train_bwd_dq.launches = 0
 
 
 def flash_attention_train_bwd_dkdv(q, k, v, bias, seed: int, rate: float, g,
-                                   stats, need_dbias: bool = True):
-    """The split backward's second kernel: (dk, dv, dbias_part) from the
-    first's ``stats``; dbias_part [B, n, L] fp32 (None unless
+                                   stats, bits, need_dbias: bool = True):
+    """Pass 2 of #6 (keys): (dk, dv, dbias_part) from pass 1's ``stats``
+    and ``bits`` (None at rate 0); dbias_part [B, n, L] fp32 (None unless
     ``need_dbias``) is dS summed over the queries of each head."""
     dev, seed, rate = _bwd_checks("flash_attention_train_bwd_dkdv", q, k, v,
                                   bias, g, seed, rate)
@@ -441,13 +480,22 @@ def flash_attention_train_bwd_dkdv(q, k, v, bias, seed: int, rate: float, g,
     if tuple(stats.shape) != (3, B, n, L) or stats.device != dev:
         raise ValueError(f"stats must be [3, B, n, L] = {(3, B, n, L)} on "
                          f"{dev}, got {tuple(stats.shape)} on {stats.device}")
+    Lp = padded_rows(L)
+    if rate > 0.0 and (bits is None or bits.dtype != torch.uint8
+                       or tuple(bits.shape) != (B, n, Lp, Lp // 8)
+                       or bits.device != dev):
+        raise ValueError(f"at rate > 0, bits must be uint8 "
+                         f"{(B, n, Lp, Lp // 8)} on {dev}, as pass 1 "
+                         f"returns them")
     if dev.type == "cpu":
         dk, dv, dbp = flash_attention_train_bwd_dkdv_plain(
-            q, k, v, bias, seed, rate, g, stats)
+            q, k, v, bias, seed, rate, g, stats, bits)
         return dk, dv, (dbp if need_dbias else None)
-    rs = _split_checks("flash_attention_train_bwd_dkdv", q, k, v, bias, g)
+    rs = _pass_checks("flash_attention_train_bwd_dkdv", q, k, v, bias, g)
     check_kernel_inputs("flash_attention_train_bwd_dkdv", fp32=(stats,),
                         has_backward=True)
+    if bits is not None and (not bits.is_contiguous() or bits.data_ptr() % 8):
+        raise ValueError("bits must be contiguous and 8-byte aligned")
     g = g.contiguous()
     dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
               for _ in range(2))
@@ -455,7 +503,8 @@ def flash_attention_train_bwd_dkdv(q, k, v, bias, seed: int, rate: float, g,
            if need_dbias else None)
     build.launch("uc2_attn_train_bwd_dkdv", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), g.data_ptr(),
-                 stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats.data_ptr(), 0 if rate == 0.0 else bits.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(),
                  0 if dbp is None else dbp.data_ptr(), B, L, n, rs,
                  1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
     flash_attention_train_bwd_dkdv.launches += 1
@@ -469,40 +518,23 @@ def flash_attention_train_bwd(q, k, v, bias, seed: int, rate: float, g,
                               need_dbias: bool = True):
     """Kernel #6: the training attention backward, (dq, dk, dv, dbias) for
     the output gradient g [B, L, n, d]; dbias is None unless
-    ``need_dbias``. The mask is redrawn from ``seed``. One kernel up to
-    L = 256, the split pair above; either counts as one launch of #6."""
+    ``need_dbias``. The mask is drawn from ``seed`` once, by pass 1. #6 is
+    the two passes; each counts its launch in its own wrapper."""
     dev, seed, rate = _bwd_checks("flash_attention_train_bwd", q, k, v, bias,
                                   g, seed, rate)
     if dev.type == "cpu":
         dq, dk, dv, db = flash_attention_train_bwd_plain(q, k, v, bias, seed,
                                                          rate, g)
         return dq, dk, dv, (db if need_dbias else None)
-    rs = _train_kernel_checks("flash_attention_train_bwd", q, k, v, bias)
-    check_kernel_inputs("flash_attention_train_bwd", bf16=(g,),
-                        has_backward=True)
-    B, L, n, d = q.shape
+    _pass_checks("flash_attention_train_bwd", q, k, v, bias, g)
+    B, L = q.shape[:2]
     g = g.contiguous()
-    if L > SINGLE_BWD_MAX_LEN:
-        dq, stats = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate, g)
-        dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed,
-                                                     rate, g, stats,
-                                                     need_dbias)
-    else:
-        dq, dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
-                      for _ in range(3))
-        dbp = (torch.empty((B, n, L), dtype=torch.float32, device=dev)
-               if need_dbias else None)
-        build.launch("uc2_attn_train_bwd", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), bias.data_ptr(), g.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     0 if dbp is None else dbp.data_ptr(), B, L, n, rs,
-                     1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
-    flash_attention_train_bwd.launches += 1
+    dq, stats, bits = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate,
+                                                   g)
+    dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate, g,
+                                                 stats, bits, need_dbias)
     db = None if dbp is None else dbp.sum(dim=1).reshape(B, 1, 1, L)
     return dq, dk, dv, db
-
-
-flash_attention_train_bwd.launches = 0
 
 
 class _FlashAttentionTrain(torch.autograd.Function):
