@@ -20,6 +20,9 @@ non-zero at the end, without the result lines:
      12 heads of 64, H = 768, F = 3072, bf16 inputs from a seed, padding
      masks), with times, the least time the card could take, and a
      library yardstick where one PyTorch call computes the same function;
+     the FFN block (#3) also at ragged row counts and F = 128, repeated
+     bit for bit, and timed from CUDA graphs beside its two products
+     alone as cuBLAS calls;
      #6's two passes each against its plain version (row statistics; keep
      bits bit for bit); #5 beside SDPA's forward and #6 beside SDPA's
      autograd backward (both also replayed from a CUDA graph) and their
@@ -29,7 +32,9 @@ non-zero at the end, without the result lines:
      runs full_retrieval_eval over a synthetic gallery that fills the
      three region-count buckets (joint L = 98, 128, 162); every kernel's
      launch count must match the routing, one batch per bucket is held
-     against the eager PyTorch path, and pairs/s per bucket are timed;
+     against the eager PyTorch path, pairs/s per bucket are timed, and one
+     batch at L = 98 and at L = 162 is profiled (device busy and idle
+     share, device time by kernel group);
   4. train: full-width uc2-base mlm steps (dropout 0.1, the optimizer of
      config/uc2_pretrain.json) at the three training buckets, 1 warm-up
      and 5 timed steps each on masked, collated batches of a synthetic
@@ -40,10 +45,10 @@ non-zero at the end, without the result lines:
      against their plain versions (and #10 against autograd of the plain
      forward) at the training buckets' rows, rates 0.1 and 0, with times
      and bounds, and #9's dropout mask against the plain Philox mask;
-  6. long-L kernels: #4 and #5, one streamed core, against their plain
-     versions at the edges of its tiles (L = 1 .. 512, B = 3, fused-QKV
-     views, rates 0.1 and 0), each call repeated bit for bit, #5 at rate
-     0 and #1 bitwise equal to #4; #6 and each of its passes against
+  6. long-L kernels: #4, #5 and #11, one streamed core, against their
+     plain versions at the edges of its tiles (L = 1 .. 512, B = 3,
+     fused-QKV views, rates 0.1 and 0), each call repeated bit for bit,
+     #5 at rate 0 and #1 bitwise equal to #4; #6 and each of its passes against
      their plain versions at the same tails, repeated bit for bit; #4 at
      (B, L) = (16, 512), (4, 419), (4, 450) beside SDPA and its bound,
      replayed from a CUDA graph (its device time alone) and on the host's
@@ -93,14 +98,16 @@ non-zero at the end, without the result lines:
      at (B, L) = (64, 98), (64, 128), (64, 162) and (8, 512), #11 (attention
      with unnormalised bf16 probabilities) at (64, 98) and (64, 162) on
      heads that are views into one projection, each timed with its bound
-     (#11 beside SDPA) and repeated bit for bit;
+     (#11 beside SDPA, both also from CUDA graphs) and repeated bit for
+     bit;
  13. lab: uc2_torch.lab.main for each of its six modes (op, block, block2,
      ffn, layer, ce) at the lab's default shapes (B = 64, L = 162; the ce
      race at N = 1536, V = 250002) and --iters 10, its output echoed:
      every racer prints a RESULT line, none FAILED, each maxerr within
      the mode's limit (LAB_MAXERR), #8 launched only in layer and #11 only
      in op;
- 14. a JSON line of per-kernel numbers, then the last line
+ 14. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts; #3's adds the routes phase and the lab), then the last line
      {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
@@ -442,17 +449,54 @@ def phase_kernels(gen):
                  (q, k, v, bias, x, wo, bo, gamma, beta),
                  5 * B * L * H * 2 + B * L * 4 + H * H * 2 + 3 * H * 4,
                  4 * B * N * L * L * D + 2 * B * L * H * H, report=L == 162)
-    # 3: fused FFN block at all three buckets
+    # 3: fused FFN block at all three buckets, also replayed from CUDA
+    # graphs, beside its two products alone; then at the edges of its row
+    # tiles and waves, and at F = 128
     w1 = (torch.randn(FF, H, generator=gen, device="cuda") * 0.05).bfloat16()
     w2 = (torch.randn(H, FF, generator=gen, device="cuda") * 0.05).bfloat16()
     b1, b2 = vec(gen, FF, 0.02), vec(gen, H, 0.02)
     for L in (98, 128, 162):
         x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+        args = (x, w1, b1, w2, b2, gamma, beta)
         run_case(rows, "fused_ffn_block", B, L, fused_ffn_block,
-                 fused_ffn_block_plain, (x, w1, b1, w2, b2, gamma, beta),
+                 fused_ffn_block_plain, args,
                  2 * B * L * H * 2 + 2 * H * FF * 2 + (FF + 3 * H) * 4,
-                 4 * B * L * H * FF, report=L == 162)
+                 4 * B * L * H * FF, report=L == 162, graph=True)
+        ffn_yardsticks(L, args)
+    for n_rows, Fi in FFN_EDGES:
+        w1e, w2e = w1[:Fi].contiguous(), w2[:, :Fi].contiguous()
+        x = torch.randn(n_rows, H, generator=gen, device="cuda").bfloat16()
+        args = (x, w1e, b1[:Fi].contiguous(), w2e, b2, gamma, beta)
+        out = fused_ffn_block(*args)
+        err = compare(f"fused_ffn_block rows={n_rows} F={Fi}", out,
+                      fused_ffn_block_plain(*args))
+        row = rows["fused_ffn_block"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        repeat_bitwise(f"#3 rows={n_rows} F={Fi}",
+                       lambda: fused_ffn_block(*args), out)
     return rows
+
+
+# #3's row counts at the edges of its 64-row tiles and one past a whole
+# wave (66 tiles of two blocks on 132 SMs; and 132 tiles), and an
+# intermediate width of 128
+FFN_EDGES = ((1, FF), (63, FF), (64, FF), (65, FF), (129, FF),
+             (64 * 66 + 1, FF), (64 * 132 + 1, FF), (129, 128))
+
+
+def ffn_yardsticks(L, args):
+    """Beside #3 at (B, L): its two products alone as cuBLAS bf16 calls
+    (x @ w1.t(), then h @ w2.t() on a precomputed bf16 h, no epilogue),
+    chained and replayed from a CUDA graph, and the bytes #3's blocks take
+    in from L2 (every 64-row tile reads all the weights once)."""
+    x, w1, b1, w2 = args[:4]
+    x2 = x.view(-1, H)
+    h = F.gelu(x2 @ w1.t() + b1).bfloat16()
+    products = lambda: (x2 @ w1.t(), h @ w2.t())
+    l2 = -(-x2.shape[0] // 64) * 2 * H * w1.shape[0] * 2
+    print(f"    two products alone (cuBLAS bf16): {time_ms(products):.4f} ms, "
+          f"from a graph {graph_ms(products):.4f} ms; #3's weight bytes "
+          f"from L2 a call: {l2 / 1e9:.3f} GB")
 
 
 def bucket_batch(img_db, img_ids, txt_db, txt_id, nb):
@@ -562,6 +606,8 @@ def phase_slice(card):
         print(f"  L={TXT_LEN + nb}: kernel path {ms_k:.3f} ms/batch = "
               f"{B / ms_k * 1e3:.1f} pairs/s; eager bf16 {ms_p:.3f} ms/batch "
               f"= {B / ms_p * 1e3:.1f} pairs/s [{card}]")
+        if TXT_LEN + nb in (98, 162):
+            profile_scores(model, batch, TXT_LEN + nb, card)
     return {k.__name__: launches[k.__name__] for k in KERNELS}
 
 
@@ -911,6 +957,56 @@ def device_rows(prof):
     return rows
 
 
+def group_ms(rows, kernel_groups):
+    """Device ms by kernel group (the first group whose mark is in the
+    kernel's name; "other" for the rest)."""
+    groups = {}
+    for ms, _, key in rows:
+        group = next((g for g, marks in kernel_groups if any(
+            m in key for m in marks)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return groups
+
+
+# kernel groups of a scored batch
+SCORE_GROUPS = (
+    ("#3 FFN block", ("fused_ffn_kernel",)),
+    ("#1 attention", ("attn_stream",)),
+    ("#2 attention block", ("fused_attn_block",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_scores(model, batch, L, card):
+    """One scored batch under torch.profiler, after a warm-up call: its
+    wall time, the device's busy and idle share, device ms by kernel group
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    model.scores(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.scores(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(device_rows(prof), reverse=True)
+    if not rows:
+        print(f"  L={L} profile: no device time recorded (not measured)")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"  L={L} profiled batch: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / wall:.1%}; idle {1 - busy / wall:.1%}) "
+          f"[{card}]")
+    print("    device time by kernel group: " + ", ".join(
+        f"{g} {ms:.3f} ms" for g, ms in sorted(
+            group_ms(rows, SCORE_GROUPS).items(), key=lambda x: -x[1])))
+    for ms, cnt, key in rows[:8]:
+        print(f"    {ms:9.3f} ms {cnt:5d}x  {key[:90]}")
+
+
 def profile_step(model, opt, batch, rng, card):
     """Device time of one step by kernel, from torch.profiler; None when
     the profiler sees no device time."""
@@ -927,11 +1023,7 @@ def profile_step(model, opt, batch, rng, card):
         print("  profiler: no device time recorded (not measured)")
         return None
     busy = sum(r[0] for r in rows)
-    groups = {}
-    for ms, _, key in rows:
-        group = next((g for g, marks in KERNEL_GROUPS if any(
-            m in key for m in marks)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+    groups = group_ms(rows, KERNEL_GROUPS)
     attn = groups.get(KERNEL_GROUPS[0][0], 0.0)
     os.makedirs("build", exist_ok=True)
     with open("build/train_profile.txt", "w") as f:
@@ -1617,9 +1709,9 @@ STREAM_TAILS = (1, 63, 64, 65, 127, 129, 162, 174, 257, 339, 419, 450, 511,
 
 
 def stream_core_checks(gen):
-    """#1, #4 and #5 share one core (csrc/attention_stream.cuh): #4 and #5
-    each against its plain version at STREAM_TAILS with B = 3, on views
-    into one fused QKV projection, #5 at rates 0.1 and 0; every call
+    """#1, #4, #5 and #11 share one core (csrc/attention_stream.cuh): #4,
+    #5 and #11 each against its plain version at STREAM_TAILS with B = 3,
+    on views into one fused QKV projection, #5 at rates 0.1 and 0; every call
     repeated bit for bit; #5 at rate 0 and #1 bitwise equal to #4 on the
     same inputs. Returns #4's largest error."""
     print("  the streamed core at the tiles' edges (B = 3, fused-QKV views):")
@@ -1639,6 +1731,11 @@ def stream_core_checks(gen):
             same = same and torch.equal(out5, flash_attention_train_fwd(*args))
             oks.append(ok5)
             line.append(f"#5 rate {rate} {err5:.2e}")
+        out11 = attention_bf16_probs(q, k, v, bias)
+        ok11, err11 = close(out11, attention_bf16_probs_plain(q, k, v, bias))
+        same = same and torch.equal(out11, attention_bf16_probs(q, k, v, bias))
+        oks.append(ok11)
+        line.append(f"#11 {err11:.2e}")
         one = torch.equal(out5, out4)
         v3 = torch.equal(flash_attention_v3(q, k, v, bias), out4)
         print(f"    L={L}: max|kernel - plain| {', '.join(line)} "
@@ -2126,7 +2223,7 @@ def phase_routes(card):
     "flash" (#12 at L >= 128, the eager chain below, no fused block); one
     batch per bucket against the eager path, and pairs/s per bucket beside
     the default route ("pallas" without UC2_ATTN_V2). Returns the
-    launches of #7 and #12."""
+    launches of #7, #12 and #3."""
     print("== routes: uc2-base full_retrieval_eval with UC2_ATTN_V2=1 under "
           "\"pallas\" (#7) and under \"flash\" (#12)")
     cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
@@ -2215,7 +2312,8 @@ def phase_routes(card):
     del model, others, flash, plain
     torch.cuda.empty_cache()
     return {"fused_attn_block_v2": launched["v2"]["fused_attn_block_v2"],
-            "segment_flash_fwd": launched["flash"]["segment_flash_fwd"]}
+            "segment_flash_fwd": launched["flash"]["segment_flash_fwd"],
+            "fused_ffn_block": launched["v2"]["fused_ffn_block"]}
 
 
 # "flash" training at attention dropout 0 (hidden dropout 0.1): the mlm
@@ -2329,7 +2427,7 @@ LAB_ROWS = {
         replaces="uc2_tpu/ops/fused_block.py:326"),
     "attention_bf16_probs": dict(
         name="attention_bf16_probs", route="cuda",
-        source="uc2_torch/csrc/attention_bf16.cu",
+        source="uc2_torch/csrc/attention_stream.cuh",
         replaces="scripts/kernel_lab.py:38"),
 }
 
@@ -2378,7 +2476,7 @@ def phase_lab_kernels(gen):
                  4 * B * L * H * 2 + B * L * 4, 4 * B * N * L * L * D,
                  library=lambda: F.scaled_dot_product_attention(
                      qt, kt, vt, attn_mask=bias16),
-                 report=L == 162)
+                 report=L == 162, graph=True)
         repeat_bitwise(f"#11 B={B} L={L}",
                        lambda: attention_bf16_probs(q, k, v, bias),
                        attention_bf16_probs(q, k, v, bias))
@@ -2408,7 +2506,8 @@ def phase_lab(card):
     """``python -m uc2_torch.lab`` in every mode at its default shapes
     (through ``lab.main``, output captured and echoed): every racer's RESULT
     line, no FAILED, each maxerr within LAB_MAXERR, #8 launched only by
-    the layer mode and #11 only by the op mode. Returns their launches."""
+    the layer mode and #11 only by the op mode. Returns their launches
+    and #3's (the ffn and layer modes)."""
     print(f"== lab: uc2_torch.lab, every mode, --iters {LAB_ITERS} [{card}]")
     launched = {}
     for mode in lab.MODES:
@@ -2447,7 +2546,9 @@ def phase_lab(card):
                  f"and {others} elsewhere; expected only in {mode}")
     torch.cuda.empty_cache()
     return {"fused_layer_block": launched["layer"]["fused_layer_block"],
-            "attention_bf16_probs": launched["op"]["attention_bf16_probs"]}
+            "attention_bf16_probs": launched["op"]["attention_bf16_probs"],
+            "fused_ffn_block": sum(c["fused_ffn_block"]
+                                   for c in launched.values())}
 
 
 def main() -> int:
@@ -2480,15 +2581,21 @@ def main() -> int:
     rows.update(timed(phase_route_kernels, gen))
     rows.update(timed(phase_lab_kernels, gen))
     launches = timed(phase_slice, card)
-    launches.update(timed(phase_routes, card))
+
+    def add(more):
+        """Launches of a later phase added to the count (#3 runs in the
+        slice, the routes and the lab)."""
+        for kernel, n in more.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+
+    add(timed(phase_routes, card))
     train_launches, busy = timed(phase_train, card, train_rows)
     launches.update(train_launches)
     launches.update(timed(phase_mix, card, busy, ffn_rows))
     long_launches, long_batch = timed(phase_long, card)
     launches.update(long_launches)
-    for kernel, n in timed(phase_flash_train, card, long_batch).items():
-        launches[kernel] = launches.get(kernel, 0) + n
-    launches.update(timed(phase_lab, card))
+    add(timed(phase_flash_train, card, long_batch))
+    add(timed(phase_lab, card))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

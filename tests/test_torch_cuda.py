@@ -178,15 +178,28 @@ def test_fused_attn_block_kernel_matches_plain(gen, B, L):
     _close(fused_attn_block(*args), fused_attn_block_plain(*args))
 
 
+# kernel #3 (a 64-row tile is a cluster of two blocks, one a column half):
+# the edges of its tiles, one past a whole wave of 132 SMs (66 tiles) and
+# past 132 tiles, the scoring shapes, F = 128 and 3072; each call repeated
+# bit for bit, one launch a call
 @pytest.mark.parametrize("shape,F", [((1, 1), 3072), ((1, 33), 3072),
-                                     ((3, 98), 3072), ((2, 40), 128)])
+                                     ((3, 98), 3072), ((2, 40), 128)]
+                         + [((rows,), F) for rows in
+                            (1, 63, 64, 65, 129, 64 * 66 + 1, 64 * 132 + 1)
+                            for F in (128, 3072)]
+                         + [((64, 162), 3072), ((64, 162), 128),
+                            ((3, 98), 128)])
 def test_fused_ffn_block_kernel_matches_plain(gen, shape, F):
     x = torch.randn(*shape, H, generator=gen, device="cuda").bfloat16()
     args = (x, (torch.randn(F, H, generator=gen, device="cuda") * 0.05).bfloat16(),
             _vec(gen, F, 0.02),
             (torch.randn(H, F, generator=gen, device="cuda") * 0.05).bfloat16(),
             _vec(gen, H, 0.02), _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1))
-    _close(fused_ffn_block(*args), fused_ffn_block_plain(*args))
+    before = fused_ffn_block.launches
+    out = fused_ffn_block(*args)
+    _close(out, fused_ffn_block_plain(*args))
+    assert torch.equal(fused_ffn_block(*args), out)
+    assert fused_ffn_block.launches == before + 2
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -213,6 +226,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     vecs = [torch.zeros(n, device="cuda") for n in (128, H, H, H)]
     with pytest.raises(ValueError):                      # non-contiguous x
         fused_ffn_block(x, w1, vecs[0], w2, *vecs[1:])
+    x = x.contiguous()
+    with pytest.raises(ValueError):                      # F not a multiple of 64
+        fused_ffn_block(x, w1[:96].contiguous(), vecs[0][:96].contiguous(),
+                        w2[:, :96].contiguous(), *vecs[1:])
+    with pytest.raises(TypeError):                       # fp32 weights
+        fused_ffn_block(x, w1.float(), vecs[0], w2.float(), *vecs[1:])
 
 
 @pytest.mark.parametrize("impl,Nb", [(True, 36), (True, 66), ("fused-force", 36)])
@@ -889,9 +908,14 @@ def test_fused_layer_block_refuses(gen):
         fused_layer_block(*args[:4], args[4].requires_grad_(True), *args[5:])
 
 
-# kernel #11: attention with unnormalised bf16 probabilities
+# kernel #11: attention with unnormalised bf16 probabilities, on the
+# streamed core: every edge of its 64-row query and key tiles, heads as
+# views into one projection and as contiguous tensors
 @pytest.mark.parametrize("B,L,strided", [(1, 1, True), (2, 98, True),
-                                         (2, 162, False), (1, 512, True)])
+                                         (2, 162, False), (1, 512, True)]
+                         + [(2 if L > 256 else 3, L, strided)
+                            for L in (1, 2, 63, 64, 65, 98, 162, 257, 512)
+                            for strided in (True, False)])
 def test_attention_bf16_probs_kernel_matches_plain(gen, B, L, strided):
     q, k, v = _heads(gen, B, L, strided)
     bias = _bias(gen, B, L)
@@ -912,3 +936,4 @@ def test_attention_bf16_probs_refuses(gen):
     q, k, v = _heads(gen, 1, 513, strided=True)
     with pytest.raises(ValueError):
         attention_bf16_probs(q, k, v, _bias(gen, 1, 513))
+

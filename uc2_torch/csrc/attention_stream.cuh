@@ -1,13 +1,16 @@
-// The streamed attention-forward core for Hopper that kernels #4 and #5
-// share:
+// The streamed attention-forward core for Hopper that kernels #1, #4, #5
+// and #11 share:
 //   out = Pd . V,  P = softmax(q.k^T / sqrt(d) + bias),
-//   Pd = P (#4, and #5 at rate 0) or keep ? P / (1 - rate) : 0 (#5),
+//   Pd = P (#1, #4, and #5 at rate 0) or keep ? P / (1 - rate) : 0 (#5),
 // with fp32 scores, the softmax normalised in fp32, Pd rounded to bf16
 // after normalisation (where the TPU kernels round it) and fp32 sums of
 // Pd . V. It replaces the bodies of the TPU kernels
 // uc2_tpu/ops/flash_attention.py:_attn_kernel (#4, launched by
-// _fwd_pallas) and _attn_train_fwd_kernel (#5, launched by _fwd_train);
-// at rate 0 they are one function, and here one kernel.
+// _fwd_pallas), _attn_kernel_v3 (#1) and _attn_train_fwd_kernel (#5,
+// launched by _fwd_train); at rate 0 they are one function, and here one
+// kernel. The BF16P mode is #11's function (scripts/kernel_lab.py
+// :_kernel_bf16): e = bf16(exp(s - max s)) unnormalised, out =
+// bf16((e . V) / sum fp32(e)); it rounds before it normalises.
 //
 // Design. One block per (query tile of QT = 64 NWG rows, head, batch row),
 // NWG consumer warpgroups and one producer warp:
@@ -34,14 +37,19 @@
 //                exp2 and Philox.
 //     The context goes back through this warpgroup's Q slot to a TMA
 //     store, which clips rows >= L.
+//   * with BF16P (#11) sweep 1 keeps only each row's max; sweep 2 rounds
+//     the unnormalised exp2 to bf16 straight into the A fragments and the
+//     same lanes sum the rounded values in fp32 (the four lanes of a row
+//     merged after the last tile); the fp32 context is scaled by 1 / sum
+//     before the bf16 store.
 // The tiles (NWG = 1, KT = 64, three blocks a SM) were chosen from H100
 // timings of NWG = 1 or 2, KT = 32, 64 or 128 at every main-path shape
 // (PERF.md): 64-row query tiles waste least at L = 162 (192 rows against
 // 256) and won at every length.
-// A one-sweep online softmax would round the unnormalised exponentials
-// (kernel #11's function), so the keys are swept twice and Q . K^T is
-// computed twice: 6 L^2 d products a row and head against the 4 L^2 d of
-// the function.
+// A one-sweep online softmax would round exponentials against a running
+// max that later grows, neither #4's normalised P nor #11's e of the exact
+// max, so the keys are swept twice and Q . K^T is computed twice: 6 L^2 d
+// products a row and head against the 4 L^2 d of the function.
 //
 // Dropout (#5): the keep bit of score (b, h, i, j) is word j % 4 of
 // philox4x32_10((j / 4, i, b n + h, 0), (seed, 0)) (philox.cuh), so the
@@ -227,13 +235,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-template <bool DROP>
+// BF16P (kernel #11): e = bf16(exp2(s - max)) unnormalised, sum(fp32(e))
+// taken from the rounded values, the context scaled by 1 / sum at the end
+template <bool DROP, bool BF16P = false>
 __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
     attn_stream_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -245,6 +259,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
   constexpr int NWG = C::NWG, KT = C::KT, STAGES = C::STAGES;
   constexpr int NC = KT / 8;  // 8-key column groups a tile
   static_assert(KT == 64, "the score products below are m64n64k16");
+  static_assert(!(DROP && BF16P), "#11 has no dropout");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -340,7 +355,8 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
       acc[4 * c + 3] = fmaf(acc[4 * c + 3], scale_log2, bb.y);
     }
   };
-  // sweep 1: the running max and sum of exp2 of this lane's columns
+  // sweep 1: the running max and sum of exp2 of this lane's columns (with
+  // BF16P the max alone: the sum is taken in sweep 2 from the rounded e)
   auto fold = [&](const float(&acc)[KT / 2]) {
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
@@ -349,7 +365,9 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
       for (int c = 0; c < NC; ++c)
         tm = fmaxf(tm, fmaxf(acc[4 * c + 2 * hi], acc[4 * c + 2 * hi + 1]));
       const float mn = fmaxf(mx[hi], tm);
-      if (mn != -INFINITY) {
+      if constexpr (BF16P) {
+        mx[hi] = mn;
+      } else if (mn != -INFINITY) {
         float add = 0.f;
 #pragma unroll
         for (int c = 0; c < NC; ++c)
@@ -388,16 +406,20 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       const float m2 = __shfl_xor_sync(0xffffffffu, mx[hi], off);
-      const float l2 = __shfl_xor_sync(0xffffffffu, sum[hi], off);
-      const float mn = fmaxf(mx[hi], m2);
-      sum[hi] = (mx[hi] == -INFINITY ? 0.f : sum[hi] * ex2(mx[hi] - mn)) +
-                (m2 == -INFINITY ? 0.f : l2 * ex2(m2 - mn));
-      mx[hi] = mn;
+      if constexpr (BF16P) {
+        mx[hi] = fmaxf(mx[hi], m2);
+      } else {
+        const float l2 = __shfl_xor_sync(0xffffffffu, sum[hi], off);
+        const float mn = fmaxf(mx[hi], m2);
+        sum[hi] = (mx[hi] == -INFINITY ? 0.f : sum[hi] * ex2(mx[hi] - mn)) +
+                  (m2 == -INFINITY ? 0.f : l2 * ex2(m2 - mn));
+        mx[hi] = mn;
+      }
     }
-    inv[hi] = 1.f / sum[hi];
+    if constexpr (!BF16P) inv[hi] = 1.f / sum[hi];
   }
-  const float ks0 = DROP ? inv[0] * dr.keep_scale : inv[0];
-  const float ks1 = DROP ? inv[1] * dr.keep_scale : inv[1];
+  const float ks0 = BF16P ? 1.f : DROP ? inv[0] * dr.keep_scale : inv[0];
+  const float ks1 = BF16P ? 1.f : DROP ? inv[1] * dr.keep_scale : inv[1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   fence_regs(o);  // zeroed here, before any product is in flight
@@ -447,11 +469,34 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
     for (int c = 0; c < NC; ++c) {
       pa[c >> 1][2 * (c & 1) + 0] = pack2(sc[4 * c + 0], sc[4 * c + 1]);
       pa[c >> 1][2 * (c & 1) + 1] = pack2(sc[4 * c + 2], sc[4 * c + 3]);
+      if constexpr (BF16P) {  // the row sums of the rounded e
+        const float2 eg = bf16x2_to_float2(pa[c >> 1][2 * (c & 1) + 0]);
+        const float2 eh = bf16x2_to_float2(pa[c >> 1][2 * (c & 1) + 1]);
+        sum[0] += eg.x + eg.y;
+        sum[1] += eh.x + eh.y;
+      }
     }
   }
   start_pv(pa, steps - 1);
+  if constexpr (BF16P) {  // merge the four lanes of each row, as sweep 1 does
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      sum[hi] += __shfl_xor_sync(0xffffffffu, sum[hi], 1);
+      sum[hi] += __shfl_xor_sync(0xffffffffu, sum[hi], 2);
+      inv[hi] = 1.f / sum[hi];
+    }
+  }
   wgmma_wait<0>();
   fence_regs(o);
+  if constexpr (BF16P) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      o[4 * c + 0] *= inv[0];
+      o[4 * c + 1] *= inv[0];
+      o[4 * c + 2] *= inv[1];
+      o[4 * c + 3] *= inv[1];
+    }
+  }
 
   // the context through this warpgroup's Q slot (swizzled as TMA reads it)
   uint8_t* so = smem + wg * 64 * C::ROW_BYTES;
@@ -509,12 +554,12 @@ inline bool heads_map(CUtensorMap* map, const void* ptr, int B, int L, int n,
 }
 
 // The core at joint length L (1..512) on stream
-template <bool DROP>
+template <bool DROP, bool BF16P = false>
 inline int attention(const void* q, const void* k, const void* v, const void* bias, void* out,
                      int B, int L, int n, int rs, float scale, Dropout dr, cudaStream_t stream) {
   using C = Cfg;
   if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
-  auto kernel = attn_stream_kernel<DROP>;
+  auto kernel = attn_stream_kernel<DROP, BF16P>;
   // on every call: the attribute belongs to the current device
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);

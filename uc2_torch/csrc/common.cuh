@@ -45,6 +45,11 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the exact (erf) GELU of the FFN blocks
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

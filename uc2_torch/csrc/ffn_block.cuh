@@ -1,7 +1,7 @@
-// The weight walk shared by the FFN-block kernels: the inference block
-// (#3, fused_ffn_block.cu), the training block's forward and backward
-// (#9, #10, ffn_train.cu) and the whole-layer block (#8,
-// fused_layer_block.cu).
+// The mma.sync weight walk shared by the training FFN block's forward and
+// backward (#9, #10, ffn_train.cu) and the whole-layer block (#8,
+// fused_layer_block.cu). The inference FFN block (#3, fused_ffn_block.cu)
+// has its own wgmma/TMA kernel.
 //
 // One block of 8 warps owns a tile of 32 rows of x (staged in shared
 // memory) and walks the intermediate width F in chunks of 64. Per chunk
@@ -37,10 +37,6 @@ constexpr int STAGE_ELEMS = N_SLICE * W2_STRIDE > FFN_CHUNK * W1_STRIDE
 constexpr size_t FFN_SMEM =
     (size_t)(FFN_ROWS * ROW_STRIDE + FFN_ROWS * H_STRIDE + STAGES * STAGE_ELEMS) * 2 +
     FFN_THREADS * 4;
-
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-}
 
 // Start the copies of weight tile `idx` of the forward walk into `stage`.
 __device__ __forceinline__ void load_tile(bf16* stage, const bf16* __restrict__ w1,

@@ -11,7 +11,7 @@
 // forward and the backward draw the same mask though they tile differently
 // (the TPU kernels had to share one row tile, _pick_tile, for that).
 //
-// Forward (#9): the inference block's walk (ffn_block.cuh, shared with #3),
+// Forward (#9): the mma.sync weight walk (ffn_block.cuh, shared with #8),
 // then y2 = keep ? (acc + b2) / (1 - rate) : 0 before the residual and the
 // LayerNorm. Bound by operations: 4 rows H F (196 GFLOP at B = 128,
 // L = 162: 0.198 ms at 989 TFLOP/s) against 73 MB.

@@ -14,15 +14,15 @@
 // 4 B 12 L^2 64 + 2 B L 768^2 + 4 B L 768 3072 = 115.2 GFLOP (0.117 ms at
 // 989 TFLOP/s) against 90 MB of heads, x, weights and output (0.027 ms).
 //
-// Design (simple first, from #2 and #3): one block of 8 warps per (tile of
+// Design (simple first, from #2 and #3's first design): one block of 8 warps per (tile of
 // 32 query rows, batch row).
 //   1. #2's body: attend_head (common.cuh) for each head into a [32, 768]
 //      bf16 context tile, the out-projection into a [32, 768] fp32
 //      accumulator in registers (96 columns a warp), + bo + x, LayerNorm1.
 //      The normalised rows stay in the same registers in fp32 (x2), and
 //      bf16(x2) is written over the context tile.
-//   2. #3's weight walk (ffn_block.cuh, 6-stage cp.async ring) on that
-//      tile, with the accumulator seeded with x2 + b2: #3's warp owns the
+//   2. the mma.sync weight walk (ffn_block.cuh, 6-stage cp.async ring) on
+//      that tile, with the accumulator seeded with x2 + b2: the walk's warp owns the
 //      same 96 output columns as #2's out-projection, so the fp32 residual
 //      never leaves the registers. Then LayerNorm2 and the bf16 store.
 // attend_head's region (bias row, score rows, K/V) and the ring with its

@@ -7,8 +7,10 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
   the kernel (the reference's ``UC2_ATTN_V2`` route), kernel in
   ``csrc/fused_attn_block_v2.cu``;
 * ``fused_ffn_block``: LayerNorm(gelu(x.W1^T + b1).W2^T + b2 + x) (erf gelu),
-  kernel in ``csrc/fused_ffn_block.cu``; the [rows, F] intermediate never
-  reaches device memory;
+  kernel in ``csrc/fused_ffn_block.cu`` (wgmma and TMA; two blocks a 64-row
+  tile, each with half the output columns, sharing the GELU tiles through
+  distributed shared memory); the [rows, F] intermediate never reaches
+  device memory;
 * ``fused_layer_block``: the whole encoder layer from the projected heads
   (the attention block, then the FFN block on its fp32 output), kernel in
   ``csrc/fused_layer_block.cu``. Its gate is off, as the reference's: only
@@ -40,7 +42,7 @@ from uc2_torch.ops.flash_attention import (HEAD_DIM, MAX_LEN, check_device,
                                            heads_row_stride)
 
 HIDDEN = 768       # hidden width the fused kernels take (uc2-base)
-FFN_CHUNK = 64     # the FFN kernel walks the intermediate in these chunks
+FFN_CHUNK = 64     # the FFN kernels walk the intermediate in these chunks
 
 
 def layer_norm_f32(y, gamma, beta, eps):
@@ -204,19 +206,21 @@ def fused_ffn_block(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
         return fused_ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, eps)
     check_kernel_inputs("fused_ffn_block", bf16=(x, w1, w2),
                         fp32=(b1, b2, gamma, beta))
-    if H != HIDDEN or Fi % FFN_CHUNK:
+    if H != HIDDEN or Fi % FFN_CHUNK or not Fi:
         raise ValueError(f"fused_ffn_block: the kernel takes hidden {HIDDEN} "
-                         f"and an intermediate width that is a multiple of "
-                         f"{FFN_CHUNK}, got {H}, {Fi}")
+                         f"and an intermediate width that is a positive "
+                         f"multiple of {FFN_CHUNK}, got {H}, {Fi}")
     if not (x.is_contiguous() and w1.is_contiguous() and w2.is_contiguous()):
         raise ValueError("fused_ffn_block: x, w1 and w2 must be contiguous")
-    rows = x.numel() // H
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("fused_ffn_block: x, w1 and w2 must start on a "
+                         "16-byte boundary (the kernel reads them by TMA)")
     out = torch.empty_like(x)
-    if rows:
+    if x.numel():
         build.launch("uc2_fused_ffn_block", x.data_ptr(), w1.data_ptr(),
                      b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                     gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), rows,
-                     Fi, float(eps), device=dev)
+                     gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                     x.numel() // H, Fi, float(eps), device=dev)
         fused_ffn_block.launches += 1
     return out
 

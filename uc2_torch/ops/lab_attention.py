@@ -1,6 +1,7 @@
 """Attention with unnormalised bf16 probabilities, the kernel lab's
 "v4bf16" candidate (port of scripts/kernel_lab.py ``_kernel_bf16``, kernel
-#11, ``csrc/attention_bf16.cu``).
+#11: the streamed wgmma/TMA core of ``csrc/attention_stream.cuh`` in its
+BF16P mode, entry ``csrc/attention_bf16.cu``).
 
 It differs from the encoder's attention (#1, ``flash_attention_v3``),
 which normalises the probabilities in fp32 and then rounds them: here
