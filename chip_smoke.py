@@ -22,7 +22,12 @@ non-zero at the end, without the result lines:
      library yardstick where one PyTorch call computes the same function;
      the FFN block (#3) also at ragged row counts and F = 128, repeated
      bit for bit, and timed from CUDA graphs beside its two products
-     alone as cuBLAS calls;
+     alone as cuBLAS calls; the attention block (#2) timed from CUDA
+     graphs and on the host's clock at the fused buckets beside its eager
+     chain with SDPA, at (64, 98) beside that bucket's path (#1, the eager
+     out-projection and LayerNorm), and at the edges of its 64-row query
+     tiles (L = 1 .. 512, B = 1-3, one grid past a wave; views into one
+     projection and contiguous heads), each call repeated bit for bit;
      #6's two passes each against its plain version (row statistics; keep
      bits bit for bit); #5 beside SDPA's forward and #6 beside SDPA's
      autograd backward (both also replayed from a CUDA graph) and their
@@ -75,7 +80,10 @@ non-zero at the end, without the result lines:
      of #4 at L = 512, of #1 below) against the eager path, and the
      kernel path's ms/step there;
   9. route kernels: #7 against its plain version at (B, L) = (64, 128)
-     and (64, 162); #12 (and its row statistics) at (64, 128), (64, 162)
+     and (64, 162), timed from CUDA graphs and on the host's clock beside
+     the lab's v1chain (the cuBLAS QKV projection, then #2), and at #2's
+     edges (clusters of up to 16 blocks), each call repeated bit for bit;
+     #12 (and its row statistics) at (64, 128), (64, 162)
      and (16, 512), timed beside SDPA with a boolean segment mask on the
      padded tensors; #12a and #12b each against its plain version on the
      same inputs at (160, 128), (128, 162) and (16, 512), the three
@@ -113,12 +121,12 @@ The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times` runs phase 1 and then only times #5, #6,
-#4 and #1 at the main path's shapes as phases 2 and 6 do, and phase 4's
-mlm step at L = 162 (no result lines); a copy of this script in another
-tree of the port (it calls only the wrappers #1, #4, #5 and #6, whose
-signatures the port keeps, #1's C entry and the model's entry points)
-times that tree's kernels and step, so an A/B of two trees fits in one
-call.
+#4 and #1 at the main path's shapes as phases 2 and 6 do, #2 and #7 as
+phases 2 and 9 do, and phase 4's mlm step at L = 162 (no result lines); a
+copy of this script in another tree of the port (it calls only the
+wrappers #1, #2, #4, #5, #6 and #7, whose signatures the port keeps, #1's
+C entry and the model's entry points) times that tree's kernels and step,
+so an A/B of two trees fits in one call.
 """
 
 from __future__ import annotations
@@ -438,17 +446,14 @@ def phase_kernels(gen):
                  library=lambda: F.scaled_dot_product_attention(
                      qt, kt, vt, attn_mask=bias16),
                  report=L == 98)
-    # 2: fused attention block at the L = 128 and L = 162 buckets
+    # 2: fused attention block at the L = 128 and L = 162 buckets, also
+    # replayed from CUDA graphs, beside its eager chain; at L = 98 beside
+    # that bucket's path (#1, the eager out-projection and LayerNorm); then
+    # at the edges of its query tiles
     wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
     bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
-    for L in (128, 162):
-        q, k, v, bias = heads(gen, B, L)
-        x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
-        run_case(rows, "fused_attn_block", B, L, fused_attn_block,
-                 fused_attn_block_plain,
-                 (q, k, v, bias, x, wo, bo, gamma, beta),
-                 5 * B * L * H * 2 + B * L * 4 + H * H * 2 + 3 * H * 4,
-                 4 * B * N * L * L * D + 2 * B * L * H * H, report=L == 162)
+    time_blocks(rows, gen, (wo, bo, gamma, beta), report=True)
+    attn_block_edges(rows, gen, (wo, bo, gamma, beta))
     # 3: fused FFN block at all three buckets, also replayed from CUDA
     # graphs, beside its two products alone; then at the edges of its row
     # tiles and waves, and at F = 128
@@ -475,6 +480,159 @@ def phase_kernels(gen):
         repeat_bitwise(f"#3 rows={n_rows} F={Fi}",
                        lambda: fused_ffn_block(*args), out)
     return rows
+
+
+# #2's and #7's joint lengths at the edges of their 64-row query tiles (and
+# of #7's clusters: 2 ceil(L / 64) blocks, above eight from L = 257), at
+# B = 1, 2, 3 in turn, and one grid past a whole wave of 132 SMs (67 tiles
+# of two blocks)
+BLOCK_EDGES = ([(1 + i % 3, L) for i, L in enumerate(
+    (1, 63, 64, 65, 127, 128, 129, 162, 192, 193, 257, 448, 512))]
+    + [(67, 128)])
+BLOCK_SHAPES = ((B, 128), (B, 162))     # the fused buckets of the slice
+# calls past a whole wave repeat this often: blocks then start at other
+# times relative to each other, which shows a race that one repeat misses
+REPEATS_PAST_A_WAVE = 10
+
+
+def block_bytes_flops(b, L):
+    """#2's bound inputs: q, k, v and x read, the output written (bf16),
+    the bias, Wo and the vectors; attention and the out-projection."""
+    return (5 * b * L * H * 2 + b * L * 4 + H * H * 2 + 3 * H * 4,
+            4 * b * N * L * L * D + 2 * b * L * H * H)
+
+
+def v2_bytes_flops(b, L):
+    """#7's: x read and the output written, the weights and vectors; the
+    projection, attention and the out-projection."""
+    return (2 * b * L * H * 2 + 4 * H * H * 2 + (6 * H + L * b) * 4,
+            2 * b * L * H * 4 * H + 4 * b * N * L * L * D)
+
+
+def yardstick(what, fn):
+    """A chain of PyTorch calls beside a kernel (no single call computes
+    its function): chained and replayed from a CUDA graph."""
+    print(f"    yardstick, a chain of calls ({what}): {time_ms(fn):.4f} ms, "
+          f"from a graph {graph_ms(fn):.4f} ms")
+
+
+def eager_block_chain(q, k, v, bias, x, wo, bo, gamma, beta, attention):
+    """#2's function as the eager path computes it: ``attention`` on the
+    heads, then the out-projection, + x and LayerNorm as the encoder's
+    Dense and LayerNorm (fp32 statistics) run them."""
+    b, L = x.shape[:2]
+    ctx = attention(q, k, v, bias).reshape(b, L, H)
+    y = (F.linear(ctx, wo, bo.to(wo.dtype)) + x).float()
+    mu = y.mean(-1, keepdim=True)
+    var = (y - mu).square().mean(-1, keepdim=True)
+    return ((y - mu) * torch.rsqrt(var + 1e-12) * gamma + beta).to(x.dtype)
+
+
+def sdpa_heads(q, k, v, bias):
+    """SDPA on [B, L, n, d] heads, its context back as [B, L, n, d]."""
+    return F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)),
+        attn_mask=bias.to(q.dtype)).transpose(1, 2)
+
+
+def time_blocks(rows, gen, vecs, report=False):
+    """#2 at the fused buckets (B = 64, L = 128, 162) against its plain
+    version, timed chained, replayed from CUDA graphs and on the host's
+    clock, beside its eager chain with SDPA; at (64, 98), where the slice
+    runs #1 and the eager out-projection and LayerNorm instead (the gate
+    fused_block_profitable is the reference's), beside that chain."""
+    wo, bo, gamma, beta = vecs
+    for b, L in BLOCK_SHAPES + ((B, 98),):
+        q, k, v, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        args = (q, k, v, bias, x, wo, bo, gamma, beta)
+        run_case(rows, "fused_attn_block", b, L, fused_attn_block,
+                 fused_attn_block_plain, args, *block_bytes_flops(b, L),
+                 report=report and L == 162, graph=True)
+        yardstick("SDPA on the heads + F.linear + residual + LayerNorm",
+                  lambda: eager_block_chain(*args, sdpa_heads))
+        if L == 98:
+            yardstick("the slice's path at L = 98: #1 + F.linear + residual "
+                      "+ LayerNorm", lambda: eager_block_chain(
+                          *args, flash_attention_v3))
+
+
+def attn_block_edges(rows, gen, vecs):
+    """#2 at BLOCK_EDGES on views into one projection, and on contiguous
+    heads at four of them, against its plain version, each call repeated
+    bit for bit."""
+    wo, bo, gamma, beta = vecs
+    cases = [(b, L, True) for b, L in BLOCK_EDGES] + [
+        (2, L, False) for L in (63, 65, 162, 512)]
+    for b, L, strided in cases:
+        q, k, v, bias = heads(gen, b, L)
+        if not strided:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        args = (q, k, v, bias, x, wo, bo, gamma, beta)
+        out = fused_attn_block(*args)
+        tag = f"B={b} L={L} {'views' if strided else 'contiguous'}"
+        err = compare(f"fused_attn_block {tag}", out,
+                      fused_attn_block_plain(*args))
+        row = rows["fused_attn_block"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        repeat_bitwise(f"#2 {tag}", lambda: fused_attn_block(*args), out,
+                       times=REPEATS_PAST_A_WAVE if b > 3 else 1)
+
+
+def v2_weights(gen):
+    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.05).bfloat16()
+    wqkv, bqkv, wo = w(3 * H, H), vec(gen, 3 * H, 0.05), w(H, H)
+    return (wqkv, bqkv, wo, vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0),
+            vec(gen, H, 0.1))
+
+
+def time_v2(rows, gen, weights, report=False):
+    """#7 at the fused buckets against its plain version, timed chained,
+    replayed from CUDA graphs and on the host's clock, beside the lab's
+    v1chain (the cuBLAS QKV projection, then #2)."""
+    wqkv, bqkv, wo, bo, gamma, beta = weights
+    for b, L in BLOCK_SHAPES:
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        bias = heads(gen, b, L)[3]
+        args = (x, wqkv, bqkv, bias, wo, bo, gamma, beta, N)
+        run_case(rows, "fused_attn_block_v2", b, L, fused_attn_block_v2,
+                 fused_attn_block_v2_plain, args, *v2_bytes_flops(b, L),
+                 report=report and L == 162, graph=True)
+
+        def v1chain():
+            qkv = ((x @ wqkv.t()).float() + bqkv).to(x.dtype)
+            q, k, v = (t.view(b, L, N, D) for t in qkv.split(H, dim=-1))
+            return fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta)
+        yardstick("v1chain: the cuBLAS QKV projection + #2", v1chain)
+
+
+def v2_edges(rows, gen, weights):
+    """#7 at BLOCK_EDGES against its plain version, each call repeated
+    bit for bit."""
+    wqkv, bqkv, wo, bo, gamma, beta = weights
+    for b, L in BLOCK_EDGES:
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        args = (x, wqkv, bqkv, heads(gen, b, L)[3], wo, bo, gamma, beta, N)
+        out = fused_attn_block_v2(*args)
+        err = compare(f"fused_attn_block_v2 B={b} L={L}", out,
+                      fused_attn_block_v2_plain(*args))
+        row = rows["fused_attn_block_v2"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        repeat_bitwise(f"#7 B={b} L={L}", lambda: fused_attn_block_v2(*args),
+                       out, times=REPEATS_PAST_A_WAVE if b > 3 else 1)
+
+
+def phase_block_times(gen):
+    """``--times``: #2 and #7 at the fused buckets (and #2 at L = 98), timed
+    as phases 2 and 9 time them, through their wrappers."""
+    rows = {k: dict(name=k) for k in ("fused_attn_block",
+                                      "fused_attn_block_v2")}
+    time_blocks(rows, gen, (
+        (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16(),
+        vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)))
+    time_v2(rows, gen, v2_weights(gen))
 
 
 # #3's row counts at the edges of its 64-row tiles and one past a whole
@@ -2106,7 +2264,7 @@ def sdpa_segment_inputs(q, k, v, bias, g=None):
 
 def phase_route_kernels(gen):
     """#7 against its plain version at the fused scoring buckets (B = 64,
-    L = 128, 162); #12 at (64, 128), (64, 162) and (16, 512); #12a and #12b
+    L = 128, 162), timed beside v1chain, and at BLOCK_EDGES; #12 at (64, 128), (64, 162) and (16, 512); #12a and #12b
     each against its plain version on the same inputs at the "flash" mlm
     shapes (160, 128), (128, 162), (16, 512), the autograd Function (all
     three kernels) against the plain backward, and a bitwise repeat. The
@@ -2116,19 +2274,9 @@ def phase_route_kernels(gen):
           "inside; #12 / #12a / #12b the \"flash\" route's segment-masked "
           "attention; plain: fp32 compute on the same bf16 inputs)")
     rows = {k: dict(v) for k, v in ROUTE_ROWS.items()}
-    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
-                        * 0.05).bfloat16()
-    wqkv, bqkv, wo = w(3 * H, H), vec(gen, 3 * H, 0.05), w(H, H)
-    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
-    for L in (128, 162):
-        x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
-        bias = heads(gen, B, L)[3]
-        run_case(rows, "fused_attn_block_v2", B, L, fused_attn_block_v2,
-                 fused_attn_block_v2_plain,
-                 (x, wqkv, bqkv, bias, wo, bo, gamma, beta, N),
-                 2 * B * L * H * 2 + 4 * H * H * 2 + (6 * H + L * B) * 4,
-                 2 * B * L * H * 4 * H + 4 * B * N * L * L * D,
-                 report=L == 162)
+    weights = v2_weights(gen)
+    time_v2(rows, gen, weights, report=True)
+    v2_edges(rows, gen, weights)
     fwd = rows["segment_flash_fwd"]
     for b, L in ((B, 128), (B, 162), (16, 512)):
         q, k, v, bias = heads(gen, b, L)
@@ -2432,10 +2580,11 @@ LAB_ROWS = {
 }
 
 
-def repeat_bitwise(what: str, fn, first):
-    """Fail unless a second call of ``fn`` gives ``first`` bit for bit."""
-    same = torch.equal(fn(), first)
-    print(f"  {what}: two calls bitwise equal: {same}")
+def repeat_bitwise(what: str, fn, first, times: int = 1):
+    """Fail unless each of ``times`` more calls of ``fn`` gives ``first``
+    bit for bit."""
+    same = all(torch.equal(fn(), first) for _ in range(times))
+    print(f"  {what}: {times + 1} calls bitwise equal: {same}")
     if not same:
         fail(f"{what} is not bitwise repeatable")
 
@@ -2570,6 +2719,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if sys.argv[1:] == ["--times"]:
         timed(phase_stream_times, gen)
+        timed(phase_block_times, gen)
         timed(time_mlm_step, card)
         return 1 if FAILURES else 0
     rows = timed(phase_kernels, gen)

@@ -168,14 +168,67 @@ def test_flash_attention_long_refuses(gen):
         flash_attention_long(q.float(), k.float(), v.float(), bias)
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (2, 33), (1, 300), (1, 512)])
-def test_fused_attn_block_kernel_matches_plain(gen, B, L):
-    q, k, v = _heads(gen, B, L, strided=True)
+# the edges of the 64-row query tiles and key tiles of kernels #2 and #7
+# (#7's clusters span a batch row: 2 ceil(L / 64) blocks, 16 at L = 512)
+BLOCK_EDGES = (1, 63, 64, 65, 127, 128, 129, 162, 192, 193, 257, 448, 512)
+# kernel #2: every edge on views into one [B, L, 3H] projection at B = 1-3,
+# contiguous heads at some, one grid past a whole wave of 132 SMs (67 tiles
+# of two blocks), and the lengths of the earlier cases; each call repeated
+# bit for bit, one launch a call
+# a grid past a whole wave is repeated this often more: its blocks start
+# at other times relative to each other, which shows a race one repeat
+# misses
+REPEATS_PAST_A_WAVE = 10
+BLOCK_CASES = ([(1 + i % 3, L, True) for i, L in enumerate(BLOCK_EDGES)]
+               + [(2, L, False) for L in (63, 65, 162, 512)]
+               + [(67, 128, True), (2, 33, True), (1, 300, False)])
+
+
+@pytest.mark.parametrize("B,L,strided", BLOCK_CASES)
+def test_fused_attn_block_kernel_matches_plain(gen, B, L, strided):
+    q, k, v = _heads(gen, B, L, strided=strided)
     args = (q, k, v, _bias(gen, B, L),
             torch.randn(B, L, H, generator=gen, device="cuda").bfloat16(),
             (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16(),
             _vec(gen, H, 0.02), _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1))
-    _close(fused_attn_block(*args), fused_attn_block_plain(*args))
+    before = fused_attn_block.launches
+    out = fused_attn_block(*args)
+    _close(out, fused_attn_block_plain(*args))
+    assert torch.equal(fused_attn_block(*args), out)
+    assert fused_attn_block.launches == before + 2
+    for _ in range(REPEATS_PAST_A_WAVE if B > 3 else 0):
+        assert torch.equal(fused_attn_block(*args), out)
+
+
+def test_fused_attn_block_refuses(gen):
+    """fp32 inputs, L past 512, and bases the kernel's TMA cannot read."""
+    def args(L, **kw):
+        q, k, v = _heads(gen, 1, L, strided=True)
+        a = dict(q=q, k=k, v=v, bias=_bias(gen, 1, L),
+                 x=torch.randn(1, L, H, generator=gen, device="cuda").bfloat16(),
+                 wo=torch.zeros(H, H, device="cuda").bfloat16(),
+                 bo=_vec(gen, H, 0.02), gamma=_vec(gen, H, 0.1, 1.0),
+                 beta=_vec(gen, H, 0.1))
+        a.update(kw)
+        return a
+    a = args(16)
+    with pytest.raises(TypeError):                       # fp32 activations
+        fused_attn_block(**{**a, "x": a["x"].float()})
+    with pytest.raises(TypeError):
+        fused_attn_block(**{**a, **{n: a[n].float() for n in "qkv"}})
+    with pytest.raises(ValueError):                      # past the limit
+        fused_attn_block(**args(513))
+    buf = torch.zeros(16 * H + 1, device="cuda").bfloat16()
+    with pytest.raises(ValueError):                      # x 2 bytes off
+        fused_attn_block(**{**a, "x": buf[1:].view(1, 16, H)})
+    wbuf = torch.zeros(H * H + 1, device="cuda").bfloat16()
+    with pytest.raises(ValueError):                      # wo 2 bytes off
+        fused_attn_block(**{**a, "wo": wbuf[1:].view(H, H)})
+    qbuf = torch.zeros(3 * 16 * H + 8, device="cuda").bfloat16()
+    q, k, v = (t.view(1, 16, N, D) for t in
+               qbuf[4:4 + 3 * 16 * H].view(1, 16, 3 * H).split(H, -1))
+    with pytest.raises(ValueError):                      # heads 8 bytes off
+        fused_attn_block(**{**a, "q": q, "k": k, "v": v})
 
 
 # kernel #3 (a 64-row tile is a cluster of two blocks, one a column half):
@@ -655,15 +708,21 @@ def _v2_args(gen, B, L):
             _vec(gen, H, 0.02), _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1), N)
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (3, 45), (1, 128), (2, 162),
-                                 (1, 257), (1, 512)])
+@pytest.mark.parametrize("B,L", [(1 + i % 3, L) for i, L in
+                                 enumerate(BLOCK_EDGES)]
+                         + [(67, 128), (3, 45), (2, 162), (1, 512)])
 def test_fused_attn_block_v2_kernel_matches_plain(gen, B, L):
-    """L = 45 and 162 end in a ragged query tile; 257 and 512 take the
-    widest score rows."""
+    """BLOCK_EDGES at B = 1-3 (L = 45 and 162 end in a ragged query tile;
+    257 and up take clusters of more than eight blocks), one grid past a
+    whole wave; each call repeated bit for bit, one launch a call."""
     args = _v2_args(gen, B, L)
     before = fused_attn_block_v2.launches
-    _close(fused_attn_block_v2(*args), fused_attn_block_v2_plain(*args))
-    assert fused_attn_block_v2.launches == before + 1
+    out = fused_attn_block_v2(*args)
+    _close(out, fused_attn_block_v2_plain(*args))
+    assert torch.equal(fused_attn_block_v2(*args), out)
+    assert fused_attn_block_v2.launches == before + 2
+    for _ in range(REPEATS_PAST_A_WAVE if B > 3 else 0):
+        assert torch.equal(fused_attn_block_v2(*args), out)
 
 
 def test_fused_attn_block_v2_refuses(gen):
@@ -676,6 +735,14 @@ def test_fused_attn_block_v2_refuses(gen):
     args = _v2_args(gen, 1, 513)                        # past the limit
     with pytest.raises(ValueError):
         fused_attn_block_v2(*args)
+    buf = torch.zeros(16 * H + 1, device="cuda").bfloat16()
+    with pytest.raises(ValueError):                      # x 2 bytes off
+        fused_attn_block_v2(buf[1:].view(1, 16, H), w_qkv, b_qkv, bias, wo,
+                            bo, gamma, beta, n)
+    wbuf = torch.zeros(3 * H * H + 1, device="cuda").bfloat16()
+    with pytest.raises(ValueError):                      # w_qkv 2 bytes off
+        fused_attn_block_v2(x, wbuf[1:].view(3 * H, H), b_qkv, bias, wo, bo,
+                            gamma, beta, n)
     with pytest.raises(RuntimeError):                    # no backward
         fused_attn_block_v2(x.requires_grad_(True), w_qkv, b_qkv, bias, wo,
                             bo, gamma, beta, n)

@@ -71,8 +71,12 @@ def test_flash_attention_plain_matches_pallas(B, L, n):
     assert flash_attention.launches == before     # CPU: no kernel launch
 
 
+# the shapes of the reference's tests, and the edges of the CUDA kernel's
+# 64-row query and key tiles
 @pytest.mark.parametrize("B,L,n,d", [(4, 48, 2, 16), (2, 130, 4, 16),
-                                     (1, 128, 12, 64)])
+                                     (1, 128, 12, 64), (2, 63, 2, 16),
+                                     (1, 64, 2, 16), (2, 65, 2, 16),
+                                     (1, 129, 2, 16)])
 def test_fused_attn_block_plain_matches_pallas(B, L, n, d):
     H = n * d
     rng = np.random.default_rng(B * L + d)

@@ -101,6 +101,21 @@ def test_fused_attn_block_v2_plain_matches_pallas(BB):
     assert fused_attn_block_v2.launches == before      # CPU: no launch
 
 
+@pytest.mark.parametrize("B,L", [(2, 63), (1, 64), (2, 65), (1, 129)])
+def test_fused_attn_block_v2_plain_matches_pallas_at_tile_edges(B, L):
+    """The edges of the CUDA kernel's 64-row query tiles (and of its
+    clusters, one block pair a tile), 2 heads of 16."""
+    n, d = 2, 16
+    x, w_qkv, b_qkv, bias, wo, bo, gamma, beta = _v2_inputs(
+        np.random.default_rng(L), B, L, n, d)
+    want = np.asarray(jfb.fused_attn_block_v2(
+        *map(jnp.asarray, (x, w_qkv, b_qkv, bias, wo, bo, gamma, beta)),
+        n=n, eps=1e-12, interpret=True))
+    got = fused_attn_block_v2(*_t(x, w_qkv.T, b_qkv, bias, wo.T, bo, gamma,
+                                  beta), n, eps=1e-12)
+    np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+
+
 def test_fused_attn_block_v2_plain_at_uc2_base_width():
     """One layer's attention block at uc2-base width (12 heads of 64), B 2,
     L 162, with the layer's weights carried from the reference's parameter

@@ -1,7 +1,9 @@
 // Shared device code of the uc2_torch kernels (sm_90a): bf16 tensor-core
-// products through mma.sync.m16n8k16, warp reductions, the per-head
-// attention routine that attention.cu and the fused blocks run, the fused
-// blocks' out-projection, and their residual + LayerNorm epilogue.
+// products through mma.sync.m16n8k16, warp reductions, and the per-head
+// attention routine, out-projection and residual + LayerNorm epilogue of
+// the whole-layer kernel #8 (fused_layer_block.cu; #9/#10 share the
+// epilogue). The fused attention blocks #2 and #7 are wgmma/TMA kernels
+// of their own (attn_block.cuh).
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]

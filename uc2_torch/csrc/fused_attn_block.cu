@@ -1,67 +1,187 @@
-// Fused attention block for inference:
+// Fused attention block for inference, kernel #2:
 //   out = LayerNorm(x + attention(q, k, v, bias) . Wo^T + bo) * gamma + beta
 //
 // Replaces the TPU kernel uc2_tpu/ops/fused_block.py:_block_kernel
 // (launched by fused_attn_block), which the encoder runs at joint length
-// L >= 128 (the L = 128 and L = 162 retrieval buckets at uc2-base).
+// L >= 128 (the L = 128 and L = 162 retrieval buckets at uc2-base). The
+// property kept from it: the [rows, 768] context, the pre-LayerNorm sum and
+// its statistics never reach device memory. Numbers: attn_block.cuh.
 //
-// What bounds it on an H100: bytes. At B = 64, L = 162, H = 768 it reads
-// q, k, v and x and writes the output, 81 MB, against 17 GFLOP of products:
-// about 24 us at 3.35 TB/s versus 18 us of bf16 tensor work. The design
-// keeps the [rows, 768] context, the pre-LayerNorm sum and its statistics
-// out of device memory. One block of 8 warps per (tile of 32 query rows,
-// batch row) loops over the 12 heads: for each, attend_head (common.cuh)
-// stages K and V^T in shared memory and writes the bf16 context of the head
-// into a [32, 768] tile in shared memory. Then every warp multiplies the
-// tile by its 96 rows of Wo (read from global memory; 1.2 MB, resident
-// in L2) with mma.sync, keeps the fp32 sums in registers, adds bo and the
-// residual x, and normalises each row with fp32 two-pass statistics reduced
-// across the block. Each block re-reads K, V and Wo from L2; larger tiles
-// or a cluster that shares them is the next step for speed.
-#include "common.cuh"
+// Design, for Hopper. A 64-row query tile of one batch row belongs to a
+// cluster of two blocks on neighbouring SMs; block `half` (its cluster
+// rank) computes the context of heads 6 half .. 6 half + 5 and owns output
+// columns 384 half .. + 383. A block holds the tile's [64 x 768] bf16
+// context as twelve swizzled [64 x 64] boxes (96 KB), one a head, and has
+// two consumer warpgroups (240 registers a thread by setmaxnreg) and a
+// producer warpgroup:
+//   * producer warp w loads the Q tiles of consumer warpgroup w's three
+//     heads by TMA straight into their context boxes, then streams K (and
+//     in the second sweep V) tiles of those heads through the warpgroup's
+//     ring of three 16 KB slots (tensor maps over the strided [B, L, n, 64]
+//     heads, so views into the fused QKV projection are read in place);
+//     warp 0 then loads the Wo slots of the out-projection through a ring
+//     of four 24 KB slots laid over the drained K/V rings;
+//   * each consumer warpgroup runs the streamed core's two sweeps (attend)
+//     for its three heads; each head's bf16 context lands over its Q box
+//     and goes to the partner block as one bulk copy into its shared
+//     memory, completing on the partner's barrier of that box (publish_box);
+//   * both warpgroups then compute ctx . Wo^T for the block's 384 columns by
+//     wgmma m64n96k16 (A: the context boxes, own heads first, each waited
+//     for; B: the Wo slots), 96 fp32 accumulators a thread;
+//   * epilogue (residual_ln_store): + bo + x (x's rows read from L2, where
+//     the producer prefetched them), the row statistics merged with the
+//     partner through distributed shared memory, LayerNorm, the bf16 rows
+//     written over the block's own six context boxes and stored by TMA,
+//     which clips the rows >= L.
+//
+// What bounds it on an H100: bytes. At B = 64, L = 162 it reads q, k, v and
+// x and writes the output, 81 MB (0.024 ms at 3.35 TB/s), against 17 GFLOP
+// of products counted once (0.017 ms at 989 TFLOP/s). A block takes in
+// 0.59 MB of Wo (its column half) and its heads' K and V from L2; the two
+// sweeps compute Q . K^T twice (6 L^2 d products a row and head). Timed on
+// the H100 (PERF.md): the attention is about half the time, the Wo stream,
+// which can only start once the K/V rings are drained, most of the rest;
+// two K/V slots a warpgroup instead of three were slower.
+#include "attn_block.cuh"
 
 namespace uc2 {
+namespace blk {
 
-constexpr int BLOCK_WARPS = 8;
-constexpr int BLOCK_ROWS = 32;
+struct Cfg2 {
+  // two consumer warpgroups + a producer warpgroup (two of its warps
+  // work): setmaxnreg moves registers within a block, so the consumers'
+  // 240 come from the producer's whole warpgroup
+  static constexpr int THREADS = 384;
+  static constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+  static constexpr int KV_STAGES = 3;   // K/V slots of each warpgroup's ring
+  static constexpr int WO_STAGES = 4;   // Wo slots, over the drained K/V rings
+  static constexpr int OFF_RING = 12 * BOX;                     // after the context
+  static constexpr int RING_WG = KV_STAGES * 2 * BOX;           // K slots, then V slots
+  static constexpr int OFF_BIAS = OFF_RING + 2 * RING_WG;       // [64 T] fp32
+  static constexpr int OFF_RED = OFF_BIAS + MAX_LEN * 4;
+  static constexpr int OFF_BAR = OFF_RED + RED_BYTES;
+  // q[2], full[2][KV], empty[2][KV], ctx[12], wfull[WO], wempty[WO]
+  static constexpr int N_BARS = 2 + 4 * KV_STAGES + 12 + 2 * WO_STAGES;
+  static constexpr int SMEM = OFF_BAR + N_BARS * 8 + 1024;  // + the 1024-byte alignment
+};
+static_assert(Cfg2::WO_STAGES * WO_SLOT <= 2 * Cfg2::RING_WG, "Wo ring over the K/V rings");
+static_assert(Cfg2::SMEM <= 232448, "shared memory of one block");
 
-template <int NC>
-__global__ void __launch_bounds__(BLOCK_WARPS * 32)
-    fused_attn_block_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const float* __restrict__ bias,
-                            const bf16* __restrict__ x, const bf16* __restrict__ wo,
+__global__ void __launch_bounds__(Cfg2::THREADS, 1)
+    fused_attn_block_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap wom,
+                            const __grid_constant__ CUtensorMap omap,
+                            const float* __restrict__ bias, const bf16* __restrict__ x,
                             const float* __restrict__ bo, const float* __restrict__ gamma,
-                            const float* __restrict__ beta, bf16* __restrict__ out,
-                            int L, int n, int rs, float scale, float eps) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int q0 = blockIdx.x * BLOCK_ROWS, b = blockIdx.y;
-  const int rows = min(BLOCK_ROWS, L - q0);
-  const size_t attend_bytes = attend_smem_bytes(BLOCK_ROWS, L);
-  bf16* ctx = reinterpret_cast<bf16*>(smem + attend_bytes);
-  float* red = reinterpret_cast<float*>(ctx + BLOCK_ROWS * ROW_STRIDE);
-  const size_t base = (size_t)b * L * rs;
-  for (int h = 0; h < n; ++h) {
-    const size_t hb = base + (size_t)h * HEAD_DIM;
-    attend_head<BLOCK_WARPS, BLOCK_ROWS, NC>(q + hb, k + hb, v + hb, rs,
-                                         bias + (size_t)b * L, L, q0, scale, smem,
-                                         ctx + h * HEAD_DIM, ROW_STRIDE, BLOCK_ROWS);
+                            const float* __restrict__ beta, int L, int T, float scale_log2,
+                            float eps) {
+  using C = Cfg2;
+  constexpr int KS = C::KV_STAGES, WS = C::WO_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* sbias = reinterpret_cast<float*>(smem + C::OFF_BIAS);
+  float* red = reinterpret_cast<float*>(smem + C::OFF_RED);
+  const uint32_t qbar = base + C::OFF_BAR, full = qbar + 16, empty = full + 16 * KS,
+                 cbar = empty + 16 * KS, wfull = cbar + 8 * 12, wempty = wfull + 8 * WS;
+  const int half = (int)cluster_rank(), partner = half ^ 1;
+  const int tile = blockIdx.x >> 1, b = tile / T, q0 = 64 * (tile % T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < 64 * T; i += C::THREADS)
+    sbias[i] = i < L ? bias[(size_t)b * L + i] * LOG2E : -INFINITY;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) mbar_init(qbar + 8 * w, 1);
+    for (int s = 0; s < 2 * KS; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer warp's lane 0 (+ the bytes)
+      mbar_init(empty + 8 * s, 4);  // the consumer warpgroup's warps
+    }
+    for (int h = 0; h < 12; ++h) mbar_init(cbar + 8 * h, 1);  // the box's writer
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);  // both warpgroups' warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  cluster_sync();  // the partner's barriers exist before any remote arrive
 
-  // y = ctx . Wo^T: this warp's 96 output columns (out_col) for all 32 rows
-  float acc[2][12][4];
-  ctx_out_projection(ctx, wo, acc);
-  const size_t row0 = (size_t)b * L + q0;
-  residual_layernorm(acc, bo, x + row0 * HIDDEN, HIDDEN, gamma, beta, eps,
-                     out + row0 * HIDDEN, rows, red);
+  if (warp >= 8) {  // ---------------------------------------------- producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    const int w = warp - 8;  // the consumer warpgroup this warp feeds (0, 1)
+    if (w == 1 && lane > 0) {  // x's rows of this half, for the epilogue
+      for (int rr = lane - 1; rr < 64 && q0 + rr < L; rr += 31)
+        prefetch_l2(x + ((size_t)b * L + q0 + rr) * HIDDEN + 384 * half, 768);
+    }
+    if (w < 2) {
+      const uint32_t wq = qbar + 8 * w, wf = full + 8 * KS * w, we = empty + 8 * KS * w;
+      if (lane == 0) {
+        const uint32_t kring = base + C::OFF_RING + w * C::RING_WG, vring = kring + KS * BOX;
+        mbar_arrive_expect_tx(wq, 3 * BOX);
+        for (int j = 0; j < 3; ++j) {
+          const int h = 6 * half + 3 * w + j;
+          tma_load(base + h * BOX, &qmap, wq, h, q0, b);
+        }
+        int s = 0;
+        for (int j = 0; j < 3; ++j) {
+          const int h = 6 * half + 3 * w + j;
+          for (int step = 0; step < 2 * T; ++step, ++s) {
+            const int st = s % KS;
+            const bool with_v = step >= T;
+            mbar_wait(we + 8 * st, ((s / KS) & 1) ^ 1);
+            mbar_arrive_expect_tx(wf + 8 * st, (with_v ? 2 : 1) * BOX);
+            tma_load(kring + st * BOX, &kmap, wf + 8 * st, h, 64 * (step % T), b);
+            if (with_v) tma_load(vring + st * BOX, &vmap, wf + 8 * st, h, 64 * (step - T), b);
+          }
+        }
+        // this warp's ring given back (a parity wait is only sure on the
+        // ring of the warp that filled it: the other may lag a phase)
+        for (int e = s; e < s + KS; ++e) mbar_wait(we + 8 * (e % KS), ((e / KS) & 1) ^ 1);
+      }
+      __syncwarp();
+      asm volatile("bar.sync 3, 64;\n" ::: "memory");  // both rings given back
+      if (w == 0 && lane == 0)  // the Wo ring over them
+        load_wo(&wom, base + C::OFF_RING, WS, WO_SLOT, wfull, wempty, half);
+    }
+    __syncwarp();
+    cluster_sync();  // the consumers' two LayerNorm exchanges
+    cluster_sync();
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+  const int w = warp >> 2;
+  const uint32_t kring = base + C::OFF_RING + w * C::RING_WG;
+  spin_wait(qbar + 8 * w, 0);
+  for (int j = 0; j < 3; ++j) {
+    const int h = 6 * half + 3 * w + j;
+    const RingKV<KS> src{kring, kring + KS * BOX, full + 8 * KS * w, empty + 8 * KS * w,
+                         2 * T * j};
+    attend(base + h * BOX, smem + h * BOX, sbias, T, scale_log2, src);
+    publish_box(base + h * BOX, cbar + 8 * h, partner, w);
+  }
+  float y[2][48];
+  out_projection(y, base + C::OFF_RING, WS, WO_SLOT, wfull, wempty, w, [&](int i) {
+    const int kb = kbox(i, half);
+    spin_wait(cbar + 8 * kb, 0);
+    return base + kb * BOX;
+  });
+  residual_ln_store(y, half, w, bo, x + ((size_t)b * L + q0) * HIDDEN, L - q0, gamma, beta, eps,
+                    red, partner, smem + 6 * half * BOX, base + 6 * half * BOX, &omap, q0, b);
 }
 
+}  // namespace blk
 }  // namespace uc2
 
-// q, k, v: [B, L, n, 64] bf16, tokens rs elements apart (n * 64 == 768);
-// bias [B, L] fp32; x, out [B, L, 768] bf16; wo [768, 768] bf16 as
-// nn.Linear stores it ([out, in]); bo, gamma, beta [768] fp32.
-// Returns cudaGetLastError().
+// q, k, v: [B, L, n, 64] bf16, tokens rs elements apart (rs a multiple of
+// 8, 16-byte-aligned bases; n * 64 == 768); bias [B, L] fp32; x, out
+// [B, L, 768] bf16 contiguous, 16-byte aligned; wo [768, 768] bf16 as
+// nn.Linear stores it ([out, in]); bo, gamma, beta [768] fp32;
+// 1 <= L <= 512. Returns cudaGetLastError().
 extern "C" int uc2_fused_attn_block(const void* q, const void* k, const void* v,
                                     const void* bias, const void* x, const void* wo,
                                     const void* bo, const void* gamma,
@@ -69,21 +189,18 @@ extern "C" int uc2_fused_attn_block(const void* q, const void* k, const void* v,
                                     int n, int rs, float scale, float eps,
                                     void* stream) {
   using namespace uc2;
-  const size_t smem = attend_smem_bytes(BLOCK_ROWS, L) +
-                      (size_t)BLOCK_ROWS * ROW_STRIDE * 2 + BLOCK_WARPS * 32 * 4;
-  return with_score_chunks(L, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
-    auto kernel = fused_attn_block_kernel<NC>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((L + BLOCK_ROWS - 1) / BLOCK_ROWS, B);
-    kernel<<<grid, BLOCK_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const float*>(bias),
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wo),
-        static_cast<const float*>(bo), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<bf16*>(out), L, n, rs, scale, eps);
-    return (int)cudaGetLastError();
-  });
+  using namespace uc2::stream;
+  if (B < 1 || L < 1 || L > MAX_LEN || n * HEAD_DIM != HIDDEN) return (int)cudaErrorInvalidValue;
+  const int T = (L + 63) / 64;
+  CUtensorMap qm, km, vm, wom, om;
+  const size_t rb = (size_t)rs * 2;
+  if (!heads_map(&qm, q, B, L, n, rb, 64) || !heads_map(&km, k, B, L, n, rb, 64) ||
+      !heads_map(&vm, v, B, L, n, rb, 64) ||
+      !map_2d(&wom, wo, HIDDEN, HIDDEN, blk::WO_ROWS) || !rows_map_3d(&om, out, B, L))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(blk::fused_attn_block_kernel, 2 * T * B, blk::Cfg2::THREADS, 2,
+                         blk::Cfg2::SMEM, static_cast<cudaStream_t>(stream), qm, km, vm, wom,
+                         om, static_cast<const float*>(bias), static_cast<const bf16*>(x),
+                         static_cast<const float*>(bo), static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), L, T, scale * LOG2E, eps);
 }

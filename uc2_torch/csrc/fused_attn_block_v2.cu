@@ -1,4 +1,4 @@
-// Fused attention block with the QKV projection inside the kernel:
+// Fused attention block with the QKV projection inside the kernel, #7:
 //   q_h, k_h, v_h = bf16(x . W_h^T + b_h)          (bias added in fp32)
 //   out = LayerNorm(x + sum_h attention(q_h, k_h, v_h, bias) . Wo_h^T + bo)
 //
@@ -6,256 +6,280 @@
 // (launched by fused_attn_block_v2), which the reference's encoder runs on
 // the fused inference route (L >= 128 under "pallas", every L under
 // "fused-force") when UC2_ATTN_V2 is set. Its point there is that the
-// [B, L, 3H] projection never reaches device memory.
+// [B, L, 3H] projection never reaches device memory; here it never leaves
+// shared memory and registers either.
 //
 // Rounding is #7's, not the eager chain's: the projection's fp32 sum gets
 // its fp32 bias before the bf16 rounding (the eager Dense rounds first).
-// The rest is fused_attn_block.cu's (#2): fp32 scores * scale + bias, fp32
-// softmax, P rounded to bf16 after normalising, the bf16 context of each
-// head times its 64 rows of Wo summed in fp32, + bo + x, two-pass LN.
+// The rest is #2's (attn_block.cuh).
 //
-// Design (simple first): one block of 8 warps per (32 query rows, batch
-// row), shared memory as #2's (bias row, 32 fp32 score rows, one [Lp, 64]
-// region, the [32, 768] context tile; 192 KB at L = 512). For each head:
-//   1. Q_h of the tile's 32 rows, projected into the head's 64 columns of
-//      the context tile (free until the head's context lands there), and
-//      K_h of all L rows projected into the K/V region; A fragments of x
-//      and B fragments of the weights come from device memory (L2);
-//   2. scores and softmax as attend_head (common.cuh);
-//   3. V_h of all rows projected into the same region, transposed;
-//   4. P . V_h into the head's context columns.
-// Then the out-projection and residual_layernorm exactly as #2.
+// Design, for Hopper, on #2's pieces. A cluster spans one batch row: block
+// 2 i + half takes the row's 64-row query tile i (T = ceil(L / 64) tiles,
+// so 2 T <= 16 blocks; above 8 a non-portable cluster size) and the heads
+// and output columns of column half `half`, as in #2. Each K_h and V_h row
+// is projected once, by the tile that owns it, and shared:
+//   * the producer warp streams, for each of the block's six heads and each
+//     64-input step, x's [64 x 64] box and W_h's three [64 x 64] boxes
+//     (its q, k and v rows) into one 32 KB slot of a ring (TMA; x's rows
+//     past L read as zeros), then the Wo slots as #2 does;
+//   * consumer warpgroup 1 projects: [Q_h | K_h | V_h] of the tile, 64 x 192,
+//     by wgmma m64n96k16 (96 fp32 accumulators a thread), adds the fp32
+//     bias and rounds to bf16; it writes Q_h into the head's context box and
+//     the K_h and V_h tiles into this block's row buffer of the head, then
+//     sends those two tiles to the other T - 1 blocks of its half by bulk
+//     copies into their row buffers (completing on their "K/V in"
+//     barrier). It projects head k + 1 while warpgroup 0 attends head k,
+//     and writes it once every block of its half has released head k
+//     (a "K/V free" barrier each block arrives on remotely);
+//   * consumer warpgroup 0 attends: #2's two sweeps (attend) over the whole
+//     row held in shared memory, the context over the Q box;
+//   * after the six heads each block sends its six context boxes into the
+//     partner's (2 i + (half ^ 1)) row buffer, free by then; both
+//     warpgroups compute ctx . Wo^T and run #2's epilogue.
+// Shared memory: six context boxes (48 KB), the row buffer (2 T boxes,
+// at least six: up to 128 KB at L = 512), and the ring: three slots up
+// to L = 256, two up to L = 384, one above (no load then runs under a
+// product: L > 384 is off the scoring path).
 //
 // What bounds it on an H100: operations. At (B, L) = (64, 162) the block
 // needs 2 B L 768 3072 + 4 B 12 L^2 64 = 54.1 GFLOP (0.055 ms at 989
-// TFLOP/s) against 32 MB of x and output. The price of this design: each
-// query tile recomputes K_h and V_h for the whole row, ceil(L / 32) = 6
-// times at L = 162 (about 2.7x the block's products), all through
-// mma.sync with operands read from L2. Sharing the projection across a
-// row's tiles (a cluster, or larger tiles) is later work.
-#include "common.cuh"
+// TFLOP/s) against 32 MB of x and output. A block takes in 2.9 MB from L2
+// (its six heads' W rows, x six times, its half of Wo): 64 rows a tile
+// give 64 FLOP a weight byte, so the weight stream sets the pace, as in #3.
+// Timed on the H100 (PERF.md): at most 17 clusters of six blocks are
+// resident (102 of 132 SMs) at L = 162, 30 of four at L = 128; a second
+// row buffer, so that head k + 1 is written while head k is attended,
+// was no faster.
+#include "attn_block.cuh"
 
 namespace uc2 {
+namespace blk {
 
-constexpr int V2_WARPS = 8;
-constexpr int V2_ROWS = 32;
-
-// acc[mi][j] (+)= X . W^T over the HIDDEN inputs for the m-tiles mt[mi]
-// (rows 16 mt + g and + 8 of x, read as 0 past L) and the 64 outputs of
-// one head's section of the weights: w points at its first [HIDDEN] row;
-// n-tile j is output columns 8 j .. 8 j + 7.
-template <int MI>
-__device__ __forceinline__ void project_rows(float (&acc)[MI][8][4],
-                                             const bf16* __restrict__ x, int L,
-                                             const int (&mt)[MI],
-                                             const bf16* __restrict__ w) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
-  for (int ks = 0; ks < HIDDEN / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const int r0 = mt[mi] * 16 + g, r1 = r0 + 8;
-      a[mi][0] = r0 < L ? ldg32(x + (size_t)r0 * HIDDEN + c) : 0u;
-      a[mi][1] = r1 < L ? ldg32(x + (size_t)r1 * HIDDEN + c) : 0u;
-      a[mi][2] = r0 < L ? ldg32(x + (size_t)r0 * HIDDEN + c + 8) : 0u;
-      a[mi][3] = r1 < L ? ldg32(x + (size_t)r1 * HIDDEN + c + 8) : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* wr = w + (size_t)(j * 8 + g) * HIDDEN + c;
-      const uint32_t b0 = ldg32(wr), b1 = ldg32(wr + 8);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma16816(acc[mi][j], a[mi], b0, b1);
-    }
+struct Cfg7 {
+  // two consumer warpgroups + a producer warpgroup (one of its warps
+  // works), whose registers setmaxnreg gives to the consumers
+  static constexpr int THREADS = 384;
+  static constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+  static constexpr int SLOT = 4 * BOX;  // x, W_q, W_k, W_v boxes of one input step
+  static constexpr int MAX_STAGES = 3;
+  static constexpr int OFF_BIAS = 0;
+  static constexpr int OFF_RED = OFF_BIAS + MAX_LEN * 4;
+  static constexpr int OFF_BAR = OFF_RED + RED_BYTES;
+  // kv in, kv free, partner ready, partner ctx, pfull/pempty[3], wfull/wempty[3]
+  static constexpr int N_BARS = 4 + 4 * MAX_STAGES;
+  static constexpr int OFF_CTX = 5 * 1024;  // 1024-aligned, after the barriers
+  static constexpr int OFF_KV = OFF_CTX + 6 * BOX;
+  static constexpr int SMEM_MAX = 232448;
+  __host__ __device__ static int kv_bytes(int T) { return (2 * T > 6 ? 2 * T : 6) * BOX; }
+  __host__ __device__ static int stages(int T) {
+    const int s = (SMEM_MAX - 1024 - OFF_KV - kv_bytes(T)) / SLOT;
+    return s < MAX_STAGES ? s : MAX_STAGES;
   }
-}
-
-// K_h (TRANSPOSE false: [Lp][K_STRIDE]) or V_h^T (TRANSPOSE true:
-// [HEAD_DIM][vt_stride(Lp)]) of every row of x into dst, as
-// bf16(x . W_h^T + b_h). Warp w takes the m-tiles w, w + 8 (together),
-// w + 16, w + 24 and so on.
-template <bool TRANSPOSE>
-__device__ void project_head(const bf16* __restrict__ x, int L,
-                             const bf16* __restrict__ w, const float* __restrict__ bh,
-                             bf16* dst) {
-  const int Lp = padded_len(L), n_mt = Lp / 16, VS = vt_stride(Lp);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  auto store = [&](const float (&acc)[8][4], int mtile) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j * 8 + t * 2;
-      const float b0 = bh[col], b1 = bh[col + 1];
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int r = mtile * 16 + g + 8 * hi;
-        const float v0 = acc[j][2 * hi] + b0, v1 = acc[j][2 * hi + 1] + b1;
-        if (TRANSPOSE) {
-          dst[col * VS + r] = __float2bfloat16(v0);
-          dst[(col + 1) * VS + r] = __float2bfloat16(v1);
-        } else {
-          *reinterpret_cast<uint32_t*>(dst + r * K_STRIDE + col) = pack2(v0, v1);
-        }
-      }
-    }
-  };
-  for (int mt0 = warp; mt0 < n_mt; mt0 += 2 * V2_WARPS) {
-    if (mt0 + V2_WARPS < n_mt) {
-      const int mt[2] = {mt0, mt0 + V2_WARPS};
-      float acc[2][8][4];
-      project_rows<2>(acc, x, L, mt, w);
-      store(acc[0], mt[0]);
-      store(acc[1], mt[1]);
-    } else {
-      const int mt[1] = {mt0};
-      float acc[1][8][4];
-      project_rows<1>(acc, x, L, mt, w);
-      store(acc[0], mt0);
-    }
+  __host__ __device__ static int smem(int T) {
+    return 1024 + OFF_KV + kv_bytes(T) + stages(T) * SLOT;
   }
-}
+};
+static_assert(Cfg7::OFF_BAR + Cfg7::N_BARS * 8 <= Cfg7::OFF_CTX, "barriers before the boxes");
+static_assert(WO_SLOT <= Cfg7::SLOT, "a Wo slot in a ring slot");
 
-template <int NC>
-__global__ void __launch_bounds__(V2_WARPS * 32)
-    fused_attn_block_v2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_qkv,
-                               const float* __restrict__ b_qkv, const float* __restrict__ bias,
-                               const bf16* __restrict__ wo, const float* __restrict__ bo,
+__global__ void __launch_bounds__(Cfg7::THREADS, 1)
+    fused_attn_block_v2_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap wmap,
+                               const __grid_constant__ CUtensorMap wom,
+                               const __grid_constant__ CUtensorMap omap,
+                               const bf16* __restrict__ x, const float* __restrict__ b_qkv,
+                               const float* __restrict__ bias, const float* __restrict__ bo,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                               bf16* __restrict__ out, int L, int n, float scale, float eps) {
-  constexpr int QT = V2_ROWS, MT = QT / 16, WPM = V2_WARPS / MT;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int q0 = blockIdx.x * QT, b = blockIdx.y;
-  const int rows = min(QT, L - q0);
-  const int Lp = padded_len(L), SF = score_stride(Lp);
-  const AttnSmem sm = attn_smem(smem, Lp, QT);
-  bf16* ctx = reinterpret_cast<bf16*>(smem + attend_smem_bytes(QT, L));
-  float* red = reinterpret_cast<float*>(ctx + QT * ROW_STRIDE);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* xb = x + (size_t)b * L * HIDDEN;
-  const bf16* xq = xb + (size_t)q0 * HIDDEN;   // the tile's rows
+                               int L, int T, float scale_log2, float eps) {
+  using C = Cfg7;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* sbias = reinterpret_cast<float*>(smem + C::OFF_BIAS);
+  float* red = reinterpret_cast<float*>(smem + C::OFF_RED);
+  const int NS = C::stages(T);
+  const uint32_t kvin = base + C::OFF_BAR, kvfree = kvin + 8, pready = kvfree + 8,
+                 pctx = pready + 8, pfull = pctx + 8, pempty = pfull + 8 * C::MAX_STAGES,
+                 wfull = pempty + 8 * C::MAX_STAGES, wempty = wfull + 8 * C::MAX_STAGES;
+  const uint32_t ctx = base + C::OFF_CTX, kv = base + C::OFF_KV;
+  const uint32_t ring = kv + C::kv_bytes(T);
+  const int rank = (int)cluster_rank(), half = rank & 1, tile = rank >> 1;
+  const uint32_t partner = rank ^ 1;
+  const int b = blockIdx.x / (2 * T), q0 = 64 * tile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int i = tid; i < Lp; i += V2_WARPS * 32)
-    sm.bias[i] = i < L ? bias[(size_t)b * L + i] : -INFINITY;
-
-  for (int h = 0; h < n; ++h) {
-    const bf16* wq = w_qkv + (size_t)(h * HEAD_DIM) * HIDDEN;
-    const bf16* wk = wq + (size_t)HIDDEN * HIDDEN;
-    const bf16* wv = wk + (size_t)HIDDEN * HIDDEN;
-    const float* bq = b_qkv + h * HEAD_DIM;
-    __syncthreads();  // the previous head's readers of K/V and S are done
-
-    // 1. Q_h of the tile into ctx[:, 64 h ..]: m-tile warp & 1, n-tiles
-    //    2 (warp >> 1) and + 1; then K_h of every row
-    {
-      const int m = warp & 1, j0 = (warp >> 1) * 2;
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const int r0 = m * 16 + g, r1 = r0 + 8;
-      for (int ks = 0; ks < HIDDEN / 16; ++ks) {
-        const int c = ks * 16 + t * 2;
-        uint32_t a[4];
-        a[0] = r0 < rows ? ldg32(xq + (size_t)r0 * HIDDEN + c) : 0u;
-        a[1] = r1 < rows ? ldg32(xq + (size_t)r1 * HIDDEN + c) : 0u;
-        a[2] = r0 < rows ? ldg32(xq + (size_t)r0 * HIDDEN + c + 8) : 0u;
-        a[3] = r1 < rows ? ldg32(xq + (size_t)r1 * HIDDEN + c + 8) : 0u;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const bf16* wr = wq + (size_t)((j0 + jj) * 8 + g) * HIDDEN + c;
-          mma16816(acc[jj], a, ldg32(wr), ldg32(wr + 8));
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = (j0 + jj) * 8 + t * 2;
-        const float b0 = bq[col], b1 = bq[col + 1];
-        bf16* cq = ctx + h * HEAD_DIM + col;
-        *reinterpret_cast<uint32_t*>(cq + r0 * ROW_STRIDE) = pack2(acc[jj][0] + b0, acc[jj][1] + b1);
-        *reinterpret_cast<uint32_t*>(cq + r1 * ROW_STRIDE) = pack2(acc[jj][2] + b0, acc[jj][3] + b1);
-      }
+  for (int i = threadIdx.x; i < 64 * T; i += C::THREADS)
+    sbias[i] = i < L ? bias[(size_t)b * L + i] * LOG2E : -INFINITY;
+  if (threadIdx.x == 0) {
+    mbar_init(kvin, T);     // this block's projector + the other T - 1 tiles' (+ bytes)
+    mbar_init(kvfree, T);   // the attending warpgroup of each tile of this half
+    mbar_init(pready, 1);   // the partner: its row buffer is free for this block's context
+    mbar_init(pctx, 1);     // the partner's six context boxes (+ bytes)
+    for (int s = 0; s < C::MAX_STAGES; ++s) {
+      mbar_init(pfull + 8 * s, 1);
+      mbar_init(pempty + 8 * s, 4);  // the projecting warpgroup's warps
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);  // both warpgroups' warps
     }
-    project_head<false>(xb, L, wk, bq + HIDDEN, sm.KV);
-    __syncthreads();
-
-    // 2. scores of the tile's rows: m-tile warp % MT, every WPM-th key tile
-    {
-      const int m = warp % MT, wj = warp / MT;
-      uint32_t qa[HEAD_DIM / 16][4];
-      const bf16* qr = ctx + (m * 16 + g) * ROW_STRIDE + h * HEAD_DIM + t * 2;
-#pragma unroll
-      for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
-        qa[ks][0] = ld32(qr + ks * 16);
-        qa[ks][1] = ld32(qr + 8 * ROW_STRIDE + ks * 16);
-        qa[ks][2] = ld32(qr + ks * 16 + 8);
-        qa[ks][3] = ld32(qr + 8 * ROW_STRIDE + ks * 16 + 8);
-      }
-      for (int j = wj; j < Lp / 8; j += WPM) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
-          const bf16* kr = sm.KV + (j * 8 + g) * K_STRIDE + ks * 16 + t * 2;
-          mma16816(c, qa[ks], ld32(kr), ld32(kr + 8));
-        }
-        const int key = j * 8 + t * 2;
-        const float b0 = sm.bias[key], b1 = sm.bias[key + 1];
-        float* s0 = sm.S + (m * 16 + g) * SF + key;
-        *reinterpret_cast<float2*>(s0) = make_float2(c[0] * scale + b0, c[1] * scale + b1);
-        *reinterpret_cast<float2*>(s0 + 8 * SF) = make_float2(c[2] * scale + b0, c[3] * scale + b1);
-      }
-    }
-    __syncthreads();
-
-    // 3. softmax rows (S only), then V_h^T over K (no one reads K any more)
-    attn_softmax<V2_WARPS, QT, NC>(L, smem);
-    project_head<true>(xb, L, wv, bq + 2 * HIDDEN, sm.KV);
-    __syncthreads();
-
-    // 4. the head's context over its Q_h columns
-    attn_pv_product<V2_WARPS, QT>(L, smem, ctx + h * HEAD_DIM, ROW_STRIDE, QT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  cluster_sync();  // every block's barriers exist before any remote arrive
 
-  // y = ctx . Wo^T: this warp's 96 output columns (out_col) for all 32 rows
-  float acc[2][12][4];
-  ctx_out_projection(ctx, wo, acc);
-  const size_t row0 = (size_t)b * L + q0;
-  residual_layernorm(acc, bo, x + row0 * HIDDEN, HIDDEN, gamma, beta, eps,
-                     out + row0 * HIDDEN, rows, red);
+  if (warp >= 8) {  // ------------------------------------------- producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
+      int s = 0;
+      for (int k = 0; k < 6; ++k) {
+        const int h = 6 * half + k;
+        for (int ks = 0; ks < HIDDEN / 64; ++ks, ++s) {
+          const int st = s % NS;
+          mbar_wait(pempty + 8 * st, ((s / NS) & 1) ^ 1);
+          mbar_arrive_expect_tx(pfull + 8 * st, C::SLOT);
+          const uint32_t slot = ring + st * C::SLOT, bar = pfull + 8 * st;
+          tma_load_3d(slot, &xmap, bar, 64 * ks, q0, b);
+          for (int part = 0; part < 3; ++part)
+            tma_load_2d(slot + (1 + part) * BOX, &wmap, bar, 64 * ks, HIDDEN * part + 64 * h);
+        }
+      }
+      for (int e = s; e < s + NS; ++e)  // the ring given back, then Wo over it
+        mbar_wait(pempty + 8 * (e % NS), ((e / NS) & 1) ^ 1);
+      load_wo(&wom, ring, NS, C::SLOT, wfull, wempty, half);
+    }
+    __syncwarp();
+    cluster_sync();  // the consumers' two LayerNorm exchanges
+    cluster_sync();
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+  const int w = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const int r = wl * 16 + g;  // this thread's rows: r and r + 8 of the tile
+  if (w == 1) {  // projector
+    int s = 0;
+    for (int k = 0; k < 6; ++k) {
+      const int h = 6 * half + k;
+      float acc[2][48];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 48; ++i) acc[p][i] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < HIDDEN / 64; ++ks, ++s) {
+        const int st = s % NS;
+        spin_wait(pfull + 8 * st, (s / NS) & 1);
+        const uint32_t slot = ring + st * C::SLOT;
+        const uint64_t da = sw128_desc(slot);
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint64_t db = sw128_desc(slot + BOX + p * WO_ROWS * 128);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_ss_n96(acc[p], da + 2 * kk, db + 2 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc[0]);
+        fence_regs(acc[1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(pempty + 8 * st);
+      }
+      // every tile of this half done with head k - 1 before its buffers
+      // are written
+      if (k > 0) spin_wait(kvfree, (k - 1) & 1);
+      // + the fp32 bias, bf16: column c of the 192 is part c / 64 (q, k, v),
+      // head dim c % 64; into Q_h's context box or the row buffer's tile
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int cc = 0; cc < 12; ++cc) {
+          const int c = WO_ROWS * p + 8 * cc + 2 * t, part = c >> 6, d = c & 63;
+          const float2 bb =
+              *reinterpret_cast<const float2*>(b_qkv + HIDDEN * part + 64 * h + d);
+          const uint32_t dst = part == 0 ? ctx + k * BOX
+                                         : kv + ((part - 1) * T + tile) * BOX;
+          uint8_t* dp = smem + (dst - base) + (((d >> 3) ^ g) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(dp + r * 128) =
+              pack2(acc[p][4 * cc] + bb.x, acc[p][4 * cc + 1] + bb.y);
+          *reinterpret_cast<uint32_t*>(dp + (r + 8) * 128) =
+              pack2(acc[p][4 * cc + 2] + bb.x, acc[p][4 * cc + 3] + bb.y);
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+      if (wl == 0 && lane == 0) {
+        mbar_arrive(kvin);
+        for (int j = 0; j < T; ++j) {
+          if (j == tile) continue;
+          const uint32_t peer = 2 * j + half, pbar = peer_addr(kvin, peer);
+          mbar_arrive_expect_tx_cluster(pbar, 2 * BOX);
+          for (int part = 0; part < 2; ++part) {
+            const uint32_t src = kv + (part * T + tile) * BOX;
+            bulk_copy_to_peer(peer_addr(src, peer), src, BOX, pbar);
+          }
+        }
+      }
+    }
+  } else {  // attender
+    for (int k = 0; k < 6; ++k) {
+      spin_wait(kvin, k & 1);
+      attend(ctx + k * BOX, smem + (ctx - base) + k * BOX, sbias, T, scale_log2,
+             RowKV{kv, kv + T * BOX, T});
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (wl == 0 && lane == 0)  // head k's row buffers free in this block
+        for (int j = 0; j < T; ++j) mbar_arrive_cluster(peer_addr(kvfree, 2 * j + half));
+    }
+    // the six context boxes into the partner's row buffer, once it is free
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (wl == 0 && lane == 0) {
+      mbar_arrive_cluster(peer_addr(pready, partner));
+      spin_wait(pready, 0);
+      const uint32_t pbar = peer_addr(pctx, partner);
+      mbar_arrive_expect_tx_cluster(pbar, 6 * BOX);
+      for (int k = 0; k < 6; ++k)
+        bulk_copy_to_peer(peer_addr(kv + k * BOX, partner), ctx + k * BOX, BOX, pbar);
+    }
+  }
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");  // this block's six boxes are in
+
+  float y[2][48];
+  out_projection(y, ring, NS, C::SLOT, wfull, wempty, w, [&](int i) {
+    if (i < 6) return ctx + i * BOX;
+    if (i == 6) spin_wait(pctx, 0);
+    return kv + (i - 6) * BOX;
+  });
+  residual_ln_store(y, half, w, bo, x + ((size_t)b * L + q0) * HIDDEN, L - q0, gamma, beta, eps,
+                    red, partner, smem + (ctx - base), ctx, &omap, q0, b);
 }
 
+}  // namespace blk
 }  // namespace uc2
 
-// x, out: [B, L, 768] bf16 contiguous; w_qkv [2304, 768] bf16 as
-// nn.Linear stores it (rows of q, then k, then v; head h's 64 rows at
-// 64 h of each); b_qkv [2304], bias [B, L], bo, gamma, beta [768] fp32;
-// wo [768, 768] bf16 ([out, in]); n * 64 == 768, 1 <= L <= 512.
-// Returns cudaGetLastError().
+// x, out: [B, L, 768] bf16 contiguous (16-byte aligned); w_qkv [2304, 768]
+// bf16 as nn.Linear stores it (rows of q, then k, then v; head h's 64 rows
+// at 64 h of each), 16-byte aligned; b_qkv [2304], bias [B, L], bo, gamma,
+// beta [768] fp32; wo [768, 768] bf16 ([out, in]); n * 64 == 768,
+// 1 <= L <= 512. Returns cudaGetLastError().
 extern "C" int uc2_fused_attn_block_v2(const void* x, const void* w_qkv, const void* b_qkv,
                                        const void* bias, const void* wo, const void* bo,
                                        const void* gamma, const void* beta, void* out,
                                        int B, int L, int n, float scale, float eps,
                                        void* stream) {
   using namespace uc2;
-  if (L < 1 || L > MAX_LEN || n * HEAD_DIM != HIDDEN) return (int)cudaErrorInvalidValue;
-  const size_t smem = attend_smem_bytes(V2_ROWS, L) +
-                      (size_t)V2_ROWS * ROW_STRIDE * 2 + V2_WARPS * 32 * 4;
-  return with_score_chunks(L, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
-    auto kernel = fused_attn_block_v2_kernel<NC>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((L + V2_ROWS - 1) / V2_ROWS, B);
-    kernel<<<grid, V2_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w_qkv),
-        static_cast<const float*>(b_qkv), static_cast<const float*>(bias),
-        static_cast<const bf16*>(wo), static_cast<const float*>(bo),
-        static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        static_cast<bf16*>(out), L, n, scale, eps);
-    return (int)cudaGetLastError();
-  });
+  using namespace uc2::stream;
+  using C = blk::Cfg7;
+  if (B < 1 || L < 1 || L > MAX_LEN || n * HEAD_DIM != HIDDEN) return (int)cudaErrorInvalidValue;
+  const int T = (L + 63) / 64;
+  CUtensorMap xm, wm, wom, om;
+  if (!rows_map_3d(&xm, x, B, L) || !map_2d(&wm, w_qkv, HIDDEN, 3 * HIDDEN, 64) ||
+      !map_2d(&wom, wo, HIDDEN, HIDDEN, blk::WO_ROWS) || !rows_map_3d(&om, out, B, L))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(blk::fused_attn_block_v2_kernel, 2 * T * B, C::THREADS, 2 * T,
+                         C::smem(T), static_cast<cudaStream_t>(stream), xm, wm, wom, om,
+                         static_cast<const bf16*>(x), static_cast<const float*>(b_qkv),
+                         static_cast<const float*>(bias), static_cast<const float*>(bo),
+                         static_cast<const float*>(gamma), static_cast<const float*>(beta), L,
+                         T, scale * LOG2E, eps);
 }

@@ -63,7 +63,7 @@
 // the weights in as fast as the tensor cores would use them: with the
 // products taken out the kernel keeps most of its time (PERF.md). x's
 // 96 KB tile, which GEMM 1 reads whole, keeps the tile at 64 rows.
-#include "attention_stream.cuh"
+#include "cluster.cuh"
 
 namespace uc2 {
 namespace ffn {
@@ -117,93 +117,6 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-// TMA: the box at (c0, c1) of a 2-D tensor map into shared memory,
-// completing bytes on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// the address of a shared-memory location in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// arrive on a barrier of the cluster (an address from peer_addr); with
-// expect_tx, also expect that many bytes of copies in this phase
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx_cluster(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// copy bytes of this block's shared memory to dst in another block of the
-// cluster, completing them on that block's barrier bar (both addresses
-// from peer_addr)
-__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
-                                                  uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "r"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The consumers' waits on an mbarrier phase: a plain spin. A trap after a
-// timeout, as mbar_wait has, keeps a 64-bit clock live and a path out of
-// the loop, and cost the consumers their register allocation: ptxas kept
-// only some accumulators in registers and serialised every wgmma (C7512).
-// A fault in the byte counts still traps: the consumers then never release
-// their slots, and the producer's mbar_wait on them traps.
-__device__ __forceinline__ void spin_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __global__ void __launch_bounds__(Cfg::THREADS, 1)
@@ -496,21 +409,6 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
   }
 }
 
-// a [outer, inner] bf16 row-major matrix as a 2-D tensor map read or
-// written in boxes of [box_outer x 64], 128-byte swizzle
-inline bool map_2d(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace ffn
 }  // namespace uc2
 
@@ -524,29 +422,15 @@ extern "C" int uc2_fused_ffn_block(const void* x, const void* w1, const void* b1
   using namespace uc2;
   using C = ffn::Cfg;
   if (rows < 1 || F < C::FC || F % C::FC) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn::fused_ffn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
   CUtensorMap xm, w1m, w2m, om;
-  if (!ffn::map_2d(&xm, x, HIDDEN, rows, 64) || !ffn::map_2d(&w1m, w1, HIDDEN, F, 64) ||
-      !ffn::map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) || !ffn::map_2d(&om, out, HIDDEN, rows, 64))
+  if (!stream::map_2d(&xm, x, HIDDEN, rows, 64) || !stream::map_2d(&w1m, w1, HIDDEN, F, 64) ||
+      !stream::map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) || !stream::map_2d(&om, out, HIDDEN, rows, 64))
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((rows + C::BM - 1) / C::BM * C::CLUSTER);  // two blocks a row tile
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = C::SMEM;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C::CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ffn::fused_ffn_kernel, xm, w1m, w2m, om,
-                           static_cast<const float*>(b1), static_cast<const float*>(b2),
-                           static_cast<const float*>(gamma), static_cast<const float*>(beta),
-                           F, eps);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  // two blocks a row tile
+  return stream::launch_clusters(ffn::fused_ffn_kernel, (rows + C::BM - 1) / C::BM * C::CLUSTER,
+                                 C::THREADS, C::CLUSTER, C::SMEM,
+                                 static_cast<cudaStream_t>(stream), xm, w1m, w2m, om,
+                                 static_cast<const float*>(b1), static_cast<const float*>(b2),
+                                 static_cast<const float*>(gamma),
+                                 static_cast<const float*>(beta), F, eps);
 }

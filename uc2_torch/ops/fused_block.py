@@ -2,10 +2,13 @@
 uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
 
 * ``fused_attn_block``: LayerNorm(x + attention(q, k, v, bias).Wo^T + bo),
-  kernel in ``csrc/fused_attn_block.cu``;
+  kernel in ``csrc/fused_attn_block.cu`` (wgmma and TMA; two blocks a
+  64-row query tile, each with six heads and half the output columns,
+  sharing the heads' contexts through distributed shared memory);
 * ``fused_attn_block_v2``: the same block with the QKV projection inside
   the kernel (the reference's ``UC2_ATTN_V2`` route), kernel in
-  ``csrc/fused_attn_block_v2.cu``;
+  ``csrc/fused_attn_block_v2.cu`` (#2's pieces in a cluster over a batch
+  row's query tiles, each tile's K_h and V_h projected once and shared);
 * ``fused_ffn_block``: LayerNorm(gelu(x.W1^T + b1).W2^T + b2 + x) (erf gelu),
   kernel in ``csrc/fused_ffn_block.cu`` (wgmma and TMA; two blocks a 64-row
   tile, each with half the output columns, sharing the GELU tiles through
@@ -106,6 +109,9 @@ def fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta,
                          f"1..{MAX_LEN}, got {L}")
     if not (x.is_contiguous() and wo.is_contiguous()):
         raise ValueError("fused_attn_block: x and wo must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, wo)):
+        raise ValueError("fused_attn_block: x and wo must start on a 16-byte "
+                         "boundary (the kernel reads them by TMA)")
     rs = heads_row_stride(q, k, v)
     out = torch.empty_like(x)
     build.launch("uc2_fused_attn_block", q.data_ptr(), k.data_ptr(),
@@ -170,6 +176,9 @@ def fused_attn_block_v2(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n: int,
     if not all(t.is_contiguous() for t in (x, w_qkv, wo)):
         raise ValueError("fused_attn_block_v2: x, w_qkv and wo must be "
                          "contiguous")
+    if any(t.data_ptr() % 16 for t in (x, w_qkv, wo)):
+        raise ValueError("fused_attn_block_v2: x, w_qkv and wo must start on "
+                         "a 16-byte boundary (the kernel reads them by TMA)")
     out = torch.empty_like(x)
     build.launch("uc2_fused_attn_block_v2", x.data_ptr(), w_qkv.data_ptr(),
                  b_qkv.data_ptr(), bias.data_ptr(), wo.data_ptr(),
