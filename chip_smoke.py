@@ -49,7 +49,12 @@ non-zero at the end, without the result lines:
   5. FFN kernels: the training FFN block's forward (#9) and backward (#10)
      against their plain versions (and #10 against autograd of the plain
      forward) at the training buckets' rows, rates 0.1 and 0, with times
-     and bounds, and #9's dropout mask against the plain Philox mask;
+     and bounds, #10 also at the edges of its tiles (rows 1 .. 129,
+     F = 3072 and 384), each #10 call repeated bit for bit, #10 at the mix
+     bucket's rows replayed from a CUDA graph, each of its kernels' device
+     time from one profiled call, beside the autograd backward of the
+     eager chain (F.linear, erf GELU, F.linear, dropout, + x, LayerNorm),
+     and #9's dropout mask against the plain Philox mask;
   6. long-L kernels: #4, #5 and #11, one streamed core, against their
      plain versions at the edges of its tiles (L = 1 .. 512, B = 3,
      fused-QKV views, rates 0.1 and 0), each call repeated bit for bit,
@@ -84,8 +89,10 @@ non-zero at the end, without the result lines:
      the lab's v1chain (the cuBLAS QKV projection, then #2), and at #2's
      edges (clusters of up to 16 blocks), each call repeated bit for bit;
      #12 (and its row statistics) at (64, 128), (64, 162)
-     and (16, 512), timed beside SDPA with a boolean segment mask on the
-     padded tensors; #12a and #12b each against its plain version on the
+     and (16, 512) and at the edges of its key blocks and query tiles
+     (first key blocks masked for whole rows), each call repeated bit for
+     bit, timed (also from CUDA graphs) beside SDPA with a boolean segment
+     mask on the padded tensors; #12a and #12b each against its plain version on the
      same inputs at (160, 128), (128, 162) and (16, 512), the three
      through autograd against the plain backward, a bitwise repeat, and
      their times beside SDPA's autograd backward;
@@ -95,7 +102,9 @@ non-zero at the end, without the result lines:
      and 162, none of #2; #1 at L = 98; #3 everywhere) and under "flash"
      (12 of #12 a batch at L = 128 and 162, no other kernel); one batch
      per bucket against the eager path, and ms/batch in turns beside the
-     default route;
+     default route; then the L = 98 batch with UC2_FUSE_ATTN_ALL=1 (12
+     launches of #2 a batch, of #7 with UC2_ATTN_V2=1, none of #1) against
+     the eager path, and its ms/batch in turns beside the default route;
  11. flash train: full-width mlm steps under "flash" at attention
      dropout 0 (hidden dropout 0.1) at (B, L) = (160, 128), (128, 162)
      and the long phase's (16, 512) batch: 12 launches each of #12, #12a
@@ -122,11 +131,12 @@ Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times` runs phase 1 and then only times #5, #6,
 #4 and #1 at the main path's shapes as phases 2 and 6 do, #2 and #7 as
-phases 2 and 9 do, and phase 4's mlm step at L = 162 (no result lines); a
+phases 2 and 9 do, #10 as phase 5 does (with its kernels' profile) and #12
+as phase 9 does, and phase 4's mlm step at L = 162 (no result lines); a
 copy of this script in another tree of the port (it calls only the
-wrappers #1, #2, #4, #5, #6 and #7, whose signatures the port keeps, #1's
-C entry and the model's entry points) times that tree's kernels and step,
-so an A/B of two trees fits in one call.
+wrappers #1, #2, #4, #5, #6, #7, #10 and #12, whose signatures the port
+keeps, #1's C entry and the model's entry points) times that tree's
+kernels and step, so an A/B of two trees fits in one call.
 """
 
 from __future__ import annotations
@@ -1379,7 +1389,7 @@ FFN_ROWS = {
         replaces="uc2_tpu/ops/ffn_train.py:68"),
     "fused_ffn_block_train_bwd": dict(
         name="fused_ffn_block_train_bwd", route="cuda",
-        source="uc2_torch/csrc/ffn_train.cu",
+        source="uc2_torch/csrc/ffn_train_bwd.cu",
         replaces="uc2_tpu/ops/ffn_train.py:90"),
 }
 FFN_SEED = 4321
@@ -1389,6 +1399,10 @@ FFN_SEED = 4321
 # rounds dy2 and da, to 2^-7
 FFN_GRAD_RTOL, FFN_AUTO_RTOL = 1e-3, 2.0 ** -7
 FFN_GRADS = ("dW1", "db1", "dW2", "db2", "dgamma", "dbeta")
+# #10's tile edges (128-row product tiles, 64-row row-pass tiles, 128
+# columns of F) at uc2-base's F and at another width the wrapper takes
+FFN_BWD_EDGES = tuple((rows, Fi) for rows in (1, 63, 64, 65, 129)
+                      for Fi in (FF, 384))
 
 
 def ffn_weights(gen, F=FF):
@@ -1406,9 +1420,98 @@ def ffn_plain_autograd(x, w1, b1, w2, b2, gamma, beta, rate, dy):
     return torch.autograd.grad(out, ins, dy)
 
 
-def phase_ffn_kernels(gen):
+def eager_ffn_bwd_ms(x, w1, b1, w2, b2, gamma, beta, rate, dy):
+    """#10's yardstick: the autograd backward of the eager chain (F.linear
+    -> erf GELU -> F.linear -> dropout -> + x -> LayerNorm, bf16, its own
+    dropout RNG) against dy, chained and replayed from a CUDA graph (None,
+    with the reason printed, where it cannot be captured)."""
+    ins = [t.detach().bfloat16().requires_grad_(True)
+           for t in (x, w1, b1, w2, b2, gamma, beta)]
+    xi, w1i, b1i, w2i, b2i, gi, bi = ins
+    side = torch.cuda.Stream()      # the forward on a side stream, so that
+    side.wait_stream(torch.cuda.current_stream())    # its backward can be
+    with torch.cuda.stream(side):                    # captured
+        y = F.dropout(F.linear(F.gelu(F.linear(xi, w1i, b1i)), w2i, b2i),
+                      rate, training=True)
+        out = F.layer_norm(y + xi, (H,), gi, bi, 1e-12)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def bwd():
+        return torch.autograd.grad(out, ins, dy, retain_graph=True)
+    chained = time_ms(bwd, iters=10)
+    try:
+        graph = graph_ms(bwd, iters=5, stream=side)
+    except RuntimeError as e:
+        print(f"    eager chain's autograd backward could not be captured in "
+              f"a CUDA graph: {str(e).splitlines()[0]}")
+        torch.cuda.synchronize()
+        graph = None
+    return chained, graph
+
+
+def profile_kernels(what, fn, card):
+    """One call of ``fn`` under torch.profiler, after a warm-up call: the
+    device ms of each kernel it launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(device_rows(prof), reverse=True)
+    if not rows:
+        print(f"    {what} under torch.profiler: no device time recorded (not "
+              f"measured)")
+        return
+    print(f"    {what}, one call under torch.profiler: {sum(r[0] for r in rows):.4f}"
+          f" ms of device time in {sum(r[1] for r in rows)} kernels [{card}]")
+    for ms, cnt, key in rows:
+        print(f"      {ms:8.4f} ms {cnt:3d}x  {key[:110]}")
+
+
+def time_ffn_bwd(gen, card):
+    """#10 at the mix bucket's rows (B = 128, L = 162), rate 0.1: chained
+    and replayed from a CUDA graph, each of its kernels' device time from
+    one profiled call, beside the eager chain's autograd backward and the
+    bound; returns (inputs, the bound's bytes and operations)."""
+    rows, rate = 128 * 162, 0.1
+    w1, b1, w2, b2, gamma, beta = ffn_weights(gen)
+    x = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    bargs = (x, w1, b1, w2, b2, gamma, FFN_SEED, rate, 1e-12, dy)
+    kern = lambda: fused_ffn_block_train_bwd(*bargs)
+    nbytes = (3 * rows * H * 2 + 2 * H * FF * 2 + 2 * H * FF * 4
+              + (2 * FF + 6 * H) * 4)
+    lo, by = bound(nbytes, 12 * rows * H * FF)
+    ms, g_ms = time_ms(kern, iters=10), graph_ms(kern, iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kern()
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    e_ms, e_g = eager_ffn_bwd_ms(x, w1, b1, w2, b2, gamma, beta, rate, dy)
+    e_gs = "n/a" if e_g is None else f"{e_g:.4f}"
+    print(f"    #10 rows={rows} rate={rate}: kernel {ms:.4f} ms (graph "
+          f"{g_ms:.4f}), eager chain's autograd backward {e_ms:.4f} ms (graph "
+          f"{e_gs}), bound {lo:.4f} ms ({by}); kernel / eager chain "
+          f"{ms / e_ms:.2f}, kernel / bound {ms / lo:.1f}; peak memory of a "
+          f"call above its inputs {scratch:.0f} MiB [{card}]")
+    profile_kernels(f"#10 rows={rows} rate={rate}", kern, card)
+    return bargs, (nbytes, 12 * rows * H * FF)
+
+
+def phase_ffn_times(gen, card):
+    """``--times``: #10 as phase 5 times it."""
+    time_ffn_bwd(gen, card)
+
+
+def phase_ffn_kernels(gen, card):
     """#9 and #10 against their plain versions at the training buckets'
-    rows; the rows' times are those of B = 128, L = 162, rate 0.1."""
+    rows, #10 also at the edges of its tiles, each #10 call repeated bit for
+    bit; #10 timed from a CUDA graph, by kernel and beside the eager chain;
+    the rows' times are those of B = 128, L = 162, rate 0.1."""
     print("== training FFN kernels vs plain (#9 forward, #10 backward; plain: "
           "fp32 compute on the same bf16 inputs)")
     rows_out = {k: dict(v) for k, v in FFN_ROWS.items()}
@@ -1460,6 +1563,28 @@ def phase_ffn_kernels(gen):
             print(f"    #10 without the recompute (8 rows H F = "
                   f"{8 * rows * H * FF / 1e9:.1f} GFLOP) would be bound at "
                   f"{8 * rows * H * FF / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+            repeat_bitwise(f"#10 {tag}", lambda: fused_ffn_block_train_bwd(
+                *bargs), got)
+    # #10 from a CUDA graph, its kernels from one profiled call, beside the
+    # eager chain's autograd backward
+    time_ffn_bwd(gen, card)
+    # #10 at the edges of its tiles, each call repeated bit for bit
+    for n_rows, Fi in FFN_BWD_EDGES:
+        w1e, w2e = w1[:Fi].contiguous(), w2[:, :Fi].contiguous()
+        x = torch.randn(n_rows, H, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(n_rows, H, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            bargs = (x, w1e, b1[:Fi].contiguous(), w2e, b2, gamma, FFN_SEED,
+                     rate, 1e-12, dy)
+            tag = f"rows={n_rows} F={Fi} rate={rate}"
+            got = fused_ffn_block_train_bwd(*bargs)
+            want = fused_ffn_block_train_bwd_plain(*bargs)
+            eb = compare(f"#10 dx {tag}", got[0], want[0])
+            for nm, a, w in zip(FFN_GRADS, got[1:], want[1:]):
+                compare_norm(f"#10 {nm} {tag}", a, w, FFN_GRAD_RTOL)
+            bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], eb)
+            repeat_bitwise(f"#10 {tag}", lambda: fused_ffn_block_train_bwd(
+                *bargs), got)
     # the mask, exactly: x = 0, W2 = 0, b2 = 1, gamma = 1, beta = 0 make
     # each pre-LN row 2 where kept and 0 where dropped (rate 0.5)
     rows, rate = 4096, 0.5
@@ -2262,7 +2387,42 @@ def sdpa_segment_inputs(q, k, v, bias, g=None):
     return (*(pad(t) for t in (q, k, v)), mask, None if g is None else pad(g))
 
 
-def phase_route_kernels(gen):
+# #12 at the edges of its 128-key blocks and 64-row query tiles: first key
+# blocks masked for whole valid rows ("leading": keys 0..127 invalid) or
+# for the invalid rows ("first_block": keys from 128 on invalid)
+SEGMENT_EDGES = ((1, 128, "first_block"), (2, 129, "leading"),
+                 (3, 255, "leading"), (1, 256, "first_block"),
+                 (2, 257, "leading"), (3, 512, "first_block"))
+
+
+def segment_edge_bias(b, L, case):
+    keys = torch.arange(L, device="cuda")[None].expand(b, L)
+    valid = keys >= 128 if case == "leading" else keys < 128
+    return ((~valid).float() * -10000.0)[:, None, None, :].contiguous()
+
+
+def time_segment_fwd(q, k, v, bias, card):
+    """#12 replayed from a CUDA graph beside SDPA with a boolean segment
+    mask on the padded tensors, also from a graph; returns SDPA's chained
+    ms."""
+    qp, kp, vp, mask, _ = sdpa_segment_inputs(q, k, v, bias)
+    sdpa = lambda: F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask)
+    kern = lambda: segment_flash_fwd(q, k, v, bias)
+    b, L = q.shape[:2]
+    ms, g_ms, lib, lib_g = (time_ms(kern), graph_ms(kern), time_ms(sdpa),
+                            graph_ms(sdpa))
+    print(f"    #12 B={b} L={L}: kernel {ms:.4f} ms (graph {g_ms:.4f}), SDPA "
+          f"with a segment mask {lib:.4f} ms (graph {lib_g:.4f}); from "
+          f"graphs kernel / SDPA {g_ms / lib_g:.2f} [{card}]")
+    return lib
+
+
+def phase_segment_times(gen, card):
+    """``--times``: #12 at (64, 162) as phase 9 times it."""
+    time_segment_fwd(*heads(gen, B, 162), card)
+
+
+def phase_route_kernels(gen, card):
     """#7 against its plain version at the fused scoring buckets (B = 64,
     L = 128, 162), timed beside v1chain, and at BLOCK_EDGES; #12 at (64, 128), (64, 162) and (16, 512); #12a and #12b
     each against its plain version on the same inputs at the "flash" mlm
@@ -2287,14 +2447,26 @@ def phase_route_kernels(gen):
                   compare(f"#12 row max {tag}", st[0], pst[0]),
                   compare(f"#12 row sum {tag}", st[1], pst[1]))
         fwd["max_abs_err"] = max(fwd.get("max_abs_err", 0.0), err)
+        repeat_bitwise(f"#12 {tag}", lambda: segment_flash_fwd(q, k, v, bias),
+                       (out, st))
         if (b, L) == (B, 162):
-            qp, kp, vp, mask, _ = sdpa_segment_inputs(q, k, v, bias)
             fill_row(fwd, tag, lambda: segment_flash_fwd(q, k, v, bias),
                      lambda: segment_flash_plain(q, k, v, bias),
                      4 * b * L * H * 2 + b * L * 4 + 2 * b * N * L * 4,
                      4 * b * N * L * L * D,
-                     time_ms(lambda: F.scaled_dot_product_attention(
-                         qp, kp, vp, attn_mask=mask)))
+                     time_segment_fwd(q, k, v, bias, card))
+    for b, L, case in SEGMENT_EDGES:
+        q, k, v, _ = heads(gen, b, L)
+        bias = segment_edge_bias(b, L, case)
+        (out, st), (pout, pst) = (f(q, k, v, bias) for f in (
+            segment_flash_fwd, segment_flash_plain))
+        tag = f"B={b} L={L} {case}"
+        err = max(compare(f"#12 {tag}", out, pout),
+                  compare(f"#12 row max {tag}", st[0], pst[0]),
+                  compare(f"#12 row sum {tag}", st[1], pst[1]))
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        repeat_bitwise(f"#12 {tag}", lambda: segment_flash_fwd(q, k, v, bias),
+                       (out, st))
     dq_row, kv_row = rows["segment_flash_bwd_dq"], rows["segment_flash_bwd_dkdv"]
     for b, L in ((160, 128), (128, 162), (16, 512)):
         q, k, v, bias = heads(gen, b, L)
@@ -2457,11 +2629,59 @@ def phase_routes(card):
                 f"{w_} " + ", ".join(f"{t:.3f}" for t in ts) + " ms/batch = "
                 + ", ".join(f"{B / t * 1e3:.1f}" for t in ts) + " pairs/s"
                 for w_, ts in times.items()) + f" [{card}]")
+    ids_98 = [im for im, bk in zip(img_ids, bucket_of) if bk == 0]
+    batch, n = bucket_batch(img_db, ids_98, txt_db, txt_ids[0], edges[0])
+    fuse_all = fuse_all_route(card, model, plain, batch, n, layers)
     del model, others, flash, plain
     torch.cuda.empty_cache()
-    return {"fused_attn_block_v2": launched["v2"]["fused_attn_block_v2"],
+    return {"fused_attn_block_v2": launched["v2"]["fused_attn_block_v2"]
+            + fuse_all["fused_attn_block_v2"],
             "segment_flash_fwd": launched["flash"]["segment_flash_fwd"],
-            "fused_ffn_block": launched["v2"]["fused_ffn_block"]}
+            "fused_ffn_block": launched["v2"]["fused_ffn_block"]
+            + fuse_all["fused_ffn_block"],
+            "fused_attn_block": fuse_all["fused_attn_block"]}
+
+
+def fuse_all_route(card, model, plain, batch, n, layers):
+    """The L = 98 batch with UC2_FUSE_ATTN_ALL=1 (the reference's switch
+    that fuses the attention block at every L): 12 launches of #2 (of #7
+    with UC2_ATTN_V2=1) and #3, none of #1; scores against the eager path;
+    ms/batch in turns with the default route (#1 and the eager
+    out-projection). Returns the checked batches' launches."""
+    L = batch["attn_mask"].shape[1]
+    s_p = plain.scores(batch)[:n]
+    counted = dict.fromkeys(("fused_attn_block", "fused_attn_block_v2",
+                             "fused_ffn_block"), 0)
+    for v2, block in ((None, "fused_attn_block"), ("1", "fused_attn_block_v2")):
+        expect = no_launches()
+        expect.update({block: layers, "fused_ffn_block": layers})
+        with env_set("UC2_FUSE_ATTN_ALL", "1"), env_set("UC2_ATTN_V2", v2):
+            reset_launches()
+            s_k = model.scores(batch)[:n]
+            torch.cuda.synchronize()
+            got = launch_counts()
+            tag = f"UC2_FUSE_ATTN_ALL=1{' UC2_ATTN_V2=1' if v2 else ''} L={L}"
+            d = (s_k - s_p).abs().max().item()
+            print(f"  {tag}: launches {got}, expected {expect}; |kernel - "
+                  f"eager bf16| {d:.4e} (tolerance {SCORE_TOL})")
+            if got != expect:
+                fail(f"{tag}: launch counts do not match the routing")
+            if not d <= SCORE_TOL:
+                fail(f"{tag}: scores disagree with the eager path")
+            for k in counted:
+                counted[k] += got[k]
+        times = {}
+        for which in ("default", tag, tag, "default"):
+            on = "1" if which == tag else None
+            with env_set("UC2_FUSE_ATTN_ALL", on), env_set(
+                    "UC2_ATTN_V2", v2 if on else None):
+                times.setdefault(which, []).append(time_ms(
+                    lambda: model.scores(batch), iters=5))
+        print(f"  {tag}: " + "; ".join(
+            f"{w_} " + ", ".join(f"{t:.3f}" for t in ts) + " ms/batch = "
+            + ", ".join(f"{B / t * 1e3:.1f}" for t in ts) + " pairs/s"
+            for w_, ts in times.items()) + f" [{card}]")
+    return counted
 
 
 # "flash" training at attention dropout 0 (hidden dropout 0.1): the mlm
@@ -2583,7 +2803,11 @@ LAB_ROWS = {
 def repeat_bitwise(what: str, fn, first, times: int = 1):
     """Fail unless each of ``times`` more calls of ``fn`` gives ``first``
     bit for bit."""
-    same = all(torch.equal(fn(), first) for _ in range(times))
+    def equal(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+    same = all(equal(fn(), first) for _ in range(times))
     print(f"  {what}: {times + 1} calls bitwise equal: {same}")
     if not same:
         fail(f"{what} is not bitwise repeatable")
@@ -2720,15 +2944,17 @@ def main() -> int:
     if sys.argv[1:] == ["--times"]:
         timed(phase_stream_times, gen)
         timed(phase_block_times, gen)
+        timed(phase_ffn_times, gen, card)
+        timed(phase_segment_times, gen, card)
         timed(time_mlm_step, card)
         return 1 if FAILURES else 0
     rows = timed(phase_kernels, gen)
     train_rows = timed(phase_train_kernels, gen)
     rows.update(train_rows)
-    ffn_rows = timed(phase_ffn_kernels, gen)
+    ffn_rows = timed(phase_ffn_kernels, gen, card)
     rows.update(ffn_rows)
     rows.update(timed(phase_long_kernels, gen, train_rows))
-    rows.update(timed(phase_route_kernels, gen))
+    rows.update(timed(phase_route_kernels, gen, card))
     rows.update(timed(phase_lab_kernels, gen))
     launches = timed(phase_slice, card)
 

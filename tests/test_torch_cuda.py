@@ -545,8 +545,13 @@ def test_train_step_kernel_path_matches_eager_path(gen):
     assert (diff > 1e-4).float().mean().item() <= 1e-2
 
 
-# the training FFN kernels (#9 forward, #10 backward)
-FFN_ROWS = [1, 17, 31, 33, 20736]
+# the training FFN kernels (#9 forward, #10 backward): #10's tiles are
+# 128-row product tiles, 64-row row-pass tiles and 128 columns of F, its
+# weight gradients split the rows from 4096 on; F = 384 is a width other
+# than uc2-base's that the wrappers take
+FFN_CASES = ([(rows, 3072) for rows in (1, 17, 31, 33, 63, 64, 65, 129, 4097,
+                                        20736)]
+             + [(rows, 384) for rows in (1, 63, 64, 65, 129, 4097)])
 # dW1, dW2 and the vector gradients are sums over every row, taken in
 # another order than the plain version's: held in relative norm
 FFN_GRAD_RTOL = 1e-3
@@ -568,20 +573,26 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("rows", FFN_ROWS)
-def test_ffn_train_kernels_match_plain(gen, rows, rate):
-    args = _ffn_args(gen, rows)
+@pytest.mark.parametrize("rows,F", FFN_CASES)
+def test_ffn_train_kernels_match_plain(gen, rows, F, rate):
+    """#9 and #10 against their plain versions; #10 launched once a call
+    and repeated bit for bit."""
+    args = _ffn_args(gen, rows, F=F)
     seed = 99 + rows
     _close_report("fwd", fused_ffn_block_train_fwd(*args, seed, rate),
                   fused_ffn_block_train_plain(*args, seed, rate))
     dy = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
     bwd_args = (*args[:6], seed, rate, 1e-12, dy)
+    before = fused_ffn_block_train_bwd.launches
     got = fused_ffn_block_train_bwd(*bwd_args)
+    assert fused_ffn_block_train_bwd.launches == before + 1
     want = fused_ffn_block_train_bwd_plain(*bwd_args)
     _close_report("dx", got[0], want[0])
     for name, a, b in zip(("dW1", "db1", "dW2", "db2", "dgamma", "dbeta"),
                           got[1:], want[1:]):
         assert _rel(a, b) <= FFN_GRAD_RTOL, (name, _rel(a, b))
+    again = fused_ffn_block_train_bwd(*bwd_args)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
 def test_ffn_train_bwd_is_bitwise_repeatable(gen):
@@ -752,20 +763,30 @@ def test_fused_attn_block_v2_refuses(gen):
 def _segment_bias(B, L, case):
     """'valid': every key; 'invalid': most keys invalid (all but the first
     10 of each row); 'first_block': keys from 128 on invalid, so the
-    invalid rows see their whole first 128-key block masked."""
+    invalid rows see their whole first 128-key block masked; 'leading':
+    keys 0..127 invalid, so the valid rows do."""
     mask = torch.ones(B, L, device="cuda")
     if case == "invalid":
         mask[:, 10:] = 0.0
     elif case == "first_block":
         mask[:, 128:] = 0.0
+    elif case == "leading":
+        mask[:, :128] = 0.0
     return ((1.0 - mask) * -10000.0)[:, None, None, :].contiguous()
 
 
+# the edges of #12's 128-key blocks and 64-row query tiles (L = 1 and 65
+# too, which the wrappers take though the "flash" route calls them from
+# L = 128), B = 1-3 and one grid past a wave of 132 SMs (64 x 12 x 3
+# blocks)
 SEGMENT_CASES = [(2, 128, "valid"), (2, 128, "invalid"), (1, 129, "valid"),
                  (1, 129, "invalid"), (3, 162, "valid"), (3, 162, "invalid"),
                  (1, 200, "first_block"), (1, 384, "valid"),
                  (2, 384, "invalid"), (1, 512, "valid"),
-                 (1, 512, "invalid")]
+                 (1, 512, "invalid"), (3, 162, "first_block"),
+                 (1, 255, "leading"), (2, 256, "first_block"),
+                 (3, 257, "invalid"), (1, 512, "leading"),
+                 (64, 162, "invalid"), (1, 1, "valid"), (2, 65, "invalid")]
 
 
 @pytest.mark.parametrize("B,L,case", SEGMENT_CASES)
@@ -773,11 +794,15 @@ def test_segment_flash_kernels_match_plain(gen, B, L, case):
     q, k, v = _heads(gen, B, L, strided=True)
     bias = _segment_bias(B, L, case)
     g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    before = sf.segment_flash_fwd.launches
     out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    assert sf.segment_flash_fwd.launches == before + 1
     pout, pstats = sf.segment_flash_plain(q, k, v, bias)
     _close_report("out", out, pout)
     _close_report("m", stats[0], pstats[0])
     _close_report("l", stats[1], pstats[1])
+    again = sf.segment_flash_fwd(q, k, v, bias)
+    assert torch.equal(out, again[0]) and torch.equal(stats, again[1])
     # each backward kernel on the same inputs as its plain version
     dq, di = sf.segment_flash_bwd_dq(q, k, v, bias, pout, g, pstats)
     pdq, pdi = sf.segment_flash_bwd_dq_plain(q, k, v, bias, pout, g, pstats)

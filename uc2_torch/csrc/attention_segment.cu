@@ -22,15 +22,11 @@
 // nothing to dK and dV), are skipped. The row statistics m and l go to
 // [2][B, n, L] fp32.
 //
-// Forward (#12): FA2-style, one block of 4 warps per (64 query rows,
-// head, batch row), each warp 16 rows whose Q fragments stay in registers;
-// the 128-key blocks of K and V stream through a two-stage cp.async ring
-// (74 KB) as attention_stream.cuh (#4) streams its tiles. Per block: the
-// scores of the warp's rows against the 128 keys in registers, the block
-// max and sum merged across a row's four lanes, P rounded to bf16 into
-// mma A fragments straight from the score registers, P . V into a second
-// accumulator that is folded into the first with the reference's two
-// scale factors.
+// Forward (#12): the streamed core's TMA/mbarrier/wgmma machinery
+// (attention_stream.cuh), one sweep over the library's 128-key blocks;
+// see segment_flash_fwd_kernel below. q, k, v are read through TMA
+// tensor maps of the [B, L, n, 64] views, so keys past L arrive as zero
+// rows, and their segment (0) comes from the block's segment row.
 //
 // Backward, split as #6's long-L pair (attention_train.cu), without
 // atomics so a step repeats bit for bit:
@@ -46,11 +42,12 @@
 // Both recompute P with the same fp32 operations from the same m and l.
 //
 // What bounds them on an H100: bytes. #12 at (B, L) = (64, 162) reads q,
-// k, v and writes o, 63.7 MB (0.019 ms at 3.35 TB/s) against 10.3 GFLOP;
-// #12a + #12b at (128, 162) read q, k, v, o, dO and write dq, dk, dv,
-// 255 MB (0.076 ms). mma.sync, 16-row warps and the two passes over the
-// scores keep the kernels above that; wgmma is later work.
-#include "common.cuh"
+// k, v and writes o, 63.7 MB (0.019 ms at 3.35 TB/s) against 10.3 GFLOP
+// counted at L (the padded Lp = 256 keys make it 16.3); #12a + #12b at
+// (128, 162) read q, k, v, o, dO and write dq, dk, dv, 255 MB (0.076 ms).
+// #12 runs two blocks a SM (one's exponentials under the other's
+// products); #12a and #12b still multiply with mma.sync in 16-row warps.
+#include "gemm.cuh"
 
 namespace uc2 {
 
@@ -59,7 +56,7 @@ constexpr int SEG_TILE = 64;    // query rows (#12, #12a) or keys (#12b) per CUD
 constexpr int SEG_WARPS = 4;    // 16 rows each
 constexpr float SEG_MASK = (float)(-0.7 * 3.4028234663852886e38);  // -0.7 * FLT_MAX
 
-// shared memory of #12 and #12a: two stages of K and V blocks and their
+// shared memory of #12a: two stages of K and V blocks and their
 // key segments
 constexpr size_t SEG_KV_SMEM = 2 * 2 * (size_t)SEG_BLOCK * K_STRIDE * 2 + 2 * SEG_BLOCK * 4;
 
@@ -138,85 +135,153 @@ __device__ __forceinline__ void frag_times_rows(float (&acc)[HEAD_DIM / 8][4], c
 }
 
 // ----------------------------------------------------------------- #12
-__global__ void __launch_bounds__(SEG_WARPS * 32)
-    segment_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const float* __restrict__ bias,
-                             bf16* __restrict__ out, float* __restrict__ stats, int L, int n,
-                             int rs, float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + 2 * SEG_BLOCK * K_STRIDE;
-  int* sSeg = reinterpret_cast<int*>(sV + 2 * SEG_BLOCK * K_STRIDE);
-  const int q0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
-  const float* bias_row = bias + (size_t)b * L;
+// The streamed core's machinery (attention_stream.cuh): one block per (64
+// query rows, head, batch row), one consumer warpgroup and one producer
+// warp. The producer copies the Q tile once and, for each 128-key block,
+// its K and V rows (one TMA box of 128 rows each, zero past L) into a ring
+// of SEG_STAGES slots, with the keys' segments beside them. The consumers,
+// one sweep over the blocks: S = Q . K^T by wgmma m64n128k16 (both from
+// swizzled shared memory), the mask added in natural units, the block's
+// max and sum merged across the row's four lanes before p is formed and
+// rounded (the library's rounding points), P . V by wgmma m64n64k16 with P
+// from registers and the V block read MN-major into a second accumulator,
+// and the two folded with the reference's factors. exp is taken as
+// exp2((s - m) log2 e), the difference first: the mask value times log2 e
+// is below -FLT_MAX, and a masked first block would then give NaN where
+// the library's rescale wipes it with a finite 0. The context leaves
+// through the Q slot by a TMA store that clips rows >= L.
+namespace seg {
+constexpr int THREADS = 128 + 32;               // one consumer warpgroup + the producer warp
+constexpr int STAGES = 2;                       // 128-key blocks in the ring
+constexpr int ROW_BYTES = HEAD_DIM * 2;         // 128: one swizzle row
+constexpr int KV_BYTES = SEG_BLOCK * ROW_BYTES; // K or V of one block: 16 KB
+constexpr int Q_BYTES = SEG_TILE * ROW_BYTES;
+constexpr int OFF_K = Q_BYTES;
+constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+constexpr int OFF_SEG = OFF_V + STAGES * KV_BYTES;
+constexpr int OFF_BAR = OFF_SEG + STAGES * SEG_BLOCK * 4;
+constexpr int SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;
+}  // namespace seg
+
+__global__ void __launch_bounds__(seg::THREADS, 2)
+    segment_flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap omap,
+                             const float* __restrict__ bias, float* __restrict__ stats, int L,
+                             int n, float scale) {
+  using namespace stream;
+  constexpr int STAGES = seg::STAGES, NC = SEG_BLOCK / 8;  // 8-key column groups
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  int* sseg = reinterpret_cast<int*>(smem + seg::OFF_SEG);
+  const uint32_t full = base + seg::OFF_BAR, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * SEG_TILE;
   const int n_blocks = (L + SEG_BLOCK - 1) / SEG_BLOCK;
   const bool single = n_blocks == 1;  // the library kernel's one-step path
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* bias_row = bias + (size_t)b * L;
 
-  stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes (+ the bytes)
+      mbar_init(empty + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---------------------------------------------- producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, seg::Q_BYTES);
+      tma_load(base, &qmap, qbar, h, q0, b);
+    }
+    for (int j = 0; j < n_blocks; ++j) {
+      const int st = j % STAGES, k0 = j * SEG_BLOCK;
+      mbar_wait(empty + 8 * st, ((j / STAGES) & 1) ^ 1);
+      for (int i = lane; i < SEG_BLOCK; i += 32)
+        sseg[st * SEG_BLOCK + i] = segment_of(bias_row, k0 + i, L);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + 8 * st, 2 * seg::KV_BYTES);
+        tma_load(base + seg::OFF_K + st * seg::KV_BYTES, &kmap, full + 8 * st, h, k0, b);
+        tma_load(base + seg::OFF_V + st * seg::KV_BYTES, &vmap, full + 8 * st, h, k0, b);
+      } else {
+        mbar_arrive(full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[HEAD_DIM / 16][4];
-  row_frags(qa, q + base, rs, r0, r1, L);
   const int seg_q[2] = {segment_of(bias_row, r0, L), segment_of(bias_row, r1, L)};
-
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[HEAD_DIM / 8][4];
+  float o[32];
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p) o[p][0] = o[p][1] = o[p][2] = o[p][3] = 0.f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
 
+  mbar_wait(qbar, 0);
   for (int j = 0; j < n_blocks; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_blocks) {
-      stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kb = sK + buf * SEG_BLOCK * K_STRIDE;
-    const bf16* vb = sV + buf * SEG_BLOCK * K_STRIDE;
-    const int* sb = sSeg + buf * SEG_BLOCK;
+    const int st = j % STAGES;
+    mbar_wait(full + 8 * st, (j / STAGES) & 1);
+    const uint32_t kslot = base + seg::OFF_K + st * seg::KV_BYTES;
+    const uint32_t vslot = base + seg::OFF_V + st * seg::KV_BYTES;
+    const int* sk = sseg + st * SEG_BLOCK;
 
-    // masked scores of the warp's 16 rows against the block's 128 keys
-    float s[SEG_BLOCK / 8][4];
+    // masked scores of the warpgroup's 64 rows against the block's 128 keys
+    float s[64];
 #pragma unroll
-    for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
-      tile_dot(s[nt], qa, kb + nt * 8 * K_STRIDE);
-      const int key = nt * 8 + t * 2;
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nt][e] = s[nt][e] * scale + (seg_q[e >> 1] == sb[key + (e & 1)] ? 0.f : SEG_MASK);
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      gemm::wgmma_ss_n128<0, 0>(s, sw128_desc(base + 32 * kk), sw128_desc(kslot + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int k0 = sk[8 * c + 2 * t], k1 = sk[8 * c + 2 * t + 1];
+      s[4 * c + 0] = s[4 * c + 0] * scale + (seg_q[0] == k0 ? 0.f : SEG_MASK);
+      s[4 * c + 1] = s[4 * c + 1] * scale + (seg_q[0] == k1 ? 0.f : SEG_MASK);
+      s[4 * c + 2] = s[4 * c + 2] * scale + (seg_q[1] == k0 ? 0.f : SEG_MASK);
+      s[4 * c + 3] = s[4 * c + 3] * scale + (seg_q[1] == k1 ? 0.f : SEG_MASK);
     }
-    // online softmax: block max, p = exp(s - m_next), the rescale factors
+    // online softmax: the block max, p = exp(s - m_next), the factors
     float keep_f[2], new_f[2];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       float mc = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < SEG_BLOCK / 8; ++nt)
-        mc = fmaxf(mc, fmaxf(s[nt][2 * hi], s[nt][2 * hi + 1]));
+      for (int c = 0; c < NC; ++c) mc = fmaxf(mc, fmaxf(s[4 * c + 2 * hi], s[4 * c + 2 * hi + 1]));
       mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
       mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
       const float m_next = fmaxf(m[hi], mc);
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
-        s[nt][2 * hi] = expf(s[nt][2 * hi] - m_next);
-        s[nt][2 * hi + 1] = expf(s[nt][2 * hi + 1] - m_next);
-        sum += s[nt][2 * hi] + s[nt][2 * hi + 1];
-      }
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2((s[4 * c + 2 * hi + e] - m_next) * LOG2E);
+          s[4 * c + 2 * hi + e] = p;
+          sum += p;
+        }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float l_corr = expf(m[hi] - m_next) * l[hi];
+      const float l_corr = ex2((m[hi] - m_next) * LOG2E) * l[hi];
       const float l_next = sum + l_corr;
       const float inv = l_next == 0.f ? 1.f : 1.f / l_next;
       if (single) {  // p / l rounded; the context is that product alone
 #pragma unroll
-        for (int nt = 0; nt < SEG_BLOCK / 8; ++nt) {
-          s[nt][2 * hi] = s[nt][2 * hi] / l_next;
-          s[nt][2 * hi + 1] = s[nt][2 * hi + 1] / l_next;
+        for (int c = 0; c < NC; ++c) {
+          s[4 * c + 2 * hi] = s[4 * c + 2 * hi] / l_next;
+          s[4 * c + 2 * hi + 1] = s[4 * c + 2 * hi + 1] / l_next;
         }
         keep_f[hi] = 0.f;
         new_f[hi] = 1.f;
@@ -227,32 +292,46 @@ __global__ void __launch_bounds__(SEG_WARPS * 32)
       m[hi] = m_next;
       l[hi] = l_next;
     }
-    // P (bf16) . V into oc, then o = o * keep + oc * new
-    float oc[HEAD_DIM / 8][4];
+    // P rounded to bf16 into A fragments (keys 16 kk .. + 15 are column
+    // groups 2 kk and 2 kk + 1), P . V into oc
+    uint32_t pa[SEG_BLOCK / 16][4];
 #pragma unroll
-    for (int p = 0; p < HEAD_DIM / 8; ++p) oc[p][0] = oc[p][1] = oc[p][2] = oc[p][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < SEG_BLOCK / 16; ++kk) {
-      const uint32_t a[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-                             pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      frag_times_rows(oc, a, vb + kk * 16 * K_STRIDE);
+    for (int c = 0; c < NC; ++c) {
+      pa[c >> 1][2 * (c & 1) + 0] = pack2(s[4 * c + 0], s[4 * c + 1]);
+      pa[c >> 1][2 * (c & 1) + 1] = pack2(s[4 * c + 2], s[4 * c + 3]);
     }
+    float oc[32];
 #pragma unroll
-    for (int p = 0; p < HEAD_DIM / 8; ++p)
+    for (int i = 0; i < 32; ++i) oc[i] = 0.f;
+    fence_regs(oc);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[p][e] = o[p][e] * keep_f[e >> 1] + oc[p][e] * new_f[e >> 1];
-    __syncthreads();  // buffer buf is staged again at block j + 2
+    for (int kk = 0; kk < SEG_BLOCK / 16; ++kk)
+      wgmma_rs_n64(oc, pa[kk], sw128_desc(vslot + kk * 16 * seg::ROW_BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);  // this warp is done with the slot
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[4 * c + e] = o[4 * c + e] * keep_f[e >> 1] + oc[4 * c + e] * new_f[e >> 1];
   }
 
-  const int grs = n * HEAD_DIM;
-  bf16* ob = out + (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+  // the context through the Q slot (swizzled as TMA reads it), the stats
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p) {
-    const int col = p * 8 + t * 2;
-    if (r0 < L) *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * grs + col) = pack2(o[p][0], o[p][1]);
-    if (r1 < L) *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * grs + col) = pack2(o[p][2], o[p][3]);
+  for (int c = 0; c < 8; ++c) {
+    const int r = warp * 16 + g;
+    *reinterpret_cast<uint32_t*>(smem + r * 128 + ((c ^ g) << 4) + 4 * t) =
+        pack2(o[4 * c], o[4 * c + 1]);
+    *reinterpret_cast<uint32_t*>(smem + (r + 8) * 128 + ((c ^ g) << 4) + 4 * t) =
+        pack2(o[4 * c + 2], o[4 * c + 3]);
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  if (warp == 0 && lane == 0) tma_store(&omap, base, h, q0, b);
   if (t == 0) {
     const size_t bnl = (size_t)gridDim.z * n * L;
     float* st = stats + ((size_t)b * n + h) * L;
@@ -505,16 +584,20 @@ extern "C" int uc2_segment_flash_fwd(const void* q, const void* k, const void* v
                                      int n, int rs, float scale, void* stream) {
   using namespace uc2;
   if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  // on every call: the attribute belongs to the current device
   cudaError_t err = cudaFuncSetAttribute(segment_flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SEG_KV_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, seg::SMEM);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm, om;
+  const size_t rb = (size_t)rs * 2;
+  if (!stream::heads_map(&qm, q, B, L, n, rb, SEG_TILE) ||
+      !stream::heads_map(&km, k, B, L, n, rb, SEG_BLOCK) ||
+      !stream::heads_map(&vm, v, B, L, n, rb, SEG_BLOCK) ||
+      !stream::heads_map(&om, out, B, L, n, (size_t)n * HEAD_DIM * 2, SEG_TILE))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
-  segment_flash_fwd_kernel<<<grid, SEG_WARPS * 32, SEG_KV_SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<float*>(stats), L,
-      n, rs, scale);
+  segment_flash_fwd_kernel<<<grid, seg::THREADS, seg::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, om, static_cast<const float*>(bias), static_cast<float*>(stats), L, n, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Shared device code of the uc2_torch kernels (sm_90a): bf16 tensor-core
 // products through mma.sync.m16n8k16, warp reductions, and the per-head
 // attention routine, out-projection and residual + LayerNorm epilogue of
-// the whole-layer kernel #8 (fused_layer_block.cu; #9/#10 share the
+// the whole-layer kernel #8 (fused_layer_block.cu; #9 shares the
 // epilogue). The fused attention blocks #2 and #7 are wgmma/TMA kernels
 // of their own (attn_block.cuh).
 //

@@ -1,7 +1,7 @@
-// The mma.sync weight walk shared by the training FFN block's forward and
-// backward (#9, #10, ffn_train.cu) and the whole-layer block (#8,
-// fused_layer_block.cu). The inference FFN block (#3, fused_ffn_block.cu)
-// has its own wgmma/TMA kernel.
+// The mma.sync weight walk shared by the training FFN block's forward (#9,
+// ffn_train.cu) and the whole-layer block (#8, fused_layer_block.cu). The
+// inference FFN block (#3, fused_ffn_block.cu) and the training FFN
+// backward (#10, ffn_train_bwd.cu) have wgmma/TMA kernels of their own.
 //
 // One block of 8 warps owns a tile of 32 rows of x (staged in shared
 // memory) and walks the intermediate width F in chunks of 64. Per chunk
@@ -92,16 +92,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 // rounded to bf16 where the TPU kernels round it; with SEEDED the products
 // are added to what acc holds (the whole-layer block's x2 + b2). acc[m][j]
 // holds rows m*16 + g (+8) and columns out_col(warp, j) + 2t (+1)
-// (common.cuh). With STORE_H, each chunk's bf16 GELU tile is also written
-// to h_out (row 0 of the block's rows of a [*, F] matrix; the first `rows`
-// rows). Ends with every copy landed.
-template <bool STORE_H, bool SEEDED = false>
+// (common.cuh). Ends with every copy landed.
+template <bool SEEDED = false>
 __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16* ring,
                                                  const bf16* __restrict__ w1,
                                                  const float* __restrict__ b1,
                                                  const bf16* __restrict__ w2, int F,
-                                                 float (&acc)[2][12][4], bf16* h_out,
-                                                 int rows) {
+                                                 float (&acc)[2][12][4]) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (F / FFN_CHUNK) * CHUNK_TILES;
@@ -158,12 +155,6 @@ __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16*
           const uint32_t h1 = pack2(gelu_erf(hacc[p][2] + c0), gelu_erf(hacc[p][3] + c1));
           *reinterpret_cast<uint32_t*>(hr) = h0;
           *reinterpret_cast<uint32_t*>(hr + 8 * H_STRIDE) = h1;
-          if constexpr (STORE_H) {
-            const int ra = m1 * 16 + g;
-            bf16* ho = h_out + (size_t)ra * F + c * FFN_CHUNK + col;
-            if (ra < rows) *reinterpret_cast<uint32_t*>(ho) = h0;
-            if (ra + 8 < rows) *reinterpret_cast<uint32_t*>(ho + (size_t)8 * F) = h1;
-          }
         }
       }
     } else {

@@ -3,9 +3,11 @@
     LayerNorm(dropout(gelu(x.W1^T + b1).W2^T + b2) + x) * gamma + beta
 
 ``fused_ffn_block_train`` is an ``autograd.Function``: its forward is
-kernel #9 (``fused_ffn_block_train_fwd``) and its backward kernel #10
-(``fused_ffn_block_train_bwd``), both in ``csrc/ffn_train.cu``. The backward
-recomputes the intermediates from x, as the reference's, and returns dW1
+kernel #9 (``fused_ffn_block_train_fwd``, ``csrc/ffn_train.cu``) and its
+backward kernel #10 (``fused_ffn_block_train_bwd``, ``csrc/ffn_train_bwd.cu``:
+a chain of wgmma/TMA products with fused epilogues, ``csrc/gemm.cuh``). The
+backward recomputes the intermediates from x, as the reference's, and
+returns dW1
 and dW2 in the weights' dtype (the bf16 copies of the fp32 masters), the
 vector gradients in fp32. The dropout mask is Philox4x32-10 keyed on
 (seed, output row, output column) (``ops/philox.py`` ``ffn_keep_mask``), so
@@ -37,7 +39,7 @@ from uc2_torch.ops.fused_block import HIDDEN
 from uc2_torch.ops.philox import check_seed, ffn_keep_mask, keep_threshold
 
 F_TILE = 128      # the kernels take intermediate widths that are multiples of this
-BWD_GROUPS = 4    # row groups of #10's weight-gradient partials
+BWD_SPLITS = 5    # most row splits of #10's weight-gradient products
 
 
 def ffn_train_enabled() -> bool:
@@ -188,6 +190,10 @@ def fused_ffn_block_train_bwd(x, w1, b1, w2, b2, gamma, seed: int,
     check_kernel_inputs("fused_ffn_block_train_bwd", bf16=(dy,),
                         has_backward=True)
     dy = dy.contiguous()
+    if any(t.data_ptr() % 16 for t in (x, w1, b1, w2, b2, dy)):
+        raise ValueError("fused_ffn_block_train_bwd: x, w1, b1, w2, b2 and "
+                         "dy must start on a 16-byte boundary (the kernel "
+                         "reads them by TMA and in 16-byte words)")
     H, Fi = x.shape[-1], w1.shape[0]
     rows = x.numel() // H
     f32 = dict(dtype=torch.float32, device=dev)
@@ -199,13 +205,13 @@ def fused_ffn_block_train_bwd(x, w1, b1, w2, b2, gamma, seed: int,
         return (dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_(),
                 dgamma.zero_(), dbeta.zero_())
     ws = torch.empty(build.load().uc2_ffn_train_bwd_workspace(
-        rows, Fi, BWD_GROUPS), dtype=torch.uint8, device=dev)
+        rows, Fi, BWD_SPLITS), dtype=torch.uint8, device=dev)
     build.launch("uc2_ffn_train_bwd", x.data_ptr(), w1.data_ptr(),
                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                  gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                  dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
                  db2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-                 ws.data_ptr(), rows, Fi, BWD_GROUPS, float(eps),
+                 ws.data_ptr(), rows, Fi, BWD_SPLITS, float(eps),
                  *_dropout_args(seed, rate), device=dev)
     fused_ffn_block_train_bwd.launches += 1
     return dx, dw1, db1, dw2, db2, dgamma, dbeta

@@ -34,6 +34,7 @@ TPU; whether they pay on an H100 is still to be measured.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -312,5 +313,9 @@ def fused_ffn_profitable(L: int) -> bool:
 
 def fused_block_profitable(L: int, n: int) -> bool:
     """Gate of the attention-block fusion, copied from the reference
-    package: joint length L >= 128 (the TPU's in-graph verdict)."""
+    package: joint length L >= 128 (the TPU's in-graph verdict), or any L
+    when the environment sets ``UC2_FUSE_ATTN_ALL`` (the reference's switch
+    for in-graph A/Bs, read at every call)."""
+    if os.environ.get("UC2_FUSE_ATTN_ALL"):
+        return True
     return L >= 128
