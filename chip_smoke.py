@@ -54,7 +54,10 @@ non-zero at the end, without the result lines:
      bucket's rows replayed from a CUDA graph, each of its kernels' device
      time from one profiled call, beside the autograd backward of the
      eager chain (F.linear, erf GELU, F.linear, dropout, + x, LayerNorm),
-     and #9's dropout mask against the plain Philox mask;
+     #9 at the mix bucket's rows, rates 0.1 and 0, replayed from a CUDA
+     graph beside #3 on the same rows, #9 at #3's tile edges (FFN_EDGES)
+     at both rates, each call repeated bit for bit and at rate 0 bit for
+     bit #3's, and #9's dropout mask against the plain Philox mask;
   6. long-L kernels: #4, #5 and #11, one streamed core, against their
      plain versions at the edges of its tiles (L = 1 .. 512, B = 3,
      fused-QKV views, rates 0.1 and 0), each call repeated bit for bit,
@@ -93,9 +96,10 @@ non-zero at the end, without the result lines:
      (first key blocks masked for whole rows), each call repeated bit for
      bit, timed (also from CUDA graphs) beside SDPA with a boolean segment
      mask on the padded tensors; #12a and #12b each against its plain version on the
-     same inputs at (160, 128), (128, 162) and (16, 512), the three
-     through autograd against the plain backward, a bitwise repeat, and
-     their times beside SDPA's autograd backward;
+     same inputs at (160, 128), (128, 162) and (16, 512) and at #12's
+     edges (#12b repeated bit for bit there), the three through autograd
+     against the plain backward, a bitwise repeat, and their times (also
+     from CUDA graphs) beside SDPA's autograd backward;
  10. routes: full-width uc2-base full_retrieval_eval over a gallery that
      gives each region-count bucket one batch of 64 images, with
      UC2_ATTN_V2=1 under "pallas" (12 launches of #7 a batch at L = 128
@@ -129,14 +133,16 @@ non-zero at the end, without the result lines:
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
 
-`python3 chip_smoke.py --times` runs phase 1 and then only times #5, #6,
-#4 and #1 at the main path's shapes as phases 2 and 6 do, #2 and #7 as
-phases 2 and 9 do, #10 as phase 5 does (with its kernels' profile) and #12
-as phase 9 does, and phase 4's mlm step at L = 162 (no result lines); a
-copy of this script in another tree of the port (it calls only the
-wrappers #1, #2, #4, #5, #6, #7, #10 and #12, whose signatures the port
-keeps, #1's C entry and the model's entry points) times that tree's
-kernels and step, so an A/B of two trees fits in one call.
+`python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
+the timings of the named groups (all five when none is named), no result
+lines: "stream" #5, #6, #4 and #1 at the main path's shapes as phases 2
+and 6 time them, "block" #2 and #7 as phases 2 and 9 do, "ffn" #9 and #3
+and #10 (with its kernels' profile) as phase 5 does, "segment" #12, #12a
+and #12b as phase 9 does, "step" phase 4's mlm step at L = 162. A copy of
+this script in another tree of the port (it calls only the kernels'
+wrappers, whose signatures the port keeps, #1's C entry and the model's
+entry points) times that tree's kernels and step, so an A/B of two trees
+fits in one call.
 """
 
 from __future__ import annotations
@@ -1385,7 +1391,7 @@ def phase_train(card, train_rows):
 FFN_ROWS = {
     "fused_ffn_block_train_fwd": dict(
         name="fused_ffn_block_train_fwd", route="cuda",
-        source="uc2_torch/csrc/ffn_train.cu",
+        source="uc2_torch/csrc/fused_ffn_block.cu",
         replaces="uc2_tpu/ops/ffn_train.py:68"),
     "fused_ffn_block_train_bwd": dict(
         name="fused_ffn_block_train_bwd", route="cuda",
@@ -1502,8 +1508,34 @@ def time_ffn_bwd(gen, card):
     return bargs, (nbytes, 12 * rows * H * FF)
 
 
+def time_ffn_fwd(gen, card):
+    """#9 at the mix bucket's rows (B = 128, L = 162), rates 0.1 and 0,
+    chained and replayed from a CUDA graph, beside #3 on the same inputs
+    (the function without the dropout step; at rate 0 #9 computes it too)
+    and at the scoring bucket's rows (B = 64, L = 162), also both ways."""
+    rows = 128 * 162
+    w1, b1, w2, b2, gamma, beta = ffn_weights(gen)
+    x = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    lo, by = bound(2 * rows * H * 2 + 2 * H * FF * 2 + (FF + 3 * H) * 4,
+                   4 * rows * H * FF)
+    for rate in (0.1, 0.0):
+        kern = lambda: fused_ffn_block_train_fwd(x, w1, b1, w2, b2, gamma,
+                                                 beta, FFN_SEED, rate)
+        ms, g_ms = time_ms(kern, iters=10), graph_ms(kern, iters=10)
+        print(f"    #9 rows={rows} rate={rate}: kernel {ms:.4f} ms (graph "
+              f"{g_ms:.4f}), bound {lo:.4f} ms ({by}); kernel / bound "
+              f"{ms / lo:.1f} [{card}]")
+    for n in (rows, 64 * 162):
+        xs = x[:n]
+        kern = lambda: fused_ffn_block(xs, w1, b1, w2, b2, gamma, beta)
+        print(f"    #3 rows={n}: kernel {time_ms(kern, iters=10):.4f} ms "
+              f"(graph {graph_ms(kern, iters=10):.4f}) [{card}]")
+
+
 def phase_ffn_times(gen, card):
-    """``--times``: #10 as phase 5 times it."""
+    """``--times``: #9 and #3 as ``time_ffn_fwd`` times them, #10 as
+    phase 5 times it."""
+    time_ffn_fwd(gen, card)
     time_ffn_bwd(gen, card)
 
 
@@ -1565,9 +1597,28 @@ def phase_ffn_kernels(gen, card):
                   f"{8 * rows * H * FF / PEAK_BF16_FLOPS * 1e3:.4f} ms")
             repeat_bitwise(f"#10 {tag}", lambda: fused_ffn_block_train_bwd(
                 *bargs), got)
-    # #10 from a CUDA graph, its kernels from one profiled call, beside the
-    # eager chain's autograd backward
+    # #9 and #3 from CUDA graphs; #10 from a CUDA graph, its kernels from
+    # one profiled call, beside the eager chain's autograd backward
+    time_ffn_fwd(gen, card)
     time_ffn_bwd(gen, card)
+    # #9 at the edges of #3's tiles, each call repeated bit for bit; at
+    # rate 0 it is #3's launch, bit for bit
+    for n_rows, Fi in FFN_EDGES:
+        x = torch.randn(n_rows, H, generator=gen, device="cuda").bfloat16()
+        args = (x, w1[:Fi].contiguous(), b1[:Fi].contiguous(),
+                w2[:, :Fi].contiguous(), b2, gamma, beta)
+        for rate in (0.1, 0.0):
+            tag = f"rows={n_rows} F={Fi} rate={rate}"
+            got = fused_ffn_block_train_fwd(*args, FFN_SEED, rate)
+            ef = compare(f"#9 {tag}", got,
+                         fused_ffn_block_train_plain(*args, FFN_SEED, rate))
+            fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ef)
+            repeat_bitwise(f"#9 {tag}", lambda: fused_ffn_block_train_fwd(
+                *args, FFN_SEED, rate), got)
+        if not torch.equal(got, fused_ffn_block(*args)):
+            fail(f"#9 at rate 0 is not #3 bit for bit at rows={n_rows} "
+                 f"F={Fi}")
+    print(f"  #9 at rate 0 == #3 bit for bit at {len(FFN_EDGES)} row counts")
     # #10 at the edges of its tiles, each call repeated bit for bit
     for n_rows, Fi in FFN_BWD_EDGES:
         w1e, w2e = w1[:Fi].contiguous(), w2[:, :Fi].contiguous()
@@ -2417,9 +2468,50 @@ def time_segment_fwd(q, k, v, bias, card):
     return lib
 
 
+def time_segment_bwd(q, k, v, bias, g, card):
+    """#12a and #12b on the forward's output and statistics, each chained
+    and replayed from a CUDA graph, beside SDPA's autograd backward with a
+    boolean segment mask on the padded tensors (the pair's yardstick;
+    chained, and from a graph with its forward on a side stream); returns
+    SDPA's chained ms."""
+    out, st = segment_flash_fwd(q, k, v, bias)
+    _, di = segment_flash_bwd_dq(q, k, v, bias, out, g, st)
+    b, L = q.shape[:2]
+    for name, kern in (
+            ("#12a", lambda: segment_flash_bwd_dq(q, k, v, bias, out, g, st)),
+            ("#12b", lambda: segment_flash_bwd_dkdv(q, k, v, bias, g, st,
+                                                    di))):
+        print(f"    {name} B={b} L={L}: kernel {time_ms(kern):.4f} ms (graph "
+              f"{graph_ms(kern):.4f}) [{card}]")
+    qp, kp, vp, mask, gp = sdpa_segment_inputs(q, k, v, bias, g)
+    qp, kp, vp = (t.requires_grad_(True) for t in (qp, kp, vp))
+    side = torch.cuda.Stream()      # the forward on a side stream, so that
+    side.wait_stream(torch.cuda.current_stream())    # its backward can be
+    with torch.cuda.stream(side):                    # captured
+        sd_out = F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def lib():
+        return torch.autograd.grad(sd_out, (qp, kp, vp), gp, retain_graph=True)
+    lib_ms = time_ms(lib)
+    try:
+        lib_g = f"{graph_ms(lib, stream=side):.4f}"
+    except RuntimeError as e:
+        lib_g = f"not captured: {str(e).splitlines()[0]}"
+        torch.cuda.synchronize()
+    print(f"    SDPA (boolean segment mask, Lp = {padded_len(L)}) autograd "
+          f"backward B={b} L={L}: {lib_ms:.4f} ms (graph {lib_g}): the "
+          f"yardstick of #12a + #12b together [{card}]")
+    return lib_ms
+
+
 def phase_segment_times(gen, card):
-    """``--times``: #12 at (64, 162) as phase 9 times it."""
+    """``--times``: #12 at (64, 162) and #12a, #12b at (128, 162) as phase
+    9 times them."""
     time_segment_fwd(*heads(gen, B, 162), card)
+    q, k, v, bias = heads(gen, 128, 162)
+    g = torch.randn(128, 162, N, D, generator=gen, device="cuda").bfloat16()
+    time_segment_bwd(q, k, v, bias, g, card)
 
 
 def phase_route_kernels(gen, card):
@@ -2500,11 +2592,7 @@ def phase_route_kernels(gen, card):
             fail(f"#12a/#12b at {tag} are not bitwise repeatable")
         if (b, L) != (128, 162):
             continue
-        qp, kp, vp, mask, gp = sdpa_segment_inputs(q, k, v, bias, g)
-        qp, kp, vp = (t.requires_grad_(True) for t in (qp, kp, vp))
-        sd_out = F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask)
-        lib = time_ms(lambda: torch.autograd.grad(sd_out, (qp, kp, vp), gp,
-                                                  retain_graph=True))
+        lib = time_segment_bwd(q, k, v, bias, g, card)
         act = b * L * H * 2
         vecs = b * L * 4 + 3 * b * N * L * 4     # bias, m, l, di
         fill_row(dq_row, tag,
@@ -2518,9 +2606,26 @@ def phase_route_kernels(gen, card):
                  lambda: segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pst,
                                                       pdi),
                  6 * act + vecs, 8 * b * N * L * L * D, lib)
-        print(f"    SDPA (boolean segment mask, Lp = {padded_len(L)}) "
-              f"autograd backward {lib:.4f} ms: the yardstick of #12a + "
-              f"#12b together")
+    # #12a and #12b at #12's edges: first key blocks masked for whole rows,
+    # the edges of #12b's 64-key tiles; each call repeated bit for bit
+    for b, L, case in SEGMENT_EDGES:
+        q, k, v, _ = heads(gen, b, L)
+        bias = segment_edge_bias(b, L, case)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        pout, pst = segment_flash_plain(q, k, v, bias)
+        tag = f"B={b} L={L} {case}"
+        dq, di = segment_flash_bwd_dq(q, k, v, bias, pout, g, pst)
+        pdq, pdi = segment_flash_bwd_dq_plain(q, k, v, bias, pout, g, pst)
+        e1 = max(compare(f"#12a dq {tag}", dq, pdq),
+                 compare(f"#12a di {tag}", di, pdi))
+        got = segment_flash_bwd_dkdv(q, k, v, bias, g, pst, pdi)
+        pdk, pdv = segment_flash_bwd_dkdv_plain(q, k, v, bias, g, pst, pdi)
+        e2 = max(compare(f"#12b dk {tag}", got[0], pdk),
+                 compare(f"#12b dv {tag}", got[1], pdv))
+        dq_row["max_abs_err"] = max(dq_row["max_abs_err"], e1)
+        kv_row["max_abs_err"] = max(kv_row["max_abs_err"], e2)
+        repeat_bitwise(f"#12b {tag}", lambda: segment_flash_bwd_dkdv(
+            q, k, v, bias, g, pst, pdi), got)
     return rows
 
 
@@ -2924,7 +3029,21 @@ def phase_lab(card):
                                    for c in launched.values())}
 
 
+# ``--times [group ...]``: the timing phases by name, in this order when
+# none is named
+TIMES = {"stream": (phase_stream_times, "gen"),
+         "block": (phase_block_times, "gen"),
+         "ffn": (phase_ffn_times, "gen", "card"),
+         "segment": (phase_segment_times, "gen", "card"),
+         "step": (time_mlm_step, "card")}
+
+
 def main() -> int:
+    if sys.argv[2:] and (sys.argv[1] != "--times"
+                         or not set(sys.argv[2:]) <= set(TIMES)):
+        print(f"usage: chip_smoke.py [--times [{' | '.join(TIMES)} ...]]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -2941,12 +3060,11 @@ def main() -> int:
 
     name, card = timed(phase_device)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if sys.argv[1:] == ["--times"]:
-        timed(phase_stream_times, gen)
-        timed(phase_block_times, gen)
-        timed(phase_ffn_times, gen, card)
-        timed(phase_segment_times, gen, card)
-        timed(time_mlm_step, card)
+    if sys.argv[1:2] == ["--times"]:
+        groups = sys.argv[2:] or list(TIMES)
+        for group in groups:
+            phase, *args = TIMES[group]
+            timed(phase, *(card if a == "card" else gen for a in args))
         return 1 if FAILURES else 0
     rows = timed(phase_kernels, gen)
     train_rows = timed(phase_train_kernels, gen)

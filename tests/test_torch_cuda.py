@@ -6,7 +6,8 @@ between them, the wrappers' refusals on CUDA tensors, the training
 kernels' dropout mask against the plain Philox mask bit for bit, the
 backward's two passes each against its plain version (statistics, keep
 bits bit for bit) and its bitwise repeat, the training FFN kernels (#9,
-#10) against their plain versions and for a bitwise repeat, the QKV-in-kernel
+#10) against their plain versions and for a bitwise repeat (#9 at rate 0
+bit for bit #3's launch), the QKV-in-kernel
 attention block (#7) and the segment-masked attention of the "flash"
 route (#12, #12a, #12b: all rows valid, most rows invalid, a first key
 block masked for whole rows, a bitwise repeat of the backward), the
@@ -595,6 +596,41 @@ def test_ffn_train_kernels_match_plain(gen, rows, F, rate):
     assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
+@pytest.mark.parametrize("rows,F", [(1, 3072), (65, 3072), (129, 384),
+                                    (20736, 3072)])
+def test_ffn_train_fwd_at_rate_0_is_fused_ffn_block(gen, rows, F):
+    """#9 is #3's kernel with the dropout in its epilogue: at rate 0 it
+    launches #3's kernel, so the two agree bit for bit."""
+    args = _ffn_args(gen, rows, F=F)
+    before = (fused_ffn_block_train_fwd.launches, fused_ffn_block.launches)
+    got = fused_ffn_block_train_fwd(*args, 7, 0.0)
+    assert torch.equal(got, fused_ffn_block(*args))
+    assert (fused_ffn_block_train_fwd.launches - before[0],
+            fused_ffn_block.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_train_fwd_is_bitwise_repeatable(gen, rate):
+    args = _ffn_args(gen, 64 * 132 + 1)     # one tile past a wave
+    first = fused_ffn_block_train_fwd(*args, 5, rate)
+    for _ in range(3):
+        assert torch.equal(first, fused_ffn_block_train_fwd(*args, 5, rate))
+
+
+def test_ffn_train_fwd_refuses_a_misaligned_x(gen):
+    """TMA reads x from a 16-byte boundary: a contiguous x that starts
+    elsewhere raises and is never computed by the plain version."""
+    x, *rest = _ffn_args(gen, 64, F=256)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = fused_ffn_block_train_fwd.launches
+    with pytest.raises(ValueError):
+        fused_ffn_block_train_fwd(shifted, *rest, 1, 0.1)
+    assert fused_ffn_block_train_fwd.launches == before
+
+
 def test_ffn_train_bwd_is_bitwise_repeatable(gen):
     args = _ffn_args(gen, 2000)
     dy = torch.randn(2000, H, generator=gen, device="cuda").bfloat16()
@@ -827,6 +863,26 @@ def test_segment_flash_kernels_match_plain(gen, B, L, case):
         _close_report(f"autograd {name}", a, b)
 
 
+def test_segment_flash_dkdv_at_the_mlm_shape(gen):
+    """#12b at the "flash" mlm step's (B, L) = (128, 162) against its plain
+    version, launched once a call and repeated bit for bit."""
+    B, L = 128, 162
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    _, di = sf.segment_flash_bwd_dq(q, k, v, bias, out, g, stats)
+    before = sf.segment_flash_bwd_dkdv.launches
+    dk, dv = sf.segment_flash_bwd_dkdv(q, k, v, bias, g, stats, di)
+    assert sf.segment_flash_bwd_dkdv.launches == before + 1
+    pdk, pdv = sf.segment_flash_bwd_dkdv_plain(q, k, v, bias, g, stats, di)
+    _close_report("dk", dk, pdk)
+    _close_report("dv", dv, pdv)
+    for _ in range(2):
+        again = sf.segment_flash_bwd_dkdv(q, k, v, bias, g, stats, di)
+        assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
 def test_segment_flash_backward_is_bitwise_repeatable(gen):
     q, k, v = _heads(gen, 2, 300, strided=True)
     bias = _segment_bias(2, 300, "invalid")
@@ -856,6 +912,13 @@ def test_segment_flash_wrappers_refuse(gen):
         sf.segment_flash_bwd_dq(q, k, v, bias, out, out.float(), stats)
     with pytest.raises(ValueError):                      # stats of another L
         sf.segment_flash_bwd_dq(q, k, v, bias, out, out, stats[..., :64])
+    # a gradient off the 16-byte boundary TMA reads from
+    _, di = sf.segment_flash_bwd_dq(q, k, v, bias, out, out, stats)
+    buf = torch.empty(out.numel() + 1, dtype=out.dtype, device="cuda")
+    g = buf[1:].view(out.shape)
+    g.copy_(out)
+    with pytest.raises(ValueError):
+        sf.segment_flash_bwd_dkdv(q, k, v, bias, g, stats, di)
 
 
 @pytest.mark.parametrize("route,Nb", [("v2", 66), ("v2", 100), ("flash", 66),

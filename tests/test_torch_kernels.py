@@ -20,7 +20,8 @@ from uc2_torch.ops.flash_attention import (
     flash_attention_train_bwd_dq, flash_attention_train_bwd_plain,
     flash_attention_train_fwd, flash_attention_train_plain)
 from uc2_torch.ops.fused_block import (fused_attn_block, fused_block_profitable,
-                                       fused_ffn_block, fused_ffn_profitable,
+                                       fused_ffn_block, fused_ffn_block_plain,
+                                       fused_ffn_profitable,
                                        fused_layer_profitable)
 from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train, fused_ffn_block_train_bwd,
@@ -349,6 +350,27 @@ def test_fused_ffn_block_train_plain_matches_pallas(B, L):
                                    else w, rtol=5e-4, atol=5e-4, err_msg=name)
     assert (fused_ffn_block_train_fwd.launches,        # CPU: no launches
             fused_ffn_block_train_bwd.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_train_at_rate_0_is_the_ffn_block(dtype):
+    """#9 is #3 with a dropout step: at rate 0 the port's plain #9 equals
+    its plain #3 bit for bit, and the reference's training FFN kernel
+    equals its inference FFN kernel (both in interpret mode)."""
+    args = _ffn_inputs(12, 2, 9, H=64, F=128)
+    ts = [t.to(getattr(torch, dtype)) if i in (0, 1, 3) else t
+          for i, t in enumerate(_t(*_linear_layout(*args)))]
+    got = fused_ffn_block_train_plain(*ts, 5, 0.0)
+    assert got.dtype == ts[0].dtype
+    assert torch.equal(got, fused_ffn_block_plain(*ts))
+    jargs = [jnp.asarray(a) for a in args]
+    if dtype == "bfloat16":
+        for i in (0, 1, 3):
+            jargs[i] = jargs[i].astype(jnp.bfloat16)
+    train = jax_fft(*jargs, 0, 0.0, 1e-12, True)
+    block = jfb.fused_ffn_block(*jargs, eps=1e-12, interpret=True)
+    np.testing.assert_array_equal(np.asarray(train.astype(jnp.float32)),
+                                  np.asarray(block.astype(jnp.float32)))
 
 
 def test_fused_ffn_block_train_bwd_plain_is_the_gradient():

@@ -183,8 +183,11 @@ def test_segment_flash_plain_matches_library_kernel(library_kernel, L,
     assert np.abs(got.numpy()[~valid] - eager[~valid]).max() > 1e-2
 
 
+# (128, "end") and (130, "end") hold the plain dK / dV at the edges of
+# #12b's 64-key tiles
 @pytest.mark.parametrize("L,where", [(128, "middle"), (162, "end"),
-                                     (162, "middle")])
+                                     (162, "middle"), (128, "end"),
+                                     (130, "end")])
 def test_segment_flash_backward_plain_matches_library_kernel(
         library_kernel, L, where):
     """dq, dk, dv of #12a/#12b's plain versions (through the port's

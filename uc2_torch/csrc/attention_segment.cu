@@ -34,25 +34,27 @@
 //     dO) in fp32 from the bf16 output (written for #12b), then over the
 //     streamed key blocks, 16 keys at a time: s, p = exp(s - m) * (1 / l),
 //     dP = dO . v^T, dS = (dP - di) p scale rounded to bf16, dQ += dS . K;
-//   #12b, per (64 keys, head, batch row), 4 warps of 16 keys whose K and V
-//     fragments stay in registers: over the streamed query tiles (Q, dO
-//     and the rows' m, 1 / l, di, segment), 16 queries at a time, S^T =
-//     K . Q^T, P^T, dP^T = V . dO^T, dS^T; dV += P^T (bf16) . dO and dK +=
-//     dS^T (bf16) . Q in fp32 registers.
+//   #12b, #6b's keys pass (attention_train.cu) with the segment mask, on
+//     the backward passes' shared pieces (attention_bwd.cuh): per (64 keys,
+//     head, batch row), K and V resident, Q and dO tiles of 64 queries and
+//     the rows' m, 1 / l, di and segment through a TMA ring; S^T, dP^T and
+//     the two gradient products by wgmma (see segment_flash_bwd_dkdv_kernel
+//     below).
 // Both recompute P with the same fp32 operations from the same m and l.
 //
 // What bounds them on an H100: bytes. #12 at (B, L) = (64, 162) reads q,
 // k, v and writes o, 63.7 MB (0.019 ms at 3.35 TB/s) against 10.3 GFLOP
 // counted at L (the padded Lp = 256 keys make it 16.3); #12a + #12b at
 // (128, 162) read q, k, v, o, dO and write dq, dk, dv, 255 MB (0.076 ms).
-// #12 runs two blocks a SM (one's exponentials under the other's
-// products); #12a and #12b still multiply with mma.sync in 16-row warps.
+// #12 and #12b run two blocks a SM (one's exponentials under the other's
+// products); #12a still multiplies with mma.sync in 16-row warps.
+#include "attention_bwd.cuh"
 #include "gemm.cuh"
 
 namespace uc2 {
 
 constexpr int SEG_BLOCK = 128;  // the library kernel's key block
-constexpr int SEG_TILE = 64;    // query rows (#12, #12a) or keys (#12b) per CUDA block
+constexpr int SEG_TILE = 64;    // query rows per CUDA block (#12, #12a)
 constexpr int SEG_WARPS = 4;    // 16 rows each
 constexpr float SEG_MASK = (float)(-0.7 * 3.4028234663852886e38);  // -0.7 * FLT_MAX
 
@@ -440,137 +442,199 @@ __global__ void __launch_bounds__(SEG_WARPS * 32)
 }
 
 // ---------------------------------------------------------------- #12b
-// shared memory: two stages of the query tile (Q, dO) and its rows' m,
-// 1 / l, di and segment
-struct QTileSmem {
-  bf16* Q;      // [2][SEG_TILE][K_STRIDE]
-  bf16* G;      // [2][SEG_TILE][K_STRIDE]
-  float* rowf;  // [2][3][SEG_TILE]: m, 1 / l, di
-  int* seg;     // [2][SEG_TILE]
-};
-constexpr size_t SEG_Q_SMEM = 2 * 2 * (size_t)SEG_TILE * K_STRIDE * 2 + 2 * 3 * SEG_TILE * 4 +
-                              2 * SEG_TILE * 4;
+// #6b's keys pass (attention_train.cu attn_bwd_keys_kernel) with the
+// segment mask in place of the additive bias and the dropout: one block per
+// (64 keys, head, batch row), one consumer warpgroup and one producer warp
+// (bwd::Cfg, two blocks a SM).
+//   * The block's K and V tiles stay in shared memory (TMA through maps
+//     over the strided views; keys past L arrive as zero rows of segment 0).
+//   * The producer streams Q and dO tiles of 64 queries through a ring of
+//     bwd::Cfg::STAGES slots, each with its rows' m, 1 / l, di and segment
+//     (rows past L: m = +inf, 1 / l = 0, di = 0, so their P is 0 and no
+//     0 * inf reaches dK). It starts a slot's TMA copies first and issues
+//     every load of the rows' data before its first store.
+//   * Per tile, keys as the 64 wgmma rows: S^T = K . Q^T and dP^T =
+//     V . dO^T (both K-major); P^T = expf(S^T scale + mask - m) (1 / l),
+//     the fp32 operations of #12a and the plain version (the mask added in
+//     natural units and the difference taken first, so a row whose m is
+//     itself the mask value gets p = 1 / l); dS^T = (dP^T - di) P^T scale;
+//     then dV += bf16(P^T) . dO and dK += bf16(dS^T) . Q with A from
+//     registers and dO, Q read MN-major. dP^T runs under P^T's
+//     exponentials; the two gradient products and the next tile's S^T
+//     follow back to back.
+//   * dK and dV leave through the K and V slots by TMA stores, which clip
+//     the keys past L.
+// Why (H100 timings at (128, 162), PERF.md): with the rows' data staged
+// row by row after the copies, as #6b stages its statistics, the pass took
+// 0.19 ms instead of 0.13, its blocks (three query tiles each at L = 162)
+// waiting on the producer's load latencies; exp2 of the difference times
+// log2 e took 0.123 ms against expf's 0.130, but #12a and #12b would then
+// recompute two different P.
+namespace segb {
+using C = bwd::Cfg;
+static_assert(C::T == 64, "the producer's lanes stage two rows each");
+constexpr int OFF_V = C::TILE, OFF_Q = 2 * C::TILE;
+constexpr int OFF_G = OFF_Q + C::STAGES * C::TILE;
+constexpr int OFF_ROWS = OFF_G + C::STAGES * C::TILE;          // [slot][m, 1 / l, di, segment][64]
+constexpr int OFF_BAR = OFF_ROWS + C::STAGES * 4 * C::T * 4;
+constexpr int SMEM = OFF_BAR + C::BARS + 1024;                // + the alignment slack
+}  // namespace segb
 
-__global__ void __launch_bounds__(SEG_WARPS * 32)
-    segment_flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                                  const bf16* __restrict__ gout, const float* __restrict__ stats,
-                                  const float* __restrict__ di_in, bf16* __restrict__ dk,
-                                  bf16* __restrict__ dv, int L, int n, int rs, float scale) {
-  __shared__ __align__(16) uint8_t smem[SEG_Q_SMEM];
-  QTileSmem sm;
-  sm.Q = reinterpret_cast<bf16*>(smem);
-  sm.G = sm.Q + 2 * SEG_TILE * K_STRIDE;
-  sm.rowf = reinterpret_cast<float*>(sm.G + 2 * SEG_TILE * K_STRIDE);
-  sm.seg = reinterpret_cast<int*>(sm.rowf + 2 * 3 * SEG_TILE);
-  const int k0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
-  const int grs = n * HEAD_DIM;
-  const size_t gbase = (size_t)b * L * grs + (size_t)h * HEAD_DIM;
+__global__ void __launch_bounds__(bwd::Cfg::THREADS, bwd::Cfg::MIN_BLOCKS)
+    segment_flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                                  const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap,
+                                  const __grid_constant__ CUtensorMap gmap,
+                                  const __grid_constant__ CUtensorMap dkmap,
+                                  const __grid_constant__ CUtensorMap dvmap,
+                                  const float* __restrict__ bias, const float* __restrict__ stats,
+                                  const float* __restrict__ di, int L, int n, float scale) {
+  using namespace stream;
+  using C = bwd::Cfg;
+  constexpr int T = C::T, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* srows = reinterpret_cast<float*>(smem + segb::OFF_ROWS);
+  const uint32_t full = base + segb::OFF_BAR, empty = full + 8 * STAGES,
+                 kvbar = empty + 8 * STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * T;
+  const int nt = (L + T - 1) / T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* bias_row = bias + (size_t)b * L;
-  const size_t bnl = (size_t)gridDim.z * n * L;
-  const size_t row_base = ((size_t)b * n + h) * L;
-  const int n_tiles = (L + SEG_TILE - 1) / SEG_TILE;
 
-  // query tile i into buffer buf: Q and dO rows (zero past L), and the rows'
-  // m, 1 / l, di, segment (0, 0, 0, 0 past L: P = 0 there)
-  auto stage = [&](int i, int buf) {
-    const int r0 = i * SEG_TILE;
-    for (int x = tid; x < SEG_TILE * 8; x += SEG_WARPS * 32) {
-      const int r = x >> 3, c = (x & 7) * 8, row = r0 + r;
-      bf16* dq_ = sm.Q + (buf * SEG_TILE + r) * K_STRIDE + c;
-      bf16* dg = sm.G + (buf * SEG_TILE + r) * K_STRIDE + c;
-      if (row < L) {
-        cp_async16(dq_, q + base + (size_t)row * rs + c);
-        cp_async16(dg, gout + gbase + (size_t)row * grs + c);
-      } else {
-        *reinterpret_cast<uint4*>(dq_) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(dg) = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes (+ the bytes)
+      mbar_init(empty + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---------------------------------------------- producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, 2 * C::TILE);
+      tma_load(base, &kmap, kvbar, h, k0, b);
+      tma_load(base + segb::OFF_V, &vmap, kvbar, h, k0, b);
+    }
+    const size_t bnl = (size_t)gridDim.z * n * L, at = ((size_t)b * n + h) * L;
+    for (int s = 0; s < nt; ++s) {
+      const int st = s % STAGES, q0 = s * T;
+      mbar_wait(empty + 8 * st, ((s / STAGES) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, so that they load under the rows' data
+        mbar_expect_tx(full + 8 * st, 2 * C::TILE);
+        tma_load(base + segb::OFF_Q + st * C::TILE, &qmap, full + 8 * st, h, q0, b);
+        tma_load(base + segb::OFF_G + st * C::TILE, &gmap, full + 8 * st, h, q0, b);
       }
+      // rows lane and lane + 32: every load issued before the first store
+      float m[2], l[2], d[2], sg[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = q0 + lane + 32 * u;
+        const bool in = row < L;
+        m[u] = in ? stats[at + row] : INFINITY;
+        l[u] = in ? stats[bnl + at + row] : 0.f;
+        d[u] = in ? di[at + row] : 0.f;
+        sg[u] = (float)segment_of(bias_row, row, L);
+      }
+      float* rw = srows + st * 4 * T;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = lane + 32 * u;
+        rw[i] = m[u];
+        rw[T + i] = q0 + i < L ? 1.f / l[u] : 0.f;
+        rw[2 * T + i] = d[u];
+        rw[3 * T + i] = sg[u];
+      }
+      mbar_arrive(full + 8 * st);
     }
-    for (int x = tid; x < SEG_TILE; x += SEG_WARPS * 32) {
-      const int row = r0 + x;
-      const bool in = row < L;
-      float* rf = sm.rowf + buf * 3 * SEG_TILE;
-      rf[x] = in ? stats[row_base + row] : 0.f;
-      rf[SEG_TILE + x] = in ? 1.f / stats[bnl + row_base + row] : 0.f;
-      rf[2 * SEG_TILE + x] = in ? di_in[row_base + row] : 0.f;
-      sm.seg[buf * SEG_TILE + x] = segment_of(bias_row, row, L);
-    }
-    cp_async_commit();
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wl = warp, g = lane >> 2, t = lane & 3;
+  const int r0 = wl * 16 + g;  // this lane's keys: k0 + r0, k0 + r0 + 8
+  float seg_k[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) seg_k[hi] = (float)segment_of(bias_row, k0 + r0 + 8 * hi, L);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  fence_regs(dk);
+  fence_regs(dv);
+  auto qslot = [&](int s) { return base + segb::OFF_Q + (s % STAGES) * C::TILE; };
+  auto gslot = [&](int s) { return base + segb::OFF_G + (s % STAGES) * C::TILE; };
+  auto issue_st = [&](float(&acc)[32], int s) {  // S^T = K . Q^T of tile s
+    mbar_wait(full + 8 * (s % STAGES), (s / STAGES) & 1);
+    wgmma_fence();
+    bwd::product_xyt(acc, base, qslot(s));
+    wgmma_commit();
   };
 
-  stage(0, 0);
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-  const bool active = k0 + warp * 16 < L;
-  uint32_t ka[HEAD_DIM / 16][4], va[HEAD_DIM / 16][4];
-  row_frags(ka, k + base, rs, kr0, kr1, L);
-  row_frags(va, v + base, rs, kr0, kr1, L);
-  const int seg_k[2] = {segment_of(bias_row, kr0, L), segment_of(bias_row, kr1, L)};
-  float dka[HEAD_DIM / 8][4], dva[HEAD_DIM / 8][4];
+  mbar_wait(kvbar, 0);
+  float sc[32];
+  issue_st(sc, 0);
+  for (int s = 0; s < nt; ++s) {
+    const int st = s % STAGES;
+    const float* rw = srows + st * 4 * T;
+    float dp[32];
+    wgmma_fence();
+    bwd::product_xyt(dp, base + segb::OFF_V, gslot(s));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p)
+    for (int c = 0; c < 8; ++c) {  // P^T in place of S^T
+      const int col = 8 * c + 2 * t;  // queries col, col + 1 of this tile
+      const float2 m = *reinterpret_cast<const float2*>(rw + col);
+      const float2 iv = *reinterpret_cast<const float2*>(rw + T + col);
+      const float2 sq = *reinterpret_cast<const float2*>(rw + 3 * T + col);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[p][e] = dva[p][e] = 0.f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < n_tiles) {
-      stage(i + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qb = sm.Q + buf * SEG_TILE * K_STRIDE;
-    const bf16* gb = sm.G + buf * SEG_TILE * K_STRIDE;
-    const float* rf = sm.rowf + buf * 3 * SEG_TILE;
-    const int* sq = sm.seg + buf * SEG_TILE;
-    if (active) {
-#pragma unroll 2
-      for (int qc = 0; qc < SEG_TILE / 16; ++qc) {
-        float pt[2][4], dst[2][4];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int qrow = qc * 16 + nt * 8;
-          float s[4], dp[4];
-          tile_dot(s, ka, qb + qrow * K_STRIDE);   // S^T: keys x queries
-          tile_dot(dp, va, gb + qrow * K_STRIDE);  // dP^T = V . dO^T
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = qrow + t * 2 + (e & 1);
-            const float sc =
-                s[e] * scale + (seg_k[e >> 1] == sq[col] ? 0.f : SEG_MASK);
-            const float p = expf(sc - rf[col]) * rf[SEG_TILE + col];
-            pt[nt][e] = p;
-            dst[nt][e] = (dp[e] - rf[2 * SEG_TILE + col]) * p * scale;
-          }
-        }
-        const uint32_t ap[4] = {pack2(pt[0][0], pt[0][1]), pack2(pt[0][2], pt[0][3]),
-                                pack2(pt[1][0], pt[1][1]), pack2(pt[1][2], pt[1][3])};
-        const uint32_t as[4] = {pack2(dst[0][0], dst[0][1]), pack2(dst[0][2], dst[0][3]),
-                                pack2(dst[1][0], dst[1][1]), pack2(dst[1][2], dst[1][3])};
-        frag_times_rows(dva, ap, gb + qc * 16 * K_STRIDE);
-        frag_times_rows(dka, as, qb + qc * 16 * K_STRIDE);
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, lo = e & 1;
+        const float sv = sc[4 * c + e] * scale + (seg_k[hi] == (lo ? sq.y : sq.x) ? 0.f : SEG_MASK);
+        sc[4 * c + e] = expf(sv - (lo ? m.y : m.x)) * (lo ? iv.y : iv.x);
       }
     }
-    __syncthreads();  // buffer buf is staged again at tile i + 2
-  }
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p) {
-    const int col = p * 8 + t * 2;
-    if (kr0 < L) {
-      const size_t o = gbase + (size_t)kr0 * grs + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack2(dka[p][0], dka[p][1]);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack2(dva[p][0], dva[p][1]);
+    for (int c = 0; c < 8; ++c) {  // dS^T in place of dP^T
+      const float2 dd = *reinterpret_cast<const float2*>(rw + 2 * T + 8 * c + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * c + e] = (dp[4 * c + e] - (e & 1 ? dd.y : dd.x)) * sc[4 * c + e] * scale;
     }
-    if (kr1 < L) {
-      const size_t o = gbase + (size_t)kr1 * grs + col;
-      *reinterpret_cast<uint32_t*>(dk + o) = pack2(dka[p][2], dka[p][3]);
-      *reinterpret_cast<uint32_t*>(dv + o) = pack2(dva[p][2], dva[p][3]);
+    uint32_t pv[4][4], pk[4][4];
+    bwd::to_frags(pv, sc);
+    bwd::to_frags(pk, dp);
+    wgmma_fence();
+    bwd::product_ay(dv, pv, gslot(s));
+    bwd::product_ay(dk, pk, qslot(s));
+    wgmma_commit();
+    if (s + 1 < nt) {
+      issue_st(sc, s + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
     }
+    fence_regs(dk);
+    fence_regs(dv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);  // its Q and dO read
+  }
+
+  // dK and dV through the K and V slots (every product that read them is done)
+  bwd::to_tile(smem, dk, 1.f, wl, g, t);
+  bwd::to_tile(smem + segb::OFF_V, dv, 1.f, wl, g, t);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bwd::consumers_sync();
+  if (wl == 0 && lane == 0) {
+    tma_store(&dkmap, base, h, k0, b);
+    tma_store(&dvmap, base + segb::OFF_V, h, k0, b);
   }
 }
 
@@ -632,11 +696,22 @@ extern "C" int uc2_segment_flash_bwd_dkdv(const void* q, const void* k, const vo
                                           int n, int rs, float scale, void* stream) {
   using namespace uc2;
   if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
-  dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
-  segment_flash_bwd_dkdv_kernel<<<grid, SEG_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const bf16*>(g),
-      static_cast<const float*>(stats), static_cast<const float*>(di), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), L, n, rs, scale);
+  // a runtime call before the tensor maps are encoded: it makes the
+  // device's context current in autograd's backward thread
+  cudaError_t err = cudaFuncSetAttribute(segment_flash_bwd_dkdv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, segb::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap qm, km, vm, gm, dkm, dvm;
+  const size_t rb = (size_t)rs * 2, gb = (size_t)n * HEAD_DIM * 2;
+  constexpr int T = bwd::Cfg::T;
+  if (!stream::heads_map(&qm, q, B, L, n, rb, T) || !stream::heads_map(&km, k, B, L, n, rb, T) ||
+      !stream::heads_map(&vm, v, B, L, n, rb, T) || !stream::heads_map(&gm, g, B, L, n, gb, T) ||
+      !stream::heads_map(&dkm, dk, B, L, n, gb, T) || !stream::heads_map(&dvm, dv, B, L, n, gb, T))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((L + T - 1) / T, n, B);
+  segment_flash_bwd_dkdv_kernel<<<grid, bwd::Cfg::THREADS, segb::SMEM,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, gm, dkm, dvm, static_cast<const float*>(bias),
+      static_cast<const float*>(stats), static_cast<const float*>(di), L, n, scale);
   return (int)cudaGetLastError();
 }

@@ -128,6 +128,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
                : "memory");
 }
 
+// expect that many more bytes of copies in the barrier's current phase,
+// without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
 // Wait until the phase of the given parity has completed. A barrier that
 // never completes (a fault in the expected byte counts) traps after about
 // ten seconds instead of hanging the card.

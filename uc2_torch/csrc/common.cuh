@@ -393,11 +393,11 @@ __device__ __forceinline__ void ctx_out_projection(const bf16* ctx,
 // with fp32 two-pass statistics (mean, then mean squared deviation), and
 // writes the first `rows` rows as bf16, rows out_rs apart. `res` may point
 // to global or shared memory; `red` is 8*32 floats of shared scratch. With
-// ADD_BIAS false, acc already holds its bias (the training FFN block adds
-// it before its dropout) and vbias is not read; with ADD_RES false there is
-// no residual and res is not read. With KEEP (the whole-layer block, whose
-// FFN takes the fp32 LayerNorm output as its residual), acc ends holding
-// the fp32 output and all 32 rows are written.
+// ADD_BIAS false, acc already holds its bias and vbias is not read; with
+// ADD_RES false there is no residual and res is not read (a residual comes
+// with its bias). With KEEP (the whole-layer block, whose FFN takes the
+// fp32 LayerNorm output as its residual), acc ends holding the fp32 output
+// and all 32 rows are written.
 template <bool ADD_BIAS = true, bool ADD_RES = true, bool KEEP = false>
 __device__ __forceinline__ void residual_layernorm(
     float (&acc)[2][12][4], const float* __restrict__ vbias, const bf16* res,
@@ -405,6 +405,7 @@ __device__ __forceinline__ void residual_layernorm(
     float eps, bf16* __restrict__ out, int rows, float* red, int out_rs = HIDDEN) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  static_assert(ADD_BIAS || !ADD_RES, "a residual comes with its bias");
   float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -419,13 +420,8 @@ __device__ __forceinline__ void residual_layernorm(
         if constexpr (ADD_RES) {
           const float2 xr = r < rows ? unpack2(res + (size_t)r * res_rs + col)
                                      : make_float2(0.f, 0.f);
-          if (ADD_BIAS) {
-            acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
-            acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
-          } else {
-            acc[m][j][2 * hi] += xr.x;
-            acc[m][j][2 * hi + 1] += xr.y;
-          }
+          acc[m][j][2 * hi] = (acc[m][j][2 * hi] + b0) + xr.x;
+          acc[m][j][2 * hi + 1] = (acc[m][j][2 * hi + 1] + b1) + xr.y;
         } else if (ADD_BIAS) {
           acc[m][j][2 * hi] += b0;
           acc[m][j][2 * hi + 1] += b1;

@@ -1,7 +1,7 @@
-// The mma.sync weight walk shared by the training FFN block's forward (#9,
-// ffn_train.cu) and the whole-layer block (#8, fused_layer_block.cu). The
-// inference FFN block (#3, fused_ffn_block.cu) and the training FFN
-// backward (#10, ffn_train_bwd.cu) have wgmma/TMA kernels of their own.
+// The mma.sync weight walk of the whole-layer block (#8,
+// fused_layer_block.cu). The FFN blocks (#3 and the training forward #9,
+// fused_ffn_block.cu) and the training FFN backward (#10,
+// ffn_train_bwd.cu) have wgmma/TMA kernels of their own.
 //
 // One block of 8 warps owns a tile of 32 rows of x (staged in shared
 // memory) and walks the intermediate width F in chunks of 64. Per chunk
@@ -34,10 +34,6 @@ static_assert(FFN_CHUNK * K_SLICE / 8 % FFN_THREADS == 0 &&
 constexpr int STAGE_ELEMS = N_SLICE * W2_STRIDE > FFN_CHUNK * W1_STRIDE
                                 ? N_SLICE * W2_STRIDE
                                 : FFN_CHUNK * W1_STRIDE;
-constexpr size_t FFN_SMEM =
-    (size_t)(FFN_ROWS * ROW_STRIDE + FFN_ROWS * H_STRIDE + STAGES * STAGE_ELEMS) * 2 +
-    FFN_THREADS * 4;
-
 // Start the copies of weight tile `idx` of the forward walk into `stage`.
 __device__ __forceinline__ void load_tile(bf16* stage, const bf16* __restrict__ w1,
                                           const bf16* __restrict__ w2, int F,
@@ -75,25 +71,11 @@ __device__ __forceinline__ void ffn_walk_prologue(bf16* ring, const bf16* __rest
   }
 }
 
-// Rows [r0, r0 + rows) of a [*, HIDDEN] bf16 matrix into a [FFN_ROWS,
-// ROW_STRIDE] shared tile; the rows past `rows` are zero.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src,
-                                           int r0, int rows) {
-  for (int i = threadIdx.x; i < FFN_ROWS * (HIDDEN / 8); i += FFN_THREADS) {
-    const int r = i / (HIDDEN / 8), c = (i % (HIDDEN / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HIDDEN + c);
-    *reinterpret_cast<uint4*>(dst + r * ROW_STRIDE + c) = val;
-  }
-}
-
 // The forward walk, after ffn_walk_prologue and with x staged in xs:
-// acc = gelu_erf(x . W1^T + b1) . W2^T (no b2), fp32, the GELU output
-// rounded to bf16 where the TPU kernels round it; with SEEDED the products
-// are added to what acc holds (the whole-layer block's x2 + b2). acc[m][j]
-// holds rows m*16 + g (+8) and columns out_col(warp, j) + 2t (+1)
-// (common.cuh). Ends with every copy landed.
-template <bool SEEDED = false>
+// acc += gelu_erf(x . W1^T + b1) . W2^T (acc holds the whole-layer block's
+// x2 + b2), fp32, the GELU output rounded to bf16 where the TPU kernels
+// round it. acc[m][j] holds rows m*16 + g (+8) and columns out_col(warp,
+// j) + 2t (+1) (common.cuh). Ends with every copy landed.
 __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16* ring,
                                                  const bf16* __restrict__ w1,
                                                  const float* __restrict__ b1,
@@ -102,12 +84,6 @@ __device__ __forceinline__ void ffn_forward_walk(const bf16* xs, bf16* hs, bf16*
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (F / FFN_CHUNK) * CHUNK_TILES;
-  if constexpr (!SEEDED) {
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 12; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-  }
   float hacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
   const uint32_t* Xw = reinterpret_cast<const uint32_t*>(xs);
   const uint32_t* Hw = reinterpret_cast<const uint32_t*>(hs);

@@ -5,8 +5,8 @@
 // uc2_tpu/ops/ffn_train.py _bwd_kernel (launched by _ffn_train_bwd), which
 // every encoder layer runs in training under
 // use_pallas_attention="pallas-train" with UC2_FFN_TRAIN=1. The forward
-// (#9) is ffn_train.cu; both draw the dropout mask from Philox of the
-// global (row, column) (philox.cuh ffn_keep_bits4).
+// (#9) is fused_ffn_block.cu's kernel with DROP; both draw the dropout mask
+// from Philox of the global (row, column) (philox.cuh ffn_keep_bits4).
 //
 // The TPU kernel walks its row tiles in order and sums the weight and
 // vector gradients in fp32 outputs that stay in VMEM. Here the backward is

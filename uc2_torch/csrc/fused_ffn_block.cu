@@ -1,12 +1,28 @@
 // Fused FFN block for inference, kernel #3:
 //   out = LayerNorm(bf16(gelu_erf(x . W1^T + b1)) . W2^T + b2 + x) * gamma + beta
 // with fp32 sums in both products, the GELU output rounded to bf16 where
-// the TPU kernel rounds it, and fp32 two-pass LayerNorm statistics.
+// the TPU kernel rounds it, and fp32 two-pass LayerNorm statistics; and
+// the training FFN block's forward, kernel #9 (DROP), the same function
+// with the output dropout before the residual:
+//   out = LayerNorm(dropout(bf16(gelu_erf(x . W1^T + b1)) . W2^T + b2) + x) ...
 //
-// Replaces the TPU kernel uc2_tpu/ops/fused_block.py:_ffn_kernel (launched
-// by fused_ffn_block), which the encoder runs in every layer of every
-// scored batch. The property kept from it: the [rows, F] intermediate never
-// reaches device memory (the wrapper allocates only the output).
+// Replaces the TPU kernels uc2_tpu/ops/fused_block.py:_ffn_kernel
+// (launched by fused_ffn_block), which the encoder runs in every layer of
+// every scored batch, and uc2_tpu/ops/ffn_train.py:_fwd_kernel (launched by
+// _ffn_train_fwd / fused_ffn_block_train), which every layer of a training
+// step runs under use_pallas_attention="pallas-train" with UC2_FFN_TRAIN=1
+// (its backward, #10, is ffn_train_bwd.cu). The property kept from them:
+// the [rows, F] intermediate never reaches device memory (the wrappers
+// allocate only the output).
+//
+// #9's dropout: the keep bit of output (row, col) is Philox4x32-10 of its
+// global index (philox.cuh ffn_keep_bits4), never of a tile, so #10 redraws
+// the mask though it tiles differently. In the epilogue a thread's two
+// columns 8 j + 2 t, + 1 lie in one 4-column group, which lanes t and t ^ 1
+// share: each lane draws the group of one of its two rows and swaps the
+// bits with its partner, 24 draws a thread; then y2 = keep ? (y + b2) /
+// (1 - rate) : 0 before + x. Without DROP (#3, and #9 at rate 0) the
+// epilogue is (y + b2) + x, so #9 at rate 0 is #3's launch, bit for bit.
 //
 // Design, for Hopper. A 64-row tile of x (wgmma's M) belongs to a cluster
 // of two blocks on neighbouring SMs; block `rank` owns output columns
@@ -62,7 +78,10 @@
 // and its rings (96 KB, what x and h leave of shared memory) do not bring
 // the weights in as fast as the tensor cores would use them: with the
 // products taken out the kernel keeps most of its time (PERF.md). x's
-// 96 KB tile, which GEMM 1 reads whole, keeps the tile at 64 rows.
+// 96 KB tile, which GEMM 1 reads whole, keeps the tile at 64 rows. #9 at
+// the mix bucket's 20736 rows makes 196 GFLOP (0.198 ms); its Philox
+// draws, 24 a thread in the epilogue, cost no time measurable beside #3's
+// on the same rows (PERF.md).
 #include "cluster.cuh"
 
 namespace uc2 {
@@ -119,13 +138,14 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(Cfg::THREADS, 1)
     fused_ffn_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap w1map,
                      const __grid_constant__ CUtensorMap w2map,
                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ b1,
                      const float* __restrict__ b2, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, int F, float eps) {
+                     const float* __restrict__ beta, int F, float eps, Dropout dr) {
   using C = Cfg;
   constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -315,9 +335,10 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
     s += C::NW2;
   }
 
-  // y + b2 + x; the row statistics over the cluster's 768 columns. This
-  // thread's column 8 j + 2 t of the warpgroup's 192 lies in x's box
-  // 6 rank + 3 wg + j / 8, 16-byte group j % 8.
+  // y + b2 + x (DROP: dropout(y + b2) + x); the row statistics over the
+  // cluster's 768 columns. This thread's column 8 j + 2 t of the
+  // warpgroup's 192 lies in x's box 6 rank + 3 wg + j / 8, 16-byte group
+  // j % 8.
   const int col0 = C::OUT_BLOCK * rank + C::OUT_WG * wg;
   const uint32_t red_peer = peer_addr(smem_u32(red), peer);
   float part[2] = {0.f, 0.f};
@@ -326,14 +347,28 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
     const int col = col0 + 8 * j + 2 * t;
     const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
     const int off = (col >> 6) * C::BOX + (((j & 7) ^ g) << 4) + 4 * t;
+    uint32_t keep[2] = {0u, 0u};  // rows r, r + 8: the keep bits of col, col + 1
+    if constexpr (DROP) {
+      // this lane draws row r + 8 (t & 1); its partner t ^ 1 the other
+      const uint32_t mine = ffn_keep_bits4(dr.seed, dr.thresh, (uint32_t)col >> 2,
+                                           (uint32_t)(r0 + r + 8 * (t & 1)));
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+      keep[0] = ((t & 1) ? other : mine) >> (col & 3);
+      keep[1] = ((t & 1) ? mine : other) >> (col & 3);
+    }
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       const float2 xr =
           bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(smem + off + (r + 8 * hi) * 128));
       float& v0 = y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi];
       float& v1 = y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi + 1];
-      v0 = (v0 + bb.x) + xr.x;
-      v1 = (v1 + bb.y) + xr.y;
+      if constexpr (DROP) {
+        v0 = ((keep[hi] & 1u) ? (v0 + bb.x) * dr.keep_scale : 0.f) + xr.x;
+        v1 = ((keep[hi] & 2u) ? (v1 + bb.y) * dr.keep_scale : 0.f) + xr.y;
+      } else {
+        v0 = (v0 + bb.x) + xr.x;
+        v1 = (v1 + bb.y) + xr.y;
+      }
       part[hi] += v0 + v1;
     }
   }
@@ -409,6 +444,25 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
   }
 }
 
+// The kernel on `rows` rows of x (DROP: with the output dropout dr)
+template <bool DROP>
+inline int run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               const void* gamma, const void* beta, void* out, int rows, int F, float eps,
+               Dropout dr, cudaStream_t stream) {
+  using C = Cfg;
+  if (rows < 1 || F < C::FC || F % C::FC) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, w1m, w2m, om;
+  if (!map_2d(&xm, x, HIDDEN, rows, 64) || !map_2d(&w1m, w1, HIDDEN, F, 64) ||
+      !map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) || !map_2d(&om, out, HIDDEN, rows, 64))
+    return (int)cudaErrorInvalidValue;
+  // two blocks a row tile
+  return launch_clusters(fused_ffn_kernel<DROP>, (rows + C::BM - 1) / C::BM * C::CLUSTER,
+                         C::THREADS, C::CLUSTER, C::SMEM, stream, xm, w1m, w2m, om,
+                         static_cast<const float*>(b1), static_cast<const float*>(b2),
+                         static_cast<const float*>(gamma), static_cast<const float*>(beta), F,
+                         eps, dr);
+}
+
 }  // namespace ffn
 }  // namespace uc2
 
@@ -420,17 +474,21 @@ extern "C" int uc2_fused_ffn_block(const void* x, const void* w1, const void* b1
                                    const void* beta, void* out, int rows, int F,
                                    float eps, void* stream) {
   using namespace uc2;
-  using C = ffn::Cfg;
-  if (rows < 1 || F < C::FC || F % C::FC) return (int)cudaErrorInvalidValue;
-  CUtensorMap xm, w1m, w2m, om;
-  if (!stream::map_2d(&xm, x, HIDDEN, rows, 64) || !stream::map_2d(&w1m, w1, HIDDEN, F, 64) ||
-      !stream::map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) || !stream::map_2d(&om, out, HIDDEN, rows, 64))
-    return (int)cudaErrorInvalidValue;
-  // two blocks a row tile
-  return stream::launch_clusters(ffn::fused_ffn_kernel, (rows + C::BM - 1) / C::BM * C::CLUSTER,
-                                 C::THREADS, C::CLUSTER, C::SMEM,
-                                 static_cast<cudaStream_t>(stream), xm, w1m, w2m, om,
-                                 static_cast<const float*>(b1), static_cast<const float*>(b2),
-                                 static_cast<const float*>(gamma),
-                                 static_cast<const float*>(beta), F, eps);
+  return ffn::run<false>(x, w1, b1, w2, b2, gamma, beta, out, rows, F, eps, Dropout{},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// #9: as above, with the output dropout of rate 1 - 1 / keep_scale drawn
+// from seed (keep where the Philox word >= thresh); drop = 0 skips the
+// mask (rate 0), and the launch is then #3's. Returns cudaGetLastError().
+extern "C" int uc2_ffn_train_fwd(const void* x, const void* w1, const void* b1,
+                                 const void* w2, const void* b2, const void* gamma,
+                                 const void* beta, void* out, int rows, int F, float eps,
+                                 unsigned seed, unsigned thresh, float keep_scale, int drop,
+                                 void* stream) {
+  using namespace uc2;
+  const Dropout dr{seed, thresh, keep_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return drop ? ffn::run<true>(x, w1, b1, w2, b2, gamma, beta, out, rows, F, eps, dr, st)
+              : ffn::run<false>(x, w1, b1, w2, b2, gamma, beta, out, rows, F, eps, dr, st);
 }

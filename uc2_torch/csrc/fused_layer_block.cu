@@ -95,7 +95,7 @@ __global__ void __launch_bounds__(FFN_THREADS)
       acc[m][j][2] += c0;
       acc[m][j][3] += c1;
     }
-  ffn_forward_walk<true>(tile, hs, ring, w1, b1, w2, F, acc);
+  ffn_forward_walk(tile, hs, ring, w1, b1, w2, F, acc);
   residual_layernorm<false, false>(acc, nullptr, nullptr, 0, g2, be2, eps,
                                    out + row0 * HIDDEN, rows, red);
 }

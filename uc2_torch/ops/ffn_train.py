@@ -3,7 +3,9 @@
     LayerNorm(dropout(gelu(x.W1^T + b1).W2^T + b2) + x) * gamma + beta
 
 ``fused_ffn_block_train`` is an ``autograd.Function``: its forward is
-kernel #9 (``fused_ffn_block_train_fwd``, ``csrc/ffn_train.cu``) and its
+kernel #9 (``fused_ffn_block_train_fwd``, ``csrc/fused_ffn_block.cu``: the
+inference FFN block's kernel #3 with the dropout in its epilogue; at rate 0
+it is #3's launch) and its
 backward kernel #10 (``fused_ffn_block_train_bwd``, ``csrc/ffn_train_bwd.cu``:
 a chain of wgmma/TMA products with fused epilogues, ``csrc/gemm.cuh``). The
 backward recomputes the intermediates from x, as the reference's, and
@@ -137,6 +139,9 @@ def _check_kernel(what, x, w1, w2, vecs):
                          f"{F_TILE}, got {H}, {Fi}")
     if not (x.is_contiguous() and w1.is_contiguous() and w2.is_contiguous()):
         raise ValueError(f"{what}: x, w1 and w2 must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError(f"{what}: x, w1 and w2 must start on a 16-byte "
+                         f"boundary (the kernel reads them by TMA)")
 
 
 def _dropout_args(seed, rate):
@@ -190,10 +195,10 @@ def fused_ffn_block_train_bwd(x, w1, b1, w2, b2, gamma, seed: int,
     check_kernel_inputs("fused_ffn_block_train_bwd", bf16=(dy,),
                         has_backward=True)
     dy = dy.contiguous()
-    if any(t.data_ptr() % 16 for t in (x, w1, b1, w2, b2, dy)):
-        raise ValueError("fused_ffn_block_train_bwd: x, w1, b1, w2, b2 and "
-                         "dy must start on a 16-byte boundary (the kernel "
-                         "reads them by TMA and in 16-byte words)")
+    if any(t.data_ptr() % 16 for t in (b1, b2, dy)):
+        raise ValueError("fused_ffn_block_train_bwd: b1, b2 and dy must "
+                         "start on a 16-byte boundary (the kernel reads them "
+                         "by TMA and in 16-byte words)")
     H, Fi = x.shape[-1], w1.shape[0]
     rows = x.numel() // H
     f32 = dict(dtype=torch.float32, device=dev)

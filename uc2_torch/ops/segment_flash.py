@@ -33,7 +33,9 @@ dQ = dS (rounded) . k. No gradient reaches the bias.
 
 Kernels (``csrc/attention_segment.cu``): #12 the forward
 (``segment_flash_fwd``), #12a dQ (``segment_flash_bwd_dq``, which also
-computes di) and #12b dK/dV (``segment_flash_bwd_dkdv``). The padding is
+computes di) and #12b dK/dV (``segment_flash_bwd_dkdv``, the training
+attention's keys pass with the segment mask, ``csrc/attention_bwd.cuh``).
+The padding is
 virtual: the kernels read q, k, v as [B, L, n, 64] (views into the fused
 QKV projection), count keys L..Lp-1 as zero keys of segment 0, and skip
 query rows past L, which the reference computes and slices off (their
@@ -256,6 +258,10 @@ def segment_flash_bwd_dkdv(q, k, v, bias, g, stats, di):
     g = g.contiguous()
     dk, dv = (torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
               for _ in range(2))
+    if any(t.data_ptr() % 16 for t in (g, dk, dv)):
+        raise ValueError("segment_flash_bwd_dkdv: the gradient and dk, dv "
+                         "must start on a 16-byte boundary (the kernel reads "
+                         "and writes them by TMA)")
     build.launch("uc2_segment_flash_bwd_dkdv", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), g.data_ptr(),
                  stats.data_ptr(), di.data_ptr(), dk.data_ptr(),
