@@ -97,9 +97,11 @@ non-zero at the end, without the result lines:
      bit, timed (also from CUDA graphs) beside SDPA with a boolean segment
      mask on the padded tensors; #12a and #12b each against its plain version on the
      same inputs at (160, 128), (128, 162) and (16, 512) and at #12's
-     edges (#12b repeated bit for bit there), the three through autograd
-     against the plain backward, a bitwise repeat, and their times (also
-     from CUDA graphs) beside SDPA's autograd backward;
+     edges (#12b repeated bit for bit there), #12a at its 64-key tile
+     edges L = 129, 192, 200 and 255 in every mask case (DQ_EDGES), each
+     repeated bit for bit, the three through autograd against the plain
+     backward, a bitwise repeat, and their times (also from CUDA graphs)
+     beside SDPA's autograd backward;
  10. routes: full-width uc2-base full_retrieval_eval over a gallery that
      gives each region-count bucket one batch of 64 images, with
      UC2_ATTN_V2=1 under "pallas" (12 launches of #7 a batch at L = 128
@@ -118,9 +120,9 @@ non-zero at the end, without the result lines:
  12. lab kernels: #8 (the whole encoder layer) against its plain version
      at (B, L) = (64, 98), (64, 128), (64, 162) and (8, 512), #11 (attention
      with unnormalised bf16 probabilities) at (64, 98) and (64, 162) on
-     heads that are views into one projection, each timed with its bound
-     (#11 beside SDPA, both also from CUDA graphs) and repeated bit for
-     bit;
+     heads that are views into one projection, each timed with its bound,
+     chained and from CUDA graphs (#8 beside #2 + #3 on the same inputs,
+     #11 beside SDPA), and repeated bit for bit;
  13. lab: uc2_torch.lab.main for each of its six modes (op, block, block2,
      ffn, layer, ce) at the lab's default shapes (B = 64, L = 162; the ce
      race at N = 1536, V = 250002) and --iters 10, its output echoed:
@@ -134,11 +136,12 @@ The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
-the timings of the named groups (all five when none is named), no result
+the timings of the named groups (all six when none is named), no result
 lines: "stream" #5, #6, #4 and #1 at the main path's shapes as phases 2
 and 6 time them, "block" #2 and #7 as phases 2 and 9 do, "ffn" #9 and #3
 and #10 (with its kernels' profile) as phase 5 does, "segment" #12, #12a
-and #12b as phase 9 does, "step" phase 4's mlm step at L = 162. A copy of
+and #12b as phase 9 does, "layer" #8 and #2 + #3 as phase 12 does,
+"step" phase 4's mlm step at L = 162. A copy of
 this script in another tree of the port (it calls only the kernels'
 wrappers, whose signatures the port keeps, #1's C entry and the model's
 entry points) times that tree's kernels and step, so an A/B of two trees
@@ -2446,9 +2449,19 @@ SEGMENT_EDGES = ((1, 128, "first_block"), (2, 129, "leading"),
                  (2, 257, "leading"), (3, 512, "first_block"))
 
 
+# #12a's 64-key tile edges that are not edges of the library's 128-key
+# blocks (its sweep stops at the last 64-key tile holding a key < L, short
+# of the padded length), in every mask case: every key valid, all but the
+# first 10 invalid, and the first key block masked for whole rows
+DQ_EDGES = tuple((1 + i % 3, L, case) for i, (L, case) in enumerate(
+    (L, case) for L in (129, 192, 200, 255)
+    for case in ("valid", "invalid", "leading", "first_block")))
+
+
 def segment_edge_bias(b, L, case):
     keys = torch.arange(L, device="cuda")[None].expand(b, L)
-    valid = keys >= 128 if case == "leading" else keys < 128
+    valid = {"valid": keys >= 0, "invalid": keys < 10,
+             "leading": keys >= 128, "first_block": keys < 128}[case]
     return ((~valid).float() * -10000.0)[:, None, None, :].contiguous()
 
 
@@ -2626,6 +2639,19 @@ def phase_route_kernels(gen, card):
         kv_row["max_abs_err"] = max(kv_row["max_abs_err"], e2)
         repeat_bitwise(f"#12b {tag}", lambda: segment_flash_bwd_dkdv(
             q, k, v, bias, g, pst, pdi), got)
+    for b, L, case in DQ_EDGES:
+        q, k, v, _ = heads(gen, b, L)
+        bias = segment_edge_bias(b, L, case)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        pout, pst = segment_flash_plain(q, k, v, bias)
+        tag = f"B={b} L={L} {case}"
+        got = segment_flash_bwd_dq(q, k, v, bias, pout, g, pst)
+        pdq, pdi = segment_flash_bwd_dq_plain(q, k, v, bias, pout, g, pst)
+        dq_row["max_abs_err"] = max(dq_row["max_abs_err"],
+                                    compare(f"#12a dq {tag}", got[0], pdq),
+                                    compare(f"#12a di {tag}", got[1], pdi))
+        repeat_bitwise(f"#12a {tag}", lambda: segment_flash_bwd_dq(
+            q, k, v, bias, pout, g, pst), got)
     return rows
 
 
@@ -2918,31 +2944,75 @@ def repeat_bitwise(what: str, fn, first, times: int = 1):
         fail(f"{what} is not bitwise repeatable")
 
 
-def phase_lab_kernels(gen):
-    """#8 against its plain version at B = 64, L = 98, 128, 162 and at
-    (8, 512), on random weights at the lab's scales; #11 at (64, 98) and
-    (64, 162) on heads that are views into one projection. Each timed at
-    (64, 162) with its bound, #11 beside SDPA, and repeated bit for bit."""
+LAYER_SHAPES = ((B, 98), (B, 128), (B, 162), (8, 512))
+
+
+def layer_weights(gen):
+    """#8's weights and vectors at the lab's scales: wo, bo, g1, be1, w1,
+    b1, w2, b2, g2, be2."""
+    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.02).bfloat16()
+    return (w(H, H), vec(gen, H, 0.01), vec(gen, H, 0.1, 1.0),
+            vec(gen, H, 0.1), w(FF, H), vec(gen, FF, 0.01), w(H, FF),
+            vec(gen, H, 0.01), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1))
+
+
+def layer_args(gen, b, L, weights):
+    q, k, v, bias = heads(gen, b, L)
+    x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+    return (q, k, v, bias, x, *weights)
+
+
+def layer_split(args):
+    """#8's yardstick: #2 then #3 on the same inputs (the lab's split2;
+    its FFN adds #2's bf16 output, not x2 in fp32)."""
+    q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = args
+    x2 = fused_attn_block(q, k, v, bias, x, wo, bo, g1, be1)
+    return fused_ffn_block(x2, w1, b1, w2, b2, g2, be2)
+
+
+def time_layer(args, card):
+    """#8 and the split #2 + #3, each chained and replayed from a CUDA
+    graph, on the same inputs."""
+    b, L = args[0].shape[:2]
+    one = lambda: fused_layer_block(*args)
+    split = lambda: layer_split(args)
+    ms, g_ms = time_ms(one), graph_ms(one)
+    sp, sp_g = time_ms(split), graph_ms(split)
+    print(f"    #8 B={b} L={L}: kernel {ms:.4f} ms (graph {g_ms:.4f}) [{card}]")
+    print(f"    #8's yardstick #2 + #3 B={b} L={L}: {sp:.4f} ms (graph "
+          f"{sp_g:.4f}); from graphs #8 / split {g_ms / sp_g:.2f} [{card}]")
+
+
+def phase_layer_times(gen, card):
+    """``--times``: #8 at LAYER_SHAPES as phase 12 times it, beside #2 +
+    #3 (the split) on the same inputs, each chained and from graphs."""
+    weights = layer_weights(gen)
+    for b, L in LAYER_SHAPES:
+        time_layer(layer_args(gen, b, L, weights), card)
+
+
+def phase_lab_kernels(gen, card):
+    """#8 against its plain version at LAYER_SHAPES, on random weights at
+    the lab's scales, each timed chained and from a CUDA graph beside #2 +
+    #3 (the split) on the same inputs, with its bound; #11 at (64, 98) and
+    (64, 162) on heads that are views into one projection. #8's row holds
+    its times at (64, 162), #11's at (64, 162) beside SDPA; each repeated
+    bit for bit."""
     print("== lab kernels vs plain (#8 the whole encoder layer; #11 attention "
           "with unnormalised bf16 probabilities; plain: fp32 compute on the "
           "same bf16 inputs)")
     rows = {k: dict(v) for k, v in LAB_ROWS.items()}
-    w = lambda *shape: (torch.randn(*shape, generator=gen, device="cuda")
-                        * 0.02).bfloat16()
-    wo, w1, w2 = w(H, H), w(FF, H), w(H, FF)
-    bo, b1, b2 = vec(gen, H, 0.01), vec(gen, FF, 0.01), vec(gen, H, 0.01)
-    g1, be1 = vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
-    g2, be2 = vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
-    for b, L in ((B, 98), (B, 128), (B, 162), (8, 512)):
-        q, k, v, bias = heads(gen, b, L)
-        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
-        args = (q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    weights = layer_weights(gen)
+    for b, L in LAYER_SHAPES:
+        args = layer_args(gen, b, L, weights)
         run_case(rows, "fused_layer_block", b, L, fused_layer_block,
                  fused_layer_block_plain, args,
                  5 * b * L * H * 2 + b * L * 4 + (H * H + 2 * H * FF) * 2
                  + (6 * H + FF) * 4,
                  4 * b * N * L * L * D + 2 * b * L * H * H + 4 * b * L * H * FF,
                  report=(b, L) == (B, 162))
+        time_layer(args, card)
         repeat_bitwise(f"#8 B={b} L={L}", lambda: fused_layer_block(*args),
                        fused_layer_block(*args))
     for L in (98, 162):
@@ -3035,6 +3105,7 @@ TIMES = {"stream": (phase_stream_times, "gen"),
          "block": (phase_block_times, "gen"),
          "ffn": (phase_ffn_times, "gen", "card"),
          "segment": (phase_segment_times, "gen", "card"),
+         "layer": (phase_layer_times, "gen", "card"),
          "step": (time_mlm_step, "card")}
 
 
@@ -3073,7 +3144,7 @@ def main() -> int:
     rows.update(ffn_rows)
     rows.update(timed(phase_long_kernels, gen, train_rows))
     rows.update(timed(phase_route_kernels, gen, card))
-    rows.update(timed(phase_lab_kernels, gen))
+    rows.update(timed(phase_lab_kernels, gen, card))
     launches = timed(phase_slice, card)
 
     def add(more):

@@ -822,7 +822,13 @@ SEGMENT_CASES = [(2, 128, "valid"), (2, 128, "invalid"), (1, 129, "valid"),
                  (1, 512, "invalid"), (3, 162, "first_block"),
                  (1, 255, "leading"), (2, 256, "first_block"),
                  (3, 257, "invalid"), (1, 512, "leading"),
-                 (64, 162, "invalid"), (1, 1, "valid"), (2, 65, "invalid")]
+                 (64, 162, "invalid"), (1, 1, "valid"), (2, 65, "invalid"),
+                 # #12a's 64-key tile edges inside the library's last
+                 # 128-key block, where its sweep stops short of Lp
+                 (1, 192, "valid"), (2, 192, "invalid"),
+                 (1, 192, "first_block"), (1, 193, "valid"),
+                 (2, 193, "invalid"), (3, 193, "first_block"),
+                 (1, 200, "leading")]
 
 
 @pytest.mark.parametrize("B,L,case", SEGMENT_CASES)
@@ -881,6 +887,25 @@ def test_segment_flash_dkdv_at_the_mlm_shape(gen):
     for _ in range(2):
         again = sf.segment_flash_bwd_dkdv(q, k, v, bias, g, stats, di)
         assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+def test_segment_flash_dq_at_the_mlm_shape(gen):
+    """#12a at the "flash" mlm step's (B, L) = (128, 162) against its plain
+    version (dq and di), launched once a call and repeated bit for bit."""
+    B, L = 128, 162
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    out, stats = sf.segment_flash_fwd(q, k, v, bias)
+    before = sf.segment_flash_bwd_dq.launches
+    dq, di = sf.segment_flash_bwd_dq(q, k, v, bias, out, g, stats)
+    assert sf.segment_flash_bwd_dq.launches == before + 1
+    pdq, pdi = sf.segment_flash_bwd_dq_plain(q, k, v, bias, out, g, stats)
+    _close_report("dq", dq, pdq)
+    _close_report("di", di, pdi)
+    for _ in range(2):
+        again = sf.segment_flash_bwd_dq(q, k, v, bias, out, g, stats)
+        assert torch.equal(dq, again[0]) and torch.equal(di, again[1])
 
 
 def test_segment_flash_backward_is_bitwise_repeatable(gen):
@@ -1020,21 +1045,41 @@ def _layer_args(gen, B, L, strided=True, F=3072):
 
 @pytest.mark.parametrize("B,L,strided", [(1, 1, True), (2, 98, True),
                                          (2, 128, False), (3, 162, True),
-                                         (1, 257, False), (1, 512, True)])
+                                         (1, 257, False), (1, 512, True),
+                                         (3, 1, False), (2, 63, False),
+                                         (3, 64, True), (1, 65, False),
+                                         (2, 129, True), (1, 162, False),
+                                         (2, 257, True), (23, 162, True)])
 def test_fused_layer_block_kernel_matches_plain(gen, B, L, strided):
-    """L = 1, 98, 162 and 257 end in a padded query tile; 512 takes the
-    widest score rows and the largest shared memory (192 KB)."""
+    """The edges of the 64-row query tiles (L = 1, 63, 64, 65, 129 and the
+    padded last tiles of 98, 162 and 257), the key tiles of 512, heads as
+    views into one projection and contiguous, and B = 23 at L = 162: 138
+    clusters' blocks on 132 SMs, past a wave, repeated ten times."""
     args = _layer_args(gen, B, L, strided)
     before = fused_layer_block.launches
     out = fused_layer_block(*args)
     _close(out, fused_layer_block_plain(*args))
     assert fused_layer_block.launches == before + 1
-    assert torch.equal(fused_layer_block(*args), out)        # bitwise repeat
+    past_a_wave = 2 * B * -(-L // 64) > 132
+    for _ in range(10 if past_a_wave else 1):                # bitwise repeat
+        assert torch.equal(fused_layer_block(*args), out)
+
+
+@pytest.mark.parametrize("F", [64, 128])
+def test_fused_layer_block_at_narrow_ffn_widths(gen, F):
+    """F = 64 and 128: warpgroups whose W rings carry fewer slots than the
+    ring has, one or two chunks in all."""
+    args = _layer_args(gen, 2, 65, F=F)
+    out = fused_layer_block(*args)
+    _close(out, fused_layer_block_plain(*args))
+    assert torch.equal(fused_layer_block(*args), out)
 
 
 def test_fused_layer_block_takes_other_ffn_widths(gen):
     args = _layer_args(gen, 2, 40, F=1024)
-    _close(fused_layer_block(*args), fused_layer_block_plain(*args))
+    out = fused_layer_block(*args)
+    _close(out, fused_layer_block_plain(*args))
+    assert torch.equal(fused_layer_block(*args), out)
 
 
 def test_fused_layer_block_refuses(gen):
@@ -1059,6 +1104,11 @@ def test_fused_layer_block_refuses(gen):
              args[11][:Hs].contiguous(), *(a[:Hs] for a in args[12:]))
     with pytest.raises(ValueError):
         fused_layer_block(*small)
+    buf = torch.empty(args[9].numel() + 1, dtype=args[9].dtype, device="cuda")
+    w1 = buf[1:].view(args[9].shape)                      # 2 bytes off
+    w1.copy_(args[9])
+    with pytest.raises(ValueError):
+        fused_layer_block(*args[:9], w1, *args[10:])
     with pytest.raises(RuntimeError):                     # no backward
         fused_layer_block(*args[:4], args[4].requires_grad_(True), *args[5:])
 

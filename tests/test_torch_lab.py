@@ -124,6 +124,19 @@ def test_fused_layer_block_plain_matches_pallas():
     assert fused_layer_block.launches == before          # CPU: no launch
 
 
+@pytest.mark.parametrize("L", [64, 65])
+def test_fused_layer_block_plain_matches_pallas_at_tile_edges(L):
+    """At the edges of the kernel's 64-row query tiles: a whole tile, and
+    one row past it."""
+    a = _layer_inputs(B=1, L=L, seed=L)
+    r = _reference(a, jnp.float32)
+    want = np.asarray(jfb.fused_layer_block(*(r[k] for k in ORDER),
+                                            eps=1e-12, interpret=True))
+    p = _port(a, torch.float32)
+    got = fused_layer_block(*(p[k] for k in ORDER), eps=1e-12)
+    np.testing.assert_allclose(got.numpy(), want, **FP32_TOL)
+
+
 def _bf16_close(got, want):
     got, want = got.float().numpy(), np.asarray(want, np.float32)
     np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=1e-6)

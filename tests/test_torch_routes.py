@@ -184,10 +184,15 @@ def test_segment_flash_plain_matches_library_kernel(library_kernel, L,
 
 
 # (128, "end") and (130, "end") hold the plain dK / dV at the edges of
-# #12b's 64-key tiles
+# #12b's 64-key tiles; L = 192, 200 and 255 end inside the library's last
+# 128-key block but at or past a 64-key tile edge, where #12a's sweep stops
+# short of the padded length
 @pytest.mark.parametrize("L,where", [(128, "middle"), (162, "end"),
                                      (162, "middle"), (128, "end"),
-                                     (130, "end")])
+                                     (130, "end"), (192, "end"),
+                                     (192, "middle"), (200, "end"),
+                                     (200, "middle"), (255, "end"),
+                                     (255, "middle")])
 def test_segment_flash_backward_plain_matches_library_kernel(
         library_kernel, L, where):
     """dq, dk, dv of #12a/#12b's plain versions (through the port's

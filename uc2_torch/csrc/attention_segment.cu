@@ -28,112 +28,41 @@
 // tensor maps of the [B, L, n, 64] views, so keys past L arrive as zero
 // rows, and their segment (0) comes from the block's segment row.
 //
-// Backward, split as #6's long-L pair (attention_train.cu), without
-// atomics so a step repeats bit for bit:
-//   #12a, per (64 query rows, head, batch row), 4 warps: di = rowsum(o *
-//     dO) in fp32 from the bf16 output (written for #12b), then over the
-//     streamed key blocks, 16 keys at a time: s, p = exp(s - m) * (1 / l),
-//     dP = dO . v^T, dS = (dP - di) p scale rounded to bf16, dQ += dS . K;
-//   #12b, #6b's keys pass (attention_train.cu) with the segment mask, on
-//     the backward passes' shared pieces (attention_bwd.cuh): per (64 keys,
-//     head, batch row), K and V resident, Q and dO tiles of 64 queries and
-//     the rows' m, 1 / l, di and segment through a TMA ring; S^T, dP^T and
-//     the two gradient products by wgmma (see segment_flash_bwd_dkdv_kernel
-//     below).
+// Backward, split as #6's pair of passes (attention_train.cu), on the
+// pieces they share (attention_bwd.cuh), without atomics so a step repeats
+// bit for bit:
+//   #12a, #6a's rows pass with the segment mask: per (64 query rows, head,
+//     batch row), Q, dO and O resident, di = rowsum(o * dO) in fp32 from
+//     the bf16 output (written for #12b), then one sweep over 64-key tiles
+//     of K and V with their segments through a TMA ring: S and dP by
+//     wgmma, P = expf(s + mask - m) (1 / l), dS = (dP - di) P scale rounded
+//     to bf16, dQ += dS . K (see segment_flash_bwd_dq_kernel below);
+//   #12b, #6b's keys pass (attention_train.cu) with the segment mask: per
+//     (64 keys, head, batch row), K and V resident, Q and dO tiles of 64
+//     queries and the rows' m, 1 / l, di and segment through a TMA ring;
+//     S^T, dP^T and the two gradient products by wgmma (see
+//     segment_flash_bwd_dkdv_kernel below).
 // Both recompute P with the same fp32 operations from the same m and l.
 //
 // What bounds them on an H100: bytes. #12 at (B, L) = (64, 162) reads q,
 // k, v and writes o, 63.7 MB (0.019 ms at 3.35 TB/s) against 10.3 GFLOP
-// counted at L (the padded Lp = 256 keys make it 16.3); #12a + #12b at
-// (128, 162) read q, k, v, o, dO and write dq, dk, dv, 255 MB (0.076 ms).
-// #12 and #12b run two blocks a SM (one's exponentials under the other's
-// products); #12a still multiplies with mma.sync in 16-row warps.
+// counted at L (the padded Lp = 256 keys make it 16.3); #12a at (128, 162)
+// reads q, k, v, o, dO, the bias and the row statistics and writes dq and
+// di, 194 MB (0.058 ms), against three products of L^2 d a row and head
+// (15.5 GFLOP, 0.016 ms); #12a + #12b together read q, k, v, o, dO and write dq,
+// dk, dv, 255 MB (0.076 ms). All three run two blocks a SM, one block's
+// exponentials under the other's products.
 #include "attention_bwd.cuh"
 #include "gemm.cuh"
 
 namespace uc2 {
 
 constexpr int SEG_BLOCK = 128;  // the library kernel's key block
-constexpr int SEG_TILE = 64;    // query rows per CUDA block (#12, #12a)
-constexpr int SEG_WARPS = 4;    // 16 rows each
+constexpr int SEG_TILE = 64;    // query rows per CUDA block (#12)
 constexpr float SEG_MASK = (float)(-0.7 * 3.4028234663852886e38);  // -0.7 * FLT_MAX
-
-// shared memory of #12a: two stages of K and V blocks and their
-// key segments
-constexpr size_t SEG_KV_SMEM = 2 * 2 * (size_t)SEG_BLOCK * K_STRIDE * 2 + 2 * SEG_BLOCK * 4;
 
 __device__ __forceinline__ int segment_of(const float* bias_row, int i, int L) {
   return i < L && bias_row[i] >= -1.f;
-}
-
-// Stage key block j (keys 128 j ..) of one head into buffer buf: K and V
-// rows by cp.async (zero past L) and the keys' segments; commits a group.
-__device__ __forceinline__ void stage_kv_block(bf16* sK, bf16* sV, int* sSeg,
-                                               const bf16* __restrict__ k,
-                                               const bf16* __restrict__ v, size_t base,
-                                               int rs, const float* bias_row, int L, int j,
-                                               int buf) {
-  const int k0 = j * SEG_BLOCK;
-  for (int i = threadIdx.x; i < SEG_BLOCK * 8; i += SEG_WARPS * 32) {
-    const int r = i >> 3, c = (i & 7) * 8, key = k0 + r;
-    bf16* dk = sK + (buf * SEG_BLOCK + r) * K_STRIDE + c;
-    bf16* dv = sV + (buf * SEG_BLOCK + r) * K_STRIDE + c;
-    if (key < L) {
-      cp_async16(dk, k + base + (size_t)key * rs + c);
-      cp_async16(dv, v + base + (size_t)key * rs + c);
-    } else {
-      *reinterpret_cast<uint4*>(dk) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(dv) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  for (int i = threadIdx.x; i < SEG_BLOCK; i += SEG_WARPS * 32)
-    sSeg[buf * SEG_BLOCK + i] = segment_of(bias_row, k0 + i, L);
-  cp_async_commit();
-}
-
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// A fragments of rows r0, r1 (64 wide, zero past L) of a [tokens][rs] tensor
-__device__ __forceinline__ void row_frags(uint32_t (&a)[HEAD_DIM / 16][4], const bf16* p, int rs,
-                                          int r0, int r1, int L) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    a[ks][0] = r0 < L ? ldg32(p + (size_t)r0 * rs + c) : 0u;
-    a[ks][1] = r1 < L ? ldg32(p + (size_t)r1 * rs + c) : 0u;
-    a[ks][2] = r0 < L ? ldg32(p + (size_t)r0 * rs + c + 8) : 0u;
-    a[ks][3] = r1 < L ? ldg32(p + (size_t)r1 * rs + c + 8) : 0u;
-  }
-}
-
-// c = A . B^T for one 16 x 8 tile: B the rows [row, row + 8) of a
-// [rows][K_STRIDE] tile (head dim contiguous)
-__device__ __forceinline__ void tile_dot(float (&c)[4], const uint32_t (&a)[HEAD_DIM / 16][4],
-                                         const bf16* rows) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HEAD_DIM / 16; ++ks) {
-    const bf16* kr = rows + g * K_STRIDE + ks * 16 + t * 2;
-    mma16816(c, a[ks], ld32(kr), ld32(kr + 8));
-  }
-}
-
-// acc[0..7] += A . Y for a 16-deep A fragment and the 16 rows [row, row + 16)
-// of a [rows][K_STRIDE] tile Y (64 wide), read through ldmatrix.trans
-__device__ __forceinline__ void frag_times_rows(float (&acc)[HEAD_DIM / 8][4], const uint32_t (&a)[4],
-                                                const bf16* rows) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int np = 0; np < HEAD_DIM / 16; ++np) {
-    uint32_t r[4];
-    ldsm_x4_trans(r, rows + ((mi & 1) * 8 + rr) * K_STRIDE + (2 * np + (mi >> 1)) * 8);
-    mma16816(acc[2 * np], a, r[0], r[1]);
-    mma16816(acc[2 * np + 1], a, r[2], r[3]);
-  }
 }
 
 // ----------------------------------------------------------------- #12
@@ -343,102 +272,204 @@ __global__ void __launch_bounds__(seg::THREADS, 2)
 }
 
 // ---------------------------------------------------------------- #12a
-__global__ void __launch_bounds__(SEG_WARPS * 32)
-    segment_flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const float* __restrict__ bias,
-                                const bf16* __restrict__ out, const bf16* __restrict__ gout,
-                                const float* __restrict__ stats, bf16* __restrict__ dq,
-                                float* __restrict__ di_out, int L, int n, int rs,
-                                float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + 2 * SEG_BLOCK * K_STRIDE;
-  int* sSeg = reinterpret_cast<int*>(sV + 2 * SEG_BLOCK * K_STRIDE);
-  const int q0 = blockIdx.x * SEG_TILE, h = blockIdx.y, b = blockIdx.z;
+// #6a's rows pass (attention_train.cu attn_bwd_rows_kernel) with the
+// segment mask, in one sweep: one block per (64 query rows, head, batch
+// row), one consumer warpgroup and one producer warp (bwd::Cfg, two blocks
+// a SM).
+//   * The producer loads the tile's Q (the strided view into the fused
+//     QKV projection), dO and O once by TMA, then streams K and V tiles of
+//     64 keys through a ring of bwd::Cfg::STAGES slots, each with its keys'
+//     segments (keys past L arrive as zero rows of segment 0). It starts a
+//     slot's TMA copies first and issues every load of the segments before
+//     its first store (#12b's lesson).
+//   * The consumers take di = rowsum(o * dO) in fp32 from the O and dO
+//     boxes (written for #12b) and each row's m and 1 / l from the
+//     forward's statistics (rows past L: m = +inf, 1 / l = 0, so their P
+//     is 0). Per key tile: S = Q . K^T and dP = dO . V^T (both K-major);
+//     P = expf(s scale + mask - m) (1 / l), #12b's fp32 operations (the
+//     mask added in natural units and the difference taken before expf:
+//     exp2 of the difference times log2 e would overflow at the mask
+//     value); dS = (dP - di) P scale rounded into A fragments; dQ += dS . K
+//     with K read MN-major, one tile's dS . K under the next tile's S and
+//     dP.
+//   * The sweep covers ceil(L / 64) key tiles, not the library's Lp = 128
+//     ceil(L / 128) keys: the keys in [L, Lp) have K = 0, so each adds
+//     dS . 0 = 0 to dQ.
+//   * dQ leaves through the O box (free once di is taken) by a TMA store
+//     that clips the rows past L. No atomics: the output repeats bit for
+//     bit.
+namespace sega {
+using C = bwd::Cfg;
+static_assert(C::T == 64, "the producer's lanes stage two keys each");
+constexpr int OFF_G = C::TILE, OFF_O = 2 * C::TILE;
+constexpr int OFF_K = 3 * C::TILE;
+constexpr int OFF_V = OFF_K + C::STAGES * C::TILE;
+constexpr int OFF_SEG = OFF_V + C::STAGES * C::TILE;            // [slot][64] key segments
+constexpr int OFF_BAR = OFF_SEG + C::STAGES * C::T * 4;
+constexpr int SMEM = OFF_BAR + C::BARS + 1024;                 // + the alignment slack
+}  // namespace sega
+
+__global__ void __launch_bounds__(bwd::Cfg::THREADS, bwd::Cfg::MIN_BLOCKS)
+    segment_flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap omap,
+                                const __grid_constant__ CUtensorMap gmap,
+                                const __grid_constant__ CUtensorMap dqmap,
+                                const float* __restrict__ bias, const float* __restrict__ stats,
+                                float* __restrict__ di_out, int L, int n, float scale) {
+  using namespace stream;
+  using C = bwd::Cfg;
+  constexpr int T = C::T, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  int* sseg = reinterpret_cast<int*>(smem + sega::OFF_SEG);
+  const uint32_t full = base + sega::OFF_BAR, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * T;
+  const int nt = (L + T - 1) / T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t base = (size_t)b * L * rs + (size_t)h * HEAD_DIM;
-  const int grs = n * HEAD_DIM;  // token stride of out, g and dq
-  const size_t gbase = (size_t)b * L * grs + (size_t)h * HEAD_DIM;
   const float* bias_row = bias + (size_t)b * L;
-  const int n_blocks = (L + SEG_BLOCK - 1) / SEG_BLOCK;
 
-  stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, 0, 0);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[HEAD_DIM / 16][4], ga[HEAD_DIM / 16][4], oa[HEAD_DIM / 16][4];
-  row_frags(qa, q + base, rs, r0, r1, L);
-  row_frags(ga, gout + gbase, grs, r0, r1, L);
-  row_frags(oa, out + gbase, grs, r0, r1, L);
-  const int seg_q[2] = {segment_of(bias_row, r0, L), segment_of(bias_row, r1, L)};
-
-  // di = rowsum(o * dO) of rows r0 (hi 0) and r1 (hi 1), in fp32
-  float di[2] = {0.f, 0.f};
-#pragma unroll
-  for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 of = bf16x2_to_float2(oa[ks][e]), gf = bf16x2_to_float2(ga[ks][e]);
-      di[e & 1] += of.x * gf.x + of.y * gf.y;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes (+ the bytes)
+      mbar_init(empty + 8 * s, 4);  // one arrival per consumer warp
     }
-  const size_t bnl = (size_t)gridDim.z * n * L;
-  const size_t row_base = ((size_t)b * n + h) * L;
-  float mrow[2], inv_l[2];
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---------------------------------------------- producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 3 * C::TILE);
+      tma_load(base, &qmap, qbar, h, q0, b);
+      tma_load(base + sega::OFF_G, &gmap, qbar, h, q0, b);
+      tma_load(base + sega::OFF_O, &omap, qbar, h, q0, b);
+    }
+    for (int s = 0; s < nt; ++s) {
+      const int st = s % STAGES, k0 = s * T;
+      mbar_wait(empty + 8 * st, ((s / STAGES) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, so that they load under the segments
+        mbar_expect_tx(full + 8 * st, 2 * C::TILE);
+        tma_load(base + sega::OFF_K + st * C::TILE, &kmap, full + 8 * st, h, k0, b);
+        tma_load(base + sega::OFF_V + st * C::TILE, &vmap, full + 8 * st, h, k0, b);
+      }
+      // keys lane and lane + 32: both loads issued before the first store
+      const int s0 = segment_of(bias_row, k0 + lane, L);
+      const int s1 = segment_of(bias_row, k0 + lane + 32, L);
+      sseg[st * T + lane] = s0;
+      sseg[st * T + lane + 32] = s1;
+      mbar_arrive(full + 8 * st);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wl = warp, g = lane >> 2, t = lane & 3;
+  const int r = wl * 16 + g;  // this lane's rows: q0 + r, q0 + r + 8
+  const uint32_t qslot = base, gslot = base + sega::OFF_G;
+  auto kslot = [&](int s) { return base + sega::OFF_K + (s % STAGES) * C::TILE; };
+  auto vslot = [&](int s) { return base + sega::OFF_V + (s % STAGES) * C::TILE; };
+  // each row's m, 1 / l and segment (rows past L: P = 0), loaded under the
+  // producer's first copies
+  const size_t bnl = (size_t)gridDim.z * n * L, at = ((size_t)b * n + h) * L;
+  float m[2], inv[2];
+  int seg_q[2];
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
-    di[hi] += __shfl_xor_sync(0xffffffffu, di[hi], 1);
-    di[hi] += __shfl_xor_sync(0xffffffffu, di[hi], 2);
-    const int r = hi ? r1 : r0;
-    mrow[hi] = r < L ? stats[row_base + r] : 0.f;
-    inv_l[hi] = r < L ? 1.f / stats[bnl + row_base + r] : 0.f;
-    if (t == 0 && r < L) di_out[row_base + r] = di[hi];
+    const int row = q0 + r + 8 * hi;
+    const bool in = row < L;
+    m[hi] = in ? stats[at + row] : INFINITY;
+    const float l = in ? stats[bnl + at + row] : 0.f;
+    inv[hi] = in ? 1.f / l : 0.f;
+    seg_q[hi] = segment_of(bias_row, row, L);
   }
 
-  float acc[HEAD_DIM / 8][4];
+  // di = rowsum(o * dO) in fp32: lane t of a row's quad takes the row's
+  // 16-byte groups 2t, 2t + 1 (swizzled by the row's low bits, g), the quad
+  // merged by shuffles
+  mbar_wait(qbar, 0);
+  float di[2];
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p) acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.f;
-  for (int j = 0; j < n_blocks; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_blocks) {
-      stage_kv_block(sK, sV, sSeg, k, v, base, rs, bias_row, L, j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kb = sK + buf * SEG_BLOCK * K_STRIDE;
-    const bf16* vb = sV + buf * SEG_BLOCK * K_STRIDE;
-    const int* sb = sSeg + buf * SEG_BLOCK;
-#pragma unroll 2
-    for (int kk = 0; kk < SEG_BLOCK / 16; ++kk) {
-      float ds[2][4];
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = r + 8 * hi;
+    float acc = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int row = kk * 16 + nt * 8;
-        float s[4], dp[4];
-        tile_dot(s, qa, kb + row * K_STRIDE);
-        tile_dot(dp, ga, vb + row * K_STRIDE);
-        const int key = row + t * 2;
+    for (int u = 0; u < 2; ++u) {
+      const int off = row * 128 + (((2 * t + u) ^ g) << 4);
+      const uint4 ov = *reinterpret_cast<const uint4*>(smem + sega::OFF_O + off);
+      const uint4 gv = *reinterpret_cast<const uint4*>(smem + sega::OFF_G + off);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hi = e >> 1;
-          const float sc =
-              s[e] * scale + (seg_q[hi] == sb[key + (e & 1)] ? 0.f : SEG_MASK);
-          const float p = expf(sc - mrow[hi]) * inv_l[hi];
-          ds[nt][e] = (dp[e] - di[hi]) * p * scale;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = bf16x2_to_float2(ow[e]), gf = bf16x2_to_float2(gw[e]);
+        acc += of.x * gf.x + of.y * gf.y;
       }
-      const uint32_t a[4] = {pack2(ds[0][0], ds[0][1]), pack2(ds[0][2], ds[0][3]),
-                             pack2(ds[1][0], ds[1][1]), pack2(ds[1][2], ds[1][3])};
-      frag_times_rows(acc, a, kb + kk * 16 * K_STRIDE);
     }
-    __syncthreads();  // buffer buf is staged again at block j + 2
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    di[hi] = acc;
+    if (t == 0 && q0 + row < L) di_out[at + q0 + row] = acc;
   }
+
+  float dq[32];
 #pragma unroll
-  for (int p = 0; p < HEAD_DIM / 8; ++p) {
-    const int col = p * 8 + t * 2;
-    if (r0 < L) *reinterpret_cast<uint32_t*>(dq + gbase + (size_t)r0 * grs + col) = pack2(acc[p][0], acc[p][1]);
-    if (r1 < L) *reinterpret_cast<uint32_t*>(dq + gbase + (size_t)r1 * grs + col) = pack2(acc[p][2], acc[p][3]);
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  fence_regs(dq);
+  uint32_t pa[4][4];  // dS of the tile whose dS . K starts next
+  for (int s = 0; s < nt; ++s) {
+    const int* sk = sseg + (s % STAGES) * T;
+    float sc[32], dp[32];
+    mbar_wait(full + 8 * (s % STAGES), (s / STAGES) & 1);
+    wgmma_fence();
+    bwd::product_xyt(sc, qslot, kslot(s));
+    bwd::product_xyt(dp, gslot, vslot(s));
+    wgmma_commit();
+    if (s > 0) {
+      wgmma_fence();
+      bwd::product_ay(dq, pa, kslot(s - 1));
+      wgmma_commit();
+      wgmma_wait<1>();  // S and dP; dS . K still in flight
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {  // dS in place of S
+      const int2 kseg = *reinterpret_cast<const int2*>(sk + 8 * c + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1;
+        const float sv = sc[4 * c + e] * scale + (seg_q[hi] == (e & 1 ? kseg.y : kseg.x) ? 0.f : SEG_MASK);
+        const float p = expf(sv - m[hi]) * inv[hi];
+        sc[4 * c + e] = (dp[4 * c + e] - di[hi]) * p * scale;
+      }
+    }
+    if (s > 0) {
+      wgmma_wait<0>();
+      fence_regs(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * ((s - 1) % STAGES));  // its K read
+    }
+    bwd::to_frags(pa, sc);
   }
+  wgmma_fence();
+  bwd::product_ay(dq, pa, kslot(nt - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+
+  // dQ through the O box, once every warp has taken its di
+  bwd::consumers_sync();
+  bwd::to_tile(smem + sega::OFF_O, dq, 1.f, wl, g, t);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bwd::consumers_sync();
+  if (wl == 0 && lane == 0) tma_store(&dqmap, base + sega::OFF_O, h, q0, b);
 }
 
 // ---------------------------------------------------------------- #12b
@@ -665,27 +696,31 @@ extern "C" int uc2_segment_flash_fwd(const void* q, const void* k, const void* v
   return (int)cudaGetLastError();
 }
 
-// q, k, v, bias as above; out, g, dq [B, L, n, 64] bf16 contiguous; stats
-// as the forward wrote them; di [B, n, L] fp32 (written). Returns
-// cudaGetLastError().
+// q, k, v, bias as above; out, g, dq [B, L, n, 64] bf16 contiguous (16-byte
+// aligned); stats as the forward wrote them; di [B, n, L] fp32 (written).
+// Returns cudaGetLastError().
 extern "C" int uc2_segment_flash_bwd_dq(const void* q, const void* k, const void* v,
                                         const void* bias, const void* out, const void* g,
                                         const void* stats, void* dq, void* di, int B, int L,
                                         int n, int rs, float scale, void* stream) {
   using namespace uc2;
   if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  // a runtime call before the tensor maps are encoded: it makes the
+  // device's context current in autograd's backward thread
   cudaError_t err = cudaFuncSetAttribute(segment_flash_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SEG_KV_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, sega::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + SEG_TILE - 1) / SEG_TILE, n, B);
-  segment_flash_bwd_dq_kernel<<<grid, SEG_WARPS * 32, SEG_KV_SMEM,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const bf16*>(out),
-      static_cast<const bf16*>(g), static_cast<const float*>(stats), static_cast<bf16*>(dq),
-      static_cast<float*>(di), L, n, rs, scale);
-  return (int)cudaGetLastError();
+  CUtensorMap qm, km, vm, om, gm, dqm;
+  const size_t rb = (size_t)rs * 2, gb = (size_t)n * HEAD_DIM * 2;
+  constexpr int T = bwd::Cfg::T;
+  if (!stream::heads_map(&qm, q, B, L, n, rb, T) || !stream::heads_map(&km, k, B, L, n, rb, T) ||
+      !stream::heads_map(&vm, v, B, L, n, rb, T) || !stream::heads_map(&om, out, B, L, n, gb, T) ||
+      !stream::heads_map(&gm, g, B, L, n, gb, T) || !stream::heads_map(&dqm, dq, B, L, n, gb, T))
+    return (int)cudaErrorInvalidValue;
+  return bwd::launch(segment_flash_bwd_dq_kernel, sega::SMEM, B, L, n,
+                     static_cast<cudaStream_t>(stream), qm, km, vm, om, gm, dqm,
+                     static_cast<const float*>(bias), static_cast<const float*>(stats),
+                     static_cast<float*>(di), L, n, scale);
 }
 
 // q, k, v, bias, g as above; stats and di as #12 and #12a wrote them;

@@ -13,7 +13,11 @@
 //   residual_ln_store y + bo + x, the row statistics merged with the other
 //                     column half of the tile through distributed shared
 //                     memory (#3's epilogue), LayerNorm, and the bf16 rows
-//                     stored by TMA, which clips the rows past L.
+//                     stored by TMA, which clips the rows past L (the
+//                     whole-layer kernel #8, fused_layer_block.cu, keeps its
+//                     first LayerNorm's output in fp32 instead, and takes
+//                     its second without the residual);
+//   load_heads        the producer's Q boxes and K/V ring of #2 and #8.
 // Numbers as the TPU kernels compute them: fp32 scores * 1/sqrt(64) + bias
 // (in base 2: s * scale * log2 e + bias * log2 e), the softmax normalised
 // in fp32 and then rounded to bf16, the bf16 context of each head, fp32
@@ -60,6 +64,40 @@ struct RowKV {
   __device__ __forceinline__ void wait(int) const {}
   __device__ __forceinline__ void release(int) const {}
 };
+
+// Producer warp w's loads (one lane) for consumer warpgroup w of column
+// half `half`: the Q tiles of its three heads 6 half + 3 w + j straight
+// into their context boxes (boxes + h BOX), completing on wq, then the K
+// (and in the second sweep V) tiles of those heads through the
+// warpgroup's ring of STAGES slots (K slots at kring, V slots after them)
+// with full barriers wf and empty barriers we. Returns once the ring is
+// given back (a parity wait is only sure on the ring of the warp that
+// filled it: the other may lag a phase).
+template <int STAGES>
+__device__ __forceinline__ void load_heads(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                           const CUtensorMap* vmap, uint32_t boxes,
+                                           uint32_t kring, uint32_t wq, uint32_t wf,
+                                           uint32_t we, int half, int w, int q0, int b, int T) {
+  const uint32_t vring = kring + STAGES * BOX;
+  mbar_arrive_expect_tx(wq, 3 * BOX);
+  for (int j = 0; j < 3; ++j) {
+    const int h = 6 * half + 3 * w + j;
+    tma_load(boxes + h * BOX, qmap, wq, h, q0, b);
+  }
+  int s = 0;
+  for (int j = 0; j < 3; ++j) {
+    const int h = 6 * half + 3 * w + j;
+    for (int step = 0; step < 2 * T; ++step, ++s) {
+      const int st = s % STAGES;
+      const bool with_v = step >= T;
+      mbar_wait(we + 8 * st, ((s / STAGES) & 1) ^ 1);
+      mbar_arrive_expect_tx(wf + 8 * st, (with_v ? 2 : 1) * BOX);
+      tma_load(kring + st * BOX, kmap, wf + 8 * st, h, 64 * (step % T), b);
+      if (with_v) tma_load(vring + st * BOX, vmap, wf + 8 * st, h, 64 * (step - T), b);
+    }
+  }
+  for (int e = s; e < s + STAGES; ++e) mbar_wait(we + 8 * (e % STAGES), ((e / STAGES) & 1) ^ 1);
+}
 
 // One head for the 64 query rows whose Q sits in the box at qbox (qptr its
 // generic address), called by one consumer warpgroup; sbias: the batch
@@ -264,7 +302,11 @@ __device__ __forceinline__ void out_projection(float (&y)[2][48], uint32_t ring,
 // barriers, which every thread of the cluster passes; the bf16 rows written
 // into this block's six staging boxes (stage, generic and shared address)
 // after the second barrier, when no one reads them any more, and stored by
-// TMA at (column, q0, b) of omap.
+// TMA at (column, q0, b) of omap. Without ADD, LayerNorm(y) (bo, xrows
+// unread); with KEEP, y keeps the fp32 output and the boxes are not
+// stored (omap unread): they end fenced for the async proxy and the
+// warpgroup synchronised.
+template <bool ADD = true, bool KEEP = false>
 __device__ __forceinline__ void residual_ln_store(
     float (&y)[2][48], int half, int w, const float* __restrict__ bo,
     const bf16* __restrict__ xrows, int valid, const float* __restrict__ gamma,
@@ -275,27 +317,35 @@ __device__ __forceinline__ void residual_ln_store(
   const int r = wl * 16 + g;  // this thread's rows: r and r + 8 of the tile
   const int col0 = 384 * half + 192 * w;
   const uint32_t red_peer = peer_addr(smem_u32(red), partner);
-  uint32_t xv[24][2];
-#pragma unroll
-  for (int j = 0; j < 24; ++j)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi)
-      xv[j][hi] = r + 8 * hi < valid
-                      ? ldg32(xrows + (size_t)(r + 8 * hi) * HIDDEN + col0 + 8 * j + 2 * t)
-                      : 0u;
   float part[2] = {0.f, 0.f};
+  if constexpr (ADD) {
+    uint32_t xv[24][2];
 #pragma unroll
-  for (int j = 0; j < 24; ++j) {
-    const float2 bb = *reinterpret_cast<const float2*>(bo + col0 + 8 * j + 2 * t);
+    for (int j = 0; j < 24; ++j)
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const float2 xr = bf16x2_to_float2(xv[j][hi]);
-      float& v0 = y[j / 12][4 * (j % 12) + 2 * hi];
-      float& v1 = y[j / 12][4 * (j % 12) + 2 * hi + 1];
-      v0 = (v0 + bb.x) + xr.x;
-      v1 = (v1 + bb.y) + xr.y;
-      part[hi] += v0 + v1;
+      for (int hi = 0; hi < 2; ++hi)
+        xv[j][hi] = r + 8 * hi < valid
+                        ? ldg32(xrows + (size_t)(r + 8 * hi) * HIDDEN + col0 + 8 * j + 2 * t)
+                        : 0u;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bo + col0 + 8 * j + 2 * t);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const float2 xr = bf16x2_to_float2(xv[j][hi]);
+        float& v0 = y[j / 12][4 * (j % 12) + 2 * hi];
+        float& v1 = y[j / 12][4 * (j % 12) + 2 * hi + 1];
+        v0 = (v0 + bb.x) + xr.x;
+        v1 = (v1 + bb.y) + xr.y;
+        part[hi] += v0 + v1;
+      }
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 24; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+        part[hi] += y[j / 12][4 * (j % 12) + 2 * hi] + y[j / 12][4 * (j % 12) + 2 * hi + 1];
   }
   float mean[2], rstd[2];
 #pragma unroll
@@ -348,12 +398,16 @@ __device__ __forceinline__ void residual_ln_store(
     for (int hi = 0; hi < 2; ++hi) {
       const float o0 = (y[j / 12][4 * (j % 12) + 2 * hi] - mean[hi]) * rstd[hi] * gg.x + ee.x;
       const float o1 = (y[j / 12][4 * (j % 12) + 2 * hi + 1] - mean[hi]) * rstd[hi] * gg.y + ee.y;
+      if constexpr (KEEP) {
+        y[j / 12][4 * (j % 12) + 2 * hi] = o0;
+        y[j / 12][4 * (j % 12) + 2 * hi + 1] = o1;
+      }
       *reinterpret_cast<uint32_t*>(stage + off + (r + 8 * hi) * 128) = pack2(o0, o1);
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
-  if (wl == 0 && lane == 0) {
+  if (!KEEP && wl == 0 && lane == 0) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) tma_store_3d(omap, stage_s + (3 * w + j) * BOX, col0 + 64 * j, q0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");

@@ -117,30 +117,9 @@ __global__ void __launch_bounds__(Cfg2::THREADS, 1)
         prefetch_l2(x + ((size_t)b * L + q0 + rr) * HIDDEN + 384 * half, 768);
     }
     if (w < 2) {
-      const uint32_t wq = qbar + 8 * w, wf = full + 8 * KS * w, we = empty + 8 * KS * w;
-      if (lane == 0) {
-        const uint32_t kring = base + C::OFF_RING + w * C::RING_WG, vring = kring + KS * BOX;
-        mbar_arrive_expect_tx(wq, 3 * BOX);
-        for (int j = 0; j < 3; ++j) {
-          const int h = 6 * half + 3 * w + j;
-          tma_load(base + h * BOX, &qmap, wq, h, q0, b);
-        }
-        int s = 0;
-        for (int j = 0; j < 3; ++j) {
-          const int h = 6 * half + 3 * w + j;
-          for (int step = 0; step < 2 * T; ++step, ++s) {
-            const int st = s % KS;
-            const bool with_v = step >= T;
-            mbar_wait(we + 8 * st, ((s / KS) & 1) ^ 1);
-            mbar_arrive_expect_tx(wf + 8 * st, (with_v ? 2 : 1) * BOX);
-            tma_load(kring + st * BOX, &kmap, wf + 8 * st, h, 64 * (step % T), b);
-            if (with_v) tma_load(vring + st * BOX, &vmap, wf + 8 * st, h, 64 * (step - T), b);
-          }
-        }
-        // this warp's ring given back (a parity wait is only sure on the
-        // ring of the warp that filled it: the other may lag a phase)
-        for (int e = s; e < s + KS; ++e) mbar_wait(we + 8 * (e % KS), ((e / KS) & 1) ^ 1);
-      }
+      if (lane == 0)
+        load_heads<KS>(&qmap, &kmap, &vmap, base, base + C::OFF_RING + w * C::RING_WG, qbar + 8 * w,
+                       full + 8 * KS * w, empty + 8 * KS * w, half, w, q0, b, T);
       __syncwarp();
       asm volatile("bar.sync 3, 64;\n" ::: "memory");  // both rings given back
       if (w == 0 && lane == 0)  // the Wo ring over them

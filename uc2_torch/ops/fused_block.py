@@ -16,8 +16,11 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
   device memory;
 * ``fused_layer_block``: the whole encoder layer from the projected heads
   (the attention block, then the FFN block on its fp32 output), kernel in
-  ``csrc/fused_layer_block.cu``. Its gate is off, as the reference's: only
-  the kernel lab (``uc2_torch/lab.py --mode layer``) runs it.
+  ``csrc/fused_layer_block.cu`` (the attention block's half and the FFN
+  block's walk in one cluster of two blocks a 64-row query tile, the fp32
+  output of the first LayerNorm kept in registers as the FFN's residual).
+  Its gate is off, as the reference's: only the kernel lab
+  (``uc2_torch/lab.py --mode layer``) runs it.
 
 Weights are in ``nn.Linear`` layout ([out, in]). Each wrapper launches its
 kernel on CUDA tensors and counts the launch (``<wrapper>.launches``); on
@@ -287,6 +290,9 @@ def fused_layer_block(q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2, b2, g2,
     if not all(t.is_contiguous() for t in (x, wo, w1, w2)):
         raise ValueError("fused_layer_block: x, wo, w1 and w2 must be "
                          "contiguous")
+    if any(t.data_ptr() % 16 for t in (x, wo, w1, w2)):
+        raise ValueError("fused_layer_block: x, wo, w1 and w2 must start on "
+                         "a 16-byte boundary (the kernel reads them by TMA)")
     rs = heads_row_stride(q, k, v)
     out = torch.empty_like(x)
     build.launch("uc2_fused_layer_block", *(t.data_ptr() for t in args),

@@ -230,6 +230,10 @@ def segment_flash_bwd_dq(q, k, v, bias, out, g, stats):
     out, g = out.contiguous(), g.contiguous()
     dq = torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
     di = torch.empty((B, n, L), dtype=torch.float32, device=dev)
+    if any(t.data_ptr() % 16 for t in (out, g)):
+        raise ValueError("segment_flash_bwd_dq: the output and its gradient "
+                         "must start on a 16-byte boundary (the kernel reads "
+                         "them by TMA)")
     build.launch("uc2_segment_flash_bwd_dq", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), g.data_ptr(),
                  stats.data_ptr(), dq.data_ptr(), di.data_ptr(), B, L, n, rs,
