@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
 pretraining step, the pretraining task mix of config/uc2_pretrain.json
-(itm, mlm, vmlm, tlm) with the training FFN kernels, mlm pretraining on
-long captions (joint L up to 512), the two routes of the attention
-dispatch beyond the default: scoring with UC2_ATTN_V2=1 (the QKV
-projection inside the attention block) and use_pallas_attention="flash"
-(scoring, and training at attention dropout 0), and the port's kernel lab
-(python -m uc2_torch.lab, every mode) with the two kernels only it runs.
+(itm, mlm, vmlm, tlm) with the training FFN kernels, the pretraining
+driver (python -m uc2_torch.pretrain) on U2S stores with exact resume,
+mlm pretraining on long captions (joint L up to 512), the two routes of
+the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
+(the QKV projection inside the attention block) and
+use_pallas_attention="flash" (scoring, and training at attention dropout
+0), and the port's kernel lab (python -m uc2_torch.lab, every mode) with
+the two kernels only it runs.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -129,19 +131,41 @@ non-zero at the end, without the result lines:
      every racer prints a RESULT line, none FAILED, each maxerr within
      the mode's limit (LAB_MAXERR), #8 launched only in layer and #11 only
      in op;
- 14. a JSON line of per-kernel numbers (launches: the main-path phases'
-     counts; #3's adds the routes phase and the lab), then the last line
-     {"ok": true, "device": {...}}.
-The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14.
+ 14. pretrain: ``python -m uc2_torch.pretrain --config
+     config/uc2_pretrain.json`` run in this process through its own parse
+     (uc2-base at full width, the config's mix itm:mlm:vmlm:tlm, dropout
+     0.1, bf16, 3 stacked micro-batches a step), after the embedding
+     backward of the token types and the word table timed three ways
+     (PyTorch's, indexing's, SmallTableLookup's) with bitwise repeats,
+     on U2S stores that the
+     port's synth_corpus writes under build/ at the reference's widths (en
+     unpaired and de paired, 512 images x 2 captions each, 2048-d fp16
+     features, 10-100 boxes, 1601 soft-label classes, vocab 250002): the
+     stores' records/s and MB/s in DetectFeatDb.prefetch; 12 steps with a
+     restore.ckpt every 6 and validation (2 batches a task) at 12, each
+     step launching #5 and #6's two passes once a layer and micro-batch
+     and each validation batch the gates' kernels (#2 + #3 at L >= 128,
+     #1 + #3 below; also over a full validation sweep), finite losses,
+     ms/step and examples/s of the loop, the seconds of each save; then
+     the run stopped after step 6 and resumed to 12 in one directory,
+     whose parameters, AdamW moments and per-step losses must equal the
+     uninterrupted run's bit for bit; every record read by the native
+     store library. The stores and checkpoints are deleted at the end;
+ 15. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts, the pretraining driver's added; #3's adds the routes phase
+     and the lab), then the last line {"ok": true, "device": {...}}.
+The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
+15.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
-the timings of the named groups (all six when none is named), no result
+the timings of the named groups (all seven when none is named), no result
 lines: "stream" #5, #6, #4 and #1 at the main path's shapes as phases 2
 and 6 time them, "block" #2 and #7 as phases 2 and 9 do, "ffn" #9 and #3
 and #10 (with its kernels' profile) as phase 5 does, "segment" #12, #12a
 and #12b as phase 9 does, "layer" #8 and #2 + #3 as phase 12 does,
-"step" phase 4's mlm step at L = 162. A copy of
+"step" phase 4's mlm step at L = 162, "embed" the embedding backwards
+as phase 14 times them. A copy of
 this script in another tree of the port (it calls only the kernels'
 wrappers, whose signatures the port keeps, #1's C entry and the model's
 entry points) times that tree's kernels and step, so an A/B of two trees
@@ -155,6 +179,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -163,19 +188,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uc2_torch import lab
+from uc2_torch import lab, pretrain
 from uc2_torch.config import UC2Config
-from uc2_torch.data import datasets
+from uc2_torch.data import datasets, db, native_build
 from uc2_torch.data.collate import BucketSpec, default_buckets
 from uc2_torch.data.labels import LabelVocab, hash_tokenize
 from uc2_torch.data.loader import (MetaLoader, PrefetchLoader, TaskLoader,
                                    task_batch_to_device)
 from uc2_torch.data.memdb import (MemImgDb, MemTxtDb, synth_gallery,
                                   synth_pretrain_corpus)
+from uc2_torch.data.store import READS as store_reads
+from uc2_torch.data.synth import synth_corpus
 from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
-from uc2_torch.models.encoder import gelu
+from uc2_torch.models.encoder import SmallTableLookup, gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
 from uc2_torch.ops.dropout import DropoutRng, dropout
@@ -208,6 +235,7 @@ from uc2_torch.ops.segment_flash import (
     segment_flash_bwd_dkdv_plain, segment_flash_bwd_dq,
     segment_flash_bwd_dq_plain, segment_flash_fwd, segment_flash_plain)
 from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
+from uc2_torch.training import step as train_step_mod
 from uc2_torch.training.step import train_step
 
 # H100 SXM published peaks (dense bf16 tensor rate, HBM3 bandwidth)
@@ -3099,6 +3127,306 @@ def phase_lab(card):
                                    for c in launched.values())}
 
 
+# ------------------------------------------------ the pretraining driver
+PRETRAIN_DIR = os.path.join("build", "pretrain_smoke")
+PRETRAIN_IMGS, PRETRAIN_STEPS, PRETRAIN_SAVE = 512, 12, 6
+PRETRAIN_EXTRA = []      # more flags of every run (none on the card)
+
+
+def pretrain_argv(out, corpus, *extra):
+    """config/uc2_pretrain.json unchanged but for its stores (the port's
+    synthetic en and de corpora), the output directory and a short run:
+    12 steps, a restore.ckpt every 6, validation (2 batches a task) at 12,
+    a log line every step."""
+    with open("config/uc2_pretrain.json") as f:
+        cfg = json.load(f)
+    en, de = corpus
+    train = [dict(spec, db=[(de if spec["name"].endswith("_de") else en)
+                            ["txt_db"]], img=[en["img_db"]])
+             for spec in cfg["train_datasets"]]
+    val = [dict(spec, db=[en["txt_db"]], img=[en["img_db"]])
+           for spec in cfg["val_datasets"]]
+    return ["--config", "config/uc2_pretrain.json",
+            "--train_datasets", json.dumps(train),
+            "--val_datasets", json.dumps(val), "--output_dir", out,
+            "--num_train_steps", str(PRETRAIN_STEPS),
+            "--save_steps", str(PRETRAIN_SAVE),
+            "--valid_steps", str(PRETRAIN_STEPS), "--val_batches", "2",
+            "--log_steps", "1", *PRETRAIN_EXTRA, *extra]
+
+
+def run_pretrain(argv):
+    """``uc2_torch.pretrain.main`` as ``python -m uc2_torch.pretrain argv``
+    runs it, in this process."""
+    opts = pretrain.parse_with_config(pretrain.build_parser(), argv)
+    pretrain.apply_reference_config_compat(opts, argv)
+    return pretrain.main(opts)
+
+
+def trained_state(run):
+    """The run's parameters and AdamW's moments, copied to the host."""
+    out = {f"param {k}": v.detach().cpu().clone()
+           for k, v in run.model.state_dict().items()}
+    for i, st in run.optimizer.state_dict()["adamw"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{k} {i}"] = st[k].detach().cpu().clone()
+    return out
+
+
+def gate_launches(cfg, L):
+    """The kernels one deterministic forward of the model ``cfg`` at joint
+    length L launches under the reference's gates."""
+    want = no_launches()
+    layers, n = cfg.num_hidden_layers, cfg.num_attention_heads
+    if fused_block_profitable(L, n):
+        want["fused_attn_block"] = layers
+    else:
+        want["flash_attention_long" if uses_long_kernel(n, L)
+             else "flash_attention"] = layers
+    want["fused_ffn_block"] = layers
+    return want
+
+
+@contextlib.contextmanager
+def counted_eval_steps(calls):
+    """Wrap the driver's ``eval_step``: each call's launches are read and
+    held against the gates at that batch's joint length."""
+    orig = train_step_mod.eval_step
+
+    def counted(model, batch, task):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        out = orig(model, batch, task)
+        torch.cuda.synchronize()
+        got = {k: n - before[k] for k, n in launch_counts().items()
+               if n != before[k]}
+        L = batch["input_ids"].shape[1] + batch["img_feat"].shape[1]
+        want = {k: n for k, n in gate_launches(model.config, L).items() if n}
+        calls.append((task, L, got == want))
+        if got != want:
+            fail(f"pretrain: validation of {task} at L = {L} launched {got}; "
+                 f"the gates want {want}")
+        return out
+    train_step_mod.eval_step = counted
+    try:
+        yield
+    finally:
+        train_step_mod.eval_step = orig
+
+
+def loop_times(run, skip):
+    """ms/step and examples/s of the driver's loop between consecutive log
+    boundaries (every step here), over the intervals that hold no save or
+    validation (those after the steps in ``skip``) and not the first."""
+    rows = []
+    for (s0, t0, n0), (s1, t1, n1) in zip(run.logs, run.logs[1:]):
+        if s0 not in skip:
+            rows.append(((t1 - t0) * 1e3 / (s1 - s0), (n1 - n0) / (t1 - t0)))
+    return rows
+
+
+EMBED_CASES = ((2, (208, 100)), (250002, (208, 62)))
+
+
+def time_embedding_backward(card):
+    """The token types' gradient (2 rows, every id one of them) and the
+    word table's (2080 copies of the mask token) three ways: PyTorch's
+    embedding backward, indexing's sorted index_put_, and the encoder's
+    SmallTableLookup (few-row tables only); ms a backward and whether five
+    backwards give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, shape in EMBED_CASES:
+        table = torch.nn.Embedding(rows, H, device="cuda")
+        ids = torch.randint(0, min(rows, 64), shape, generator=gen,
+                            device="cuda")
+        if rows > 64:
+            ids[:, 0], ids[:, -1], ids[:, 5:15] = 0, 2, rows - 1
+        g = torch.randn(*shape, H, generator=gen, device="cuda")
+        ways = {"embedding": lambda: table(ids),
+                "indexing": lambda: table.weight[ids]}
+        if rows <= 16:
+            ways["SmallTableLookup"] = lambda: SmallTableLookup.apply(
+                table.weight, ids)
+        out = []
+        for name, fwd in ways.items():
+            def backward():
+                table.weight.grad = None
+                fwd().backward(g)
+            grads = []
+            for _ in range(5):
+                backward()
+                grads.append(table.weight.grad.clone())
+            same = all(torch.equal(x, grads[0]) for x in grads[1:])
+            out.append(f"{name} {time_ms(backward):.3f} ms "
+                       f"({'repeats' if same else 'DIFFERS'})")
+        print(f"  embedding backward, {rows} rows, ids {shape}: "
+              f"{'; '.join(out)} [{card}]")
+
+
+def phase_pretrain(card):
+    """``python -m uc2_torch.pretrain --config config/uc2_pretrain.json``
+    in this process, on U2S stores the port's synth_corpus writes at the
+    reference's widths: an uninterrupted 12-step run, then the same run
+    stopped after step 6 and resumed to 12 in one output directory.
+    Returns the uninterrupted run's launches."""
+    print(f"== pretrain: python -m uc2_torch.pretrain --config "
+          f"config/uc2_pretrain.json on U2S stores, uc2-base at full width, "
+          f"{PRETRAIN_STEPS} steps, then stopped at {PRETRAIN_SAVE} and "
+          f"resumed [{card}]")
+    time_embedding_backward(card)
+    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    try:
+        return _phase_pretrain(card)
+    finally:
+        shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+
+
+def _phase_pretrain(card):
+    t0 = time.perf_counter()
+    corpus = [synth_corpus(os.path.join(PRETRAIN_DIR, lang),
+                           n_imgs=PRETRAIN_IMGS, txt_per_img=2, seed=seed,
+                           paired=lang == "de")
+              for lang, seed in (("en", 0), ("de", 1))]
+    size = sum(os.path.getsize(os.path.join(d, f)) for c in corpus
+               for d in c.values() for f in os.listdir(d))
+    print(f"  corpus: en (unpaired) and de (paired) stores of "
+          f"{PRETRAIN_IMGS} images x 2 captions, 2048-d fp16 features, "
+          f"10-100 boxes, 1601 soft-label classes, vocab 250002: "
+          f"{size / 1e9:.3f} GB written in {time.perf_counter() - t0:.1f} s; "
+          f"native store library {native_build.OUT}")
+
+    # the store's batch read in prefetch, on a fresh database (the files
+    # were just written: the reads come from the page cache)
+    feats = db.DetectFeatDb(corpus[0]["img_db"])
+    names = feats.db.get("__keys__")
+    nbytes = sum(len(r) for r in feats.db.batch_get_raw(names))
+    t0 = time.perf_counter()
+    feats.prefetch(names, cache_cap=len(names))
+    dt = time.perf_counter() - t0
+    print(f"  DetectFeatDb.prefetch of {len(names)} records "
+          f"({nbytes / 1e6:.1f} MB of msgpack): {dt * 1e3:.1f} ms = "
+          f"{len(names) / dt:.0f} records/s, {nbytes / 1e6 / dt:.1f} MB/s "
+          f"(native thread pool, decode included)")
+    del feats
+
+    reads = dict(store_reads)
+    whole = os.path.join(PRETRAIN_DIR, "whole")
+    calls = []
+    torch.cuda.synchronize()
+    reset_launches()
+    with counted_eval_steps(calls):
+        run = run_pretrain(pretrain_argv(whole, corpus))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    layers = run.model.config.num_hidden_layers
+    with open("config/uc2_pretrain.json") as f:
+        accum = json.load(f)["gradient_accumulation_steps"]
+    want_train = PRETRAIN_STEPS * layers * accum
+    train_counts = {k.__name__: launches[k.__name__] for k in TRAIN_KERNELS}
+    print(f"  uninterrupted run: {run.step} steps, losses "
+          f"{[(s, t, round(v, 4)) for s, t, v in run.losses]}")
+    print(f"  validation: {run.val}; {len(calls)} eval batches at joint L "
+          f"{sorted({L for _, L, _ in calls})}, "
+          f"{sum(ok for _, _, ok in calls)} with the gates' launches")
+    print(f"  launches over the run: training kernels {train_counts} "
+          f"(want {want_train} each: {PRETRAIN_STEPS} steps x {layers} "
+          f"layers x {accum} micro-batches); all {launches}")
+    for name, n in train_counts.items():
+        if n != want_train:
+            fail(f"pretrain: {name} launched {n} times, want {want_train}")
+    for k in ("fused_ffn_block_train_fwd", "fused_ffn_block_train_bwd",
+              "fused_attn_block_v2", "segment_flash_fwd",
+              "fused_layer_block", "attention_bf16_probs"):
+        if launches[k]:
+            fail(f"pretrain: {k} launched {launches[k]} times off the path")
+    if not calls:
+        fail("pretrain: validation ran no batch")
+    # the driver's validate over the whole validation set, so that both
+    # gates' routes run (2 batches a task may all be short)
+    opts = pretrain.parse_with_config(pretrain.build_parser(),
+                                      pretrain_argv(whole, corpus))
+    opts.val_batches = 0
+    val, _ = pretrain.build_datasets(opts, "val")
+    sweep = []
+    t0 = time.perf_counter()
+    with counted_eval_steps(sweep):
+        logs = pretrain.validate(run.model, val, default_buckets(
+            opts.max_txt_len, opts.max_bb, opts.train_batch_size), opts,
+            task_batch_to_device(opts.device))
+    print(f"  full validation sweep: {len(sweep)} batches at joint L "
+          f"{sorted({L for _, L, _ in sweep})} in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(ok for _, _, ok in sweep)} with the gates' launches; {logs}")
+    heads = run.model.config.num_attention_heads
+    if {fused_block_profitable(L, heads) for _, L, _ in sweep} != {True,
+                                                                   False}:
+        fail("pretrain: the validation sweep did not run both gates' routes")
+    bad = [(s, t, v) for s, t, v in run.losses if not np.isfinite(v)]
+    bad += [(k, v) for k, log in run.val.items() for v in log.values()
+            if not np.isfinite(v)]
+    if bad or len(run.losses) != PRETRAIN_STEPS:
+        fail(f"pretrain: non-finite or missing losses {bad}")
+    rows = loop_times(run, {PRETRAIN_SAVE, PRETRAIN_STEPS})
+    ms = sorted(r[0] for r in rows)
+    ex = sorted(r[1] for r in rows)
+    print(f"  driver loop: {np.median(ms):.1f} ms/step median "
+          f"({ms[0]:.1f}-{ms[-1]:.1f}), {np.median(ex):.1f} examples/s "
+          f"median ({ex[0]:.1f}-{ex[-1]:.1f}) over {len(rows)} steps that "
+          f"hold no save or validation; per step (ms) "
+          f"{[round(r[0], 1) for r in rows]}; the driver's sustained "
+          f"{run.sustained} [{card}]")
+    size = os.path.getsize(os.path.join(whole, "restore.ckpt"))
+    print(f"  restore.ckpt {size / 1e9:.3f} GB (parameters and AdamW's "
+          f"moments); saves took {[round(t, 2) for t in run.save_seconds]} s "
+          f"(host copy and torch.save)")
+    want = trained_state(run)
+    want_losses = run.losses
+    del run
+    shutil.rmtree(whole, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    resumed = os.path.join(PRETRAIN_DIR, "resumed")
+    reset_launches()
+    first = run_pretrain(pretrain_argv(resumed, corpus, "--stop_after_steps",
+                                       str(PRETRAIN_SAVE)))
+    first_losses, first_saves = first.losses, first.save_seconds
+    del first
+    torch.cuda.empty_cache()
+    second = run_pretrain(pretrain_argv(resumed, corpus))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    got = trained_state(second)
+    print(f"  resumed run: steps 1-{PRETRAIN_SAVE}, then "
+          f"{PRETRAIN_SAVE + 1}-{second.step} after the restore; saves took "
+          f"{[round(t, 2) for t in first_saves + second.save_seconds]} s; "
+          f"training kernels {[counts[k.__name__] for k in TRAIN_KERNELS]}")
+    losses = first_losses + second.losses
+    diff = {k: (got[k].float() - want[k].float()).abs().max().item()
+            for k in want if not torch.equal(got[k], want[k])}
+    loss_diff = [(a, b) for a, b in zip(losses, want_losses) if a != b]
+    if diff or loss_diff or len(losses) != len(want_losses):
+        worst = max(diff.items(), key=lambda kv: kv[1]) if diff else None
+        fail(f"pretrain: the resumed run is not the uninterrupted one bit "
+             f"for bit: {len(diff)} tensors differ (largest {worst}), "
+             f"losses {loss_diff[:3]}")
+    else:
+        print(f"  the resumed run equals the uninterrupted one bit for bit: "
+              f"{len(want)} parameter and moment tensors, "
+              f"{len(losses)} step losses")
+    for k in TRAIN_KERNELS:
+        if counts[k.__name__] != want_train:
+            fail(f"pretrain: the resumed runs launched {k.__name__} "
+                 f"{counts[k.__name__]} times, want {want_train}")
+    del second
+    used = {k: store_reads[k] - reads[k] for k in store_reads}
+    print(f"  records read over the three runs: {used}")
+    if used["python"] or not used["native"] or native_build._lib is None:
+        fail(f"pretrain: the stores were not read through the native "
+             f"library only: {used}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -3106,6 +3434,7 @@ TIMES = {"stream": (phase_stream_times, "gen"),
          "ffn": (phase_ffn_times, "gen", "card"),
          "segment": (phase_segment_times, "gen", "card"),
          "layer": (phase_layer_times, "gen", "card"),
+         "embed": (time_embedding_backward, "card"),
          "step": (time_mlm_step, "card")}
 
 
@@ -3161,6 +3490,7 @@ def main() -> int:
     launches.update(long_launches)
     add(timed(phase_flash_train, card, long_batch))
     add(timed(phase_lab, card))
+    add(timed(phase_pretrain, card))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

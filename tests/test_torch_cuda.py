@@ -1142,3 +1142,38 @@ def test_attention_bf16_probs_refuses(gen):
     with pytest.raises(ValueError):
         attention_bf16_probs(q, k, v, _bias(gen, 1, 513))
 
+
+
+@pytest.mark.parametrize("rows,shape,small", [
+    (2, (208, 100), True), (2, (176, 36), True), (2, (56, 100), True),
+    (250002, (208, 62), False), (514, (208, 62), False)])
+def test_embedding_backward_repeats_bit_for_bit(gen, rows, shape, small):
+    """The encoder's embedding gradients on the card: the few-row tables
+    (token types, region mask) through ``SmallTableLookup``, whose masked
+    sums give the same bits on every backward and equal the embedding
+    backward's up to the order of its sums; the word and position tables
+    through the embedding backward, whose sums repeat at the training
+    shapes' duplicate counts (here 2080 copies of the mask token)."""
+    from uc2_torch.models.encoder import SmallTableLookup
+    table = torch.nn.Embedding(rows, H, device="cuda")
+    ids = torch.randint(0, min(rows, 64), shape, generator=gen,
+                        device="cuda")
+    if rows == 250002:
+        ids[:, 0], ids[:, -1], ids[:, 5:15] = 0, 2, rows - 1
+    g = torch.randn(*shape, H, generator=gen, device="cuda")
+
+    def lookup():
+        if small:
+            return SmallTableLookup.apply(table.weight, ids)
+        return table(ids)
+    grads = []
+    for _ in range(5):
+        table.weight.grad = None
+        lookup().backward(g)
+        grads.append(table.weight.grad.clone())
+    assert all(torch.equal(x, grads[0]) for x in grads[1:])
+    table.weight.grad = None
+    table(ids).backward(g)
+    torch.testing.assert_close(grads[0], table.weight.grad, rtol=1e-5,
+                               atol=1e-3)
+    assert torch.equal(lookup(), table(ids))

@@ -1,6 +1,8 @@
 """Rules of the uc2_torch package: it imports nothing of JAX or of the
-reference package, its entry points run on the GPU unless the caller asks
-for the CPU, its config and parameters line up with the reference's."""
+reference package, nor msgpack, lz4, flax, orbax or tensorboardX (a GPU
+machine need not have them), its entry points run on the GPU unless the
+caller asks for the CPU, its config and parameters line up with the
+reference's."""
 
 import dataclasses
 import os
@@ -33,7 +35,9 @@ for m in pkgutil.walk_packages(uc2_torch.__path__, "uc2_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "uc2_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "uc2_tpu",
+                                    "msgpack", "lz4", "orbax",
+                                    "tensorboardX"))
 print(bad)
 sys.exit(1 if bad else 0)
 """

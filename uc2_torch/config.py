@@ -1,11 +1,13 @@
 """Model configuration: ``UC2Config``, the same fields and JSON loading as
-``uc2_tpu/config.py`` so one config file drives both packages."""
+``uc2_tpu/config.py`` so one config file drives both packages, and the
+drivers' ``parse_with_config``."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict
+import sys
+from typing import Any, Dict, Optional
 
 IMG_DIM = 2048
 IMG_LABEL_DIM = 1601
@@ -75,3 +77,25 @@ class UC2Config:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def parse_with_config(parser, argv: Optional[list] = None):
+    """argparse with ``--config file.json``: the file's keys fill every flag
+    not given on the command line (the CLI wins), as the reference's
+    ``parse_with_config``. Keys starting with "_" (comments) are dropped."""
+    args = parser.parse_args(argv)
+    if getattr(args, "config", None):
+        with open(args.config, "r", encoding="utf-8") as f:
+            config_args = json.load(f)
+        override_keys = {
+            arg[2:].split("=")[0]
+            for arg in (argv if argv is not None else sys.argv[1:])
+            if arg.startswith("--")
+        }
+        for k, v in config_args.items():
+            if k not in override_keys:
+                setattr(args, k, v)
+    if hasattr(args, "conf_th") and hasattr(args, "num_bb"):
+        for k in [k for k in vars(args) if k.startswith("_")]:
+            delattr(args, k)
+    return args

@@ -8,7 +8,10 @@ packages. ``ItmDataset.new_epoch(rng)`` draws the epoch's negatives.
 They read a text database with ``ids``, ``id2len``, ``txt2img``, ``db[id]``,
 ``combine_inputs``, ``cls_``, ``sep``, ``mask`` and ``v_range``, and an
 image database with ``name2nbb``, ``db[name] -> (feat, bb7)`` and
-``get_dump(name)["soft_labels"]`` (``data/memdb.py`` has both).
+``get_dump(name)["soft_labels"]``: ``data/db.py``'s databases over U2S
+stores, or ``data/memdb.py``'s in memory. Where the image database has
+``prefetch`` (``DetectFeatDb``), ``prefetch(indices)`` reads a batch's
+images through the store's thread pool before its examples are built.
 """
 
 from __future__ import annotations
@@ -56,6 +59,14 @@ class VLDataset:
 
     def example_record(self, i: int) -> Dict:
         return self.txt_db[self.ids[i]]
+
+    def batch_fnames(self, indices: Sequence[int]) -> List[str]:
+        """The image files a batch of ``indices`` reads."""
+        return [self.txt2img[self.ids[i]] for i in indices]
+
+    def prefetch(self, indices: Sequence[int]):
+        if hasattr(self.img_db, "prefetch"):
+            self.img_db.prefetch(self.batch_fnames(indices))
 
     def _wrap(self, raw, raw_labels):
         """The masked raw text in CLS ... SEP, which are never slots:
@@ -185,6 +196,11 @@ class ItmDataset(VLDataset):
             self.train_imgs.append(fname)
             lens.append(self.txt_lens[i] + self.img_db.name2nbb[fname])
         self.lens = lens
+
+    def batch_fnames(self, indices):
+        if self.train_imgs is None:
+            return super().batch_fnames(indices)
+        return [self.train_imgs[i] for i in indices]
 
     def get_example(self, i, rng):
         if self.train_imgs is None:

@@ -37,12 +37,15 @@ def label_words(lang: str = "en") -> List[str]:
 
 def try_xlmr_tokenizer() -> Optional[Callable[[str], List[int]]]:
     """The XLM-R tokenizer when ``transformers`` and its files are already
-    installed (never downloaded); None otherwise."""
+    installed (never downloaded); None otherwise. Ids come through the
+    public ``convert_tokens_to_ids`` (the reference calls the private
+    ``_convert_token_to_id``, which newer ``transformers`` releases lack;
+    where both exist they give the same ids)."""
     try:
         from transformers import XLMRobertaTokenizer
         tok = XLMRobertaTokenizer.from_pretrained("xlm-roberta-base",
                                                   local_files_only=True)
-        return lambda w: [tok._convert_token_to_id(t) for t in tok.tokenize(w)]
+        return lambda w: list(tok.convert_tokens_to_ids(tok.tokenize(w)))
     except Exception:
         return None
 

@@ -3,7 +3,8 @@ scoring and the pretraining datasets read (``uc2_tpu/data/db.py``'s
 TxtTokDb and DetectFeatDb), and synthetic corpora drawn from the
 distributions of ``uc2_tpu/data/synth.py``: a retrieval gallery
 (``synth_gallery``) and a pretraining corpus (``synth_pretrain_corpus``).
-The U2S store reader is not ported yet.
+The databases over U2S stores on disk are in ``data/db.py``, and
+``data/synth.py`` writes such stores.
 """
 
 from __future__ import annotations

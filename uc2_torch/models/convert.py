@@ -10,12 +10,20 @@ the embedding tables as ``<name>.weight``. Both directions are exact.
 The full pretraining tree (``roberta``, ``cls``, ``feat_regress``,
 ``region_classifier``, ``itm_output``, ``nce_output``) maps the same way;
 the tied LM decoder has no key of its own in either package.
+
+Loading a UC2 PyTorch checkpoint (``.pt`` keys of the original UC2, UNITER
+or Hugging Face XLM-R) is the reference's conversion, copied from
+uc2_tpu/models/convert.py: ``normalize_state_dict``, ``add_model_prefix``,
+``filter_partial`` (``--load_embedding_only``, ``--load_layer``),
+``torch_to_params`` (to a partial reference tree), ``merge_params`` (over
+the model's own tree) and ``splice_early_adaptation``;
+``load_partial_tree`` puts the result into a port module.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -81,3 +89,299 @@ def load_params(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
     if missing or unexpected:
         raise KeyError(f"parameter tree does not fit the module: missing "
                        f"{missing}, unexpected {unexpected}")
+
+
+# ------------------------------------------------ UC2 PyTorch checkpoints
+def _np(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    # torch tensor (cpu)
+    return t.detach().cpu().float().numpy()
+
+
+def normalize_state_dict(state_dict: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Apply the reference's key normalizations:
+    gamma→weight / beta→bias (model/model.py:210-220), strip the
+    'roberta.bert.' double prefix (model/model.py:255-257), strip
+    'module.' (DDP artifacts), and drop 'not_load.' markers' content.
+    """
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("not_load."):
+            continue
+        k = re.sub(r"^module\.", "", k)
+        k = re.sub(r"^roberta\.bert\.", "roberta.", k)
+        k = k.replace(".gamma", ".weight").replace(".beta", ".bias")
+        out[k] = _np(v)
+    return out
+
+
+def add_model_prefix(state_dict, prefix: str = "roberta"):
+    """rename_checkpoint (pretrain.py:72-80): a bare-encoder checkpoint
+    (keys like 'embeddings.*', 'encoder.*') gets the model prefix."""
+    need = any(k.startswith(("embeddings.", "encoder.", "img_embeddings."))
+               for k in state_dict)
+    if not need:
+        return state_dict
+    return {(f"{prefix}.{k}" if k.startswith(
+        ("embeddings.", "encoder.", "img_embeddings.", "pooler."))
+        else k): v for k, v in state_dict.items()}
+
+
+def filter_partial(state_dict, load_embedding_only=False,
+                   load_layer: Optional[int] = None):
+    """xlmr_sublayer_loading (model/model.py:24-41): keep only XLM-R
+    embeddings, or only encoder layers <= load_layer."""
+    if load_embedding_only:
+        return {k: v for k, v in state_dict.items()
+                if "roberta.embeddings" in k}
+    if load_layer:
+        def keep(k):
+            m = re.match(r"roberta\.encoder\.layer\.(\d+)\.", k)
+            return not (m and int(m.group(1)) > load_layer)
+        return {k: v for k, v in state_dict.items() if keep(k)}
+    return state_dict
+
+
+_LN = {"weight": "weight", "bias": "bias"}
+
+
+def _set(tree, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def torch_to_params(state_dict: Dict[str, Any],
+                    load_embedding_only: bool = False,
+                    load_layer: Optional[int] = None,
+                    strict_unused: bool = False) -> Dict[str, Any]:
+    """Convert a (UC2 / UNITER / HF-XLM-R) torch state dict to a param tree.
+
+    Returns a *partial* tree containing only the keys present in the
+    checkpoint; merge over randomly initialized params with `merge_params`.
+    """
+    sd = normalize_state_dict(state_dict)
+    sd = add_model_prefix(sd)
+    sd = filter_partial(sd, load_embedding_only, load_layer)
+
+    tree: Dict[str, Any] = {}
+    qkv_parts: Dict[tuple, Dict[str, np.ndarray]] = {}
+    unused = []
+
+    for k, v in sd.items():
+        # unify legacy 'bert.' root (UNITER twin, model/model.py:778+) and HF
+        k = re.sub(r"^bert\.", "roberta.", k)
+        k = re.sub(r"^lm_head\.", "cls.", k)  # HF XLM-R LM head naming
+
+        m = re.match(r"roberta\.embeddings\.(.+)", k)
+        if m:
+            sub = m.group(1)
+            if sub == "word_embeddings.weight":
+                _set(tree, ("roberta", "embeddings", "word_embeddings"), v)
+            elif sub == "position_embeddings.weight":
+                _set(tree, ("roberta", "embeddings", "position_embeddings"), v)
+            elif sub in ("new_token_type_embeddings.weight",
+                         "token_type_embeddings.weight"):
+                _set(tree, ("roberta", "token_type_embeddings"), v)
+            elif sub.startswith("LayerNorm."):
+                _set(tree, ("roberta", "embeddings", "LayerNorm",
+                            sub.split(".")[1]), v)
+            elif sub == "position_ids":
+                pass  # HF buffer, not a parameter
+            else:
+                unused.append(k)
+            continue
+
+        m = re.match(r"roberta\.img_embeddings\.(.+)", k)
+        if m:
+            sub = m.group(1)
+            if sub == "mask_embedding.weight":
+                _set(tree, ("roberta", "img_embeddings", "mask_embedding"), v)
+            else:
+                mod, leaf = sub.rsplit(".", 1)
+                if leaf == "weight" and v.ndim == 2:
+                    _set(tree, ("roberta", "img_embeddings", mod, "kernel"),
+                         v.T)
+                else:
+                    name = "bias" if leaf == "bias" else leaf
+                    _set(tree, ("roberta", "img_embeddings", mod, name), v)
+            continue
+
+        m = re.match(r"roberta\.encoder\.layer\.(\d+)\.(.+)", k)
+        if m:
+            i, sub = int(m.group(1)), m.group(2)
+            layer = f"layer_{i}"
+            qm = re.match(r"attention\.self\.(query|key|value)\.(weight|bias)",
+                          sub)
+            if qm:
+                qkv_parts.setdefault(("roberta", layer),
+                                     {})[f"{qm.group(1)}.{qm.group(2)}"] = v
+            elif sub.startswith("attention.output.dense."):
+                leaf = sub.split(".")[-1]
+                _set(tree, ("roberta", layer, "attention_output_dense",
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            elif sub.startswith("attention.output.LayerNorm."):
+                _set(tree, ("roberta", layer, "attention_output_LayerNorm",
+                            sub.split(".")[-1]), v)
+            elif sub.startswith("intermediate.dense."):
+                leaf = sub.split(".")[-1]
+                _set(tree, ("roberta", layer, "intermediate_dense",
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            elif sub.startswith("output.dense."):
+                leaf = sub.split(".")[-1]
+                _set(tree, ("roberta", layer, "output_dense",
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            elif sub.startswith("output.LayerNorm."):
+                _set(tree, ("roberta", layer, "output_LayerNorm",
+                            sub.split(".")[-1]), v)
+            else:
+                unused.append(k)
+            continue
+
+        m = re.match(r"roberta\.pooler\.dense\.(weight|bias)", k)
+        if m:
+            leaf = m.group(1)
+            _set(tree, ("roberta", "pooler", "dense",
+                        "kernel" if leaf == "weight" else "bias"),
+                 v.T if leaf == "weight" else v)
+            continue
+
+        # ----- heads -----
+        m = re.match(r"cls\.(.+)", k)
+        if m:
+            sub = m.group(1)
+            # UNITER BertOnlyMLMHead: cls.predictions.transform.dense /
+            # .transform.LayerNorm / .bias / .decoder  (model/layer.py:205-233)
+            sub = sub.replace("predictions.transform.", "")
+            sub = sub.replace("predictions.", "")
+            sub = sub.replace("LayerNorm.", "layer_norm.")
+            if sub.startswith("decoder."):
+                continue  # tied to word embeddings (decoder.bias dup of bias)
+            if sub == "bias":
+                _set(tree, ("cls", "bias"), v)
+            elif sub.startswith("dense."):
+                leaf = sub.split(".")[-1]
+                _set(tree, ("cls", "dense",
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            elif sub.startswith("layer_norm."):
+                _set(tree, ("cls", "layer_norm", sub.split(".")[-1]), v)
+            else:
+                unused.append(k)
+            continue
+
+        if k.startswith("vis_cls."):
+            continue  # constructed but unused in reference forwards (§2.1)
+
+        m = re.match(r"feat_regress\.(.+)", k)
+        if m:
+            sub = m.group(1)
+            if sub == "weight":
+                continue  # tied: transpose of img_linear
+            if sub == "bias":
+                _set(tree, ("feat_regress", "bias"), v)
+            elif sub.startswith("net.0."):
+                leaf = sub.split(".")[-1]
+                _set(tree, ("feat_regress", "dense",
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            elif sub.startswith("net.2."):
+                _set(tree, ("feat_regress", "layer_norm", sub.split(".")[-1]),
+                     v)
+            continue
+
+        m = re.match(r"region_classifier\.net\.(\d)\.(weight|bias)", k)
+        if m:
+            idx, leaf = int(m.group(1)), m.group(2)
+            name = {0: "dense", 2: "layer_norm", 3: "out"}[idx]
+            if name == "layer_norm":
+                _set(tree, ("region_classifier", name, leaf), v)
+            else:
+                _set(tree, ("region_classifier", name,
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            continue
+
+        m = re.match(r"(itm_output|rank_output)\.(weight|bias)", k)
+        if m:
+            head, leaf = m.group(1), m.group(2)
+            _set(tree, (head, "out", "kernel" if leaf == "weight" else "bias"),
+                 v.T if leaf == "weight" else v)
+            continue
+
+        m = re.match(r"vqa_output\.(\d)\.(weight|bias)", k)
+        if m:
+            idx, leaf = int(m.group(1)), m.group(2)
+            name = {0: "dense", 2: "layer_norm", 3: "out"}[idx]
+            if name == "layer_norm":
+                _set(tree, ("vqa_output", name, leaf), v)
+            else:
+                _set(tree, ("vqa_output", name,
+                            "kernel" if leaf == "weight" else "bias"),
+                     v.T if leaf == "weight" else v)
+            continue
+
+        unused.append(k)
+
+    # pack fused qkv
+    for (root, layer), parts in qkv_parts.items():
+        if len(parts) == 6:
+            kernel = np.concatenate([parts["query.weight"].T,
+                                     parts["key.weight"].T,
+                                     parts["value.weight"].T], axis=1)
+            bias = np.concatenate([parts["query.bias"], parts["key.bias"],
+                                   parts["value.bias"]])
+            _set(tree, (root, layer, "attention", "qkv", "kernel"), kernel)
+            _set(tree, (root, layer, "attention", "qkv", "bias"), bias)
+
+    if strict_unused and unused:
+        raise ValueError(f"unconverted checkpoint keys: {unused[:20]}")
+    return tree
+
+
+def merge_params(init_params: Dict[str, Any],
+                 loaded: Dict[str, Any],
+                 path: str = "") -> Dict[str, Any]:
+    """Overlay loaded leaves onto an initialized tree (shape-checked)."""
+    out = {}
+    for k, v in init_params.items():
+        if k in loaded:
+            lv = loaded[k]
+            if isinstance(v, dict):
+                out[k] = merge_params(v, lv, f"{path}/{k}")
+            else:
+                if tuple(np.shape(lv)) != tuple(np.shape(v)):
+                    raise ValueError(
+                        f"shape mismatch at {path}/{k}: "
+                        f"ckpt {np.shape(lv)} vs model {np.shape(v)}")
+                out[k] = np.asarray(lv, dtype=np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+def splice_early_adaptation(params, adaptation_state_dict):
+    """'Early adaptation' splice: load a separately-trained vision-to-word
+    linear into img_embeddings.img_linear (reference pretrain.py:438-441)."""
+    sd = normalize_state_dict(adaptation_state_dict)
+    w = sd.get("img_linear.weight", sd.get("weight"))
+    b = sd.get("img_linear.bias", sd.get("bias"))
+    tgt = params["roberta"]["img_embeddings"]["img_linear"]
+    if w is not None:
+        tgt["kernel"] = np.asarray(w).T.astype(np.float32)
+    if b is not None:
+        tgt["bias"] = np.asarray(b).astype(np.float32)
+    return params
+
+
+def load_partial_tree(module: torch.nn.Module, loaded: Dict[str, Any]) -> None:
+    """Overlay a partial reference tree (``torch_to_params``'s output) on
+    ``module``'s own parameters, shape-checked; the leaves it lacks keep
+    their values."""
+    load_params(module, merge_params(params_to_jax(module.state_dict()),
+                                     loaded))

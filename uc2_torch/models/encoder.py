@@ -40,6 +40,32 @@ def compute_dtype(cfg: UC2Config) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class SmallTableLookup(torch.autograd.Function):
+    """``weight[ids]`` for a table of a few rows (the token types, the
+    region mask embedding), whose backward is one masked sum a row.
+
+    Every id of a batch hits one of these rows, so a row has tens of
+    thousands of copies: the CUDA embedding backward then adds the row's
+    partial sums with float atomics (its gradient differed between two
+    runs of one step on the H100), and indexing's sorted ``index_put_``
+    walks the copies one warp a row (7 ms at 20800 ids). A masked sum is a
+    reduction of fixed order: the same bits on every run, and fast."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        grad = grad.reshape(-1, grad.shape[-1])
+        ids = ids.reshape(-1, 1)
+        return torch.stack([torch.where(ids == r, grad, 0.0).sum(0)
+                            for r in range(ctx.rows)]), None
+
+
 def create_position_ids_from_input_ids(input_ids, padding_idx: int):
     """XLM-R position ids: non-pad tokens numbered from padding_idx + 1."""
     mask = (input_ids != padding_idx).long()
@@ -135,7 +161,8 @@ class ImageEmbeddings(nn.Module):
         if img_masks is not None:
             mask_emb = torch.cat([torch.zeros_like(self.mask_embedding[:1]),
                                   self.mask_embedding[1:]])
-            img_feat = img_feat + mask_emb[img_masks.long()].to(img_feat.dtype)
+            img_feat = img_feat + SmallTableLookup.apply(
+                mask_emb, img_masks.long()).to(img_feat.dtype)
         x = (self.img_layer_norm(self.img_linear(img_feat))
              + self.pos_layer_norm(self.pos_linear(img_pos_feat))
              + type_embeddings)
@@ -297,7 +324,8 @@ class UC2Model(nn.Module):
             if txt_type_ids is None:
                 txt_type_ids = torch.zeros_like(input_ids)
             parts.append(self.embeddings(
-                input_ids, self.token_type_embeddings(txt_type_ids),
+                input_ids, SmallTableLookup.apply(
+                    self.token_type_embeddings.weight, txt_type_ids),
                 position_ids, rng))
         if img_feat is not None:
             if img_type_ids is None:
@@ -305,7 +333,8 @@ class UC2Model(nn.Module):
                                           device=img_feat.device)
             parts.append(self.img_embeddings(
                 img_feat.to(dt), img_pos_feat.to(dt),
-                self.token_type_embeddings(img_type_ids), img_masks, rng))
+                SmallTableLookup.apply(self.token_type_embeddings.weight,
+                                       img_type_ids), img_masks, rng))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         attn_bias = ((1.0 - attn_mask.float()) * -10000.0)[:, None, None, :]
         for layer in self.layer:

@@ -77,11 +77,14 @@ class UC2ForPretraining(nn.Module):
             img_type_ids=batch.get("img_type_ids"),
             deterministic=deterministic, rng=rng)
 
-    def _lm_loss(self, seq, batch):
+    def _lm_loss(self, seq, batch, compute_loss=True):
         """The tied LM head at the prediction slots and its CE weighted by
-        ``masked_weight``: (loss_sum, n_slots)."""
+        ``masked_weight``: (loss_sum, n_slots); with ``compute_loss=False``
+        the logits [B, M, V] instead."""
         h = gather_slots(seq, batch["masked_pos"])
         emb = self.roberta.embeddings.word_embeddings.weight
+        if not compute_loss:
+            return self.cls(h, emb)
         w = batch["masked_weight"]
         if self.lm_ce_chunks:
             B, M, _ = h.shape
@@ -96,33 +99,39 @@ class UC2ForPretraining(nn.Module):
         return loss.sum(), w.sum()
 
     def forward_mlm(self, batch, deterministic=True, rng=None,
-                    with_image=True):
+                    with_image=True, compute_loss=True):
         """MLM / TLM (with the image unless ``with_image=False``, the
         tlm-ni task): predict the masked text tokens. Returns (loss_sum,
-        n_slots) for the caller to reduce."""
+        n_slots) for the caller to reduce, or with ``compute_loss=False``
+        the logits at the slots [B, M, V]."""
         seq, _ = self._encode(batch, deterministic, rng, with_image)
-        return self._lm_loss(seq, batch)
+        return self._lm_loss(seq, batch, compute_loss)
 
-    def forward_mmxlm(self, batch, deterministic=True, rng=None):
+    def forward_mmxlm(self, batch, deterministic=True, rng=None,
+                      compute_loss=True):
         """Masked-region-to-token with hard targets (vmlm; mmxlm masks text
         too, folded into the slots by the collate): the masked regions get
         ``mask_embedding``, and the LM head predicts label-word tokens at
-        the slots. Returns (loss_sum, n_slots)."""
+        the slots. Returns (loss_sum, n_slots), or the logits with
+        ``compute_loss=False``."""
         seq, _ = self._encode(batch, deterministic, rng,
                               img_masks=batch["img_masks"])
-        return self._lm_loss(seq, batch)
+        return self._lm_loss(seq, batch, compute_loss)
 
     def forward_itm(self, batch, deterministic=True, rng=None,
-                    compute_ot=False):
+                    compute_ot=False, compute_loss=True):
         """Image-text matching: the ITM head on the pooled output, CE
         against ``targets``. Returns (loss_sum, B) with B the padded batch
-        size, as the reference reduces. The optimal-transport term (IPOT)
-        is not ported yet."""
+        size, as the reference reduces, or with ``compute_loss=False`` the
+        scores [B, 2] and the OT distances (None: the optimal-transport
+        term, IPOT, is not ported yet and raises)."""
         if compute_ot:
             raise NotImplementedError("uc2_torch: itm with optimal transport "
                                       "(itm-ot) is not ported yet")
         _, pooled = self._encode(batch, deterministic, rng)
         scores = self.itm_output(pooled)
+        if not compute_loss:
+            return scores, None
         loss = H.cross_entropy_with_logits(scores, batch["targets"])
         return loss.sum(), scores.shape[0]
 

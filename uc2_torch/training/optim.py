@@ -153,6 +153,18 @@ class Optimizer:
         return norm
 
 
+    def state_dict(self) -> Dict:
+        """The update count (the schedule's step) and AdamW's state: its
+        step counts and both moments of every parameter."""
+        return {"count": self.count, "adamw": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore what ``state_dict`` captured; the moments move to the
+        parameters' device."""
+        self.count = int(sd["count"])
+        self.opt.load_state_dict(sd["adamw"])
+
+
 def build_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
                     weight_decay: float = 0.01,
                     betas: Sequence[float] = (0.9, 0.98),

@@ -1,5 +1,5 @@
-"""The training step (port of uc2_tpu/training/step.py for the mlm family,
-vmlm/mmxlm and itm).
+"""The training step and the validation step (port of
+uc2_tpu/training/step.py for the mlm family, vmlm/mmxlm and itm).
 
 ``train_step`` runs forward, loss, backward and the optimizer update of
 one batch, or of a stacked ``[A, B, ...]`` batch whose A micro-batches
@@ -16,6 +16,7 @@ from typing import Callable, Dict
 
 import torch
 
+from uc2_torch.models.heads import cross_entropy_with_logits
 from uc2_torch.training.optim import Optimizer
 
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
@@ -66,17 +67,25 @@ def accumulate_grads(loss_fn: Callable, model, batch, rng) -> Dict:
         loss, metrics = loss_fn(model, batch, rng)
         loss.backward()
         return metrics
-    A = batch["input_ids"].shape[0]
+    return mean_grads(loss_fn, model, [
+        ({k: v[a] for k, v in batch.items()}, rng)
+        for a in range(batch["input_ids"].shape[0])])
+
+
+def mean_grads(loss_fn: Callable, model, micro) -> Dict:
+    """Leave in ``.grad`` the mean of the gradients of the micro-batches
+    ``micro`` ([(batch, rng)], taken in order) and return the mean of
+    their metrics. The ``.grad`` fields must be None on entry."""
     total = None
-    for a in range(A):
-        loss, m = loss_fn(model, {k: v[a] for k, v in batch.items()}, rng)
+    for batch, rng in micro:
+        loss, m = loss_fn(model, batch, rng)
         loss.backward()
         total = m if total is None else {k: total[k] + m[k] for k in m}
     with torch.no_grad():
         for p in model.parameters():
             if p.grad is not None:
-                p.grad.div_(A)
-    return {k: v / A for k, v in total.items()}
+                p.grad.div_(len(micro))
+    return {k: v / len(micro) for k, v in total.items()}
 
 
 def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
@@ -90,3 +99,52 @@ def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
     metrics = accumulate_grads(make_loss_fn(task), model, batch, rng)
     metrics["grad_norm"] = opt.step()
     return metrics
+
+
+def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm"
+                     ) -> Dict[str, torch.Tensor]:
+    """One update from micro-batches given one by one (``--host_accum``:
+    their buckets may differ): ``micro`` is [(batch, rng)], and the
+    gradients and metrics are the mean over them, as ``train_step`` takes
+    them over a stacked batch."""
+    opt.zero_grad()
+    metrics = mean_grads(make_loss_fn(task), model, micro)
+    metrics["grad_norm"] = opt.step()
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model, batch: Dict[str, torch.Tensor],
+              task: str) -> Dict[str, torch.Tensor]:
+    """The deterministic validation forward of one batch: the sums the
+    driver's ``validate`` adds up over a sweep, as device tensors. mlm,
+    tlm, tlm-ni, vmlm and mmxlm give ``loss`` (the CE summed over the
+    live slots), ``n_correct`` (argmax hits there) and ``n_word`` (the
+    live slots); itm gives ``loss``, ``n_correct`` and ``n_ex`` over the
+    batch's real rows (``ex_mask``), so a padded trailing batch counts
+    its examples only."""
+    base = task.split("_")[0]
+    if base in ("mlm", "tlm", "tlm-ni", "vmlm", "mmxlm"):
+        if base in _MLM_TASKS:
+            logits = model.forward_mlm(batch, True, None,
+                                       with_image=_MLM_TASKS[base],
+                                       compute_loss=False)
+        else:
+            logits = model.forward_mmxlm(batch, True, None,
+                                         compute_loss=False)
+        labels, w = batch["txt_labels"], batch["masked_weight"]
+        loss = cross_entropy_with_logits(logits, labels, w).sum()
+        correct = ((logits.argmax(-1) == labels) * w).sum()
+        return {"loss": loss, "n_correct": correct, "n_word": w.sum()}
+    if base == "itm":
+        scores, _ = model.forward_itm(batch, True, None, compute_loss=False)
+        targets = batch["targets"]
+        w = batch.get("ex_mask")
+        if w is None:
+            w = torch.ones(scores.shape[0], device=scores.device)
+        loss = (cross_entropy_with_logits(scores, targets) * w).sum()
+        correct = ((scores.argmax(-1) == targets) * w).sum()
+        return {"loss": loss, "n_correct": correct, "n_ex": w.sum()}
+    raise NotImplementedError(f"uc2_torch: validation of task {task!r} is "
+                              f"not ported yet (mlm, tlm, tlm-ni, vmlm, "
+                              f"mmxlm and itm are)")
