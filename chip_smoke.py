@@ -3,6 +3,9 @@
 pretraining step, the pretraining task mix of config/uc2_pretrain.json
 (itm, mlm, vmlm, tlm) with the training FFN kernels, the pretraining
 driver (python -m uc2_torch.pretrain) on U2S stores with exact resume,
+every other pretraining objective (mmxlm, the soft tasks, mrfr, mrc,
+mrc-kl, mrm-nce, itm-ot through IPOT, hard negatives, tlm-ni) in steps
+and through the driver,
 mlm pretraining on long captions (joint L up to 512), the two routes of
 the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
 (the QKV projection inside the attention block) and
@@ -151,11 +154,31 @@ non-zero at the end, without the result lines:
      whose parameters, AdamW moments and per-step losses must equal the
      uninterrupted run's bit for bit; every record read by the native
      store library. The stores and checkpoints are deleted at the end;
- 15. a JSON line of per-kernel numbers (launches: the main-path phases'
-     counts, the pretraining driver's added; #3's adds the routes phase
-     and the lab), then the last line {"ok": true, "device": {...}}.
+ 15. objectives: full-width uc2-base steps at the mix's bucket (62 text
+     tokens, 100 regions, B = 128; tlm-ni text only at L = 62) of mmxlm,
+     vmlm-soft, mmxlm-soft, mrfr, mrc, mrc-kl, mrm-nce, itm-ot at lambda
+     0.1 (both OT reductions), itm on ItmHardNegDataset's batches and
+     co-masked tlm-ni, from the port's datasets over an in-memory corpus,
+     under "pallas-train" with UC2_FFN_TRAIN=1: 1 warm-up and 3 timed
+     steps each (12 launches each of #5, #6a, #6b, #9, #10 a step, finite
+     losses, median ms/step, peak memory), a deterministic eval_step
+     launching the gates' kernels, a bitwise repeat of an mrm-nce and an
+     itm-ot step, one step against the eager path at dropout 0
+     (OBJ_LIMITS); IPOT alone at (128, 62, 100) on the host's clock, from
+     a CUDA graph and its kernel count, and its share of the itm-ot step;
+     then the driver on U2S stores of 128 images (en with a soft-label
+     store, de paired): config/demo_pretrain.json's mix (itm, mlm, mrfr,
+     mrc, tlm) and every other task with --itm_ot_lambda 0.1 --optim
+     adamax --itm_hard_neg, each 12 steps with validation of every task
+     (its keys logged) and again stopped at 6 and resumed, equal bit for
+     bit (parameters, both moments, losses), #5/#6a/#6b 12 times a
+     micro-batch. The stores and checkpoints are deleted at the end;
+ 16. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts, the pretraining driver's and the objectives' added; #3's adds
+     the routes phase and the lab), then the last line {"ok": true,
+     "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15.
+15, 16.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -1823,20 +1846,7 @@ def _phase_mix(card, train_busy, ffn_rows):
         if not all(np.isfinite(x) for r in stats for x in r[:2]):
             fail(f"{task}: a loss or grad norm is not finite")
 
-    # a bitwise repeat of one vmlm step
-    res = []
-    for _ in range(2):
-        model.load_state_dict(start)
-        m = train_step(model, pretrain_optimizer(model), batches["vmlm"][0],
-                       DropoutRng(7, "cuda"), task="vmlm")
-        res.append((m["loss"], m["grad_norm"]))
-    same = all(torch.equal(a, b) for a, b in zip(*res))
-    print(f"  repeat of one vmlm step (same weights and seeds): loss "
-          f"{res[0][0].item():.6f} / {res[1][0].item():.6f}, grad norm "
-          f"{res[0][1].item():.6f} / {res[1][1].item():.6f}; bitwise equal: "
-          f"{same}")
-    if not same:
-        fail("one vmlm step with the same seeds is not bitwise repeatable")
+    repeat_step("vmlm", model, start, batches["vmlm"][0], {})
 
     # the mlm step with the eager FFN (UC2_FFN_TRAIN unset) and with #9/#10
     ab = {}
@@ -1873,54 +1883,21 @@ def _phase_mix(card, train_busy, ffn_rows):
           f"ms (CUDA events, kernel phase); eager FFN block forward + "
           f"backward (profiler, kernels only) {eager} [{card}]")
 
-    # dropout 0: one itm and one vmlm step, kernel path vs eager path
+    # dropout 0: one itm and one vmlm step, kernel path vs eager path, an
+    # fp32 eager step beside them as the anchor of both bf16 paths
     cfg0 = cfg.replace(hidden_dropout_prob=0.0,
                        attention_probs_dropout_prob=0.0)
-    lr = 4e-5
-    for task, (loss_tol, norm_rtol, w_rtol) in MIX_LIMITS.items():
-        out = {}
-        for impl, dt in (("pallas-train", "bfloat16"), ("xla", "bfloat16"),
-                         ("xla", "float32")):
-            m_ = UC2ForPretraining(
-                cfg0.replace(use_pallas_attention=impl, dtype=dt),
-                device="cuda", seed=0)
-            m_.load_state_dict(start)
-            opt = build_optimizer(m_, constant(lr), weight_decay=0.01,
-                                  betas=(0.9, 0.98), grad_norm=5.0)
-            reset_launches()
-            met = train_step(m_, opt, batches[task][0], DropoutRng(0, "cuda"),
-                             task=task)
-            out[impl, dt] = (met["loss"].item(), met["grad_norm"].item(),
-                             [(a.clone(), b.clone()) for a, b in ffn_grads(m_)],
-                             fused_ffn_block_train_bwd.launches)
-            del m_, opt
-            torch.cuda.empty_cache()
-        kern, eager, f32 = out.values()
-
-        def apart(a, b):
-            """|loss diff|, relative grad norm diff, worst W1 / W2 layer."""
-            w = [max(((x[j] - y[j]).norm() / y[j].norm()).item()
-                     for x, y in zip(a[2], b[2])) for j in range(2)]
-            return abs(a[0] - b[0]), abs(a[1] - b[1]) / b[1], w[0], w[1]
-
-        d = apart(kern, eager)
-        ok = (d[0] <= loss_tol and d[1] <= norm_rtol and max(d[2:]) <= w_rtol
-              and (kern[3], eager[3]) == (layers, 0))
-        print(f"  {task}, one step at dropout 0, kernel path (pallas-train, "
-              f"#9/#10 launched {kern[3]} times) vs eager (xla): loss "
-              f"{kern[0]:.6f} vs {eager[0]:.6f} (|diff| {d[0]:.3e}), grad "
-              f"norm {kern[1]:.6f} vs {eager[1]:.6f} (relative {d[1]:.3e}), "
-              f"worst layer's ||dW - dW_eager|| / ||dW_eager|| of W1 / W2 "
-              f"{d[2]:.3e} / {d[3]:.3e} (tolerance: loss {loss_tol:g}, grad "
-              f"norm {norm_rtol:g} relative, W1/W2 {w_rtol:.3e}) "
-              f"{'ok' if ok else 'FAIL'}")
-        for what, run in (("kernel", kern), ("eager bf16", eager)):
-            a = apart(run, f32)
-            print(f"    {what} vs eager fp32 (loss {f32[0]:.6f}, grad norm "
-                  f"{f32[1]:.6f}): loss {a[0]:.3e}, grad norm {a[1]:.3e} "
-                  f"relative, W1 / W2 {a[2]:.3e} / {a[3]:.3e}")
-        if not ok:
-            fail(f"the {task} kernel step disagrees with the eager step")
+    for task, limits in MIX_LIMITS.items():
+        models = {path: UC2ForPretraining(
+            cfg0.replace(use_pallas_attention=impl, dtype=dt),
+            device="cuda", seed=0) for path, (impl, dt) in (
+                ("kernel", ("pallas-train", "bfloat16")),
+                ("eager", ("xla", "bfloat16")),
+                ("eager fp32", ("xla", "float32")))}
+        step_at_dropout_0(task, task, models, start, batches[task][0], {},
+                          limits, layers)
+        del models
+        torch.cuda.empty_cache()
     return total
 
 
@@ -3164,12 +3141,14 @@ def run_pretrain(argv):
 
 
 def trained_state(run):
-    """The run's parameters and AdamW's moments, copied to the host."""
+    """The run's parameters and the optimizer's moments (AdamW's or
+    Adamax's), copied to the host."""
     out = {f"param {k}": v.detach().cpu().clone()
            for k, v in run.model.state_dict().items()}
-    for i, st in run.optimizer.state_dict()["adamw"]["state"].items():
-        for k in ("exp_avg", "exp_avg_sq"):
-            out[f"{k} {i}"] = st[k].detach().cpu().clone()
+    for i, st in run.optimizer.state_dict()["state"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq", "exp_inf"):
+            if k in st:
+                out[f"{k} {i}"] = st[k].detach().cpu().clone()
     return out
 
 
@@ -3193,14 +3172,14 @@ def counted_eval_steps(calls):
     held against the gates at that batch's joint length."""
     orig = train_step_mod.eval_step
 
-    def counted(model, batch, task):
+    def counted(model, batch, task, **kw):
         torch.cuda.synchronize()
         before = launch_counts()
-        out = orig(model, batch, task)
+        out = orig(model, batch, task, **kw)
         torch.cuda.synchronize()
         got = {k: n - before[k] for k, n in launch_counts().items()
                if n != before[k]}
-        L = batch["input_ids"].shape[1] + batch["img_feat"].shape[1]
+        L = batch["attn_mask"].shape[1]
         want = {k: n for k, n in gate_launches(model.config, L).items() if n}
         calls.append((task, L, got == want))
         if got != want:
@@ -3427,6 +3406,480 @@ def _phase_pretrain(card):
     return launches
 
 
+# ------------------------------------------------ the remaining objectives
+# the objectives beyond config/uc2_pretrain.json's mix, at its bucket (62
+# text tokens, 100 regions, B = 128; tlm-ni text only, L = 62): name ->
+# (task, make_loss_fn keywords)
+OBJ = {"mmxlm": ("mmxlm", {}), "vmlm-soft": ("vmlm-soft", {}),
+       "mmxlm-soft": ("mmxlm-soft", {}), "mrfr": ("mrfr", {}),
+       "mrc": ("mrc", {}), "mrc-kl": ("mrc-kl", {}),
+       "mrm-nce": ("mrm-nce", {}),
+       "itm-ot": ("itm-ot", dict(itm_ot_lambda=0.1)),
+       "itm-ot-pos": ("itm-ot", dict(itm_ot_lambda=0.1, ot_pos_only=True)),
+       "itm-hard": ("itm", {}), "tlm-ni": ("tlm-ni", {})}
+OBJ_REPEAT = ("mrm-nce", "itm-ot")
+# dropout 0, one step of the kernel path ("pallas-train" + UC2_FFN_TRAIN=1)
+# against the eager path ("xla"): |loss difference|, grad norm (relative)
+# and the worst layer's W1 and W2 gradients in relative norm, as
+# MIX_LIMITS holds itm and vmlm. Tasks held to the mix's limits where
+# their first H100 readings fit them (mmxlm 3.2e-4, 8.7e-5, 1.2e-2;
+# vmlm-soft 0, 1.8e-4, 4.5e-3; mrfr 6.2e-6, 7.1e-5, 2.5e-3; mrc-kl 7.3e-9,
+# 3.4e-4, 4.6e-3; itm on hard negatives 3.0e-5, 1.0e-3, 1.0e-2); the
+# others at about 5x their first readings: mmxlm-soft 4.9e-6, 5.4e-4,
+# 5.4e-3; mrc 3.4e-4, 2.4e-4, 1.4e-2; mrm-nce 8.6e-3 (of a loss of 89:
+# 1e-4 relative), 4.9e-3, 8.0e-3; itm-ot 2.8e-4, 3.8e-3, 1.4e-2 and
+# with ot_pos_only 1.1e-4, 3.3e-3, 2.0e-2 (the OT term's cost matrix is
+# taken from the bf16 hidden states of each path); tlm-ni 2.8e-4,
+# 4.5e-4, 1.4e-2
+OBJ_LIMITS = {"mmxlm": MIX_LIMITS["vmlm"], "vmlm-soft": MIX_LIMITS["vmlm"],
+              "mmxlm-soft": (1e-4, 2.7e-3, 2.0 ** -4),
+              "mrc": (1.7e-3, 1.2e-3, 2.0 ** -4),
+              "mrm-nce": (4.3e-2, 2.5e-2, 2.0 ** -4),
+              "itm-ot": (1.4e-3, 1.9e-2, 2.0 ** -3),
+              "itm-ot-pos": (1.4e-3, 1.9e-2, 2.0 ** -3),
+              "tlm-ni": (1.4e-3, 2.3e-3, 2.0 ** -4)}
+OBJ_DIR = os.path.join("build", "objectives_smoke")
+OBJ_IMGS, OBJ_STEPS, OBJ_SAVE = 128, 12, 6
+# the driver's second run: every task the demo mix leaves out
+OBJ_DRIVER_EN = ["mmxlm", "vmlm-soft", "mmxlm-soft", "mrc-kl", "mrm-nce"]
+OBJ_DRIVER_DE = ["itm-ot", "tlm-ni"]
+IPOT_SHAPE = (128, 62, 100)
+
+
+def objective_dataset(name, txt_db, img_db, vocab, pc):
+    """The dataset ``python -m uc2_torch.pretrain`` builds for ``name``'s
+    task (mask probabilities at the driver's defaults)."""
+    task = OBJ[name][0]
+    if name == "itm-hard":
+        return datasets.ItmHardNegDataset(txt_db, img_db, pc["itm_neg_prob"])
+    if task == "itm-ot":
+        return datasets.ItmDataset(txt_db, img_db, pc["itm_neg_prob"])
+    return {
+        "mmxlm": lambda: datasets.MmxlmDataset(txt_db, img_db,
+                                               label_vocab=vocab, lang="de"),
+        "vmlm-soft": lambda: datasets.VmlmSoftDataset(txt_db, img_db,
+                                                      label_vocab=vocab),
+        "mmxlm-soft": lambda: datasets.MmxlmSoftDataset(txt_db, img_db,
+                                                        label_vocab=vocab),
+        "mrfr": lambda: datasets.MrfrDataset(txt_db, img_db),
+        "mrc": lambda: datasets.MrcDataset(txt_db, img_db),
+        "mrc-kl": lambda: datasets.MrcDataset(txt_db, img_db),
+        "mrm-nce": lambda: datasets.MrmNceDataset(txt_db, img_db),
+        "tlm-ni": lambda: datasets.TlmDataset(
+            txt_db, img_db, comasking_mode=pc["comasking_mode"],
+            text_only=True),
+    }[task]()
+
+
+def objective_batches(ds, n, rng):
+    """``n`` batches of (62 text tokens, 100 regions, B = 128) and the
+    dataset's slots, on the card."""
+    if hasattr(ds, "new_epoch"):
+        ds.new_epoch(rng)
+    spec = BucketSpec(TRAIN_TXT, MIX_NB, MIX_B,
+                      type(ds).slot_budget(TRAIN_TXT, MIX_NB))
+    idx = rng.permutation(len(ds))[:n * MIX_B]
+    return [on_card(b) for b in datasets.batches(ds, spec, idx, rng)]
+
+
+def step_at_dropout_0(what, task, models, start, batch, kw, limits,
+                      layers):
+    """One step of ``task`` at dropout 0 from the weights ``start`` through
+    each of ``models`` ("kernel": "pallas-train" with UC2_FFN_TRAIN=1,
+    "eager": "xla", optionally "eager fp32"): the kernel path against the
+    eager path in |loss difference|, grad norm (relative) and the worst
+    layer's W1 and W2 gradients (fed by #10) in relative norm, held to
+    ``limits``; the fp32 step, where given, printed as the anchor of
+    both."""
+    out = {}
+    for path, m_ in models.items():
+        m_.load_state_dict(start)
+        opt = build_optimizer(m_, constant(4e-5), weight_decay=0.01,
+                              betas=(0.9, 0.98), grad_norm=5.0)
+        reset_launches()
+        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"), task=task,
+                         **kw)
+        out[path] = (met["loss"].item(), met["grad_norm"].item(),
+                     [(a.clone(), b.clone()) for a, b in ffn_grads(m_)],
+                     fused_ffn_block_train_bwd.launches)
+        del opt
+
+    def apart(a, b):
+        """|loss diff|, relative grad norm diff, worst W1 / W2 layer."""
+        w = [max(((x[j] - y[j]).norm() / y[j].norm()).item()
+                 for x, y in zip(a[2], b[2])) for j in range(2)]
+        return abs(a[0] - b[0]), abs(a[1] - b[1]) / b[1], w[0], w[1]
+
+    kern, eager = out["kernel"], out["eager"]
+    d = apart(kern, eager)
+    loss_tol, norm_rtol, w_rtol = limits
+    ok = (d[0] <= loss_tol and d[1] <= norm_rtol and max(d[2:]) <= w_rtol
+          and (kern[3], eager[3]) == (layers, 0)
+          and np.isfinite(kern[:2]).all())
+    print(f"  {what}, one step at dropout 0, kernel path (pallas-train, "
+          f"#9/#10 launched {kern[3]} times) vs eager (xla): loss "
+          f"{kern[0]:.6f} vs {eager[0]:.6f} (|diff| {d[0]:.3e}), grad "
+          f"norm {kern[1]:.6f} vs {eager[1]:.6f} (relative {d[1]:.3e}), "
+          f"worst layer's ||dW - dW_eager|| / ||dW_eager|| of W1 / W2 "
+          f"{d[2]:.3e} / {d[3]:.3e} (tolerance: loss {loss_tol:g}, grad "
+          f"norm {norm_rtol:g} relative, W1/W2 {w_rtol:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if "eager fp32" in out:
+        f32 = out["eager fp32"]
+        for name, run in (("kernel", kern), ("eager bf16", eager)):
+            a = apart(run, f32)
+            print(f"    {name} vs eager fp32 (loss {f32[0]:.6f}, grad norm "
+                  f"{f32[1]:.6f}): loss {a[0]:.3e}, grad norm {a[1]:.3e} "
+                  f"relative, W1 / W2 {a[2]:.3e} / {a[3]:.3e}")
+    if not ok:
+        fail(f"the {what} kernel step disagrees with the eager step")
+
+
+def repeat_step(task, model, start, batch, kw):
+    """One step of ``task`` twice from the same weights and seeds: the
+    loss, the grad norm and every updated parameter bit for bit."""
+    res = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        m = train_step(model, pretrain_optimizer(model), batch,
+                       DropoutRng(7, "cuda"), task=task, **kw)
+        res.append((m["loss"], m["grad_norm"],
+                    [p.detach().clone() for p in model.parameters()]))
+    (l0, n0, p0), (l1, n1, p1) = res
+    same = (torch.equal(l0, l1) and torch.equal(n0, n1)
+            and all(torch.equal(a, b) for a, b in zip(p0, p1)))
+    print(f"  repeat of one {task} step (same weights and seeds): loss "
+          f"{l0.item():.6f} / {l1.item():.6f}, grad norm {n0.item():.6f} / "
+          f"{n1.item():.6f}, {len(p0)} updated parameters; bitwise equal: "
+          f"{same}")
+    if not same:
+        fail(f"one {task} step with the same seeds is not bitwise "
+             f"repeatable")
+
+
+def time_ipot(card):
+    """optimal_transport_dist alone at the itm-ot step's shape (bf16
+    blocks, padded rows): ms on the host's clock (synchronised calls), ms
+    replayed from a CUDA graph, and the kernels one call launches (a
+    profiler count). Returns (host ms, graph ms, kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from uc2_torch.models.ot import optimal_transport_dist
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Bo, M, Nr = IPOT_SHAPE
+    txt = torch.randn(Bo, M, H, generator=gen, device="cuda").bfloat16()
+    img = torch.randn(Bo, Nr, H, generator=gen, device="cuda").bfloat16()
+    tpad = torch.arange(M, device="cuda")[None] >= torch.randint(
+        10, M + 1, (Bo, 1), generator=gen, device="cuda")
+    ipad = torch.arange(Nr, device="cuda")[None] >= torch.randint(
+        10, Nr + 1, (Bo, 1), generator=gen, device="cuda")
+
+    def fn():
+        return optimal_transport_dist(txt, img, tpad, ipad)
+    d = fn()
+    if not bool(torch.isfinite(d).all()):
+        fail("objectives: IPOT gave non-finite distances")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e2
+    graph = graph_ms(fn, iters=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    kernels = sum(cnt for _, cnt, _ in rows) if rows else None
+    print(f"  IPOT alone (optimal_transport_dist, (B, M, N) = {IPOT_SHAPE}, "
+          f"D = {H}, 50 iterations): {host:.3f} ms a call on the host's "
+          f"clock, {graph:.3f} ms from a CUDA graph, "
+          f"{'not measured' if kernels is None else kernels} kernels a call "
+          f"(profiler) [{card}]")
+    return host, graph, kernels
+
+
+def objective_specs(stores, which):
+    """(train specs, validation specs, flags) of a driver run over the
+    stores (en with a soft-label store, de paired): "demo" is
+    config/demo_pretrain.json's mix with its stores replaced (itm, mlm,
+    mrfr, mrc on en, tlm on de); "others" every other task (the en store
+    with its soft labels; itm-ot and tlm-ni on de) with --itm_ot_lambda
+    0.1, --optim adamax and --itm_hard_neg."""
+    en, de = stores
+    if which == "demo":
+        with open("config/demo_pretrain.json") as f:
+            demo = json.load(f)
+        paths = {"demo_en": en, "demo_pair": de, "demo_val": en}
+        train, val = ([dict(s, db=[paths[s["name"]]["txt_db"]],
+                            img=[paths[s["name"]]["img_db"]])
+                       for s in demo[k]]
+                      for k in ("train_datasets", "val_datasets"))
+        return train, val, []
+    train = [{"name": "obj_en", "language": "en", "db": [en["txt_db"]],
+              "img": [en["img_db"]],
+              "img_token_soft_label": [en["soft_label_db"]],
+              "tasks": OBJ_DRIVER_EN, "mix_ratio": [1] * len(OBJ_DRIVER_EN)},
+             {"name": "obj_de", "language": "de", "db": [de["txt_db"]],
+              "img": [de["img_db"]], "tasks": OBJ_DRIVER_DE,
+              "mix_ratio": [1] * len(OBJ_DRIVER_DE)}]
+    return (train, [dict(s, name="val_" + s["name"]) for s in train],
+            ["--itm_ot_lambda", "0.1", "--optim", "adamax",
+             "--itm_hard_neg"])
+
+
+def objective_argv(out, stores, which, *extra):
+    """The driver's command line for ``objective_specs``' run: 12 steps, a
+    restore.ckpt every 6, validation (2 batches a task) at 12, on
+    config/demo_pretrain.json's settings."""
+    train, val, flags = objective_specs(stores, which)
+    return ["--config", "config/demo_pretrain.json",
+            "--train_datasets", json.dumps(train),
+            "--val_datasets", json.dumps(val), "--output_dir", out,
+            "--num_train_steps", str(OBJ_STEPS),
+            "--save_steps", str(OBJ_SAVE), "--valid_steps", str(OBJ_STEPS),
+            "--val_batches", "2", "--log_steps", "1", *flags,
+            *PRETRAIN_EXTRA, *extra]
+
+
+def objective_driver(which, stores, card):
+    """One driver run of ``which`` uninterrupted and one stopped at step 6
+    and resumed: launches per micro-batch, every task's validation keys,
+    bitwise resume. Returns the runs' launches."""
+    whole = os.path.join(OBJ_DIR, f"{which}_whole")
+    calls = []
+    total = no_launches()
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counted_eval_steps(calls):
+        run = run_pretrain(objective_argv(whole, stores, which))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    add(counts)
+    layers = run.model.config.num_hidden_layers
+    want = OBJ_STEPS * layers
+    tasks = sorted({t for _, t, _ in run.losses})
+    rows = loop_times(run, {OBJ_SAVE, OBJ_STEPS})
+    ms = sorted(r[0] for r in rows)
+    print(f"  driver ({which}): {run.step} steps of {tasks} in {dt:.1f} s, "
+          f"{np.median(ms):.1f} ms/step median ({ms[0]:.1f}-{ms[-1]:.1f}) "
+          f"over the {len(rows)} steps that hold no save or validation "
+          f"[{card}]")
+    print(f"    losses {[(s, t, round(v, 4)) for s, t, v in run.losses]}")
+    print(f"    validation: {run.val}; {len(calls)} eval batches, "
+          f"{sum(ok for _, _, ok in calls)} with the gates' launches")
+    for k in TRAIN_KERNELS:
+        if counts[k.__name__] != want:
+            fail(f"objectives driver ({which}): {k.__name__} launched "
+                 f"{counts[k.__name__]} times, want {want} (12 a "
+                 f"micro-batch)")
+    for k in FFN_KERNELS + ROUTE_KERNELS + LAB_KERNELS:
+        if counts[k.__name__]:
+            fail(f"objectives driver ({which}): {k.__name__} launched off "
+                 f"the path")
+    _, val, _ = objective_specs(stores, which)
+    logged = {k.split("_")[0]: v for k, v in run.val.items()}
+    for task in {t for spec in val for t in spec["tasks"]}:
+        need = {"loss"} | ({"l2", "cos", "acc"} if task == "mrm-nce" else
+                           {"ot_pos", "ot_neg", "acc"} if task == "itm-ot"
+                           else set() if task == "mrfr" else {"acc"})
+        log = logged.get(task, {})
+        if not need <= set(log) or not np.isfinite(list(log.values())).all():
+            fail(f"objectives driver ({which}): validation of {task} logged "
+                 f"{log}, want the keys {sorted(need)}")
+    if len(run.val) != sum(len(spec["tasks"]) for spec in val) or not calls:
+        fail(f"objectives driver ({which}): validation logged "
+             f"{sorted(run.val)}")
+    bad = [(s, t, v) for s, t, v in run.losses if not np.isfinite(v)]
+    if bad or len(run.losses) != OBJ_STEPS:
+        fail(f"objectives driver ({which}): non-finite or missing losses "
+             f"{bad}")
+    want_state, want_losses = trained_state(run), run.losses
+    del run
+    shutil.rmtree(whole, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    resumed = os.path.join(OBJ_DIR, f"{which}_resumed")
+    reset_launches()
+    first = run_pretrain(objective_argv(resumed, stores, which,
+                                        "--stop_after_steps", str(OBJ_SAVE)))
+    first_losses = first.losses
+    del first
+    second = run_pretrain(objective_argv(resumed, stores, which))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add(counts)
+    got = trained_state(second)
+    losses = first_losses + second.losses
+    diff = {k: (got[k].float() - want_state[k].float()).abs().max().item()
+            for k in want_state if not torch.equal(got[k], want_state[k])}
+    if diff or losses != want_losses or set(got) != set(want_state):
+        worst = max(diff.items(), key=lambda kv: kv[1]) if diff else None
+        fail(f"objectives driver ({which}): the resumed run is not the "
+             f"uninterrupted one bit for bit: {len(diff)} tensors differ "
+             f"(largest {worst}), losses equal: {losses == want_losses}")
+    else:
+        print(f"    the run stopped at step {OBJ_SAVE} and resumed equals "
+              f"the uninterrupted one bit for bit: {len(want_state)} "
+              f"parameter and moment tensors, {len(losses)} step losses")
+    for k in TRAIN_KERNELS:
+        if counts[k.__name__] != want:
+            fail(f"objectives driver ({which}): the resumed runs launched "
+                 f"{k.__name__} {counts[k.__name__]} times, want {want}")
+    del second
+    shutil.rmtree(resumed, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_objectives(card):
+    """The objectives beyond the mix: each at full width from an in-memory
+    corpus, IPOT alone, and the pretraining driver on the demo mix and on
+    every other task. Returns the launches of its runs."""
+    print("== objectives: uc2-base steps of mmxlm, vmlm-soft, mmxlm-soft, "
+          "mrfr, mrc, mrc-kl, mrm-nce, itm-ot (both reductions), itm on hard "
+          "negatives and tlm-ni (co-masked) under pallas-train with "
+          "UC2_FFN_TRAIN=1; IPOT; the driver on config/demo_pretrain.json's "
+          "mix and on every other task")
+    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    try:
+        with env_set("UC2_FFN_TRAIN", "1"):
+            launches, step_ms = _objective_steps(card)
+        host, graph, kernels = time_ipot(card)
+        itm_ms, ot_ms = step_ms["itm-hard"], step_ms["itm-ot"]
+        print(f"  itm-ot step {ot_ms:.3f} ms against itm's {itm_ms:.3f} ms: "
+              f"OT takes {(ot_ms - itm_ms) / ot_ms:.1%} of the itm-ot step "
+              f"(IPOT alone {host:.3f} ms on the host's clock, {graph:.3f} "
+              f"ms from a graph) [{card}]")
+        t0 = time.perf_counter()
+        n_valid = len(LabelVocab().valid_ids)   # the driver's vocabulary
+        stores = (synth_corpus(os.path.join(OBJ_DIR, "en"), n_imgs=OBJ_IMGS,
+                               txt_per_img=2, seed=0,
+                               soft_label_dim=n_valid),
+                  synth_corpus(os.path.join(OBJ_DIR, "de"), n_imgs=OBJ_IMGS,
+                               txt_per_img=2, seed=1, paired=True))
+        print(f"  stores: en (unpaired, with a soft-label store of {n_valid} "
+              f"token columns) and de (paired), {OBJ_IMGS} images x 2 "
+              f"captions each, written in {time.perf_counter() - t0:.1f} s")
+        for which in ("demo", "others"):
+            for k, n in objective_driver(which, stores, card).items():
+                launches[k] += n
+        return launches
+    finally:
+        shutil.rmtree(OBJ_DIR, ignore_errors=True)
+
+
+def _objective_steps(card):
+    """Each task of OBJ: three timed steps after a warm-up (launches,
+    finite losses, ms/step, peak memory), a deterministic eval_step (the
+    gates' launches), the bitwise repeats, one step against the eager path
+    at dropout 0. Returns the launches and each task's median ms/step."""
+    with open("config/uc2_pretrain.json") as f:
+        pc = json.load(f)
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention="pallas-train")
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    t0 = time.perf_counter()
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    models = {path: UC2ForPretraining(cfg0.replace(
+        use_pallas_attention=impl), device="cuda", seed=0)
+        for path, impl in (("kernel", "pallas-train"), ("eager", "xla"))}
+    txt_db, img_db = synth_pretrain_corpus(3, n_imgs=N_IMGS, txt_per_img=2,
+                                           vocab=cfg.vocab_size,
+                                           img_dim=cfg.img_dim)
+    vocab = LabelVocab(tokenize=hash_tokenize)
+    print(f"  models and corpus ({len(txt_db.ids)} paired captions of "
+          f"{N_IMGS} images; label vocabulary: hash ids, "
+          f"{len(vocab.valid_ids)} valid tokens) ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    layers = cfg.num_hidden_layers
+    per_step = no_launches()
+    per_step.update({k.__name__: layers for k in TRAIN_KERNELS + FFN_KERNELS})
+    total = no_launches()
+    step_ms = {}
+    rng = np.random.default_rng(3)
+    for name, (task, kw) in OBJ.items():
+        kw = dict(kw, valid_ids=vocab.valid_ids)
+        t0 = time.perf_counter()
+        batches = objective_batches(objective_dataset(
+            name, txt_db, img_db, vocab, pc), 1 + MIX_STEPS, rng)
+        t_data = time.perf_counter() - t0
+        model.load_state_dict(start)
+        opt = pretrain_optimizer(model)
+        drop = DropoutRng(TRAIN_SEED, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, mets = [], []
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launches()
+            t1 = time.perf_counter()
+            mets.append(train_step(model, opt, batch, drop, task=task, **kw))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = launch_counts()
+        for k, n in counts.items():
+            total[k] += n
+        want = {k: v * MIX_STEPS for k, v in per_step.items()}
+        ms = float(np.median(times[1:]))
+        step_ms[name] = ms
+        b0 = batches[0]
+        L = b0["attn_mask"].shape[1]
+        M = b0["masked_pos"].shape[1] if "masked_pos" in b0 else 0
+        extra = {k: round(v.item(), 4) for k, v in mets[-1].items()
+                 if k not in ("loss", "n_units", "grad_norm")}
+        print(f"  {name} ({task}) L={L} B={MIX_B} M={M}: {ms:.3f} ms/step "
+              f"median = {MIX_B / ms * 1e3:.1f} examples/s (steps "
+              f"{', '.join(f'{t:.2f}' for t in times[1:])}; warm-up "
+              f"{times[0]:.1f} ms), peak memory {peak:.2f} GiB; batches "
+              f"built in {t_data:.1f} s [{card}]")
+        print(f"    loss / grad norm: " + "; ".join(
+            f"{m['loss'].item():.4f} / {m['grad_norm'].item():.4f}"
+            for m in mets) + (f"; last step's metrics {extra}" if extra
+                              else ""))
+        if counts != want:
+            fail(f"objectives: {name} launched {counts} over its timed "
+                 f"steps; want 12 each of #5, #6a, #6b, #9, #10 a step")
+        if not all(np.isfinite([m["loss"].item(), m["grad_norm"].item()])
+                   .all() for m in mets):
+            fail(f"objectives: {name}: a loss or grad norm is not finite")
+        # the deterministic validation forward, through the gates' kernels
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = train_step_mod.eval_step(model, b0, task,
+                                      valid_ids=vocab.valid_ids)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in launch_counts().items() if n}
+        for k, n in got.items():
+            total[k] += n
+        gate = {k: n for k, n in gate_launches(cfg, L).items() if n}
+        sums = {k: round(v.item(), 4) for k, v in ev.items()}
+        print(f"    eval_step: {sums}; launches {got} (the gates at L={L}: "
+              f"{gate})")
+        if got != gate or not all(np.isfinite(v.item()) for v in ev.values()):
+            fail(f"objectives: eval_step of {name} launched {got} (the gates "
+                 f"want {gate}) or is not finite")
+        if name in OBJ_REPEAT:
+            repeat_step(task, model, start, b0, kw)
+        step_at_dropout_0(name, task, models, start, b0, kw,
+                          OBJ_LIMITS.get(name, MIX_LIMITS["itm"]), layers)
+        del batches, opt
+        torch.cuda.empty_cache()
+    del model, models
+    torch.cuda.empty_cache()
+    return total, step_ms
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -3491,6 +3944,7 @@ def main() -> int:
     add(timed(phase_flash_train, card, long_batch))
     add(timed(phase_lab, card))
     add(timed(phase_pretrain, card))
+    add(timed(phase_objectives, card))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

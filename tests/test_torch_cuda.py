@@ -1177,3 +1177,127 @@ def test_embedding_backward_repeats_bit_for_bit(gen, rows, shape, small):
     torch.testing.assert_close(grads[0], table.weight.grad, rtol=1e-5,
                                atol=1e-3)
     assert torch.equal(lookup(), table(ids))
+
+
+# ------------------------------------------ the objectives' heads and IPOT
+OBJ_TINY = dict(vocab_size=1000, hidden_size=64, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=128,
+                max_position_embeddings=66, img_dim=32, img_label_dim=11,
+                dtype="float32", hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0, use_pallas_attention=False)
+OBJ_TASKS = ("mmxlm", "vmlm-soft", "mmxlm-soft", "mrfr", "mrm-nce", "mrc",
+             "mrc-kl", "itm-ot")
+
+
+def _objective_batch(task, cfg, B, Lt, Nb, seed=1):
+    """A collated batch of ``task`` from the port's datasets over an
+    in-memory corpus of the config's widths (11 detector classes), and the
+    label vocabulary's valid ids."""
+    import numpy as np
+    from uc2_torch.data import datasets as D
+    from uc2_torch.data.collate import BucketSpec
+    from uc2_torch.data.labels import LabelVocab, hash_tokenize
+    from uc2_torch.data.memdb import synth_pretrain_corpus
+    txt_db, img_db = synth_pretrain_corpus(
+        5, n_imgs=2 * B, txt_per_img=1, vocab=cfg.vocab_size,
+        img_dim=cfg.img_dim, n_classes=11, min_bb=Nb // 2, max_bb=Nb,
+        max_words=(Lt - 4) // 4)
+    vocab = LabelVocab(
+        tokenize=lambda w: hash_tokenize(w, vocab_size=cfg.vocab_size),
+        words={"en": [f"en{i}" for i in range(10)]})
+    ds = {"mmxlm": lambda: D.MmxlmDataset(txt_db, img_db, 0.4, vocab),
+          "vmlm-soft": lambda: D.VmlmSoftDataset(txt_db, img_db, 0.4, vocab),
+          "mmxlm-soft": lambda: D.MmxlmSoftDataset(txt_db, img_db, 0.4,
+                                                   vocab),
+          "mrfr": lambda: D.MrfrDataset(txt_db, img_db, 0.4),
+          "mrm-nce": lambda: D.MrmNceDataset(txt_db, img_db, 0.4,
+                                             neg_size=16),
+          "mrc": lambda: D.MrcDataset(txt_db, img_db, 0.4),
+          "mrc-kl": lambda: D.MrcDataset(txt_db, img_db, 0.4),
+          "itm-ot": lambda: D.ItmDataset(txt_db, img_db, 0.5)}[task]()
+    rng = np.random.default_rng(seed)
+    if hasattr(ds, "new_epoch"):
+        ds.new_epoch(rng)
+    spec = BucketSpec(Lt, Nb, B, type(ds).slot_budget(Lt, Nb))
+    batch = ds.collate([ds.get_example(i, rng) for i in range(B)], spec)
+    return ({k: torch.from_numpy(v) for k, v in batch.items()},
+            vocab.valid_ids)
+
+
+def _loss_and_grads(model, batch, task, valid_ids, rng=None):
+    from uc2_torch.training.step import make_loss_fn
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = make_loss_fn(task, valid_ids=valid_ids, itm_ot_lambda=0.1)(
+        model, batch, rng)
+    loss.backward()
+    return loss.detach(), {n: p.grad.clone() for n, p in
+                           model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("task", OBJ_TASKS)
+def test_objective_heads_on_the_card_match_the_cpu(gen, task):
+    """Each new objective's loss and every gradient at fp32 on the card
+    against the same model on the CPU (the eager encoder on both): the
+    heads, the restricted decoder, the NCE logits and IPOT, at 1e-4."""
+    cfg = UC2Config(**OBJ_TINY)
+    batch, valid_ids = _objective_batch(task, cfg, 4, 24, 8)
+    cpu = UC2ForPretraining(cfg, device="cpu", seed=0)
+    card = UC2ForPretraining(cfg, device="cuda", seed=0)
+    card.load_state_dict(cpu.state_dict())
+    want, wg = _loss_and_grads(cpu, batch, task, valid_ids)
+    got, gg = _loss_and_grads(card, {k: v.cuda() for k, v in batch.items()},
+                              task, valid_ids)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert set(gg) == set(wg)
+    for n in wg:
+        torch.testing.assert_close(gg[n].cpu(), wg[n], rtol=1e-4, atol=1e-4,
+                                   msg=n)
+
+
+def test_ipot_on_the_card_matches_the_cpu(gen):
+    """optimal_transport_dist at the itm-ot path's shape (B = 128, 62 text
+    tokens, 100 regions, D = 768, padded rows) in fp32 on the card against
+    the CPU: the distances and both gradients at 1e-4."""
+    from uc2_torch.models.ot import optimal_transport_dist
+    B, M, Nr = 128, 62, 100
+    txt = torch.randn(B, M, H, generator=gen, device="cuda")
+    img = torch.randn(B, Nr, H, generator=gen, device="cuda")
+    tl = torch.randint(10, M + 1, (B,), generator=gen, device="cuda")
+    il = torch.randint(10, Nr + 1, (B,), generator=gen, device="cuda")
+    tpad = torch.arange(M, device="cuda")[None] >= tl[:, None]
+    ipad = torch.arange(Nr, device="cuda")[None] >= il[:, None]
+    tpad[0], ipad[0] = False, False
+    w = torch.randn(B, generator=gen, device="cuda")
+    out = []
+    for dev in ("cuda", "cpu"):
+        x = txt.to(dev).clone().requires_grad_(True)
+        y = img.to(dev).clone().requires_grad_(True)
+        d = optimal_transport_dist(x, y, tpad.to(dev), ipad.to(dev))
+        (d * w.to(dev)).sum().backward()
+        out.append([t.detach().cpu() for t in (d, x.grad, y.grad)])
+    for a, b in zip(*out):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("task", ["mrm-nce", "itm-ot"])
+def test_objective_backward_repeats_bit_for_bit(gen, monkeypatch, task):
+    """The mrm-nce and itm-ot steps' loss and every gradient on a 768-wide,
+    two-layer bf16 model under "pallas-train" with UC2_FFN_TRAIN=1 at
+    dropout 0.1 (the training kernels #5, #6, #9, #10 in each layer): two
+    runs from the same weights and seeds give the same bits."""
+    monkeypatch.setenv("UC2_FFN_TRAIN", "1")
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        num_hidden_layers=2, vocab_size=1000, img_label_dim=11,
+        dtype="bfloat16", use_pallas_attention="pallas-train")
+    batch, valid_ids = _objective_batch(task, cfg, 16, 30, 36)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    runs = [_loss_and_grads(model, batch, task, valid_ids,
+                            DropoutRng(11, "cuda")) for _ in range(2)]
+    (l0, g0), (l1, g1) = runs
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    assert set(g0) == set(g1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n

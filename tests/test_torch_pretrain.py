@@ -3,11 +3,11 @@ tlm) in uc2_torch against the reference package at fp32 on the CPU: the
 loss and every gradient of itm, vmlm and tlm under "pallas-train" with and
 without UC2_FFN_TRAIN=1 (the reference then runs its Pallas FFN kernel in
 interpret mode, the port the kernels' plain versions), one AdamW step of a
-vmlm batch, and the data side bit for bit: co-masking and region masking,
-the label vocabulary, the synthetic pretraining corpus, each task's
-dataset and its collate. Both packages read one in-memory corpus
-(``uc2_torch/data/memdb.py``). Dropout is 0 where values are compared: the
-two packages draw different masks."""
+vmlm batch, the itm and itm-ot reductions, and the data side bit for bit:
+co-masking and region masking, the label vocabulary, the synthetic
+pretraining corpus, each task's dataset and its collate. Both packages
+read one in-memory corpus (``uc2_torch/data/memdb.py``). Dropout is 0
+where values are compared: the two packages draw different masks."""
 
 import os
 
@@ -208,19 +208,36 @@ def test_vmlm_train_step_matches_reference(params, corpus, vocabs):
 
 def test_itm_reduces_over_the_padded_batch(params, corpus, vocabs):
     """itm divides by the padded batch size (trailing pad rows included),
-    as the reference; itm with optimal transport is not ported yet."""
+    as the reference; so does itm-ot's cross-entropy, to which it adds
+    lambda times the OT term over the real positive and negative rows
+    ((sum pos - sum neg) / (n_pos + n_neg), or the positives' mean): the
+    loss and every metric equal the reference's at 1e-4."""
     ds = _datasets(datasets, vocabs[0], *corpus)["itm"]
-    b = _torch(ds.collate(_examples(ds, 1)[:B - 1], _spec("itm")))
+    b = ds.collate(_examples(ds, 1)[:B - 1], _spec("itm"))
     model = _port(params)
-    loss, m = make_loss_fn("itm")(model, b, None)
-    s, n = model.forward_itm(b)
-    assert n == B and m["n_units"].item() == B
+    loss, m = make_loss_fn("itm")(model, _torch(b), None)
+    s, n, ot = model.forward_itm(_torch(b))
+    assert n == B and m["n_units"].item() == B and ot is None
     np.testing.assert_allclose(loss.item(), s.item() / B, rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        model.forward_itm(b, compute_ot=True)
+    jm = JaxPretraining(JaxConfig(**TINY))
+    for pos_only in (False, True):
+        want, wm = jax_step.make_loss_fn(jm, "itm-ot", itm_ot_lambda=0.5,
+                                         ot_pos_only=pos_only)(
+            params, _jax(b), None)
+        got, gm = make_loss_fn("itm-ot", itm_ot_lambda=0.5,
+                               ot_pos_only=pos_only)(model, _torch(b), None)
+        assert set(gm) == set(wm)
+        for k in wm:
+            np.testing.assert_allclose(gm[k].item(), float(wm[k]),
+                                       err_msg=k, **TOL)
+        np.testing.assert_allclose(got.item(), float(want), **TOL)
+        np.testing.assert_allclose(
+            got.item(), gm["xe"].item() + 0.5 * gm["ot"].item(), rtol=1e-6)
+    np.testing.assert_allclose(gm["xe"].item(), loss.item(), rtol=1e-6)
     for task in ("itm-ot", "vmlm-soft", "mrfr"):
-        with pytest.raises(NotImplementedError):
-            make_loss_fn(task)
+        make_loss_fn(task)
+    with pytest.raises(ValueError):
+        make_loss_fn("nsp")
 
 
 # ------------------------------------------------------------------ data

@@ -182,8 +182,24 @@ def test_decay_mask_and_optimizer_groups_match_reference(params):
     assert decay["weight_decay"] == 0.01 and no_decay["weight_decay"] == 0.0
     assert len(decay["params"]) == sum(got.values())
     for name in ("adam", "adamax"):
-        with pytest.raises(NotImplementedError):
-            optim.build_optimizer(model, optim.constant(1e-3), optim=name)
+        # the same groups, decay decoupled from the algorithm's update
+        other = optim.build_optimizer(model, optim.constant(1e-3),
+                                      optim=name)
+        groups = other.opt.param_groups
+        assert [len(g["params"]) for g in groups] == \
+            [len(decay["params"]), len(no_decay["params"])]
+        before = [p.detach().clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        norm = other.step()
+        assert other.count == 1 and torch.isfinite(norm)
+        assert all(not torch.equal(a, p) for a, p in
+                   zip(before, model.parameters()))
+        with torch.no_grad():
+            for a, p in zip(before, model.parameters()):
+                p.copy_(a)
+    with pytest.raises(ValueError):
+        optim.build_optimizer(model, optim.constant(1e-3), optim="sgd")
 
 
 def test_full_pretraining_tree_round_trips_and_loads(params):

@@ -1,7 +1,6 @@
-"""Static-shape batch assembly for the ported objectives (a copy of
-uc2_tpu/data/collate.py ``collate_batch``, ``BucketSpec``,
-``default_buckets`` and ``pick_bucket``, for the fields of mlm, tlm,
-tlm-ni, vmlm/mmxlm and itm).
+"""Static-shape batch assembly (a copy of uc2_tpu/data/collate.py
+``collate_batch``, ``BucketSpec``, ``default_buckets`` and
+``pick_bucket``).
 
 Every batch is padded to one bucket shape (Lt text tokens, Nb regions,
 B rows) and its prediction slots are fixed-size arrays:
@@ -9,6 +8,7 @@ B rows) and its prediction slots are fixed-size arrays:
   masked_pos    [B, M] int32 - joint-sequence indices ([txt | img] layout)
   masked_weight [B, M] float32 - 1 for live slots
   txt_labels    [B, M] int32 - the token to predict at each slot
+  plus the per-slot targets a task names (``slot_target_keys``).
 
 Region features are copied with numpy (the reference's threaded native
 packer gives the same arrays).
@@ -63,19 +63,28 @@ def pick_bucket(buckets: Sequence[BucketSpec], txt_len: int,
 
 
 def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
-                  pad_token_id: int = 1) -> Dict[str, np.ndarray]:
+                  pad_token_id: int = 1,
+                  slot_target_keys: Sequence[str] = ()
+                  ) -> Dict[str, np.ndarray]:
     """Assemble a static-shape batch from examples with ``input_ids`` [L]
     and, optionally, ``position_ids`` [L], ``img_feat`` [nbb, D],
     ``img_pos_feat`` [nbb, 7], ``img_masks`` [nbb] bool (masked regions),
     ``txt_labels`` [L] (-1 = not a slot), ``img_txt_labels`` [nbb] (the
     token to predict at a masked region), ``img_mask_tgt`` [nbb] bool (the
-    regions that get slots, else ``img_masks``) and ``target`` (itm).
+    regions that get slots, else ``img_masks``), per-region targets
+    (``feat_targets`` [nbb, D], ``label_targets`` [nbb, C]), per-token
+    targets (``txt_*`` [L, C]) and ``target`` (itm).
 
     Returns input_ids, attn_mask (text then regions), ex_mask (1 for real
     rows), img_feat and img_pos_feat when any example has an image (masked
     regions' features zeroed), img_masks, targets and position_ids when any
     example has them, and with ``spec.max_masked`` the slot arrays: text
-    slots first, then region slots at joint index Lt + i, truncated at M."""
+    slots first, then region slots at joint index Lt + i, truncated at M
+    (a region slot's label is 0 when the example has no
+    ``img_txt_labels``). Each of ``slot_target_keys`` some example has is
+    gathered to [B, M, C] at the slots (``txt_*`` keys at the text slots,
+    the others at the region slots after them), fp16 staying fp16, else
+    fp32."""
     B = spec.batch_size
     Lt, Nb, M = spec.txt_len, spec.num_bb, spec.max_masked
     if len(examples) > B:
@@ -102,6 +111,13 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         out["masked_pos"] = np.zeros((B, M), np.int32)
         out["masked_weight"] = np.zeros((B, M), np.float32)
         out["txt_labels"] = np.zeros((B, M), np.int32)
+        for key in slot_target_keys:
+            ex0 = next((e for e in examples if key in e), None)
+            if ex0 is not None:
+                tgt0 = np.asarray(ex0[key])
+                out[key] = np.zeros((B, M, tgt0.shape[-1]),
+                                    tgt0.dtype if tgt0.dtype == np.float16
+                                    else np.float32)
 
     for b, e in enumerate(examples):
         ids = np.asarray(e["input_ids"])[:Lt]
@@ -138,9 +154,12 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         reg_lab: List[int] = []
         tgt_key = ("img_mask_tgt" if "img_mask_tgt" in e
                    else "img_masks" if "img_masks" in e else None)
-        if tgt_key is not None and "img_txt_labels" in e:
+        if tgt_key is not None and any(
+                k in e for k in ("img_txt_labels", "feat_targets",
+                                 "label_targets")):
             region_idx = np.flatnonzero(np.asarray(e[tgt_key])[:Nb]).tolist()
-            reg_lab = np.asarray(e["img_txt_labels"])[region_idx].tolist()
+            reg_lab = (np.asarray(e["img_txt_labels"])[region_idx].tolist()
+                       if "img_txt_labels" in e else [0] * len(region_idx))
         # text slots first, then regions, truncated at M
         n_txt = min(len(txt_pos), M)
         n_reg = min(len(region_idx), M - n_txt)
@@ -150,4 +169,13 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         out["masked_weight"][b, :k] = 1.0
         # label padding stays 0; weight 0 kills the padded slots' loss
         out["txt_labels"][b, :k] = txt_lab[:n_txt] + reg_lab[:n_reg]
+        for key in slot_target_keys:
+            if key not in out or key not in e:
+                continue
+            tgt = np.asarray(e[key])
+            if key.startswith("txt_"):
+                out[key][b, :n_txt] = tgt[txt_pos[:n_txt]]
+            else:
+                take = region_idx[:n_reg]
+                out[key][b, n_txt:n_txt + len(take)] = tgt[take]
     return out

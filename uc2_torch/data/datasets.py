@@ -1,9 +1,9 @@
-"""Task datasets of config/uc2_pretrain.json's mix (copies of the classes of
-uc2_tpu/data/datasets.py that mlm, tlm, vmlm and itm use): each
-builds one example at a time, ``get_example(i, rng)``, with every random
-draw taken from the caller's ``np.random.Generator`` in the reference's
-order, so the same generator state gives the same examples in both
-packages. ``ItmDataset.new_epoch(rng)`` draws the epoch's negatives.
+"""The pretraining tasks' datasets (copies of the classes of
+uc2_tpu/data/datasets.py): each builds one example at a time,
+``get_example(i, rng)``, with every random draw taken from the caller's
+``np.random.Generator`` in the reference's order, so the same generator
+state gives the same examples in both packages. ``ItmDataset.new_epoch``
+(and ``ItmHardNegDataset``'s) draws the epoch's negatives.
 
 They read a text database with ``ids``, ``id2len``, ``txt2img``, ``db[id]``,
 ``combine_inputs``, ``cls_``, ``sep``, ``mask`` and ``v_range``, and an
@@ -29,6 +29,9 @@ class VLDataset:
     """Paired text and image-region access."""
 
     pad_token_id = 1
+    # the per-region (or, ``txt_*``, per-token) targets collate gathers at
+    # the prediction slots
+    slot_target_keys: Sequence[str] = ()
     # the block the prediction slots cover, which sizes M: 15% masking,
     # so 0.35 x the span covers the binomial tail to ~1e-6
     mask_span: Optional[str] = None  # "txt" | "img" | "joint" | None
@@ -77,7 +80,8 @@ class VLDataset:
         return ids, labels
 
     def collate(self, examples: List[Dict], spec: BucketSpec):
-        return collate_batch(examples, spec, self.pad_token_id)
+        return collate_batch(examples, spec, self.pad_token_id,
+                             self.slot_target_keys)
 
 
 class MlmDataset(VLDataset):
@@ -101,17 +105,19 @@ class MlmDataset(VLDataset):
 
 class TlmDataset(VLDataset):
     """Translation language modelling with cross-lingual co-masking over
-    ``[CLS] lang1 [SEP] [SEP] lang2 [SEP]`` pairs, with the image. Position
-    ids start at 2 and restart at every token id 0."""
+    ``[CLS] lang1 [SEP] [SEP] lang2 [SEP]`` pairs, with the image unless
+    ``text_only`` (tlm-ni). Position ids start at 2 and restart at every
+    token id 0."""
 
     mask_span = "txt"
 
     def __init__(self, txt_db, img_db, comasking_mode: str = "random",
-                 mask_prob: float = 0.15):
+                 text_only: bool = False, mask_prob: float = 0.15):
         super().__init__(txt_db, img_db)
         if comasking_mode not in ("random", "full", "mix"):
             raise ValueError(f"unknown comasking_mode {comasking_mode!r}")
         self.mode = comasking_mode
+        self.text_only = text_only
         self.mask_prob = mask_prob
 
     def get_example(self, i, rng):
@@ -131,30 +137,43 @@ class TlmDataset(VLDataset):
         for t in ids.tolist():
             p = 2 if t == 0 else p + 1
             pos.append(p)
-        feat, bb7, _ = self._img_feat(rec["img_fname"])
-        return {"input_ids": ids, "txt_labels": labels,
-                "position_ids": np.asarray(pos, np.int64),
-                "img_feat": feat, "img_pos_feat": bb7}
+        ex = {"input_ids": ids, "txt_labels": labels,
+              "position_ids": np.asarray(pos, np.int64)}
+        if not self.text_only:
+            feat, bb7, _ = self._img_feat(rec["img_fname"])
+            ex.update(img_feat=feat, img_pos_feat=bb7)
+        return ex
 
 
 class VmlmDataset(VLDataset):
     """Masked region to token with hard targets: masked regions predict a
     subtoken of their top detector class's word in ``lang``; the caption
-    is not masked."""
+    is masked too with ``mask_text`` (mmxlm)."""
 
     mask_span = "img"
 
     def __init__(self, txt_db, img_db, mask_prob: float = 0.15,
-                 label_vocab: Optional[LabelVocab] = None, lang: str = "en"):
+                 label_vocab: Optional[LabelVocab] = None, lang: str = "en",
+                 mask_text: bool = False):
         super().__init__(txt_db, img_db)
         self.mask_prob = mask_prob
         self.vocab = label_vocab or LabelVocab()
         self.lang = lang
+        self.mask_text = mask_text
+
+    def _text(self, rec, rng):
+        """(ids, txt_labels): the caption masked as mlm masks it with
+        ``mask_text``, else whole with no text slot."""
+        if self.mask_text:
+            return self._wrap(*masking.mask_tokens(
+                np.asarray(rec["input_ids"]), self.txt_db.v_range,
+                self.txt_db.mask, rng, self.mask_prob))
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        return ids, np.full(ids.shape[0], -1, np.int64)
 
     def get_example(self, i, rng):
         rec = self.example_record(i)
-        ids = self.txt_db.combine_inputs(rec["input_ids"])
-        txt_labels = np.full(ids.shape[0], -1, np.int64)
+        ids, txt_labels = self._text(rec, rng)
         fname = rec["img_fname"]
         feat, bb7, nbb = self._img_feat(fname)
         soft = self.img_db.get_dump(fname)["soft_labels"]
@@ -163,6 +182,198 @@ class VmlmDataset(VLDataset):
         return {"input_ids": ids, "txt_labels": txt_labels,
                 "img_feat": feat, "img_pos_feat": bb7,
                 "img_masks": img_masks, "img_txt_labels": img_labels}
+
+
+class MmxlmDataset(VmlmDataset):
+    """vmlm with the caption masked too: the slots cover text and
+    regions."""
+
+    mask_span = "joint"
+
+    def __init__(self, txt_db, img_db, mask_prob=0.15, label_vocab=None,
+                 lang="en"):
+        super().__init__(txt_db, img_db, mask_prob, label_vocab, lang,
+                         mask_text=True)
+
+
+class VmlmSoftDataset(VLDataset):
+    """Masked region to token with soft targets: a masked region's target
+    is its detector distribution projected onto the label-word tokens
+    (``valid_ids`` space), or the image's row of a precomputed
+    ``SoftLabelDb``. With ``mask_text`` (mmxlm-soft) the caption is masked
+    too, each masked token's target a one-hot in that space (all zero for
+    a token outside it); collate merges both into ``label_targets``."""
+
+    mask_span = "img"
+    slot_target_keys = ("txt_soft_targets", "label_targets")
+
+    def __init__(self, txt_db, img_db, mask_prob: float = 0.15,
+                 label_vocab: Optional[LabelVocab] = None,
+                 soft_label_db=None, mask_text: bool = False):
+        super().__init__(txt_db, img_db)
+        self.mask_prob = mask_prob
+        self.vocab = label_vocab or LabelVocab()
+        self.soft_label_db = soft_label_db
+        self.mask_text = mask_text
+        self.n_valid = len(self.vocab.valid_ids)
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        fname = rec["img_fname"]
+        feat, bb7, nbb = self._img_feat(fname)
+        img_masks = masking.region_mask(rng, nbb, self.mask_prob)
+        if self.soft_label_db is not None:
+            token_soft = self.soft_label_db[fname][:nbb]
+        else:
+            soft = self.img_db.get_dump(fname)["soft_labels"]
+            token_soft = self.vocab.project_soft_labels(soft)
+        ex = {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+              "img_masks": img_masks, "label_targets": token_soft}
+        if self.mask_text:
+            ids2, txt_labels = self._wrap(*masking.mask_tokens(
+                np.asarray(rec["input_ids"]), self.txt_db.v_range,
+                self.txt_db.mask, rng, self.mask_prob))
+            onehot = np.zeros((ids2.shape[0], self.n_valid), np.float32)
+            valid = self.vocab.valid_ids
+            for p in np.flatnonzero(txt_labels != -1):
+                j = np.searchsorted(valid, txt_labels[p])
+                if j < self.n_valid and valid[j] == txt_labels[p]:
+                    onehot[p, j] = 1.0
+            ex.update(input_ids=ids2, txt_labels=txt_labels,
+                      txt_soft_targets=onehot)
+        return ex
+
+    def collate(self, examples, spec):
+        batch = super().collate(examples, spec)
+        if "txt_soft_targets" in batch:
+            # text slots hold one-hots, region slots projections: one array
+            batch["label_targets"] = (batch.pop("txt_soft_targets")
+                                      + batch["label_targets"])
+        return batch
+
+
+class MmxlmSoftDataset(VmlmSoftDataset):
+    """vmlm-soft with the caption masked too."""
+
+    mask_span = "joint"
+
+    def __init__(self, txt_db, img_db, mask_prob=0.15, label_vocab=None,
+                 soft_label_db=None):
+        super().__init__(txt_db, img_db, mask_prob, label_vocab,
+                         soft_label_db, mask_text=True)
+
+
+class MrfrDataset(VLDataset):
+    """Masked region feature regression: a masked region's target is its
+    own feature."""
+
+    mask_span = "img"
+    slot_target_keys = ("feat_targets",)
+
+    def __init__(self, txt_db, img_db, mask_prob: float = 0.15):
+        super().__init__(txt_db, img_db)
+        self.mask_prob = mask_prob
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        feat, bb7, nbb = self._img_feat(rec["img_fname"])
+        img_masks = masking.region_mask(rng, nbb, self.mask_prob)
+        return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+                "img_masks": img_masks, "img_mask_tgt": img_masks,
+                "feat_targets": feat.copy()}
+
+
+class MrcDataset(VLDataset):
+    """Masked region classification: a masked region's target is its
+    detector distribution (mrc takes its argmax, mrc-kl the whole)."""
+
+    mask_span = "img"
+    slot_target_keys = ("label_targets",)
+
+    def __init__(self, txt_db, img_db, mask_prob: float = 0.15):
+        super().__init__(txt_db, img_db)
+        self.mask_prob = mask_prob
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        fname = rec["img_fname"]
+        feat, bb7, nbb = self._img_feat(fname)
+        soft = self.img_db.get_dump(fname)["soft_labels"]
+        img_masks = masking.region_mask(rng, nbb, self.mask_prob)
+        return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+                "img_masks": img_masks, "img_mask_tgt": img_masks,
+                "label_targets": soft}
+
+
+class NegativeImageSampler:
+    """``neg_size`` region features from random images other than the
+    example's own."""
+
+    def __init__(self, img_db, neg_size: int = 128):
+        self.img_db = img_db
+        self.neg_size = neg_size
+        self.fnames = sorted(img_db.name2nbb.keys())
+
+    def sample(self, rng: np.random.Generator, exclude: str) -> np.ndarray:
+        out = []
+        total = 0
+        while total < self.neg_size:
+            f = self.fnames[int(rng.integers(0, len(self.fnames)))]
+            if f == exclude:
+                continue
+            feat, _ = self.img_db[f]
+            out.append(feat)
+            total += feat.shape[0]
+        return np.concatenate(out, axis=0)[:self.neg_size]
+
+
+class MrmNceDataset(MrfrDataset):
+    """Masked region contrastive learning: of the masked regions, 10% stay
+    visible, 10% take another region's feature and the rest are zeroed;
+    every masked region is a slot whose target is its own feature, scored
+    against the batch's targets and a shared pool of negative features
+    (``neg_feats``: the first example's ``neg_size`` rows, then 8 of each
+    other example's)."""
+
+    slot_target_keys = ("feat_targets",)
+
+    def __init__(self, txt_db, img_db, mask_prob: float = 0.15,
+                 neg_size: int = 128, noop_prob: float = 0.1,
+                 swap_prob: float = 0.1):
+        super().__init__(txt_db, img_db, mask_prob)
+        self.neg_sampler = NegativeImageSampler(img_db, neg_size)
+        self.noop_prob = noop_prob
+        self.swap_prob = swap_prob
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        feat, bb7, nbb = self._img_feat(rec["img_fname"])
+        img_masks = masking.region_mask(rng, nbb, self.mask_prob)
+        u = rng.random(nbb)
+        visible = img_masks & (u < self.noop_prob)
+        swap = (img_masks & (u >= self.noop_prob)
+                & (u < self.noop_prob + self.swap_prob))
+        feat_in = feat.copy()
+        if swap.any():
+            src = rng.integers(0, nbb, int(swap.sum()))
+            feat_in[np.flatnonzero(swap)] = feat[src]
+        # the model's img_masks are the zeroed regions only; every masked
+        # region is a slot (img_mask_tgt)
+        return {"input_ids": ids, "img_feat": feat_in, "img_pos_feat": bb7,
+                "img_masks": img_masks & ~visible & ~swap,
+                "img_mask_tgt": img_masks, "feat_targets": feat.copy(),
+                "neg_feats": self.neg_sampler.sample(rng, rec["img_fname"])}
+
+    def collate(self, examples, spec):
+        batch = super().collate(examples, spec)
+        pools = [e["neg_feats"] for e in examples]
+        batch["neg_feats"] = np.concatenate(
+            [pools[0]] + [p[:8] for p in pools[1:]], axis=0)
+        return batch
 
 
 def sample_negative(rng: np.random.Generator, pool: List, exclude) -> Any:
@@ -207,6 +418,67 @@ class ItmDataset(VLDataset):
             raise RuntimeError("ItmDataset: call new_epoch(rng) first")
         rec = self.example_record(i)
         ids = self.txt_db.combine_inputs(rec["input_ids"])
+        feat, bb7, _ = self._img_feat(self.train_imgs[i])
+        return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+                "target": int(self.labels[i])}
+
+
+class ItmHardNegDataset(ItmDataset):
+    """Cross-lingual hard negatives over translation-pair records
+    (``input_ids_lang1``/``_lang2``): a negative swaps the image (50%),
+    the first language's caption (25%) or the second's (25%) for another
+    example's. ``new_epoch`` draws the swaps, and each example's
+    ``txt_lens`` and ``lens`` follow them: a swapped caption changes the
+    text length, a swapped image the region count, and stale lengths
+    would send the example to a bucket too small for it, where collate
+    cuts the caption's tail."""
+
+    def __init__(self, txt_db, img_db, neg_sample_p: float = 0.5,
+                 neg_img: float = 0.5, neg_lang1: float = 0.25,
+                 neg_lang2: float = 0.25):
+        if abs(neg_img + neg_lang1 + neg_lang2 - 1) >= 1e-6:
+            raise ValueError("the negative shares must sum to 1")
+        self.neg_split = (neg_img, neg_lang1, neg_lang2)
+        super().__init__(txt_db, img_db, neg_sample_p)
+
+    def new_epoch(self, rng):
+        self.labels = (rng.random(len(self.ids))
+                       >= self.neg_sample_p).astype(np.int32)
+        self.train_imgs, self.train_raw_ids = [], []
+        txt_lens, lens = [], []
+        neg_img, neg_l1, _ = self.neg_split
+        for i in range(len(self.ids)):
+            rec = self.example_record(i)
+            fname = rec["img_fname"]
+            raw = list(rec["input_ids"])
+            if self.labels[i] == 0:
+                u = rng.random()
+                if u < neg_img:
+                    fname = sample_negative(rng, self.all_imgs, [fname])
+                else:
+                    lang_key = ("input_ids_lang1" if u < neg_img + neg_l1
+                                else "input_ids_lang2")
+                    j = int(rng.integers(0, len(self.ids)))
+                    other = list(self.example_record(j)[lang_key])
+                    l1 = list(rec["input_ids_lang1"])
+                    l2 = list(rec["input_ids_lang2"])
+                    if lang_key == "input_ids_lang1":
+                        l1 = other
+                    else:
+                        l2 = other
+                    sep = self.txt_db.sep
+                    raw = l1 + [sep, sep] + l2
+            self.train_imgs.append(fname)
+            self.train_raw_ids.append(raw)
+            txt_lens.append(len(raw))
+            lens.append(len(raw) + self.img_db.name2nbb[fname])
+        self.txt_lens = txt_lens
+        self.lens = lens
+
+    def get_example(self, i, rng):
+        if self.train_imgs is None:
+            raise RuntimeError("ItmHardNegDataset: call new_epoch(rng) first")
+        ids = self.txt_db.combine_inputs(self.train_raw_ids[i])
         feat, bb7, _ = self._img_feat(self.train_imgs[i])
         return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
                 "target": int(self.labels[i])}

@@ -37,15 +37,23 @@ def label_words(lang: str = "en") -> List[str]:
 
 def try_xlmr_tokenizer() -> Optional[Callable[[str], List[int]]]:
     """The XLM-R tokenizer when ``transformers`` and its files are already
-    installed (never downloaded); None otherwise. Ids come through the
-    public ``convert_tokens_to_ids`` (the reference calls the private
-    ``_convert_token_to_id``, which newer ``transformers`` releases lack;
-    where both exist they give the same ids)."""
+    installed (never downloaded); None otherwise, and None for a tokenizer
+    that maps ordinary words to its unknown token (files without the
+    vocabulary: one such install holds 5 tokens, and every label word then
+    became one id). Ids come through the public ``convert_tokens_to_ids``
+    (the reference calls the private ``_convert_token_to_id``, which newer
+    ``transformers`` releases lack; where both exist they give the same
+    ids)."""
     try:
         from transformers import XLMRobertaTokenizer
         tok = XLMRobertaTokenizer.from_pretrained("xlm-roberta-base",
                                                   local_files_only=True)
-        return lambda w: list(tok.convert_tokens_to_ids(tok.tokenize(w)))
+
+        def tokenize(w):
+            return list(tok.convert_tokens_to_ids(tok.tokenize(w)))
+        if tok.unk_token_id in tokenize("person") + tokenize("dog"):
+            return None
+        return tokenize
     except Exception:
         return None
 

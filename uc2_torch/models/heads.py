@@ -2,9 +2,9 @@
 
 Weight tying is explicit, as in the reference: the LM decoder is the
 encoder's word-embedding table, passed in by the caller, so the head owns
-no copy (and the parameter trees of the two packages line up). The region
-heads and ``NceHead`` only hold their parameters, so that a full reference
-pretraining tree loads; their forwards come with their objectives.
+no copy (and the parameter trees of the two packages line up); the region
+regression head is tied to the transposed ``img_linear`` weight the same
+way.
 """
 
 from __future__ import annotations
@@ -31,16 +31,44 @@ class _Transform(nn.Module):
         return self.layer_norm(gelu(self.dense(h)))
 
 
+class UniqueRows(torch.autograd.Function):
+    """``table[idx]`` for indices that are all distinct (the label
+    vocabulary's sorted ``valid_ids``): the backward writes each picked
+    row of the table's gradient once, with no adds, so no float atomics
+    decide its bits."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.rows, *grad.shape[1:])
+        return out.index_copy_(0, idx, grad), None
+
+
 class RobertaLMHead(_Transform):
     """dense -> gelu -> LN(config eps) -> decoder tied to the word
-    embeddings + bias. ``valid_ids`` restricts the output vocabulary (the
-    mmxlm-soft/vmlm-soft objectives); ``transform_only`` stops before the
-    decoder (the chunked CE computes it itself). Logits are fp32; the
-    decoder product's backward runs in the compute dtype (``einsum_f32``)."""
+    embeddings + bias. ``valid_ids`` (sorted, distinct) restricts the output
+    vocabulary (the mmxlm-soft/vmlm-soft objectives); its index tensor is
+    built on the table's device once per array and reused. ``transform_only``
+    stops before the decoder (the chunked CE computes it itself). Logits
+    are fp32; the decoder product's backward runs in the compute dtype
+    (``einsum_f32``)."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__(cfg, cfg.layer_norm_eps, device)
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
+        self._valid = (None, None)    # (valid_ids given, its index tensor)
+
+    def _index(self, valid_ids, device):
+        if self._valid[0] is not valid_ids or self._valid[1].device != device:
+            self._valid = (valid_ids, torch.as_tensor(
+                valid_ids, device=device).long())
+        return self._valid[1]
 
     def forward(self, h, embedding_table, valid_ids=None,
                 transform_only: bool = False):
@@ -49,40 +77,53 @@ class RobertaLMHead(_Transform):
             return x
         table, bias = embedding_table, self.bias
         if valid_ids is not None:
-            idx = torch.as_tensor(valid_ids, device=table.device).long()
-            table, bias = table[idx], bias[idx]
+            idx = self._index(valid_ids, table.device)
+            table = UniqueRows.apply(table, idx)
+            bias = UniqueRows.apply(bias, idx)
         logits = einsum_f32("...h,vh->...v", x, table.to(x.dtype))
         return logits + bias.float()
 
 
 class RegionFeatureRegression(_Transform):
-    """Parameters of the mrfr head (dense -> gelu -> LN(1e-12) -> the
-    transposed img_linear weight, tied, + bias); its forward comes with the
-    objective."""
+    """The mrfr head: dense -> gelu -> LN(1e-12) -> the transposed
+    ``img_linear`` weight (tied, passed in) + bias, fp32 out."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__(cfg, cfg.block_layer_norm_eps, device)
         self.bias = nn.Parameter(torch.zeros(cfg.img_dim, device=device))
 
+    def forward(self, h, img_linear_weight):
+        """img_linear_weight [hidden, img_dim] (``nn.Linear`` layout)."""
+        x = self.transform(h)
+        out = einsum_f32("...h,vh->...v", x,
+                         img_linear_weight.to(x.dtype).t())
+        return out + self.bias.float()
+
 
 class RegionClassification(_Transform):
-    """Parameters of the mrc head (dense -> gelu -> LN(1e-12) ->
-    linear(img_label_dim)); its forward comes with the objective."""
+    """The mrc head: dense -> gelu -> LN(1e-12) -> linear(img_label_dim),
+    fp32 logits."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__(cfg, cfg.block_layer_norm_eps, device)
         self.out = Dense(cfg.hidden_size, cfg.img_label_dim,
                          compute_dtype(cfg), device)
 
+    def forward(self, h):
+        return self.out(self.transform(h)).float()
+
 
 class NceHead(_Transform):
-    """Parameters of the mrm-nce projection (dense -> gelu -> LN(1e-12) ->
-    linear(img_dim)); its forward comes with the objective."""
+    """The mrm-nce projection: dense -> gelu -> LN(1e-12) ->
+    linear(img_dim), in the compute dtype."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__(cfg, cfg.block_layer_norm_eps, device)
         self.out = Dense(cfg.hidden_size, cfg.img_dim, compute_dtype(cfg),
                          device)
+
+    def forward(self, h):
+        return self.out(self.transform(h))
 
 
 class ItmHead(nn.Module):
@@ -113,6 +154,22 @@ def cross_entropy_with_logits(logits, labels, weights=None):
     logits = logits.float()
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = torch.logsumexp(logits, dim=-1) - gold
+    return loss if weights is None else loss * weights
+
+
+def kl_div_with_logits(logits, target_probs, weights=None,
+                       elementwise: bool = False):
+    """KL(target || softmax(logits)) with 0 log 0 = 0, in fp32:
+    ``elementwise`` gives the per-class elements [..., V] (the soft losses
+    reduce with a flat mean over them), else their sum over the classes,
+    times ``weights`` when given."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    t = target_probs.float()
+    elem = torch.where(t > 0, t * (torch.log(torch.clamp(t, min=1e-30))
+                                   - logp), 0.0)
+    if elementwise:
+        return elem
+    loss = elem.sum(-1)
     return loss if weights is None else loss * weights
 
 

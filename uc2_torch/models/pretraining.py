@@ -1,12 +1,14 @@
 """UC2 pretraining model: encoder + task heads (port of
-uc2_tpu/models/pretraining.py: the mlm family, vmlm/mmxlm and
-itm without optimal transport).
+uc2_tpu/models/pretraining.py): mlm, tlm, tlm-ni, vmlm/mmxlm hard and
+soft, mrfr, mrm-nce, mrc/mrc-kl, and itm with and without optimal
+transport.
 
 The module tree matches the reference's parameter tree ``{"roberta",
 "cls", "feat_regress", "region_classifier", "itm_output",
 "nce_output"}``, so ``models/convert.py`` loads a full reference tree.
 The LM decoder is tied to ``roberta.embeddings.word_embeddings.weight``
-by passing the table in, as the reference does.
+and the region regression to ``roberta.img_embeddings.img_linear.weight``
+by passing them in, as the reference does.
 
 Prediction slots are static: every batch carries ``masked_pos [B, M]``
 (joint-sequence indices) and ``masked_weight [B, M]`` (1 for live slots),
@@ -25,6 +27,7 @@ from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config
 from uc2_torch.models import heads as H
 from uc2_torch.models.encoder import UC2Model, init_weights
+from uc2_torch.models.ot import optimal_transport_dist
 
 
 def gather_slots(seq, pos):
@@ -43,15 +46,21 @@ class UC2ForPretraining(nn.Module):
     or a converted checkpoint), they are loaded from it.
     ``lm_ce_chunks > 0`` streams the LM decoder in that many vocabulary
     chunks in the mlm loss (``heads.chunked_softmax_cross_entropy``).
+    ``nce_temp`` is mrm-nce's softmax temperature; ``ot_pos_only`` is the
+    itm-ot reduction's switch, kept here as the reference keeps it (the
+    loss reads it from ``make_loss_fn``).
     """
 
     def __init__(self, config: UC2Config, lm_ce_chunks: int = 0,
                  device="cuda", seed: int = 0,
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None, nce_temp: float = 1.0,
+                 ot_pos_only: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
         self.lm_ce_chunks = lm_ce_chunks
+        self.nce_temp = nce_temp
+        self.ot_pos_only = ot_pos_only
         self.roberta = UC2Model(config, dev)
         self.cls = H.RobertaLMHead(config, dev)
         self.feat_regress = H.RegionFeatureRegression(config, dev)
@@ -118,27 +127,120 @@ class UC2ForPretraining(nn.Module):
                               img_masks=batch["img_masks"])
         return self._lm_loss(seq, batch, compute_loss)
 
+    def forward_mmxlm_soft(self, batch, valid_ids, deterministic=True,
+                           rng=None, compute_loss=True):
+        """Soft masked-region-to-token: KL between the slots' target
+        distributions (``label_targets`` [B, M, n_valid]) and the LM logits
+        restricted to ``valid_ids``. Returns (elementwise sum, slots x
+        n_valid), the reference's flat mean, or the logits [B, M, n_valid]
+        with ``compute_loss=False``."""
+        seq, _ = self._encode(batch, deterministic, rng,
+                              img_masks=batch["img_masks"])
+        h = gather_slots(seq, batch["masked_pos"])
+        logits = self.cls(h, self.roberta.embeddings.word_embeddings.weight,
+                          valid_ids)
+        if not compute_loss:
+            return logits
+        w = batch["masked_weight"]
+        elem = H.kl_div_with_logits(logits, batch["label_targets"],
+                                    elementwise=True) * w[:, :, None]
+        return elem.sum(), w.sum() * logits.shape[-1]
+
+    def forward_mrfr(self, batch, deterministic=True, rng=None,
+                     compute_loss=True):
+        """Masked-region feature regression: the squared error against
+        ``feat_targets`` (fp32; fp16 on disk) at the slots. Returns (sum,
+        slots x img_dim), the reference's flat mean, or the predictions
+        [B, M, img_dim] (fp32) with ``compute_loss=False``."""
+        seq, _ = self._encode(batch, deterministic, rng,
+                              img_masks=batch["img_masks"])
+        h = gather_slots(seq, batch["masked_pos"])
+        pred = self.feat_regress(
+            h, self.roberta.img_embeddings.img_linear.weight)
+        if not compute_loss:
+            return pred
+        w = batch["masked_weight"]
+        err = (pred.float() - batch["feat_targets"].float()) ** 2
+        err = err * w[:, :, None]
+        return err.sum(), w.sum() * pred.shape[-1]
+
+    def forward_mrm_nce(self, batch, deterministic=True, rng=None,
+                        compute_loss=True, with_stats=False):
+        """Masked-region contrastive objective: the slots' projections
+        against [own targets | the other slots' targets | ``neg_feats``]
+        by dot product over ``nce_temp``; padded slots' target columns are
+        masked with -1e4, and each slot's own column stays its own score.
+        Returns (loss_sum, n_slots, n_correct), with ``with_stats`` also the
+        sums of the slots' L2 distance and cosine similarity to their
+        targets; the logits [BM, BM + N] with ``compute_loss=False``."""
+        seq, _ = self._encode(batch, deterministic, rng,
+                              img_masks=batch["img_masks"])
+        h = gather_slots(seq, batch["masked_pos"])
+        pred = self.nce_output(h)
+        B, M, D = pred.shape
+        pred = pred.reshape(B * M, D).float()
+        w = batch["masked_weight"].reshape(B * M)
+        targets = batch["feat_targets"].reshape(B * M, D).float()
+        negs = batch["neg_feats"].float()
+        cands = torch.cat([targets, negs], dim=0)
+        logits = pred @ cands.t() / self.nce_temp
+        col_mask = torch.cat([(1.0 - w) * -1e4,
+                              w.new_zeros(negs.shape[0])])
+        logits = logits + col_mask[None, :]
+        diag = (pred * targets).sum(-1) / self.nce_temp
+        logits = torch.diagonal_scatter(logits, diag)
+        if not compute_loss:
+            return logits
+        labels = torch.arange(B * M, device=logits.device)
+        loss = H.cross_entropy_with_logits(logits, labels, w)
+        correct = ((logits.argmax(-1) == labels) * w).sum()
+        if with_stats:
+            l2 = torch.sqrt(((pred - targets) ** 2).sum(-1) + 1e-12)
+            cos = (pred * targets).sum(-1) / (
+                torch.linalg.vector_norm(pred, dim=-1)
+                * torch.linalg.vector_norm(targets, dim=-1) + 1e-12)
+            return (loss.sum(), w.sum(), correct, (l2 * w).sum(),
+                    (cos * w).sum())
+        return loss.sum(), w.sum(), correct
+
+    def forward_mrc(self, batch, kl: bool, deterministic=True, rng=None,
+                    compute_loss=True):
+        """Masked-region classification over the detector classes: with
+        ``kl`` (mrc-kl) the KL against ``label_targets`` as a flat mean
+        (sum, slots x classes), else the CE against the argmax of the
+        non-background classes (sum, slots); the logits with
+        ``compute_loss=False``."""
+        seq, _ = self._encode(batch, deterministic, rng,
+                              img_masks=batch["img_masks"])
+        h = gather_slots(seq, batch["masked_pos"])
+        logits = self.region_classifier(h)
+        if not compute_loss:
+            return logits
+        w = batch["masked_weight"]
+        if kl:
+            elem = H.kl_div_with_logits(logits, batch["label_targets"],
+                                        elementwise=True) * w[:, :, None]
+            return elem.sum(), w.sum() * logits.shape[-1]
+        labels = batch["label_targets"][..., 1:].argmax(-1) + 1
+        return H.cross_entropy_with_logits(logits, labels, w).sum(), w.sum()
+
     def forward_itm(self, batch, deterministic=True, rng=None,
                     compute_ot=False, compute_loss=True):
         """Image-text matching: the ITM head on the pooled output, CE
-        against ``targets``. Returns (loss_sum, B) with B the padded batch
-        size, as the reference reduces, or with ``compute_loss=False`` the
-        scores [B, 2] and the OT distances (None: the optimal-transport
-        term, IPOT, is not ported yet and raises)."""
-        if compute_ot:
-            raise NotImplementedError("uc2_torch: itm with optimal transport "
-                                      "(itm-ot) is not ported yet")
-        _, pooled = self._encode(batch, deterministic, rng)
+        against ``targets``, and with ``compute_ot`` the OT distance [B]
+        between the text block ``seq[:, :Lt]`` and the image block
+        ``seq[:, Lt:]`` (else None). Returns (loss_sum, B, ot) with B the
+        padded batch size, as the reference reduces, or with
+        ``compute_loss=False`` (scores [B, 2], ot)."""
+        seq, pooled = self._encode(batch, deterministic, rng)
         scores = self.itm_output(pooled)
+        ot = None
+        if compute_ot:
+            tl = batch["input_ids"].shape[1]
+            pad = batch["attn_mask"] == 0
+            ot = optimal_transport_dist(seq[:, :tl], seq[:, tl:],
+                                        pad[:, :tl], pad[:, tl:])
         if not compute_loss:
-            return scores, None
+            return scores, ot
         loss = H.cross_entropy_with_logits(scores, batch["targets"])
-        return loss.sum(), scores.shape[0]
-
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError("uc2_torch: only the mlm, tlm, tlm-ni, "
-                                  "vmlm/mmxlm and itm objectives are ported "
-                                  "so far")
-
-    forward_mmxlm_soft = forward_mrfr = forward_mrm_nce = forward_mrc = \
-        _not_ported
+        return loss.sum(), scores.shape[0], ot

@@ -23,11 +23,14 @@ thread assembles batches and copies them to the card) -> ``train_step``
 * Losses stay device tensors and are read ``--runahead`` steps late; a
   ``--log_steps`` boundary reads them all (so its time is honest).
 
-Raising by name, for what is not ported yet: ``--n_model > 1``,
-``--zero1``, the multi-host flags, ``--itm_hard_neg`` and the tasks mrfr,
-mrc, mrc-kl, mrm-nce, vmlm-soft, mmxlm-soft, mmxlm, itm-ot and tlm-ni
-with co-masking. ``--rng_impl`` and ``--split_step`` choose XLA programs
-in the reference; here they change nothing (one log line says so).
+Every task of the reference runs: mlm, tlm, tlm-ni, vmlm, mmxlm,
+vmlm-soft, mmxlm-soft (with a spec's ``img_token_soft_label`` stores when
+given), mrfr, mrm-nce, mrc, mrc-kl, itm and itm-ot (``--itm_ot_lambda``,
+``--ot_pos_only``), with ``--itm_hard_neg`` and ``--optim
+adam|adamax|adamw``. Raising by name, for what is not ported yet:
+``--n_model > 1``, ``--zero1`` and the multi-host flags. ``--rng_impl``
+and ``--split_step`` choose XLA programs in the reference; here they
+change nothing (one log line says so).
 ``--async_ckpt`` writes milestones from a background thread.
 """
 
@@ -51,26 +54,19 @@ from uc2_torch.config import UC2Config, parse_with_config
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
                                     add_log_to_file)
 
-NOT_PORTED_TASKS = ("mrfr", "mrc", "mrc-kl", "mrm-nce", "vmlm-soft",
-                    "mmxlm-soft", "mmxlm", "itm-ot")
-
 
 def build_datasets(opts, which: str = "train", shard=None):
     """The task datasets of the config's ``{which}_datasets`` specs:
     {"{task}_{name}[_{i}]": {"dataset", "ratio", "task"}} and the label
-    vocabulary (None without a vmlm task). ``shard=(rank, world)``
-    stripes each text database's ids."""
+    vocabulary (None without a vmlm, mmxlm or soft task). A spec's
+    ``img_token_soft_label`` (one store per text database) gives the soft
+    tasks their precomputed targets. ``shard=(rank, world)`` stripes each
+    text database's ids."""
     from uc2_torch.data import datasets as D
-    from uc2_torch.data.db import ImageDbGroup, TxtTokDb
+    from uc2_torch.data.db import ImageDbGroup, SoftLabelDb, TxtTokDb
     from uc2_torch.data.labels import LabelVocab
 
     specs = getattr(opts, f"{which}_datasets")
-    for spec in specs:
-        for task in spec["tasks"]:
-            if task in NOT_PORTED_TASKS:
-                raise NotImplementedError(
-                    f"uc2_torch: task {task!r} ({which}_datasets "
-                    f"{spec['name']!r}) is not ported yet")
     img_group = ImageDbGroup(opts.conf_th, opts.max_bb, opts.min_bb,
                              opts.num_bb)
     label_vocab = None
@@ -82,13 +78,15 @@ def build_datasets(opts, which: str = "train", shard=None):
         txt_dbs = spec["db"] if isinstance(spec["db"], list) else [spec["db"]]
         img_dbs = spec["img"] if isinstance(spec["img"], list) \
             else [spec["img"]]
+        sl_dbs = spec.get("img_token_soft_label")
         for i, (tpath, ipath) in enumerate(zip(txt_dbs, img_dbs)):
             txt_db = TxtTokDb(tpath, max_txt_len=opts.max_txt_len,
                               shard=shard)
             img_db = img_group[ipath]
             for task, ratio in zip(spec["tasks"], spec["mix_ratio"]):
                 key = f"{task}_{name}" + (f"_{i}" if len(txt_dbs) > 1 else "")
-                if task == "vmlm" and label_vocab is None:
+                if task in ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft") \
+                        and label_vocab is None:
                     n_cls = getattr(opts, "label_classes", 1601)
                     if n_cls != 1601:
                         # a reduced detector vocabulary (tests, custom data)
@@ -113,14 +111,32 @@ def build_datasets(opts, which: str = "train", shard=None):
                     ds = D.TlmDataset(txt_db, img_db, opts.comasking_mode,
                                       mask_prob=opts.mlm_prob)
                 elif task == "tlm-ni":
-                    raise NotImplementedError(
-                        "uc2_torch: task 'tlm-ni' with co-masking (the "
-                        "text-only TlmDataset) is not ported yet")
+                    ds = D.TlmDataset(txt_db, img_db, opts.comasking_mode,
+                                      text_only=True,
+                                      mask_prob=opts.mlm_prob)
                 elif task == "vmlm":
                     ds = D.VmlmDataset(txt_db, img_db, opts.mrm_prob,
                                        label_vocab, vm_lang)
-                elif task == "itm":
-                    ds = D.ItmDataset(txt_db, img_db, opts.itm_neg_prob)
+                elif task == "mmxlm":
+                    ds = D.MmxlmDataset(txt_db, img_db, opts.mrm_prob,
+                                        label_vocab, vm_lang)
+                elif task in ("vmlm-soft", "mmxlm-soft"):
+                    sl = SoftLabelDb(sl_dbs[i]) if sl_dbs else None
+                    cls_ = (D.VmlmSoftDataset if task == "vmlm-soft"
+                            else D.MmxlmSoftDataset)
+                    ds = cls_(txt_db, img_db, opts.mrm_prob, label_vocab,
+                              soft_label_db=sl)
+                elif task == "mrfr":
+                    ds = D.MrfrDataset(txt_db, img_db, opts.mrm_prob)
+                elif task == "mrm-nce":
+                    ds = D.MrmNceDataset(txt_db, img_db, opts.mrm_prob,
+                                         neg_size=opts.nce_neg_size)
+                elif task in ("mrc", "mrc-kl"):
+                    ds = D.MrcDataset(txt_db, img_db, opts.mrm_prob)
+                elif task in ("itm", "itm-ot"):
+                    cls_ = (D.ItmHardNegDataset if opts.itm_hard_neg
+                            else D.ItmDataset)
+                    ds = cls_(txt_db, img_db, opts.itm_neg_prob)
                 else:
                     raise ValueError(f"undefined task {task}")
                 out[key] = {"dataset": ds, "ratio": ratio, "task": task}
@@ -138,9 +154,6 @@ def refuse_unported(opts):
         if getattr(opts, flag) is not None:
             raise NotImplementedError(f"uc2_torch: --{flag} (multi-host "
                                       f"training) is not ported yet")
-    if opts.itm_hard_neg:
-        raise NotImplementedError("uc2_torch: --itm_hard_neg "
-                                  "(ItmHardNegDataset) is not ported yet")
 
 
 def step_seed(seed: int, index: int) -> int:
@@ -196,7 +209,9 @@ def _train(opts, dev):
     if opts.dropout is not None:
         cfg = set_dropout(cfg, opts.dropout)
     model = UC2ForPretraining(cfg, lm_ce_chunks=opts.lm_ce_chunks,
-                              device=dev, seed=opts.seed)
+                              device=dev, seed=opts.seed,
+                              nce_temp=opts.nce_temp,
+                              ot_pos_only=opts.ot_pos_only)
     if opts.checkpoint:
         LOGGER.info("loading checkpoint %s", opts.checkpoint)
         convert.load_partial_tree(model, load_any_checkpoint(
@@ -207,9 +222,12 @@ def _train(opts, dev):
             load_raw_checkpoint(opts.early_adaptation_checkpoint)))
 
     # ---- data
-    train, _ = build_datasets(opts, "train")
+    train, label_vocab = build_datasets(opts, "train")
     val, _ = (build_datasets(opts, "val") if opts.val_datasets
               else ({}, None))
+    valid_ids = label_vocab.valid_ids if label_vocab is not None else None
+    loss_kw = dict(valid_ids=valid_ids, itm_ot_lambda=opts.itm_ot_lambda,
+                   ot_pos_only=opts.ot_pos_only)
     buckets = default_buckets(opts.max_txt_len, opts.max_bb,
                               opts.train_batch_size)
     loaders = {k: TaskLoader(k, v["dataset"], buckets, seed=opts.seed)
@@ -286,7 +304,8 @@ def _train(opts, dev):
                 bs = batch["input_ids"].shape
                 n_examples[name] += bs[0] * bs[1] if stack else bs[0]
                 rng = DropoutRng(step_seed(opts.seed, global_step), dev)
-                metrics = S.train_step(model, opt, batch, rng, task=name)
+                metrics = S.train_step(model, opt, batch, rng, task=name,
+                                       **loss_kw)
             else:
                 micro = []
                 for k in range(accum):
@@ -294,7 +313,8 @@ def _train(opts, dev):
                     n_examples[name] += batch["input_ids"].shape[0]
                     micro.append((batch, DropoutRng(step_seed(
                         opts.seed, global_step * accum + k), dev)))
-                metrics = S.train_step_micro(model, opt, micro, task=name)
+                metrics = S.train_step_micro(model, opt, micro, task=name,
+                                             **loss_kw)
             global_step += 1
             pending.append((global_step, name, metrics["loss"]))
             drain(opts.runahead)
@@ -337,7 +357,7 @@ def _train(opts, dev):
 
             if opts.valid_steps and global_step % opts.valid_steps == 0:
                 drain()
-                run.val = validate(model, val, buckets, opts, put)
+                run.val = validate(model, val, buckets, opts, put, valid_ids)
                 saver.save(model, global_step)
             restorer.step(global_step, model, opt,
                           stream=meta_src.snapshot_for(
@@ -354,7 +374,7 @@ def _train(opts, dev):
         if not opts.no_prefetch:
             meta.close()
     if opts.valid_steps and global_step % opts.valid_steps != 0:
-        run.val = validate(model, val, buckets, opts, put)
+        run.val = validate(model, val, buckets, opts, put, valid_ids)
         saver.save(model, global_step)
     saver.wait()
     if run.sustained:
@@ -366,10 +386,13 @@ def _train(opts, dev):
     return run
 
 
-def validate(model, val, buckets, opts, put) -> Dict[str, Dict]:
+def validate(model, val, buckets, opts, put,
+             valid_ids=None) -> Dict[str, Dict]:
     """One sweep over each validation task's database, every example once
     (``--val_batches`` > 0 caps the batches a task); logs and returns
-    {task: {"loss", "acc"}}."""
+    {task: log}: ``loss`` and ``acc`` per word, feature slot or example,
+    mrm-nce's mean ``l2`` and ``cos``, and itm-ot's mean ``ot_pos`` and
+    ``ot_neg``, as the reference's ``validate`` logs them."""
     from uc2_torch.data.loader import TaskLoader
     from uc2_torch.training import step as S
 
@@ -384,14 +407,27 @@ def validate(model, val, buckets, opts, put) -> Dict[str, Dict]:
             if opts.val_batches and n_b >= opts.val_batches:
                 break
             _, batch = put((key, batch))
-            for k, x in S.eval_step(model, batch, task).items():
+            for k, x in S.eval_step(model, batch, task,
+                                    valid_ids=valid_ids).items():
                 agg[k] += float(x)
         log = {}
-        for n in ("n_word", "n_ex"):
-            if agg.get(n):
-                log["loss"] = agg["loss"] / agg[n]
-                log["acc"] = agg.get("n_correct", 0) / agg[n]
-                break
+        if agg.get("n_word"):
+            log["loss"] = agg["loss"] / agg["n_word"]
+            log["acc"] = agg.get("n_correct", 0) / agg["n_word"]
+        elif agg.get("n_feat"):
+            log["loss"] = agg["loss"] / agg["n_feat"]
+            if "n_correct" in agg:
+                log["acc"] = agg["n_correct"] / agg["n_feat"]
+        elif agg.get("n_ex"):
+            log["loss"] = agg["loss"] / agg["n_ex"]
+            log["acc"] = agg.get("n_correct", 0) / agg["n_ex"]
+        if agg.get("n_feat") and "l2_sum" in agg:
+            log["l2"] = agg["l2_sum"] / agg["n_feat"]
+            log["cos"] = agg["cos_sum"] / agg["n_feat"]
+        if agg.get("n_pos"):
+            log["ot_pos"] = agg["ot_pos"] / agg["n_pos"]
+        if agg.get("n_neg"):
+            log["ot_neg"] = agg["ot_neg"] / agg["n_neg"]
         LOGGER.info("validate %s: %s (%.1fs)", key,
                     {k: round(x, 4) for k, x in log.items()},
                     time.time() - t0)
@@ -484,8 +520,7 @@ def build_parser():
     p.add_argument("--itm_neg_prob", type=float, default=0.5)
     p.add_argument("--nce_neg_size", type=int, default=128)
     p.add_argument("--nce_temp", type=float, default=1.0,
-                   help="mrm-nce softmax temperature (mrm-nce is not "
-                        "ported yet)")
+                   help="mrm-nce softmax temperature")
     p.add_argument("--label_classes", type=int, default=1601,
                    help="detector label vocabulary size (tests may reduce)")
     p.add_argument("--itm_ot_lambda", type=float, default=0.0)
@@ -499,8 +534,7 @@ def build_parser():
                    action="store_false",
                    help="tlm/tlm-ni fall back to plain MLM masking")
     p.add_argument("--itm_hard_neg", action="store_true",
-                   help="cross-lingual hard-negative ITM sampling (not "
-                        "ported yet)")
+                   help="cross-lingual hard-negative ITM sampling")
     p.add_argument("--multilingual_vmlm", dest="multilingual_vmlm",
                    action="store_true", default=True,
                    help="vmlm targets use the dataset language's label list")

@@ -1,19 +1,24 @@
 """Optimizer and learning-rate schedules (port of uc2_tpu/training/optim.py).
 
 ``build_optimizer`` gives the reference's optax chain
-``clip_by_global_norm(grad_norm) -> adamw(schedule, mask=decay_mask)`` as
-``torch.optim.AdamW`` over two parameter groups (decay, and no decay on
-biases and LayerNorm parameters), with the same update:
+``clip_by_global_norm(grad_norm) -> scale_by_{adam,adamax} ->
+add_decayed_weights(wd, mask=decay_mask) -> scale_by_learning_rate`` (for
+adamw optax's ``adamw``, the same chain) over two parameter groups (decay,
+and no decay on biases and LayerNorm parameters), with the same update:
 
 * the learning rate of update t is ``schedule(t)``, t counted from 0, as
   optax counts;
 * clipping is optax's ``g / norm * max_norm`` when norm >= max_norm (no
   ``+ 1e-6`` as in ``torch.nn.utils.clip_grad_norm_``);
-* AdamW with decoupled decay (``p - lr * (m_hat / (sqrt(v_hat) + eps) +
-  wd * p)``), the same algorithm as ``optax.adamw``.
+* the decay is decoupled: ``p - lr * (u + wd * p)`` with ``u`` adam's
+  ``m_hat / (sqrt(v_hat) + eps)`` (adam and adamw: one algorithm, as in
+  the reference) or adamax's ``m_hat / max(b2 * u_prev, |g| + eps)``.
+  ``torch.optim.AdamW`` computes the first (its decay is decoupled);
+  ``torch.optim.Adamax`` at weight decay 0 computes adamax's moments as
+  optax's ``scale_by_adamax`` does (eps inside the max), and the decay is
+  applied beside it, since Adamax's own ``weight_decay`` is coupled L2.
 
-The update runs outside any kernel, in PyTorch's own optimizer code. Only
-adamw is ported; adam and adamax raise until a later slice.
+The update runs outside any kernel, in PyTorch's own optimizer code.
 """
 
 from __future__ import annotations
@@ -105,26 +110,38 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class Optimizer:
-    """AdamW with global-norm clipping and a schedule, as the reference's
-    optax chain. ``step()`` consumes the ``.grad`` of every parameter
-    (a parameter the loss did not reach gets a zero gradient, as JAX
-    gives it) and returns the global norm of the unclipped gradients."""
+    """Adam, AdamW or Adamax with decoupled, masked weight decay, global-norm
+    clipping and a schedule, as the reference's optax chain. ``step()``
+    consumes the ``.grad`` of every parameter (a parameter the loss did not
+    reach gets a zero gradient, as JAX gives it) and returns the global
+    norm of the unclipped gradients."""
 
     def __init__(self, model: torch.nn.Module, learning_rate_fn: Callable,
                  weight_decay: float, betas: Sequence[float], eps: float,
-                 grad_norm: float):
+                 grad_norm: float, optim: str = "adamw"):
         named = list(model.named_parameters())
         mask = decay_mask(n for n, _ in named)
         self.params = [p for _, p in named]
         self.lr_fn = learning_rate_fn
         self.grad_norm = grad_norm
         self.count = 0
-        self.opt = torch.optim.AdamW(
-            [{"params": [p for n, p in named if mask[n]],
-              "weight_decay": weight_decay},
-             {"params": [p for n, p in named if not mask[n]],
-              "weight_decay": 0.0}],
-            lr=learning_rate_fn(0), betas=tuple(betas), eps=eps)
+        self.optim = optim
+        decay = [p for n, p in named if mask[n]]
+        groups = [{"params": decay, "weight_decay": weight_decay},
+                  {"params": [p for n, p in named if not mask[n]],
+                   "weight_decay": 0.0}]
+        lr0 = learning_rate_fn(0)
+        if optim == "adamax":
+            # decay beside the update (Adamax's own is coupled L2)
+            self.decoupled = (decay, weight_decay)
+            for g in groups:
+                g["weight_decay"] = 0.0
+            self.opt = torch.optim.Adamax(groups, lr=lr0, betas=tuple(betas),
+                                          eps=eps)
+        else:
+            self.decoupled = None
+            self.opt = torch.optim.AdamW(groups, lr=lr0, betas=tuple(betas),
+                                         eps=eps)
 
     def zero_grad(self):
         for p in self.params:
@@ -148,21 +165,30 @@ class Optimizer:
         lr = float(self.lr_fn(self.count))
         for group in self.opt.param_groups:
             group["lr"] = lr
+        if self.decoupled is not None and self.decoupled[1]:
+            # p - lr * wd * p, from the parameters before the update, as
+            # torch's AdamW decays
+            decay, wd = self.decoupled
+            torch._foreach_mul_(decay, 1.0 - lr * wd)
         self.opt.step()
         self.count += 1
         return norm
 
-
     def state_dict(self) -> Dict:
-        """The update count (the schedule's step) and AdamW's state: its
-        step counts and both moments of every parameter."""
-        return {"count": self.count, "adamw": self.opt.state_dict()}
+        """The update count (the schedule's step), the algorithm and its
+        state: step counts and both moments of every parameter
+        (``exp_avg`` and ``exp_avg_sq``, or Adamax's ``exp_inf``)."""
+        return {"count": self.count, "optim": self.optim,
+                "state": self.opt.state_dict()}
 
     def load_state_dict(self, sd: Dict) -> None:
         """Restore what ``state_dict`` captured; the moments move to the
         parameters' device."""
+        if sd["optim"] != self.optim:
+            raise ValueError(f"optimizer state of {sd['optim']!r}, not "
+                             f"{self.optim!r}")
         self.count = int(sd["count"])
-        self.opt.load_state_dict(sd["adamw"])
+        self.opt.load_state_dict(sd["state"])
 
 
 def build_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
@@ -170,12 +196,10 @@ def build_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
                     betas: Sequence[float] = (0.9, 0.98),
                     eps: float = 1e-6, grad_norm: float = -1.0,
                     optim: str = "adamw") -> Optimizer:
-    """AdamW with bias/LayerNorm exempt from decay and optional global-norm
-    clipping (the reference's ``build_optimizer`` with optim="adamw")."""
-    if optim in ("adam", "adamax"):
-        raise NotImplementedError(f"uc2_torch: optim={optim!r} is not "
-                                  f"ported yet (adamw is)")
-    if optim != "adamw":
+    """Adam, AdamW or Adamax (``optim``) with decoupled decay, biases and
+    LayerNorm exempt from it, and optional global-norm clipping (the
+    reference's ``build_optimizer``)."""
+    if optim not in ("adam", "adamax", "adamw"):
         raise ValueError(f"invalid optimizer {optim!r}")
     return Optimizer(model, learning_rate_fn, weight_decay, betas, eps,
-                     grad_norm)
+                     grad_norm, optim)

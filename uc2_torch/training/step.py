@@ -1,13 +1,15 @@
 """The training step and the validation step (port of
-uc2_tpu/training/step.py for the mlm family, vmlm/mmxlm and itm).
+uc2_tpu/training/step.py).
 
 ``train_step`` runs forward, loss, backward and the optimizer update of
 one batch, or of a stacked ``[A, B, ...]`` batch whose A micro-batches
 are accumulated into one update (the reference's ``accumulated_grads``:
 gradients and metrics are the mean over the micro-batches). Losses reduce
-as the reference's: the weighted sum over the prediction slots divided by
-max(n_slots, 1), and for itm the sum over the rows divided by the padded
-batch size.
+as the reference's: a flat mean over the unreduced loss elements (the
+weighted sum over the prediction slots, or their elements, divided by
+their count, at least 1), vmlm-soft and mmxlm-soft scaled by 1000, itm
+over the padded batch rows, and itm-ot as itm plus ``itm_ot_lambda``
+times the OT term.
 """
 
 from __future__ import annotations
@@ -16,39 +18,72 @@ from typing import Callable, Dict
 
 import torch
 
-from uc2_torch.models.heads import cross_entropy_with_logits
+from uc2_torch.models.heads import cross_entropy_with_logits, \
+    kl_div_with_logits
 from uc2_torch.training.optim import Optimizer
 
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
+TASKS = tuple(_MLM_TASKS) + ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft",
+                             "mrfr", "mrm-nce", "mrc", "mrc-kl", "itm",
+                             "itm-ot")
 
 
-def make_loss_fn(task: str) -> Callable:
+def _clamp1(n):
+    return torch.clamp(n, min=1.0)
+
+
+def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
+                 ot_pos_only: bool = False) -> Callable:
     """loss_fn(model, batch, rng) -> (scalar loss, metrics) for a
-    ``UC2ForPretraining`` model; ``rng`` None means deterministic. Tasks:
-    mlm, tlm, tlm-ni, vmlm and mmxlm (loss over the prediction slots) and
-    itm (loss over the padded batch rows, as the reference reduces it)."""
+    ``UC2ForPretraining`` model; ``rng`` None means deterministic. The
+    task is the part of ``task`` before its first "_" (one of ``TASKS``);
+    ``valid_ids`` is the label vocabulary's token ids (the soft tasks);
+    ``itm_ot_lambda`` and ``ot_pos_only`` shape itm-ot's loss."""
     base = task.split("_")[0]
-    if base in _MLM_TASKS:
-        def forward(model, batch, rng):
-            return model.forward_mlm(batch, deterministic=rng is None,
-                                     rng=rng, with_image=_MLM_TASKS[base])
-    elif base in ("vmlm", "mmxlm"):
-        def forward(model, batch, rng):
-            return model.forward_mmxlm(batch, deterministic=rng is None,
-                                       rng=rng)
-    elif base == "itm":
-        def forward(model, batch, rng):
-            s, b = model.forward_itm(batch, deterministic=rng is None,
-                                     rng=rng)
-            return s, torch.full((), float(b), device=s.device)
-    else:
-        raise NotImplementedError(f"uc2_torch: task {task!r} is not ported "
-                                  f"yet (mlm, tlm, tlm-ni, vmlm, mmxlm and "
-                                  f"itm are)")
+    if base not in TASKS:
+        raise ValueError(f"unknown task {task!r}")
 
     def loss_fn(model, batch, rng):
-        s, n = forward(model, batch, rng)
-        loss = s / torch.clamp(n, min=1.0)
+        det = rng is None
+        if base in _MLM_TASKS:
+            s, n = model.forward_mlm(batch, det, rng,
+                                     with_image=_MLM_TASKS[base])
+        elif base in ("vmlm", "mmxlm"):
+            s, n = model.forward_mmxlm(batch, det, rng)
+        elif base in ("vmlm-soft", "mmxlm-soft"):
+            s, n = model.forward_mmxlm_soft(batch, valid_ids, det, rng)
+            s = 1000.0 * s
+        elif base == "mrfr":
+            s, n = model.forward_mrfr(batch, det, rng)
+        elif base == "mrm-nce":
+            s, n, correct = model.forward_mrm_nce(batch, det, rng)
+            loss = s / _clamp1(n)
+            return loss, {"loss": loss.detach(), "n_units": n.detach(),
+                          "acc": (correct / _clamp1(n)).detach()}
+        elif base in ("mrc", "mrc-kl"):
+            s, n = model.forward_mrc(batch, base == "mrc-kl", det, rng)
+        else:
+            s, b, ot = model.forward_itm(batch, det, rng,
+                                         compute_ot=base == "itm-ot")
+            n = torch.full((), float(b), device=s.device)
+            xe = s / _clamp1(n)
+            if ot is None:
+                return xe, {"loss": xe.detach(), "n_units": n}
+            pos = batch["targets"] == 1
+            neg = batch["targets"] == 0
+            n_pos, n_neg = pos.sum().float(), neg.sum().float()
+            s_pos = torch.where(pos, ot, 0.0).sum()
+            s_neg = torch.where(neg, ot, 0.0).sum()
+            if ot_pos_only:
+                ot_loss = s_pos / _clamp1(n_pos)
+            else:
+                ot_loss = (s_pos - s_neg) / _clamp1(n_pos + n_neg)
+            loss = xe + itm_ot_lambda * ot_loss
+            return loss, {k: v.detach() for k, v in (
+                ("loss", loss), ("xe", xe), ("ot", ot_loss),
+                ("ot_pos", s_pos / _clamp1(n_pos)),
+                ("ot_neg", s_neg / _clamp1(n_neg)), ("n_units", n))}
+        loss = s / _clamp1(n)
         return loss, {"loss": loss.detach(), "n_units": n.detach()}
 
     return loss_fn
@@ -89,41 +124,58 @@ def mean_grads(loss_fn: Callable, model, micro) -> Dict:
 
 
 def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
-               task: str = "mlm") -> Dict[str, torch.Tensor]:
+               task: str = "mlm", **loss_kw) -> Dict[str, torch.Tensor]:
     """One update of ``model`` by ``opt`` on ``batch`` (tensors on the
     model's device), with dropout drawn from ``rng`` (a ``DropoutRng``;
-    None for a deterministic step). Returns ``loss``, ``n_units`` and
-    ``grad_norm`` (the global norm of the unclipped gradients) as device
-    tensors, so the step never waits for the card."""
+    None for a deterministic step). ``loss_kw`` goes to ``make_loss_fn``
+    (``valid_ids``, ``itm_ot_lambda``, ``ot_pos_only``). Returns the loss
+    function's metrics (``loss``, ``n_units``, ...) and ``grad_norm`` (the
+    global norm of the unclipped gradients) as device tensors, so the step
+    never waits for the card."""
     opt.zero_grad()
-    metrics = accumulate_grads(make_loss_fn(task), model, batch, rng)
+    metrics = accumulate_grads(make_loss_fn(task, **loss_kw), model, batch,
+                               rng)
     metrics["grad_norm"] = opt.step()
     return metrics
 
 
-def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm"
-                     ) -> Dict[str, torch.Tensor]:
+def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm",
+                     **loss_kw) -> Dict[str, torch.Tensor]:
     """One update from micro-batches given one by one (``--host_accum``:
     their buckets may differ): ``micro`` is [(batch, rng)], and the
     gradients and metrics are the mean over them, as ``train_step`` takes
     them over a stacked batch."""
     opt.zero_grad()
-    metrics = mean_grads(make_loss_fn(task), model, micro)
+    metrics = mean_grads(make_loss_fn(task, **loss_kw), model, micro)
     metrics["grad_norm"] = opt.step()
     return metrics
 
 
+def _soft_ce(logits, t, w):
+    """The KL elements' sum over the live slots."""
+    return (kl_div_with_logits(logits, t, elementwise=True)
+            * w[:, :, None]).sum()
+
+
 @torch.no_grad()
-def eval_step(model, batch: Dict[str, torch.Tensor],
-              task: str) -> Dict[str, torch.Tensor]:
+def eval_step(model, batch: Dict[str, torch.Tensor], task: str,
+              valid_ids=None) -> Dict[str, torch.Tensor]:
     """The deterministic validation forward of one batch: the sums the
-    driver's ``validate`` adds up over a sweep, as device tensors. mlm,
-    tlm, tlm-ni, vmlm and mmxlm give ``loss`` (the CE summed over the
-    live slots), ``n_correct`` (argmax hits there) and ``n_word`` (the
-    live slots); itm gives ``loss``, ``n_correct`` and ``n_ex`` over the
-    batch's real rows (``ex_mask``), so a padded trailing batch counts
-    its examples only."""
+    driver's ``validate`` adds up over a sweep, as device tensors (the
+    reference's ``make_eval_step``):
+
+    * the mlm family, vmlm/mmxlm and the soft tasks: ``loss`` (the CE, or
+      the KL elements, summed over the live slots), ``n_correct`` (argmax
+      hits; for the soft tasks the argmax of the target, on slots that
+      have one) and ``n_word``;
+    * mrfr: ``loss`` (squared error) and ``n_feat``; mrm-nce also
+      ``n_correct``, ``l2_sum`` and ``cos_sum``; mrc/mrc-kl ``loss``,
+      ``n_correct`` over the classes 1.. and ``n_feat``;
+    * itm/itm-ot: ``loss``, ``n_correct`` and ``n_ex`` over the batch's
+      real rows (``ex_mask``), and for itm-ot ``ot_pos``/``ot_neg`` (sums)
+      and ``n_pos``/``n_neg`` over them."""
     base = task.split("_")[0]
+    w = batch.get("masked_weight")
     if base in ("mlm", "tlm", "tlm-ni", "vmlm", "mmxlm"):
         if base in _MLM_TASKS:
             logits = model.forward_mlm(batch, True, None,
@@ -132,19 +184,53 @@ def eval_step(model, batch: Dict[str, torch.Tensor],
         else:
             logits = model.forward_mmxlm(batch, True, None,
                                          compute_loss=False)
-        labels, w = batch["txt_labels"], batch["masked_weight"]
+        labels = batch["txt_labels"]
         loss = cross_entropy_with_logits(logits, labels, w).sum()
         correct = ((logits.argmax(-1) == labels) * w).sum()
         return {"loss": loss, "n_correct": correct, "n_word": w.sum()}
-    if base == "itm":
-        scores, _ = model.forward_itm(batch, True, None, compute_loss=False)
+    if base in ("vmlm-soft", "mmxlm-soft"):
+        logits = model.forward_mmxlm_soft(batch, valid_ids, True, None,
+                                          compute_loss=False)
+        t = batch["label_targets"]
+        correct = ((logits.argmax(-1) == t.argmax(-1)) * w
+                   * (t.sum(-1) > 0)).sum()
+        return {"loss": _soft_ce(logits, t, w), "n_correct": correct,
+                "n_word": w.sum()}
+    if base == "mrfr":
+        pred = model.forward_mrfr(batch, True, None, compute_loss=False)
+        loss = ((pred - batch["feat_targets"].float()) ** 2
+                * w[:, :, None]).sum()
+        return {"loss": loss, "n_feat": w.sum()}
+    if base == "mrm-nce":
+        s, n, correct, l2, cos = model.forward_mrm_nce(batch, True, None,
+                                                       with_stats=True)
+        return {"loss": s, "n_correct": correct, "n_feat": n,
+                "l2_sum": l2, "cos_sum": cos}
+    if base in ("mrc", "mrc-kl"):
+        logits = model.forward_mrc(batch, base == "mrc-kl", True, None,
+                                   compute_loss=False)
+        t = batch["label_targets"]
+        labels = t[..., 1:].argmax(-1) + 1
+        correct = (((logits[..., 1:].argmax(-1) + 1) == labels) * w).sum()
+        loss = (_soft_ce(logits, t, w) if base == "mrc-kl" else
+                cross_entropy_with_logits(logits, labels, w).sum())
+        return {"loss": loss, "n_correct": correct, "n_feat": w.sum()}
+    if base in ("itm", "itm-ot"):
+        scores, ot = model.forward_itm(batch, True, None,
+                                       compute_ot=base == "itm-ot",
+                                       compute_loss=False)
         targets = batch["targets"]
-        w = batch.get("ex_mask")
-        if w is None:
-            w = torch.ones(scores.shape[0], device=scores.device)
-        loss = (cross_entropy_with_logits(scores, targets) * w).sum()
-        correct = ((scores.argmax(-1) == targets) * w).sum()
-        return {"loss": loss, "n_correct": correct, "n_ex": w.sum()}
-    raise NotImplementedError(f"uc2_torch: validation of task {task!r} is "
-                              f"not ported yet (mlm, tlm, tlm-ni, vmlm, "
-                              f"mmxlm and itm are)")
+        ex = batch.get("ex_mask")
+        if ex is None:
+            ex = torch.ones(scores.shape[0], device=scores.device)
+        loss = (cross_entropy_with_logits(scores, targets) * ex).sum()
+        correct = ((scores.argmax(-1) == targets) * ex).sum()
+        out = {"loss": loss, "n_correct": correct, "n_ex": ex.sum()}
+        if ot is not None:
+            pos = (targets == 1) & (ex > 0)
+            neg = (targets == 0) & (ex > 0)
+            out.update(ot_pos=torch.where(pos, ot, 0.0).sum(),
+                       ot_neg=torch.where(neg, ot, 0.0).sum(),
+                       n_pos=pos.sum(), n_neg=neg.sum())
+        return out
+    raise ValueError(f"unknown task {task!r}")
