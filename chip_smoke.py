@@ -5,7 +5,8 @@ pretraining step, the pretraining task mix of config/uc2_pretrain.json
 driver (python -m uc2_torch.pretrain) on U2S stores with exact resume,
 every other pretraining objective (mmxlm, the soft tasks, mrfr, mrc,
 mrc-kl, mrm-nce, itm-ot through IPOT, hard negatives, tlm-ni) in steps
-and through the driver,
+and through the driver, the retrieval finetuning driver (python -m
+uc2_torch.itm) on config/uc2_mscoco_itm.json,
 mlm pretraining on long captions (joint L up to 512), the two routes of
 the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
 (the QKV projection inside the attention block) and
@@ -173,12 +174,31 @@ non-zero at the end, without the result lines:
      (its keys logged) and again stopped at 6 and resumed, equal bit for
      bit (parameters, both moments, losses), #5/#6a/#6b 12 times a
      micro-batch. The stores and checkpoints are deleted at the end;
- 16. a JSON line of per-kernel numbers (launches: the main-path phases'
-     counts, the pretraining driver's and the objectives' added; #3's adds
-     the routes phase and the lab), then the last line {"ok": true,
-     "device": {...}}.
+ 16. itm: ``python -m uc2_torch.itm --config config/uc2_mscoco_itm.json``
+     run in this process (uc2-base at full width, the config's four
+     training pairs with the zh [train2014, val2014] routing pair, 13
+     groups of 3 = 39 rows a micro-batch, 8 stacked micro-batches a step,
+     dropout 0.1, bf16, eval_batch_size 300) on U2S stores that the port's
+     synth_corpus writes under build/ at the reference's widths, from a
+     checkpoint of the port's initialised weights; every override is
+     printed: stopped after step 3 and resumed to 6 (validation, milestone
+     and restore.ckpt at 3 and 6, the test pairs at the end), the resumed
+     run loading step 3's parameters and AdamW moments bit for bit; then
+     with --hard_neg_size 1 --hard_neg_steps 3 (sample size 5, 40 rows;
+     5 steps and --eval_batch_size 64), its mining files before step 1
+     and after step 3; launches: 96 each of #5,
+     #6a and #6b a step and each scored batch the gates' kernels; #1, #2
+     and #3 at B = 300 against their plain versions; ms/step, the loader's
+     host time, scoring pairs/s at B = 300, mining seconds, peak memory; a
+     rank step repeated bit for bit, timed alone and profiled, and one at
+     dropout 0 through the kernel path against the eager fp32 path beside
+     the eager bf16 path. The stores and checkpoints are deleted;
+ 17. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts, the pretraining driver's, the objectives' and the itm
+     driver's added; #3's adds the routes phase and the lab), then the
+     last line {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16.
+15, 16, 17.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -211,7 +231,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uc2_torch import lab, pretrain
+from uc2_torch import itm, lab, pretrain
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets, db, native_build
 from uc2_torch.data.collate import BucketSpec, default_buckets
@@ -258,8 +278,10 @@ from uc2_torch.ops.segment_flash import (
     segment_flash_bwd_dkdv_plain, segment_flash_bwd_dq,
     segment_flash_bwd_dq_plain, segment_flash_fwd, segment_flash_plain)
 from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
+from uc2_torch.training import checkpoint as itm_checkpoint
 from uc2_torch.training import step as train_step_mod
 from uc2_torch.training.step import train_step
+from uc2_torch.utils.misc import set_dropout
 
 # H100 SXM published peaks (dense bf16 tensor rate, HBM3 bandwidth)
 PEAK_BF16_FLOPS = 989e12
@@ -3880,6 +3902,630 @@ def _objective_steps(card):
     return total, step_ms
 
 
+# ------------------------------------------------ the retrieval finetuning
+ITM_CONFIG = "config/uc2_mscoco_itm.json"
+ITM_DIR = os.path.join("build", "itm_smoke")
+# images of each split's store, captions an image in the training stores,
+# texts of the validation and test stores
+ITM_IMGS, ITM_EVAL_TXTS = 64, 32
+ITM_STEPS, ITM_STOP = 6, 3
+ITM_HARD_STEPS = 5       # mined before step 1 and after step 3
+ITM_EVAL_BATCH = 300     # the config's inference batch
+ITM_HARD_EVAL_BATCH = 64
+
+
+def text_store(out, *parts):
+    """One text store of the records of several (texts' store, id prefix)
+    parts, with its sidecar files: the COCO-CN case, whose texts name
+    images of both train2014 and val2014."""
+    from uc2_torch.data.store import StoreReader, StoreWriter
+    os.makedirs(out, exist_ok=True)
+    id2len, txt2img, img2txts, meta = {}, {}, {}, None
+    with StoreWriter(os.path.join(out, "txt.u2s")) as w:
+        for src, tag in parts:
+            reader = StoreReader(os.path.join(src, "txt.u2s"))
+            with open(os.path.join(src, "txt2img.json")) as f:
+                names = json.load(f)
+            with open(os.path.join(src, "meta.json")) as f:
+                meta = json.load(f)
+            for tid, img in names.items():
+                rec = reader[tid]
+                w.put(f"{tag}{tid}", rec)
+                id2len[f"{tag}{tid}"] = len(rec["input_ids"])
+                txt2img[f"{tag}{tid}"] = img
+                img2txts.setdefault(img, []).append(f"{tag}{tid}")
+    for name, obj in (("id2len", id2len), ("txt2img", txt2img),
+                      ("img2txts", img2txts), ("meta", meta)):
+        with open(os.path.join(out, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    return out
+
+
+def itm_stores():
+    """The config's databases at the reference's widths, under ITM_DIR:
+    train2014 and val2014 image stores (ITM_IMGS images each, 2048-d fp16
+    features, 10-100 boxes), the four training text stores (en train and
+    ja on train2014, en restval on val2014, zh on both), the en
+    validation and test texts (val2014) and a zh test (both), vocab
+    250002. Stores of texts alone carry a 1-d image store of their own,
+    which no run reads."""
+    def corpus(name, prefix, seed, n_imgs=ITM_IMGS, txt_per_img=1, **kw):
+        return synth_corpus(os.path.join(ITM_DIR, name), n_imgs=n_imgs,
+                            txt_per_img=txt_per_img, seed=seed,
+                            fname_prefix=f"coco_{prefix}", **kw)
+    texts = dict(img_dim=1, n_classes=2)
+    train, val = corpus("train2014", "train2014", 0), corpus(
+        "val2014", "val2014", 1)
+    half = ITM_EVAL_TXTS // 2
+    zh = [corpus(f"zh_{p}", p, 2 + i, n_imgs=ITM_IMGS // 2, **texts)
+          for i, p in enumerate(("train2014", "val2014"))]
+    zh_test = [corpus(f"zh_test_{p}", p, 4 + i, n_imgs=half, **texts)
+               for i, p in enumerate(("train2014", "val2014"))]
+    return {"train2014": train["img_db"], "val2014": val["img_db"],
+            "en_train": train["txt_db"], "en_restval": val["txt_db"],
+            "ja_train": corpus("ja", "train2014", 6, **texts)["txt_db"],
+            "zh_train": text_store(os.path.join(ITM_DIR, "zh_txt"),
+                                   *((c["txt_db"], f"zh{i}_")
+                                     for i, c in enumerate(zh))),
+            "en_val": corpus("en_val", "val2014", 7, n_imgs=ITM_EVAL_TXTS,
+                             **texts)["txt_db"],
+            "en_test": corpus("en_test", "val2014", 8,
+                              n_imgs=ITM_EVAL_TXTS, **texts)["txt_db"],
+            "zh_test": text_store(os.path.join(ITM_DIR, "zh_test_txt"),
+                                  *((c["txt_db"], f"zh{i}_")
+                                    for i, c in enumerate(zh_test)))}
+
+
+def itm_argv(out, stores, ckpt, *extra):
+    """config/uc2_mscoco_itm.json with its stores replaced (the four
+    training pairs in its order, zh on the [train2014, val2014] routing
+    pair; validation on en val; two test pairs, en on val2014 and zh on
+    the routing pair), the checkpoint and output directory, and a short
+    run: 6 steps with validation and a restore.ckpt every 3, warm-up 2
+    steps, a log line every step."""
+    s = stores
+    route = [s["train2014"], s["val2014"]]
+    return ["--config", ITM_CONFIG,
+            "--train_txt_db", json.dumps([s["en_train"], s["en_restval"],
+                                          s["ja_train"], s["zh_train"]]),
+            "--train_img_db", json.dumps([s["train2014"], s["val2014"],
+                                          s["train2014"], route]),
+            "--val_txt_db", s["en_val"], "--val_img_db", s["val2014"],
+            "--test_datasets", json.dumps([
+                {"name": "coco_en_test", "db": s["en_test"],
+                 "img": s["val2014"]},
+                {"name": "coco_zh_test", "db": s["zh_test"], "img": route}]),
+            "--checkpoint", ckpt, "--output_dir", out,
+            "--num_train_steps", str(ITM_STEPS), "--valid_steps",
+            str(ITM_STOP), "--save_steps", str(ITM_STOP),
+            "--warmup_steps", "2", "--log_steps", "1", *extra]
+
+
+def run_itm(argv):
+    """``uc2_torch.itm.main`` as ``python -m uc2_torch.itm argv`` runs it,
+    in this process."""
+    parser = itm.build_parser()
+    opts = itm.parse_with_config(parser, argv)
+    itm.apply_reference_config_compat(opts, parser, argv)
+    return itm.main(opts)
+
+
+@contextlib.contextmanager
+def recorded_scores(calls):
+    """Record (deterministic, joint L) of every ``scores`` call of the
+    retrieval model: the training forwards and the scored batches."""
+    orig = UC2ForImageTextRetrieval.scores
+
+    def scores(self, batch, deterministic=True, rng=None):
+        calls.append((deterministic, batch["attn_mask"].shape[1]))
+        return orig(self, batch, deterministic, rng)
+    UC2ForImageTextRetrieval.scores = scores
+    try:
+        yield
+    finally:
+        UC2ForImageTextRetrieval.scores = orig
+
+
+@contextlib.contextmanager
+def timed_loader(times):
+    """Record the host's seconds of every ``TaskLoader.next_stacked`` (the
+    driver's batch assembly: reads, groups, collate)."""
+    orig = TaskLoader.next_stacked
+
+    def next_stacked(self, n):
+        t0 = time.perf_counter()
+        out = orig(self, n)
+        times.append(time.perf_counter() - t0)
+        return out
+    TaskLoader.next_stacked = next_stacked
+    try:
+        yield
+    finally:
+        TaskLoader.next_stacked = orig
+
+
+def itm_launches(what, cfg, calls, steps, accum, counts):
+    """The run's launches against the routing: 12 each of #5, #6a, #6b a
+    micro-batch of every step, and for each scored batch the gates'
+    kernels at its joint length; nothing else."""
+    layers = cfg.num_hidden_layers
+    train = [L for det, L in calls if not det]
+    want = no_launches()
+    for k in TRAIN_KERNELS:
+        want[k.__name__] = steps * accum * layers
+    for det, L in calls:
+        if det:
+            for k, n in gate_launches(cfg, L).items():
+                want[k] += n
+    scored = sorted({L for det, L in calls if det})
+    print(f"  {what}: {len(train)} training forwards at L {sorted(set(train))}"
+          f" ({steps} steps x {accum} micro-batches), "
+          f"{len(calls) - len(train)} scored batches at L {scored}; launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    if len(train) != steps * accum or counts != want:
+        fail(f"itm {what}: launched {counts}, the routing wants "
+             f"{ {k: n for k, n in want.items() if n} } "
+             f"({len(train)} training forwards)")
+
+
+def itm_state(model, opt):
+    """The parameters and AdamW's moments, copied on the card."""
+    out = {f"param {k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    for i, st in opt.state_dict()["state"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"{k} {i}"] = st[k].detach().clone()
+    out["count"] = torch.tensor(opt.count)
+    return out
+
+
+def itm_run_report(what, run, card, skip):
+    """ms/step of the loop (the intervals that hold no validation, mining
+    or save), the losses, validations, minings and tests of a run."""
+    rows = loop_times(run, skip)
+    ms = sorted(r[0] for r in rows)
+    print(f"  {what}: steps {[s for s, _ in run.losses]}, rank losses "
+          f"{[round(v, 5) for _, v in run.losses]}; "
+          + (f"{np.median(ms):.1f} ms/step median ({ms[0]:.1f}-{ms[-1]:.1f})"
+             f" over {len(ms)} steps, per step {[round(m, 1) for m in ms]}"
+             if ms else "no timed step") + f" [{card}]")
+    for step, log in run.val:
+        print(f"    validation at step {step}: "
+              f"{ {k: round(v, 4) for k, v in log.items()} }")
+    for step, sec, files in run.mined:
+        print(f"    mining at step {step}: {sec:.2f} s, "
+              f"{[os.path.basename(f) for f in files]}")
+    for name, log in run.results.items():
+        print(f"    test {name}: {json.dumps({k: round(v, 4) for k, v in log.items()})}")
+    bad = [(s, v) for s, v in run.losses if not np.isfinite(v)]
+    bad += [(s, k, v) for s, log in run.val for k, v in log.items()
+            if not np.isfinite(v)]
+    if bad:
+        fail(f"itm {what}: non-finite losses or validation {bad}")
+    return ms
+
+
+def rank_batch(stores, S, n_groups, accum, seed):
+    """One stacked batch of ``accum`` micro-batches of ``n_groups`` rank
+    groups (``S`` rows each) from the en train pair, on the card."""
+    txt = db.TxtTokDb(stores["en_train"])
+    img = db.DetectFeatDb(stores["train2014"])
+    ds = datasets.ItmRankDataset(txt, img, (S - 1) // 2)
+    tl = TaskLoader("itm-rank", ds, [BucketSpec(TXT_LEN, NUM_BB, n_groups,
+                                                0)], seed=seed)
+    batch = tl.next_stacked(accum)
+    for k in ("_bucket", "sample_size", "targets"):
+        batch.pop(k)
+    return {k: torch.from_numpy(v).to("cuda").float()
+            if v.dtype == np.float16 else torch.from_numpy(v).to("cuda")
+            for k, v in batch.items()}
+
+
+# one rank step at dropout 0 from the port's initialised weights, the
+# kernel path ("pallas-train": #5 and #6's passes at rate 0) and the eager
+# bf16 path ("xla") each against the eager fp32 path: at init the rank
+# loss's gradients are small (grad norm ~0.1), and the Q/K/V gradients of
+# either bf16 path are 11% (relative norm) from fp32's, 5% of the updates
+# more than lr / 10 from fp32's (H100 readings), beyond the mlm step's
+# limits; so the kernel path's gradients are held to the eager bf16
+# path's own distance from fp32 (within RANK_VS_EAGER times it, plus
+# RANK_FLOOR), and its loss to the mlm step's STEP_LOSS_TOL from fp32's.
+# The H100 readings put the kernel path at 0.95-1.0 times the eager
+# path's distance on each measure; the factor 2 leaves room for a kernel
+# that rounds in another order. The step is the end-to-end guard: a fault
+# of #5 or #6 at these shapes is caught by ``itm_train_kernels`` at the
+# kernels' own tolerances
+RANK_VS_EAGER, RANK_FLOOR = 2.0, 1e-4
+
+
+def rank_paths_vs_fp32(cfg, start, batch, S, lr):
+    """One dropout-0 step of each path from ``start``; returns {path:
+    (loss, grad norm, update, [per layer Q/K/V gradients], launches)}."""
+    cfg0 = set_dropout(cfg, 0.0)
+    out = {}
+    for path, impl, dt in (("kernel", "pallas-train", cfg.dtype),
+                           ("eager", "xla", cfg.dtype),
+                           ("fp32", "xla", "float32")):
+        m_ = UC2ForImageTextRetrieval(cfg0.replace(use_pallas_attention=impl,
+                                                   dtype=dt),
+                                      device="cuda", seed=0)
+        m_.load_state_dict(start)
+        opt = build_optimizer(m_, constant(lr), weight_decay=0.0,
+                              betas=(0.9, 0.98), grad_norm=2.0)
+        reset_launches()
+        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"),
+                         task="itm-rank", sample_size=S)
+        out[path] = (met["loss"].item(), met["grad_norm"].item(),
+                     torch.cat([(p.detach() - start[n]).flatten()
+                                for n, p in m_.named_parameters()]),
+                     [lay.attention.qkv.weight.grad.split(H)
+                      for lay in m_.roberta.layer], launch_counts())
+        del m_, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_rank_step(model, opt, batch, S):
+    """One rank step under torch.profiler: its wall time, the device's
+    busy and idle share and device ms by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, batch, DropoutRng(7, "cuda"),
+                   task="itm-rank", sample_size=S)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(device_rows(prof), reverse=True)
+    if not rows:
+        print("  rank step profile: no device time recorded (not measured)")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"  profiled rank step: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
+          f"{sum(r[1] for r in rows)} device activities; by group: "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(
+              group_ms(rows, KERNEL_GROUPS).items(), key=lambda x: -x[1])))
+    for ms, cnt, key in rows[:8]:
+        print(f"    {ms:9.3f} ms {cnt:5d}x  {key[:100]}")
+
+
+def rank_step_checks(cfg, start, batch, S):
+    """One rank step twice from the same weights and seeds (bit for bit),
+    its time alone, and one step at dropout 0 through the kernel path
+    against the eager fp32 path, beside the eager bf16 path's distance
+    (RANK_VS_EAGER, RANK_FLOOR), with the itm config's clip (2.0).
+    Returns the step's ms alone."""
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    res = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                              betas=(0.9, 0.98), grad_norm=2.0)
+        m = train_step(model, opt, batch, DropoutRng(7, "cuda"),
+                       task="itm-rank", sample_size=S)
+        res.append((m["loss"], m["grad_norm"],
+                    [p.detach().clone() for p in model.parameters()]))
+    (l0, n0, p0), (l1, n1, p1) = res
+    same = (torch.equal(l0, l1) and torch.equal(n0, n1)
+            and all(torch.equal(a, b) for a, b in zip(p0, p1)))
+    print(f"  repeat of one rank step (8 micro-batches, same weights and "
+          f"seeds): loss {l0.item():.6f} / {l1.item():.6f}, grad norm "
+          f"{n0.item():.6f} / {n1.item():.6f}, {len(p0)} updated "
+          f"parameters; bitwise equal: {same}")
+    if not same:
+        fail("one rank step with the same seeds is not bitwise repeatable")
+    del res, p0, p1
+    times = []
+    for _ in range(1 + 3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_step(model, opt, batch, DropoutRng(7, "cuda"),
+                   task="itm-rank", sample_size=S)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    alone = float(np.median(times[1:]))
+    print(f"  the rank step alone (one stacked batch on the card, no data "
+          f"work): {alone:.1f} ms median of 3 after a warm-up "
+          f"({', '.join(f'{t:.1f}' for t in times[1:])})")
+    profile_rank_step(model, opt, batch, S)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    lr, layers = 1e-4, cfg.num_hidden_layers
+    out = rank_paths_vs_fp32(cfg, start, batch, S, lr)
+
+    def apart(a, b):
+        """|loss diff|, relative grad norm diff, worst layer's Q / K / V
+        gradient in relative norm, share of updates > lr / 10 apart."""
+        qkv = max(((x[j] - y[j]).norm() / y[j].norm()).item()
+                  for x, y in zip(a[3], b[3]) for j in range(3))
+        flips = ((a[2] - b[2]).abs() > lr / 10).float().mean().item()
+        return (abs(a[0] - b[0]), abs(a[1] - b[1]) / b[1], qkv, flips)
+    kern, eager = apart(out["kernel"], out["fp32"]), apart(out["eager"],
+                                                           out["fp32"])
+    accum = batch["input_ids"].shape[0]
+    launched = [out["kernel"][4][k.__name__] for k in TRAIN_KERNELS]
+    ok = (launched == [layers * accum] * 3 and kern[0] <= STEP_LOSS_TOL
+          and all(k <= RANK_VS_EAGER * e + RANK_FLOOR
+                  for k, e in zip(kern[1:], eager[1:]))
+          and np.isfinite([out["kernel"][0], out["kernel"][1]]).all())
+    names = ("|loss - fp32|", "grad norm vs fp32 (relative)",
+             "worst Q/K/V gradient vs fp32 (relative norm)",
+             "share of updates > lr/10 from fp32's")
+    print(f"  one rank step at dropout 0 (fp32 path: loss "
+          f"{out['fp32'][0]:.6f}, grad norm {out['fp32'][1]:.6f}); kernel "
+          f"path (pallas-train, #5/#6a/#6b {launched}) vs eager bf16 (xla): "
+          + "; ".join(f"{n} {k:.3e} vs {e:.3e}"
+                      for n, k, e in zip(names, kern, eager))
+          + f" (tolerance: loss {STEP_LOSS_TOL:g}; the others kernel <= "
+            f"{RANK_VS_EAGER:g} x eager + {RANK_FLOOR:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the kernel rank step is further from fp32 than the eager bf16 "
+             "step allows")
+    return alone
+
+
+def itm_train_kernels(rows, gen):
+    """``train_attention_case`` at the itm driver's micro-batches, B = 39
+    (the recipe's 13 groups of 3) and 40 (the hard-negative run's 8 groups
+    of 5) at L = 162, rates 0.1 and 0: #5 and #6's passes against their
+    plain versions at the shapes the driver gives them."""
+    L = TXT_LEN + NUM_BB
+    for b in (39, 40):
+        q, k, v, bias = heads(gen, b, L)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            train_attention_case(f"B={b} L={L} rate={rate}", q, k, v, bias,
+                                 g, rate, rows)
+        del q, k, v, bias, g
+    torch.cuda.empty_cache()
+
+
+def itm_kernels_at_300(rows, gen):
+    """#1 at (300, 98), #2 at (300, 128) and (300, 162) and #3 at all
+    three: the config's inference batch, each against its plain version
+    and timed beside its bound (not the JSON row's times)."""
+    b = ITM_EVAL_BATCH
+    wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    w1 = (torch.randn(FF, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    w2 = (torch.randn(H, FF, generator=gen, device="cuda") * 0.05).bfloat16()
+    b1, b2 = vec(gen, FF, 0.02), vec(gen, H, 0.02)
+    for L in (98, 128, 162):
+        q, k, v, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        if L == 98:
+            run_case(rows, "flash_attention", b, L, flash_attention_v3,
+                     flash_attention_plain, (q, k, v, bias),
+                     4 * b * L * H * 2 + b * L * 4, 4 * b * N * L * L * D)
+        else:
+            run_case(rows, "fused_attn_block", b, L, fused_attn_block,
+                     fused_attn_block_plain,
+                     (q, k, v, bias, x, wo, bo, gamma, beta),
+                     *block_bytes_flops(b, L))
+        run_case(rows, "fused_ffn_block", b, L, fused_ffn_block,
+                 fused_ffn_block_plain, (x, w1, b1, w2, b2, gamma, beta),
+                 2 * b * L * H * 2 + 2 * H * FF * 2 + (FF + 3 * H) * 4,
+                 4 * b * L * H * FF)
+        del q, k, v, bias, x
+    torch.cuda.empty_cache()
+
+
+def itm_pairs_per_s(model, stores, card):
+    """model.scores on one batch of 300 images a region-count bucket (one
+    en validation text against them, as score_matrix builds it): ms a
+    batch (CUDA events, 10 calls) and pairs/s."""
+    txt = db.TxtTokDb(stores["en_val"])
+    img = db.DetectFeatDb(stores["val2014"])
+    names = sorted(img.name2nbb, key=lambda n: img.name2nbb[n])
+    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
+    out = []
+    for lo, nb in zip([0] + edges[:-1], edges):
+        sel = [n for n in names if lo < img.name2nbb[n] <= nb]
+        if not sel:
+            fail(f"itm: no validation image has {lo + 1}-{nb} regions")
+            continue
+        feats, bb7, nbbs = retrieval.load_image_gallery(img, sel, nb)
+        reps = -(-ITM_EVAL_BATCH // len(sel))
+        f = torch.from_numpy(np.tile(feats, (reps, 1, 1))[:ITM_EVAL_BATCH])
+        b7 = torch.from_numpy(np.tile(bb7, (reps, 1, 1))[:ITM_EVAL_BATCH])
+        n = np.tile(nbbs, reps)[:ITM_EVAL_BATCH]
+        rmask = torch.from_numpy(np.arange(nb)[None] < n[:, None]).long()
+        ids = np.asarray(txt.combine_inputs(txt[txt.ids[0]]["input_ids"]))
+        row = torch.ones(TXT_LEN, dtype=torch.long)
+        row[:len(ids)] = torch.from_numpy(ids)
+        tmask = (row != 1).long()                      # pad id 1
+        batch = {k: t.cuda() for k, t in (
+            ("input_ids", row.expand(ITM_EVAL_BATCH, TXT_LEN)),
+            ("img_feat", f), ("img_pos_feat", b7),
+            ("attn_mask", torch.cat([tmask.expand(ITM_EVAL_BATCH, TXT_LEN),
+                                     rmask], 1)))}
+        ms = time_ms(lambda: model.scores(batch), iters=10)
+        out.append((TXT_LEN + nb, ms))
+        print(f"  scoring B={ITM_EVAL_BATCH} L={TXT_LEN + nb}: {ms:.3f} ms a "
+              f"batch = {ITM_EVAL_BATCH / ms * 1e3:.0f} pairs/s [{card}]")
+    return out
+
+
+def phase_itm(card, rows, gen):
+    """``python -m uc2_torch.itm --config config/uc2_mscoco_itm.json`` in
+    this process on U2S stores at the reference's widths (uc2-base at full
+    width): the shipped recipe stopped at step 3 and resumed to 6, then
+    with hard negatives; #5 and #6 at the micro-batches' shapes and the
+    inference kernels at the config's batch of 300; a rank step repeated
+    and against the eager path. Returns the
+    launches of its runs."""
+    print(f"== itm: python -m uc2_torch.itm --config {ITM_CONFIG} on U2S "
+          f"stores, uc2-base at full width [{card}]")
+    shutil.rmtree(ITM_DIR, ignore_errors=True)
+    try:
+        return _phase_itm(card, rows, gen)
+    finally:
+        shutil.rmtree(ITM_DIR, ignore_errors=True)
+
+
+def _phase_itm(card, rows, gen):
+    t0 = time.perf_counter()
+    stores = itm_stores()
+    with open(ITM_CONFIG) as f:
+        ic = json.load(f)
+    cfg = set_dropout(UC2Config.from_json_file(ic["model_config"]).replace(
+        dtype=ic["dtype"]), ic["dropout"])
+    ckpt = os.path.join(ITM_DIR, "init.pt")
+    init = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    torch.save({k: v.cpu() for k, v in init.state_dict().items()}, ckpt)
+    del init
+    print(f"  stores (train2014 and val2014 images: {ITM_IMGS} each, 2048-d "
+          f"fp16 features, 10-100 boxes; training texts en train, en "
+          f"restval, ja, zh (both splits); {ITM_EVAL_TXTS} validation and "
+          f"test texts a db) and a checkpoint of the port's initialised "
+          f"weights written in {time.perf_counter() - t0:.1f} s")
+    print(f"  overrides of {ITM_CONFIG}: --train_txt_db, --train_img_db, "
+          f"--val_txt_db, --val_img_db (the stores above), --test_datasets "
+          f"(en test on val2014, zh test on the routing pair), --checkpoint "
+          f"{ckpt}, --output_dir, --num_train_steps {ITM_STEPS}, "
+          f"--valid_steps {ITM_STOP}, --save_steps {ITM_STOP}, "
+          f"--warmup_steps 2, --log_steps 1; kept: its four training pairs "
+          f"with the zh routing pair, train_batch_size {ic['train_batch_size']}"
+          f", negative_size {ic['negative_size']}, accumulation "
+          f"{ic['gradient_accumulation_steps']}, dropout {ic['dropout']}, "
+          f"eval_batch_size {ic['eval_batch_size']}, bf16")
+    accum = ic["gradient_accumulation_steps"]
+    total = no_launches()
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # (a) and (b): the recipe stopped after step 3 and resumed to 6
+    out = os.path.join(ITM_DIR, "recipe")
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loads = []
+    with recorded_scores(calls), timed_loader(loads):
+        first = run_itm(itm_argv(out, stores, ckpt, "--stop_after_steps",
+                                 str(ITM_STOP)))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = itm_state(first.model, first.optimizer)
+        S = first.sample_size
+        ms = itm_run_report("recipe, steps 1-3", first, card, {ITM_STOP})
+        del first
+        torch.cuda.empty_cache()
+        restored = []
+        real = itm_checkpoint.TrainingRestorer.restore
+
+        def restore(self, model, opt):
+            step = real(self, model, opt)
+            restored.append((step, itm_state(model, opt)))
+            return step
+        itm_checkpoint.TrainingRestorer.restore = restore
+        try:
+            second = run_itm(itm_argv(out, stores, ckpt))
+        finally:
+            itm_checkpoint.TrainingRestorer.restore = real
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add(counts)
+    ms += itm_run_report("recipe, resumed, steps 4-6", second, card,
+                         {ITM_STEPS})
+    ms.sort()
+    groups = ic["train_batch_size"] // S
+    print(f"  recipe: {groups} groups of {S} = {groups * S} rows a "
+          f"micro-batch, {accum} micro-batches a step, joint L "
+          f"{TXT_LEN + NUM_BB}: {np.median(ms):.1f} ms/step median over "
+          f"{len(ms)} timed steps ({groups * S * accum / np.median(ms) * 1e3:.0f}"
+          f" rows/s); the loader's batch assembly on the host "
+          f"{np.median(loads) * 1e3:.1f} ms a step median "
+          f"({min(loads) * 1e3:.1f}-{max(loads) * 1e3:.1f}, {len(loads)} "
+          f"steps); peak memory of steps 1-3 {peak:.2f} GiB [{card}]")
+    itm_launches("recipe", cfg, calls, ITM_STEPS, accum, counts)
+    (step, got), = restored or [(None, {})]
+    diff = [k for k in saved if k not in got or not torch.equal(got[k],
+                                                                saved[k])]
+    if step != ITM_STOP or diff or set(got) != set(saved):
+        fail(f"itm: the resumed run did not load step {ITM_STOP}'s state bit "
+             f"for bit (step {step}; {len(diff)} tensors differ: {diff[:3]})")
+    else:
+        print(f"  the resumed run loaded step {ITM_STOP}'s parameters and "
+              f"AdamW moments bit for bit ({len(saved)} tensors) and went on "
+              f"to step {second.step}")
+    if second.step != ITM_STEPS or set(second.results) != {"coco_en_test",
+                                                           "coco_zh_test"}:
+        fail(f"itm: the resumed run ended at step {second.step} with tests "
+             f"{sorted(second.results)}")
+    with open(os.path.join(out, "test_results.json")) as f:
+        if json.load(f) != second.results:
+            fail("itm: test_results.json is not the run's results")
+    del second, saved, got, restored
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) with hard negatives: sample size 5, 5 steps, mined before step 1
+    # and after step 3
+    out = os.path.join(ITM_DIR, "hard")
+    calls, loads = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recorded_scores(calls), timed_loader(loads):
+        run = run_itm(itm_argv(out, stores, ckpt, "--hard_neg_size", "1",
+                               "--hard_neg_steps", str(ITM_STOP),
+                               "--eval_batch_size", str(ITM_HARD_EVAL_BATCH),
+                               "--num_train_steps", str(ITM_HARD_STEPS),
+                               "--save_steps", str(10 * ITM_STEPS)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    add(counts)
+    print(f"  hard negatives (--hard_neg_size 1 --hard_neg_steps {ITM_STOP};"
+          f" cuts: --num_train_steps {ITM_HARD_STEPS}, --eval_batch_size "
+          f"{ITM_HARD_EVAL_BATCH}, no restore.ckpt)"
+          f": sample size {run.sample_size}, the loader's batch assembly "
+          f"{np.median(loads) * 1e3:.1f} ms a step median, peak memory "
+          f"{peak:.2f} GiB")
+    hard_ms = itm_run_report("hard negatives", run, card,
+                             {ITM_STOP, ITM_HARD_STEPS})
+    itm_launches("hard negatives", cfg, calls, ITM_HARD_STEPS, accum, counts)
+    want = [f"hard_negs_{s}.db{k}.json" for s in (0, ITM_STOP)
+            for k in range(4)]
+    got = sorted(f for f in os.listdir(out) if f.startswith("hard_negs"))
+    if run.sample_size != 5 or got != sorted(want):
+        fail(f"itm: hard-negative run: sample size {run.sample_size}, mining "
+             f"files {got}")
+    for name in got:
+        with open(os.path.join(out, name)) as f:
+            pools = json.load(f)
+        if not pools["txt2hardimgs"] or not pools["img2hardtxts"]:
+            fail(f"itm: {name} holds empty pools")
+    del run
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the training kernels at the micro-batches' shapes and the
+    # inference kernels at B = 300, (f) a rank step twice and against the
+    # eager path, (g) scoring pairs/s at B = 300
+    print("  the training attention kernels at the micro-batches' shapes:")
+    itm_train_kernels(rows, gen)
+    print(f"  the inference kernels at the config's batch of "
+          f"{ITM_EVAL_BATCH}:")
+    itm_kernels_at_300(rows, gen)
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    itm_pairs_per_s(model, stores, card)
+    del model
+    batch = rank_batch(stores, S, ic["train_batch_size"] // S, accum, 3)
+    alone = rank_step_checks(cfg, start, batch, S)
+    print(f"  ms/step medians: recipe {np.median(ms):.1f}, hard negatives "
+          f"{np.median(hard_ms):.1f}, the step alone {alone:.1f} [{card}]")
+    del start, batch
+    torch.cuda.empty_cache()
+    return total
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -3945,6 +4591,7 @@ def main() -> int:
     add(timed(phase_lab, card))
     add(timed(phase_pretrain, card))
     add(timed(phase_objectives, card))
+    add(timed(phase_itm, card, rows, gen))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

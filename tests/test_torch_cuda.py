@@ -14,7 +14,8 @@ block masked for whole rows, a bitwise repeat of the backward), the
 encoder's kernel paths (scoring and training steps, "flash" and
 ``UC2_ATTN_V2`` included) against its eager path, and the two kernels of
 the kernel lab: the whole encoder layer (#8) and attention with
-unnormalised bf16 probabilities (#11). Needs a CUDA device
+unnormalised bf16 probabilities (#11), and the retrieval finetuning step
+(itm-rank) against the CPU and for a bitwise repeat. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -1301,3 +1302,91 @@ def test_objective_backward_repeats_bit_for_bit(gen, monkeypatch, task):
     assert set(g0) == set(g1)
     for n in g0:
         assert torch.equal(g0[n], g1[n]), n
+
+
+def _rank_batch(cfg, S, groups, accum, Lt, Nb, seed=2):
+    """A stacked batch of ``accum`` micro-batches of ``groups`` rank groups
+    of ``S`` rows (ItmRankDataset over an in-memory gallery of the
+    config's widths)."""
+    import numpy as np
+    from uc2_torch.data import datasets as D
+    from uc2_torch.data.collate import BucketSpec
+    from uc2_torch.data.memdb import synth_gallery
+    txt_db, img_db = synth_gallery(seed=seed, n_imgs=4 * groups,
+                                   txt_per_img=1, vocab=cfg.vocab_size,
+                                   img_dim=cfg.img_dim, min_bb=Nb // 2,
+                                   max_bb=Nb, max_words=(Lt - 2) // 2)
+    ds = D.ItmRankDataset(txt_db, img_db, (S - 1) // 2)
+    rng = np.random.default_rng(seed)
+    micro = []
+    for a in range(accum):
+        ex = [e for i in range(a * groups, (a + 1) * groups)
+              for e in ds.get_example(i, rng)]
+        b = ds.collate(ex, BucketSpec(Lt, Nb, len(ex), 0))
+        micro.append({k: v for k, v in b.items() if k != "targets"})
+    return {k: torch.from_numpy(np.stack([m[k] for m in micro])).float()
+            if micro[0][k].dtype == np.float16 else
+            torch.from_numpy(np.stack([m[k] for m in micro]))
+            for k in micro[0]}
+
+
+def test_rank_step_on_the_card_matches_the_cpu(gen):
+    """One retrieval finetuning step (itm-rank, two stacked micro-batches,
+    AdamW with the itm config's clip) at fp32 on the card against the same
+    model on the CPU (the eager encoder on both; weights moved off their
+    init so that the scores spread): the loss, the grad norm, every
+    gradient and every updated parameter at 1e-4."""
+    from uc2_torch.training.optim import build_optimizer, constant
+    cfg = UC2Config(**OBJ_TINY)
+    batch = _rank_batch(cfg, 3, 4, 2, 24, 8)
+    cpu = UC2ForImageTextRetrieval(cfg, device="cpu", seed=0)
+    noise = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=noise) * 0.2)
+    card = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    card.load_state_dict(cpu.state_dict())
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = build_optimizer(model, constant(1e-3), grad_norm=2.0)
+        m = train_step(model, opt, {k: v.to(dev) for k, v in batch.items()},
+                       DropoutRng(1, dev), task="itm-rank", sample_size=3)
+        out.append((m["loss"].cpu(), m["grad_norm"].cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    (lc, nc, gc, pc), (lg, ng, gg, pg) = out
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ng, nc, rtol=1e-4, atol=1e-4)
+    for k in gc:
+        torch.testing.assert_close(gg[k], gc[k], rtol=1e-4, atol=1e-4, msg=k)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=1e-4, atol=1e-4, msg=k)
+
+
+def test_rank_step_repeats_bit_for_bit(gen):
+    """The rank step on a 768-wide, two-layer bf16 model under "pallas" at
+    dropout 0.1 (#5 and #6's passes in every layer of both micro-batches):
+    two steps from the same weights and seeds give the same loss, grad
+    norm and parameters bit for bit."""
+    from uc2_torch.training.optim import build_optimizer, constant
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        num_hidden_layers=2, vocab_size=1000, dtype="bfloat16")
+    batch = {k: v.cuda() for k, v in _rank_batch(cfg, 3, 13, 2, 62,
+                                                 100).items()}
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    before = flash_attention_train_fwd.launches
+    for _ in range(2):
+        model.load_state_dict(start)
+        opt = build_optimizer(model, constant(1e-4), grad_norm=2.0)
+        m = train_step(model, opt, batch, DropoutRng(5, "cuda"),
+                       task="itm-rank", sample_size=3)
+        runs.append((m["loss"], m["grad_norm"],
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    assert flash_attention_train_fwd.launches - before == 2 * 2 * 2
+    (l0, n0, p0), (l1, n1, p1) = runs
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    assert torch.equal(n0, n1)
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k

@@ -3,7 +3,10 @@ uc2_tpu/data/datasets.py): each builds one example at a time,
 ``get_example(i, rng)``, with every random draw taken from the caller's
 ``np.random.Generator`` in the reference's order, so the same generator
 state gives the same examples in both packages. ``ItmDataset.new_epoch``
-(and ``ItmHardNegDataset``'s) draws the epoch's negatives.
+(and ``ItmHardNegDataset``'s) draws the epoch's negatives. The retrieval
+finetuning datasets (``ItmRankDataset``, ``ItmRankHardNegDataset``) give
+a group of examples, which the loader flattens; ``ConcatDataset`` joins
+the datasets of several databases.
 
 They read a text database with ``ids``, ``id2len``, ``txt2img``, ``db[id]``,
 ``combine_inputs``, ``cls_``, ``sep``, ``mask`` and ``v_range``, and an
@@ -16,6 +19,7 @@ images through the store's thread pool before its examples are built.
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -44,10 +48,10 @@ class VLDataset:
             return 0
         return max(8, -(-int(span * 0.35) // 8) * 8)
 
-    def __init__(self, txt_db, img_db):
+    def __init__(self, txt_db, img_db, ids: Optional[Sequence[str]] = None):
         self.txt_db = txt_db
         self.img_db = img_db
-        self.ids = list(txt_db.ids)
+        self.ids = list(txt_db.ids if ids is None else ids)
         self.txt_lens = [txt_db.id2len[i] for i in self.ids]
         self.txt2img = txt_db.txt2img
         self.lens = [tl + img_db.name2nbb[self.txt2img[i]]
@@ -482,6 +486,184 @@ class ItmHardNegDataset(ItmDataset):
         feat, bb7, _ = self._img_feat(self.train_imgs[i])
         return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
                 "target": int(self.labels[i])}
+
+
+class ConcatDataset:
+    """Same-task datasets end to end, with their lengths merged (the
+    reference's ``ConcatDataset``): index i goes to the dataset whose
+    range holds it."""
+
+    def __init__(self, datasets: Sequence[VLDataset]):
+        self.datasets = list(datasets)
+        self._offsets = list(np.cumsum([0] + [len(d) for d in
+                                              self.datasets[:-1]]))
+        self._total = sum(len(d) for d in self.datasets)
+        self._merge_lens()
+        self.pad_token_id = self.datasets[0].pad_token_id
+        self.slot_target_keys = self.datasets[0].slot_target_keys
+
+    def _merge_lens(self):
+        self.lens = [n for d in self.datasets for n in d.lens]
+        self.txt_lens = [n for d in self.datasets for n in d.txt_lens]
+
+    def __len__(self):
+        return self._total
+
+    def _route(self, i):
+        for k in range(len(self.datasets) - 1, -1, -1):
+            if i >= self._offsets[k]:
+                return self.datasets[k], i - self._offsets[k]
+        raise IndexError(i)
+
+    def get_example(self, i, rng):
+        ds, j = self._route(i)
+        return ds.get_example(j, rng)
+
+    def prefetch(self, indices: Sequence[int]):
+        """Each dataset's ``prefetch`` of its share of ``indices``."""
+        parts: Dict[int, List[int]] = {}
+        for i in indices:
+            ds, j = self._route(i)
+            parts.setdefault(id(ds), []).append(j)
+        for ds in self.datasets:
+            if id(ds) in parts:
+                ds.prefetch(parts[id(ds)])
+
+    def new_epoch(self, rng):
+        for d in self.datasets:
+            if hasattr(d, "new_epoch"):
+                d.new_epoch(rng)
+        # a dataset's epoch may change its lengths (itm's swapped captions)
+        self._merge_lens()
+
+    def collate(self, examples, spec):
+        return self.datasets[0].collate(examples, spec)
+
+
+class ItmRankDataset(VLDataset):
+    """Retrieval finetuning groups: for each text, its image (target 1),
+    ``neg_sample_size`` other images with the text and
+    ``neg_sample_size`` other texts with the image (target 0), as one
+    list of examples that the loader flattens; ``sample_size`` rows a
+    group."""
+
+    def __init__(self, txt_db, img_db, neg_sample_size: int = 1):
+        super().__init__(txt_db, img_db)
+        if neg_sample_size <= 0:
+            raise ValueError("neg_sample_size must be positive")
+        self.neg_sample_size = neg_sample_size
+        self.img2txts = txt_db.img2txts
+        self.all_imgs = sorted(self.img2txts.keys())
+        self.all_txts = list(self.ids)
+
+    @property
+    def sample_size(self) -> int:
+        return 1 + 2 * self.neg_sample_size
+
+    def _row(self, ids, img, target):
+        """One pair: text ids with an image name or its (feat, bb7)."""
+        feat, bb7 = self.img_db[img] if isinstance(img, str) else img
+        return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+                "target": target}
+
+    def _text(self, txt_id):
+        return self.txt_db.combine_inputs(self.txt_db[txt_id]["input_ids"])
+
+    def _anchor(self, i):
+        """(text id, its image name, the image's (feat, bb7), the image's
+        texts, the text's ids)."""
+        id_ = self.ids[i]
+        gt_img = self.txt2img[id_]
+        ids = self.txt_db.combine_inputs(self.example_record(i)["input_ids"])
+        return id_, gt_img, self.img_db[gt_img], self.img2txts[gt_img], ids
+
+    def get_example(self, i, rng):
+        _, gt_img, gt, gt_txts, ids = self._anchor(i)
+        group = [self._row(ids, gt, 1)]
+        for _ in range(self.neg_sample_size):
+            group.append(self._row(
+                ids, sample_negative(rng, self.all_imgs, [gt_img]), 0))
+        for _ in range(self.neg_sample_size):
+            group.append(self._row(
+                self._text(sample_negative(rng, self.all_txts, gt_txts)),
+                gt, 0))
+        return group
+
+
+class ItmRankHardNegDataset(ItmRankDataset):
+    """Rank groups with mined hard negatives: [positive, ``hard_neg_size``
+    hard images, ``hard_neg_size`` hard texts, ``neg_sample_size`` random
+    images, ``neg_sample_size`` random texts] (hard negatives are added
+    to the random ones). Each hard slot draws from the text's pool of
+    images (``txt2hardimgs``) or the image's pool of texts
+    (``img2hardtxts``); until a mining pass fills them
+    (``reload_hard_negs``), it falls back to a random negative, so the
+    group size never changes."""
+
+    def __init__(self, txt_db, img_db, neg_sample_size: int = 1,
+                 hard_neg_size: int = 1,
+                 hard_negs: Optional[Dict[str, Dict[str, List[str]]]] = None):
+        super().__init__(txt_db, img_db, neg_sample_size)
+        self.hard_neg_size = hard_neg_size
+        self.txt2hardimgs: Dict[str, List[str]] = {}
+        self.img2hardtxts: Dict[str, List[str]] = {}
+        if hard_negs:
+            self.reload_hard_negs(hard_negs)
+
+    @property
+    def sample_size(self) -> int:
+        return 1 + 2 * (self.neg_sample_size + self.hard_neg_size)
+
+    def reload_hard_negs(self, path_or_dict):
+        """New pools: a mining pass's {"txt2hardimgs", "img2hardtxts"} (or
+        the JSON file holding it), or the legacy flat {text: images}."""
+        if isinstance(path_or_dict, str):
+            with open(path_or_dict) as f:
+                path_or_dict = json.load(f)
+        d = dict(path_or_dict)
+        if "txt2hardimgs" in d or "img2hardtxts" in d:
+            self.txt2hardimgs = dict(d.get("txt2hardimgs", {}))
+            self.img2hardtxts = dict(d.get("img2hardtxts", {}))
+        else:
+            self.txt2hardimgs = d
+            self.img2hardtxts = {}
+
+    def get_example(self, i, rng):
+        id_, gt_img, gt, gt_txts, ids = self._anchor(i)
+        group = [self._row(ids, gt, 1)]
+        img_pool = self.txt2hardimgs.get(id_) or []
+        txt_pool = self.img2hardtxts.get(gt_img) or []
+        for _ in range(self.hard_neg_size):
+            neg = (img_pool[int(rng.integers(0, len(img_pool)))] if img_pool
+                   else sample_negative(rng, self.all_imgs, [gt_img]))
+            group.append(self._row(ids, neg, 0))
+        for _ in range(self.hard_neg_size):
+            neg = (txt_pool[int(rng.integers(0, len(txt_pool)))] if txt_pool
+                   else sample_negative(rng, self.all_txts, gt_txts))
+            group.append(self._row(self._text(neg), gt, 0))
+        for _ in range(self.neg_sample_size):
+            group.append(self._row(
+                ids, sample_negative(rng, self.all_imgs, [gt_img]), 0))
+        for _ in range(self.neg_sample_size):
+            group.append(self._row(
+                self._text(sample_negative(rng, self.all_txts, gt_txts)),
+                gt, 0))
+        return group
+
+
+class ItmEvalDataset(VLDataset):
+    """The full retrieval evaluation's texts (all of the database's, or
+    ``ids``) and their images sorted by (region count, name), the order
+    the evaluation scores them in (the reference breaks ties of region
+    count in set order, which varies with the hash seed)."""
+
+    def __init__(self, txt_db, img_db, ids: Optional[Sequence[str]] = None):
+        super().__init__(txt_db, img_db, ids)
+        self.all_img_ids = sorted({self.txt2img[i] for i in self.ids},
+                                  key=lambda x: (img_db.name2nbb[x], x))
+
+    def text_example(self, i):
+        return self.txt_db.combine_inputs(self.example_record(i)["input_ids"])
 
 
 def batches(ds: VLDataset, spec: BucketSpec, indices: Sequence[int],

@@ -1,23 +1,30 @@
 """Image-text retrieval evaluation (port of ``load_image_gallery``,
-``default_nbb_buckets``, ``score_matrix`` and single-process
-``full_retrieval_eval`` from uc2_tpu/evalu/retrieval.py).
+``default_nbb_buckets``, ``score_matrix``, single-process
+``full_retrieval_eval``, ``quick_validate`` and ``mine_hard_negatives``
+from uc2_tpu/evalu/retrieval.py).
 
 The gallery is split into region-count buckets with the reference's
 edges, padding and column order; each bucket is moved to the device once
 and stays there while every text is scored against it, one batch of
 ``batch_size`` images at a time. Scores of a chunk of texts stay on the
-device until one host pull per chunk. Multi-host gather, quick validation
-and hard-negative mining are not ported yet.
+device until one host pull per chunk. ``quick_validate`` ranks each
+text's image among a fixed pool of images, and ``mine_hard_negatives``
+takes the highest-scoring wrong images of each text and wrong texts of
+each image; both rank a score matrix with functions of the matrix alone
+(``pool_ranks``, ``hard_negative_pools``). The multi-host gather is not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import json
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from uc2_torch import resolve_device
+from uc2_torch.data.datasets import ItmEvalDataset
 from uc2_torch.evalu.itm_metrics import itm_eval
 
 
@@ -124,15 +131,115 @@ def full_retrieval_eval(model, txt_db, img_db, txt_len: int, num_bb: int,
                         txt_ids: Optional[Sequence[str]] = None,
                         return_matrix: bool = False, device="cuda"
                         ) -> Dict[str, float]:
-    """Score-matrix eval -> R@K in both directions, in one process. Images
-    are sorted by (region count, name), as in the reference."""
-    txt2img = txt_db.txt2img
-    txt_ids = list(txt_ids if txt_ids is not None else txt_db.ids)
-    img_ids = sorted({txt2img[t] for t in txt_ids},
-                     key=lambda im: (img_db.name2nbb[im], im))
+    """Score-matrix eval -> R@K in both directions, in one process, over
+    ``ItmEvalDataset``'s texts and gallery."""
+    ev = ItmEvalDataset(txt_db, img_db, txt_ids)
+    txt_ids, img_ids = ev.ids, ev.all_img_ids
     m = score_matrix(model, txt_db, img_db, txt_ids, img_ids, txt_len,
                      num_bb, batch_size, device=device)
-    metrics = itm_eval(m, txt_ids, img_ids, txt2img, txt_db.img2txts)
+    metrics = itm_eval(m, txt_ids, img_ids, txt_db.txt2img, txt_db.img2txts)
     if return_matrix:
         return metrics, (m, txt_ids, img_ids)
     return metrics
+
+
+def quick_validation_pool(txt_db, n_imgs: int = 400,
+                          n_txts: Optional[int] = None, seed: int = 0):
+    """(text ids, image pool) of ``quick_validate``: ``n_imgs`` images of
+    the database drawn from ``seed`` (all when it has fewer), ``n_txts``
+    texts likewise (all when None), the texts whose image is in the pool,
+    and each text's image put into the pool in place of the first drawn
+    images (one slot each), as the reference chooses them."""
+    rng = np.random.default_rng(seed)
+    txt2img = txt_db.txt2img
+    pool = sorted({txt2img[t] for t in txt_db.ids})
+    if len(pool) > n_imgs:
+        pool = [pool[i] for i in rng.choice(len(pool), n_imgs,
+                                            replace=False)]
+    txt_ids = list(txt_db.ids)
+    if n_txts is not None and len(txt_ids) > n_txts:
+        txt_ids = [txt_ids[i] for i in rng.choice(len(txt_ids), n_txts,
+                                                  replace=False)]
+    in_pool = set(pool)
+    txt_ids = [t for t in txt_ids if txt2img[t] in in_pool] or txt_ids[:1]
+    slot = 0
+    for t in txt_ids:
+        gt = txt2img[t]
+        if gt not in in_pool and slot < len(pool):
+            in_pool.discard(pool[slot])
+            pool[slot] = gt
+            in_pool.add(gt)
+            slot += 1
+    return txt_ids, pool
+
+
+def pool_ranks(m: np.ndarray, txt_ids: Sequence[str], pool: Sequence[str],
+               txt2img: Dict[str, str]) -> Dict[str, float]:
+    """Image R@1/5/10 and the median rank (from 1) of each text's image
+    among ``pool`` in the score matrix ``m`` [texts, pool]: its rank is
+    the count of images that score strictly higher."""
+    img2j = {im: j for j, im in enumerate(pool)}
+    ranks = np.asarray([int((m[i] > m[i, img2j[txt2img[t]]]).sum())
+                        for i, t in enumerate(txt_ids)
+                        if txt2img[t] in img2j])
+    return {"img_r1": float((ranks < 1).mean()),
+            "img_r5": float((ranks < 5).mean()),
+            "img_r10": float((ranks < 10).mean()),
+            "med_rank": float(np.median(ranks) + 1)}
+
+
+def quick_validate(model, txt_db, img_db, txt_len: int, num_bb: int,
+                   n_imgs: int = 400, n_txts: Optional[int] = None,
+                   batch_size: int = 64, seed: int = 0,
+                   device="cuda") -> Dict[str, float]:
+    """Rank each text's image among a fixed pool of ``n_imgs`` images
+    (``quick_validation_pool``): image R@1/5/10 and the median rank."""
+    txt_ids, pool = quick_validation_pool(txt_db, n_imgs, n_txts, seed)
+    m = score_matrix(model, txt_db, img_db, txt_ids, pool, txt_len, num_bb,
+                     batch_size, device=device)
+    return pool_ranks(m, txt_ids, pool, txt_db.txt2img)
+
+
+def hard_negative_pools(m: np.ndarray, txt_ids: Sequence[str],
+                        img_ids: Sequence[str], txt2img: Dict[str, str],
+                        hard_neg_size: int) -> Dict[str, Dict[str, List[str]]]:
+    """From the score matrix ``m`` [texts, images]: each text's
+    ``hard_neg_size`` highest-scoring images other than its own
+    (``txt2hardimgs``) and each image's highest-scoring texts other than
+    its own (``img2hardtxts``), ties in index order (a stable sort)."""
+    img2txts: Dict[str, set] = {}
+    for t in txt_ids:
+        img2txts.setdefault(txt2img[t], set()).add(t)
+    txt2hardimgs = {}
+    for i, tid in enumerate(txt_ids):
+        gt = txt2img[tid]
+        order = np.argsort(-m[i], kind="stable")
+        txt2hardimgs[tid] = [img_ids[j] for j in order
+                             if img_ids[j] != gt][:hard_neg_size]
+    img2hardtxts = {}
+    for j, img in enumerate(img_ids):
+        own = img2txts.get(img, set())
+        order = np.argsort(-m[:, j], kind="stable")
+        img2hardtxts[img] = [txt_ids[i] for i in order
+                             if txt_ids[i] not in own][:hard_neg_size]
+    return {"txt2hardimgs": txt2hardimgs, "img2hardtxts": img2hardtxts}
+
+
+def mine_hard_negatives(model, txt_db, img_db, txt_len: int, num_bb: int,
+                        hard_neg_size: int = 20, batch_size: int = 64,
+                        out_path: Optional[str] = None, device="cuda"
+                        ) -> Dict[str, Dict[str, List[str]]]:
+    """Hard-negative pools of ``hard_neg_size`` entries in both directions
+    from the score matrix of every text of ``txt_db`` against every image
+    they name (sorted by name); written as JSON to ``out_path`` when
+    given."""
+    txt2img = txt_db.txt2img
+    txt_ids = list(txt_db.ids)
+    img_ids = sorted({txt2img[t] for t in txt_ids})
+    m = score_matrix(model, txt_db, img_db, txt_ids, img_ids, txt_len,
+                     num_bb, batch_size, device=device)
+    hard = hard_negative_pools(m, txt_ids, img_ids, txt2img, hard_neg_size)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(hard, f)
+    return hard

@@ -17,7 +17,9 @@ uc2_tpu/models/convert.py: ``normalize_state_dict``, ``add_model_prefix``,
 ``filter_partial`` (``--load_embedding_only``, ``--load_layer``),
 ``torch_to_params`` (to a partial reference tree), ``merge_params`` (over
 the model's own tree) and ``splice_early_adaptation``;
-``load_partial_tree`` puts the result into a port module.
+``load_partial_tree`` puts the result into a port module, and
+``init_rank_from_itm`` starts a retrieval model's rank head from its ITM
+head.
 """
 
 from __future__ import annotations
@@ -385,3 +387,13 @@ def load_partial_tree(module: torch.nn.Module, loaded: Dict[str, Any]) -> None:
     their values."""
     load_params(module, merge_params(params_to_jax(module.state_dict()),
                                      loaded))
+
+
+@torch.no_grad()
+def init_rank_from_itm(model: torch.nn.Module) -> None:
+    """The retrieval model's rank head set to its ITM head's "match" row
+    (the reference's ``init_rank_from_itm``: its ``kernel[:, 1:2]`` is
+    the port's ``weight[1:2]``)."""
+    itm, rank = model.itm_output.out, model.rank_output.out
+    rank.weight.copy_(itm.weight[1:2])
+    rank.bias.copy_(itm.bias[1:2])

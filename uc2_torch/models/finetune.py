@@ -1,5 +1,6 @@
 """Retrieval model (port of uc2_tpu/models/finetune.py
-``UC2ForImageTextRetrieval``, inference forward)."""
+``UC2ForImageTextRetrieval``): pair scores and the rank loss, for scoring
+and for finetuning."""
 
 from __future__ import annotations
 
@@ -43,21 +44,30 @@ class UC2ForImageTextRetrieval(nn.Module):
             from uc2_torch.models.convert import load_params
             load_params(self, params)
 
-    @torch.no_grad()
-    def scores(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """[B] fp32 rank scores of a batch of (text, image) pairs."""
-        _, pooled = self.roberta(
-            input_ids=batch["input_ids"],
-            position_ids=batch.get("position_ids"),
-            img_feat=batch["img_feat"], img_pos_feat=batch["img_pos_feat"],
-            attn_mask=batch["attn_mask"])
-        return self.rank_output(pooled)[:, 0]
+    def scores(self, batch: Dict[str, torch.Tensor], deterministic=True,
+               rng=None) -> torch.Tensor:
+        """[B] fp32 rank scores of a batch of (text, image) pairs. A
+        deterministic call is the scoring path: it runs without autograd
+        (the fused inference blocks it routes to have no backward); a
+        training call (``deterministic=False``, dropout from ``rng``, a
+        ``DropoutRng``) keeps the graph."""
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not deterministic):
+            _, pooled = self.roberta(
+                input_ids=batch["input_ids"],
+                position_ids=batch.get("position_ids"),
+                img_feat=batch["img_feat"],
+                img_pos_feat=batch["img_pos_feat"],
+                attn_mask=batch["attn_mask"], deterministic=deterministic,
+                rng=rng)
+            return self.rank_output(pooled)[:, 0]
 
-    @torch.no_grad()
-    def rank_loss(self, batch: Dict[str, torch.Tensor],
-                  sample_size: int) -> torch.Tensor:
-        """Margin triplet over groups of ``sample_size`` (row 0 of each
-        group is the positive): clamp(margin + sigma(neg) - sigma(pos), 0).
-        Forward only."""
-        s = torch.sigmoid(self.scores(batch)).reshape(-1, sample_size)
+    def rank_loss(self, batch: Dict[str, torch.Tensor], sample_size: int,
+                  deterministic=True, rng=None) -> torch.Tensor:
+        """Margin triplet over groups of ``sample_size`` rows (row 0 of each
+        group is the positive): clamp(margin + sigma(neg) - sigma(pos), 0),
+        [groups, sample_size - 1]. Differentiable when ``deterministic``
+        is False (``scores``)."""
+        s = torch.sigmoid(self.scores(batch, deterministic, rng)).reshape(
+            -1, sample_size)
         return torch.clamp(self.margin + s[:, 1:] - s[:, :1], min=0.0)

@@ -4,10 +4,14 @@
 ``clip_by_global_norm(grad_norm) -> scale_by_{adam,adamax} ->
 add_decayed_weights(wd, mask=decay_mask) -> scale_by_learning_rate`` (for
 adamw optax's ``adamw``, the same chain) over two parameter groups (decay,
-and no decay on biases and LayerNorm parameters), with the same update:
+and no decay on biases and LayerNorm parameters); ``build_xlmr_optimizer``
+the reference's two-rate chain (the clip over every parameter, then
+``multi_transform`` of that chain with the XLM-R rate on
+``pretrained_mask``'s parameters and the main rate on the rest), four
+groups. Both give the same update:
 
-* the learning rate of update t is ``schedule(t)``, t counted from 0, as
-  optax counts;
+* the learning rate of update t is ``schedule(t)`` of the parameter's
+  group, t counted from 0, as optax counts;
 * clipping is optax's ``g / norm * max_norm`` when norm >= max_norm (no
   ``+ 1e-6`` as in ``torch.nn.utils.clip_grad_norm_``);
 * the decay is decoupled: ``p - lr * (u + wd * p)`` with ``u`` adam's
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -102,6 +106,26 @@ def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
             for n in names}
 
 
+_PRE_LAYER = re.compile(r"^roberta\.layer\.(\d+)\.")
+
+
+def pretrained_mask(names: Iterable[str],
+                    load_layer: Optional[int] = None) -> Dict[str, bool]:
+    """True for the parameters initialised from XLM-R, the group that
+    ``build_xlmr_optimizer`` gives the XLM-R rate: the text embeddings
+    (``roberta.embeddings.*``; not the image embeddings, not the token
+    types) and the encoder layers up to ``load_layer`` (the reference's
+    ``pretrained_mask`` on its tree paths, applied to the port's dotted
+    names)."""
+    def pre(n):
+        if n.startswith("roberta.embeddings."):
+            return True
+        m = _PRE_LAYER.match(n)
+        return (load_layer is not None and m is not None
+                and int(m.group(1)) <= load_layer)
+    return {n: pre(n) for n in names}
+
+
 # -------------------------------------------------------------- optimizer
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, fp32, on the device."""
@@ -114,26 +138,38 @@ class Optimizer:
     clipping and a schedule, as the reference's optax chain. ``step()``
     consumes the ``.grad`` of every parameter (a parameter the loss did not
     reach gets a zero gradient, as JAX gives it) and returns the global
-    norm of the unclipped gradients."""
+    norm of the unclipped gradients. With ``pre_lr_fn``, the parameters
+    that ``pre_mask`` marks follow that schedule instead of
+    ``learning_rate_fn``."""
 
     def __init__(self, model: torch.nn.Module, learning_rate_fn: Callable,
                  weight_decay: float, betas: Sequence[float], eps: float,
-                 grad_norm: float, optim: str = "adamw"):
+                 grad_norm: float, optim: str = "adamw",
+                 pre_lr_fn: Optional[Callable] = None,
+                 pre_mask: Optional[Dict[str, bool]] = None):
         named = list(model.named_parameters())
         mask = decay_mask(n for n, _ in named)
+        pre = pre_mask if pre_lr_fn is not None else {}
         self.params = [p for _, p in named]
-        self.lr_fn = learning_rate_fn
         self.grad_norm = grad_norm
         self.count = 0
         self.optim = optim
-        decay = [p for n, p in named if mask[n]]
-        groups = [{"params": decay, "weight_decay": weight_decay},
-                  {"params": [p for n, p in named if not mask[n]],
-                   "weight_decay": 0.0}]
+        # (schedule, decay) -> parameters; torch keeps the groups in this
+        # order, and the schedules beside them (a state dict holds no
+        # functions)
+        groups, self.lr_fns = [], []
+        for lr_fn, is_pre in ((learning_rate_fn, False), (pre_lr_fn, True)):
+            for decays in (True, False):
+                ps = [p for n, p in named if mask[n] == decays
+                      and pre.get(n, False) == is_pre]
+                if ps or not is_pre:
+                    groups.append({"params": ps, "weight_decay":
+                                   weight_decay if decays else 0.0})
+                    self.lr_fns.append(lr_fn)
         lr0 = learning_rate_fn(0)
         if optim == "adamax":
             # decay beside the update (Adamax's own is coupled L2)
-            self.decoupled = (decay, weight_decay)
+            self.decoupled = [g["weight_decay"] for g in groups]
             for g in groups:
                 g["weight_decay"] = 0.0
             self.opt = torch.optim.Adamax(groups, lr=lr0, betas=tuple(betas),
@@ -162,14 +198,13 @@ class Optimizer:
                               torch.ones_like(norm))
             for g in grads:
                 g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
-        lr = float(self.lr_fn(self.count))
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        if self.decoupled is not None and self.decoupled[1]:
-            # p - lr * wd * p, from the parameters before the update, as
-            # torch's AdamW decays
-            decay, wd = self.decoupled
-            torch._foreach_mul_(decay, 1.0 - lr * wd)
+        for i, group in enumerate(self.opt.param_groups):
+            group["lr"] = lr = float(self.lr_fns[i](self.count))
+            if self.decoupled and self.decoupled[i] and group["params"]:
+                # p - lr * wd * p, from the parameters before the update,
+                # as torch's AdamW decays
+                torch._foreach_mul_(group["params"],
+                                    1.0 - lr * self.decoupled[i])
         self.opt.step()
         self.count += 1
         return norm
@@ -203,3 +238,22 @@ def build_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
         raise ValueError(f"invalid optimizer {optim!r}")
     return Optimizer(model, learning_rate_fn, weight_decay, betas, eps,
                      grad_norm, optim)
+
+
+def build_xlmr_optimizer(model: torch.nn.Module, learning_rate_fn: Callable,
+                         xlmr_lr_fn: Callable, weight_decay: float = 0.01,
+                         betas: Sequence[float] = (0.9, 0.98),
+                         eps: float = 1e-6, grad_norm: float = -1.0,
+                         load_layer: Optional[int] = None,
+                         optim: str = "adamw") -> Optimizer:
+    """Two learning rates (the reference's ``build_xlmr_optimizer``, behind
+    ``--separate_lr``): ``xlmr_lr_fn`` on the parameters initialised from
+    XLM-R (``pretrained_mask``), ``learning_rate_fn`` on the rest, each
+    with the decay groups of ``build_optimizer``; the clip is taken over
+    every parameter first."""
+    if optim not in ("adam", "adamax", "adamw"):
+        raise ValueError(f"invalid optimizer {optim!r}")
+    pre = pretrained_mask((n for n, _ in model.named_parameters()),
+                          load_layer)
+    return Optimizer(model, learning_rate_fn, weight_decay, betas, eps,
+                     grad_norm, optim, pre_lr_fn=xlmr_lr_fn, pre_mask=pre)

@@ -8,8 +8,10 @@ gradients and metrics are the mean over the micro-batches). Losses reduce
 as the reference's: a flat mean over the unreduced loss elements (the
 weighted sum over the prediction slots, or their elements, divided by
 their count, at least 1), vmlm-soft and mmxlm-soft scaled by 1000, itm
-over the padded batch rows, and itm-ot as itm plus ``itm_ot_lambda``
-times the OT term.
+over the padded batch rows, itm-ot as itm plus ``itm_ot_lambda`` times
+the OT term, and itm-rank (retrieval finetuning, a
+``UC2ForImageTextRetrieval``) as the mean of the rank loss's
+[groups, sample_size - 1] elements.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from uc2_torch.training.optim import Optimizer
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
 TASKS = tuple(_MLM_TASKS) + ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft",
                              "mrfr", "mrm-nce", "mrc", "mrc-kl", "itm",
-                             "itm-ot")
+                             "itm-ot", "itm-rank")
 
 
 def _clamp1(n):
@@ -33,18 +35,30 @@ def _clamp1(n):
 
 
 def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
-                 ot_pos_only: bool = False) -> Callable:
+                 ot_pos_only: bool = False,
+                 sample_size: int = 0) -> Callable:
     """loss_fn(model, batch, rng) -> (scalar loss, metrics) for a
-    ``UC2ForPretraining`` model; ``rng`` None means deterministic. The
-    task is the part of ``task`` before its first "_" (one of ``TASKS``);
-    ``valid_ids`` is the label vocabulary's token ids (the soft tasks);
-    ``itm_ot_lambda`` and ``ot_pos_only`` shape itm-ot's loss."""
+    ``UC2ForPretraining`` model (itm-rank: a ``UC2ForImageTextRetrieval``);
+    ``rng`` None means deterministic. The task is the part of ``task``
+    before its first "_" (one of ``TASKS``); ``valid_ids`` is the label
+    vocabulary's token ids (the soft tasks); ``itm_ot_lambda`` and
+    ``ot_pos_only`` shape itm-ot's loss; ``sample_size`` is itm-rank's
+    rows a group."""
     base = task.split("_")[0]
     if base not in TASKS:
         raise ValueError(f"unknown task {task!r}")
 
+    if base == "itm-rank" and sample_size < 2:
+        raise ValueError("itm-rank needs the group's sample_size (>= 2)")
+
     def loss_fn(model, batch, rng):
         det = rng is None
+        if base == "itm-rank":
+            elems = model.rank_loss(batch, sample_size, det, rng)
+            loss = elems.mean()
+            return loss, {"loss": loss.detach(),
+                          "n_units": torch.full((), float(elems.numel()),
+                                                device=loss.device)}
         if base in _MLM_TASKS:
             s, n = model.forward_mlm(batch, det, rng,
                                      with_image=_MLM_TASKS[base])
