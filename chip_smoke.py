@@ -6,7 +6,9 @@ driver (python -m uc2_torch.pretrain) on U2S stores with exact resume,
 every other pretraining objective (mmxlm, the soft tasks, mrfr, mrc,
 mrc-kl, mrm-nce, itm-ot through IPOT, hard negatives, tlm-ni) in steps
 and through the driver, the retrieval finetuning driver (python -m
-uc2_torch.itm) on config/uc2_mscoco_itm.json,
+uc2_torch.itm) on config/uc2_mscoco_itm.json, the VQA, VE and NLVR2
+finetuning drivers (python -m uc2_torch.vqa, ve, nlvr2) with the NLVR2
+scorer,
 mlm pretraining on long captions (joint L up to 512), the two routes of
 the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
 (the QKV projection inside the attention block) and
@@ -193,12 +195,33 @@ non-zero at the end, without the result lines:
      rank step repeated bit for bit, timed alone and profiled, and one at
      dropout 0 through the kernel path against the eager fp32 path beside
      the eager bf16 path. The stores and checkpoints are deleted;
- 17. a JSON line of per-kernel numbers (launches: the main-path phases'
-     counts, the pretraining driver's, the objectives' and the itm
-     driver's added; #3's adds the routes phase and the lab), then the
-     last line {"ok": true, "device": {...}}.
+ 17. finetune: ``python -m uc2_torch.vqa`` with its defaults
+     (uc2-base at full width, batch 64, dropout 0.1, bf16, 3129 answers)
+     but for its stores, 3 steps with validation (8 batches of 32), a
+     milestone and restore.ckpt at 3, resumed to 6 (step 3's parameters
+     and AdamW moments loaded bit for bit), then one validation alone;
+     ``python -m uc2_torch.ve`` for 3 steps; ``python -m uc2_torch.nlvr2``
+     (uniter-base, from an encoder checkpoint with two token types) in
+     the triplet (32 rows at L = 262), paired and paired-attn (32 pairs,
+     64 rows at L = 162) formats, 3 steps each with the --pred_csv sweep
+     scored by ``python -m uc2_torch.eval_nlvr2`` (every identifier in
+     the CSV, accuracy and consistency parsed), all in this process on
+     U2S stores that the port writes under build/ (2048-d fp16 features,
+     10-100 boxes; VQA targets among ans2label.json's answers, NLVR2
+     image pairs and identifiers); launches: 12 each of #5, #6a, #6b a
+     step, the gates' kernels a deterministic batch; ms/step, rows/s,
+     peak memory, prediction rows/s; #2 and #3 at (32, 262) and (64, 162)
+     with the batches' padding masks and #5/#6 at (32, 262), rates 0.1
+     and 0, against their plain versions and timed; a VQA step repeated
+     bit for bit, timed alone and profiled, and at dropout 0 through the
+     kernel path against the eager fp32 path beside the eager bf16 path
+     (the loss within VQA_LOSS_RTOL of fp32's). The stores are deleted;
+ 18. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts, the pretraining driver's, the objectives', the itm driver's
+     and the finetuning drivers' added; #3's adds the routes phase and
+     the lab), then the last line {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17.
+15, 16, 17, 18.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -231,7 +254,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uc2_torch import itm, lab, pretrain
+from uc2_torch import eval_nlvr2, itm, lab, nlvr2, pretrain, ve, vqa
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets, db, native_build
 from uc2_torch.data.collate import BucketSpec, default_buckets
@@ -241,10 +264,11 @@ from uc2_torch.data.loader import (MetaLoader, PrefetchLoader, TaskLoader,
 from uc2_torch.data.memdb import (MemImgDb, MemTxtDb, synth_gallery,
                                   synth_pretrain_corpus)
 from uc2_torch.data.store import READS as store_reads
-from uc2_torch.data.synth import synth_corpus
+from uc2_torch.data.synth import synth_corpus, synth_finetune_texts
 from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
-from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
+                                      UC2ForVqa)
 from uc2_torch.models.encoder import SmallTableLookup, gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
@@ -4069,12 +4093,13 @@ def itm_launches(what, cfg, calls, steps, accum, counts):
 
 
 def itm_state(model, opt):
-    """The parameters and AdamW's moments, copied on the card."""
-    out = {f"param {k}": v.detach().clone()
+    """The parameters, AdamW's moments and its count, copied to the host
+    (outside the runs' peak memory)."""
+    out = {f"param {k}": v.detach().cpu()
            for k, v in model.state_dict().items()}
     for i, st in opt.state_dict()["state"]["state"].items():
         for k in ("exp_avg", "exp_avg_sq"):
-            out[f"{k} {i}"] = st[k].detach().clone()
+            out[f"{k} {i}"] = st[k].detach().cpu()
     out["count"] = torch.tensor(opt.count)
     return out
 
@@ -4138,23 +4163,22 @@ def rank_batch(stores, S, n_groups, accum, seed):
 RANK_VS_EAGER, RANK_FLOOR = 2.0, 1e-4
 
 
-def rank_paths_vs_fp32(cfg, start, batch, S, lr):
-    """One dropout-0 step of each path from ``start``; returns {path:
-    (loss, grad norm, update, [per layer Q/K/V gradients], launches)}."""
+def paths_vs_fp32(make, cfg, start, batch, lr, task, **kw):
+    """One dropout-0 step of ``task`` from ``start`` on each path, the
+    model built by ``make(config)``; returns {path: (loss, grad norm,
+    update, [per layer Q/K/V gradients], launches)}."""
     cfg0 = set_dropout(cfg, 0.0)
     out = {}
     for path, impl, dt in (("kernel", "pallas-train", cfg.dtype),
                            ("eager", "xla", cfg.dtype),
                            ("fp32", "xla", "float32")):
-        m_ = UC2ForImageTextRetrieval(cfg0.replace(use_pallas_attention=impl,
-                                                   dtype=dt),
-                                      device="cuda", seed=0)
+        m_ = make(cfg0.replace(use_pallas_attention=impl, dtype=dt))
         m_.load_state_dict(start)
         opt = build_optimizer(m_, constant(lr), weight_decay=0.0,
                               betas=(0.9, 0.98), grad_norm=2.0)
         reset_launches()
-        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"),
-                         task="itm-rank", sample_size=S)
+        met = train_step(m_, opt, batch, DropoutRng(0, "cuda"), task=task,
+                         **kw)
         out[path] = (met["loss"].item(), met["grad_norm"].item(),
                      torch.cat([(p.detach() - start[n]).flatten()
                                 for n, p in m_.named_parameters()]),
@@ -4165,23 +4189,23 @@ def rank_paths_vs_fp32(cfg, start, batch, S, lr):
     return out
 
 
-def profile_rank_step(model, opt, batch, S):
-    """One rank step under torch.profiler: its wall time, the device's
-    busy and idle share and device ms by kernel group."""
+def profile_task_step(what, model, opt, batch, task, **kw):
+    """One step under torch.profiler: its wall time, the device's busy
+    and idle share and device ms by kernel group."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(model, opt, batch, DropoutRng(7, "cuda"),
-                   task="itm-rank", sample_size=S)
+        train_step(model, opt, batch, DropoutRng(7, "cuda"), task=task, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(device_rows(prof), reverse=True)
     if not rows:
-        print("  rank step profile: no device time recorded (not measured)")
+        print(f"  {what} step profile: no device time recorded (not "
+              f"measured)")
         return
     busy = sum(r[0] for r in rows)
-    print(f"  profiled rank step: wall {wall:.1f} ms, device busy "
+    print(f"  profiled {what} step: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
           f"{sum(r[1] for r in rows)} device activities; by group: "
           + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(
@@ -4190,50 +4214,55 @@ def profile_rank_step(model, opt, batch, S):
         print(f"    {ms:9.3f} ms {cnt:5d}x  {key[:100]}")
 
 
-def rank_step_checks(cfg, start, batch, S):
-    """One rank step twice from the same weights and seeds (bit for bit),
-    its time alone, and one step at dropout 0 through the kernel path
-    against the eager fp32 path, beside the eager bf16 path's distance
-    (RANK_VS_EAGER, RANK_FLOOR), with the itm config's clip (2.0).
+def step_checks(what, make, cfg, start, batch, task, loss_rtol=None, **kw):
+    """One ``task`` step twice from the same weights and seeds (bit for
+    bit), its time alone and profiled, and one step at dropout 0 through
+    the kernel path against the eager fp32 path, beside the eager bf16
+    path's distance (RANK_VS_EAGER, RANK_FLOOR), with a clip of 2.0, its
+    loss within STEP_LOSS_TOL of the fp32 path's (or ``loss_rtol`` of
+    it); the model built by ``make(config)``, the batch plain or stacked.
     Returns the step's ms alone."""
-    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    model = make(cfg)
+    accum = batch["input_ids"].shape[0] if batch["input_ids"].dim() == 3 \
+        else 1
     res = []
     for _ in range(2):
         model.load_state_dict(start)
         opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
                               betas=(0.9, 0.98), grad_norm=2.0)
-        m = train_step(model, opt, batch, DropoutRng(7, "cuda"),
-                       task="itm-rank", sample_size=S)
+        m = train_step(model, opt, batch, DropoutRng(7, "cuda"), task=task,
+                       **kw)
         res.append((m["loss"], m["grad_norm"],
                     [p.detach().clone() for p in model.parameters()]))
     (l0, n0, p0), (l1, n1, p1) = res
     same = (torch.equal(l0, l1) and torch.equal(n0, n1)
             and all(torch.equal(a, b) for a, b in zip(p0, p1)))
-    print(f"  repeat of one rank step (8 micro-batches, same weights and "
-          f"seeds): loss {l0.item():.6f} / {l1.item():.6f}, grad norm "
-          f"{n0.item():.6f} / {n1.item():.6f}, {len(p0)} updated "
-          f"parameters; bitwise equal: {same}")
+    print(f"  repeat of one {what} step ({accum} micro-batch"
+          f"{'es' if accum > 1 else ''}, same weights and seeds): loss "
+          f"{l0.item():.6f} / {l1.item():.6f}, grad norm {n0.item():.6f} / "
+          f"{n1.item():.6f}, {len(p0)} updated parameters; bitwise equal: "
+          f"{same}")
     if not same:
-        fail("one rank step with the same seeds is not bitwise repeatable")
+        fail(f"one {what} step with the same seeds is not bitwise "
+             f"repeatable")
     del res, p0, p1
     times = []
     for _ in range(1 + 3):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        train_step(model, opt, batch, DropoutRng(7, "cuda"),
-                   task="itm-rank", sample_size=S)
+        train_step(model, opt, batch, DropoutRng(7, "cuda"), task=task, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
     alone = float(np.median(times[1:]))
-    print(f"  the rank step alone (one stacked batch on the card, no data "
+    print(f"  the {what} step alone (one batch on the card, no data "
           f"work): {alone:.1f} ms median of 3 after a warm-up "
           f"({', '.join(f'{t:.1f}' for t in times[1:])})")
-    profile_rank_step(model, opt, batch, S)
+    profile_task_step(what, model, opt, batch, task, **kw)
     del model, opt
     torch.cuda.empty_cache()
 
     lr, layers = 1e-4, cfg.num_hidden_layers
-    out = rank_paths_vs_fp32(cfg, start, batch, S, lr)
+    out = paths_vs_fp32(make, cfg, start, batch, lr, task, **kw)
 
     def apart(a, b):
         """|loss diff|, relative grad norm diff, worst layer's Q / K / V
@@ -4244,36 +4273,43 @@ def rank_step_checks(cfg, start, batch, S):
         return (abs(a[0] - b[0]), abs(a[1] - b[1]) / b[1], qkv, flips)
     kern, eager = apart(out["kernel"], out["fp32"]), apart(out["eager"],
                                                            out["fp32"])
-    accum = batch["input_ids"].shape[0]
     launched = [out["kernel"][4][k.__name__] for k in TRAIN_KERNELS]
-    ok = (launched == [layers * accum] * 3 and kern[0] <= STEP_LOSS_TOL
+    loss_tol = (STEP_LOSS_TOL if loss_rtol is None
+                else loss_rtol * abs(out["fp32"][0]))
+    ok = (launched == [layers * accum] * 3 and kern[0] <= loss_tol
           and all(k <= RANK_VS_EAGER * e + RANK_FLOOR
                   for k, e in zip(kern[1:], eager[1:]))
           and np.isfinite([out["kernel"][0], out["kernel"][1]]).all())
     names = ("|loss - fp32|", "grad norm vs fp32 (relative)",
              "worst Q/K/V gradient vs fp32 (relative norm)",
              "share of updates > lr/10 from fp32's")
-    print(f"  one rank step at dropout 0 (fp32 path: loss "
+    print(f"  one {what} step at dropout 0 (fp32 path: loss "
           f"{out['fp32'][0]:.6f}, grad norm {out['fp32'][1]:.6f}); kernel "
           f"path (pallas-train, #5/#6a/#6b {launched}) vs eager bf16 (xla): "
           + "; ".join(f"{n} {k:.3e} vs {e:.3e}"
                       for n, k, e in zip(names, kern, eager))
-          + f" (tolerance: loss {STEP_LOSS_TOL:g}; the others kernel <= "
+          + f" (tolerance: loss {loss_tol:g}; the others kernel <= "
             f"{RANK_VS_EAGER:g} x eager + {RANK_FLOOR:g}) "
             f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the kernel rank step is further from fp32 than the eager bf16 "
-             "step allows")
+        fail(f"the kernel {what} step is further from fp32 than the eager "
+             f"bf16 step allows")
     return alone
 
 
-def itm_train_kernels(rows, gen):
-    """``train_attention_case`` at the itm driver's micro-batches, B = 39
-    (the recipe's 13 groups of 3) and 40 (the hard-negative run's 8 groups
-    of 5) at L = 162, rates 0.1 and 0: #5 and #6's passes against their
-    plain versions at the shapes the driver gives them."""
-    L = TXT_LEN + NUM_BB
-    for b in (39, 40):
+def rank_step_checks(cfg, start, batch, S):
+    """``step_checks`` of one stacked rank step (the itm config's 8
+    micro-batches)."""
+    return step_checks(
+        "rank", lambda c: UC2ForImageTextRetrieval(c, device="cuda", seed=0),
+        cfg, start, batch, "itm-rank", sample_size=S)
+
+
+def train_kernels_at(rows, gen, shapes):
+    """``train_attention_case`` at each (B, L) of ``shapes``, rates 0.1
+    and 0: #5 and #6's passes against their plain versions at the shapes
+    a driver gives them."""
+    for b, L in shapes:
         q, k, v, bias = heads(gen, b, L)
         g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
         for rate in (0.1, 0.0):
@@ -4281,6 +4317,14 @@ def itm_train_kernels(rows, gen):
                                  g, rate, rows)
         del q, k, v, bias, g
     torch.cuda.empty_cache()
+
+
+def itm_train_kernels(rows, gen):
+    """#5 and #6 at the itm driver's micro-batches, B = 39 (the recipe's
+    13 groups of 3) and 40 (the hard-negative run's 8 groups of 5) at
+    L = 162."""
+    train_kernels_at(rows, gen, ((39, TXT_LEN + NUM_BB),
+                                 (40, TXT_LEN + NUM_BB)))
 
 
 def itm_kernels_at_300(rows, gen):
@@ -4526,6 +4570,418 @@ def _phase_itm(card, rows, gen):
     return total
 
 
+# ------------------------------------- the VQA, VE and NLVR2 finetuning
+FT_DIR = os.path.join("build", "finetune_smoke")
+# VQA and VE: 128 images of uc2-base's widths with 2 questions each (a
+# training and a validation text store over them, other targets); NLVR2:
+# 64 images with 2 statements each, token ids below uniter-base's 30522
+FT_IMGS, NL_IMGS = 128, 64
+FT_STEPS, FT_STOP = 6, 3
+NLVR2_CONFIG = "config/uniter-base.json"
+# the VQA loss sums the BCE over 3129 answers (~2.2e3 a row at init), so
+# its dropout-0 step is held relative to the fp32 path's loss: 1e-4 of it,
+# about 7x the distance that bf16 logits' rounding predicts (1.5e-5)
+VQA_LOSS_RTOL = 1e-4
+
+
+def finetune_stores():
+    """Under FT_DIR: the VQA image store (2048-d fp16 features, 10-100
+    boxes) with its training and validation questions (answers among
+    ans2label.json's 3129, scores from get_score) and VE's (3 answers);
+    NLVR2's image store and statements (two images each, 'split-####-#-#'
+    identifiers in consistency groups of 4) with annotations.jsonl."""
+    vq = synth_corpus(os.path.join(FT_DIR, "vqa_src"), n_imgs=FT_IMGS,
+                      seed=30)
+    nl = synth_corpus(os.path.join(FT_DIR, "nlvr2_src"), n_imgs=NL_IMGS,
+                      seed=31, vocab=30522)
+    texts = {name: synth_finetune_texts(os.path.join(FT_DIR, name),
+                                        src["txt_db"], task, seed=seed,
+                                        **kw)
+             for name, src, task, seed, kw in (
+                 ("vqa", vq, "vqa", 32, {}), ("vqa_val", vq, "vqa", 33, {}),
+                 ("ve", vq, "vqa", 34, {"num_answer": 3}),
+                 ("nlvr2", nl, "nlvr2", 35, {}))}
+    return {"img": vq["img_db"], "nl_img": nl["img_db"],
+            "vqa": texts["vqa"]["txt_db"],
+            "vqa_val": texts["vqa_val"]["txt_db"],
+            "ve": texts["ve"]["txt_db"], "nlvr2": texts["nlvr2"]["txt_db"],
+            "annotations": texts["nlvr2"]["annotations"]}
+
+
+def run_driver(module, argv):
+    """``module.main`` as ``python -m uc2_torch.<module> argv`` runs it, in
+    this process."""
+    return module.main(module.parse_with_config(module.build_parser(), argv))
+
+
+@contextlib.contextmanager
+def recorded_logits(calls):
+    """Record (deterministic, joint L, rows) of every ``logits`` call of the
+    VQA and NLVR2 models: the training forwards, the validation and the
+    prediction sweep."""
+    origs = {cls: cls.logits for cls in (UC2ForVqa, UC2ForNlvr2)}
+
+    def wrap(orig):
+        def logits(self, batch, deterministic=True, rng=None):
+            calls.append((deterministic, batch["attn_mask"].shape[1],
+                          batch["attn_mask"].shape[0]))
+            return orig(self, batch, deterministic, rng)
+        return logits
+    for cls, orig in origs.items():
+        cls.logits = wrap(orig)
+    try:
+        yield
+    finally:
+        for cls, orig in origs.items():
+            cls.logits = orig
+
+
+def finetune_launches(what, cfg, calls, steps, counts):
+    """A run's launches against the routing: 12 each of #5, #6a, #6b a
+    training step (one forward a step), and for each deterministic
+    forward the gates' kernels at its joint length; nothing else."""
+    layers = cfg.num_hidden_layers
+    train = [L for det, L, _ in calls if not det]
+    want = no_launches()
+    for k in TRAIN_KERNELS:
+        want[k.__name__] = len(train) * layers
+    for det, L, _ in calls:
+        if det:
+            for k, n in gate_launches(cfg, L).items():
+                want[k] += n
+    evals = sorted({(L, r) for det, L, r in calls if det})
+    print(f"  {what}: {len(train)} training forwards at L "
+          f"{sorted(set(train))}, {len(calls) - len(train)} deterministic "
+          f"batches at (L, rows) {evals}; launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    if len(train) != steps or counts != want:
+        fail(f"{what}: launched {counts}, the routing wants "
+             f"{ {k: n for k, n in want.items() if n} } ({len(train)} "
+             f"training forwards for {steps} steps)")
+
+
+def finetune_report(what, run, rows, peak, card, skip=()):
+    """ms/step of the loop (median and range, the intervals that hold no
+    validation or save), rows/s, the losses and the peak memory; returns
+    the timed steps' ms."""
+    ms = sorted(r[0] for r in loop_times(run, set(skip)))
+    bad = [(s, v) for s, v in run.losses if not np.isfinite(v)]
+    print(f"  {what}: steps {[s for s, _ in run.losses]}, losses "
+          f"{[round(v, 4) for _, v in run.losses]}; "
+          + (f"{np.median(ms):.1f} ms/step median ({ms[0]:.1f}-{ms[-1]:.1f})"
+             f" over {len(ms)} timed steps, {rows / np.median(ms) * 1e3:.0f}"
+             f" rows/s ({rows} rows a step)" if ms else "no timed step")
+          + f"; peak memory {peak:.2f} GiB [{card}]")
+    if bad or not run.losses:
+        fail(f"{what}: non-finite or no losses {bad}")
+    return ms
+
+
+def score_nlvr2(csv_path, ann):
+    """``python -m uc2_torch.eval_nlvr2 csv ann`` in this process: (exit
+    code, printed lines)."""
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            eval_nlvr2.main(csv_path, ann)
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue().splitlines()
+
+
+def real_bias(batch):
+    """The additive attention bias of a collated batch's padding mask."""
+    m = torch.from_numpy(batch["attn_mask"]).float().cuda()
+    return ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
+
+
+def finetune_kernels(rows, gen, masks):
+    """#2 and #3 at the drivers' deterministic shapes, (32, 262) (NLVR2
+    triplet) and (64, 162) (VQA, NLVR2 paired), with the padding masks of
+    real batches, each against its plain version and timed beside its
+    bound (from CUDA graphs too at L = 262); #5 and #6's passes at
+    (32, 262), rates 0.1 and 0, and timed beside SDPA."""
+    wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    w1 = (torch.randn(FF, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    w2 = (torch.randn(H, FF, generator=gen, device="cuda") * 0.05).bfloat16()
+    b1, b2 = vec(gen, FF, 0.02), vec(gen, H, 0.02)
+    for bias in masks:
+        b, L = bias.shape[0], bias.shape[-1]
+        q, k, v, _ = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        run_case(rows, "fused_attn_block", b, L, fused_attn_block,
+                 fused_attn_block_plain,
+                 (q, k, v, bias, x, wo, bo, gamma, beta),
+                 *block_bytes_flops(b, L), graph=L > 162)
+        run_case(rows, "fused_ffn_block", b, L, fused_ffn_block,
+                 fused_ffn_block_plain, (x, w1, b1, w2, b2, gamma, beta),
+                 2 * b * L * H * 2 + 2 * H * FF * 2 + (FF + 3 * H) * 4,
+                 4 * b * L * H * FF, graph=L > 162)
+        del q, k, v, x
+    b, L = masks[0].shape[0], masks[0].shape[-1]
+    train_kernels_at(rows, gen, ((b, L),))
+    q, k, v, bias = heads(gen, b, L)
+    g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+    time_fwd(f"B={b} L={L} rate=0.1", q, k, v, bias, 0.1)
+    time_bwd(f"B={b} L={L} rate=0.1", q, k, v, bias, g, 0.1)
+    del q, k, v, bias, g
+    torch.cuda.empty_cache()
+
+
+def phase_finetune(card, rows, gen):
+    """``python -m uc2_torch.vqa``, ``uc2_torch.ve`` and ``uc2_torch.nlvr2``
+    (all three formats) with ``uc2_torch.eval_nlvr2`` in this process on
+    U2S stores at the reference's widths (uc2-base and uniter-base at full
+    width); #2, #3, #5 and #6 at the drivers' shapes; a VQA step repeated
+    and against the eager path. Returns the launches of its runs."""
+    print(f"== finetune: python -m uc2_torch.vqa / ve / nlvr2 on U2S stores, "
+          f"uc2-base and uniter-base at full width [{card}]")
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    try:
+        return _phase_finetune(card, rows, gen)
+    finally:
+        shutil.rmtree(FT_DIR, ignore_errors=True)
+
+
+def _phase_finetune(card, rows, gen):
+    t0 = time.perf_counter()
+    stores = finetune_stores()
+    nl_cfg = UC2Config.from_json_file(NLVR2_CONFIG)
+    ckpt = os.path.join(FT_DIR, "uniter_encoder.pt")
+    enc = UC2ForImageTextRetrieval(nl_cfg, device="cuda", seed=1)
+    torch.save({k: v.cpu() for k, v in enc.state_dict().items()
+                if k.startswith("roberta.")}, ckpt)
+    del enc
+    print(f"  stores (VQA/VE: {FT_IMGS} images, 2048-d fp16 features, 10-100 "
+          f"boxes, 2 questions each, answers among ans2label.json's 3129; "
+          f"NLVR2: {NL_IMGS} images, 2 statements each over two images, "
+          f"vocab 30522) and a uniter-base encoder checkpoint (two token "
+          f"types) written in {time.perf_counter() - t0:.1f} s")
+    total = no_launches()
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    def start_count():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+
+    def peak_gib():
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # (a) VQA: 3 steps with validation, a milestone and restore.ckpt at 3,
+    # resumed to 6; then one validation alone
+    out = os.path.join(FT_DIR, "run_vqa")
+    base = ["--train_txt_db", stores["vqa"], "--train_img_db", stores["img"],
+            "--val_txt_db", stores["vqa_val"], "--val_img_db", stores["img"],
+            "--output_dir", out, "--valid_steps", str(FT_STOP),
+            "--save_steps", str(FT_STOP), "--log_steps", "1"]
+    print(f"  vqa: defaults of python -m uc2_torch.vqa (config/uc2-base.json,"
+          f" batch 64, lr 8e-5, --decay linear, ans2label.json, "
+          f"--val_batches 8, bf16, dropout 0.1) with the stores above and "
+          f"--num_train_steps {FT_STOP} --valid_steps {FT_STOP} --save_steps "
+          f"{FT_STOP} --log_steps 1, then --num_train_steps {FT_STEPS}")
+    calls = []
+    start_count()
+    with recorded_logits(calls):
+        first = run_driver(vqa, base + ["--num_train_steps", str(FT_STOP)])
+        peak = peak_gib()
+        saved = itm_state(first.model, first.optimizer)
+        cfg = first.model.config
+        ms = finetune_report("vqa, steps 1-3", first, 64, peak, card)
+        first_val = first.val
+        del first
+        torch.cuda.empty_cache()
+        restored = []
+        real = itm_checkpoint.TrainingRestorer.restore
+
+        def restore(self, model, opt):
+            step = real(self, model, opt)
+            restored.append((step, itm_state(model, opt)))
+            return step
+        itm_checkpoint.TrainingRestorer.restore = restore
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            second = run_driver(vqa, base + ["--num_train_steps",
+                                             str(FT_STEPS)])
+        finally:
+            itm_checkpoint.TrainingRestorer.restore = real
+    counts = launch_counts()
+    add(counts)
+    ms += finetune_report("vqa, resumed, steps 4-6", second, 64, peak_gib(),
+                          card)
+    ms.sort()
+    print(f"  vqa: {np.median(ms):.1f} ms/step median ({ms[0]:.1f}-"
+          f"{ms[-1]:.1f}) over {len(ms)} timed steps, "
+          f"{64 / np.median(ms) * 1e3:.0f} rows/s at (64, "
+          f"{TXT_LEN + NUM_BB}); validation soft scores "
+          f"{[(s, round(v, 4)) for s, v in first_val + second.val]} [{card}]")
+    finetune_launches("vqa", cfg, calls, FT_STEPS, counts)
+    (step, got), = restored or [(None, {})]
+    diff = [k for k in saved if k not in got or not torch.equal(got[k],
+                                                                saved[k])]
+    if step != FT_STOP or diff or set(got) != set(saved):
+        fail(f"vqa: the resumed run did not load step {FT_STOP}'s state bit "
+             f"for bit (step {step}; {len(diff)} tensors differ: {diff[:3]})")
+    else:
+        print(f"  the resumed vqa run loaded step {FT_STOP}'s parameters and "
+              f"AdamW moments bit for bit ({len(saved)} tensors) and went on "
+              f"to step {second.step}")
+    if (second.step != FT_STEPS or [s for s, _ in first_val + second.val]
+            != [FT_STOP, FT_STEPS]
+            or sorted(os.listdir(os.path.join(out, "ckpt")))
+            != [f"model_step_{s}.pt" for s in (FT_STOP, FT_STEPS)]):
+        fail(f"vqa: the runs ended at step {second.step} with validations "
+             f"{first_val + second.val} and milestones "
+             f"{sorted(os.listdir(os.path.join(out, 'ckpt')))}")
+    opts = vqa.parse_with_config(vqa.build_parser(), base)
+    opts.num_answer = second.model.num_answer
+    val_ds = datasets.VqaDataset(
+        db.TxtTokDb(stores["vqa_val"], max_txt_len=opts.max_txt_len),
+        db.DetectFeatDb(stores["img"], opts.conf_th, opts.max_bb,
+                        opts.min_bb, opts.num_bb),
+        num_answers=opts.num_answer)
+    vqa.validate(second.model, val_ds, opts, "cuda")     # warm
+    calls = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with recorded_logits(calls):
+        score = vqa.validate(second.model, val_ds, opts, "cuda")
+    sec = time.perf_counter() - t1
+    counts = launch_counts()
+    add(counts)
+    n_rows = sum(r for _, _, r in calls)
+    print(f"  one vqa validation alone: soft score {score:.4f}, "
+          f"{len(calls)} batches of 32 in {sec * 1e3:.1f} ms "
+          f"({n_rows / sec:.0f} rows/s) [{card}]")
+    finetune_launches("vqa validation", cfg, calls, 0, counts)
+    if not (0.0 <= score <= 1.0) or len(calls) != opts.val_batches:
+        fail(f"vqa: validation gave {score} over {len(calls)} batches")
+    del second, saved, got, restored
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) VE: 3 steps
+    out = os.path.join(FT_DIR, "run_ve")
+    calls = []
+    start_count()
+    with recorded_logits(calls):
+        run = run_driver(ve, ["--train_txt_db", stores["ve"],
+                              "--train_img_db", stores["img"],
+                              "--output_dir", out, "--num_train_steps",
+                              str(FT_STOP), "--log_steps", "1"])
+    counts = launch_counts()
+    add(counts)
+    ve_ms = finetune_report("ve (3 answers), steps 1-3", run, 64, peak_gib(),
+                            card)
+    finetune_launches("ve", run.model.config, calls, FT_STOP, counts)
+    if run.model.num_answer != 3 or run.step != FT_STOP:
+        fail(f"ve: {run.model.num_answer} answers, step {run.step}")
+    del run
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) NLVR2 in its three formats: 3 steps each from the encoder
+    # checkpoint, the prediction sweep into --pred_csv, the scorer
+    with open(stores["annotations"]) as f:
+        ids = [json.loads(line)["identifier"] for line in f]
+    nl_ms, pred_times = {}, []
+    real_predict = nlvr2.predict
+
+    def predict(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out_ = real_predict(*a)
+        pred_times.append(time.perf_counter() - t)
+        return out_
+    nlvr2.predict = predict
+    try:
+        for fmt in ("triplet", "paired", "paired-attn"):
+            out = os.path.join(FT_DIR, f"run_nlvr2_{fmt}")
+            csv_path = out + ".csv"
+            calls = []
+            start_count()
+            with recorded_logits(calls):
+                run = run_driver(nlvr2, [
+                    "--train_txt_db", stores["nlvr2"], "--train_img_db",
+                    stores["nl_img"], "--fmt", fmt, "--checkpoint", ckpt,
+                    "--pred_csv", csv_path, "--output_dir", out,
+                    "--num_train_steps", str(FT_STOP), "--log_steps", "1"])
+            counts = launch_counts()
+            add(counts)
+            n_rows = 32 if fmt == "triplet" else 64
+            nl_ms[fmt] = finetune_report(
+                f"nlvr2 {fmt}, steps 1-3", run, n_rows, peak_gib(), card)
+            finetune_launches(f"nlvr2 {fmt}", run.model.config, calls,
+                              FT_STOP, counts)
+            pred_rows = sum(r for det, _, r in calls if det)
+            print(f"  nlvr2 {fmt} prediction sweep: {len(run.preds)} "
+                  f"predictions, {pred_rows} rows in "
+                  f"{pred_times[-1] * 1e3:.1f} ms "
+                  f"({pred_rows / pred_times[-1]:.0f} rows/s) [{card}]")
+            with open(csv_path) as f:
+                csv_ids = [line.split(",")[0] for line in f.read().split()]
+            code, lines = score_nlvr2(csv_path, stores["annotations"])
+            print(f"  python -m uc2_torch.eval_nlvr2 "
+                  f"{os.path.basename(csv_path)} annotations.jsonl: exit "
+                  f"{code}, {lines}")
+            parsed = dict(line.split("=", 1) for line in lines
+                          if "=" in line)
+            try:
+                acc = float(parsed["accuracy"])
+                cons = float(parsed["consistency"])
+            except (KeyError, ValueError):
+                acc = cons = float("nan")
+            if (code != 0 or csv_ids != ids or not 0 <= acc <= 1
+                    or not 0 <= cons <= 1 or run.step != FT_STOP):
+                fail(f"nlvr2 {fmt}: step {run.step}, {len(csv_ids)} of "
+                     f"{len(ids)} identifiers in the CSV, scorer exit {code} "
+                     f"{lines}")
+            del run
+            shutil.rmtree(out, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        nlvr2.predict = real_predict
+
+    # (d) the kernels at the new shapes, (e) a VQA step twice and against
+    # the eager path
+    def first_batch(ds, nb, bsz):
+        return TaskLoader("finetune", ds, [BucketSpec(TXT_LEN, nb, bsz, 0)],
+                          seed=5).next_batch()
+    vtxt = db.TxtTokDb(stores["vqa"])
+    vimg = db.DetectFeatDb(stores["img"])
+    vbatch = first_batch(datasets.VqaDataset(vtxt, vimg, 3129), NUM_BB, 64)
+    tbatch = first_batch(datasets.Nlvr2PairedDataset(
+        db.TxtTokDb(stores["nlvr2"]), db.DetectFeatDb(stores["nl_img"])),
+        2 * NUM_BB, 32)
+    print("  the inference kernels at the drivers' deterministic shapes and "
+          "the training attention at the triplet's:")
+    finetune_kernels(rows, gen, (real_bias(tbatch), real_bias(vbatch)))
+    put = task_batch_to_device("cuda")
+    _, batch = put(("vqa", vbatch))
+
+    def make(c):
+        return UC2ForVqa(c, 3129, device="cuda", seed=0)
+    model = make(cfg)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    alone = step_checks("vqa", make, cfg, start, batch, "vqa",
+                        loss_rtol=VQA_LOSS_RTOL)
+    print(f"  ms/step medians: vqa {np.median(ms):.1f}, ve "
+          f"{np.median(ve_ms):.1f}, nlvr2 "
+          + ", ".join(f"{f} {np.median(m):.1f}" for f, m in nl_ms.items())
+          + f"; the vqa step alone {alone:.1f} [{card}]")
+    del start, batch
+    torch.cuda.empty_cache()
+    return total
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -4592,6 +5048,7 @@ def main() -> int:
     add(timed(phase_pretrain, card))
     add(timed(phase_objectives, card))
     add(timed(phase_itm, card, rows, gen))
+    add(timed(phase_finetune, card, rows, gen))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

@@ -73,18 +73,19 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
     token to predict at a masked region), ``img_mask_tgt`` [nbb] bool (the
     regions that get slots, else ``img_masks``), per-region targets
     (``feat_targets`` [nbb, D], ``label_targets`` [nbb, C]), per-token
-    targets (``txt_*`` [L, C]) and ``target`` (itm).
+    targets (``txt_*`` [L, C]), ``target`` (itm, nlvr2) and
+    ``soft_target`` [C] (vqa, ve).
 
     Returns input_ids, attn_mask (text then regions), ex_mask (1 for real
     rows), img_feat and img_pos_feat when any example has an image (masked
-    regions' features zeroed), img_masks, targets and position_ids when any
-    example has them, and with ``spec.max_masked`` the slot arrays: text
-    slots first, then region slots at joint index Lt + i, truncated at M
-    (a region slot's label is 0 when the example has no
-    ``img_txt_labels``). Each of ``slot_target_keys`` some example has is
-    gathered to [B, M, C] at the slots (``txt_*`` keys at the text slots,
-    the others at the region slots after them), fp16 staying fp16, else
-    fp32."""
+    regions' features zeroed), img_masks, targets, soft_targets [B, C] fp32
+    and position_ids when any example has them, and with
+    ``spec.max_masked`` the slot arrays: text slots first, then region
+    slots at joint index Lt + i, truncated at M (a region slot's label is 0
+    when the example has no ``img_txt_labels``). Each of
+    ``slot_target_keys`` some example has is gathered to [B, M, C] at the
+    slots (``txt_*`` keys at the text slots, the others at the region
+    slots after them), fp16 staying fp16, else fp32."""
     B = spec.batch_size
     Lt, Nb, M = spec.txt_len, spec.num_bb, spec.max_masked
     if len(examples) > B:
@@ -107,6 +108,9 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
         out["img_masks"] = np.zeros((B, Nb), bool)
     if any("target" in e for e in examples):
         out["targets"] = np.zeros((B,), np.int32)
+    if any("soft_target" in e for e in examples):
+        C = np.asarray(examples[0]["soft_target"]).shape[-1]
+        out["soft_targets"] = np.zeros((B, C), np.float32)
     if M:
         out["masked_pos"] = np.zeros((B, M), np.int32)
         out["masked_weight"] = np.zeros((B, M), np.float32)
@@ -142,6 +146,8 @@ def collate_batch(examples: List[Dict[str, Any]], spec: BucketSpec,
             out["img_feat"][b, :nbb][masks[:nbb]] = 0.0
         if "target" in e:
             out["targets"][b] = e["target"]
+        if "soft_target" in e:
+            out["soft_targets"][b] = np.asarray(e["soft_target"])
         if not M:
             continue
         txt_pos: List[int] = []

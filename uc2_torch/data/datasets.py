@@ -6,7 +6,9 @@ state gives the same examples in both packages. ``ItmDataset.new_epoch``
 (and ``ItmHardNegDataset``'s) draws the epoch's negatives. The retrieval
 finetuning datasets (``ItmRankDataset``, ``ItmRankHardNegDataset``) give
 a group of examples, which the loader flattens; ``ConcatDataset`` joins
-the datasets of several databases.
+the datasets of several databases. ``VqaDataset``, ``VeDataset``,
+``Nlvr2TwoRowDataset`` (two rows an example) and ``Nlvr2PairedDataset``
+(both images in one row) serve the VQA, VE and NLVR2 finetuning.
 
 They read a text database with ``ids``, ``id2len``, ``txt2img``, ``db[id]``,
 ``combine_inputs``, ``cls_``, ``sep``, ``mask`` and ``v_range``, and an
@@ -664,6 +666,122 @@ class ItmEvalDataset(VLDataset):
 
     def text_example(self, i):
         return self.txt_db.combine_inputs(self.example_record(i)["input_ids"])
+
+
+# ------------------------------------------------------- VQA, VE, NLVR2
+class VqaDataset(VLDataset):
+    """VQA with soft-score targets: ``soft_target`` [num_answers] holds
+    each of the record's ``target`` labels at its score."""
+
+    def __init__(self, txt_db, img_db, num_answers: int):
+        super().__init__(txt_db, img_db)
+        self.num_answers = num_answers
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        feat, bb7, _ = self._img_feat(rec["img_fname"])
+        target = np.zeros(self.num_answers, np.float32)
+        labels = rec.get("target", {})
+        for lbl, score in zip(labels.get("labels", []),
+                              labels.get("scores", [])):
+            target[int(lbl)] = float(score)
+        return {"input_ids": ids, "img_feat": feat, "img_pos_feat": bb7,
+                "soft_target": target}
+
+
+class VeDataset(VqaDataset):
+    """Visual entailment: VQA over three answers."""
+
+    def __init__(self, txt_db, img_db):
+        super().__init__(txt_db, img_db, num_answers=3)
+
+
+class Nlvr2TwoRowDataset(VLDataset):
+    """NLVR2's paired formats: each example is two rows, the statement with
+    the left image and with the right one (the record's ``img_fnames``,
+    else its ``img_fname`` twice), kept adjacent by the loader; with
+    ``use_img_type`` the rows' regions have type 1 and 2."""
+
+    def __init__(self, txt_db, img_db, use_img_type: bool = True):
+        super().__init__(txt_db, img_db)
+        self.use_img_type = use_img_type
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        fnames = rec.get("img_fnames", [rec.get("img_fname")] * 2)
+        rows = []
+        for k, fn in enumerate(fnames[:2]):
+            f, b, n = self._img_feat(fn)
+            row = {"input_ids": ids, "img_feat": f, "img_pos_feat": b,
+                   "target": int(rec.get("target", 0))}
+            if self.use_img_type:
+                row["img_type_ids"] = np.full(n, k + 1, np.int32)
+            rows.append(row)
+        return rows
+
+    @property
+    def sample_size(self):
+        return 2
+
+    def collate(self, examples, spec):
+        """``collate_batch`` plus ``img_type_ids`` [B, Nb] (padded regions
+        type 1) and one target a pair of rows."""
+        batch = collate_batch(examples, spec, self.pad_token_id)
+        if self.use_img_type:
+            B, Nb = spec.batch_size, spec.num_bb
+            t = np.ones((B, Nb), np.int32)
+            for b, e in enumerate(examples):
+                ti = np.asarray(e.get("img_type_ids", []))[:Nb]
+                t[b, :ti.shape[0]] = ti
+            batch["img_type_ids"] = t
+        batch["targets"] = batch["targets"][::2]
+        return batch
+
+
+class Nlvr2PairedDataset(VLDataset):
+    """NLVR2's triplet format: one row an example, the statement with both
+    images' regions one after the other (type ids 1 and 2); ``lens``
+    counts the first image's regions twice."""
+
+    def __init__(self, txt_db, img_db, use_img_type: bool = True):
+        super().__init__(txt_db, img_db)
+        self.use_img_type = use_img_type
+        self.lens = [tl + 2 * self.img_db.name2nbb[self.txt2img[i]]
+                     for tl, i in zip(self.txt_lens, self.ids)]
+
+    def get_example(self, i, rng):
+        rec = self.example_record(i)
+        ids = self.txt_db.combine_inputs(rec["input_ids"])
+        fnames = rec.get("img_fnames", [rec.get("img_fname")] * 2)
+        feats, bbs, types = [], [], []
+        for k, fn in enumerate(fnames[:2]):
+            f, b, n = self._img_feat(fn)
+            feats.append(f)
+            bbs.append(b)
+            types.append(np.full(n, k + 1, np.int32))
+        ex = {"input_ids": ids,
+              "img_feat": np.concatenate(feats, 0),
+              "img_pos_feat": np.concatenate(bbs, 0),
+              "target": int(rec.get("target", 0))}
+        if self.use_img_type:
+            ex["img_type_ids"] = np.concatenate(types, 0)
+        return ex
+
+    def collate(self, examples, spec):
+        """``collate_batch`` plus ``img_type_ids`` [B, Nb] (padded regions
+        type 1; they are masked out of attention)."""
+        batch = collate_batch(examples, spec, self.pad_token_id)
+        if self.use_img_type:
+            B, Nb = spec.batch_size, spec.num_bb
+            t = np.zeros((B, Nb), np.int32)
+            for b, e in enumerate(examples):
+                ti = np.asarray(e["img_type_ids"])[:Nb]
+                t[b, :ti.shape[0]] = ti
+            t[t == 0] = 1
+            batch["img_type_ids"] = t
+        return batch
 
 
 def batches(ds: VLDataset, spec: BucketSpec, indices: Sequence[int],

@@ -4,6 +4,8 @@ text and image U2S databases with the real schema through the port's
 alignments (the fields tlm's co-masking reads), region features with
 detector soft labels, and the sidecar JSONs (id2len, meta, txt2img,
 img2txts). The same arguments give the reference's files byte for byte.
+``synth_finetune_texts`` (the port's own) rewrites such a text database
+for VQA or NLVR2 finetuning.
 """
 
 from __future__ import annotations
@@ -143,3 +145,67 @@ def synth_corpus(out_dir: str, n_imgs: int = 32, txt_per_img: int = 2,
         return {"txt_db": txt_dir, "img_db": img_dir, "soft_label_db": sl_dir}
 
     return {"txt_db": txt_dir, "img_db": img_dir}
+
+
+def synth_finetune_texts(out_dir: str, src_txt_db: str, task: str,
+                         seed: int = 0, num_answer: int = 3129,
+                         group: int = 4, compress: bool = True) -> Dict:
+    """A text database for VQA or NLVR2 finetuning, written under
+    ``out_dir`` from the records of ``src_txt_db`` (``synth_corpus``'s)
+    with the fields the task reads:
+
+    * "vqa": ``target`` = {"labels": 1-4 distinct answer ids below
+      ``num_answer``, "scores": ``get_score`` of 1-4 annotators each};
+    * "nlvr2": ``img_fnames`` = [the record's image, another image of the
+      corpus] and ``target`` 0 or 1, under identifiers of NLVR2's
+      'split-####-#-#' form that ``group`` records share up to the third
+      field (a consistency group); ``annotations.jsonl`` beside the store
+      holds each identifier's label ("True" / "False").
+
+    Returns {"txt_db": ...} and, for NLVR2, "annotations"."""
+    from uc2_torch.utils.vqa_answers import get_score
+    if task not in ("vqa", "nlvr2"):
+        raise ValueError(f"unknown finetuning task {task!r}")
+    rng = np.random.default_rng(seed)
+    reader = StoreReader(os.path.join(src_txt_db, "txt.u2s"))
+    with open(os.path.join(src_txt_db, "txt2img.json")) as f:
+        src_txt2img = json.load(f)
+    with open(os.path.join(src_txt_db, "meta.json")) as f:
+        meta = json.load(f)
+    imgs = sorted(set(src_txt2img.values()))
+    os.makedirs(out_dir, exist_ok=True)
+    id2len, txt2img, img2txts, labels = {}, {}, {}, {}
+    with StoreWriter(os.path.join(out_dir, "txt.u2s"),
+                     compress=compress) as w:
+        for i, (tid, img) in enumerate(sorted(src_txt2img.items())):
+            rec = dict(reader[tid])
+            if task == "vqa":
+                k = int(rng.integers(1, min(4, num_answer) + 1))
+                rec["target"] = {
+                    "labels": rng.choice(num_answer, k,
+                                         replace=False).tolist(),
+                    "scores": [get_score(int(rng.integers(1, 5)))
+                               for _ in range(k)]}
+                key = tid
+            else:
+                other = imgs[(imgs.index(img) + 1 + int(
+                    rng.integers(0, len(imgs) - 1))) % len(imgs)]
+                rec["img_fnames"] = [img, other]
+                rec["target"] = int(rng.integers(0, 2))
+                key = f"dev-{i // group:04d}-{i % group}-0"
+                labels[key] = "True" if rec["target"] else "False"
+            w.put(key, rec)
+            id2len[key] = len(rec["input_ids"])
+            txt2img[key] = img
+            img2txts.setdefault(img, []).append(key)
+    for name, obj in (("id2len", id2len), ("txt2img", txt2img),
+                      ("img2txts", img2txts), ("meta", meta)):
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(obj, f)
+    out = {"txt_db": out_dir}
+    if task == "nlvr2":
+        out["annotations"] = os.path.join(out_dir, "annotations.jsonl")
+        with open(out["annotations"], "w") as f:
+            for key, lab in labels.items():
+                f.write(json.dumps({"identifier": key, "label": lab}) + "\n")
+    return out

@@ -1,7 +1,8 @@
-"""Retrieval metrics (numpy), a copy of ``itm_eval`` from
-uc2_tpu/evalu/itm_metrics.py: R@1/5/10 in both directions and r_mean from
-an [n_txt x n_img] score matrix, with the same tie and ordering semantics
-(top-10 by score, first-match rank).
+"""Retrieval and NLVR2 metrics (numpy), copies of ``itm_eval`` and
+``nlvr2_eval`` from uc2_tpu/evalu/itm_metrics.py: R@1/5/10 in both
+directions and r_mean from an [n_txt x n_img] score matrix, with the same
+tie and ordering semantics (top-10 by score, first-match rank); NLVR2's
+accuracy and consistency.
 """
 
 from __future__ import annotations
@@ -54,3 +55,24 @@ def itm_eval(score_matrix: np.ndarray, txt_ids: Sequence[str],
             "img_r10": ir_r10, "img_r_mean": ir_mean,
             "r_mean": (tr_mean + ir_mean) / 2}
 
+
+def nlvr2_eval(predictions: Dict[str, str],
+               labels: Dict[str, str]) -> Dict[str, float]:
+    """Accuracy and consistency of NLVR2 predictions (the official
+    scorer's): identifiers have NLVR2's 'split-####-#-#' form, and a
+    consistency group is the identifiers equal but for the third field
+    (the pair index), which is blanked; a group counts when all its
+    predictions are right."""
+    correct = 0
+    groups: Dict[str, List[bool]] = {}
+    for ex_id, pred in predictions.items():
+        ok = pred == labels[ex_id]
+        correct += ok
+        parts = ex_id.split("-")
+        if len(parts) > 2:
+            parts[2] = ""
+        groups.setdefault("-".join(parts), []).append(bool(ok))
+    n = max(len(predictions), 1)
+    consistency = (sum(all(v) for v in groups.values())
+                   / max(len(groups), 1))
+    return {"acc": correct / n, "consistency": consistency}

@@ -148,6 +148,23 @@ class RankHead(nn.Module):
         return self.out(pooled).float()
 
 
+class VqaHead(nn.Module):
+    """pooled -> Linear(H -> 2H) -> gelu -> LN(config eps) ->
+    Linear(2H -> num_answer), fp32 logits (VE: three answers). The
+    LayerNorm takes ``layer_norm_eps`` (1e-5 for uc2-base), not the
+    in-block eps."""
+
+    def __init__(self, cfg: UC2Config, num_answer: int, device=None):
+        super().__init__()
+        H, dt = cfg.hidden_size, compute_dtype(cfg)
+        self.dense = Dense(H, 2 * H, dt, device)
+        self.layer_norm = LayerNorm(2 * H, cfg.layer_norm_eps, dt, device)
+        self.out = Dense(2 * H, num_answer, dt, device)
+
+    def forward(self, pooled):
+        return self.out(self.layer_norm(gelu(self.dense(pooled)))).float()
+
+
 def cross_entropy_with_logits(logits, labels, weights=None):
     """Per-element CE: logits [..., V] (fp32), labels [...] int. Returns
     logsumexp - gold logit, times ``weights`` when given."""
@@ -207,3 +224,12 @@ def chunked_softmax_cross_entropy(h, table, bias, labels, weights,
                           bias[i * C:(i + 1) * C], m, s, use_reentrant=False)
     loss = m + torch.log(s) - gold
     return loss if weights is None else loss * weights
+
+
+def bce_with_logits(logits, targets):
+    """Per-element binary CE with logits in fp32 (the VQA loss):
+    max(x, 0) - x t + log1p(exp(-|x|)); the max's gradient at x = 0 is
+    0, as the reference's ``jnp.maximum(x, 0)`` gives it."""
+    x = logits.float()
+    t = targets.float()
+    return torch.relu(x) - x * t + torch.log1p(torch.exp(-x.abs()))

@@ -9,9 +9,11 @@ as the reference's: a flat mean over the unreduced loss elements (the
 weighted sum over the prediction slots, or their elements, divided by
 their count, at least 1), vmlm-soft and mmxlm-soft scaled by 1000, itm
 over the padded batch rows, itm-ot as itm plus ``itm_ot_lambda`` times
-the OT term, and itm-rank (retrieval finetuning, a
+the OT term, itm-rank (retrieval finetuning, a
 ``UC2ForImageTextRetrieval``) as the mean of the rank loss's
-[groups, sample_size - 1] elements.
+[groups, sample_size - 1] elements, vqa (VQA and VE, a ``UC2ForVqa``) as
+the mean over the rows of the BCE elements' sum over the answers, and
+nlvr2 (a ``UC2ForNlvr2``) as the mean of the examples' CE.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from uc2_torch.training.optim import Optimizer
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
 TASKS = tuple(_MLM_TASKS) + ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft",
                              "mrfr", "mrm-nce", "mrc", "mrc-kl", "itm",
-                             "itm-ot", "itm-rank")
+                             "itm-ot", "itm-rank", "vqa", "nlvr2")
 
 
 def _clamp1(n):
@@ -38,7 +40,8 @@ def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
                  ot_pos_only: bool = False,
                  sample_size: int = 0) -> Callable:
     """loss_fn(model, batch, rng) -> (scalar loss, metrics) for a
-    ``UC2ForPretraining`` model (itm-rank: a ``UC2ForImageTextRetrieval``);
+    ``UC2ForPretraining`` model (itm-rank: a ``UC2ForImageTextRetrieval``;
+    vqa: a ``UC2ForVqa``; nlvr2: a ``UC2ForNlvr2``);
     ``rng`` None means deterministic. The task is the part of ``task``
     before its first "_" (one of ``TASKS``); ``valid_ids`` is the label
     vocabulary's token ids (the soft tasks); ``itm_ot_lambda`` and
@@ -55,6 +58,14 @@ def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
         det = rng is None
         if base == "itm-rank":
             elems = model.rank_loss(batch, sample_size, det, rng)
+            loss = elems.mean()
+            return loss, {"loss": loss.detach(),
+                          "n_units": torch.full((), float(elems.numel()),
+                                                device=loss.device)}
+        if base in ("vqa", "nlvr2"):
+            elems = model.loss(batch, det, rng)
+            if base == "vqa":
+                elems = elems.sum(-1)
             loss = elems.mean()
             return loss, {"loss": loss.detach(),
                           "n_units": torch.full((), float(elems.numel()),
