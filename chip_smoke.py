@@ -216,12 +216,35 @@ non-zero at the end, without the result lines:
      bit for bit, timed alone and profiled, and at dropout 0 through the
      kernel path against the eager fp32 path beside the eager bf16 path
      (the loss within VQA_LOSS_RTOL of fp32's). The stores are deleted;
- 18. a JSON line of per-kernel numbers (launches: the main-path phases'
-     counts, the pretraining driver's, the objectives', the itm driver's
-     and the finetuning drivers' added; #3's adds the routes phase and
-     the lab), then the last line {"ok": true, "device": {...}}.
+ 18. dist: data-parallel training across processes at uc2-base width
+     under "pallas-train" with config/uc2_pretrain.json's task mix, on U2S
+     stores written under build/ (the kernels are built before any
+     process starts): #5, #6a and #6b against their plain versions at a
+     process's rows (64, 162), rates 0.1 and 0; two NCCL processes on the
+     one card refused at start, naming --dist_backend gloo; (a) ``python
+     -m uc2_torch.pretrain --coordinator_address ... --num_processes 1
+     --process_id 0 --zero1`` over NCCL for DIST_STEPS steps, its per-step
+     losses, parameters and moments bit for bit those of the same run
+     without a process group (in this process); (b) two processes on the
+     card over gloo: which collectives gloo takes on CUDA tensors; one mlm
+     step at dropout 0 on a (128, 162) batch split 2 x 64 against the same
+     batch in one process (loss within STEP_LOSS_TOL and DIST_LOSS_RTOL,
+     the masked-token count summed over the processes equal, grad norm
+     within DIST_NORM_RTOL), with --zero1 the parameters bit for bit the
+     replicated two-process step's, per-process ms/step and the
+     collectives' ms a step; then the driver in two processes with
+     --zero1, saved and stopped at DIST_STOP, resumed to DIST_STEPS: the
+     restored step, model and optimizer bit for bit, both processes'
+     stream files, the processes' dropout masks different (process 0's
+     the one-process masks), launches of #5/#6a/#6b, ms/step a process.
+     The stores and checkpoints are deleted;
+ 19. a JSON line of per-kernel numbers (launches: the main-path phases'
+     counts, the pretraining driver's, the objectives', the itm driver's,
+     the finetuning drivers' and the distributed runs' added; #3's adds
+     the routes phase and the lab), then the last line {"ok": true,
+     "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17, 18.
+15, 16, 17, 18, 19.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -246,6 +269,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -304,7 +328,7 @@ from uc2_torch.ops.segment_flash import (
 from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
 from uc2_torch.training import checkpoint as itm_checkpoint
 from uc2_torch.training import step as train_step_mod
-from uc2_torch.training.step import train_step
+from uc2_torch.training.step import make_loss_fn, train_step
 from uc2_torch.utils.misc import set_dropout
 
 # H100 SXM published peaks (dense bf16 tensor rate, HBM3 bandwidth)
@@ -4982,6 +5006,563 @@ def _phase_finetune(card, rows, gen):
     return total
 
 
+# ------------------------------------------- data parallelism across processes
+DIST_DIR = os.path.join("build", "dist_smoke")
+DIST_IMGS = 128
+DIST_STEPS, DIST_STOP = 3, 2
+# one step split over two processes against the same batch in one: the
+# two sum their gradients in another order (and cuBLAS picks its products
+# for 64 rows, not 128)
+DIST_NORM_RTOL = 1e-3
+# the split step's loss sums the same fp32 token losses in another order
+# (each row's forward is the same at 64 rows as at 128: the H100 read a
+# |diff| of 0), so it sits within a few ulps (9.5e-7 at 12.6) of one
+# process's loss; 2e-6 leaves ~25 ulps and still sees a per-process
+# normaliser (the mean of the processes' means, 5.1e-5 away on this
+# batch), whose gap the phase prints beside it
+DIST_LOSS_RTOL = 2e-6
+DIST_TIMEOUT = 600       # seconds a spawned process may take
+
+
+def dist_config():
+    """uc2-base under "pallas-train", written under DIST_DIR."""
+    with open("config/uc2-base.json") as f:
+        cfg = dict(json.load(f), use_pallas_attention="pallas-train")
+    path = os.path.join(DIST_DIR, "uc2-base-pallas-train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+# free_port and spawn are kin of tests/torch_dist_util.py's, kept here
+# because this script imports nothing from tests/ and spawns commands
+# (module runs and worker scripts) that report through their exit codes
+def free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn(argvs, timeout=DIST_TIMEOUT):
+    """Start one process per argv (the repository on the path), wait for
+    all; each is killed at ``timeout`` seconds. Returns [(rc, output)]."""
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    procs = [subprocess.Popen(a, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    out = []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                text, _ = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                text += f"\n(killed after {timeout} s)"
+            out.append((p.returncode, text))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def spawned_ok(what, res):
+    """True when every process exited 0; else the failure, with the tail of
+    each process's output."""
+    if all(rc == 0 for rc, _ in res):
+        return True
+    for r, (rc, text) in enumerate(res):
+        print(f"  {what}, process {r} (rc {rc}):\n"
+              + "\n".join("    " + ln for ln in text.splitlines()[-25:]))
+    fail(f"dist: {what} failed")
+    return False
+
+
+def worker(name, body):
+    """A worker script under DIST_DIR: ``python <script> rank addr dir``."""
+    path = os.path.join(DIST_DIR, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(body)
+    return path
+
+
+DIST_PROBE = r"""
+import json, sys, torch
+rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+import torch.distributed as dist
+from uc2_torch.parallel import multihost as MH
+assert MH.maybe_initialize(addr, 2, rank, backend="gloo", device="cuda",
+                           timeout_s=30)
+x = torch.full((8,), float(rank + 1), device="cuda")
+out = {}
+def probe(name, fn):
+    try:
+        fn()
+        torch.cuda.synchronize()
+        out[name] = "ok"
+    except Exception as e:
+        out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    json.dump(out, open(f"{d}/probe_{rank}.json", "w"))
+    dist.barrier()
+probe("all_reduce", lambda: dist.all_reduce(x.clone()))
+probe("broadcast", lambda: dist.broadcast(x.clone(), 0))
+probe("all_gather", lambda: dist.all_gather(
+    [torch.empty_like(x) for _ in range(2)], x))
+probe("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+    torch.empty(16, device="cuda"), x))
+probe("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+    torch.empty(4, device="cuda"), x))
+probe("reduce_scatter", lambda: dist.reduce_scatter(
+    torch.empty(4, device="cuda"), list(x.chunk(2))))
+probe("all_to_all_single", lambda: dist.all_to_all_single(
+    torch.empty_like(x), x))
+MH.shutdown()
+"""
+
+DIST_STEP = r"""
+import hashlib, json, sys, time
+import torch
+rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from uc2_torch.parallel import mesh as M, multihost as MH
+assert MH.maybe_initialize(addr, 2, rank, backend="gloo", device="cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+from uc2_torch.config import UC2Config
+from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_torch.ops import flash_attention as fa
+from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.training.optim import build_optimizer, constant
+from uc2_torch.training.step import train_step
+from uc2_torch.utils.misc import set_dropout
+KS = (fa.flash_attention_train_fwd, fa.flash_attention_train_bwd_dq,
+      fa.flash_attention_train_bwd_dkdv)
+meta = json.load(open(f"{d}/meta.json"))
+cfg = set_dropout(UC2Config.from_json_file(meta["model_config"]).replace(
+    dtype="bfloat16"), 0.0)
+batch = torch.load(f"{d}/batch.pt", weights_only=True)
+h = batch["input_ids"].shape[0] // 2
+local = {k: v[rank * h:(rank + 1) * h].to("cuda") for k, v in batch.items()}
+model = UC2ForPretraining(cfg, device="cuda", seed=0)
+M.broadcast_params(model)
+start = {k: v.clone() for k, v in model.state_dict().items()}
+spent = {"all_reduce": 0.0, "all_gather": 0.0}
+calls = {"all_reduce": 0, "all_gather": 0}
+def timed(name, fn):
+    def f(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        spent[name] += (time.perf_counter() - t0) * 1e3
+        calls[name] += 1
+        return r
+    return f
+M._all_reduce = timed("all_reduce", M._all_reduce)
+M.all_gather_flat = timed("all_gather", M.all_gather_flat)
+out, params = {}, {}
+for zero1 in (False, True):
+    model.load_state_dict(start)
+    opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                          betas=(0.9, 0.98), grad_norm=2.0, zero1=zero1)
+    rows = []
+    for i in range(3):
+        for k in KS:
+            k.launches = 0
+        for k in spent:
+            spent[k], calls[k] = 0.0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, local, DropoutRng(7, "cuda"), task="mlm")
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": m["loss"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "n_units": m["n_units"].item(),
+                     "collective_ms": dict(spent),
+                     "collectives": dict(calls),
+                     "launches": {k.__name__: k.launches for k in KS}})
+        if i == 0:
+            params[zero1] = [p.detach().clone() for p in model.parameters()]
+    out["zero1" if zero1 else "replicated"] = rows
+    out[("zero1" if zero1 else "replicated") + "_moments"] = sum(
+        st["exp_avg"].numel() for st in opt.opt.state.values())
+    del opt
+out["total"] = sum(p.numel() for p in model.parameters())
+out["bitwise"] = all(torch.equal(a, b) for a, b in
+                     zip(params[False], params[True]))
+sha = hashlib.sha1()
+for p in params[True]:
+    sha.update(p.cpu().numpy().tobytes())
+out["sha1"] = sha.hexdigest()
+json.dump(out, open(f"{d}/step_{rank}.json", "w"))
+MH.shutdown()
+"""
+
+DIST_DRIVER = r"""
+import json, os, sys, time
+rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+import numpy as np, torch
+from uc2_torch import pretrain
+from uc2_torch.ops import dropout as D, flash_attention as fa
+from uc2_torch.parallel import mesh as M, multihost as MH
+from uc2_torch.training import checkpoint as C
+KS = (fa.flash_attention_train_fwd, fa.flash_attention_train_bwd_dq,
+      fa.flash_attention_train_bwd_dkdv)
+meta = json.load(open(f"{d}/meta.json"))
+argv = meta["driver_argv"] + [
+    "--coordinator_address", addr, "--num_processes", "2",
+    "--process_id", str(rank), "--dist_backend", "gloo", "--zero1"]
+seeds = []
+init0 = D.DropoutRng.__init__
+def init(self, seed, device="cuda"):
+    seeds.append(seed)
+    init0(self, seed, device)
+D.DropoutRng.__init__ = init
+restored = {}
+restore0 = C.TrainingRestorer.restore
+def restore(self, model, opt):
+    step = restore0(self, model, opt)
+    restored.update(step=step, model=C.host_copy(model.state_dict()),
+                    opt=C.host_copy(opt.state_dict()))
+    return step
+C.TrainingRestorer.restore = restore
+def run(a):
+    opts = pretrain.parse_with_config(pretrain.build_parser(), a)
+    pretrain.apply_reference_config_compat(opts, a)
+    return pretrain.main(opts)
+def same(a, b):
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+for k in KS:
+    k.launches = 0
+first = run(argv + ["--stop_after_steps", str(meta["stop"])])
+torch.cuda.synchronize()
+launches = {k.__name__: k.launches for k in KS}
+saved = (C.host_copy(first.model.state_dict()),
+         C.host_copy(first.optimizer.state_dict()))     # a gather
+own = sum(v.numel() for t in first.optimizer.opt.state.values()
+          for k, v in t.items() if k == "exp_avg")
+out = {"first": {"step": first.step, "losses": first.losses,
+                 "logs": first.logs, "saves": first.save_seconds},
+       "launches_first": launches, "own_moments": own,
+       "total": sum(p.numel() for p in first.model.parameters()),
+       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+del first
+torch.cuda.empty_cache()
+second = run(argv)
+torch.cuda.synchronize()
+out["second"] = {"step": second.step, "losses": second.losses,
+                 "logs": second.logs, "saves": second.save_seconds}
+out["restored_step"] = restored.get("step")
+out["model_bitwise"] = same(restored.get("model"), saved[0])
+out["optimizer_bitwise"] = same(restored.get("opt"), saved[1])
+out["streams"] = [os.path.exists(os.path.join(
+    meta["driver_out"], f"restore_stream_p{r}.json")) for r in (0, 1)]
+out["step1_seed"] = seeds[0]
+keep = D.dropout(torch.ones(1 << 16, device="cuda"), 0.1,
+                 D.DropoutRng(seeds[0], "cuda")) > 0
+np.save(f"{d}/keep_{rank}.npy", keep.cpu().numpy())
+json.dump(out, open(f"{d}/driver_{rank}.json", "w"))
+MH.shutdown()
+"""
+
+DIST_NCCL_PAIR = r"""
+import sys
+from uc2_torch.parallel import multihost as MH
+MH.maybe_initialize(sys.argv[2], 2, int(sys.argv[1]), device="cuda")
+"""
+
+
+def dist_driver_argv(out, corpus, model_config, *extra):
+    """config/uc2_pretrain.json's mix on the phase's stores at uc2-base
+    under "pallas-train": DIST_STEPS steps, a log line a step, no
+    validation."""
+    return pretrain_argv(out, corpus, "--model_config", model_config,
+                         "--num_train_steps", str(DIST_STEPS),
+                         "--valid_steps", "0", *extra)
+
+
+def scalars_losses(out):
+    """[(step, task, loss)] of a run's log/scalars.jsonl."""
+    got = []
+    with open(os.path.join(out, "log", "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            for k, v in rec.items():
+                if k.startswith("step_loss/"):
+                    got.append((rec["step"], k[len("step_loss/"):], v))
+    return got
+
+
+def ckpt_state(path):
+    """``trained_state``'s dict from a restore.ckpt."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"param {k}": v for k, v in sd["model"].items()}
+    for i, st in sd["optimizer"]["state"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq", "exp_inf"):
+            if k in st:
+                out[f"{k} {i}"] = st[k]
+    return sd["global_step"], out
+
+
+def phase_dist(card, rows, gen):
+    """Data-parallel training across processes on the one card (the
+    module's docstring, phase 18). Returns the launches of the runs."""
+    print(f"== dist: data parallelism across processes (uc2_torch.parallel)"
+          f", uc2-base under pallas-train, config/uc2_pretrain.json's mix "
+          f"[{card}]")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    try:
+        return _phase_dist(card, rows, gen)
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _phase_dist(card, rows, gen):
+    launches = no_launches()
+    # a process's rows of the split batch
+    train_kernels_at(rows, gen, ((B, TXT_LEN + NUM_BB),))
+    torch.cuda.empty_cache()
+    py = sys.executable
+
+    # two NCCL ranks on one card: refused at start, never a hang
+    addr = f"127.0.0.1:{free_port()}"
+    res = spawn([[py, worker("nccl_pair", DIST_NCCL_PAIR), str(r), addr]
+                 for r in (0, 1)], timeout=120)
+    named = [rc != 0 and "--dist_backend gloo" in text for rc, text in res]
+    print(f"  two NCCL ranks on one card: exit codes "
+          f"{[rc for rc, _ in res]}, refusal naming --dist_backend gloo "
+          f"{named}")
+    if not all(named):
+        fail("dist: two NCCL ranks on one card were not refused by name")
+
+    cfg_path = dist_config()
+    t0 = time.perf_counter()
+    corpus = [synth_corpus(os.path.join(DIST_DIR, lang), n_imgs=DIST_IMGS,
+                           txt_per_img=2, seed=seed, paired=lang == "de")
+              for lang, seed in (("en", 0), ("de", 1))]
+    print(f"  stores: en and de, {DIST_IMGS} images x 2 captions each, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) a world of one over NCCL against no process group
+    plain_out = os.path.join(DIST_DIR, "plain")
+    torch.cuda.synchronize()
+    reset_launches()
+    run = run_pretrain(dist_driver_argv(plain_out, corpus, cfg_path,
+                                        "--save_steps", "100"))
+    torch.cuda.synchronize()
+    for k, n in launch_counts().items():
+        launches[k] += n
+    want = trained_state(run)
+    want_losses = [(s, t, v) for s, t, v in run.losses]
+    plain_ms = [round(r[0], 1) for r in loop_times(run, set())]
+    del run
+    torch.cuda.empty_cache()
+    one_out = os.path.join(DIST_DIR, "world1")
+    t0 = time.perf_counter()
+    res = spawn([[py, "-m", "uc2_torch.pretrain",
+                  *dist_driver_argv(one_out, corpus, cfg_path,
+                                    "--save_steps", str(DIST_STEPS)),
+                  "--coordinator_address", f"127.0.0.1:{free_port()}",
+                  "--num_processes", "1", "--process_id", "0", "--zero1"]])
+    one_s = time.perf_counter() - t0
+    if spawned_ok("the world-1 NCCL run", res):
+        step, got = ckpt_state(os.path.join(one_out, "restore.ckpt"))
+        got_losses = scalars_losses(one_out)
+        diff = sorted(k for k in want if k not in got
+                      or not torch.equal(got[k], want[k]))
+        ok = (step == DIST_STEPS and not diff and len(got) == len(want)
+              and got_losses == want_losses)
+        print(f"  (a) python -m uc2_torch.pretrain --coordinator_address "
+              f"... --num_processes 1 --process_id 0 --zero1 (NCCL): "
+              f"{DIST_STEPS} steps in {one_s:.1f} s with the process's "
+              f"start; losses {[(s, t, round(v, 4)) for s, t, v in got_losses]}"
+              f"; against the run without a process group (loop ms/step "
+              f"{plain_ms}): losses equal {got_losses == want_losses}, "
+              f"{len(want) - len(diff)} of {len(want)} parameter and moment "
+              f"tensors bit for bit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"dist: the world-1 NCCL run is not the run without a "
+                 f"process group bit for bit ({diff[:3]}, step {step})")
+        del got
+    del want
+    shutil.rmtree(one_out, ignore_errors=True)
+    shutil.rmtree(plain_out, ignore_errors=True)
+
+    # (b) two processes on the card over gloo
+    addr = f"127.0.0.1:{free_port()}"
+    res = spawn([[py, worker("probe", DIST_PROBE), str(r), addr, DIST_DIR]
+                 for r in (0, 1)], timeout=300)
+    probe = {}
+    path = os.path.join(DIST_DIR, "probe_0.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            probe = json.load(f)
+    print(f"  gloo on CUDA tensors (2 processes, one card; exit codes "
+          f"{[rc for rc, _ in res]}): {probe} [{card}]")
+    if probe.get("all_reduce") != "ok" or probe.get("all_gather") != "ok":
+        fail(f"dist: gloo refused all_reduce or all_gather on CUDA tensors: "
+             f"{probe}")
+
+    cfg0 = set_dropout(UC2Config.from_json_file(cfg_path).replace(
+        dtype="bfloat16"), 0.0)
+    batch = mix_batches(cfg0, 1, TRAIN_SEED)[0]["mlm"][0]
+    torch.save({k: v.cpu() for k, v in batch.items()},
+               os.path.join(DIST_DIR, "batch.pt"))
+    model = UC2ForPretraining(cfg0, device="cuda", seed=0)
+    h = batch["input_ids"].shape[0] // 2
+    with torch.no_grad():
+        halves = [make_loss_fn("mlm")(
+            model, {k: v[i * h:(i + 1) * h] for k, v in batch.items()},
+            DropoutRng(7, "cuda"))[0].item() for i in (0, 1)]
+    opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                          betas=(0.9, 0.98), grad_norm=2.0)
+    m = train_step(model, opt, batch, DropoutRng(7, "cuda"), task="mlm")
+    one_loss, one_norm = m["loss"].item(), m["grad_norm"].item()
+    one_units = m["n_units"].item()
+    del model, opt, m
+    local_gap = abs(sum(halves) / 2 - one_loss)
+    loss_lim = min(STEP_LOSS_TOL, DIST_LOSS_RTOL * one_loss)
+    print(f"  one process's 128 rows: loss {one_loss:.6f}, {one_units:g} "
+          f"masked tokens; the halves' losses {[round(x, 6) for x in halves]}"
+          f", so a per-process normaliser would report "
+          f"{sum(halves) / 2:.6f} ({local_gap:.2e} away; the split step's "
+          f"loss limit {loss_lim:.2e} "
+          f"{'sees' if local_gap > loss_lim else 'does NOT see'} it)")
+    torch.cuda.empty_cache()
+    meta = {"model_config": cfg_path, "stop": DIST_STOP,
+            "driver_out": os.path.join(DIST_DIR, "driver"),
+            "driver_argv": dist_driver_argv(
+                os.path.join(DIST_DIR, "driver"), corpus, cfg_path,
+                "--save_steps", str(DIST_STOP),
+                # each process's micro-batches half the one-process size:
+                # the global batch of the one-process run
+                "--train_batch_size", "5120")}
+    with open(os.path.join(DIST_DIR, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    addr = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    res = spawn([[py, worker("step", DIST_STEP), str(r), addr, DIST_DIR]
+                 for r in (0, 1)])
+    step_s = time.perf_counter() - t0
+    if spawned_ok("the two-process step", res):
+        outs = []
+        for r in (0, 1):
+            with open(os.path.join(DIST_DIR, f"step_{r}.json")) as f:
+                outs.append(json.load(f))
+        for mode in ("replicated", "zero1"):
+            for r, o in enumerate(outs):
+                rws = o[mode]
+                first = rws[0]
+                d_loss = abs(first["loss"] - one_loss)
+                d_norm = abs(first["grad_norm"] - one_norm) / one_norm
+                ok = (d_loss <= loss_lim and d_norm <= DIST_NORM_RTOL
+                      and first["n_units"] == one_units
+                      and all(n == cfg0.num_hidden_layers
+                              for n in first["launches"].values()))
+                ms = [round(x["ms"], 1) for x in rws]
+                coll = [{k: round(v, 1) for k, v in x["collective_ms"].items()}
+                        for x in rws]
+                print(f"  (b) {mode}, process {r} of 2 (gloo, 64 of the 128 "
+                      f"rows at L = 162, dropout 0): loss {first['loss']:.6f} "
+                      f"vs one process's {one_loss:.6f} (|diff| "
+                      f"{d_loss:.2e}, tolerance {loss_lim:.2e}), masked "
+                      f"tokens over the processes {first['n_units']:g} vs "
+                      f"{one_units:g}, grad norm "
+                      f"{first['grad_norm']:.6f} vs {one_norm:.6f} (relative "
+                      f"{d_norm:.2e}, tolerance {DIST_NORM_RTOL:g}); launches "
+                      f"{first['launches']}; ms/step {ms} (the first with "
+                      f"the warm-up); collectives' ms a step {coll}, "
+                      f"{first['collectives']} a step; moments kept "
+                      f"{o[mode + '_moments']} of {o['total']} "
+                      f"{'ok' if ok else 'FAIL'} [{card}]")
+                if not ok:
+                    fail(f"dist: the two-process {mode} step (process {r}) "
+                         f"is not the one-process step")
+                for name, n in first["launches"].items():
+                    launches[name] += n
+        ok = all(o["bitwise"] for o in outs) and outs[0]["sha1"] == \
+            outs[1]["sha1"]
+        share = [o["zero1_moments"] / o["total"] for o in outs]
+        print(f"  --zero1 parameters after the step bit for bit the "
+              f"replicated step's on both processes, and the processes' "
+              f"alike: {ok}; each process keeps {share} of the moments; "
+              f"{step_s:.1f} s with the processes' start")
+        if not ok:
+            fail("dist: the --zero1 step is not the replicated step bit for "
+                 "bit")
+
+    addr = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    res = spawn([[py, worker("driver", DIST_DRIVER), str(r), addr, DIST_DIR]
+                 for r in (0, 1)])
+    drv_s = time.perf_counter() - t0
+    if spawned_ok("the two-process driver", res):
+        outs = []
+        for r in (0, 1):
+            with open(os.path.join(DIST_DIR, f"driver_{r}.json")) as f:
+                outs.append(json.load(f))
+        keeps = [np.load(os.path.join(DIST_DIR, f"keep_{r}.npy"))
+                 for r in (0, 1)]
+        seed = json.load(open("config/uc2_pretrain.json"))["seed"]
+        one = (dropout(torch.ones(1 << 16, device="cuda"), 0.1, DropoutRng(
+            pretrain.step_seed(seed, 0), "cuda")) > 0).cpu().numpy()
+        masks_ok = (np.array_equal(keeps[0], one)
+                    and not np.array_equal(keeps[0], keeps[1]))
+        with open("config/uc2_pretrain.json") as f:
+            accum = json.load(f)["gradient_accumulation_steps"]
+        for r, o in enumerate(outs):
+            want_n = DIST_STOP * cfg0.num_hidden_layers * accum
+            ok = (o["restored_step"] == DIST_STOP and o["model_bitwise"]
+                  and o["optimizer_bitwise"] and all(o["streams"])
+                  and o["second"]["step"] == DIST_STEPS
+                  and all(n == want_n for n in o["launches_first"].values())
+                  and all(np.isfinite(v) for part in ("first", "second")
+                          for _, _, v in o[part]["losses"]))
+            logs = o["first"]["logs"] + o["second"]["logs"]
+            ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
+                  for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
+                  if s1 > s0 and s0 != DIST_STOP]
+            print(f"  (b) driver, process {r} of 2 (gloo, --zero1, "
+                  f"--train_batch_size 5120): steps 1-{DIST_STOP}, saved, "
+                  f"resumed to {o['second']['step']}; losses "
+                  f"{[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
+                  f"; restored step {o['restored_step']}, model bit for bit "
+                  f"{o['model_bitwise']}, optimizer bit for bit "
+                  f"{o['optimizer_bitwise']}; stream files {o['streams']}; "
+                  f"launches of steps 1-{DIST_STOP} {o['launches_first']} "
+                  f"(want {want_n} each); moments kept {o['own_moments']} of "
+                  f"{o['total']}; loop ms/step {ms}; saves "
+                  f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
+                  f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
+                  f" [{card}]")
+            if not ok:
+                fail(f"dist: the two-process driver run (process {r}) did not "
+                     f"resume bit for bit or missed a launch")
+            for name, n in o["launches_first"].items():
+                launches[name] += n
+        print(f"  the processes' first dropout masks: process 0's are the "
+              f"one-process masks {np.array_equal(keeps[0], one)}, process "
+              f"1's differ from them {not np.array_equal(keeps[0], keeps[1])}"
+              f"; keep rates {[round(float(k.mean()), 4) for k in keeps]}; "
+              f"{drv_s:.1f} s with the processes' start")
+        if not masks_ok:
+            fail("dist: the processes' dropout masks are not per process")
+    return launches
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -5049,6 +5630,7 @@ def main() -> int:
     add(timed(phase_objectives, card))
     add(timed(phase_itm, card, rows, gen))
     add(timed(phase_finetune, card, rows, gen))
+    add(timed(phase_dist, card, rows, gen))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

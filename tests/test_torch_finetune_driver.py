@@ -13,8 +13,10 @@ scripts/eval_nlvr2.py:
   scorer's output identical, the same artifact names;
   ``--train_batch_size 8``, which the reference's 8 virtual devices
   divide in every format, so that both take the same examples;
-* the parsers' flags and defaults (plus ``--device``);
-* the refusals of what is not ported (distribution), by name;
+* the parsers' flags and defaults (plus ``--device`` and
+  ``--dist_backend``);
+* the refusal of tensor parallelism, by name, and the distribution flags
+  at a world of one (equal to the undistributed run);
 * resume: a VQA run of 2 steps at dropout 0.1 resumed to 4 loads the
   parameters and AdamW's moments of step 2 bit for bit."""
 
@@ -41,7 +43,9 @@ from uc2_torch import eval_nlvr2, nlvr2, ve, vqa
 from uc2_torch.data import loader
 from uc2_torch.data.synth import synth_corpus, synth_finetune_texts
 from uc2_torch.models import finetune
+from uc2_torch.parallel import multihost as MH
 from uc2_torch.training import checkpoint
+from tests.torch_dist_util import free_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"vocab_size": 512, "hidden_size": 32, "num_hidden_layers": 1,
@@ -296,7 +300,7 @@ def test_driver_writes_the_reference_artifacts(both):
         got = json.load(f)
     with open(os.path.join(ref, "log", "hps.json")) as f:
         want = json.load(f)
-    assert got.pop("device") == "cpu"
+    assert got.pop("device") == "cpu" and got.pop("dist_backend") is None
     assert got.pop("output_dir") == port and want.pop("output_dir") == ref
     if name.startswith("nlvr2"):
         assert got.pop("pred_csv") == port + ".csv"
@@ -367,11 +371,11 @@ def test_driver_predictions_and_scores_match_reference(nlvr2_both, setup,
 def test_parsers_match_reference(port, ref):
     argv = ["--train_txt_db", "t", "--train_img_db", "i"]
     got = vars(_parse(port, argv))
-    assert got.pop("device") == "cuda"
+    assert got.pop("device") == "cuda" and got.pop("dist_backend") is None
     assert got == vars(_parse(ref, argv))
     flags = {a.dest for a in port.build_parser()._actions}
     assert flags - {a.dest for a in ref.build_parser()._actions} == {
-        "device"}
+        "device", "dist_backend"}
 
 
 UNPORTED = [(["--n_model", "2"], "--n_model"),
@@ -381,20 +385,56 @@ UNPORTED = [(["--n_model", "2"], "--n_model"),
             (["--process_id", "0"], "--process_id")]
 
 
+# the distribution flags at a world of one: the coordinator's flags start
+# a process group of one over gloo
+WORLD_OF_ONE = {
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+                              "--num_processes", "1", "--process_id", "0"],
+    "--num_processes": ["--num_processes", "1"],
+    "--process_id": ["--process_id", "0"]}
+SHORT = ["--device", "cpu", "--num_train_steps", "2", "--valid_steps",
+         "2", "--save_steps", "100"]
+
+
+def _short_run(setup, out, driver, extra=()):
+    if driver == "vqa":
+        return vqa.main(_parse(vqa, _vqa_argv(setup, out,
+                                              extra=SHORT + list(extra))))
+    return nlvr2.main(_parse(nlvr2, _nlvr2_argv(setup, out, "triplet",
+                                                SHORT + list(extra))))
+
+
+@pytest.fixture(scope="module")
+def undistributed(setup):
+    """Two steps of each driver without any distribution flag."""
+    return {d: _short_run(setup, setup["root"] / f"undistributed_{d}", d)
+            for d in ("vqa", "nlvr2")}
+
+
 @pytest.mark.parametrize("driver", ["vqa", "nlvr2"])
 @pytest.mark.parametrize("extra,name", UNPORTED,
                          ids=[n for _, n in UNPORTED])
-def test_unported_flags_raise_by_name(setup, tmp_path, driver, extra, name):
+def test_unported_flags_raise_by_name(setup, tmp_path, driver, extra, name,
+                                      request):
+    """--n_model > 1 raises by name. The distribution flags are ported: at
+    a world of one each run equals the undistributed one, losses and
+    parameters bit for bit."""
     out = tmp_path / "out"
-    if driver == "vqa":
-        argv = _vqa_argv(setup, out, extra=["--device", "cpu"] + extra)
-        main = lambda: vqa.main(_parse(vqa, argv))  # noqa: E731
-    else:
-        argv = _nlvr2_argv(setup, out, "triplet", ["--device", "cpu"]
-                           + extra)
-        main = lambda: nlvr2.main(_parse(nlvr2, argv))  # noqa: E731
-    with pytest.raises(NotImplementedError, match=name.replace("-", "\\-")):
-        main()
+    if name not in WORLD_OF_ONE:
+        with pytest.raises(NotImplementedError,
+                           match=name.replace("-", "\\-")):
+            _short_run(setup, out, driver, extra)
+        return
+    want = request.getfixturevalue("undistributed")[driver]
+    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    try:
+        got = _short_run(setup, out, driver, flags)
+        assert MH.process_count() == 1
+    finally:
+        MH.shutdown()
+    assert got.step == 2 and got.losses == want.losses
+    g, w = (_state(r.model, r.optimizer) for r in (got, want))
+    assert set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
 
 
 def _state(model, opt):

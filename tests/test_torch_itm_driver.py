@@ -12,7 +12,9 @@ tiny config (hidden 32, one layer, fp32):
   artifact names;
 * ``apply_reference_config_compat`` against itm.py's on the shipped config
   and on the original UC2 key names;
-* the refusals of what is not ported (distribution, int8), by name;
+* the refusals of what is not ported (tensor parallelism, int8), by
+  name, and the distribution flags at a world of one (equal to the
+  undistributed run);
 * resume: a run stopped at step 2 (dropout 0.1, ``--full_val``,
   ``--async_ckpt``) and resumed to 4 loads the parameters and AdamW's
   moments of step 2 bit for bit."""
@@ -33,6 +35,8 @@ from uc2_tpu.models.finetune import UC2ForImageTextRetrieval as JaxRetrieval
 from uc2_tpu.utils import logger as jax_logger
 from uc2_torch import itm
 from uc2_torch.data import loader
+from uc2_torch.parallel import multihost as MH
+from tests.torch_dist_util import free_port
 from uc2_torch.data.synth import synth_corpus
 from uc2_torch.training import checkpoint
 
@@ -224,7 +228,8 @@ def test_driver_writes_the_reference_artifacts(both):
         got = json.load(f)
     with open(os.path.join(ref, "log", "hps.json")) as f:
         want = json.load(f)
-    assert (got.pop("device"), got.pop("stop_after_steps")) == ("cpu", 0)
+    assert (got.pop("device"), got.pop("stop_after_steps"),
+            got.pop("dist_backend")) == ("cpu", 0, None)
     assert got.pop("output_dir") == port and want.pop("output_dir") == ref
     assert got == want
     assert sorted(os.listdir(os.path.join(ref, "ckpt"))) == [
@@ -248,7 +253,8 @@ def _port_opts(argv):
     parser = itm.build_parser()
     opts = vars(itm.apply_reference_config_compat(
         itm.parse_with_config(parser, argv), parser, argv))
-    assert (opts.pop("device"), opts.pop("stop_after_steps")) == ("cuda", 0)
+    assert (opts.pop("device"), opts.pop("stop_after_steps"),
+            opts.pop("dist_backend")) == ("cuda", 0, None)
     return opts
 
 
@@ -292,11 +298,46 @@ UNPORTED = [
     (["--quant", "int8"], "--quant int8")]
 
 
+# the distribution flags at a world of one: the coordinator's flags start
+# a process group of one over gloo
+WORLD_OF_ONE = {
+    "--zero1": ["--zero1"],
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+                              "--num_processes", "1", "--process_id", "0"],
+    "--num_processes": ["--num_processes", "1"],
+    "--process_id": ["--process_id", "0"]}
+SHORT = ["--num_train_steps", "2", "--valid_steps", "0", "--save_steps",
+         "100", "--hard_neg_steps", "0"]
+
+
+@pytest.fixture(scope="module")
+def undistributed(setup):
+    """Two steps of the default run without any distribution flag."""
+    return _port(setup, setup["root"] / "undistributed", SHORT)
+
+
 @pytest.mark.parametrize("extra,name", UNPORTED,
                          ids=[n for _, n in UNPORTED])
-def test_unported_flags_raise_by_name(setup, tmp_path, extra, name):
-    with pytest.raises(NotImplementedError, match=name.replace("-", "\\-")):
-        _port(setup, tmp_path / "out", extra)
+def test_unported_flags_raise_by_name(setup, tmp_path, extra, name,
+                                      request):
+    """--n_model > 1 and --quant int8 raise by name. The distribution
+    flags are ported: at a world of one each run equals the undistributed
+    one, losses and parameters bit for bit."""
+    if name not in WORLD_OF_ONE:
+        with pytest.raises(NotImplementedError,
+                           match=name.replace("-", "\\-")):
+            _port(setup, tmp_path / "out", extra)
+        return
+    want = request.getfixturevalue("undistributed")
+    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    try:
+        got = _port(setup, tmp_path / "out", SHORT + flags)
+        assert MH.process_count() == 1
+    finally:
+        MH.shutdown()
+    assert got.step == 2 and got.losses == want.losses
+    g, w = (_state(r.model, r.optimizer) for r in (got, want))
+    assert set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
 
 
 def _state(model, opt):

@@ -11,7 +11,8 @@ one layer) and the tasks itm, mlm, vmlm (en) and tlm (a paired de store):
   moments, per-step losses), from the saved stream state or by replaying
   the stream;
 * the loop's variants (no prefetch thread, host accumulation), the hps
-  check, the refusals of what is not ported (distribution), checkpoint
+  check, the refusal of tensor parallelism, the distribution flags at a
+  world of one (equal to the undistributed run), checkpoint
   resolution.
 
 The vocabulary is XLM-R's (250002): the label vocabulary's stand-in token
@@ -34,6 +35,8 @@ from uc2_tpu.models.pretraining import UC2ForPretraining as JaxPretraining
 from uc2_torch import pretrain
 from uc2_torch.data import loader
 from uc2_torch.models import convert
+from uc2_torch.parallel import multihost as MH
+from tests.torch_dist_util import free_port
 
 TINY = {"vocab_size": 250002, "hidden_size": 32, "num_hidden_layers": 1,
         "num_attention_heads": 2, "intermediate_size": 64,
@@ -184,7 +187,7 @@ def test_driver_writes_the_reference_artifacts(both):
             return json.load(f)
     want = load(ref, "log/hps.json")
     got = load(port, "log/hps.json")
-    assert got.pop("device") == "cpu"
+    assert got.pop("device") == "cpu" and got.pop("dist_backend") is None
     assert got.pop("output_dir") == port and want.pop("output_dir") == ref
     assert got == want
     assert load(port, "restore_hps.json") == load(ref, "restore_hps.json")
@@ -308,16 +311,48 @@ UNPORTED = [
     (["--coordinator_address", "localhost:1"], "--coordinator_address"),
     (["--num_processes", "2"], "--num_processes"),
     (["--process_id", "0"], "--process_id")]
+# the distribution flags at a world of one: the coordinator's flags start
+# a process group of one over gloo
+WORLD_OF_ONE = {
+    "--zero1": ["--zero1"],
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+                              "--num_processes", "1", "--process_id", "0"],
+    "--num_processes": ["--num_processes", "1"],
+    "--process_id": ["--process_id", "0"]}
+SHORT = ["--num_train_steps", "2", "--valid_steps", "0", "--save_steps",
+         "100"]
+
+
+@pytest.fixture(scope="module")
+def undistributed(setup):
+    """Two steps of the default run without any distribution flag."""
+    return _port(setup, setup["root"] / "undistributed", SHORT)
 
 
 @pytest.mark.parametrize("extra,name", UNPORTED,
                          ids=[n for _, n in UNPORTED])
 def test_unported_flags_and_tasks_raise_by_name(setup, tmp_path, extra,
-                                                name):
-    argv = _argv(setup, tmp_path / "out", ["--device", "cpu"] + extra)
-    opts = pretrain.parse_with_config(pretrain.build_parser(), argv)
-    with pytest.raises(NotImplementedError, match=name.replace("-", "\\-")):
-        pretrain.main(opts)
+                                                name, request):
+    """--n_model > 1 (tensor parallelism) raises by name. The distribution
+    flags are ported: at a world of one each run equals the undistributed
+    one, losses and parameters bit for bit."""
+    if name not in WORLD_OF_ONE:
+        argv = _argv(setup, tmp_path / "out", ["--device", "cpu"] + extra)
+        opts = pretrain.parse_with_config(pretrain.build_parser(), argv)
+        with pytest.raises(NotImplementedError,
+                           match=name.replace("-", "\\-")):
+            pretrain.main(opts)
+        return
+    want = request.getfixturevalue("undistributed")
+    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    try:
+        got = _port(setup, tmp_path / "out", SHORT + flags)
+        assert MH.process_count() == 1
+    finally:
+        MH.shutdown()
+    assert got.step == 2 and got.losses == want.losses
+    g, w = _state(got), _state(want)
+    assert set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
 
 
 def test_no_op_flags_and_the_cli_config(setup, tmp_path):

@@ -7,13 +7,15 @@ of uc2_tpu/data/loader.py's single-process part).
   (seed, epoch, task name, batch count), so one seed gives the
   reference's bucket and batch schedule and the same batches bit for bit.
 * ``deterministic_task_schedule`` and ``MetaLoader``: the task of each
-  accumulation window is a pure function of (seed, window).
+  accumulation window is a pure function of (seed, window). Across
+  processes (``sync_buckets``) each process draws from its own shard of
+  the data, and every process must run the same shape each step: process
+  0 draws first and publishes its batch's bucket through the process
+  group's store, and the others draw a batch of that bucket (deferring
+  the draws of other buckets).
 * ``PrefetchLoader``: runs an iterator in a worker thread and places its
   batches on the device ahead of use (``device_put``: pinned host memory,
   ``non_blocking`` copies, fp16 region features upcast on the device).
-
-Multi-host bucket synchronisation (the reference's ``sync_buckets``) comes
-with the distributed port and is not here.
 """
 
 from __future__ import annotations
@@ -87,20 +89,47 @@ class TaskLoader:
             except StopIteration:
                 self._iter = None
 
-    def next_batch(self) -> Dict[str, Any]:
-        bucket_idx, indices = self._draw()
+    def _next_assignment(self, bucket: Optional[int] = None
+                         ) -> Tuple[int, List[int]]:
+        """The next (bucket, indices); with ``bucket``, the next draw of
+        that bucket (a deferred one first), the draws of other buckets
+        queued behind the pending ones."""
+        if bucket is None:
+            return self._draw()
+        for k, (b, idx) in enumerate(self._pending):
+            if b == bucket:
+                return self._pending.pop(k)
+        deferred = []
+        epochs_seen = 0
+        while True:
+            if self._iter is None:
+                epochs_seen += 1
+                if epochs_seen >= 64:
+                    raise RuntimeError(
+                        f"bucket {bucket} never produced a full batch on "
+                        f"this process's data shard: the bucket set and "
+                        f"the shard do not fit lockstep training")
+            b, idx = self._draw()
+            if b == bucket:
+                self._pending.extend(deferred)
+                return b, idx
+            deferred.append((b, idx))
+
+    def next_batch(self, bucket: Optional[int] = None) -> Dict[str, Any]:
+        bucket_idx, indices = self._next_assignment(bucket)
         return self._assemble(bucket_idx, indices)
 
-    def skip_batch(self) -> None:
+    def skip_batch(self, bucket: Optional[int] = None) -> None:
         """Advance the stream exactly as ``next_batch`` would, without
         collating the batch."""
-        self._draw()
+        self._next_assignment(bucket)
         self._draws += 1
 
-    def _group(self, n: int) -> List[Tuple[int, List[int]]]:
-        """n draws of the first draw's bucket; the other draws are queued
-        ahead of the pending ones."""
-        first_b, first_idx = self._draw()
+    def _group(self, n: int, bucket: Optional[int] = None
+               ) -> List[Tuple[int, List[int]]]:
+        """n draws of the first draw's bucket (``bucket`` when given); the
+        other draws are queued ahead of the pending ones."""
+        first_b, first_idx = self._next_assignment(bucket)
         group = [(first_b, first_idx)]
         deferred = []
         epoch0 = self._epoch
@@ -119,16 +148,18 @@ class TaskLoader:
         self._pending = deferred + self._pending
         return group
 
-    def skip_stacked(self, n: int) -> None:
+    def skip_stacked(self, n: int, bucket: Optional[int] = None) -> None:
         """``skip_batch``'s twin for ``next_stacked``."""
-        group = self._group(n)   # may start an epoch, which resets _draws
+        group = self._group(n, bucket)   # may start an epoch (resets _draws)
         self._draws += len(group)
 
-    def next_stacked(self, n: int) -> Dict[str, Any]:
-        """n same-bucket batches stacked along a new leading axis
-        [n, B, ...], for accumulation over one shape; off-bucket draws are
-        queued for later windows, so no example is dropped."""
-        micro = [self._assemble(b, idx) for b, idx in self._group(n)]
+    def next_stacked(self, n: int, bucket: Optional[int] = None
+                     ) -> Dict[str, Any]:
+        """n same-bucket batches (of ``bucket`` when given) stacked along a
+        new leading axis [n, B, ...], for accumulation over one shape;
+        off-bucket draws are queued for later windows, so no example is
+        dropped."""
+        micro = [self._assemble(b, idx) for b, idx in self._group(n, bucket)]
         out: Dict[str, Any] = {}
         for k in micro[0]:
             if k in ("_bucket", "sample_size"):
@@ -229,12 +260,14 @@ class MetaLoader:
     """Infinite (task_name, batch) stream with mix-ratio task sampling;
     ``accum_steps`` consecutive batches come from one task (one task per
     optimizer step), stacked into one [accum_steps, B, ...] batch with
-    ``stack_microbatches``."""
+    ``stack_microbatches``. ``sync_buckets``: every process of the group
+    takes process 0's bucket each draw (the module's docstring)."""
 
     def __init__(self, loaders: Dict[str, TaskLoader],
                  ratios: Optional[Dict[str, float]] = None,
                  accum_steps: int = 1, seed: int = 0,
-                 stack_microbatches: bool = False):
+                 stack_microbatches: bool = False,
+                 sync_buckets: bool = False):
         if not loaders:
             raise ValueError("MetaLoader needs at least one task loader")
         self.loaders = loaders
@@ -250,10 +283,25 @@ class MetaLoader:
         self._snap_lock = threading.Lock()
         self._snapshots: Dict[int, Dict[str, Any]] = {}
         self._snap_keep = 128
+        self.sync_buckets = sync_buckets
+        self._stop = threading.Event()
+        if sync_buckets:
+            # a key namespace of this run, agreed by one broadcast here (on
+            # the main thread, before any prefetch): a resumed run's
+            # counter starts again and must not read the last run's keys
+            import uuid
+            from uc2_torch.parallel import multihost as MH
+            self.kv_ns = MH.broadcast_object(
+                uuid.uuid4().hex[:12] if MH.process_index() == 0 else None)
         self._snapshot()
 
     def __iter__(self):
         return self
+
+    def stop(self) -> None:
+        """Give up a draw that waits for process 0's bucket (the consumer
+        is gone: process 0 may never publish it)."""
+        self._stop.set()
 
     def state_dict(self) -> Dict[str, Any]:
         return {"step": self.step,
@@ -281,10 +329,35 @@ class MetaLoader:
         with self._snap_lock:
             return self._snapshots.get(meta_step)
 
+    def _synced_batch(self, loader: TaskLoader, step: int) -> Dict[str, Any]:
+        """The draw of meta-step ``step`` in process 0's bucket: a request
+        to the store, not a collective, so it may run on a prefetch
+        thread."""
+        from uc2_torch.parallel import multihost as MH
+        n = self.accum_steps if self.stack else None
+        key = f"uc2/bucket/{self.kv_ns}/{step}"
+        if MH.process_index() == 0:
+            batch = loader.next_stacked(n) if n else loader.next_batch()
+            MH.kv_broadcast_object(key, int(batch["_bucket"]))
+            # retire the key written 256 draws ago (the keys step by the
+            # stride; readers trail by the prefetch depth at most)
+            stride = self.accum_steps if self.stack else 1
+            if step >= 256 * stride:
+                MH.kv_delete(f"uc2/bucket/{self.kv_ns}/"
+                             f"{step - 256 * stride}")
+            return batch
+        b = MH.kv_broadcast_object(key, stop=self._stop)
+        return (loader.next_stacked(n, bucket=b) if n
+                else loader.next_batch(bucket=b))
+
     def __next__(self) -> Tuple[str, Dict[str, Any]]:
         name = self._pick(self.step // self.accum_steps)
         loader = self.loaders[name]
-        if self.stack:
+        if self.sync_buckets:
+            step = self.step
+            self.step += self.accum_steps if self.stack else 1
+            batch = self._synced_batch(loader, step)
+        elif self.stack:
             self.step += self.accum_steps
             batch = loader.next_stacked(self.accum_steps)
         else:
@@ -296,7 +369,12 @@ class MetaLoader:
     def fast_forward(self, n_optimizer_steps: int) -> None:
         """Replay the stream to where an uninterrupted run would be after
         ``n_optimizer_steps`` optimizer steps, without assembling
-        batches."""
+        batches. One process only: under ``sync_buckets`` the stream
+        depends on process 0's draws at run time."""
+        if self.sync_buckets:
+            raise RuntimeError("fast_forward replays one process's stream "
+                               "only; under sync_buckets the input stream "
+                               "restarts instead")
         target = n_optimizer_steps * self.accum_steps
         while self.step < target:
             loader = self.loaders[self._pick(self.step // self.accum_steps)]
@@ -372,8 +450,11 @@ class PrefetchLoader:
         self._put(self._done)
 
     def close(self):
-        """Stop the worker thread and drop the buffered items."""
+        """Stop the worker thread (and a wait of the iterator's, through
+        its ``stop``) and drop the buffered items."""
         self._stop.set()
+        if hasattr(self.it, "stop"):
+            self.it.stop()
         while self.thread.is_alive():
             try:
                 self.q.get_nowait()

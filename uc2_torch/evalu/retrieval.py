@@ -1,7 +1,7 @@
 """Image-text retrieval evaluation (port of ``load_image_gallery``,
-``default_nbb_buckets``, ``score_matrix``, single-process
-``full_retrieval_eval``, ``quick_validate`` and ``mine_hard_negatives``
-from uc2_tpu/evalu/retrieval.py).
+``default_nbb_buckets``, ``score_matrix``, ``full_retrieval_eval``,
+``quick_validate`` and ``mine_hard_negatives`` from
+uc2_tpu/evalu/retrieval.py).
 
 The gallery is split into region-count buckets with the reference's
 edges, padding and column order; each bucket is moved to the device once
@@ -11,8 +11,9 @@ device until one host pull per chunk. ``quick_validate`` ranks each
 text's image among a fixed pool of images, and ``mine_hard_negatives``
 takes the highest-scoring wrong images of each text and wrong texts of
 each image; both rank a score matrix with functions of the matrix alone
-(``pool_ranks``, ``hard_negative_pools``). The multi-host gather is not
-ported yet.
+(``pool_ranks``, ``hard_negative_pools``). Across processes
+``full_retrieval_eval`` scores each process's stride of the texts and
+gathers the rows into the whole matrix on every process.
 """
 
 from __future__ import annotations
@@ -131,12 +132,22 @@ def full_retrieval_eval(model, txt_db, img_db, txt_len: int, num_bb: int,
                         txt_ids: Optional[Sequence[str]] = None,
                         return_matrix: bool = False, device="cuda"
                         ) -> Dict[str, float]:
-    """Score-matrix eval -> R@K in both directions, in one process, over
-    ``ItmEvalDataset``'s texts and gallery."""
+    """Score-matrix eval -> R@K in both directions over
+    ``ItmEvalDataset``'s texts and gallery. Process p of a group scores
+    the texts p, p + world, ... and the rows are gathered into the whole
+    matrix on every process (the reference's allgather of the score
+    matrix); the columns keep the gallery's (region count, name) order
+    everywhere. One process scores every text."""
+    from uc2_torch.parallel import multihost as MH
     ev = ItmEvalDataset(txt_db, img_db, txt_ids)
     txt_ids, img_ids = ev.ids, ev.all_img_ids
-    m = score_matrix(model, txt_db, img_db, txt_ids, img_ids, txt_len,
-                     num_bb, batch_size, device=device)
+    world = MH.process_count()
+    pos = list(range(MH.process_index(), len(txt_ids), world))
+    mine = score_matrix(model, txt_db, img_db, [txt_ids[i] for i in pos],
+                        img_ids, txt_len, num_bb, batch_size, device=device)
+    m = np.zeros((len(txt_ids), len(img_ids)), np.float32)
+    for rows, part in MH.all_gather_object((pos, mine)):
+        m[np.asarray(rows, np.int64)] = part
     metrics = itm_eval(m, txt_ids, img_ids, txt_db.txt2img, txt_db.img2txts)
     if return_matrix:
         return metrics, (m, txt_ids, img_ids)

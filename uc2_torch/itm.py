@@ -25,10 +25,19 @@ evaluation of every ``--test_datasets`` pair into ``test_results.json``.
   its stream again, as itm.py's does.
 * Losses stay device tensors and are read at each log boundary, so the
   host builds the next batch while the card runs the step.
+* Data parallel across processes, as in the pretraining driver (its
+  docstring): each process trains on its stripe of every training text
+  database, the group count is raised until the rows divide the world,
+  ``--zero1`` shards the optimizer's moments, each process mines its own
+  pools into ``hard_negs_{step}[.db{k}].host{p}.json``, the full
+  validation and the tests gather the score matrix from every process's
+  stride of the texts (the quick validation runs whole on each), and
+  process 0 writes the logs, milestones, ``restore.ckpt`` and
+  ``test_results.json``.
 
-Raising by name, for what is not ported yet: ``--n_model > 1``,
-``--zero1``, the multi-host flags and ``--quant int8``. ``--rng_impl``
-chooses an XLA generator in the reference and changes nothing here.
+Raising by name, for what is not ported yet: ``--n_model > 1`` and
+``--quant int8``. ``--rng_impl`` chooses an XLA generator in the
+reference and changes nothing here.
 """
 
 from __future__ import annotations
@@ -45,15 +54,16 @@ import torch
 
 from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
+from uc2_torch.parallel import multihost as MH
 from uc2_torch.pretrain import load_any_checkpoint, step_seed
-from uc2_torch.pretrain import refuse_unported as refuse_distribution
+from uc2_torch.pretrain import refuse_unported as refuse_tensor_parallel
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
-                                    add_log_to_file)
+                                    close_run_logs, open_run_logs)
 
 
 def refuse_unported(opts):
     """Raise, naming the flag, for what the port cannot do yet."""
-    refuse_distribution(opts)
+    refuse_tensor_parallel(opts)
     if opts.quant != "none":
         raise NotImplementedError(f"uc2_torch: --quant {opts.quant} (int8 "
                                   f"serving) is not ported yet")
@@ -68,22 +78,16 @@ def main(opts):
     ``results`` ({test name: log})."""
     refuse_unported(opts)
     dev = resolve_device(opts.device)
+    is_main, multi = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed
     set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    from uc2_torch.training.checkpoint import save_training_meta
-    save_training_meta(opts.output_dir, vars(opts))
-    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
-    handler = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                           "log.txt"))
+    handler = open_run_logs(opts, is_main)
     try:
         LOGGER.info("--rng_impl=%s chooses an XLA generator in the "
                     "reference; it changes nothing here", opts.rng_impl)
-        return _train(opts, dev)
+        return _train(opts, dev, is_main, multi)
     finally:
-        LOGGER.removeHandler(handler)
-        handler.close()
-        TB_LOGGER.close()
+        close_run_logs(handler)
 
 
 def json_list(spec):
@@ -114,10 +118,11 @@ def image_db_opener(opts):
     return open_img_db
 
 
-def train_pairs(opts, open_img_db):
+def train_pairs(opts, open_img_db, shard=None):
     """[(TxtTokDb, image db)] of the training databases: one per
     ``--train_txt_db`` entry, with the ``--train_img_db`` entry at the
-    same place (a single text database takes the image spec whole)."""
+    same place (a single text database takes the image spec whole);
+    ``shard=(rank, world)`` stripes the texts."""
     from uc2_torch.data.db import TxtTokDb
     txt_specs = json_list(opts.train_txt_db)
     if not isinstance(txt_specs, (list, tuple)):
@@ -130,11 +135,12 @@ def train_pairs(opts, open_img_db):
                              "txt db")
     else:
         img_specs = [opts.train_img_db]
-    return [(TxtTokDb(t, max_txt_len=opts.max_txt_len), open_img_db(im))
+    return [(TxtTokDb(t, max_txt_len=opts.max_txt_len, shard=shard),
+             open_img_db(im))
             for t, im in zip(txt_specs, img_specs)]
 
 
-def _train(opts, dev):
+def _train(opts, dev, is_main, multi):
     from uc2_torch.data import datasets as D
     from uc2_torch.data.collate import BucketSpec
     from uc2_torch.data.db import TxtTokDb
@@ -145,6 +151,7 @@ def _train(opts, dev):
     from uc2_torch.models import convert
     from uc2_torch.models.finetune import UC2ForImageTextRetrieval
     from uc2_torch.ops.dropout import DropoutRng
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.training import optim as O
     from uc2_torch.training import step as S
     from uc2_torch.training.checkpoint import (AsyncModelSaver, ModelSaver,
@@ -163,10 +170,13 @@ def _train(opts, dev):
         convert.load_partial_tree(model, load_any_checkpoint(
             opts.checkpoint, opts))
         convert.init_rank_from_itm(model)
+    M.broadcast_params(model)
+    rank, world = MH.process_index(), MH.process_count()
 
     # ---- data
     open_img_db = image_db_opener(opts)
-    pairs = train_pairs(opts, open_img_db)
+    pairs = train_pairs(opts, open_img_db,
+                        shard=(rank, world) if multi else None)
     if opts.hard_neg_size > 0:
         subs = [D.ItmRankHardNegDataset(t, im, opts.negative_size,
                                         opts.hard_neg_size)
@@ -176,9 +186,11 @@ def _train(opts, dev):
                 for t, im in pairs]
     dataset = subs[0] if len(subs) == 1 else D.ConcatDataset(subs)
     sample_size = subs[0].sample_size
-    # one process: the rows (groups x sample_size) need divide no
-    # data-parallel width
+    # the rows (groups x sample_size) of a process's batch divide the
+    # world, as the reference's divide its data axis
     group_count = max(1, opts.train_batch_size // sample_size)
+    while (group_count * sample_size) % world and group_count > 1:
+        group_count += 1
     loader = TaskLoader("itm-rank", dataset, [BucketSpec(
         opts.max_txt_len + 2, opts.max_bb, group_count, 0)], seed=opts.seed)
     txt_len = opts.max_txt_len + 2
@@ -195,14 +207,15 @@ def _train(opts, dev):
                                             opts.warmup_steps,
                                             opts.num_train_steps),
             opts.weight_decay, tuple(opts.betas), grad_norm=opts.grad_norm,
-            load_layer=opts.load_layer, optim=opts.optim)
+            load_layer=opts.load_layer, optim=opts.optim, zero1=opts.zero1)
     else:
         opt = O.build_optimizer(model, lr_fn, opts.weight_decay,
                                 tuple(opts.betas), grad_norm=opts.grad_norm,
-                                optim=opts.optim)
+                                optim=opts.optim, zero1=opts.zero1)
     restorer = TrainingRestorer(
         opts.output_dir, {"lr": opts.learning_rate, "seed": opts.seed},
-        save_steps=opts.save_steps)
+        save_steps=opts.save_steps, write=is_main)
+    MH.check_restore_agrees(restorer.restore_pending)
     global_step = 0
     if restorer.restore_pending:
         global_step = restorer.restore(model, opt)
@@ -216,11 +229,13 @@ def _train(opts, dev):
 
     def mine_all(step):
         """Mine each training pair's pools (negatives come from the pair
-        an anchor trains against) into hard_negs_{step}[.db{k}].json."""
+        an anchor trains against) into hard_negs_{step}[.db{k}].json, with
+        ``.host{p}`` across processes (each mines its own stripe)."""
         t0 = time.perf_counter()
         files = []
         for k, ((tdb, idb), sub) in enumerate(zip(pairs, subs)):
             tag = f"hard_negs_{step}" + (f".db{k}" if len(pairs) > 1 else "")
+            tag += f".host{rank}" if multi else ""
             files.append(os.path.join(opts.output_dir, tag + ".json"))
             sub.reload_hard_negs(mine_hard_negatives(
                 model, tdb, idb, txt_len, opts.max_bb,
@@ -272,10 +287,10 @@ def _train(opts, dev):
                  else loader.next_batch())
         batch.pop("targets", None)
         bs = batch["input_ids"].shape
-        n_ex += bs[0] * bs[1] if accum > 1 else bs[0]
+        n_ex += world * (bs[0] * bs[1] if accum > 1 else bs[0])
         _, batch = put(("itm-rank", batch))
         metrics = S.train_step(model, opt, batch, DropoutRng(
-            step_seed(opts.seed, global_step), dev), task="itm-rank",
+            step_seed(opts.seed, global_step, rank), dev), task="itm-rank",
             sample_size=sample_size)
         global_step += 1
         pending.append((global_step, metrics["loss"]))
@@ -297,12 +312,14 @@ def _train(opts, dev):
             LOGGER.info("validation R@K: %s",
                         {k: round(v, 4) for k, v in log.items()})
             TB_LOGGER.log_scalar_dict(log, prefix="val")
-            saver.save(model, global_step)
+            if is_main:
+                saver.save(model, global_step)
 
         if (opts.hard_neg_size > 0 and opts.hard_neg_steps
                 and global_step % opts.hard_neg_steps == 0):
             LOGGER.info("mining hard negatives at step %d", global_step)
             mine_all(global_step)
+        # every process: a ZeRO-1 optimizer gathers its moments here
         restorer.step(global_step, model, opt)
 
         if opts.stop_after_steps and global_step >= opts.stop_after_steps:
@@ -325,7 +342,7 @@ def _train(opts, dev):
             LOGGER.info("test [%s]: %s", name,
                         {k: round(v, 4) for k, v in log.items()})
             run.results[name] = log
-        if run.results:
+        if run.results and is_main:
             with open(os.path.join(opts.output_dir, "test_results.json"),
                       "w") as f:
                 json.dump(run.results, f, indent=2)
@@ -407,13 +424,11 @@ def build_parser():
     p.add_argument("--n_model", type=int, default=1,
                    help="tensor-parallel width (only 1 is ported)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the optimizer state (not ported yet)")
+                   help="shard the optimizer's moments over the processes "
+                        "(ZeRO-1)")
     p.add_argument("--async_ckpt", action="store_true",
                    help="write milestones from a background thread")
-    # multi-host (not ported yet)
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    MH.add_dist_flags(p)
     return p
 
 
@@ -479,4 +494,4 @@ if __name__ == "__main__":
     parser = build_parser()
     opts = parse_with_config(parser)
     apply_reference_config_compat(opts, parser)
-    main(opts)
+    MH.run_cli(main, opts)

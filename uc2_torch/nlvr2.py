@@ -18,8 +18,11 @@ the training data (the ragged tail included) into the official CSV
 A loaded checkpoint's token-type table grows to three rows
 (``expand_type_embeddings``) before it is merged.
 
-Dropout, resume and the loss reads are those of ``uc2_torch.vqa``.
-Raising by name: ``--n_model > 1`` and the multi-host flags.
+Dropout, resume, the loss reads and data parallelism across processes
+are those of ``uc2_torch.vqa`` (no ``--zero1``, as ``nlvr2.py`` has none);
+the prediction sweep runs whole on every process, over the unstriped
+text database, and process 0 writes the CSV. Raising by name:
+``--n_model > 1``.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ import csv
 import types
 
 from uc2_torch.config import UC2Config, parse_with_config
+from uc2_torch.parallel.multihost import run_cli
 from uc2_torch.pretrain import load_any_checkpoint
-from uc2_torch.utils.logger import LOGGER
+from uc2_torch.utils.logger import LOGGER, close_run_logs
 from uc2_torch import vqa
 
 
@@ -44,7 +48,7 @@ def main(opts):
     try:
         return _train(opts, dev)
     finally:
-        vqa.end_run(handler)
+        close_run_logs(handler)
 
 
 def _train(opts, dev):
@@ -65,7 +69,9 @@ def _train(opts, dev):
         convert.load_partial_tree(model, expand_type_embeddings(
             load_any_checkpoint(opts.checkpoint, opts)))
 
-    txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len)
+    shard = vqa.data_shard()
+    txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len,
+                      shard=shard)
     img_db = DetectFeatDb(opts.train_img_db, opts.conf_th, opts.max_bb,
                           opts.min_bb, opts.num_bb)
     if opts.fmt == "triplet":
@@ -76,10 +82,15 @@ def _train(opts, dev):
         dataset = D.Nlvr2TwoRowDataset(txt_db, img_db,
                                        use_img_type=opts.use_img_type)
         num_bb = opts.max_bb
-    # examples a batch (pairs of rows in the paired formats); one process:
-    # they need divide no data-parallel width
-    bucket = BucketSpec(opts.max_txt_len + 2, num_bb,
-                        max(1, opts.train_batch_size), 0)
+    # examples a batch (pairs of rows in the paired formats), raised until
+    # their rows divide the world, as the reference raises them to divide
+    # its data axis
+    rows_per_ex = 1 if opts.fmt == "triplet" else 2
+    world = 1 if shard is None else shard[1]
+    n_ex = max(1, opts.train_batch_size)
+    while (n_ex * rows_per_ex) % world:
+        n_ex += 1
+    bucket = BucketSpec(opts.max_txt_len + 2, num_bb, n_ex, 0)
     loader = TaskLoader("nlvr2", dataset, [bucket], seed=opts.seed)
 
     lr_fn = O.get_lr_schedule(opts.decay, opts.learning_rate,
@@ -88,10 +99,20 @@ def _train(opts, dev):
     saver = ModelSaver(opts.output_dir)
     run = types.SimpleNamespace(step=step, model=model, optimizer=opt,
                                 losses=[], logs=[], preds={})
+    def on_valid(step):
+        if restorer.write:                  # process 0
+            saver.save(model, step)
+
     vqa.train_loop(opts, dev, model, opt, restorer, loader, "nlvr2", run,
-                   lambda s: saver.save(model, s))
+                   on_valid)
     if opts.pred_csv:
-        run.preds = predict(model, dataset, bucket, dev)
+        # the sweep covers every example on every process: across
+        # processes over the whole (unstriped) text database
+        pred_ds = dataset if shard is None else type(dataset)(
+            TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len),
+            img_db, use_img_type=opts.use_img_type)
+        run.preds = predict(model, pred_ds, bucket, dev)
+    if opts.pred_csv and restorer.write:
         with open(opts.pred_csv, "w", newline="") as f:
             w = csv.writer(f)
             for k, v in run.preds.items():
@@ -155,4 +176,4 @@ def build_parser():
 
 
 if __name__ == "__main__":
-    main(parse_with_config(build_parser()))
+    run_cli(main, parse_with_config(build_parser()))

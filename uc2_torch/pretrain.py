@@ -22,15 +22,28 @@ thread assembles batches and copies them to the card) -> ``train_step``
   run is the uninterrupted one, step for step.
 * Losses stay device tensors and are read ``--runahead`` steps late; a
   ``--log_steps`` boundary reads them all (so its time is honest).
+* Data parallel across processes, one GPU each: one command a process,
+  ``--coordinator_address host:port --num_processes N --process_id p``
+  (or the environment, ``uc2_torch.parallel.multihost``), over
+  ``--dist_backend`` (NCCL on CUDA, gloo on the CPU by default). Each
+  process trains on its stripe of every training text database, process
+  0's bucket choice keeps the shapes in step (``MetaLoader``'s
+  ``sync_buckets``), the gradients are summed once a step and the losses
+  divided by the global counts (``training/step.py``); ``--zero1`` shards
+  the optimizer's moments. Dropout seeds fold in the process index
+  (process 0 keeps the one-process seeds). Validation runs whole on
+  every process; examples are counted over all of them; process 0 writes
+  the logs, milestones and ``restore.ckpt``, every process its stream
+  file.
 
 Every task of the reference runs: mlm, tlm, tlm-ni, vmlm, mmxlm,
 vmlm-soft, mmxlm-soft (with a spec's ``img_token_soft_label`` stores when
 given), mrfr, mrm-nce, mrc, mrc-kl, itm and itm-ot (``--itm_ot_lambda``,
 ``--ot_pos_only``), with ``--itm_hard_neg`` and ``--optim
 adam|adamax|adamw``. Raising by name, for what is not ported yet:
-``--n_model > 1``, ``--zero1`` and the multi-host flags. ``--rng_impl``
-and ``--split_step`` choose XLA programs in the reference; here they
-change nothing (one log line says so).
+``--n_model > 1`` (tensor parallelism). ``--rng_impl`` and
+``--split_step`` choose XLA programs in the reference; here they change
+nothing (one log line says so).
 ``--async_ckpt`` writes milestones from a background thread.
 """
 
@@ -51,8 +64,9 @@ import torch
 
 from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
+from uc2_torch.parallel import multihost as MH
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
-                                    add_log_to_file)
+                                    close_run_logs, open_run_logs)
 
 
 def build_datasets(opts, which: str = "train", shard=None):
@@ -148,19 +162,16 @@ def refuse_unported(opts):
     if opts.n_model > 1:
         raise NotImplementedError("uc2_torch: --n_model > 1 (tensor "
                                   "parallelism) is not ported yet")
-    if opts.zero1:
-        raise NotImplementedError("uc2_torch: --zero1 is not ported yet")
-    for flag in ("coordinator_address", "num_processes", "process_id"):
-        if getattr(opts, flag) is not None:
-            raise NotImplementedError(f"uc2_torch: --{flag} (multi-host "
-                                      f"training) is not ported yet")
 
 
-def step_seed(seed: int, index: int) -> int:
-    """The dropout seed of step (or micro-step) ``index``: a pure function
-    of (seed, index), the counterpart of the reference's
-    ``fold_in(key(seed + 1), index)``."""
-    return int(np.random.SeedSequence([seed + 1, index]).generate_state(1)[0])
+def step_seed(seed: int, index: int, rank: int = 0) -> int:
+    """The dropout seed of step (or micro-step) ``index`` on process
+    ``rank``: a pure function of (seed, index, rank), the counterpart of
+    the reference's ``fold_in(key(seed + 1), index)``. Process 0 keeps the
+    one-process seeds; the others fold their index in, so that the
+    processes' rows draw different masks."""
+    key = [seed + 1, index] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
 def main(opts):
@@ -171,37 +182,34 @@ def main(opts):
     save) and ``sustained``."""
     refuse_unported(opts)
     dev = resolve_device(opts.device)
+    is_main, multi = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed
     set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    from uc2_torch.training.checkpoint import save_training_meta
-    save_training_meta(opts.output_dir, vars(opts))
-    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
-    handler = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                           "log.txt"))
+    handler = open_run_logs(opts, is_main)
     try:
         LOGGER.info("--rng_impl=%s and --split_step=%s choose XLA programs "
                     "in the reference; they change nothing here",
                     opts.rng_impl, opts.split_step)
-        return _train(opts, dev)
+        return _train(opts, dev, is_main, multi)
     finally:
-        LOGGER.removeHandler(handler)
-        handler.close()
-        TB_LOGGER.close()
+        close_run_logs(handler)
 
 
-def _train(opts, dev):
+def _train(opts, dev, is_main, multi):
     from uc2_torch.data.collate import default_buckets
     from uc2_torch.data.loader import (MetaLoader, PrefetchLoader,
                                        TaskLoader, task_batch_to_device)
     from uc2_torch.models import convert
     from uc2_torch.models.pretraining import UC2ForPretraining
     from uc2_torch.ops.dropout import DropoutRng
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.training import optim as O
     from uc2_torch.training import step as S
     from uc2_torch.training.checkpoint import (AsyncModelSaver, ModelSaver,
                                                TrainingRestorer)
     from uc2_torch.utils.misc import set_dropout
+
+    rank, world = MH.process_index(), MH.process_count()
 
     # ---- model
     cfg = UC2Config.from_json_file(opts.model_config).replace(
@@ -220,9 +228,12 @@ def _train(opts, dev):
         convert.load_params(model, convert.splice_early_adaptation(
             convert.params_to_jax(model.state_dict()),
             load_raw_checkpoint(opts.early_adaptation_checkpoint)))
+    M.broadcast_params(model)
 
-    # ---- data
-    train, label_vocab = build_datasets(opts, "train")
+    # ---- data: the training databases striped over the processes;
+    # validation whole on each (every process computes the same logs)
+    train, label_vocab = build_datasets(
+        opts, "train", shard=(rank, world) if multi else None)
     val, _ = (build_datasets(opts, "val") if opts.val_datasets
               else ({}, None))
     valid_ids = label_vocab.valid_ids if label_vocab is not None else None
@@ -238,30 +249,38 @@ def _train(opts, dev):
     # step); --host_accum takes them one by one (buckets may differ)
     stack = accum > 1 and not opts.host_accum
     meta = MetaLoader(loaders, ratios, accum_steps=accum, seed=opts.seed,
-                      stack_microbatches=stack)
+                      stack_microbatches=stack, sync_buckets=multi)
 
     # ---- optimizer and restore
     lr_fn = O.get_lr_schedule(opts.decay, opts.learning_rate,
                               opts.warmup_steps, opts.num_train_steps)
     opt = O.build_optimizer(model, lr_fn, opts.weight_decay,
                             tuple(opts.betas), grad_norm=opts.grad_norm,
-                            optim=opts.optim)
+                            optim=opts.optim, zero1=opts.zero1)
     # num_train_steps stays out of the check so that a run can be extended
     restorer = TrainingRestorer(
         opts.output_dir, {k: vars(opts)[k] for k in
                           ("learning_rate", "seed", "train_batch_size")},
-        save_steps=opts.save_steps)
+        save_steps=opts.save_steps, write=is_main)
+    MH.check_restore_agrees(restorer.restore_pending)
     global_step = 0
     if restorer.restore_pending:
         global_step = restorer.restore(model, opt)
         LOGGER.info("restored training at step %d", global_step)
         sd = restorer.restore_stream(global_step)
+        if multi and not all(MH.all_gather_object(sd is not None)):
+            # all or none: processes fed from streams of different
+            # positions would train on what an uninterrupted run never saw
+            sd = None
         if sd is not None:
             meta.load_state_dict(sd)
             LOGGER.info("restored input-stream state (meta step %d)",
                         meta.step)
-        else:
+        elif not multi:
             meta.fast_forward(global_step)
+        else:
+            LOGGER.warning("no stream state of step %d on every process: "
+                           "the input stream restarts", global_step)
 
     # the worker starts only now, so it cannot consume stream state that
     # the restore above had to replay; meta_src stays the raw MetaLoader,
@@ -272,6 +291,10 @@ def _train(opts, dev):
         meta = PrefetchLoader(meta, depth=2, device_put=put)
     saver = (AsyncModelSaver if opts.async_ckpt else ModelSaver)(
         opts.output_dir)
+
+    def milestone(step):
+        if is_main:
+            saver.save(model, step)
 
     task2loss = defaultdict(lambda: RunningMeter("loss"))
     n_examples = defaultdict(int)
@@ -301,18 +324,21 @@ def _train(opts, dev):
         while global_step < opts.num_train_steps:
             if accum == 1 or stack:
                 name, batch = next_batch()
+                # every process's batch has this bucket's shape
                 bs = batch["input_ids"].shape
-                n_examples[name] += bs[0] * bs[1] if stack else bs[0]
-                rng = DropoutRng(step_seed(opts.seed, global_step), dev)
+                n_examples[name] += world * (bs[0] * bs[1] if stack
+                                             else bs[0])
+                rng = DropoutRng(step_seed(opts.seed, global_step, rank),
+                                 dev)
                 metrics = S.train_step(model, opt, batch, rng, task=name,
                                        **loss_kw)
             else:
                 micro = []
                 for k in range(accum):
                     name, batch = next_batch()
-                    n_examples[name] += batch["input_ids"].shape[0]
+                    n_examples[name] += world * batch["input_ids"].shape[0]
                     micro.append((batch, DropoutRng(step_seed(
-                        opts.seed, global_step * accum + k), dev)))
+                        opts.seed, global_step * accum + k, rank), dev)))
                 metrics = S.train_step_micro(model, opt, micro, task=name,
                                              **loss_kw)
             global_step += 1
@@ -358,7 +384,8 @@ def _train(opts, dev):
             if opts.valid_steps and global_step % opts.valid_steps == 0:
                 drain()
                 run.val = validate(model, val, buckets, opts, put, valid_ids)
-                saver.save(model, global_step)
+                milestone(global_step)
+            # every process: a ZeRO-1 optimizer gathers its moments here
             restorer.step(global_step, model, opt,
                           stream=meta_src.snapshot_for(
                               global_step * meta_src.accum_steps))
@@ -375,7 +402,7 @@ def _train(opts, dev):
             meta.close()
     if opts.valid_steps and global_step % opts.valid_steps != 0:
         run.val = validate(model, val, buckets, opts, put, valid_ids)
-        saver.save(model, global_step)
+        milestone(global_step)
     saver.wait()
     if run.sustained:
         LOGGER.info("FINAL sustained %.1f ex/s | %.2f steps/s (steps %d-%d)",
@@ -584,7 +611,8 @@ def build_parser():
     p.add_argument("--n_model", type=int, default=1,
                    help="tensor-parallel width (only 1 is ported)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the optimizer state (not ported yet)")
+                   help="shard the optimizer's moments over the processes "
+                        "(ZeRO-1)")
     p.add_argument("--lm_ce_chunks", type=int, default=0,
                    help="stream the 250k-vocab MLM CE in N chunks")
     p.add_argument("--async_ckpt", action="store_true",
@@ -592,10 +620,7 @@ def build_parser():
     p.add_argument("--split_step", action="store_true",
                    help="the reference's two-program step; changes "
                         "nothing here")
-    # multi-host (not ported yet)
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    MH.add_dist_flags(p)
     return p
 
 
@@ -615,4 +640,4 @@ def apply_reference_config_compat(opts, argv=None):
 if __name__ == "__main__":
     opts = parse_with_config(build_parser())
     apply_reference_config_compat(opts)
-    main(opts)
+    MH.run_cli(main, opts)

@@ -13,8 +13,11 @@ uc2_tpu/training/checkpoint.py).
   previous one rotated to ``restore_backup.ckpt``, so a preemption during
   a write leaves one whole file; the hyperparameters of the first run in
   ``restore_hps.json``, checked on resume; the input stream's state
-  (``MetaLoader.state_dict``) in ``restore_stream_p0.json``, written
-  before the model file and paired with it by ``global_step``.
+  (``MetaLoader.state_dict``) of process p in ``restore_stream_p{p}.json``,
+  written before the model file and paired with it by ``global_step``.
+  Across processes every process enters each save (a ZeRO-1 optimizer
+  gathers its moments there) and writes its own stream file; only the
+  writer (process 0) writes the rest.
 
 Every file goes to a temporary name first and is renamed into place.
 The reference's flax msgpack files are not read here.
@@ -114,15 +117,22 @@ class TrainingRestorer:
     """Preemption-safe restore with the two-file rotation and the check
     that the resumed run's hyperparameters are the first run's."""
 
-    def __init__(self, output_dir: str, hps: Dict, save_steps: int = 200):
+    def __init__(self, output_dir: str, hps: Dict, save_steps: int = 200,
+                 write: bool = True):
+        """``write=False`` (every process but 0): the process enters each
+        save, for the optimizer's gather, and writes its own stream file
+        but nothing else."""
+        from uc2_torch.parallel.multihost import process_index
         self.restore_path = os.path.join(output_dir, "restore.ckpt")
         self.backup_path = os.path.join(output_dir, "restore_backup.ckpt")
         self.hps_path = os.path.join(output_dir, "restore_hps.json")
-        # one process: the reference's file names for process 0
-        self.stream_path = os.path.join(output_dir, "restore_stream_p0.json")
-        self.stream_backup = os.path.join(output_dir,
-                                          "restore_stream_backup_p0.json")
+        proc = process_index()
+        self.stream_path = os.path.join(output_dir,
+                                        f"restore_stream_p{proc}.json")
+        self.stream_backup = os.path.join(
+            output_dir, f"restore_stream_backup_p{proc}.json")
         self.save_steps = save_steps
+        self.write = write
         self.hps = json.loads(json.dumps(hps, default=str))
         # seconds each save took (host copy and write)
         self.save_seconds: List[float] = []
@@ -138,9 +148,10 @@ class TrainingRestorer:
                     f"(saved {saved}, now {self.hps})")
             self.restore_pending = True
         else:
-            os.makedirs(output_dir, exist_ok=True)
-            with open(self.hps_path, "w") as f:
-                json.dump(self.hps, f)
+            if write:
+                os.makedirs(output_dir, exist_ok=True)
+                with open(self.hps_path, "w") as f:
+                    json.dump(self.hps, f)
             self.restore_pending = False
 
     def step(self, global_step: int, model, optimizer,
@@ -162,9 +173,12 @@ class TrainingRestorer:
             if os.path.exists(self.stream_path):
                 os.replace(self.stream_path, self.stream_backup)
             os.replace(tmp, self.stream_path)
+        opt_state = optimizer.state_dict()     # every process: a collective
+        if not self.write:
+            return
         state = {"global_step": int(global_step),
                  "model": host_copy(model.state_dict()),
-                 "optimizer": host_copy(optimizer.state_dict())}
+                 "optimizer": host_copy(opt_state)}
         if os.path.exists(self.restore_path):
             os.replace(self.restore_path, self.backup_path)
         save_file(self.restore_path, state)

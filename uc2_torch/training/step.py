@@ -14,6 +14,15 @@ the OT term, itm-rank (retrieval finetuning, a
 [groups, sample_size - 1] elements, vqa (VQA and VE, a ``UC2ForVqa``) as
 the mean over the rows of the BCE elements' sum over the answers, and
 nlvr2 (a ``UC2ForNlvr2``) as the mean of the examples' CE.
+
+Across processes (``uc2_torch.parallel``) every count that divides a sum
+is summed over the processes first (``mesh.global_count``), as the
+reference divides by the global batch's counts, and ``train_step`` sums
+the gradients and the metrics over them (``mesh.reduce_grads``, one
+all-reduce) before the update: the step is the step on the concatenation
+of the processes' batches. Each process's metrics are its share of the
+global ones (its sums over the global counts; ``n_units`` its own count),
+so their sums are the global metrics.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from uc2_torch.models.heads import cross_entropy_with_logits, \
     kl_div_with_logits
+from uc2_torch.parallel.mesh import global_count, reduce_grads
 from uc2_torch.training.optim import Optimizer
 
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
@@ -34,6 +44,13 @@ TASKS = tuple(_MLM_TASKS) + ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft",
 
 def _clamp1(n):
     return torch.clamp(n, min=1.0)
+
+
+def _mean(elems):
+    """The sum of ``elems`` over their count across the processes, and that
+    process's count."""
+    n = torch.full((), float(elems.numel()), device=elems.device)
+    return elems.sum() / _clamp1(global_count(n)), n
 
 
 def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
@@ -57,19 +74,14 @@ def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
     def loss_fn(model, batch, rng):
         det = rng is None
         if base == "itm-rank":
-            elems = model.rank_loss(batch, sample_size, det, rng)
-            loss = elems.mean()
-            return loss, {"loss": loss.detach(),
-                          "n_units": torch.full((), float(elems.numel()),
-                                                device=loss.device)}
+            loss, n = _mean(model.rank_loss(batch, sample_size, det, rng))
+            return loss, {"loss": loss.detach(), "n_units": n}
         if base in ("vqa", "nlvr2"):
             elems = model.loss(batch, det, rng)
             if base == "vqa":
                 elems = elems.sum(-1)
-            loss = elems.mean()
-            return loss, {"loss": loss.detach(),
-                          "n_units": torch.full((), float(elems.numel()),
-                                                device=loss.device)}
+            loss, n = _mean(elems)
+            return loss, {"loss": loss.detach(), "n_units": n}
         if base in _MLM_TASKS:
             s, n = model.forward_mlm(batch, det, rng,
                                      with_image=_MLM_TASKS[base])
@@ -82,21 +94,24 @@ def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
             s, n = model.forward_mrfr(batch, det, rng)
         elif base == "mrm-nce":
             s, n, correct = model.forward_mrm_nce(batch, det, rng)
-            loss = s / _clamp1(n)
+            n_all = _clamp1(global_count(n))
+            loss = s / n_all
             return loss, {"loss": loss.detach(), "n_units": n.detach(),
-                          "acc": (correct / _clamp1(n)).detach()}
+                          "acc": (correct / n_all).detach()}
         elif base in ("mrc", "mrc-kl"):
             s, n = model.forward_mrc(batch, base == "mrc-kl", det, rng)
         else:
             s, b, ot = model.forward_itm(batch, det, rng,
                                          compute_ot=base == "itm-ot")
             n = torch.full((), float(b), device=s.device)
-            xe = s / _clamp1(n)
             if ot is None:
+                xe = s / _clamp1(global_count(n))
                 return xe, {"loss": xe.detach(), "n_units": n}
             pos = batch["targets"] == 1
             neg = batch["targets"] == 0
-            n_pos, n_neg = pos.sum().float(), neg.sum().float()
+            n_all, n_pos, n_neg = global_count(n, pos.sum().float(),
+                                               neg.sum().float())
+            xe = s / _clamp1(n_all)
             s_pos = torch.where(pos, ot, 0.0).sum()
             s_neg = torch.where(neg, ot, 0.0).sum()
             if ot_pos_only:
@@ -108,7 +123,7 @@ def make_loss_fn(task: str, valid_ids=None, itm_ot_lambda: float = 0.1,
                 ("loss", loss), ("xe", xe), ("ot", ot_loss),
                 ("ot_pos", s_pos / _clamp1(n_pos)),
                 ("ot_neg", s_neg / _clamp1(n_neg)), ("n_units", n))}
-        loss = s / _clamp1(n)
+        loss = s / _clamp1(global_count(n))
         return loss, {"loss": loss.detach(), "n_units": n.detach()}
 
     return loss_fn
@@ -160,6 +175,7 @@ def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
     opt.zero_grad()
     metrics = accumulate_grads(make_loss_fn(task, **loss_kw), model, batch,
                                rng)
+    metrics = reduce_grads(opt.params, metrics)
     metrics["grad_norm"] = opt.step()
     return metrics
 
@@ -172,6 +188,7 @@ def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm",
     them over a stacked batch."""
     opt.zero_grad()
     metrics = mean_grads(make_loss_fn(task, **loss_kw), model, micro)
+    metrics = reduce_grads(opt.params, metrics)
     metrics["grad_norm"] = opt.step()
     return metrics
 

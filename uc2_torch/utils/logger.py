@@ -1,5 +1,6 @@
 """Logging and metrics (a copy of uc2_tpu/utils/logger.py): the global
-``LOGGER``, ``add_log_to_file``, ``TB_LOGGER`` (a TensorBoard wrapper with
+``LOGGER``, ``add_log_to_file``, the drivers' ``open_run_logs`` and
+``close_run_logs``, ``TB_LOGGER`` (a TensorBoard wrapper with
 its own global step that always appends its scalars to
 ``scalars.jsonl``, and writes TensorBoard events too when ``tensorboardX``
 imports) and the EMA ``RunningMeter`` (smoothing 0.99).
@@ -28,6 +29,28 @@ def add_log_to_file(log_path: str) -> logging.Handler:
     fh.setFormatter(logging.Formatter(_LOG_FMT, _DATE_FMT))
     LOGGER.addHandler(fh)
     return fh
+
+
+def open_run_logs(opts, is_main: bool) -> Optional[logging.Handler]:
+    """A driver's output directory; on process 0 also ``log/hps.json``,
+    the scalar log and the log file, whose handler it returns (None
+    elsewhere)."""
+    from uc2_torch.training.checkpoint import save_training_meta
+    os.makedirs(opts.output_dir, exist_ok=True)
+    if not is_main:
+        return None
+    save_training_meta(opts.output_dir, vars(opts))
+    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
+    return add_log_to_file(os.path.join(opts.output_dir, "log", "log.txt"))
+
+
+def close_run_logs(handler: Optional[logging.Handler]) -> None:
+    """Undo ``open_run_logs``: detach its log file and close the scalar
+    log."""
+    if handler is not None:
+        LOGGER.removeHandler(handler)
+        handler.close()
+    TB_LOGGER.close()
 
 
 class TensorboardLogger:

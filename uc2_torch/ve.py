@@ -10,6 +10,7 @@ the same flags, ``--device`` included.
 
 from uc2_torch import vqa
 from uc2_torch.config import parse_with_config
+from uc2_torch.parallel.multihost import run_cli
 
 
 def build_parser():
@@ -26,4 +27,4 @@ def main(opts):
 
 
 if __name__ == "__main__":
-    main(parse_with_config(build_parser()))
+    run_cli(main, parse_with_config(build_parser()))

@@ -21,11 +21,17 @@ MCAN staircase of ``--warm_int``, ``--decay_int``, ``--decay_st`` and
   its stream again, as vqa.py's does.
 * Losses stay device tensors and are read at each log boundary, so the
   host builds the next batch while the card runs the step.
+* Data parallel across processes, as in the pretraining driver (its
+  docstring; no ``--zero1``, as ``vqa.py`` has none): each process trains
+  on its stripe of the training texts, its batch rounded down to a
+  multiple of the world as the reference rounds it to its data axis; validation runs
+  whole on every process; process 0 writes the logs, milestones and
+  ``restore.ckpt``.
 
-Raising by name, for what is not ported yet: ``--n_model > 1`` and the
-multi-host flags. ``--rng_impl`` chooses an XLA generator in the reference
-and changes nothing here. ``python -m uc2_torch.ve`` is this driver with
-three answers.
+Raising by name, for what is not ported yet: ``--n_model > 1``.
+``--rng_impl`` chooses an XLA generator in the reference and changes
+nothing here. ``python -m uc2_torch.ve`` is this driver with three
+answers.
 """
 
 from __future__ import annotations
@@ -40,45 +46,36 @@ import torch
 
 from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
-from uc2_torch.pretrain import load_any_checkpoint, step_seed
+from uc2_torch.parallel import multihost as MH
+from uc2_torch.pretrain import (load_any_checkpoint, refuse_unported,
+                               step_seed)
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
-                                    add_log_to_file)
-
-
-def refuse_unported(opts):
-    """Raise, naming the flag, for what the port cannot do yet."""
-    if opts.n_model > 1:
-        raise NotImplementedError("uc2_torch: --n_model > 1 (tensor "
-                                  "parallelism) is not ported yet")
-    for flag in ("coordinator_address", "num_processes", "process_id"):
-        if getattr(opts, flag) is not None:
-            raise NotImplementedError(f"uc2_torch: --{flag} (multi-host "
-                                      f"training) is not ported yet")
+                                    close_run_logs, open_run_logs)
 
 
 def start_run(opts, name: str):
     """The common start of the finetuning drivers: refuse what is not
-    ported, seed, write ``log/hps.json``, open the scalar log and the log
+    ported, join the process group the flags describe, seed, and on
+    process 0 write ``log/hps.json`` and open the scalar log and the log
     file. Returns (device, the log file's handler)."""
     refuse_unported(opts)
     dev = resolve_device(opts.device)
-    from uc2_torch.training.checkpoint import save_training_meta
+    is_main, _ = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed
     set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    save_training_meta(opts.output_dir, vars(opts))
-    TB_LOGGER.create(os.path.join(opts.output_dir, "log"))
-    handler = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                           "log.txt"))
+    handler = open_run_logs(opts, is_main)
     LOGGER.info("%s: --rng_impl=%s chooses an XLA generator in the "
                 "reference; it changes nothing here", name, opts.rng_impl)
     return dev, handler
 
 
-def end_run(handler):
-    LOGGER.removeHandler(handler)
-    handler.close()
-    TB_LOGGER.close()
+
+def data_shard():
+    """(rank, world) of this process when there are several, else None:
+    the training texts' stripe."""
+    return ((MH.process_index(), MH.process_count())
+            if MH.process_count() > 1 else None)
+
 
 
 def train_loop(opts, dev, model, opt, restorer, loader, task, run,
@@ -94,6 +91,7 @@ def train_loop(opts, dev, model, opt, restorer, loader, task, run,
     from uc2_torch.ops.dropout import DropoutRng
     from uc2_torch.training import step as S
     put = task_batch_to_device(dev)
+    rank, world = MH.process_index(), MH.process_count()
     meter = RunningMeter(f"{task}_loss")
     pending = []               # (step, loss as a device tensor)
 
@@ -109,9 +107,9 @@ def train_loop(opts, dev, model, opt, restorer, loader, task, run,
     LOGGER.info("start training at step %d", global_step)
     while global_step < opts.num_train_steps:
         _, batch = put((task, loader.next_batch()))
-        n_rows += batch["input_ids"].shape[0]
+        n_rows += world * batch["input_ids"].shape[0]
         metrics = S.train_step(model, opt, batch, DropoutRng(
-            step_seed(opts.seed, global_step), dev), task=task)
+            step_seed(opts.seed, global_step, rank), dev), task=task)
         global_step += 1
         pending.append((global_step, metrics["loss"]))
         if global_step % opts.log_steps == 0:
@@ -123,22 +121,26 @@ def train_loop(opts, dev, model, opt, restorer, loader, task, run,
             TB_LOGGER.add_scalar(f"loss/{task}", meter.val, global_step)
         if opts.valid_steps and global_step % opts.valid_steps == 0:
             on_valid(global_step)
-        restorer.step(global_step, model, opt)
+        restorer.step(global_step, model, opt)      # every process
     drain()
     run.step = global_step
     return run
 
 
 def optimizer_and_restore(opts, model, lr_fn):
-    """The optimizer over ``model`` and the restore: returns (optimizer,
-    restorer, the step to start from)."""
+    """The optimizer over ``model`` (rank 0's parameters on every
+    process) and the restore: returns (optimizer, restorer, the step to
+    start from)."""
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.training import optim as O
     from uc2_torch.training.checkpoint import TrainingRestorer
+    M.broadcast_params(model)
     opt = O.build_optimizer(model, lr_fn, opts.weight_decay,
                             tuple(opts.betas), grad_norm=opts.grad_norm)
     restorer = TrainingRestorer(
         opts.output_dir, {"lr": opts.learning_rate, "seed": opts.seed},
-        save_steps=opts.save_steps)
+        save_steps=opts.save_steps, write=MH.process_index() == 0)
+    MH.check_restore_agrees(restorer.restore_pending)
     step = 0
     if restorer.restore_pending:
         step = restorer.restore(model, opt)
@@ -155,7 +157,7 @@ def main(opts):
     try:
         return _train(opts, dev)
     finally:
-        end_run(handler)
+        close_run_logs(handler)
 
 
 def _train(opts, dev):
@@ -179,14 +181,18 @@ def _train(opts, dev):
         convert.load_partial_tree(model, load_any_checkpoint(
             opts.checkpoint, opts))
 
-    txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len)
+    txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len,
+                      shard=data_shard())
     img_db = DetectFeatDb(opts.train_img_db, opts.conf_th, opts.max_bb,
                           opts.min_bb, opts.num_bb)
     dataset = D.VqaDataset(txt_db, img_db, num_answers=opts.num_answer)
-    # one process: the batch need divide no data-parallel width
+    # the rows a multiple of the world, rounded down as the reference
+    # rounds them to its data axis
+    world = MH.process_count()
     loader = TaskLoader("vqa", dataset, [BucketSpec(
-        opts.max_txt_len + 2, opts.max_bb, max(1, opts.train_batch_size),
-        0)], seed=opts.seed)
+        opts.max_txt_len + 2, opts.max_bb,
+        max(world, opts.train_batch_size // world * world), 0)],
+        seed=opts.seed)
 
     if opts.decay == "vqa":
         lr_fn = O.vqa_schedule(opts.learning_rate, opts.warm_int,
@@ -197,6 +203,7 @@ def _train(opts, dev):
                                   opts.warmup_steps, opts.num_train_steps)
     opt, restorer, step = optimizer_and_restore(opts, model, lr_fn)
     saver = ModelSaver(opts.output_dir)
+    is_main = restorer.write
     run = types.SimpleNamespace(step=step, model=model, optimizer=opt,
                                 losses=[], logs=[], val=[])
     val_data = []
@@ -211,7 +218,8 @@ def _train(opts, dev):
                     num_answers=opts.num_answer))
             run.val.append((global_step, validate(model, val_data[0], opts,
                                                   dev)))
-        saver.save(model, global_step)
+        if is_main:
+            saver.save(model, global_step)
 
     train_loop(opts, dev, model, opt, restorer, loader, "vqa", run, on_valid)
     LOGGER.info("training done at step %d", run.step)
@@ -261,10 +269,7 @@ def add_tail_flags(p):
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--n_model", type=int, default=1,
                    help="tensor-parallel width (only 1 is ported)")
-    # multi-host (not ported yet)
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    MH.add_dist_flags(p)
 
 
 def build_parser():
@@ -308,4 +313,4 @@ def build_parser():
 
 
 if __name__ == "__main__":
-    main(parse_with_config(build_parser()))
+    MH.run_cli(main, parse_with_config(build_parser()))
