@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the uc2_torch paths on one CUDA card: ITM pair scoring, the mlm
+"""Drive the uc2_torch paths on one CUDA card: ITM pair scoring (bf16, and
+int8 serving), the mlm
 pretraining step, the pretraining task mix of config/uc2_pretrain.json
 (itm, mlm, vmlm, tlm) with the training FFN kernels, the pretraining
 driver (python -m uc2_torch.pretrain) on U2S stores with exact resume,
@@ -14,7 +15,8 @@ the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
 (the QKV projection inside the attention block) and
 use_pallas_attention="flash" (scoring, and training at attention dropout
 0), and the port's kernel lab (python -m uc2_torch.lab, every mode) with
-the two kernels only it runs.
+the two kernels only it runs, the mlm step under remat (full, dots) and
+the LMDB importer.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -238,13 +240,37 @@ non-zero at the end, without the result lines:
      stream files, the processes' dropout masks different (process 0's
      the one-process masks), launches of #5/#6a/#6b, ms/step a process.
      The stores and checkpoints are deleted;
- 19. a JSON line of per-kernel numbers (launches: the main-path phases'
+ 19. int8: int8 serving at uc2-base width: each of a layer's four int8
+     products at (64, 98) rows on the card against its plain version (the
+     codes and the int32 sums of cuBLASLt's ``_int_mm`` bit for bit the
+     CPU's exact product, the output within INT8_RTOL), timed beside the
+     bf16 ``F.linear``; int8 against bf16 scoring from the same weights
+     at B = 64 and L = 98, 128, 162 (finite, max |diff|, rank correlation
+     over INT8_TEXTS texts and the INT8_SEEDS weight draws held to
+     INT8_RANK_RHO, 12 launches of #1 and 48 int8 products a batch and no
+     fused block, ms/batch and implied TFLOP/s of both; the int8 function
+     in fp32 on the card against the CPU's, code for code over
+     INT8_CPU_ROWS pairs, each layer fed the card's input, within
+     INT8_CODE_SHARE), one
+     int8 batch traced through ``uc2_torch.utils.profiling.trace`` (#1's
+     launches read from the trace); ``python -m uc2_torch.itm --quant
+     int8`` for INT8_STEPS steps with validation and tests on phase 16's
+     stores (launches, int8 products a scored batch, test_results.json);
+ 20. remat: the mlm step at (128, 162) under "pallas-train" at dropout
+     0.1 with remat none, full and dots, without and with UC2_FFN_TRAIN=1:
+     loss and every gradient of full and dots bit for bit none's, the
+     dropout streams where none leaves them, launches (the recompute
+     launches #5, and #9, again), ms/step, peak memory and implied
+     TFLOP/s; then ``uc2_torch.import_lmdb`` on a fixture in the original
+     release's LMDB format (``data/synth.py`` ``reference_lmdb``) and two
+     mlm steps on the card from the imported stores;
+ 21. a JSON line of per-kernel numbers (launches: the main-path phases'
      counts, the pretraining driver's, the objectives', the itm driver's,
-     the finetuning drivers' and the distributed runs' added; #3's adds
-     the routes phase and the lab), then the last line {"ok": true,
-     "device": {...}}.
+     the finetuning drivers', the distributed runs', the int8 and the
+     remat phases' added; #3's adds the routes phase and the lab), then
+     the last line {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17, 18, 19.
+15, 16, 17, 18, 19, 20, 21.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -278,7 +304,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uc2_torch import eval_nlvr2, itm, lab, nlvr2, pretrain, ve, vqa
+from uc2_torch import (eval_nlvr2, import_lmdb, itm, lab, nlvr2, pretrain,
+                       ve, vqa)
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets, db, native_build
 from uc2_torch.data.collate import BucketSpec, default_buckets
@@ -288,7 +315,8 @@ from uc2_torch.data.loader import (MetaLoader, PrefetchLoader, TaskLoader,
 from uc2_torch.data.memdb import (MemImgDb, MemTxtDb, synth_gallery,
                                   synth_pretrain_corpus)
 from uc2_torch.data.store import READS as store_reads
-from uc2_torch.data.synth import synth_corpus, synth_finetune_texts
+from uc2_torch.data.synth import (reference_lmdb, synth_corpus,
+                                  synth_finetune_texts)
 from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
@@ -296,6 +324,7 @@ from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
 from uc2_torch.models.encoder import SmallTableLookup, gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
+from uc2_torch.ops import int8 as int8_ops
 from uc2_torch.ops.dropout import DropoutRng, dropout
 from uc2_torch.ops.ffn_train import (
     fused_ffn_block_train_bwd, fused_ffn_block_train_bwd_plain,
@@ -329,11 +358,11 @@ from uc2_torch.training.optim import build_optimizer, constant, get_lr_schedule
 from uc2_torch.training import checkpoint as itm_checkpoint
 from uc2_torch.training import step as train_step_mod
 from uc2_torch.training.step import make_loss_fn, train_step
+from uc2_torch.utils import flops, profiling
 from uc2_torch.utils.misc import set_dropout
 
 # H100 SXM published peaks (dense bf16 tensor rate, HBM3 bandwidth)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS, PEAK_BYTES = flops.H100_BF16_FLOPS, flops.H100_BYTES_PER_S
 B, N, D, H, FF = 64, 12, 64, 768, 3072
 TXT_LEN, NUM_BB = 62, 100
 N_IMGS = 272
@@ -5138,6 +5167,7 @@ from uc2_torch.ops import flash_attention as fa
 from uc2_torch.ops.dropout import DropoutRng
 from uc2_torch.training.optim import build_optimizer, constant
 from uc2_torch.training.step import train_step
+from uc2_torch.utils import flops, profiling
 from uc2_torch.utils.misc import set_dropout
 KS = (fa.flash_attention_train_fwd, fa.flash_attention_train_bwd_dq,
       fa.flash_attention_train_bwd_dkdv)
@@ -5563,6 +5593,521 @@ def _phase_dist(card, rows, gen):
     return launches
 
 
+# ------------------------------------------------------- int8 serving
+# (rows, in, out) of the four int8 products of a layer at a scored batch
+# of B = 64 at L = 98: qkv, the attention output, the FFN's two products
+INT8_PRODUCTS = (("qkv", H, 3 * H), ("attention_output_dense", H, H),
+                 ("intermediate_dense", H, FF), ("output_dense", FF, H))
+INT8_RTOL = 1e-6
+# the card's int8 function against the CPU's exact one, on the first
+# INT8_CPU_ROWS pairs of a batch (the CPU's share of the phase's time):
+# fp32 noise moves a code by a small part of a step, so it flips only near
+# a rounding tie (7e-5 to 9e-5 of the codes, PERF.md, PR 19), and by one
+# step; a fault in the card's path (scales, rounding, the route) flips
+# most of them
+INT8_CODE_SHARE, INT8_CPU_ROWS = 1e-3, 16
+# int8 against bf16 scores from the same weights: the batch's rank order
+# kept to this Spearman correlation, at every L for each of INT8_TEXTS
+# texts and INT8_SEEDS weight draws. tests/test_int8_quant.py holds 0.95
+# on a 2-layer model of width 64. At uc2-base width with random weights
+# the 24 readings on the card spread from 0.910 to 0.985, and 8 of them
+# are below 0.95 (PERF.md, PR 19). The limit sits below the lowest of
+# them. The check above, not this one, holds the card to the int8
+# function code for code
+INT8_RANK_RHO = 0.90
+INT8_TEXTS, INT8_SEEDS = 4, (0, 1)
+INT8_DIR = os.path.join("build", "int8_smoke")
+INT8_STEPS = 2
+
+
+def spearman(a, b) -> float:
+    ra, rb = (np.argsort(np.argsort(x)) for x in (a, b))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def int8_product_checks(gen, card):
+    """Each of a layer's four int8 products at (B, L) = (64, 98) rows on
+    the card against its plain version: the codes and the int32 sums
+    (cuBLASLt ``_int_mm`` against the CPU's exact product) bit for bit,
+    ``int8_linear``'s output within INT8_RTOL; the product timed beside
+    the bf16 ``F.linear`` of the same shapes and its int8 bound."""
+    rows = B * 98
+    for name, K, Nout in INT8_PRODUCTS:
+        x = torch.randn(rows, K, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(Nout, K, generator=gen, device="cuda") * 0.02
+        bias = torch.randn(Nout, generator=gen, device="cuda") * 0.01
+        x_q, s_x = int8_ops.quantize_rows(x)
+        w_q, s_w = int8_ops.weight_codes(w)
+        cx_q, _ = int8_ops.quantize_rows(x.cpu())
+        cw_q, _ = int8_ops.quantize_weight(w.cpu())
+        sums = int8_ops.int8_product(x_q, w_q)
+        plain = int8_ops.int8_product_plain(cx_q, cw_q)
+        torch.cuda.synchronize()
+        x_off = int((x_q.cpu() != cx_q).sum())
+        w_off = int((w_q.cpu() != cw_q).sum())
+        codes_ok = x_off == 0 and w_off == 0
+        sums_ok = torch.equal(sums.cpu(), plain)
+        y = int8_ops.int8_linear(x, w, bias, torch.bfloat16)
+        y_plain = int8_ops.int8_linear(x.cpu(), w.cpu(), bias.cpu(),
+                                       torch.bfloat16)
+        rel = ((y.cpu().float() - y_plain.float()).abs().max()
+               / y_plain.float().abs().max()).item()
+        ops = 2.0 * rows * K * Nout
+        int8_ms = time_ms(lambda: int8_ops.int8_product(x_q, w_q))
+        lin_ms = time_ms(lambda: int8_ops.int8_linear(x, w, bias,
+                                                      torch.bfloat16))
+        wb = w.bfloat16()
+        bf16_ms = time_ms(lambda: F.linear(x, wb, bias.bfloat16()))
+        bound_ms = max(ops / flops.H100_INT8_OPS,
+                       (rows * K + Nout * K + 4 * rows * Nout)
+                       / flops.H100_BYTES_PER_S) * 1e3
+        print(f"  {name} ({rows} x {K} -> {Nout}): codes equal {codes_ok} "
+              f"({x_off} activation and {w_off} weight codes differ), "
+              f"int32 sums bit for bit {sums_ok}, max|card - plain| / "
+              f"max|plain| {rel:.2e} (limit {INT8_RTOL:g}); _int_mm "
+              f"{int8_ms:.4f} ms ({ops / int8_ms / 1e9:.1f} TOP/s, bound "
+              f"{bound_ms:.4f} ms), int8_linear {lin_ms:.4f} ms, bf16 "
+              f"F.linear {bf16_ms:.4f} ms [{card}]")
+        if not (codes_ok and sums_ok and rel <= INT8_RTOL):
+            fail(f"int8 {name}: the card's product disagrees with its plain "
+                 f"version")
+
+
+def int8_codes_vs_cpu(card8, cpu8, batch):
+    """``card8`` (the fp32 int8 model on the card, eager attention)
+    against ``cpu8`` (the same weights on the CPU, whose products are
+    exact) code for code: the first layer's input from each device's
+    embeddings, then each layer fed the card's input to it on both
+    devices, and the codes of its output and of the inputs of its three
+    products after the QKV. Returns (codes compared, codes that differ,
+    the largest step, max |card - CPU| of the scores)."""
+    def codes(x):
+        return int8_ops.quantize_rows(x.reshape(-1, x.shape[-1]))[0].cpu()
+
+    def record(into):
+        return lambda mod, args: into.append(codes(args[0]))
+
+    def products(layer):
+        return (layer.attention_output_dense, layer.intermediate_dense,
+                layer.output_dense)
+
+    inputs, card_codes = [], []
+
+    def keep(layer, args, out):
+        inputs.append([a.cpu() if torch.is_tensor(a) else a for a in args])
+        card_codes.append(codes(out))
+
+    hooks = [card8.roberta.layer[0].register_forward_pre_hook(
+        record(card_codes))]
+    for layer in card8.roberta.layer:
+        hooks += [d.register_forward_pre_hook(record(card_codes))
+                  for d in products(layer)]
+        hooks.append(layer.register_forward_hook(keep))
+    cpu_codes = []
+    try:
+        with torch.no_grad():
+            s_card = card8.scores(batch).cpu()
+            torch.cuda.synchronize()
+            hooks.append(cpu8.roberta.layer[0].register_forward_pre_hook(
+                lambda mod, args: cpu_codes.append(codes(args[0]))))
+            s_cpu = cpu8.scores({k: t.cpu() for k, t in batch.items()})
+            hooks.pop().remove()
+            for inp, layer in zip(inputs, cpu8.roberta.layer):
+                hooks += [d.register_forward_pre_hook(record(cpu_codes))
+                          for d in products(layer)]
+                cpu_codes.append(codes(layer(*inp)))
+    finally:
+        for h in hooks:
+            h.remove()
+    n = off = step = 0
+    for a, b in zip(card_codes, cpu_codes, strict=True):
+        d = (a.int() - b.int()).abs()
+        n, off = n + d.numel(), off + int((d > 0).sum())
+        step = max(step, int(d.max()))
+    return n, off, step, float((s_card - s_cpu).abs().max())
+
+
+def int8_launches(cfg, calls, steps, counts):
+    """The int8 run's launches: 12 each of #5, #6a and #6b a training
+    step, and for each scored batch (int8: no fused block) #1, or #4 at
+    long L, in each layer."""
+    layers, n = cfg.num_hidden_layers, cfg.num_attention_heads
+    want = no_launches()
+    for k in TRAIN_KERNELS:
+        want[k.__name__] = steps * layers
+    for det, L in calls:
+        if det:
+            want["flash_attention_long" if uses_long_kernel(n, L)
+                 else "flash_attention"] += layers
+    print(f"  launches {({k: v for k, v in counts.items() if v})}, the "
+          f"routing wants {({k: v for k, v in want.items() if v})}")
+    if counts != want:
+        fail("int8: the driver's launches do not match the int8 routing")
+
+
+def phase_int8(card, gen):
+    """int8 serving at uc2-base width: the four products against their
+    plain versions, int8 against bf16 scoring from the same weights at
+    B = 64 and L = 98 / 128 / 162 (#1's launches read from a
+    ``uc2_torch.utils.profiling.trace``), and a short ``python -m
+    uc2_torch.itm --quant int8`` run with validation and tests. Returns
+    the launches of its scoring and driver runs."""
+    print(f"== int8: serving products, scoring and the itm driver with "
+          f"--quant int8, uc2-base at full width [{card}]")
+    shutil.rmtree(INT8_DIR, ignore_errors=True)
+    shutil.rmtree(ITM_DIR, ignore_errors=True)
+    try:
+        return _phase_int8(card, gen)
+    finally:
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
+        shutil.rmtree(ITM_DIR, ignore_errors=True)
+
+
+def _phase_int8(card, gen):
+    int8_product_checks(gen, card)
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention=True)
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    q8 = model.serving("int8")
+    ref32 = UC2ForImageTextRetrieval(
+        cfg.replace(use_pallas_attention=False, dtype="float32"),
+        device="cuda")
+    ref32.load_state_dict(model.state_dict())
+    # the int8 function through the eager attention chain: #1's plain
+    # version on the card, the same int8 products
+    eager8 = UC2ForImageTextRetrieval(cfg.replace(use_pallas_attention=False,
+                                                  quant="int8"),
+                                      device="cuda")
+    eager8.load_state_dict(model.state_dict())
+    # the int8 function in fp32 on the card and on the CPU, code for code
+    cfg8 = cfg.replace(use_pallas_attention=False, dtype="float32",
+                       quant="int8")
+    card8 = UC2ForImageTextRetrieval(cfg8, device="cuda")
+    card8.load_state_dict(model.state_dict())
+    cpu8 = UC2ForImageTextRetrieval(cfg8, device="cpu")
+    cpu8.load_state_dict(model.state_dict())
+    # the rank readings' other weight draws
+    others = [UC2ForImageTextRetrieval(cfg, device="cuda", seed=seed)
+              for seed in INT8_SEEDS[1:]]
+    txt_db, img_db = synth_gallery(seed=0, n_imgs=N_IMGS, txt_per_img=1,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
+    bucket_of = np.searchsorted(edges, [img_db.name2nbb[i]
+                                        for i in sorted(img_db.name2nbb)])
+    names = sorted(img_db.name2nbb)
+    total = no_launches()
+    layers = cfg.num_hidden_layers
+    for bi, nb in enumerate(edges):
+        L = TXT_LEN + nb
+        ids_b = [im for im, bk in zip(names, bucket_of) if bk == bi]
+        batch, n = bucket_batch(img_db, ids_b, txt_db, txt_db.ids[0], nb)
+        s_bf = model.scores(batch)[:n].float().cpu().numpy()
+        s_32 = ref32.scores(batch)[:n].cpu().numpy()
+        reset_launches()
+        int8_ops.int8_product.launches = 0
+        s_q8 = q8.scores(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, c in counts.items():
+            total[k] += c
+        prods = int8_ops.int8_product.launches
+        s_q8 = s_q8[:n].float().cpu().numpy()
+        s_e8 = eager8.scores(batch)[:n].float().cpu().numpy()
+        d_e8 = float(np.abs(s_q8 - s_e8).max())
+        want = no_launches()
+        want["flash_attention"] = layers
+        rho = spearman(s_bf, s_q8)
+        diff = float(np.abs(s_q8 - s_bf).max())
+        print(f"  L={L}: int8 scores finite {bool(np.isfinite(s_q8).all())}"
+              f", max|int8 - bf16| {diff:.4e} (bf16 spread "
+              f"{float(s_bf.max() - s_bf.min()):.4e}), rank correlation "
+              f"{rho:.4f} (bf16 / eager fp32 "
+              f"{spearman(s_bf, s_32):.4f}, int8 / eager fp32 "
+              f"{spearman(s_q8, s_32):.4f}) over {n} images; |int8 kernel "
+              f"path - int8 eager path| {d_e8:.4e} (tolerance {SCORE_TOL}); "
+              f"launches "
+              f"{({k: v for k, v in counts.items() if v})}, int8 products "
+              f"{prods} (want {4 * layers})")
+        t0 = time.perf_counter()
+        n_codes, off, step, d_cpu = int8_codes_vs_cpu(
+            card8, cpu8, {k: t[:INT8_CPU_ROWS] for k, t in batch.items()})
+        print(f"  L={L}: the int8 function in fp32, card against CPU code "
+              f"for code over {INT8_CPU_ROWS} pairs (each layer fed the "
+              f"card's input): {off} of "
+              f"{n_codes} codes differ ({off / n_codes:.2e}, limit "
+              f"{INT8_CODE_SHARE:g}), by at most {step} step; scores after "
+              f"{layers} layers {d_cpu:.4e} apart "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if off > INT8_CODE_SHARE * n_codes or step > 1:
+            fail(f"int8 at L={L}: the card's codes differ from the CPU's "
+                 f"({off} of {n_codes}, up to {step} steps)")
+        rhos = []
+        for seed, m in zip(INT8_SEEDS, [model] + others):
+            m8 = m.serving("int8")
+            for t in range(INT8_TEXTS):
+                bt = (batch if t == 0 else
+                      bucket_batch(img_db, ids_b, txt_db, txt_db.ids[t],
+                                   nb)[0])
+                rhos.append(spearman(m.scores(bt)[:n].float().cpu().numpy(),
+                                     m8.scores(bt)[:n].float().cpu().numpy()))
+        print(f"  L={L}: rank correlation int8 / bf16 over "
+              f"{INT8_TEXTS} texts x {len(INT8_SEEDS)} weight draws: lowest "
+              f"{min(rhos):.4f}, mean {np.mean(rhos):.4f}, highest "
+              f"{max(rhos):.4f} (limit {INT8_RANK_RHO} on each): "
+              + ", ".join(f"{r:.4f}" for r in rhos))
+        if not np.isfinite(s_q8).all() or min(rhos) < INT8_RANK_RHO:
+            fail(f"int8 scores at L={L}: not finite, or rank correlation "
+                 f"{min(rhos):.4f} < {INT8_RANK_RHO}")
+        if d_e8 > SCORE_TOL:
+            fail(f"int8 scores at L={L}: the kernel path is {d_e8:.4e} from "
+                 f"the eager path")
+        if counts != want or prods != 4 * layers:
+            fail(f"int8 scoring at L={L} launched "
+                 f"{({k: v for k, v in counts.items() if v})} and {prods} "
+                 f"int8 products: not #1 and four products in each layer")
+        ms_q8 = time_ms(lambda: q8.scores(batch), iters=10)
+        ms_bf = time_ms(lambda: model.scores(batch), iters=10)
+        ms_q8b = time_ms(lambda: q8.scores(batch), iters=10)
+        tf = flops.encoder_fwd_flops_per_pair(L) * B
+        print(f"  L={L} B={B}: int8 {ms_q8:.3f}, {ms_q8b:.3f} ms/batch, "
+              f"bf16 {ms_bf:.3f} ms/batch (int8 / bf16 "
+              f"{min(ms_q8, ms_q8b) / ms_bf:.2f}); implied "
+              f"{tf / min(ms_q8, ms_q8b) / 1e9:.1f} / {tf / ms_bf / 1e9:.1f}"
+              f" TFLOP/s of the encoder's products [{card}]")
+        if L == 98:
+            reset_launches()
+            with profiling.trace(os.path.join(INT8_DIR, "trace")) as prof:
+                q8.scores(batch)
+            dev = sorted(device_rows(prof), reverse=True)
+            attn = sum(c for _, c, key in dev if "attn_stream" in key)
+            busy = sum(ms for ms, _, _ in dev)
+            print(f"  traced int8 batch at L={L}: #1's kernel launched "
+                  f"{attn} times on the device (wrapper count "
+                  f"{flash_attention.launches}), device busy {busy:.3f} ms; "
+                  f"top kernels: " + "; ".join(
+                      f"{ms:.3f} ms {c}x {key[:60]}"
+                      for ms, c, key in dev[:5]))
+            total["flash_attention"] += flash_attention.launches
+            if attn != layers or flash_attention.launches != layers:
+                fail(f"int8: the trace shows {attn} launches of #1, not "
+                     f"{layers}")
+    del model, q8, ref32, eager8, card8, cpu8, others
+    torch.cuda.empty_cache()
+
+    # the itm driver at --quant int8: 2 steps, validation after each, the
+    # tests at the end, all scored under int8
+    t0 = time.perf_counter()
+    stores = itm_stores()
+    with open(ITM_CONFIG) as f:
+        ic = json.load(f)
+    icfg = set_dropout(UC2Config.from_json_file(ic["model_config"]).replace(
+        dtype=ic["dtype"]), ic["dropout"])
+    ckpt = os.path.join(ITM_DIR, "init.pt")
+    init = UC2ForImageTextRetrieval(icfg, device="cuda", seed=0)
+    torch.save({k: v.cpu() for k, v in init.state_dict().items()}, ckpt)
+    del init
+    out = os.path.join(ITM_DIR, "int8")
+    calls = []
+    reset_launches()
+    int8_ops.int8_product.launches = 0
+    with recorded_scores(calls):
+        run = run_itm(itm_argv(out, stores, ckpt, "--quant", "int8",
+                               "--num_train_steps", str(INT8_STEPS),
+                               "--valid_steps", "1", "--save_steps", "100",
+                               "--gradient_accumulation_steps", "1",
+                               "--eval_batch_size", str(B)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, c in counts.items():
+        total[k] += c
+    print(f"  python -m uc2_torch.itm --quant int8 (stores of phase 16; cuts:"
+          f" --num_train_steps {INT8_STEPS} --valid_steps 1 "
+          f"--gradient_accumulation_steps 1 --eval_batch_size {B}) in "
+          f"{time.perf_counter() - t0:.1f} s with the stores; int8 products "
+          f"{int8_ops.int8_product.launches}")
+    itm_run_report("--quant int8", run, card, set(range(INT8_STEPS + 1)))
+    int8_launches(icfg, calls, INT8_STEPS, counts)
+    scored = sum(1 for det, _ in calls if det)
+    if int8_ops.int8_product.launches != 4 * icfg.num_hidden_layers * scored:
+        fail(f"int8 driver: {int8_ops.int8_product.launches} int8 products "
+             f"for {scored} scored batches")
+    if (run.step != INT8_STEPS or len(run.val) != INT8_STEPS
+            or set(run.results) != {"coco_en_test", "coco_zh_test"}):
+        fail(f"int8 driver: step {run.step}, {len(run.val)} validations, "
+             f"tests {sorted(run.results)}")
+    with open(os.path.join(out, "test_results.json")) as f:
+        if json.load(f) != run.results:
+            fail("int8 driver: test_results.json is not the run's results")
+    return total
+
+
+# ------------------------------------------------------------- remat
+REMAT_B, REMAT_NB = 128, 100      # the mlm step at (128, 162)
+REMAT_SEED = 99
+IMPORT_DIR = os.path.join("build", "import_smoke")
+IMPORT_IMGS = 64
+
+
+def remat_grads(model, batch, seed):
+    """(loss, {name: gradient}, the rng's state after) of one mlm forward
+    and backward."""
+    model.zero_grad(set_to_none=True)
+    rng = DropoutRng(seed, "cuda")
+    loss, _ = make_loss_fn("mlm")(model, batch, rng)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, rng.get_state()
+
+
+def phase_remat(card):
+    """The mlm step at (128, 162) under "pallas-train" at dropout 0.1 with
+    remat none / full / dots, without and with the training FFN kernels
+    (UC2_FFN_TRAIN=1): loss and gradients of full and dots bit for bit
+    none's, the rng streams where none leaves them, launches (the
+    recompute runs #5, and #9, again), ms/step, peak memory and implied
+    TFLOP/s; then the LMDB importer on a fixture in the original
+    release's format and two mlm steps from the imported stores. Returns
+    the launches of its steps."""
+    print(f"== remat: the mlm step at ({REMAT_B}, {TRAIN_TXT + REMAT_NB}) "
+          f"under remat none / full / dots, then the LMDB importer [{card}]")
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    with env_set("UC2_FFN_TRAIN", None):
+        try:
+            return _phase_remat(card)
+        finally:
+            shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+
+
+def _phase_remat(card):
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16", use_pallas_attention="pallas-train")
+    txt_db, img_db = synth_gallery(seed=1, n_imgs=N_IMGS, txt_per_img=2,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    batches, _ = mlm_batches(txt_db, img_db, 66, REMAT_NB, REMAT_B, 3,
+                             seed=REMAT_SEED)
+    L = TRAIN_TXT + REMAT_NB
+    layers = cfg.num_hidden_layers
+    work = flops.grad_flops_per_example(TRAIN_TXT, REMAT_NB, TRAIN_SLOTS)
+    total = no_launches()
+    start = None
+    for ffn in (False, True):
+        with env_set("UC2_FFN_TRAIN", "1" if ffn else None):
+            want0 = None
+            for remat in ("none", "full", "dots"):
+                model = UC2ForPretraining(cfg.replace(remat=remat),
+                                          device="cuda", seed=0)
+                if start is None:
+                    start = {k: v.clone()
+                             for k, v in model.state_dict().items()}
+                model.load_state_dict(start)
+                reset_launches()
+                got = remat_grads(model, batches[0], REMAT_SEED)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                for k, c in counts.items():
+                    total[k] += c
+                rec = 2 if remat != "none" else 1
+                want = no_launches()
+                want.update({k.__name__: layers for k in TRAIN_KERNELS})
+                want["flash_attention_train_fwd"] = rec * layers
+                if ffn:
+                    want["fused_ffn_block_train_fwd"] = rec * layers
+                    want["fused_ffn_block_train_bwd"] = layers
+                tag = f"{'FFN kernels, ' if ffn else ''}remat {remat}"
+                if counts != want:
+                    fail(f"remat: {tag} launched "
+                         f"{({k: v for k, v in counts.items() if v})}, not "
+                         f"{({k: v for k, v in want.items() if v})}")
+                if want0 is None:
+                    want0 = got
+                    same = "(the reference run)"
+                else:
+                    diff = [k for k in want0[1]
+                            if not torch.equal(got[1][k], want0[1][k])]
+                    rng_ok = all(torch.equal(a, b)
+                                 for a, b in zip(got[2], want0[2]))
+                    same = (f"loss bit for bit {torch.equal(got[0], want0[0])}"
+                            f", {len(want0[1]) - len(diff)} of "
+                            f"{len(want0[1])} gradients bit for bit, rng "
+                            f"streams equal {rng_ok}")
+                    if (diff or not rng_ok or not torch.equal(got[0],
+                                                              want0[0])
+                            or set(got[1]) != set(want0[1])):
+                        fail(f"remat: {tag} differs from remat none "
+                             f"({diff[:4]})")
+                del got
+                opt = pretrain_optimizer(model)
+                rng = DropoutRng(REMAT_SEED, "cuda")
+                train_step(model, opt, batches[1], rng)       # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for batch in batches:
+                    t1 = time.perf_counter()
+                    m = train_step(model, opt, batch, rng)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ms = float(np.median(times))
+                print(f"  {tag}: {same}; {ms:.2f} ms/step median "
+                      f"({', '.join(f'{t:.2f}' for t in times)}), peak "
+                      f"memory {peak:.2f} GiB, implied "
+                      f"{work * REMAT_B / ms / 1e9:.1f} TFLOP/s (the model's"
+                      f" products, recompute not counted), loss "
+                      f"{m['loss'].item():.4f} [{card}]")
+                if not np.isfinite(m["loss"].item()):
+                    fail(f"remat: {tag} gave a non-finite loss")
+                del model, opt
+                torch.cuda.empty_cache()
+
+    # the LMDB importer on a fixture in the original release's format,
+    # then two mlm steps on the card from the imported stores
+    t0 = time.perf_counter()
+    corpus = synth_corpus(os.path.join(IMPORT_DIR, "u2s"),
+                          n_imgs=IMPORT_IMGS, txt_per_img=2, seed=5)
+    fixture = reference_lmdb(corpus["txt_db"], corpus["img_db"],
+                             os.path.join(IMPORT_DIR, "lmdb"))
+    t1 = time.perf_counter()
+    n_txt = import_lmdb.import_txt(fixture["txt_db"],
+                                   os.path.join(IMPORT_DIR, "txt_db"))
+    n_img = import_lmdb.import_img(fixture["img_db"],
+                                   os.path.join(IMPORT_DIR, "img_db"),
+                                   npz=True)
+    t2 = time.perf_counter()
+    txt, img = (db.TxtTokDb(os.path.join(IMPORT_DIR, "txt_db")),
+                db.DetectFeatDb(os.path.join(IMPORT_DIR, "img_db")))
+    same = all(np.array_equal(img[f][0], db.DetectFeatDb(corpus["img_db"])[
+        f][0]) for f in list(img.name2nbb)[:8])
+    loader = TaskLoader("mlm", datasets.MlmDataset(txt, img),
+                        [BucketSpec(TRAIN_TXT, REMAT_NB, 32, TRAIN_SLOTS)],
+                        seed=0)
+    put = task_batch_to_device("cuda")
+    model = UC2ForPretraining(cfg, device="cuda", seed=0)
+    opt = pretrain_optimizer(model)
+    reset_launches()
+    losses = []
+    for i in range(2):
+        _, batch = put(("mlm", loader.next_batch()))
+        losses.append(train_step(model, opt, batch,
+                                 DropoutRng(i, "cuda"))["loss"].item())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, c in counts.items():
+        total[k] += c
+    print(f"  importer: fixture of {IMPORT_IMGS} images x 2 captions "
+          f"(2048-d, vocab 250002) written in {t1 - t0:.1f} s; imported "
+          f"{n_txt} text records and {n_img} images in {t2 - t1:.2f} s; "
+          f"features equal the corpus's {same}; two mlm steps from the "
+          f"imported stores: losses {[round(x, 4) for x in losses]}, "
+          f"launches {({k: v for k, v in counts.items() if v})}")
+    if not (same and all(np.isfinite(losses))
+            and counts["flash_attention_train_fwd"] == 2 * layers):
+        fail("import: the imported stores or their steps are wrong")
+    return total
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -5631,6 +6176,8 @@ def main() -> int:
     add(timed(phase_itm, card, rows, gen))
     add(timed(phase_finetune, card, rows, gen))
     add(timed(phase_dist, card, rows, gen))
+    add(timed(phase_int8, card, gen))
+    add(timed(phase_remat, card))
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

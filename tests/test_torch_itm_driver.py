@@ -12,9 +12,9 @@ tiny config (hidden 32, one layer, fp32):
   artifact names;
 * ``apply_reference_config_compat`` against itm.py's on the shipped config
   and on the original UC2 key names;
-* the refusals of what is not ported (tensor parallelism, int8), by
-  name, and the distribution flags at a world of one (equal to the
-  undistributed run);
+* the refusal of what is not ported (tensor parallelism), by name, the
+  distribution flags at a world of one and ``--quant int8`` (equal to the
+  undistributed run in training: int8 scores only the evaluations);
 * resume: a run stopped at step 2 (dropout 0.1, ``--full_val``,
   ``--async_ckpt``) and resumed to 4 loads the parameters and AdamW's
   moments of step 2 bit for bit."""
@@ -320,9 +320,18 @@ def undistributed(setup):
                          ids=[n for _, n in UNPORTED])
 def test_unported_flags_raise_by_name(setup, tmp_path, extra, name,
                                       request):
-    """--n_model > 1 and --quant int8 raise by name. The distribution
-    flags are ported: at a world of one each run equals the undistributed
-    one, losses and parameters bit for bit."""
+    """--n_model > 1 raises by name. The distribution flags and --quant
+    int8 are ported: at a world of one each run equals the undistributed
+    one, losses and parameters bit for bit (int8 scores only the
+    validation and the tests, tests/test_torch_int8.py)."""
+    if name == "--quant int8":
+        got = _port(setup, tmp_path / "out", SHORT + extra)
+        want = request.getfixturevalue("undistributed")
+        assert got.step == 2 and got.losses == want.losses
+        assert set(got.results) == set(want.results) == {"synth0", "synth1"}
+        g, w = (_state(r.model, r.optimizer) for r in (got, want))
+        assert set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
+        return
     if name not in WORLD_OF_ONE:
         with pytest.raises(NotImplementedError,
                            match=name.replace("-", "\\-")):

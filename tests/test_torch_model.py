@@ -182,11 +182,22 @@ def test_unported_attention_values_raise(params, monkeypatch, impl):
 
 
 def test_training_and_int8_raise(params):
-    """What is not ported yet raises: int8 serving and activation
-    recomputation (remat). Training itself runs (tests/test_torch_train.py)."""
-    with pytest.raises(NotImplementedError):
-        UC2ForImageTextRetrieval(UC2Config(remat="full", **TINY),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        UC2ForImageTextRetrieval(UC2Config(quant="int8", **TINY),
-                                 device="cpu")
+    """int8 serving and activation recomputation (remat) are ported
+    (tests/test_torch_int8.py, tests/test_torch_remat.py): what raises is a
+    training call under int8, and a quant or remat value the reference
+    does not know. Remat leaves a deterministic call as it is."""
+    from uc2_torch.ops.dropout import DropoutRng
+    b = {k: torch.from_numpy(v) for k, v in _batch(10, 7).items()}
+    want = _port(True, params).scores(b)
+    for remat in ("full", "dots"):
+        model = UC2ForImageTextRetrieval(UC2Config(remat=remat, **TINY),
+                                         device="cpu", params=params)
+        assert torch.equal(model.scores(b), want)
+    q8 = UC2ForImageTextRetrieval(UC2Config(quant="int8", **TINY),
+                                  device="cpu", params=params)
+    assert torch.isfinite(q8.scores(b)).all()
+    with pytest.raises(NotImplementedError, match="int8"):
+        q8.scores(b, deterministic=False, rng=DropoutRng(0, "cpu"))
+    for bad in ({"quant": "int4"}, {"remat": "some"}):
+        with pytest.raises(ValueError):
+            UC2ForImageTextRetrieval(UC2Config(**bad, **TINY), device="cpu")

@@ -31,8 +31,10 @@ class UC2Config:
     in every inference layer, "flash" runs the counterpart of jax's
     library TPU kernel (``ops/segment_flash.py``) at L >= 128 wherever
     attention has no dropout (inference, and training at attention
-    dropout 0). ``remat`` and ``quant="int8"`` raise in this package for
-    now.
+    dropout 0). ``remat`` ("none", "full", "dots") recomputes each layer
+    of a training call in the backward; ``quant="int8"`` is the serving
+    path of the four products of every layer (``ops/int8.py``; a training
+    call under it raises). See ``models/encoder.py``.
     """
 
     vocab_size: int = 250002

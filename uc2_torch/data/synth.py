@@ -209,3 +209,50 @@ def synth_finetune_texts(out_dir: str, src_txt_db: str, task: str,
             for key, lab in labels.items():
                 f.write(json.dumps({"identifier": key, "label": lab}) + "\n")
     return out
+
+
+def reference_lmdb(txt_dir: str, img_dir: str, out_dir: str,
+                   npz: bool = True) -> Dict[str, str]:
+    """A text and an image store re-encoded in the original UC2 release's
+    LMDB layout under ``out_dir`` (``txt_db``, ``img_db``), the input of
+    ``python -m uc2_torch.import_lmdb``: text values are LZ4 frames of
+    msgpack with the sidecar JSONs; image values are compressed npz
+    (fp16 features, fp32 boxes, confidences and soft labels), or
+    msgpack-numpy maps with ``npz=False``, plus a JSON ``__keys__``
+    record. Written by the port's LMDB writer, LZ4 codec and msgpack
+    codec."""
+    import io
+    import shutil
+
+    from uc2_torch.data import lz4frame
+    from uc2_torch.data.lmdbio import LmdbWriter
+    from uc2_torch.data.store import pack_value
+    lmdb_txt = os.path.join(out_dir, "txt_db")
+    lmdb_img = os.path.join(out_dir, "img_db")
+    os.makedirs(lmdb_txt, exist_ok=True)
+    os.makedirs(lmdb_img, exist_ok=True)
+    r = StoreReader(os.path.join(txt_dir, "txt.u2s"), native=False)
+    with LmdbWriter(lmdb_txt) as w:
+        for key in r.keys():
+            w.put(key, lz4frame.compress(pack_value(r[key])))
+    for side in ("id2len.json", "meta.json", "txt2img.json",
+                 "img2txts.json"):
+        shutil.copy(os.path.join(txt_dir, side), os.path.join(lmdb_txt, side))
+    ri = StoreReader(os.path.join(img_dir, "feat.u2s"), native=False)
+    keys = ri["__keys__"]
+    fields = {"features": np.float16, "norm_bb": np.float32,
+              "conf": np.float32, "soft_labels": np.float32}
+    with LmdbWriter(lmdb_img) as w:
+        for fname in keys:
+            rec = {f: np.asarray(ri[fname][f], t) for f, t in fields.items()}
+            if npz:
+                buf = io.BytesIO()
+                np.savez_compressed(buf, **rec)
+                w.put(fname, buf.getvalue())
+            else:
+                w.put(fname, pack_value({f: {
+                    b"nd": True, b"type": a.dtype.str, b"kind": b"",
+                    b"shape": list(a.shape), b"data": a.tobytes()}
+                    for f, a in rec.items()}))
+        w.put("__keys__", json.dumps(list(keys)).encode("utf-8"))
+    return {"txt_db": lmdb_txt, "img_db": lmdb_img}

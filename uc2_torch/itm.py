@@ -35,9 +35,14 @@ evaluation of every ``--test_datasets`` pair into ``test_results.json``.
   process 0 writes the logs, milestones, ``restore.ckpt`` and
   ``test_results.json``.
 
-Raising by name, for what is not ported yet: ``--n_model > 1`` and
-``--quant int8``. ``--rng_impl`` chooses an XLA generator in the
-reference and changes nothing here.
+``--quant int8`` scores the validation and the tests with the int8
+serving products (``UC2ForImageTextRetrieval.serving``: a model over the
+training model's parameters); training and mining stay in ``--dtype``, as
+in itm.py.
+
+Raising by name, for what is not ported yet: ``--n_model > 1``.
+``--rng_impl`` chooses an XLA generator in the reference and changes
+nothing here.
 """
 
 from __future__ import annotations
@@ -56,17 +61,9 @@ from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
 from uc2_torch.parallel import multihost as MH
 from uc2_torch.pretrain import load_any_checkpoint, step_seed
-from uc2_torch.pretrain import refuse_unported as refuse_tensor_parallel
+from uc2_torch.pretrain import refuse_unported
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
                                     close_run_logs, open_run_logs)
-
-
-def refuse_unported(opts):
-    """Raise, naming the flag, for what the port cannot do yet."""
-    refuse_tensor_parallel(opts)
-    if opts.quant != "none":
-        raise NotImplementedError(f"uc2_torch: --quant {opts.quant} (int8 "
-                                  f"serving) is not ported yet")
 
 
 def main(opts):
@@ -171,6 +168,8 @@ def _train(opts, dev, is_main, multi):
             opts.checkpoint, opts))
         convert.init_rank_from_itm(model)
     M.broadcast_params(model)
+    # validation and tests score under --quant, over the same parameters
+    eval_model = model.serving(opts.quant)
     rank, world = MH.process_index(), MH.process_count()
 
     # ---- data
@@ -247,11 +246,11 @@ def _train(opts, dev, is_main, multi):
     def validate():
         if opts.full_val:
             return full_retrieval_eval(
-                model, val_txt_db, val_img_db, txt_len, opts.max_bb,
+                eval_model, val_txt_db, val_img_db, txt_len, opts.max_bb,
                 batch_size=opts.eval_batch_size,
                 txt_ids=(val_txt_db.ids[:opts.eval_txt_limit]
                          if opts.eval_txt_limit else None), device=dev)
-        return quick_validate(model, val_txt_db, val_img_db, txt_len,
+        return quick_validate(eval_model, val_txt_db, val_img_db, txt_len,
                               opts.max_bb,
                               n_txts=opts.eval_txt_limit or None,
                               batch_size=opts.eval_batch_size, device=dev)
@@ -336,7 +335,7 @@ def _train(opts, dev, is_main, multi):
         for spec in opts.test_datasets or []:
             name = spec.get("name", spec["db"])
             log = full_retrieval_eval(
-                model, TxtTokDb(spec["db"], max_txt_len=opts.max_txt_len),
+                eval_model, TxtTokDb(spec["db"], max_txt_len=opts.max_txt_len),
                 open_img_db(spec["img"]), txt_len, opts.max_bb,
                 batch_size=opts.eval_batch_size, device=dev)
             LOGGER.info("test [%s]: %s", name,
@@ -387,7 +386,8 @@ def build_parser():
                    help="examples (groups x sample_size) per micro-batch")
     p.add_argument("--eval_batch_size", type=int, default=64)
     p.add_argument("--quant", choices=["none", "int8"], default="none",
-                   help="serving quantization (only none is ported)")
+                   help="serving quantization for validation and test "
+                   "scoring")
     p.add_argument("--eval_txt_limit", type=int, default=0)
     p.add_argument("--full_val", action="store_true",
                    help="full score-matrix validation instead of the "

@@ -19,7 +19,9 @@ uc2_tpu/models/convert.py: ``normalize_state_dict``, ``add_model_prefix``,
 the model's own tree) and ``splice_early_adaptation``;
 ``load_partial_tree`` puts the result into a port module, and
 ``init_rank_from_itm`` starts a retrieval model's rank head from its ITM
-head.
+head. The way back, ``params_to_uc2_state_dict`` (``python -m
+uc2_torch.export_uc2``), writes a port milestone under the original UC2
+key names.
 """
 
 from __future__ import annotations
@@ -387,6 +389,122 @@ def load_partial_tree(module: torch.nn.Module, loaded: Dict[str, Any]) -> None:
     their values."""
     load_params(module, merge_params(params_to_jax(module.state_dict()),
                                      loaded))
+
+
+def params_to_uc2_state_dict(state_dict: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """A port ``state_dict`` (a milestone: fused ``qkv`` keys) -> a state
+    dict under the original UC2 key names (numpy values): the fused
+    ``qkv`` split into ``query``, ``key`` and ``value``, kernels transposed
+    to [out, in], the tied LM decoder and region regressor written out.
+    The reference's ``params_to_torch_state_dict`` over ``params_to_jax``."""
+    params = params_to_jax(state_dict)
+    sd: Dict[str, np.ndarray] = {}
+    root = params.get("roberta", {})
+
+    def put(k, v):
+        sd[k] = np.asarray(v)
+
+    if "token_type_embeddings" in root:
+        put("roberta.embeddings.new_token_type_embeddings.weight",
+            root["token_type_embeddings"])
+    emb = root.get("embeddings", {})
+    for k, leaf in (("word_embeddings", "word_embeddings"),
+                    ("position_embeddings", "position_embeddings")):
+        if leaf in emb:
+            put(f"roberta.embeddings.{k}.weight", emb[leaf])
+    if "LayerNorm" in emb:
+        put("roberta.embeddings.LayerNorm.weight", emb["LayerNorm"]["weight"])
+        put("roberta.embeddings.LayerNorm.bias", emb["LayerNorm"]["bias"])
+
+    ie = root.get("img_embeddings", {})
+    for mod, tree in ie.items():
+        if mod == "mask_embedding":
+            put("roberta.img_embeddings.mask_embedding.weight", tree)
+        elif "kernel" in tree:
+            put(f"roberta.img_embeddings.{mod}.weight",
+                np.asarray(tree["kernel"]).T)
+            put(f"roberta.img_embeddings.{mod}.bias", tree["bias"])
+        else:
+            put(f"roberta.img_embeddings.{mod}.weight", tree["weight"])
+            put(f"roberta.img_embeddings.{mod}.bias", tree["bias"])
+
+    i = 0
+    while f"layer_{i}" in root:
+        lt = root[f"layer_{i}"]
+        base = f"roberta.encoder.layer.{i}"
+        qkv = np.asarray(lt["attention"]["qkv"]["kernel"])
+        qb = np.asarray(lt["attention"]["qkv"]["bias"])
+        H = qkv.shape[0]
+        for j, name in enumerate(("query", "key", "value")):
+            put(f"{base}.attention.self.{name}.weight",
+                qkv[:, j * H:(j + 1) * H].T)
+            put(f"{base}.attention.self.{name}.bias", qb[j * H:(j + 1) * H])
+        put(f"{base}.attention.output.dense.weight",
+            np.asarray(lt["attention_output_dense"]["kernel"]).T)
+        put(f"{base}.attention.output.dense.bias",
+            lt["attention_output_dense"]["bias"])
+        for src, dst in (("attention_output_LayerNorm",
+                          "attention.output.LayerNorm"),
+                         ("output_LayerNorm", "output.LayerNorm")):
+            put(f"{base}.{dst}.weight", lt[src]["weight"])
+            put(f"{base}.{dst}.bias", lt[src]["bias"])
+        put(f"{base}.intermediate.dense.weight",
+            np.asarray(lt["intermediate_dense"]["kernel"]).T)
+        put(f"{base}.intermediate.dense.bias",
+            lt["intermediate_dense"]["bias"])
+        put(f"{base}.output.dense.weight",
+            np.asarray(lt["output_dense"]["kernel"]).T)
+        put(f"{base}.output.dense.bias", lt["output_dense"]["bias"])
+        i += 1
+
+    if "pooler" in root:
+        put("roberta.pooler.dense.weight",
+            np.asarray(root["pooler"]["dense"]["kernel"]).T)
+        put("roberta.pooler.dense.bias", root["pooler"]["dense"]["bias"])
+
+    if "cls" in params:
+        cls = params["cls"]
+        put("cls.dense.weight", np.asarray(cls["dense"]["kernel"]).T)
+        put("cls.dense.bias", cls["dense"]["bias"])
+        put("cls.layer_norm.weight", cls["layer_norm"]["weight"])
+        put("cls.layer_norm.bias", cls["layer_norm"]["bias"])
+        put("cls.bias", cls["bias"])
+        if "word_embeddings" in emb:  # tied decoder
+            put("cls.decoder.weight", emb["word_embeddings"])
+    if "feat_regress" in params:
+        fr = params["feat_regress"]
+        put("feat_regress.net.0.weight", np.asarray(fr["dense"]["kernel"]).T)
+        put("feat_regress.net.0.bias", fr["dense"]["bias"])
+        put("feat_regress.net.2.weight", fr["layer_norm"]["weight"])
+        put("feat_regress.net.2.bias", fr["layer_norm"]["bias"])
+        put("feat_regress.bias", fr["bias"])
+        if "img_linear" in ie:  # tied
+            put("feat_regress.weight", np.asarray(
+                ie["img_linear"]["kernel"]).T)
+    if "region_classifier" in params:
+        rc = params["region_classifier"]
+        put("region_classifier.net.0.weight",
+            np.asarray(rc["dense"]["kernel"]).T)
+        put("region_classifier.net.0.bias", rc["dense"]["bias"])
+        put("region_classifier.net.2.weight", rc["layer_norm"]["weight"])
+        put("region_classifier.net.2.bias", rc["layer_norm"]["bias"])
+        put("region_classifier.net.3.weight",
+            np.asarray(rc["out"]["kernel"]).T)
+        put("region_classifier.net.3.bias", rc["out"]["bias"])
+    for head in ("itm_output", "rank_output"):
+        if head in params:
+            put(f"{head}.weight", np.asarray(params[head]["out"]["kernel"]).T)
+            put(f"{head}.bias", params[head]["out"]["bias"])
+    if "vqa_output" in params:
+        vq = params["vqa_output"]
+        put("vqa_output.0.weight", np.asarray(vq["dense"]["kernel"]).T)
+        put("vqa_output.0.bias", vq["dense"]["bias"])
+        put("vqa_output.2.weight", vq["layer_norm"]["weight"])
+        put("vqa_output.2.bias", vq["layer_norm"]["bias"])
+        put("vqa_output.3.weight", np.asarray(vq["out"]["kernel"]).T)
+        put("vqa_output.3.bias", vq["out"]["bias"])
+    return sd
 
 
 @torch.no_grad()

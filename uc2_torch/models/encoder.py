@@ -16,15 +16,39 @@ LayerNorms, after the attention out-projection and after the FFN down
 projection, and attention-probs dropout inside attention
 (``ops/attention.py``). The fused inference blocks run only when
 deterministic, as in the reference.
+
+``quant="int8"`` is the serving path: the four products of every block
+(``qkv``, ``attention_output_dense``, ``intermediate_dense``,
+``output_dense``) run ``ops/int8.py``'s ``int8_linear``, the embeddings'
+products, the pooler and the heads stay in ``dtype``, and the fused
+blocks are off, so attention runs ``flash_attention`` (#1, #4 at long L);
+a training call raises (the reference's rounding has a zero gradient and
+its drivers never train the int8 model). ``share_parameters`` builds a
+second module tree over the same parameters under another config, the
+reference's second model over one parameter tree.
+
+``remat="full"`` or ``"dots"`` recomputes each layer of a training call in
+the backward (``torch.utils.checkpoint``, non-reentrant; the reference's
+``nn.remat`` around each layer): "full" saves only the layer's inputs,
+"dots" also the outputs of the aten products (``mm``, ``addmm``, ``bmm``,
+``baddbmm``; ``dots_saveable``), so the rest, the hand kernels included,
+runs again. ``DropoutRng``'s generators are not the ones checkpoint
+restores, so ``remat_layer`` replays them: the recompute draws the
+forward's seeds and masks, and the streams end where a run without remat
+leaves them.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from uc2_torch.config import UC2Config
 from uc2_torch.ops.attention import multi_head_attention, resolve_impl
@@ -34,6 +58,10 @@ from uc2_torch.ops.fused_block import (fused_attn_block,
                                        fused_attn_block_v2,
                                        fused_block_profitable,
                                        fused_ffn_block, fused_ffn_profitable)
+from uc2_torch.ops.int8 import int8_linear
+
+QUANTS = ("none", "int8")
+REMATS = ("none", "full", "dots")
 
 
 def compute_dtype(cfg: UC2Config) -> torch.dtype:
@@ -96,14 +124,17 @@ def gelu(x):
 
 
 class Dense(nn.Linear):
-    """Linear layer with fp32 parameters that computes in ``dtype``."""
+    """Linear layer with fp32 parameters that computes in ``dtype``;
+    ``quant="int8"`` takes the int8 serving product."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, device=None):
         super().__init__(in_features, out_features, device=device)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, quant: str = "none"):
+        if quant == "int8":
+            return int8_linear(x, self.weight, self.bias, self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
 
@@ -183,7 +214,7 @@ class SelfAttention(nn.Module):
         cfg = self.config
         B, L, H = x.shape
         n, d = cfg.num_attention_heads, cfg.head_dim
-        q, k, v = self.qkv(x).split(H, dim=-1)
+        q, k, v = self.qkv(x, cfg.quant).split(H, dim=-1)
         return (q.view(B, L, n, d), k.view(B, L, n, d), v.view(B, L, n, d))
 
     def forward(self, x, attn_bias, rng=None):
@@ -213,7 +244,9 @@ class EncoderLayer(nn.Module):
     (``ops/ffn_train.py``, kernels #9/#10), as in the reference. On the
     fused route, ``UC2_ATTN_V2`` (read at every forward, as the reference
     reads it at trace time) selects the attention block with the QKV
-    projection inside the kernel (``fused_attn_block_v2``, kernel #7)."""
+    projection inside the kernel (``fused_attn_block_v2``, kernel #7).
+    Under ``quant="int8"`` nothing is fused, "fused-force" included, and
+    the four products take the int8 path."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
@@ -234,7 +267,8 @@ class EncoderLayer(nn.Module):
         rate = cfg.hidden_dropout_prob
         impl = resolve_impl(cfg.use_pallas_attention)
         force = impl == "fused-force"
-        fusable = rng is None and (force or impl in ("pallas", "pallas-train"))
+        fusable = (rng is None and cfg.quant == "none"
+                   and (force or impl in ("pallas", "pallas-train")))
         L = x.shape[1]
         if fusable and (force or fused_block_profitable(
                 L, cfg.num_attention_heads)):
@@ -251,7 +285,7 @@ class EncoderLayer(nn.Module):
                                      od.bias, ln.weight, ln.bias, eps=eps)
         else:
             attn_out = self.attention_output_dense(
-                self.attention(x, attn_bias, rng))
+                self.attention(x, attn_bias, rng), cfg.quant)
             x = self.attention_output_LayerNorm(dropout(attn_out, rate, rng)
                                                 + x)
         inter, down = self.intermediate_dense, self.output_dense
@@ -265,7 +299,8 @@ class EncoderLayer(nn.Module):
             return fused_ffn_block_train(x, inter.weight.to(dt), inter.bias,
                                          down.weight.to(dt), down.bias,
                                          ln.weight, ln.bias, seed, rate, eps)
-        h = self.output_dense(gelu(self.intermediate_dense(x)))
+        h = self.output_dense(gelu(self.intermediate_dense(x, cfg.quant)),
+                              cfg.quant)
         return self.output_LayerNorm(dropout(h, rate, rng) + x)
 
 
@@ -289,17 +324,16 @@ class UC2Model(nn.Module):
     (1 = valid), and optional position_ids, img_masks, txt_type_ids,
     img_type_ids. Returns (sequence_output [B, Lt + Nb, H], pooled [B, H]).
     ``deterministic=False`` trains: dropout on, drawn from ``rng`` (a
-    ``DropoutRng``), which is then required.
+    ``DropoutRng``), which is then required; under ``remat`` each layer
+    of such a call is recomputed in the backward (``remat_layer``).
     """
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError("uc2_torch: quant='int8' is not "
-                                      "ported yet")
-        if cfg.remat != "none":
-            raise NotImplementedError("uc2_torch: remat (activation "
-                                      "recomputation) is not ported yet")
+        if cfg.quant not in QUANTS or cfg.remat not in REMATS:
+            raise ValueError(f"uc2_torch: quant {cfg.quant!r} (one of "
+                             f"{QUANTS}), remat {cfg.remat!r} (one of "
+                             f"{REMATS})")
         self.config = cfg
         self.token_type_embeddings = nn.Embedding(
             cfg.type_vocab_size, cfg.hidden_size, device=device)
@@ -318,7 +352,12 @@ class UC2Model(nn.Module):
         elif rng is None:
             raise ValueError("uc2_torch: a training forward "
                              "(deterministic=False) needs a DropoutRng")
-        dt = compute_dtype(self.config)
+        cfg = self.config
+        if rng is not None and cfg.quant != "none":
+            raise NotImplementedError(
+                f"uc2_torch: quant={cfg.quant!r} is a serving path; train "
+                f"the model without it")
+        dt = compute_dtype(cfg)
         parts = []
         if input_ids is not None:
             if txt_type_ids is None:
@@ -337,9 +376,63 @@ class UC2Model(nn.Module):
                                        img_type_ids), img_masks, rng))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         attn_bias = ((1.0 - attn_mask.float()) * -10000.0)[:, None, None, :]
+        remat = (rng is not None and cfg.remat != "none"
+                 and torch.is_grad_enabled())
         for layer in self.layer:
-            x = layer(x, attn_bias, rng)
+            x = (remat_layer(layer, x, attn_bias, rng, cfg.remat) if remat
+                 else layer(x, attn_bias, rng))
         return x, self.pooler(x)
+
+
+DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+        torch.ops.aten.baddbmm)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_saveable``: keep the products' outputs, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer, x, attn_bias, rng, remat: str):
+    """``layer(x, attn_bias, rng)`` under activation checkpointing
+    (``remat`` "full" or "dots"). The recompute in the backward starts
+    ``rng``'s two generators where the forward started them and puts back
+    afterwards the states it found (also when checkpoint stops the
+    recompute early), so it draws the forward's kernel seeds and masks and
+    the step's streams end as without remat."""
+    start = rng.get_state()
+    ran = []
+
+    def run(x, attn_bias):
+        if not ran:
+            ran.append(True)
+            return layer(x, attn_bias, rng)
+        after = rng.get_state()
+        rng.set_state(start)
+        try:
+            return layer(x, attn_bias, rng)
+        finally:
+            rng.set_state(after)
+
+    context = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+        if remat == "dots" else {})
+    return checkpoint(run, x, attn_bias, use_reentrant=False, **context)
+
+
+def share_parameters(module: nn.Module, config) -> nn.Module:
+    """A copy of ``module``'s tree over the same parameters and buffers
+    (the same objects) in which every module that keeps a ``config``
+    keeps ``config`` instead."""
+    new = copy.copy(module)
+    new._parameters = dict(module._parameters)
+    new._buffers = dict(module._buffers)
+    new._modules = {k: None if m is None else share_parameters(m, config)
+                    for k, m in module._modules.items()}
+    if "config" in module.__dict__:
+        new.config = config
+    return new
 
 
 @torch.no_grad()

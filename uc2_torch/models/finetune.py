@@ -32,7 +32,7 @@ from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config
 from uc2_torch.models import heads as H
 from uc2_torch.models.encoder import (Dense, UC2Model, compute_dtype, gelu,
-                                      init_weights)
+                                      init_weights, share_parameters)
 from uc2_torch.ops.dropout import dropout
 from uc2_torch.ops.mp import einsum_f32
 
@@ -79,6 +79,15 @@ class UC2ForImageTextRetrieval(nn.Module):
                 attn_mask=batch["attn_mask"], deterministic=deterministic,
                 rng=rng)
             return self.rank_output(pooled)[:, 0]
+
+    def serving(self, quant: str) -> "UC2ForImageTextRetrieval":
+        """This model scoring under ``quant`` ("none" or "int8") over the
+        same ``nn.Parameter`` objects, as the reference's ``eval_model``
+        shares the training model's parameter tree: an update of one is an
+        update of the other. Itself when ``quant`` is its own."""
+        if quant == self.config.quant:
+            return self
+        return share_parameters(self, self.config.replace(quant=quant))
 
     def rank_loss(self, batch: Dict[str, torch.Tensor], sample_size: int,
                   deterministic=True, rng=None) -> torch.Tensor:

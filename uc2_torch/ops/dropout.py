@@ -25,6 +25,14 @@ class DropoutRng:
         self.device = torch.Generator(device=dev).manual_seed(seed)
         self.host = torch.Generator().manual_seed(seed + 0x9E3779B9)
 
+    def get_state(self):
+        """Both generators' states, for ``set_state``."""
+        return self.device.get_state(), self.host.get_state()
+
+    def set_state(self, state):
+        self.device.set_state(state[0])
+        self.host.set_state(state[1])
+
     def kernel_seed(self) -> int:
         """A seed in [0, 2^31 - 1), as the reference draws one per layer
         (uc2_tpu/ops/attention.py:114)."""
