@@ -264,13 +264,33 @@ non-zero at the end, without the result lines:
      TFLOP/s; then ``uc2_torch.import_lmdb`` on a fixture in the original
      release's LMDB format (``data/synth.py`` ``reference_lmdb``) and two
      mlm steps on the card from the imported stores;
- 21. a JSON line of per-kernel numbers (launches: the main-path phases'
+ 21. tp: tensor parallelism (``--n_model``): (a) #2's partial mode on each
+     shard of T = 2 and 4 of the heads at (64, 128), (64, 162) and
+     (32, 262) and at its tiles' edges (TP_EDGES), #3's on each shard of
+     F / T = 1536 and 768 at (64, 98 / 128 / 162), against their plain
+     versions, repeated bit for bit and timed beside the whole kernel,
+     and the partials summed with the epilogue against the whole kernel;
+     #5 and #6a on each shard of T = 2 and 4 of the heads at (128, 162)
+     and (16, 512), rate 0.1, with the head offset in their Philox key:
+     output, dQ, row statistics and keep bits bit for bit those heads of
+     the whole launch; (b) two processes on the card over gloo at
+     --n_model 2, uc2-base: scores at B = 64, L = 98 / 128 / 162 against
+     one process's on the same weights (SCORE_TOL), the partial modes'
+     launches (12 a batch where the gates open), ms/batch and the model
+     group's all-reduces; one mlm step at (TP_STEP_B, 162), dropout 0.1,
+     "pallas-train", against one process's (STEP_LOSS_TOL,
+     STEP_NORM_RTOL), ms/step and the all-reduces' ms a step; ``python
+     -m uc2_torch.pretrain --n_model 2`` on phase 18's kind of stores,
+     saved at TP_STOP and resumed to TP_STEPS bit for bit, restore.ckpt
+     the whole model, the group's dropout masks the same;
+ 22. a JSON line of per-kernel numbers (launches: the main-path phases'
      counts, the pretraining driver's, the objectives', the itm driver's,
-     the finetuning drivers', the distributed runs', the int8 and the
-     remat phases' added; #3's adds the routes phase and the lab), then
-     the last line {"ok": true, "device": {...}}.
+     the finetuning drivers', the distributed runs', the int8, the remat
+     and the tensor-parallel phases' added, the last read in its first
+     process; #3's adds the routes phase and the lab), then the last line
+     {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17, 18, 19, 20, 21.
+15, 16, 17, 18, 19, 20, 21, 22.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -338,12 +358,17 @@ from uc2_torch.ops.flash_attention import (
     flash_attention_train_fwd, flash_attention_train_plain,
     flash_attention_v3, heads_row_stride, uses_long_kernel)
 from uc2_torch.ops.attention import STOCK_FLASH_MIN_LEN
-from uc2_torch.ops.fused_block import (fused_attn_block,
+from uc2_torch.ops.fused_block import (block_epilogue, fused_attn_block,
+                                       fused_attn_block_partial,
+                                       fused_attn_block_partial_plain,
                                        fused_attn_block_plain,
                                        fused_attn_block_v2,
                                        fused_attn_block_v2_plain,
                                        fused_block_profitable,
-                                       fused_ffn_block, fused_ffn_block_plain,
+                                       fused_ffn_block,
+                                       fused_ffn_block_partial,
+                                       fused_ffn_block_partial_plain,
+                                       fused_ffn_block_plain,
                                        fused_ffn_profitable,
                                        fused_layer_block,
                                        fused_layer_block_plain)
@@ -385,8 +410,10 @@ ROUTE_KERNELS = (fused_attn_block_v2, segment_flash_fwd, segment_flash_bwd_dq,
 SEGMENT_KERNELS = ROUTE_KERNELS[1:]
 # #8 and #11, which only the kernel lab runs
 LAB_KERNELS = (fused_layer_block, attention_bf16_probs)
+# #2's and #3's partial modes (tensor parallelism)
+TP_KERNELS = (fused_attn_block_partial, fused_ffn_block_partial)
 ALL_KERNELS = (KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
-               + ROUTE_KERNELS + LAB_KERNELS)
+               + ROUTE_KERNELS + LAB_KERNELS + TP_KERNELS)
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
 # (bench.py TRAIN_BUCKETS and its M): joint L = 98, 128, 162
 TRAIN_BUCKETS = ((208, 36), (160, 66), (128, 100))
@@ -5243,10 +5270,24 @@ from uc2_torch.parallel import mesh as M, multihost as MH
 from uc2_torch.training import checkpoint as C
 KS = (fa.flash_attention_train_fwd, fa.flash_attention_train_bwd_dq,
       fa.flash_attention_train_bwd_dkdv)
+from uc2_torch.parallel import tensor as TP
+spent = {"ms": 0.0, "n": 0}
+ar0 = TP._all_reduce
+def ar(t, *a, **k):
+    # the model group's all-reduces (tensor parallelism), timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ar0(t, *a, **k)
+    torch.cuda.synchronize()
+    spent["ms"] += (time.perf_counter() - t0) * 1e3
+    spent["n"] += 1
+    return r
+TP._all_reduce = ar
 meta = json.load(open(f"{d}/meta.json"))
 argv = meta["driver_argv"] + [
     "--coordinator_address", addr, "--num_processes", "2",
-    "--process_id", str(rank), "--dist_backend", "gloo", "--zero1"]
+    "--process_id", str(rank), "--dist_backend", "gloo"] + meta.get(
+    "extra", ["--zero1"])
 seeds = []
 init0 = D.DropoutRng.__init__
 def init(self, seed, device="cuda"):
@@ -5302,6 +5343,7 @@ out["step1_seed"] = seeds[0]
 keep = D.dropout(torch.ones(1 << 16, device="cuda"), 0.1,
                  D.DropoutRng(seeds[0], "cuda")) > 0
 np.save(f"{d}/keep_{rank}.npy", keep.cpu().numpy())
+out["collective"] = dict(spent)
 json.dump(out, open(f"{d}/driver_{rank}.json", "w"))
 MH.shutdown()
 """
@@ -6108,6 +6150,527 @@ def _phase_remat(card):
     return total
 
 
+TP_ROWS = {
+    "fused_attn_block_partial": dict(
+        name="fused_attn_block_partial", route="cuda",
+        source="uc2_torch/csrc/fused_attn_block.cu",
+        replaces="uc2_tpu/ops/fused_block.py:37"),
+    "fused_ffn_block_partial": dict(
+        name="fused_ffn_block_partial", route="cuda",
+        source="uc2_torch/csrc/fused_ffn_block.cu",
+        replaces="uc2_tpu/ops/fused_block.py:251"),
+}
+TP_BLOCK_SHAPES = ((B, 128), (B, 162), (32, 262))
+TP_EDGES = ((1, 1), (2, 65), (3, 129), (2, 512), (67, 128))
+TP_TRAIN_SHAPES = ((128, 162), (16, 512))
+
+
+def partial_attn_bytes_flops(b, L, n):
+    """#2's partial mode: q, k, v and the bias read, Wo's n * 64 columns,
+    the fp32 partial written; attention over n heads and the
+    out-projection over their n * 64 inputs."""
+    return (3 * b * L * n * D * 2 + b * L * 4 + H * n * D * 2
+            + b * L * H * 4, 4 * b * n * L * L * D + 2 * b * L * n * D * H)
+
+
+def partial_ffn_bytes_flops(rows, Fl):
+    """#3's partial mode: x, the shard's W1, b1 and W2 read, the fp32
+    partial written; its two products."""
+    return (rows * H * 2 + 2 * Fl * H * 2 + Fl * 4 + rows * H * 4,
+            4 * rows * H * Fl)
+
+
+def tp_partial_checks(gen):
+    """#2's and #3's partial modes on each shard of T = 2 and 4 against
+    their plain versions, repeated bit for bit, timed beside the whole
+    kernel; the partials summed over the shards with the epilogue against
+    the whole kernel. Returns the JSON rows."""
+    rows = {k: dict(v) for k, v in TP_ROWS.items()}
+    wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    for b, L in TP_BLOCK_SHAPES:
+        q, k, v, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        whole = (q, k, v, bias, x, wo, bo, gamma, beta)
+        full_ms = time_ms(lambda: fused_attn_block(*whole))
+        for T in (2, 4):
+            n = N // T
+            parts = []
+            for m in range(T):
+                sl = slice(m * n, (m + 1) * n)
+                args = (q[:, :, sl], k[:, :, sl], v[:, :, sl], bias,
+                        wo[:, m * n * D:(m + 1) * n * D].contiguous())
+                if m == 0:
+                    run_case(rows, "fused_attn_block_partial", b, L,
+                             fused_attn_block_partial,
+                             fused_attn_block_partial_plain, args,
+                             *partial_attn_bytes_flops(b, L, n),
+                             report=(T, b, L) == (2, B, 162),
+                             graph=(T, L) == (2, 162))
+                    part_ms = time_ms(lambda: fused_attn_block_partial(*args))
+                    print(f"    #2 whole (12 heads) on the same input: "
+                          f"{full_ms:.4f} ms; partial n = {n} / whole "
+                          f"{part_ms / full_ms:.2f}")
+                out = fused_attn_block_partial(*args)
+                if m == T - 1:
+                    repeat_bitwise(f"#2 partial T={T} shard {m} B={b} L={L}",
+                                   lambda: fused_attn_block_partial(*args),
+                                   out)
+                parts.append(out)
+            got = block_epilogue(sum(parts), bo, x, gamma, beta)
+            compare(f"#2 partials of T={T} summed + epilogue vs #2 whole "
+                    f"B={b} L={L}", got, fused_attn_block(*whole))
+    # the edges of the query tiles (and one grid past a wave), on the last
+    # shard of T = 2 and 4, each call repeated bit for bit
+    for b, L in TP_EDGES:
+        q, k, v, bias = heads(gen, b, L)
+        for T in (2, 4):
+            n = N // T
+            sl = slice(N - n, N)
+            args = (q[:, :, sl], k[:, :, sl], v[:, :, sl], bias,
+                    wo[:, (N - n) * D:].contiguous())
+            out = fused_attn_block_partial(*args)
+            err = compare(f"fused_attn_block_partial T={T} B={b} L={L}",
+                          out, fused_attn_block_partial_plain(*args))
+            row = rows["fused_attn_block_partial"]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            repeat_bitwise(f"#2 partial T={T} B={b} L={L}",
+                           lambda: fused_attn_block_partial(*args), out,
+                           times=REPEATS_PAST_A_WAVE if b > 3 else 1)
+    for Fl in (FF // 2, FF // 4):
+        T = FF // Fl
+        w1 = (torch.randn(FF, H, generator=gen, device="cuda")
+              * 0.05).bfloat16()
+        w2 = (torch.randn(H, FF, generator=gen, device="cuda")
+              * 0.05).bfloat16()
+        b1, b2 = vec(gen, FF, 0.02), vec(gen, H, 0.02)
+        for L in (98, 128, 162):
+            x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+            whole = (x, w1, b1, w2, b2, gamma, beta)
+            full_ms = time_ms(lambda: fused_ffn_block(*whole))
+            parts = []
+            for m in range(T):
+                sl = slice(m * Fl, (m + 1) * Fl)
+                args = (x, w1[sl].contiguous(), b1[sl].contiguous(),
+                        w2[:, sl].contiguous())
+                if m == 0:
+                    run_case(rows, "fused_ffn_block_partial", B, L,
+                             fused_ffn_block_partial,
+                             fused_ffn_block_partial_plain, args,
+                             *partial_ffn_bytes_flops(B * L, Fl),
+                             report=(Fl, L) == (FF // 2, 162),
+                             graph=(Fl, L) == (FF // 2, 162))
+                    part_ms = time_ms(lambda: fused_ffn_block_partial(*args))
+                    print(f"    #3 whole (F = {FF}) on the same rows: "
+                          f"{full_ms:.4f} ms; partial F = {Fl} / whole "
+                          f"{part_ms / full_ms:.2f}")
+                out = fused_ffn_block_partial(*args)
+                if m == T - 1:
+                    repeat_bitwise(f"#3 partial F={Fl} shard {m} L={L}",
+                                   lambda: fused_ffn_block_partial(*args),
+                                   out)
+                parts.append(out)
+            got = block_epilogue(sum(parts), b2, x, gamma, beta)
+            compare(f"#3 partials of F={Fl} summed + epilogue vs #3 whole "
+                    f"L={L}", got, fused_ffn_block(*whole))
+    return rows
+
+
+def tp_head_offset_checks(gen):
+    """#5 and #6a on each shard of T = 2 and 4 of the heads, with the head
+    offset in their Philox key, bit for bit against the same heads of the
+    launch over all 12 (output, dQ, row statistics, keep bits), at rate
+    0.1; the plain version with the offset against the kernel; each timed
+    beside the whole launch. Returns {(kernel, n): ms}."""
+    rate = 0.1
+    times = {}
+    for b, L in TP_TRAIN_SHAPES:
+        q, k, v, bias = heads(gen, b, L)
+        g = torch.randn(b, L, N, D, generator=gen, device="cuda").bfloat16()
+        args = (q, k, v, bias, TRAIN_SEED, rate)
+        out = flash_attention_train_fwd(*args)
+        dq, st, bits = flash_attention_train_bwd_dq(*args, g)
+        times[("fwd", N, b, L)] = time_ms(
+            lambda: flash_attention_train_fwd(*args))
+        times[("dq", N, b, L)] = time_ms(
+            lambda: flash_attention_train_bwd_dq(*args, g))
+        for T in (2, 4):
+            n = N // T
+            same = []
+            for m in range(T):
+                sl = slice(m * n, (m + 1) * n)
+                sargs = (q[:, :, sl], k[:, :, sl], v[:, :, sl], bias,
+                         TRAIN_SEED, rate)
+                gs = g[:, :, sl].contiguous()
+                o = flash_attention_train_fwd(*sargs, m * n, N)
+                sdq, sst, sbits = flash_attention_train_bwd_dq(
+                    *sargs, gs, m * n, N)
+                same.append(torch.equal(o, out[:, :, sl])
+                            and torch.equal(sdq, dq[:, :, sl])
+                            and torch.equal(sst, st[:, :, sl])
+                            and torch.equal(sbits, bits[:, sl]))
+                if m == 1 and T == 2:
+                    unkeyed = flash_attention_train_fwd(*sargs)
+                    compare(f"#5 shard 1 of 2 with the offset vs its plain "
+                            f"version B={b} L={L}", o,
+                            flash_attention_train_plain(*sargs, m * n, N))
+                    times[("fwd", n, b, L)] = time_ms(
+                        lambda: flash_attention_train_fwd(*sargs, m * n, N))
+                    times[("dq", n, b, L)] = time_ms(
+                        lambda: flash_attention_train_bwd_dq(*sargs, gs,
+                                                             m * n, N))
+                    print(f"  #5 shard 1 of 2 without the offset differs "
+                          f"from the whole launch's heads 6-11: "
+                          f"{not torch.equal(unkeyed, out[:, :, sl])}")
+            print(f"  #5 / #6a by global head, T={T} B={b} L={L}: each "
+                  f"shard's output, dQ, statistics and keep bits bit for "
+                  f"bit the whole launch's heads: {same}")
+            if not all(same):
+                fail(f"#5/#6a with a head offset differ from the whole "
+                     f"launch at T={T} B={b} L={L}")
+        print(f"    #5 at ({b}, {L}): 12 heads {times[('fwd', N, b, L)]:.4f}"
+              f" ms, 6 heads {times[('fwd', N // 2, b, L)]:.4f} ms; #6a: 12 "
+              f"heads {times[('dq', N, b, L)]:.4f} ms, 6 heads "
+              f"{times[('dq', N // 2, b, L)]:.4f} ms")
+    return times
+
+
+TP_DIR = os.path.join("build", "tp_smoke")
+TP_STEP_B = 32              # the mlm step of (b) at (32, 162)
+TP_STEPS, TP_STOP = 4, 2    # the driver's steps, and where it is saved
+TP_SCORE_REPS = 3           # timed scored batches a bucket
+# the updated parameters read back from the two-process step
+TP_PARAM_KEYS = ("roberta.layer.0.attention.qkv.weight",
+                 "roberta.layer.11.output_dense.weight",
+                 "roberta.embeddings.word_embeddings.weight", "cls.bias")
+
+TP_WORKER = r"""
+import json, sys, time
+import torch
+rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from uc2_torch.parallel import mesh as M, multihost as MH, tensor as TP
+assert MH.maybe_initialize(addr, 2, rank, backend="gloo", device="cuda")
+M.init_grid(2)
+torch.backends.cuda.matmul.allow_tf32 = False
+from uc2_torch.config import UC2Config
+from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_torch.ops import flash_attention as fa, fused_block as fb
+from uc2_torch.ops.dropout import DropoutRng
+from uc2_torch.training.optim import build_optimizer, constant
+from uc2_torch.training.step import train_step
+KS = (fa.flash_attention, fa.flash_attention_train_fwd,
+      fa.flash_attention_train_bwd_dq, fa.flash_attention_train_bwd_dkdv,
+      fb.fused_attn_block, fb.fused_ffn_block, fb.fused_attn_block_partial,
+      fb.fused_ffn_block_partial)
+def reset():
+    for k in KS:
+        k.launches = 0
+    spent.update(ms=0.0, n=0, mb=0.0)
+def counts():
+    return {k.__name__: k.launches for k in KS if k.launches}
+spent = {"ms": 0.0, "n": 0, "mb": 0.0}
+ar0 = TP._all_reduce
+def ar(t, *a, **k):
+    # the model group's all-reduces, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ar0(t, *a, **k)
+    torch.cuda.synchronize()
+    spent["ms"] += (time.perf_counter() - t0) * 1e3
+    spent["n"] += 1
+    spent["mb"] += t.numel() * t.element_size() / 1e6
+    return r
+TP._all_reduce = ar
+meta = json.load(open(f"{d}/meta.json"))
+cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+    dtype="bfloat16")
+out = {}
+model = TP.place_model(UC2ForImageTextRetrieval(cfg, device="cuda", seed=0))
+batches = torch.load(f"{d}/score_batches.pt", weights_only=True)
+scores = {}
+for L, b in batches.items():
+    b = {k: v.cuda() for k, v in b.items()}
+    model.scores(b)
+    torch.cuda.synchronize()
+    reset()
+    s = model.scores(b)
+    torch.cuda.synchronize()
+    rec = {"launches": counts(), "collective": dict(spent), "ms": []}
+    for _ in range(meta["reps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.scores(b)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+    scores[L] = s.float().cpu()
+    out[f"score_{L}"] = rec
+torch.save(scores, f"{d}/scores_{rank}.pt")
+del model
+torch.cuda.empty_cache()
+model = TP.place_model(UC2ForPretraining(cfg.replace(
+    use_pallas_attention="pallas-train"), device="cuda", seed=0))
+batch = {k: v.cuda() for k, v in
+         torch.load(f"{d}/mlm_batch.pt", weights_only=True).items()}
+opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                      betas=(0.9, 0.98), grad_norm=2.0)
+steps = []
+for i in range(meta["steps"]):
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = train_step(model, opt, batch, DropoutRng(7, "cuda"), task="mlm")
+    torch.cuda.synchronize()
+    steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                  "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                  "launches": counts(), "collective": dict(spent)})
+    if i == 0:
+        whole = TP.full_state_dict(model)
+        if rank == 0:
+            torch.save({k: whole[k].cpu() for k in meta["keys"]},
+                       f"{d}/params.pt")
+        del whole
+out["steps"] = steps
+out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+json.dump(out, open(f"{d}/tp_{rank}.json", "w"))
+MH.shutdown()
+"""
+
+
+def phase_tp(card, gen):
+    """Tensor parallelism (``--n_model``, the module's docstring, phase
+    21). Returns (the JSON rows of #2's and #3's partial modes, the
+    launches of the model group's runs)."""
+    print(f"== tp: tensor parallelism, (a) the kernels' partial modes and "
+          f"head offsets, (b) two processes over gloo on the one card at "
+          f"--n_model 2 [{card}]")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    try:
+        return _phase_tp(card, gen)
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _phase_tp(card, gen):
+    rows = tp_partial_checks(gen)
+    tp_head_offset_checks(gen)
+    torch.cuda.empty_cache()
+    launches = no_launches()
+    py = sys.executable
+    cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+        dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    # scored batches of B = 64 at the three buckets, and one mlm batch
+    txt_db, img_db = synth_gallery(seed=3, n_imgs=N_IMGS, txt_per_img=1,
+                                   vocab=cfg.vocab_size, img_dim=cfg.img_dim)
+    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
+    names = sorted(img_db.name2nbb)
+    bucket_of = np.searchsorted(edges, [img_db.name2nbb[i] for i in names])
+    batches, rows_n = {}, {}
+    for bi, nb in enumerate(edges):
+        ids_b = [im for im, bk in zip(names, bucket_of) if bk == bi]
+        batch, rows_n[TXT_LEN + nb] = bucket_batch(img_db, ids_b, txt_db,
+                                                   txt_db.ids[0], nb)
+        batches[TXT_LEN + nb] = batch
+    tcfg = cfg.replace(use_pallas_attention="pallas-train")
+    mlm = mix_batches(tcfg, 1, TRAIN_SEED)[0]["mlm"][0]
+    mlm = {k: v[:TP_STEP_B] for k, v in mlm.items()}
+    torch.save({L: {k: v.cpu() for k, v in b.items()}
+                for L, b in batches.items()},
+               os.path.join(TP_DIR, "score_batches.pt"))
+    torch.save({k: v.cpu() for k, v in mlm.items()},
+               os.path.join(TP_DIR, "mlm_batch.pt"))
+    with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
+        json.dump({"reps": TP_SCORE_REPS, "steps": 3,
+                   "keys": list(TP_PARAM_KEYS)}, f)
+    # one process on the same weights and inputs
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        one = {L: model.scores(b).float().cpu() for L, b in batches.items()}
+    one_ms = {}
+    for L, b in batches.items():
+        ts = []
+        for _ in range(TP_SCORE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.scores(b)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        one_ms[L] = ts
+    del model
+    model = UC2ForPretraining(tcfg, device="cuda", seed=0)
+    opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                          betas=(0.9, 0.98), grad_norm=2.0)
+    m = train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
+    one_loss, one_norm = m["loss"].item(), m["grad_norm"].item()
+    sd = model.state_dict()
+    one_params = {k: sd[k].detach().float().cpu() for k in TP_PARAM_KEYS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
+    torch.cuda.synchronize()
+    one_step_ms = (time.perf_counter() - t0) * 1e3    # the second step
+    del model, opt, m, sd
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{free_port()}"
+    path = os.path.join(TP_DIR, "tp_worker.py")
+    with open(path, "w") as f:
+        f.write(TP_WORKER)
+    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
+    worker_s = time.perf_counter() - t0
+    if spawned_ok("tp: the two-process scores and step", res):
+        outs = []
+        for r in (0, 1):
+            with open(os.path.join(TP_DIR, f"tp_{r}.json")) as f:
+                outs.append(json.load(f))
+        for r in (0, 1):
+            tp_scores = torch.load(os.path.join(TP_DIR, f"scores_{r}.pt"))
+            for L, want in one.items():
+                n = rows_n[L]
+                got = tp_scores[L]
+                err = float((got[:n] - want[:n]).abs().max())
+                rec = outs[r][f"score_{L}"]
+                fused = fused_block_profitable(L, N)
+                want_k = {"fused_ffn_block_partial": layers}
+                want_k["fused_attn_block_partial" if fused
+                       else "flash_attention"] = layers
+                ok = (bool(torch.isfinite(got).all()) and err <= SCORE_TOL
+                      and rec["launches"] == want_k)
+                coll = rec["collective"]
+                print(f"  (b) scores, process {r} of 2, B = {B}, L = {L}: "
+                      f"max|n_model 2 - one process| {err:.4e} (tolerance "
+                      f"{SCORE_TOL}), launches {rec['launches']} (want "
+                      f"{want_k}); ms/batch "
+                      f"{[round(x, 1) for x in rec['ms']]} against one "
+                      f"process's {[round(x, 1) for x in one_ms[L]]}; the "
+                      f"model group's all-reduces {coll['n']} a batch, "
+                      f"{coll['mb']:.1f} MB, {coll['ms']:.1f} ms "
+                      f"{'ok' if ok else 'FAIL'} [{card}]")
+                if not ok:
+                    fail(f"tp: the scores at L = {L} (process {r}) are not "
+                         f"one process's, or a kernel was not launched")
+                if r == 0:
+                    for k, c in rec["launches"].items():
+                        launches[k] += c
+        got_params = torch.load(os.path.join(TP_DIR, "params.pt"))
+        p_err = {k.split(".")[-2]: float(
+            (got_params[k] - v).abs().max() / v.abs().max())
+            for k, v in one_params.items()}
+        for r in (0, 1):
+            st = outs[r]["steps"]
+            first = st[0]
+            d_loss = abs(first["loss"] - one_loss)
+            d_norm = abs(first["grad_norm"] - one_norm) / one_norm
+            want_k = {k.__name__: layers for k in TRAIN_KERNELS}
+            ok = (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_NORM_RTOL
+                  and first["launches"] == want_k)
+            coll = [(x["collective"]["n"], round(x["collective"]["mb"], 1),
+                     round(x["collective"]["ms"], 1)) for x in st]
+            print(f"  (b) mlm step at ({TP_STEP_B}, {TXT_LEN + NUM_BB}), "
+                  f"dropout 0.1, pallas-train, process {r} of 2: loss "
+                  f"{first['loss']:.6f} vs one process's {one_loss:.6f} "
+                  f"(|diff| {d_loss:.2e}, tolerance {STEP_LOSS_TOL}), grad "
+                  f"norm {first['grad_norm']:.6f} vs {one_norm:.6f} "
+                  f"(relative {d_norm:.2e}, tolerance {STEP_NORM_RTOL}); "
+                  f"launches {first['launches']}; ms/step "
+                  f"{[round(x['ms'], 1) for x in st]} (the first with the "
+                  f"warm-up) against one process's second step "
+                  f"{one_step_ms:.1f}; the "
+                  f"model group's all-reduces a step (count, MB, ms) {coll}"
+                  f"; peak {outs[r]['peak_gib']:.1f} GiB "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                fail(f"tp: the two-process mlm step (process {r}) is not "
+                     f"the one-process step")
+            if r == 0:
+                for k, c in first["launches"].items():
+                    launches[k] += c
+        print(f"  (b) the updated parameters after the step, gathered, "
+              f"against one process's (max |diff| over max |one|): {p_err}"
+              f"; {worker_s:.1f} s with the processes' start")
+
+    # the pretraining driver at --n_model 2: saved at TP_STOP, resumed
+    t0 = time.perf_counter()
+    cfg_path = os.path.join(TP_DIR, "uc2-base-pallas-train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(tcfg.to_dict(), f)
+    corpus = [synth_corpus(os.path.join(TP_DIR, lang), n_imgs=DIST_IMGS,
+                           txt_per_img=2, seed=seed, paired=lang == "de")
+              for lang, seed in (("en", 0), ("de", 1))]
+    out_dir = os.path.join(TP_DIR, "driver")
+    meta = {"stop": TP_STOP, "driver_out": out_dir, "extra": [
+        "--n_model", "2"], "driver_argv": dist_driver_argv(
+            out_dir, corpus, cfg_path, "--save_steps", str(TP_STOP),
+            "--num_train_steps", str(TP_STEPS),
+            "--train_batch_size", "5120")}
+    with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    path = os.path.join(TP_DIR, "driver.py")
+    with open(path, "w") as f:
+        f.write(DIST_DRIVER)
+    addr = f"127.0.0.1:{free_port()}"
+    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
+    drv_s = time.perf_counter() - t0
+    if spawned_ok("tp: the two-process driver at --n_model 2", res):
+        outs = []
+        for r in (0, 1):
+            with open(os.path.join(TP_DIR, f"driver_{r}.json")) as f:
+                outs.append(json.load(f))
+        keeps = [np.load(os.path.join(TP_DIR, f"keep_{r}.npy"))
+                 for r in (0, 1)]
+        with open("config/uc2_pretrain.json") as f:
+            accum = json.load(f)["gradient_accumulation_steps"]
+        for r, o in enumerate(outs):
+            want_n = TP_STOP * layers * accum
+            ok = (o["restored_step"] == TP_STOP and o["model_bitwise"]
+                  and o["optimizer_bitwise"] and all(o["streams"])
+                  and o["second"]["step"] == TP_STEPS
+                  and all(n == want_n for n in o["launches_first"].values())
+                  and all(np.isfinite(v) for part in ("first", "second")
+                          for _, _, v in o[part]["losses"]))
+            logs = o["first"]["logs"] + o["second"]["logs"]
+            ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
+                  for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
+                  if s1 > s0 and s0 != TP_STOP]
+            print(f"  (b) python -m uc2_torch.pretrain --n_model 2, process "
+                  f"{r} of 2 (gloo, --train_batch_size 5120): steps "
+                  f"1-{TP_STOP}, saved, resumed to {o['second']['step']}; "
+                  f"losses {[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
+                  f"; restored step {o['restored_step']}, shards bit for bit "
+                  f"{o['model_bitwise']}, optimizer (gathered) bit for bit "
+                  f"{o['optimizer_bitwise']}; launches of steps 1-{TP_STOP}"
+                  f" {o['launches_first']} (want {want_n} each); loop "
+                  f"ms/step {ms}; the model group's all-reduces over the two "
+                  f"runs {o['collective']['n']} in "
+                  f"{o['collective']['ms'] / 1e3:.1f} s; saves "
+                  f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
+                  f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
+                  f" [{card}]")
+            if not ok:
+                fail(f"tp: the driver at --n_model 2 (process {r}) did not "
+                     f"resume bit for bit or missed a launch")
+            if r == 0:
+                for name, n in o["launches_first"].items():
+                    launches[name] += n
+        step, ckpt = ckpt_state(os.path.join(out_dir, "restore.ckpt"))
+        V = cfg.vocab_size
+        whole = (step == TP_STEPS and ckpt[
+            "param roberta.embeddings.word_embeddings.weight"].shape[0] == V
+            and ckpt["param cls.bias"].shape[0] == V)
+        print(f"  restore.ckpt of step {step}: the whole model (vocabulary "
+              f"rows {V}) {whole}; both processes drew the same dropout "
+              f"masks {np.array_equal(keeps[0], keeps[1])}; "
+              f"{drv_s:.1f} s with the stores and the processes' start")
+        if not (whole and np.array_equal(keeps[0], keeps[1])):
+            fail("tp: restore.ckpt is not the whole model, or the model "
+                 "group drew different dropout masks")
+    return rows, launches
+
+
 # ``--times [group ...]``: the timing phases by name, in this order when
 # none is named
 TIMES = {"stream": (phase_stream_times, "gen"),
@@ -6178,6 +6741,9 @@ def main() -> int:
     add(timed(phase_dist, card, rows, gen))
     add(timed(phase_int8, card, gen))
     add(timed(phase_remat, card))
+    tp_rows, tp_launches = timed(phase_tp, card, gen)
+    rows.update(tp_rows)
+    add(tp_launches)
     print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]

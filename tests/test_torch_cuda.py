@@ -14,8 +14,12 @@ block masked for whole rows, a bitwise repeat of the backward), the
 encoder's kernel paths (scoring and training steps, "flash" and
 ``UC2_ATTN_V2`` included) against its eager path, and the two kernels of
 the kernel lab: the whole encoder layer (#8) and attention with
-unnormalised bf16 probabilities (#11), and the retrieval finetuning step
-(itm-rank) against the CPU and for a bitwise repeat. Needs a CUDA device
+unnormalised bf16 probabilities (#11), the retrieval finetuning step
+(itm-rank) against the CPU and for a bitwise repeat, and tensor
+parallelism's kernel modes: #2's and #3's partial modes on shards of the
+heads and of the intermediate against their plain versions and, summed
+with the epilogue, against the whole kernels, and #5/#6a on a shard of
+the heads bit for bit those heads of the whole launch. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -1390,3 +1394,90 @@ def test_rank_step_repeats_bit_for_bit(gen):
     assert torch.equal(n0, n1)
     for k in p0:
         assert torch.equal(p0[k], p1[k]), k
+
+
+# tensor parallelism: shards of T = 2, 3, 4 and 12 of the heads (#2) and of
+# the intermediate (#3), at tile edges and one grid past a wave
+PARTIAL_ATTN_CASES = [(1, 1, 2), (2, 65, 3), (3, 129, 4), (2, 162, 12),
+                      (1, 512, 2), (67, 128, 4)]
+
+
+@pytest.mark.parametrize("B,L,T", PARTIAL_ATTN_CASES)
+def test_fused_attn_block_partial_sums_to_the_whole_block(gen, B, L, T):
+    from uc2_torch.ops.fused_block import (block_epilogue,
+                                           fused_attn_block_partial,
+                                           fused_attn_block_partial_plain)
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
+    wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    bo, gamma, beta = (_vec(gen, H, 0.02), _vec(gen, H, 0.1, 1.0),
+                       _vec(gen, H, 0.1))
+    n = N // T
+    parts = []
+    before = fused_attn_block_partial.launches
+    for m in range(T):
+        sl = slice(m * n, (m + 1) * n)
+        args = (q[:, :, sl], k[:, :, sl], v[:, :, sl], bias,
+                wo[:, m * n * D:(m + 1) * n * D].contiguous())
+        out = fused_attn_block_partial(*args)
+        assert out.dtype == torch.float32 and out.shape == (B, L, H)
+        _close(out, fused_attn_block_partial_plain(*args))
+        for _ in range(REPEATS_PAST_A_WAVE if B > 3 else 1):
+            assert torch.equal(fused_attn_block_partial(*args), out)
+        parts.append(out)
+    assert fused_attn_block_partial.launches > before
+    _close(block_epilogue(sum(parts), bo, x, gamma, beta),
+           fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta))
+
+
+@pytest.mark.parametrize("rows,T", [(1, 2), (65, 4), (129, 3), (10368, 2),
+                                    (257, 12)])
+def test_fused_ffn_block_partial_sums_to_the_whole_block(gen, rows, T):
+    from uc2_torch.ops.fused_block import (block_epilogue,
+                                           fused_ffn_block_partial,
+                                           fused_ffn_block_partial_plain)
+    F = 3072
+    x = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    w1 = (torch.randn(F, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    w2 = (torch.randn(H, F, generator=gen, device="cuda") * 0.05).bfloat16()
+    b1, b2 = _vec(gen, F, 0.02), _vec(gen, H, 0.02)
+    gamma, beta = _vec(gen, H, 0.1, 1.0), _vec(gen, H, 0.1)
+    Fl = F // T
+    parts = []
+    for m in range(T):
+        sl = slice(m * Fl, (m + 1) * Fl)
+        args = (x, w1[sl].contiguous(), b1[sl].contiguous(),
+                w2[:, sl].contiguous())
+        out = fused_ffn_block_partial(*args)
+        _close(out, fused_ffn_block_partial_plain(*args))
+        assert torch.equal(fused_ffn_block_partial(*args), out)
+        parts.append(out)
+    _close(block_epilogue(sum(parts), b2, x, gamma, beta),
+           fused_ffn_block(x, w1, b1, w2, b2, gamma, beta))
+
+
+@pytest.mark.parametrize("B,L", [(3, 65), (2, 162), (1, 512)])
+@pytest.mark.parametrize("T", [2, 4])
+def test_attention_train_by_global_head_is_the_whole_launch(gen, B, L, T):
+    """#5 and #6a on each shard of the heads, keyed by the shard's first
+    head among the 12, give those heads of the whole launch bit for bit:
+    output, dQ, row statistics and keep bits."""
+    q, k, v = _heads(gen, B, L, strided=True)
+    bias = _bias(gen, B, L)
+    g = torch.randn(B, L, N, D, generator=gen, device="cuda").bfloat16()
+    args = (q, k, v, bias, 77, 0.1)
+    out = flash_attention_train_fwd(*args)
+    dq, st, bits = flash_attention_train_bwd_dq(*args, g)
+    n = N // T
+    for m in range(T):
+        sl = slice(m * n, (m + 1) * n)
+        sargs = (q[:, :, sl], k[:, :, sl], v[:, :, sl], bias, 77, 0.1)
+        got = flash_attention_train_fwd(*sargs, m * n, N)
+        assert torch.equal(got, out[:, :, sl])
+        _close(got, flash_attention_train_plain(*sargs, m * n, N))
+        sdq, sst, sbits = flash_attention_train_bwd_dq(
+            *sargs, g[:, :, sl].contiguous(), m * n, N)
+        assert torch.equal(sdq, dq[:, :, sl])
+        assert torch.equal(sst, st[:, :, sl])
+        assert torch.equal(sbits, bits[:, sl])

@@ -14,7 +14,8 @@ tests/test_multihost_2proc.py, at dropout 0 in the tiny config):
 * ``python -m uc2_torch.vqa``: trains and validates; ``python -m
   uc2_torch.nlvr2``: its batch raised to the world, the prediction sweep
   over every example on both processes;
-* ``--n_model 2`` still raises, before any group starts.
+* under ``--n_model 2`` what is left out (``UC2_ATTN_V2``) still raises,
+  before any group starts.
 
 Port processes import no JAX; the reference's set ``JAX_PLATFORMS=cpu``."""
 
@@ -330,12 +331,16 @@ def test_nlvr2_raises_its_batch_and_sweeps_every_example(runs):
 
 
 @pytest.mark.parametrize("driver", ["pretrain", "itm", "vqa", "nlvr2"])
-def test_tensor_parallelism_still_raises(tmp_path, driver):
+def test_tensor_parallelism_still_raises(tmp_path, driver, monkeypatch):
+    """Tensor parallelism is ported (tests/test_torch_tp.py); what it
+    leaves out, here kernel #7's route, raises by name before any group
+    starts."""
+    monkeypatch.setenv("UC2_ATTN_V2", "1")
     mod = {"pretrain": pretrain, "itm": itm, "vqa": vqa,
            "nlvr2": nlvr2}[driver]
     opts = mod.parse_with_config(mod.build_parser(), [
         "--device", "cpu", "--n_model", "2", "--output_dir",
         str(tmp_path), "--coordinator_address", f"127.0.0.1:{free_port()}",
         "--num_processes", "2", "--process_id", "0"])
-    with pytest.raises(NotImplementedError, match="--n_model"):
+    with pytest.raises(NotImplementedError, match="UC2_ATTN_V2"):
         mod.main(opts)

@@ -15,7 +15,8 @@ scripts/eval_nlvr2.py:
   divide in every format, so that both take the same examples;
 * the parsers' flags and defaults (plus ``--device`` and
   ``--dist_backend``);
-* the refusal of tensor parallelism, by name, and the distribution flags
+* the refusal of --n_model 2 in a world of one, by name, and the
+  distribution flags
   at a world of one (equal to the undistributed run);
 * resume: a VQA run of 2 steps at dropout 0.1 resumed to 4 loads the
   parameters and AdamW's moments of step 2 bit for bit."""
@@ -416,12 +417,14 @@ def undistributed(setup):
                          ids=[n for _, n in UNPORTED])
 def test_unported_flags_raise_by_name(setup, tmp_path, driver, extra, name,
                                       request):
-    """--n_model > 1 raises by name. The distribution flags are ported: at
-    a world of one each run equals the undistributed one, losses and
-    parameters bit for bit."""
+    """--n_model 2 in a world of one raises by name (tensor parallelism
+    needs as many processes, tests/test_torch_tp.py). The distribution
+    flags are ported: at a world of one each run equals the undistributed
+    one, losses and parameters bit for bit."""
     out = tmp_path / "out"
     if name not in WORLD_OF_ONE:
-        with pytest.raises(NotImplementedError,
+        with pytest.raises(ValueError if name == "--n_model"
+                           else NotImplementedError,
                            match=name.replace("-", "\\-")):
             _short_run(setup, out, driver, extra)
         return

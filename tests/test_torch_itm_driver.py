@@ -12,7 +12,7 @@ tiny config (hidden 32, one layer, fp32):
   artifact names;
 * ``apply_reference_config_compat`` against itm.py's on the shipped config
   and on the original UC2 key names;
-* the refusal of what is not ported (tensor parallelism), by name, the
+* the refusal of --n_model 2 in a world of one, by name, the
   distribution flags at a world of one and ``--quant int8`` (equal to the
   undistributed run in training: int8 scores only the evaluations);
 * resume: a run stopped at step 2 (dropout 0.1, ``--full_val``,
@@ -320,10 +320,11 @@ def undistributed(setup):
                          ids=[n for _, n in UNPORTED])
 def test_unported_flags_raise_by_name(setup, tmp_path, extra, name,
                                       request):
-    """--n_model > 1 raises by name. The distribution flags and --quant
-    int8 are ported: at a world of one each run equals the undistributed
-    one, losses and parameters bit for bit (int8 scores only the
-    validation and the tests, tests/test_torch_int8.py)."""
+    """--n_model 2 in a world of one raises by name (tensor parallelism
+    needs as many processes, tests/test_torch_tp.py). The distribution
+    flags and --quant int8 are ported: at a world of one each run equals
+    the undistributed one, losses and parameters bit for bit (int8 scores
+    only the validation and the tests, tests/test_torch_int8.py)."""
     if name == "--quant int8":
         got = _port(setup, tmp_path / "out", SHORT + extra)
         want = request.getfixturevalue("undistributed")
@@ -333,7 +334,8 @@ def test_unported_flags_raise_by_name(setup, tmp_path, extra, name,
         assert set(g) == set(w) and all(torch.equal(g[k], w[k]) for k in w)
         return
     if name not in WORLD_OF_ONE:
-        with pytest.raises(NotImplementedError,
+        with pytest.raises(ValueError if name == "--n_model"
+                           else NotImplementedError,
                            match=name.replace("-", "\\-")):
             _port(setup, tmp_path / "out", extra)
         return

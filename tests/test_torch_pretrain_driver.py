@@ -11,8 +11,8 @@ one layer) and the tasks itm, mlm, vmlm (en) and tlm (a paired de store):
   moments, per-step losses), from the saved stream state or by replaying
   the stream;
 * the loop's variants (no prefetch thread, host accumulation), the hps
-  check, the refusal of tensor parallelism, the distribution flags at a
-  world of one (equal to the undistributed run), checkpoint
+  check, the refusal of --n_model 2 in a world of one, the distribution
+  flags at a world of one (equal to the undistributed run), checkpoint
   resolution.
 
 The vocabulary is XLM-R's (250002): the label vocabulary's stand-in token
@@ -333,13 +333,15 @@ def undistributed(setup):
                          ids=[n for _, n in UNPORTED])
 def test_unported_flags_and_tasks_raise_by_name(setup, tmp_path, extra,
                                                 name, request):
-    """--n_model > 1 (tensor parallelism) raises by name. The distribution
+    """--n_model 2 in a world of one raises by name (tensor parallelism
+    needs as many processes, tests/test_torch_tp.py). The distribution
     flags are ported: at a world of one each run equals the undistributed
     one, losses and parameters bit for bit."""
     if name not in WORLD_OF_ONE:
         argv = _argv(setup, tmp_path / "out", ["--device", "cpu"] + extra)
         opts = pretrain.parse_with_config(pretrain.build_parser(), argv)
-        with pytest.raises(NotImplementedError,
+        with pytest.raises(ValueError if name == "--n_model"
+                           else NotImplementedError,
                            match=name.replace("-", "\\-")):
             pretrain.main(opts)
         return

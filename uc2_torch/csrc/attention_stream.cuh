@@ -52,8 +52,10 @@
 // products a row and head against the 4 L^2 d of the function.
 //
 // Dropout (#5): the keep bit of score (b, h, i, j) is word j % 4 of
-// philox4x32_10((j / 4, i, b n + h, 0), (seed, 0)) (philox.cuh), so the
-// backward (#6) redraws it. A thread holds columns 8c + 2t and 8c + 2t + 1
+// philox4x32_10((j / 4, i, b n_tot + h0 + h, 0), (seed, 0)) (philox.cuh),
+// so the backward (#6) redraws it. A launch over all n heads has h0 = 0,
+// n_tot = n; a launch over the heads h0 .. h0 + n - 1 of n_tot (a
+// tensor-parallel shard) draws the masks of those heads of the whole. A thread holds columns 8c + 2t and 8c + 2t + 1
 // of rows g and g + 8 (wgmma's accumulator layout, g = lane / 4,
 // t = lane % 4): lanes t and t ^ 1 share one 4-key group. Lane t draws the
 // group for row g + 8 (t & 1) and swaps the bits with its partner
@@ -86,6 +88,8 @@ struct Dropout {
   uint32_t seed;    // Philox key word 0
   uint32_t thresh;  // keep when bits >= thresh
   float keep_scale; // 1 / (1 - rate)
+  uint32_t h0;      // the launch's first head among n_tot (the masks' head index)
+  uint32_t n_tot;
 };
 
 namespace stream {
@@ -317,7 +321,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
   // ------------------------------------------------------------ consumers
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
   const uint32_t qslot = base + wg * 64 * C::ROW_BYTES;
-  const uint32_t bh = (uint32_t)(b * n + h);
+  const uint32_t ph = (uint32_t)(b * dr.n_tot + dr.h0 + h);  // the mask's head index
   // the query row whose keep bits this lane draws (row g + 8 (t & 1) of its warp)
   const uint32_t my_row = (uint32_t)(q0 + wg * 64 + wl * 16 + g + 8 * (t & 1));
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
@@ -450,7 +454,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
       float p2 = ex2(sc[4 * c + 2] - mx[1]) * ks1, p3 = ex2(sc[4 * c + 3] - mx[1]) * ks1;
       if constexpr (DROP) {
         const uint32_t mine =
-            keep_bits4(dr.seed, dr.thresh, (uint32_t)(k0 >> 2) + 2 * c + (t >> 1), my_row, bh);
+            keep_bits4(dr.seed, dr.thresh, (uint32_t)(k0 >> 2) + 2 * c + (t >> 1), my_row, ph);
         const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
         const int sh = 2 * (t & 1);
         const uint32_t kg = ((t & 1) ? other : mine) >> sh;  // row g

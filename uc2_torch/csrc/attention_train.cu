@@ -133,6 +133,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
   const int wl = warp, g = lane >> 2, t = lane & 3;
   const uint32_t qslot = base, gslot = base + C::R_G;
   const uint32_t bh = (uint32_t)(b * n + h);
+  const uint32_t ph = (uint32_t)(b * dr.n_tot + dr.h0 + h);  // the mask's head index
   const float scale_log2 = scale * LOG2E;
   // the query row whose keep bits this lane draws (row g + 8 (t & 1) of its warp)
   const uint32_t my_row = (uint32_t)(q0 + wl * 16 + g + 8 * (t & 1));
@@ -204,7 +205,7 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
       uint32_t kg = 0, kh = 0;
       if constexpr (DROP) {
         const uint32_t mine =
-            keep_bits4(dr.seed, dr.thresh, (uint32_t)(s * 16 + 2 * c + (t >> 1)), my_row, bh);
+            keep_bits4(dr.seed, dr.thresh, (uint32_t)(s * 16 + 2 * c + (t >> 1)), my_row, ph);
         word |= (uint64_t)mine << (8 * c + 4 * (t >> 1));
         const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
         const int sh = 2 * (t & 1);
@@ -519,13 +520,16 @@ __global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
 
 // q, k, v: [B, L, n, 64] bf16, tokens rs elements apart; bias [B, L] fp32;
 // out [B, L, n, 64] bf16 contiguous. drop = 0 skips the mask (rate 0): the
-// launch is then kernel #4's, bit for bit. Returns cudaGetLastError().
+// launch is then kernel #4's, bit for bit. The n heads are heads h0 ..
+// h0 + n - 1 of n_tot for the mask (h0 = 0, n_tot = n: the whole layer).
+// Returns cudaGetLastError().
 extern "C" int uc2_attn_train_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, int B, int L, int n,
                                   int rs, float scale, unsigned seed, unsigned thresh,
-                                  float keep_scale, int drop, void* stream) {
+                                  float keep_scale, int drop, int h0, int n_tot,
+                                  void* stream) {
   using namespace uc2;
-  const Dropout dr{seed, thresh, keep_scale};
+  const Dropout dr{seed, thresh, keep_scale, (uint32_t)h0, (uint32_t)n_tot};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return drop ? stream::attention<true>(q, k, v, bias, out, B, L, n, rs, scale, dr, st)
               : stream::attention<false>(q, k, v, bias, out, B, L, n, rs, scale, dr, st);
@@ -534,16 +538,16 @@ extern "C" int uc2_attn_train_fwd(const void* q, const void* k, const void* v,
 // The backward's first pass, 1 <= L <= 512: q, k, v and bias as above;
 // g, dq [B, L, n, 64] bf16 contiguous; stats [3][B, n, L] fp32 and, when
 // drop, bits [B, n, Lp, Lp / 8] bytes (Lp = L rounded up to 64), both
-// written. Returns cudaGetLastError().
+// written; h0 and n_tot as the forward's. Returns cudaGetLastError().
 extern "C" int uc2_attn_train_bwd_dq(const void* q, const void* k, const void* v,
                                      const void* bias, const void* g, void* dq, void* stats,
                                      void* bits, int B, int L, int n, int rs, float scale,
                                      unsigned seed, unsigned thresh, float keep_scale, int drop,
-                                     void* stream) {
+                                     int h0, int n_tot, void* stream) {
   using namespace uc2;
   using namespace uc2::stream;
   if (L < 1 || L > MAX_LEN) return (int)cudaErrorInvalidValue;
-  const Dropout dr{seed, thresh, keep_scale};
+  const Dropout dr{seed, thresh, keep_scale, (uint32_t)h0, (uint32_t)n_tot};
   CUtensorMap qm, km, vm, gm, dqm;
   const size_t rb = (size_t)rs * 2, gb = (size_t)n * HEAD_DIM * 2;
   if (!heads_map(&qm, q, B, L, n, rb, 64) || !heads_map(&km, k, B, L, n, rb, 64) ||

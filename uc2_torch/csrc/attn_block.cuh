@@ -17,7 +17,9 @@
 //                     whole-layer kernel #8, fused_layer_block.cu, keeps its
 //                     first LayerNorm's output in fp32 instead, and takes
 //                     its second without the residual);
-//   load_heads        the producer's Q boxes and K/V ring of #2 and #8.
+//   load_heads        the producer's Q boxes and K/V ring of #2 and #8;
+//   HeadSplit         which heads each block and warpgroup computes when
+//                     a launch holds fewer than 12 (#2's partial mode).
 // Numbers as the TPU kernels compute them: fp32 scores * 1/sqrt(64) + bias
 // (in base 2: s * scale * log2 e + bias * log2 e), the softmax normalised
 // in fp32 and then rounded to bf16, the bf16 context of each head, fp32
@@ -65,28 +67,52 @@ struct RowKV {
   __device__ __forceinline__ void release(int) const {}
 };
 
-// Producer warp w's loads (one lane) for consumer warpgroup w of column
-// half `half`: the Q tiles of its three heads 6 half + 3 w + j straight
-// into their context boxes (boxes + h BOX), completing on wq, then the K
-// (and in the second sweep V) tiles of those heads through the
-// warpgroup's ring of STAGES slots (K slots at kring, V slots after them)
-// with full barriers wf and empty barriers we. Returns once the ring is
-// given back (a parity wait is only sure on the ring of the warp that
-// filled it: the other may lag a phase).
+// The heads of a launch over nh of them (nh = 12: a whole layer; fewer:
+// #2's partial mode, a tensor-parallel shard): column half `half` computes
+// count(half) heads from first(half), its warpgroup 0 the first half of
+// them rounded up and warpgroup 1 the rest; the out-projection of a half
+// takes its own heads' k-boxes first, then the other half's. At nh = 12
+// warpgroup w of half `half` computes heads 6 half + 3 w .. + 2.
+struct HeadSplit {
+  int nh;
+  __device__ __forceinline__ int half_first(int half) const { return half ? (nh + 1) / 2 : 0; }
+  __device__ __forceinline__ int half_count(int half) const { return half ? nh / 2 : (nh + 1) / 2; }
+  __device__ __forceinline__ int first(int half, int w) const {
+    return half_first(half) + (w ? (half_count(half) + 1) / 2 : 0);
+  }
+  __device__ __forceinline__ int count(int half, int w) const {
+    return w ? half_count(half) / 2 : (half_count(half) + 1) / 2;
+  }
+  __device__ __forceinline__ int kbox(int i, int half) const {
+    const int c = half_count(half);
+    return i < c ? half_first(half) + i : half_first(half ^ 1) + i - c;
+  }
+};
+
+// Producer warp w's loads (one lane) for consumer warpgroup w: the Q tiles
+// of its `count` heads h0 .. h0 + count - 1 straight into their context
+// boxes (boxes + h BOX), completing on wq (an arrival alone when it has
+// none), then the K (and in the second sweep V) tiles of those heads
+// through the warpgroup's ring of STAGES slots (K slots at kring, V slots
+// after them) with full barriers wf and empty barriers we. Returns once
+// the ring is given back (a parity wait is only sure on the ring of the
+// warp that filled it: the other may lag a phase).
 template <int STAGES>
 __device__ __forceinline__ void load_heads(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                            const CUtensorMap* vmap, uint32_t boxes,
                                            uint32_t kring, uint32_t wq, uint32_t wf,
-                                           uint32_t we, int half, int w, int q0, int b, int T) {
+                                           uint32_t we, int h0, int count, int q0, int b,
+                                           int T) {
   const uint32_t vring = kring + STAGES * BOX;
-  mbar_arrive_expect_tx(wq, 3 * BOX);
-  for (int j = 0; j < 3; ++j) {
-    const int h = 6 * half + 3 * w + j;
+  if (count > 0) mbar_arrive_expect_tx(wq, count * BOX);
+  else mbar_arrive(wq);
+  for (int j = 0; j < count; ++j) {
+    const int h = h0 + j;
     tma_load(boxes + h * BOX, qmap, wq, h, q0, b);
   }
   int s = 0;
-  for (int j = 0; j < 3; ++j) {
-    const int h = 6 * half + 3 * w + j;
+  for (int j = 0; j < count; ++j) {
+    const int h = h0 + j;
     for (int step = 0; step < 2 * T; ++step, ++s) {
       const int st = s % STAGES;
       const bool with_v = step >= T;
@@ -243,42 +269,46 @@ __device__ __forceinline__ int kbox(int i, int half) {
   return i < 6 ? 6 * half + i : 6 * (half ^ 1) + i - 6;
 }
 
-// Wo slots of the out-projection, in the consumers' order: part p (two
-// 96-column parts of each warpgroup's 192), k-box i is ring step 12 p + i;
-// its slot holds [96 rows x 64 inputs] of each warpgroup: rows 384 half +
-// 192 w + 96 p, inputs 64 kbox(i, half). The ring: `stages` slots
-// `stride` bytes apart; a consumer holds one slot at a time, so one stage
-// is enough.
+// Wo slots of the out-projection over nh k-boxes (Wo's inputs), in the
+// consumers' order: part p (two 96-column parts of each warpgroup's 192),
+// k-box i is ring step nh p + i; its slot holds [96 rows x 64 inputs] of
+// each warpgroup: rows 384 half + 192 w + 96 p, inputs 64 HeadSplit{nh}
+// .kbox(i, half) (kbox at nh = 12). The ring: `stages` slots `stride`
+// bytes apart; a consumer holds one slot at a time, so one stage is
+// enough.
 __device__ __forceinline__ void load_wo(const CUtensorMap* wom, uint32_t ring, int stages,
-                                        int stride, uint32_t full, uint32_t empty, int half) {
-  for (int ws = 0; ws < 24; ++ws) {
-    const int st = ws % stages, p = ws / 12, kb = kbox(ws % 12, half);
+                                        int stride, uint32_t full, uint32_t empty, int half,
+                                        int nh = 12) {
+  const HeadSplit split{nh};
+  for (int ws = 0; ws < 2 * nh; ++ws) {
+    const int st = ws % stages, p = ws / nh, kb = split.kbox(ws % nh, half);
     mbar_wait(empty + 8 * st, ((ws / stages) & 1) ^ 1);
     mbar_arrive_expect_tx(full + 8 * st, WO_SLOT);
     const uint32_t slot = ring + st * stride;
     tma_load_2d(slot, wom, full + 8 * st, 64 * kb, 384 * half + WO_ROWS * p);
     tma_load_2d(slot + WO_SLOT / 2, wom, full + 8 * st, 64 * kb, 384 * half + 192 + WO_ROWS * p);
   }
-  for (int e = 24; e < 24 + stages; ++e)  // every slot given back: a lost one traps here
+  for (int e = 2 * nh; e < 2 * nh + stages; ++e)  // every slot given back: a lost one traps here
     mbar_wait(empty + 8 * (e % stages), ((e / stages) & 1) ^ 1);
 }
 
 // y[p] = ctx . Wo^T for warpgroup w's 192 columns (p: its two 96-column
-// parts), over the k-boxes in kbox order; box(i) waits until k-box i is in
-// and returns its address; the Wo slots as load_wo fills them. Both
-// warpgroups read every slot (the empty barriers count their eight warps).
+// parts), over the nh k-boxes in load_wo's order; box(i) waits until
+// k-box i is in and returns its address; the Wo slots as load_wo fills
+// them. Both warpgroups read every slot (the empty barriers count their
+// eight warps).
 template <class Box>
 __device__ __forceinline__ void out_projection(float (&y)[2][48], uint32_t ring, int stages,
                                                int stride, uint32_t full, uint32_t empty, int w,
-                                               Box box) {
+                                               Box box, int nh = 12) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
 #pragma unroll
     for (int i = 0; i < 48; ++i) y[p][i] = 0.f;
 #pragma unroll 1
-    for (int i = 0; i < 12; ++i) {
-      const int s = 12 * p + i;
+    for (int i = 0; i < nh; ++i) {
+      const int s = nh * p + i;
       const uint64_t da = sw128_desc(box(i));
       spin_wait(full + 8 * (s % stages), (s / stages) & 1);
       const uint64_t db = sw128_desc(ring + (s % stages) * stride + w * (WO_SLOT / 2));

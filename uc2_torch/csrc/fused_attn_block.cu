@@ -42,6 +42,13 @@
 // the H100 (PERF.md): the attention is about half the time, the Wo stream,
 // which can only start once the K/V rings are drained, most of the rest;
 // two K/V slots a warpgroup instead of three were slower.
+//
+// The partial mode (uc2_fused_attn_block_partial, tensor parallelism over
+// T processes): the same cluster over n = 12 / T of the heads and Wo's
+// matching n * 64 input columns, writing the fp32 partial ctx . Wo^T for
+// the caller to sum over the model group. Bound by bytes as well: at
+// B = 64, L = 162, n = 6 it reads q, k, v (23.9 MB) and writes the fp32
+// partial (31.9 MB), 0.017 ms at 3.35 TB/s, against 8.7 GFLOP (0.009 ms).
 #include "attn_block.cuh"
 
 namespace uc2 {
@@ -119,7 +126,7 @@ __global__ void __launch_bounds__(Cfg2::THREADS, 1)
     if (w < 2) {
       if (lane == 0)
         load_heads<KS>(&qmap, &kmap, &vmap, base, base + C::OFF_RING + w * C::RING_WG, qbar + 8 * w,
-                       full + 8 * KS * w, empty + 8 * KS * w, half, w, q0, b, T);
+                       full + 8 * KS * w, empty + 8 * KS * w, 6 * half + 3 * w, 3, q0, b, T);
       __syncwarp();
       asm volatile("bar.sync 3, 64;\n" ::: "memory");  // both rings given back
       if (w == 0 && lane == 0)  // the Wo ring over them
@@ -153,6 +160,113 @@ __global__ void __launch_bounds__(Cfg2::THREADS, 1)
                     red, partner, smem + 6 * half * BOX, base + 6 * half * BOX, &omap, q0, b);
 }
 
+
+// #2's partial mode, for tensor parallelism: a launch over nh (1..12) of
+// the layer's heads and the matching nh * 64 input columns of Wo writes
+// the fp32 partial product ctx . Wo^T [B, L, 768], without bo, the
+// residual or the LayerNorm (the caller sums the partials over the model
+// group and applies them). The same cluster of two blocks a query tile:
+// the heads are split over the four consumer warpgroups as HeadSplit
+// says (at nh = 6: two, one, two and one), the contexts cross to the
+// partner as above, and the out-projection runs over nh k-boxes. Each
+// thread stores its 96 sums of each row as float2 pairs, rows >= L
+// skipped; a last cluster barrier keeps both blocks resident until every
+// box copy between them has landed.
+__global__ void __launch_bounds__(Cfg2::THREADS, 1)
+    fused_attn_partial_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap wom,
+                              const float* __restrict__ bias, float* __restrict__ out, int L,
+                              int T, int nh, float scale_log2) {
+  using C = Cfg2;
+  constexpr int KS = C::KV_STAGES, WS = C::WO_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* sbias = reinterpret_cast<float*>(smem + C::OFF_BIAS);
+  const uint32_t qbar = base + C::OFF_BAR, full = qbar + 16, empty = full + 16 * KS,
+                 cbar = empty + 16 * KS, wfull = cbar + 8 * 12, wempty = wfull + 8 * WS;
+  const int half = (int)cluster_rank(), partner = half ^ 1;
+  const int tile = blockIdx.x >> 1, b = tile / T, q0 = 64 * (tile % T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const HeadSplit split{nh};
+
+  for (int i = threadIdx.x; i < 64 * T; i += C::THREADS)
+    sbias[i] = i < L ? bias[(size_t)b * L + i] * LOG2E : -INFINITY;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) mbar_init(qbar + 8 * w, 1);
+    for (int s = 0; s < 2 * KS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    for (int h = 0; h < 12; ++h) mbar_init(cbar + 8 * h, 1);
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();
+
+  if (warp >= 8) {  // ---------------------------------------------- producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
+    const int w = warp - 8;
+    if (w < 2) {
+      if (lane == 0)
+        load_heads<KS>(&qmap, &kmap, &vmap, base, base + C::OFF_RING + w * C::RING_WG, qbar + 8 * w,
+                       full + 8 * KS * w, empty + 8 * KS * w, split.first(half, w),
+                       split.count(half, w), q0, b, T);
+      __syncwarp();
+      asm volatile("bar.sync 3, 64;\n" ::: "memory");
+      if (w == 0 && lane == 0)
+        load_wo(&wom, base + C::OFF_RING, WS, WO_SLOT, wfull, wempty, half, nh);
+    }
+    __syncwarp();
+    cluster_sync();  // the end
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS));
+  const int w = warp >> 2;
+  const uint32_t kring = base + C::OFF_RING + w * C::RING_WG;
+  spin_wait(qbar + 8 * w, 0);
+  const int h0 = split.first(half, w), mine = split.count(half, w);
+  for (int j = 0; j < mine; ++j) {
+    const int h = h0 + j;
+    const RingKV<KS> src{kring, kring + KS * BOX, full + 8 * KS * w, empty + 8 * KS * w,
+                         2 * T * j};
+    attend(base + h * BOX, smem + h * BOX, sbias, T, scale_log2, src);
+    publish_box(base + h * BOX, cbar + 8 * h, partner, w);
+  }
+  float y[2][48];
+  out_projection(
+      y, base + C::OFF_RING, WS, WO_SLOT, wfull, wempty, w,
+      [&](int i) {
+        const int kb = split.kbox(i, half);
+        spin_wait(cbar + 8 * kb, 0);
+        return base + kb * BOX;
+      },
+      nh);
+  const int wl = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int r = wl * 16 + g, col0 = 384 * half + 192 * w;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = q0 + r + 8 * hi;
+    if (row < L) {
+      float* orow = out + ((size_t)b * L + row) * HIDDEN + col0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 24; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(y[j / 12][4 * (j % 12) + 2 * hi], y[j / 12][4 * (j % 12) + 2 * hi + 1]);
+    }
+  }
+  cluster_sync();
+}
+
 }  // namespace blk
 }  // namespace uc2
 
@@ -182,4 +296,29 @@ extern "C" int uc2_fused_attn_block(const void* q, const void* k, const void* v,
                          om, static_cast<const float*>(bias), static_cast<const bf16*>(x),
                          static_cast<const float*>(bo), static_cast<const float*>(gamma),
                          static_cast<const float*>(beta), L, T, scale * LOG2E, eps);
+}
+
+// #2's partial mode: q, k, v [B, L, n, 64] bf16 as above with 1 <= n <= 12
+// heads (a shard of the layer's); bias [B, L] fp32; wo [768, n * 64] bf16
+// (the shard's input columns of Wo, [out, in]); out [B, L, 768] fp32
+// contiguous, 8-byte aligned: ctx . Wo^T, no bias, residual or LayerNorm.
+// Returns cudaGetLastError().
+extern "C" int uc2_fused_attn_block_partial(const void* q, const void* k, const void* v,
+                                            const void* bias, const void* wo, void* out, int B,
+                                            int L, int n, int rs, float scale, void* stream) {
+  using namespace uc2;
+  using namespace uc2::stream;
+  if (B < 1 || L < 1 || L > MAX_LEN || n < 1 || n * HEAD_DIM > HIDDEN)
+    return (int)cudaErrorInvalidValue;
+  const int T = (L + 63) / 64;
+  CUtensorMap qm, km, vm, wom;
+  const size_t rb = (size_t)rs * 2;
+  if (!heads_map(&qm, q, B, L, n, rb, 64) || !heads_map(&km, k, B, L, n, rb, 64) ||
+      !heads_map(&vm, v, B, L, n, rb, 64) ||
+      !map_2d(&wom, wo, n * HEAD_DIM, HIDDEN, blk::WO_ROWS))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(blk::fused_attn_partial_kernel, 2 * T * B, blk::Cfg2::THREADS, 2,
+                         blk::Cfg2::SMEM, static_cast<cudaStream_t>(stream), qm, km, vm, wom,
+                         static_cast<const float*>(bias), static_cast<float*>(out), L, T, n,
+                         scale * LOG2E);
 }

@@ -83,19 +83,34 @@
 // the mix bucket's 20736 rows makes 196 GFLOP (0.198 ms); its Philox
 // draws, 24 a thread in the epilogue, cost no time measurable beside #3's
 // on the same rows (PERF.md).
+//
+// The partial mode (PARTIAL, uc2_fused_ffn_block_partial; tensor
+// parallelism over T processes): the same walk over F / T intermediate
+// columns (W1's rows and W2's columns of the shard), the fp32 sums written
+// straight from the accumulators, no epilogue. Bound by operations: at
+// 10368 rows and F / T = 1536 it is 48.9 GFLOP (0.049 ms) against 52.5 MB
+// (0.016 ms), and the walk's weight stream halves with F.
 #include "ffn_walk.cuh"
 
 namespace uc2 {
 namespace ffn {
 
-template <bool DROP>
+// PARTIAL (#3's partial mode, for tensor parallelism): W1 and W2 hold F
+// of the layer's intermediate columns, and the kernel writes the fp32
+// partial product y = bf16(gelu_erf(x . W1^T + b1)) . W2^T to pout
+// [rows, 768] after the walk (the caller sums the partials over the model
+// group, then adds b2 and the residual and normalises); omap, b2, gamma,
+// beta and dr are not read.
+template <bool DROP, bool PARTIAL = false>
 __global__ void __launch_bounds__(Cfg::THREADS, 1)
     fused_ffn_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap w1map,
                      const __grid_constant__ CUtensorMap w2map,
                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ b1,
                      const float* __restrict__ b2, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, int F, float eps, Dropout dr) {
+                     const float* __restrict__ beta, int F, float eps, Dropout dr,
+                     float* __restrict__ pout, int rows) {
+  static_assert(!(DROP && PARTIAL), "the partial mode has no dropout");
   using C = Cfg;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -146,6 +161,26 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
 #pragma unroll
     for (int i = 0; i < C::ACC; ++i) y[h][i] = 0.f;
   walk(y, smem, base, br, rank, wg, b1, n_chunks);
+  if constexpr (PARTIAL) {
+    const int col0 = C::OUT_BLOCK * rank + C::OUT_WG * wg;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + r + 8 * hi;
+      if (row < rows) {
+        float* orow = pout + (size_t)row * HIDDEN + col0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 24; ++j)
+          *reinterpret_cast<float2*>(orow + 8 * j) =
+              make_float2(y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi],
+                          y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi + 1]);
+      }
+    }
+    // the producers' two barriers; the peer's last arrivals on this
+    // block's h buffers land before either block leaves
+    cluster_sync();
+    cluster_sync();
+    return;
+  }
 
   // y + b2 + x (DROP: dropout(y + b2) + x); the row statistics over the
   // cluster's 768 columns. This thread's column 8 j + 2 t of the
@@ -256,8 +291,9 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
   }
 }
 
-// The kernel on `rows` rows of x (DROP: with the output dropout dr)
-template <bool DROP>
+// The kernel on `rows` rows of x (DROP: with the output dropout dr;
+// PARTIAL: the fp32 partial product into out, [rows, 768])
+template <bool DROP, bool PARTIAL = false>
 inline int run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                const void* gamma, const void* beta, void* out, int rows, int F, float eps,
                Dropout dr, cudaStream_t stream) {
@@ -265,14 +301,16 @@ inline int run(const void* x, const void* w1, const void* b1, const void* w2, co
   if (rows < 1 || F < C::FC || F % C::FC) return (int)cudaErrorInvalidValue;
   CUtensorMap xm, w1m, w2m, om;
   if (!map_2d(&xm, x, HIDDEN, rows, 64) || !map_2d(&w1m, w1, HIDDEN, F, 64) ||
-      !map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) || !map_2d(&om, out, HIDDEN, rows, 64))
+      !map_2d(&w2m, w2, F, HIDDEN, C::W2_ROWS) ||
+      !map_2d(&om, PARTIAL ? x : out, HIDDEN, rows, 64))
     return (int)cudaErrorInvalidValue;
   // two blocks a row tile
-  return launch_clusters(fused_ffn_kernel<DROP>, (rows + C::BM - 1) / C::BM * C::CLUSTER,
-                         C::THREADS, C::CLUSTER, C::SMEM, stream, xm, w1m, w2m, om,
-                         static_cast<const float*>(b1), static_cast<const float*>(b2),
-                         static_cast<const float*>(gamma), static_cast<const float*>(beta), F,
-                         eps, dr);
+  return launch_clusters(fused_ffn_kernel<DROP, PARTIAL>,
+                         (rows + C::BM - 1) / C::BM * C::CLUSTER, C::THREADS, C::CLUSTER,
+                         C::SMEM, stream, xm, w1m, w2m, om, static_cast<const float*>(b1),
+                         static_cast<const float*>(b2), static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), F, eps, dr,
+                         PARTIAL ? static_cast<float*>(out) : nullptr, rows);
 }
 
 }  // namespace ffn
@@ -303,4 +341,16 @@ extern "C" int uc2_ffn_train_fwd(const void* x, const void* w1, const void* b1,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return drop ? ffn::run<true>(x, w1, b1, w2, b2, gamma, beta, out, rows, F, eps, dr, st)
               : ffn::run<false>(x, w1, b1, w2, b2, gamma, beta, out, rows, F, eps, dr, st);
+}
+
+// #3's partial mode: x [rows, 768] bf16; w1 [F, 768] and w2 [768, F] bf16,
+// F (a shard of the intermediate) a positive multiple of 64; b1 [F] fp32;
+// out [rows, 768] fp32 contiguous, 8-byte aligned: bf16(gelu_erf(x . W1^T
+// + b1)) . W2^T, no b2, residual or LayerNorm. Returns cudaGetLastError().
+extern "C" int uc2_fused_ffn_block_partial(const void* x, const void* w1, const void* b1,
+                                           const void* w2, void* out, int rows, int F,
+                                           void* stream) {
+  using namespace uc2;
+  return ffn::run<false, true>(x, w1, b1, w2, nullptr, nullptr, nullptr, out, rows, F, 0.f,
+                               Dropout{}, static_cast<cudaStream_t>(stream));
 }

@@ -138,7 +138,8 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
     if (w < 2) {
       if (lane == 0)
         blk::load_heads<KS>(&qmap, &kmap, &vmap, base, base + C::OFF_RING + w * C::RING_WG,
-                            qbar + 8 * w, full + 8 * KS * w, empty + 8 * KS * w, half, w, q0, b, T);
+                            qbar + 8 * w, full + 8 * KS * w, empty + 8 * KS * w,
+                            6 * half + 3 * w, 3, q0, b, T);
       __syncwarp();
       asm volatile("bar.sync 3, 64;\n" ::: "memory");  // both K/V rings given back
       if (w == 0 && lane == 0)  // the Wo ring over them

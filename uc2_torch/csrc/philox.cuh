@@ -4,8 +4,9 @@
 // tests hold it to Random123's known answers, and chip_smoke.py holds the
 // kernels' masks to it bit for bit.
 //
-// The mask of score (batch b, head h, query i, key j) of a head-count-n
-// launch is word j % 4 of philox4x32_10((j / 4, i, b * n + h, 0), (seed, 0)),
+// The mask of score (batch b, head h, query i, key j) of a launch over
+// heads h0 .. h0 + n - 1 of n_tot (h0 = 0, n_tot = n for a whole layer) is
+// word j % 4 of philox4x32_10((j / 4, i, b * n_tot + h0 + h, 0), (seed, 0)),
 // kept when the word is >= the threshold floor(rate * 2^32). It depends on
 // the seed and the score's global index only, never on a tile, so the
 // forward and the backward kernel draw the same mask. The training FFN
@@ -32,7 +33,8 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 }
 
 // Keep bits of the scores of query i against keys 4 * grp .. 4 * grp + 3 of
-// head bh = b * n + h: bit r is set when key 4 * grp + r is kept.
+// head index bh = b * n_tot + h0 + h: bit r is set when key 4 * grp + r is
+// kept.
 __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed, uint32_t thresh,
                                                uint32_t grp, uint32_t i,
                                                uint32_t bh) {

@@ -137,16 +137,19 @@ def full_retrieval_eval(model, txt_db, img_db, txt_len: int, num_bb: int,
     the texts p, p + world, ... and the rows are gathered into the whole
     matrix on every process (the reference's allgather of the score
     matrix); the columns keep the gallery's (region count, name) order
-    everywhere. One process scores every text."""
+    everywhere. One process scores every text. Under tensor parallelism
+    the texts are striped over the replicas (a model group scores one
+    stripe together) and the gather keeps the first process of each
+    group, so no row is counted twice."""
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.parallel import multihost as MH
     ev = ItmEvalDataset(txt_db, img_db, txt_ids)
     txt_ids, img_ids = ev.ids, ev.all_img_ids
-    world = MH.process_count()
-    pos = list(range(MH.process_index(), len(txt_ids), world))
+    pos = list(range(M.data_index(), len(txt_ids), M.data_count()))
     mine = score_matrix(model, txt_db, img_db, [txt_ids[i] for i in pos],
                         img_ids, txt_len, num_bb, batch_size, device=device)
     m = np.zeros((len(txt_ids), len(img_ids)), np.float32)
-    for rows, part in MH.all_gather_object((pos, mine)):
+    for rows, part in MH.all_gather_object((pos, mine))[::M.model_count()]:
         m[np.asarray(rows, np.int64)] = part
     metrics = itm_eval(m, txt_ids, img_ids, txt_db.txt2img, txt_db.img2txts)
     if return_matrix:

@@ -40,7 +40,9 @@ serving products (``UC2ForImageTextRetrieval.serving``: a model over the
 training model's parameters); training and mining stay in ``--dtype``, as
 in itm.py.
 
-Raising by name, for what is not ported yet: ``--n_model > 1``.
+Tensor parallel under ``--n_model T`` as the pretraining driver
+(``uc2_torch/parallel/tensor.py``); raising by name, for what is not
+ported yet under it: ``--quant int8``, ``UC2_ATTN_V2``, ``UC2_FFN_TRAIN=1``.
 ``--rng_impl`` chooses an XLA generator in the reference and changes
 nothing here.
 """
@@ -75,14 +77,14 @@ def main(opts):
     ``results`` ({test name: log})."""
     refuse_unported(opts)
     dev = resolve_device(opts.device)
-    is_main, multi = MH.start_distributed(opts, dev)
+    is_main, _ = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed
     set_random_seed(opts.seed)
     handler = open_run_logs(opts, is_main)
     try:
         LOGGER.info("--rng_impl=%s chooses an XLA generator in the "
                     "reference; it changes nothing here", opts.rng_impl)
-        return _train(opts, dev, is_main, multi)
+        return _train(opts, dev, is_main)
     finally:
         close_run_logs(handler)
 
@@ -137,7 +139,7 @@ def train_pairs(opts, open_img_db, shard=None):
             for t, im in zip(txt_specs, img_specs)]
 
 
-def _train(opts, dev, is_main, multi):
+def _train(opts, dev, is_main):
     from uc2_torch.data import datasets as D
     from uc2_torch.data.collate import BucketSpec
     from uc2_torch.data.db import TxtTokDb
@@ -149,6 +151,7 @@ def _train(opts, dev, is_main, multi):
     from uc2_torch.models.finetune import UC2ForImageTextRetrieval
     from uc2_torch.ops.dropout import DropoutRng
     from uc2_torch.parallel import mesh as M
+    from uc2_torch.parallel.tensor import place_model
     from uc2_torch.training import optim as O
     from uc2_torch.training import step as S
     from uc2_torch.training.checkpoint import (AsyncModelSaver, ModelSaver,
@@ -167,15 +170,16 @@ def _train(opts, dev, is_main, multi):
         convert.load_partial_tree(model, load_any_checkpoint(
             opts.checkpoint, opts))
         convert.init_rank_from_itm(model)
-    M.broadcast_params(model)
+    place_model(model)
     # validation and tests score under --quant, over the same parameters
     eval_model = model.serving(opts.quant)
-    rank, world = MH.process_index(), MH.process_count()
+    # the replica (model group) and their number: the data stripe, the
+    # dropout seeds, the rows and the mined files
+    rank, world = M.data_index(), M.data_count()
 
     # ---- data
     open_img_db = image_db_opener(opts)
-    pairs = train_pairs(opts, open_img_db,
-                        shard=(rank, world) if multi else None)
+    pairs = train_pairs(opts, open_img_db, shard=M.data_shard())
     if opts.hard_neg_size > 0:
         subs = [D.ItmRankHardNegDataset(t, im, opts.negative_size,
                                         opts.hard_neg_size)
@@ -220,7 +224,7 @@ def _train(opts, dev, is_main, multi):
         global_step = restorer.restore(model, opt)
         LOGGER.info("resumed at step %d", global_step)
     saver = (AsyncModelSaver if opts.async_ckpt else ModelSaver)(
-        opts.output_dir)
+        opts.output_dir, write=is_main)
 
     run = types.SimpleNamespace(step=global_step, model=model, optimizer=opt,
                                 sample_size=sample_size, losses=[], logs=[],
@@ -229,17 +233,19 @@ def _train(opts, dev, is_main, multi):
     def mine_all(step):
         """Mine each training pair's pools (negatives come from the pair
         an anchor trains against) into hard_negs_{step}[.db{k}].json, with
-        ``.host{p}`` across processes (each mines its own stripe)."""
+        ``.host{p}`` across replicas (each mines its own stripe; the
+        first process of a model group writes the file)."""
         t0 = time.perf_counter()
         files = []
         for k, ((tdb, idb), sub) in enumerate(zip(pairs, subs)):
             tag = f"hard_negs_{step}" + (f".db{k}" if len(pairs) > 1 else "")
-            tag += f".host{rank}" if multi else ""
+            tag += f".host{rank}" if world > 1 else ""
             files.append(os.path.join(opts.output_dir, tag + ".json"))
             sub.reload_hard_negs(mine_hard_negatives(
                 model, tdb, idb, txt_len, opts.max_bb,
                 hard_neg_size=opts.hard_neg_pool_size,
-                batch_size=opts.eval_batch_size, out_path=files[-1],
+                batch_size=opts.eval_batch_size,
+                out_path=files[-1] if M.model_index() == 0 else None,
                 device=dev))
         run.mined.append((step, time.perf_counter() - t0, files))
 
@@ -311,8 +317,7 @@ def _train(opts, dev, is_main, multi):
             LOGGER.info("validation R@K: %s",
                         {k: round(v, 4) for k, v in log.items()})
             TB_LOGGER.log_scalar_dict(log, prefix="val")
-            if is_main:
-                saver.save(model, global_step)
+            saver.save(model, global_step)   # every process: TP gathers
 
         if (opts.hard_neg_size > 0 and opts.hard_neg_steps
                 and global_step % opts.hard_neg_steps == 0):
@@ -422,7 +427,7 @@ def build_parser():
     p.add_argument("--gradient_accumulation_steps", type=int, default=1,
                    help="micro-batches per optimizer step")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel width (only 1 is ported)")
+                   help="tensor-parallel width: processes a model group")
     p.add_argument("--zero1", action="store_true",
                    help="shard the optimizer's moments over the processes "
                         "(ZeRO-1)")

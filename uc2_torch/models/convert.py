@@ -515,3 +515,80 @@ def init_rank_from_itm(model: torch.nn.Module) -> None:
     itm, rank = model.itm_output.out, model.rank_output.out
     rank.weight.copy_(itm.weight[1:2])
     rank.bias.copy_(itm.bias[1:2])
+
+
+# ------------------------------------------------- tensor-parallel shards
+# The reference's ``_RULES`` (uc2_tpu/parallel/mesh.py) on the port's key
+# names: QKV and the FFN's first dense column-parallel, the attention
+# output and the FFN's second dense row-parallel, the word table and the
+# LM head's bias vocab-sharded; every other parameter replicated.
+_TP_RULES = (
+    (re.compile(r"attention\.qkv\.(weight|bias)$"), "qkv"),
+    (re.compile(r"attention_output_dense\.weight$"), "row"),
+    (re.compile(r"intermediate_dense\.(weight|bias)$"), "col"),
+    (re.compile(r"(^|\.)output_dense\.weight$"), "row"),
+    (re.compile(r"embeddings\.word_embeddings\.weight$"), "vocab"),
+    (re.compile(r"^cls\.bias$"), "vocab"),
+)
+
+
+def tp_kind(key: str) -> Optional[str]:
+    """How parameter ``key`` is split over a model group: "qkv" (the
+    fused [3H, ...] rows, head-aligned: a process owns [q_h | k_h | v_h]
+    of its heads), "col" (rows, [out, in]'s outputs), "row" (columns, the
+    inputs), "vocab" (rows of the vocabulary, ``vocab_range``), or None
+    (replicated)."""
+    for pat, kind in _TP_RULES:
+        if pat.search(key):
+            return kind
+    return None
+
+
+def vocab_range(V: int, m: int, T: int):
+    """(lo, hi): the rows of a vocabulary of ``V`` that process ``m`` of
+    ``T`` owns, ceil(V / T) a process and the rest on the last (no padded
+    rows exist: they would need masking out of every logit)."""
+    size = -(-V // T)
+    lo = min(m * size, V)
+    return lo, min(lo + size, V)
+
+
+def shard_tensor(t: torch.Tensor, kind: str, m: int, T: int) -> torch.Tensor:
+    """Process ``m`` of ``T``'s shard of the whole tensor ``t`` (a
+    contiguous copy)."""
+    if kind == "qkv":
+        three = t.reshape(3, T, t.shape[0] // (3 * T), *t.shape[1:])
+        return three[:, m].reshape(-1, *t.shape[1:]).clone()
+    if kind == "vocab":
+        lo, hi = vocab_range(t.shape[0], m, T)
+        return t[lo:hi].clone()
+    axis = {"col": 0, "row": 1}[kind]
+    if t.shape[axis] % T:
+        raise ValueError(f"{T} processes do not divide dimension {axis} of "
+                         f"{tuple(t.shape)}")
+    return t.chunk(T, dim=axis)[m].clone()
+
+
+def gather_tensors(pieces, kind: str) -> torch.Tensor:
+    """The whole tensor from every process's shard, in order: the inverse
+    of ``shard_tensor``, exactly."""
+    if kind == "qkv":
+        rest = pieces[0].shape[1:]
+        return torch.cat([p.reshape(3, -1, *rest) for p in pieces],
+                         dim=1).reshape(-1, *rest)
+    return torch.cat(list(pieces), dim=1 if kind == "row" else 0)
+
+
+def shard_state_dict(full: Dict[str, torch.Tensor], m: int,
+                     T: int) -> Dict[str, torch.Tensor]:
+    """Process ``m`` of ``T``'s state dict: each sharded entry cut
+    (``tp_kind``), the others as they are."""
+    return {k: (shard_tensor(v, tp_kind(k), m, T) if tp_kind(k) else v)
+            for k, v in full.items()}
+
+
+def gather_state_dict(shards) -> Dict[str, torch.Tensor]:
+    """The whole state dict from the ``T`` processes' state dicts, in
+    order (the replicated entries are taken from the first)."""
+    return {k: (gather_tensors([s[k] for s in shards], tp_kind(k))
+                if tp_kind(k) else v) for k, v in shards[0].items()}

@@ -27,6 +27,20 @@ its drivers never train the int8 model). ``share_parameters`` builds a
 second module tree over the same parameters under another config, the
 reference's second model over one parameter tree.
 
+Under tensor parallelism (``uc2_torch/parallel/tensor.py``, a model cut by
+``shard_module`` into a model group's shards) each layer holds its
+process's heads (QKV column-parallel, head-aligned) and intermediate
+columns: QKV and the FFN's first product read ``copy_to_model`` of the
+input, attention runs on the local heads (the training kernels and the
+eager dropout draw those heads' masks of the whole layer), the
+out-projection and the FFN's second product are row-parallel, their fp32
+partial products summed by ``reduce_from_model`` before the bias,
+dropout, residual and LayerNorm; on the fused route #2 and #3 run in their
+partial modes and ``block_epilogue`` follows the sum. The word table is
+vocab-parallel (``vocab_parallel_embedding``). ``UC2_ATTN_V2``, the
+training FFN kernels (``UC2_FFN_TRAIN=1``) and ``quant="int8"`` read whole
+weights and raise by name under it.
+
 ``remat="full"`` or ``"dots"`` recomputes each layer of a training call in
 the backward (``torch.utils.checkpoint``, non-reentrant; the reference's
 ``nn.remat`` around each layer): "full" saves only the layer's inputs,
@@ -54,11 +68,15 @@ from uc2_torch.config import UC2Config
 from uc2_torch.ops.attention import multi_head_attention, resolve_impl
 from uc2_torch.ops.dropout import dropout
 from uc2_torch.ops.ffn_train import ffn_train_enabled, fused_ffn_block_train
-from uc2_torch.ops.fused_block import (fused_attn_block,
+from uc2_torch.ops.fused_block import (block_epilogue, fused_attn_block,
+                                       fused_attn_block_partial,
                                        fused_attn_block_v2,
                                        fused_block_profitable,
-                                       fused_ffn_block, fused_ffn_profitable)
+                                       fused_ffn_block,
+                                       fused_ffn_block_partial,
+                                       fused_ffn_profitable)
 from uc2_torch.ops.int8 import int8_linear
+from uc2_torch.parallel import tensor as TP
 
 QUANTS = ("none", "int8")
 REMATS = ("none", "full", "dots")
@@ -123,6 +141,34 @@ def gelu(x):
     return F.gelu(x, approximate="none")
 
 
+def refuse_under_tp(cfg, training: bool) -> None:
+    """Raise, naming it, for what reads whole weights when a model is cut
+    over a model group: ``UC2_ATTN_V2`` (#7 takes the whole QKV and output
+    weights), ``UC2_FFN_TRAIN=1`` in training (#9/#10 fuse the dropout,
+    residual and LayerNorm behind the row-parallel product) and
+    ``quant="int8"`` (a row-parallel shard's scales are taken over its
+    input columns only, so its codes differ from the whole product's)."""
+    if os.environ.get("UC2_ATTN_V2"):
+        raise NotImplementedError("uc2_torch: UC2_ATTN_V2 (kernel #7) under "
+                                  "--n_model > 1 is not ported")
+    if training and cfg.use_pallas_attention == "pallas-train" \
+            and ffn_train_enabled():
+        raise NotImplementedError("uc2_torch: UC2_FFN_TRAIN=1 (kernels #9 "
+                                  "and #10) under --n_model > 1 is not "
+                                  "ported")
+    if cfg.quant != "none":
+        raise NotImplementedError(f"uc2_torch: --quant {cfg.quant} under "
+                                  f"--n_model > 1 is not ported")
+
+
+def row_parallel(x, dense: "Dense"):
+    """The row-parallel product of ``x`` (this process's input columns)
+    and ``dense``'s weight shard, summed over the model group in fp32, plus
+    the bias; in the compute dtype."""
+    part = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)).float()
+    return (TP.reduce_from_model(part) + dense.bias.float()).to(dense.dtype)
+
+
 class Dense(nn.Linear):
     """Linear layer with fp32 parameters that computes in ``dtype``;
     ``quant="int8"`` takes the int8 serving product."""
@@ -163,8 +209,11 @@ class TextEmbeddings(nn.Module):
             else:
                 position_ids = create_position_ids_from_input_ids(
                     input_ids, cfg.pad_token_id)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(position_ids) + type_embeddings)
+        words = (self.word_embeddings(input_ids) if TP.tp_size() == 1 else
+                 TP.vocab_parallel_embedding(input_ids,
+                                             self.word_embeddings.weight,
+                                             cfg.vocab_size))
+        x = words + self.position_embeddings(position_ids) + type_embeddings
         return dropout(self.LayerNorm(x), cfg.hidden_dropout_prob, rng)
 
 
@@ -210,25 +259,36 @@ class SelfAttention(nn.Module):
         self.qkv = Dense(H, 3 * H, compute_dtype(cfg), device)
 
     def heads(self, x):
-        """The projected q, k, v as [B, L, n, d] views into one tensor."""
+        """The projected q, k, v as [B, L, n, d] views into one tensor (n
+        the heads this process holds: all, or its shard's)."""
         cfg = self.config
-        B, L, H = x.shape
-        n, d = cfg.num_attention_heads, cfg.head_dim
-        q, k, v = self.qkv(x, cfg.quant).split(H, dim=-1)
+        B, L, _ = x.shape
+        d = cfg.head_dim
+        n = self.qkv.weight.shape[0] // (3 * d)
+        q, k, v = self.qkv(x, cfg.quant).split(n * d, dim=-1)
         return (q.view(B, L, n, d), k.view(B, L, n, d), v.view(B, L, n, d))
 
-    def forward(self, x, attn_bias, rng=None):
-        """``rng`` is None when deterministic. Attention gets it only when
-        there is probs dropout or the impl is "pallas-train", as in the
-        reference (which then keeps the training kernel at rate 0)."""
+    def attend(self, q, k, v, attn_bias, rng=None):
+        """Attention over the heads q, k, v hold, [B, L, n d]. ``rng`` is
+        None when deterministic. Attention gets it only when there is probs
+        dropout or the impl is "pallas-train", as in the reference (which
+        then keeps the training kernel at rate 0). A shard's heads draw
+        the masks of those heads of the whole layer."""
         cfg = self.config
-        q, k, v = self.heads(x)
         rate = cfg.attention_probs_dropout_prob if rng is not None else 0.0
         if not (rate > 0.0 or cfg.use_pallas_attention == "pallas-train"):
             rng = None
+        n = q.shape[2]
+        heads = (None if n == cfg.num_attention_heads
+                 else (TP.tp_rank() * n, cfg.num_attention_heads))
         ctx = multi_head_attention(q, k, v, attn_bias, dropout_rate=rate,
-                                   rng=rng, use_pallas=cfg.use_pallas_attention)
-        return ctx.reshape(x.shape)
+                                   rng=rng, use_pallas=cfg.use_pallas_attention,
+                                   heads=heads)
+        B, L = q.shape[:2]
+        return ctx.reshape(B, L, -1)
+
+    def forward(self, x, attn_bias, rng=None):
+        return self.attend(*self.heads(x), attn_bias, rng)
 
 
 class EncoderLayer(nn.Module):
@@ -261,6 +321,8 @@ class EncoderLayer(nn.Module):
         self.output_LayerNorm = LayerNorm(H, eps, dt, device)
 
     def forward(self, x, attn_bias, rng=None):
+        if TP.tp_size() > 1:
+            return self._forward_tp(x, attn_bias, rng)
         cfg = self.config
         dt = compute_dtype(cfg)
         eps = cfg.block_layer_norm_eps
@@ -302,6 +364,41 @@ class EncoderLayer(nn.Module):
         h = self.output_dense(gelu(self.intermediate_dense(x, cfg.quant)),
                               cfg.quant)
         return self.output_LayerNorm(dropout(h, rate, rng) + x)
+
+    def _forward_tp(self, x, attn_bias, rng=None):
+        """The layer on this process's shards (the module's docstring): the
+        routing of ``forward``, with #2 and #3 in their partial modes."""
+        cfg = self.config
+        refuse_under_tp(cfg, rng is not None)
+        dt = compute_dtype(cfg)
+        eps = cfg.block_layer_norm_eps
+        rate = cfg.hidden_dropout_prob
+        impl = resolve_impl(cfg.use_pallas_attention)
+        force = impl == "fused-force"
+        fusable = rng is None and (force or impl in ("pallas",
+                                                     "pallas-train"))
+        L = x.shape[1]
+        od, ln = self.attention_output_dense, self.attention_output_LayerNorm
+        q, k, v = self.attention.heads(TP.copy_to_model(x))
+        if fusable and (force or fused_block_profitable(
+                L, cfg.num_attention_heads)):
+            y = fused_attn_block_partial(q, k, v, attn_bias, od.weight.to(dt))
+            x = block_epilogue(TP.reduce_from_model(y), od.bias, x, ln.weight,
+                               ln.bias, eps)
+        else:
+            attn_out = row_parallel(self.attention.attend(q, k, v, attn_bias,
+                                                          rng), od)
+            x = ln(dropout(attn_out, rate, rng) + x)
+        inter, down = self.intermediate_dense, self.output_dense
+        ln = self.output_LayerNorm
+        xf = TP.copy_to_model(x)
+        if fusable and (force or fused_ffn_profitable(L)):
+            y = fused_ffn_block_partial(xf, inter.weight.to(dt), inter.bias,
+                                        down.weight.to(dt))
+            return block_epilogue(TP.reduce_from_model(y), down.bias, x,
+                                  ln.weight, ln.bias, eps)
+        h = row_parallel(gelu(inter(xf)), down)
+        return ln(dropout(h, rate, rng) + x)
 
 
 class Pooler(nn.Module):

@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 from uc2_torch.config import UC2Config
 from uc2_torch.models.encoder import Dense, LayerNorm, compute_dtype, gelu
 from uc2_torch.ops.mp import einsum_f32
+from uc2_torch.parallel import tensor as TP
 
 
 class _Transform(nn.Module):
@@ -57,10 +58,17 @@ class RobertaLMHead(_Transform):
     built on the table's device once per array and reused. ``transform_only``
     stops before the decoder (the chunked CE computes it itself). Logits
     are fp32; the decoder product's backward runs in the compute dtype
-    (``einsum_f32``)."""
+    (``einsum_f32``).
+
+    Under tensor parallelism the table and the bias are this process's
+    vocabulary shard: the logits are the shard's [..., V_m] (for
+    ``TP.vocab_parallel_cross_entropy``), and with ``valid_ids`` the rows
+    of the whole table are gathered (``TP.vocab_parallel_rows``), so the
+    restricted logits are whole on every process."""
 
     def __init__(self, cfg: UC2Config, device=None):
         super().__init__(cfg, cfg.layer_norm_eps, device)
+        self.vocab_size = cfg.vocab_size
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
         self._valid = (None, None)    # (valid_ids given, its index tensor)
 
@@ -78,8 +86,15 @@ class RobertaLMHead(_Transform):
         table, bias = embedding_table, self.bias
         if valid_ids is not None:
             idx = self._index(valid_ids, table.device)
-            table = UniqueRows.apply(table, idx)
-            bias = UniqueRows.apply(bias, idx)
+            if TP.tp_size() == 1:
+                table = UniqueRows.apply(table, idx)
+                bias = UniqueRows.apply(bias, idx)
+            else:
+                table, bias = (TP.vocab_parallel_rows(
+                    t, idx, self.vocab_size, UniqueRows.apply)
+                    for t in (table, bias))
+        else:
+            x = TP.copy_to_model(x)
         logits = einsum_f32("...h,vh->...v", x, table.to(x.dtype))
         return logits + bias.float()
 
@@ -199,30 +214,57 @@ def _chunk_lse(h, tbl, b, m, s):
 
 
 def chunked_softmax_cross_entropy(h, table, bias, labels, weights,
-                                  n_chunks: int = 8):
+                                  n_chunks: int = 8, vocab_size=None):
     """CE over a large vocabulary without the [N, V] logits: the decoder
     table is streamed in ``n_chunks`` chunks with an online logsumexp, each
     chunk recomputed in the backward (``torch.utils.checkpoint``), as the
     reference's ``jax.checkpoint``-ed scan.
 
     h [N, H] (head transform output), table [V, H], bias [V], labels [N],
-    weights [N]. Returns the per-element weighted CE [N]."""
+    weights [N]. Returns the per-element weighted CE [N]. Under tensor
+    parallelism table and bias are this process's vocabulary shard and
+    ``vocab_size`` the whole vocabulary's: each process streams its shard,
+    and the running max and sum, and the gold logit from its owner, are
+    combined over the model group."""
+    if TP.tp_size() > 1:
+        return _chunked_ce_tp(h, table, bias, labels, weights, n_chunks,
+                              vocab_size)
+    labels = labels.long()
+    gold = ((h.float() * table[labels].float()).sum(-1) + bias[labels])
+    m, s = _online_lse(h, table, bias, n_chunks)
+    loss = m + torch.log(s) - gold
+    return loss if weights is None else loss * weights
+
+
+def _online_lse(h, table, bias, n_chunks):
+    """The running (max, sum of exp) over ``n_chunks`` chunks of the rows
+    of ``table``, each chunk recomputed in the backward."""
     N, H = h.shape
-    V = table.shape[0]
-    pad = (-V) % n_chunks
+    pad = (-table.shape[0]) % n_chunks
     if pad:
         table = torch.cat([table, table.new_zeros(pad, H)])
         # padded rows must never win the logsumexp
         bias = torch.cat([bias, bias.new_full((pad,), -1e30)])
     C = table.shape[0] // n_chunks
-    labels = labels.long()
-    gold = ((h.float() * table[labels].float()).sum(-1) + bias[labels])
     m = torch.full((N,), -torch.inf, device=h.device)
     s = torch.zeros(N, device=h.device)
     for i in range(n_chunks):
         m, s = checkpoint(_chunk_lse, h, table[i * C:(i + 1) * C],
                           bias[i * C:(i + 1) * C], m, s, use_reentrant=False)
-    loss = m + torch.log(s) - gold
+    return m, s
+
+
+def _chunked_ce_tp(h, table, bias, labels, weights, n_chunks, vocab_size):
+    """``chunked_softmax_cross_entropy`` over a vocabulary shard."""
+    h = TP.copy_to_model(h)
+    labels = labels.long()
+    owned, local = TP.vocab_owned(labels, vocab_size)
+    gold = (h.float() * table[local].float()).sum(-1) + bias[local]
+    gold = TP.reduce_from_model(torch.where(owned, gold, 0.0))
+    m, s = _online_lse(h, table, bias, n_chunks)
+    mx = TP.max_over_model(m)
+    total = TP.reduce_from_model(s * torch.exp(m - mx))
+    loss = mx + torch.log(total) - gold
     return loss if weights is None else loss * weights
 
 

@@ -21,8 +21,8 @@ A loaded checkpoint's token-type table grows to three rows
 Dropout, resume, the loss reads and data parallelism across processes
 are those of ``uc2_torch.vqa`` (no ``--zero1``, as ``nlvr2.py`` has none);
 the prediction sweep runs whole on every process, over the unstriped
-text database, and process 0 writes the CSV. Raising by name:
-``--n_model > 1``.
+text database, and process 0 writes the CSV. Tensor parallelism
+(``--n_model``) and what raises under it, likewise.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ def _train(opts, dev):
     from uc2_torch.data.loader import TaskLoader
     from uc2_torch.models import convert
     from uc2_torch.models.finetune import UC2ForNlvr2, expand_type_embeddings
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.training import optim as O
     from uc2_torch.training.checkpoint import ModelSaver
 
@@ -69,7 +70,7 @@ def _train(opts, dev):
         convert.load_partial_tree(model, expand_type_embeddings(
             load_any_checkpoint(opts.checkpoint, opts)))
 
-    shard = vqa.data_shard()
+    shard = M.data_shard()
     txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len,
                       shard=shard)
     img_db = DetectFeatDb(opts.train_img_db, opts.conf_th, opts.max_bb,
@@ -96,12 +97,12 @@ def _train(opts, dev):
     lr_fn = O.get_lr_schedule(opts.decay, opts.learning_rate,
                               opts.warmup_steps, opts.num_train_steps)
     opt, restorer, step = vqa.optimizer_and_restore(opts, model, lr_fn)
-    saver = ModelSaver(opts.output_dir)
+    saver = ModelSaver(opts.output_dir, write=restorer.write)
     run = types.SimpleNamespace(step=step, model=model, optimizer=opt,
                                 losses=[], logs=[], preds={})
+
     def on_valid(step):
-        if restorer.write:                  # process 0
-            saver.save(model, step)
+        saver.save(model, step)     # every process; process 0 writes
 
     vqa.train_loop(opts, dev, model, opt, restorer, loader, "nlvr2", run,
                    on_valid)

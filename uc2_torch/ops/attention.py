@@ -31,21 +31,29 @@ def resolve_impl(use_pallas) -> str:
     return impl
 
 
-def xla_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None):
+def xla_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
+                  heads=None):
     """q, k, v [B, L, n, d]; bias [B, 1, 1, L] additive. Returns
     [B, L, n, d] in v's dtype. Products and softmax run in fp32 on the
     (possibly bf16) inputs; with ``rng`` (a ``DropoutRng``) and a positive
     rate the probabilities are dropped with a mask drawn from
     ``rng.device``; they are rounded to v's dtype before P.V, as the
-    reference's einsum chain does."""
+    reference's einsum chain does. ``heads`` = (h0, n_tot) says that the
+    n heads are heads h0 .. h0 + n - 1 of n_tot (a tensor-parallel shard):
+    the mask is then drawn for all n_tot heads and these heads' slice is
+    kept, so the shard drops what the whole layer drops."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     scores = einsum_f32("blnd,bmnd->bnlm", q, k)
     scores = scores * scale + bias.float()
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0 and rng is not None:
-        keep = torch.rand(probs.shape, generator=rng.device,
-                          device=probs.device) >= dropout_rate
+        shape, h0 = probs.shape, 0
+        if heads is not None:
+            h0, n_tot = heads
+            shape = (shape[0], n_tot, *shape[2:])
+        keep = torch.rand(shape, generator=rng.device, device=probs.device
+                          )[:, h0:h0 + probs.shape[1]] >= dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate),
                             torch.zeros((), device=probs.device))
     ctx = einsum_f32("bnlm,bmnd->blnd", probs.to(v.dtype), v)
@@ -67,7 +75,7 @@ def stock_flash_attention(q, k, v, bias):
 
 
 def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
-                         use_pallas=False):
+                         use_pallas=False, heads=None):
     """Dispatch between attention backends, as uc2_tpu/ops/attention.py
     ``multi_head_attention`` routes on a TPU.
 
@@ -79,16 +87,20 @@ def multi_head_attention(q, k, v, bias, dropout_rate: float = 0.0, rng=None,
     whose backward is the eager recompute), and everything else the eager
     ``xla_attention``. "flash" (the reference's wrapper of jax's library
     TPU kernel) runs ``stock_flash_attention`` at rate 0 (inference, and
-    training at attention dropout 0) and the eager chain with dropout."""
+    training at attention dropout 0) and the eager chain with dropout.
+    ``heads`` = (h0, n_tot): q, k, v hold heads h0 .. of n_tot (a
+    tensor-parallel shard), whose dropout masks are those heads' masks of
+    the whole layer; None: all of them."""
     impl = resolve_impl(use_pallas)
     if impl != "xla":
         from uc2_torch.ops import flash_attention as fa
         if rng is not None and ((dropout_rate > 0.0 and impl in (
                 "pallas", "pallas-train")) or impl == "pallas-train"):
             return fa.flash_attention_train(q, k, v, bias, rng.kernel_seed(),
-                                            float(dropout_rate))
+                                            float(dropout_rate),
+                                            *(heads or (0, None)))
         if dropout_rate == 0.0:
             if impl == "flash":
                 return stock_flash_attention(q, k, v, bias)
             return fa.flash_attention(q, k, v, bias)
-    return xla_attention(q, k, v, bias, dropout_rate, rng)
+    return xla_attention(q, k, v, bias, dropout_rate, rng, heads)

@@ -34,12 +34,16 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SIGNATURES = {
     "uc2_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "uc2_attn_bf16_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
-    "uc2_attn_train_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
+    "uc2_attn_train_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _U, _U, _F] + [_I] * 3
+    + [_P],
     "uc2_attn_train_bwd_dkdv": [_P] * 10 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
     "uc2_fused_attn_block": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
     "uc2_fused_ffn_block": [_P] * 8 + [_I, _I, _F, _P],
+    "uc2_fused_ffn_block_partial": [_P] * 5 + [_I, _I, _P],
+    "uc2_fused_attn_block_partial": [_P] * 6 + [_I] * 4 + [_F, _P],
     "uc2_fused_layer_block": [_P] * 16 + [_I] * 5 + [_F, _F, _P],
-    "uc2_attn_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _F, _I, _P],
+    "uc2_attn_train_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _F] + [_I] * 3
+    + [_P],
     "uc2_ffn_train_fwd": [_P] * 8 + [_I, _I, _F, _U, _U, _F, _I, _P],
     "uc2_ffn_train_bwd": [_P] * 15 + [_I] * 3 + [_F, _U, _U, _F, _I, _P],
     "uc2_fused_attn_block_v2": [_P] * 9 + [_I] * 3 + [_F, _F, _P],

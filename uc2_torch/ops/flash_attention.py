@@ -22,8 +22,11 @@
   the per-head dbias partials from those statistics and bits). Neither
   uses atomics, so a step repeats bit for bit. The dropout mask is
   Philox4x32-10 keyed on (seed, global score index) (``ops/philox.py``):
-  the backward draws the forward's mask. What bounds each kernel on the
-  H100 and how its design meets it is in the kernel's source.
+  the backward draws the forward's mask. A launch over a tensor-parallel
+  shard of the heads passes ``h0`` (its first head) and ``n_tot`` (the
+  layer's head count), and draws the masks that those heads draw in the
+  launch over all of them. What bounds each kernel on the H100 and how its
+  design meets it is in the kernel's source.
 
 Each kernel wrapper launches its CUDA kernel on CUDA tensors and counts
 the launch in ``<wrapper>.launches`` (#1's in ``flash_attention.launches``;
@@ -44,7 +47,8 @@ import torch
 
 from uc2_torch.ops import build
 from uc2_torch.ops.attention import xla_attention
-from uc2_torch.ops.philox import check_seed, keep_mask, keep_threshold
+from uc2_torch.ops.philox import (check_seed, head_index, keep_mask,
+                                  keep_threshold)
 
 HEAD_DIM = 64        # head width the kernels take
 MAX_LEN = 512        # joint-length limit of the encoder
@@ -246,9 +250,17 @@ def _probs(q, k, bias):
     return torch.softmax(_scores(q, k, bias), dim=-1)
 
 
-def _keep(seed, rate, q):
+def _keep(seed, rate, q, h0=0, n_tot=None):
     B, L, n, _ = q.shape
-    return keep_mask(seed, rate, B, n, L, L, q.device)
+    return keep_mask(seed, rate, B, n, L, L, q.device, h0, n_tot)
+
+
+def _heads(q, h0: int, n_tot):
+    """(h0, n_tot) of a launch over q's heads, checked (None: all)."""
+    n = q.shape[2]
+    n_tot = n if n_tot is None else int(n_tot)
+    head_index(1, n, int(h0), n_tot)
+    return int(h0), n_tot
 
 
 def _check_rate(rate: float) -> float:
@@ -268,13 +280,16 @@ def _dprobs(g, v, keep, rate):
                        torch.zeros((), dtype=ct, device=dp.device))
 
 
-def flash_attention_train_plain(q, k, v, bias, seed: int, rate: float):
+def flash_attention_train_plain(q, k, v, bias, seed: int, rate: float,
+                                h0: int = 0, n_tot=None):
     """The training forward in plain PyTorch: fp32 probabilities P, then
     Pd = keep ? P/(1 - rate) : 0 in fp32, rounded to v's dtype, then
-    Pd.v with fp32 sums, returned in v's dtype."""
+    Pd.v with fp32 sums, returned in v's dtype. The heads are heads h0 ..
+    of ``n_tot`` for the mask."""
     p = _probs(q, k, bias)
     if rate > 0.0:
-        p = torch.where(_keep(seed, rate, q), p * (1.0 / (1.0 - rate)),
+        p = torch.where(_keep(seed, rate, q, h0, n_tot),
+                        p * (1.0 / (1.0 - rate)),
                         torch.zeros((), dtype=p.dtype, device=p.device))
     ct = p.dtype
     ctx = torch.einsum("bnlm,bmnd->blnd", p.to(v.dtype).to(ct), v.to(ct))
@@ -282,7 +297,7 @@ def flash_attention_train_plain(q, k, v, bias, seed: int, rate: float):
 
 
 def flash_attention_train_bwd_plain(q, k, v, bias, seed: int, rate: float,
-                                    g):
+                                    g, h0: int = 0, n_tot=None):
     """The reference kernel's backward formula in plain PyTorch: returns
     (dq, dk, dv, dbias) for the output gradient g [B, L, n, d].
 
@@ -295,7 +310,7 @@ def flash_attention_train_bwd_plain(q, k, v, bias, seed: int, rate: float,
     p = _probs(q, k, bias)
     ct = p.dtype
     zero = torch.zeros((), dtype=ct, device=p.device)
-    keep = _keep(seed, rate, q) if rate > 0.0 else None
+    keep = _keep(seed, rate, q, h0, n_tot) if rate > 0.0 else None
     pd = p if keep is None else torch.where(keep, p * (1.0 / (1.0 - rate)),
                                             zero)
     dv = torch.einsum("bnlm,blnd->bmnd", pd.to(g.dtype).to(ct), g.to(ct))
@@ -341,7 +356,8 @@ def unpack_keep_bits(bits, L: int):
 
 
 def flash_attention_train_bwd_dq_plain(q, k, v, bias, seed: int,
-                                       rate: float, g):
+                                       rate: float, g, h0: int = 0,
+                                       n_tot=None):
     """Pass 1 of #6 (rows) in plain PyTorch: (dq, stats, bits) in the
     kernel's layout. stats [3, B, n, L] in the sum dtype hold each query
     row's max of the base-2 scores s2 (``_scores2``), 1 / sum exp2(s2 -
@@ -357,7 +373,7 @@ def flash_attention_train_bwd_dq_plain(q, k, v, bias, seed: int,
     keep = bits = None
     if rate > 0.0:
         Lp = padded_rows(L)
-        keep = keep_mask(seed, rate, B, n, Lp, Lp, q.device)
+        keep = keep_mask(seed, rate, B, n, Lp, Lp, q.device, h0, n_tot)
         bits = pack_keep_bits(keep)
         keep = keep[:, :, :L, :L]
     dp = _dprobs(g, v, keep, rate)
@@ -404,21 +420,26 @@ def _drop_args(seed: int, rate: float):
     return (seed, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
 
 
-def flash_attention_train_fwd(q, k, v, bias, seed: int, rate: float):
+def flash_attention_train_fwd(q, k, v, bias, seed: int, rate: float,
+                              h0: int = 0, n_tot=None):
     """Kernel #5: the training attention forward with probs dropout.
     q, k, v [B, L, n, d]; bias [B, 1, 1, L] fp32; ``seed`` a 32-bit int;
-    ``rate`` in [0, 1). Returns [B, L, n, d] in v's dtype."""
+    ``rate`` in [0, 1); the heads are heads h0 .. h0 + n - 1 of ``n_tot``
+    (None: n) for the mask. Returns [B, L, n, d] in v's dtype."""
     check_heads(q, k, v, bias)
     dev = check_device((q, k, v, bias), "flash_attention_train_fwd")
     seed, rate = check_seed(seed), _check_rate(rate)
+    h0, n_tot = _heads(q, h0, n_tot)
     if dev.type == "cpu":
-        return flash_attention_train_plain(q, k, v, bias, seed, rate)
+        return flash_attention_train_plain(q, k, v, bias, seed, rate, h0,
+                                           n_tot)
     rs = _train_kernel_checks("flash_attention_train_fwd", q, k, v, bias)
     B, L, n, d = q.shape
     out = torch.empty((B, L, n, d), dtype=q.dtype, device=dev)
     build.launch("uc2_attn_train_fwd", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, L, n, rs,
-                 1.0 / math.sqrt(d), *_drop_args(seed, rate), device=dev)
+                 1.0 / math.sqrt(d), *_drop_args(seed, rate), h0, n_tot,
+                 device=dev)
     flash_attention_train_fwd.launches += 1
     return out
 
@@ -440,15 +461,18 @@ def _pass_checks(what, q, k, v, bias, g):
     return rs
 
 
-def flash_attention_train_bwd_dq(q, k, v, bias, seed: int, rate: float, g):
+def flash_attention_train_bwd_dq(q, k, v, bias, seed: int, rate: float, g,
+                                 h0: int = 0, n_tot=None):
     """Pass 1 of #6 (rows): (dq, stats, bits) for the output gradient g, as
     ``flash_attention_train_bwd_dq_plain`` defines them: stats
-    [3, B, n, L] fp32, bits [B, n, Lp, Lp / 8] uint8 (None at rate 0)."""
+    [3, B, n, L] fp32, bits [B, n, Lp, Lp / 8] uint8 (None at rate 0),
+    the mask of heads h0 .. of ``n_tot`` as the forward's."""
     dev, seed, rate = _bwd_checks("flash_attention_train_bwd_dq", q, k, v,
                                   bias, g, seed, rate)
+    h0, n_tot = _heads(q, h0, n_tot)
     if dev.type == "cpu":
         return flash_attention_train_bwd_dq_plain(q, k, v, bias, seed, rate,
-                                                  g)
+                                                  g, h0, n_tot)
     rs = _pass_checks("flash_attention_train_bwd_dq", q, k, v, bias, g)
     B, L, n, d = q.shape
     g = g.contiguous()
@@ -461,7 +485,7 @@ def flash_attention_train_bwd_dq(q, k, v, bias, seed: int, rate: float, g):
                  v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
                  stats.data_ptr(), 0 if bits is None else bits.data_ptr(),
                  B, L, n, rs, 1.0 / math.sqrt(d), *_drop_args(seed, rate),
-                 device=dev)
+                 h0, n_tot, device=dev)
     flash_attention_train_bwd_dq.launches += 1
     return dq, stats, bits
 
@@ -515,22 +539,24 @@ flash_attention_train_bwd_dkdv.launches = 0
 
 
 def flash_attention_train_bwd(q, k, v, bias, seed: int, rate: float, g,
-                              need_dbias: bool = True):
+                              need_dbias: bool = True, h0: int = 0,
+                              n_tot=None):
     """Kernel #6: the training attention backward, (dq, dk, dv, dbias) for
     the output gradient g [B, L, n, d]; dbias is None unless
-    ``need_dbias``. The mask is drawn from ``seed`` once, by pass 1. #6 is
-    the two passes; each counts its launch in its own wrapper."""
+    ``need_dbias``. The mask (of heads h0 .. of ``n_tot``) is drawn from
+    ``seed`` once, by pass 1. #6 is the two passes; each counts its launch
+    in its own wrapper."""
     dev, seed, rate = _bwd_checks("flash_attention_train_bwd", q, k, v, bias,
                                   g, seed, rate)
     if dev.type == "cpu":
         dq, dk, dv, db = flash_attention_train_bwd_plain(q, k, v, bias, seed,
-                                                         rate, g)
+                                                         rate, g, h0, n_tot)
         return dq, dk, dv, (db if need_dbias else None)
     _pass_checks("flash_attention_train_bwd", q, k, v, bias, g)
     B, L = q.shape[:2]
     g = g.contiguous()
     dq, stats, bits = flash_attention_train_bwd_dq(q, k, v, bias, seed, rate,
-                                                   g)
+                                                   g, h0, n_tot)
     dk, dv, dbp = flash_attention_train_bwd_dkdv(q, k, v, bias, seed, rate, g,
                                                  stats, bits, need_dbias)
     db = None if dbp is None else dbp.sum(dim=1).reshape(B, 1, 1, L)
@@ -540,25 +566,31 @@ def flash_attention_train_bwd(q, k, v, bias, seed: int, rate: float, g,
 class _FlashAttentionTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
+    def forward(ctx, q, k, v, bias, seed, rate, h0, n_tot):
+        ctx.seed, ctx.rate, ctx.heads = seed, rate, (h0, n_tot)
         ctx.save_for_backward(q, k, v, bias)
-        return flash_attention_train_fwd(q, k, v, bias, seed, rate)
+        return flash_attention_train_fwd(q, k, v, bias, seed, rate, h0,
+                                         n_tot)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
         dq, dk, dv, db = flash_attention_train_bwd(
             q, k, v, bias, ctx.seed, ctx.rate, g,
-            need_dbias=ctx.needs_input_grad[3])
-        return dq, dk, dv, db, None, None
+            ctx.needs_input_grad[3], *ctx.heads)
+        return dq, dk, dv, db, None, None, None, None
 
 
-def flash_attention_train(q, k, v, bias, seed: int, rate: float = 0.0):
+def flash_attention_train(q, k, v, bias, seed: int, rate: float = 0.0,
+                          h0: int = 0, n_tot=None):
     """Training attention: q, k, v [B, L, n, d], bias [B, 1, 1, L]
     additive fp32, ``seed`` a 32-bit int from which the dropout mask is
-    drawn, ``rate`` the attention-probs dropout rate. Forward and backward
-    are kernels #5 and #6 on CUDA tensors, their plain versions on CPU
-    tensors; the backward returns dbias when the bias needs a gradient."""
+    drawn, ``rate`` the attention-probs dropout rate; the n heads are heads
+    h0 .. h0 + n - 1 of ``n_tot`` (None: n) for the mask, so a shard of a
+    layer's heads draws the masks of the whole layer's launch. Forward and
+    backward are kernels #5 and #6 on CUDA tensors, their plain versions on
+    CPU tensors; the backward returns dbias when the bias needs a
+    gradient."""
+    h0, n_tot = _heads(q, h0, n_tot)
     return _FlashAttentionTrain.apply(q, k, v, bias, check_seed(seed),
-                                      _check_rate(rate))
+                                      _check_rate(rate), h0, n_tot)

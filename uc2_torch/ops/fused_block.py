@@ -22,6 +22,13 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
   Its gate is off, as the reference's: only the kernel lab
   (``uc2_torch/lab.py --mode layer``) runs it.
 
+Under tensor parallelism (``uc2_torch/parallel/tensor.py``) #2 and #3 run
+in a partial mode on a process's shard: ``fused_attn_block_partial`` (its
+heads and Wo's matching input columns) and ``fused_ffn_block_partial`` (its
+intermediate columns) write the fp32 partial products without bias,
+residual or LayerNorm; the caller sums them over the model group and
+applies ``block_epilogue``, which is the kernels' epilogue in PyTorch.
+
 Weights are in ``nn.Linear`` layout ([out, in]). Each wrapper launches its
 kernel on CUDA tensors and counts the launch (``<wrapper>.launches``); on
 CPU tensors it runs the plain version beside it. The plain versions round
@@ -128,6 +135,62 @@ def fused_attn_block(q, k, v, bias, x, wo, bo, gamma, beta,
 
 
 fused_attn_block.launches = 0
+
+
+def block_epilogue(y, b, x, gamma, beta, eps: float = 1e-12):
+    """LayerNorm((y + b) + x) of the fp32 sum ``y`` of the partial
+    products, in fp32 with two-pass statistics, as #2's and #3's epilogue
+    computes it; returned in x's dtype."""
+    return layer_norm_f32(y + b.float() + x.float(), gamma, beta,
+                          eps).to(x.dtype)
+
+
+def fused_attn_block_partial_plain(q, k, v, bias, wo):
+    """#2's partial mode in plain PyTorch: ctx . wo^T in fp32, the context
+    rounded to wo's dtype."""
+    B, L, n, d = q.shape
+    ctx = xla_attention(q, k, v, bias).to(wo.dtype).reshape(B, L, n * d)
+    return ctx.float() @ wo.float().t()
+
+
+def fused_attn_block_partial(q, k, v, bias, wo):
+    """#2's partial mode, for a tensor-parallel shard of the heads: q, k, v
+    [B, L, n, d] (n of the layer's heads); bias [B, 1, 1, L] additive
+    mask; wo [H, n * d] ([out, in], Wo's input columns of these heads).
+    Returns the fp32 partial ctx . wo^T [B, L, H]: its sum over the shards
+    plus bo and the residual, normalised (``block_epilogue``), is
+    ``fused_attn_block``'s output."""
+    check_heads(q, k, v, bias)
+    B, L, n, d = q.shape
+    H = wo.shape[0]
+    if wo.dim() != 2 or wo.shape[1] != n * d:
+        raise ValueError(f"fused_attn_block_partial: wo must be [H, {n * d}]"
+                         f", got {tuple(wo.shape)}")
+    dev = check_device((q, k, v, bias, wo), "fused_attn_block_partial")
+    if dev.type == "cpu":
+        return fused_attn_block_partial_plain(q, k, v, bias, wo)
+    check_kernel_inputs("fused_attn_block_partial", bf16=(q, k, v, wo),
+                        fp32=(bias,))
+    if d != HEAD_DIM or H != HIDDEN or n * d > HIDDEN:
+        raise ValueError(f"fused_attn_block_partial: the kernel takes "
+                         f"head_dim {HEAD_DIM}, at most {HIDDEN // HEAD_DIM} "
+                         f"heads and hidden {HIDDEN}, got {d}, {n}, {H}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"fused_attn_block_partial: the kernel takes joint "
+                         f"lengths 1..{MAX_LEN}, got {L}")
+    if not wo.is_contiguous() or wo.data_ptr() % 16:
+        raise ValueError("fused_attn_block_partial: wo must be contiguous "
+                         "and start on a 16-byte boundary (TMA)")
+    rs = heads_row_stride(q, k, v)
+    out = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    build.launch("uc2_fused_attn_block_partial", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bias.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                 B, L, n, rs, 1.0 / math.sqrt(d), device=dev)
+    fused_attn_block_partial.launches += 1
+    return out
+
+
+fused_attn_block_partial.launches = 0
 
 
 def fused_attn_block_v2_plain(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta,
@@ -239,6 +302,53 @@ def fused_ffn_block(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):
 
 
 fused_ffn_block.launches = 0
+
+
+def fused_ffn_block_partial_plain(x, w1, b1, w2):
+    """#3's partial mode in plain PyTorch: bf16(gelu(x . w1^T + b1)) .
+    w2^T in fp32 (erf gelu, the GELU output rounded to x's dtype)."""
+    h = F.gelu(x.float() @ w1.float().t() + b1.float()).to(x.dtype)
+    return h.float() @ w2.float().t()
+
+
+def fused_ffn_block_partial(x, w1, b1, w2):
+    """#3's partial mode, for a tensor-parallel shard of the intermediate:
+    x [..., H]; w1 [F, H] and b1 [F] (F of the intermediate's columns),
+    w2 [H, F] ([out, in]). Returns the fp32 partial gelu(x . w1^T + b1) .
+    w2^T [..., H]: its sum over the shards plus b2 and the residual,
+    normalised (``block_epilogue``), is ``fused_ffn_block``'s output."""
+    H = x.shape[-1]
+    Fi = w1.shape[0]
+    if (tuple(w1.shape) != (Fi, H) or tuple(w2.shape) != (H, Fi)
+            or tuple(b1.shape) != (Fi,)):
+        raise ValueError(f"fused_ffn_block_partial: w1 must be [F, {H}], w2 "
+                         f"[{H}, F] and b1 [F]")
+    dev = check_device((x, w1, b1, w2), "fused_ffn_block_partial")
+    if dev.type == "cpu":
+        return fused_ffn_block_partial_plain(x, w1, b1, w2)
+    check_kernel_inputs("fused_ffn_block_partial", bf16=(x, w1, w2),
+                        fp32=(b1,))
+    if H != HIDDEN or Fi % FFN_CHUNK or not Fi:
+        raise ValueError(f"fused_ffn_block_partial: the kernel takes hidden "
+                         f"{HIDDEN} and an intermediate shard that is a "
+                         f"positive multiple of {FFN_CHUNK}, got {H}, {Fi}")
+    if not (x.is_contiguous() and w1.is_contiguous() and w2.is_contiguous()):
+        raise ValueError("fused_ffn_block_partial: x, w1 and w2 must be "
+                         "contiguous")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("fused_ffn_block_partial: x, w1 and w2 must start "
+                         "on a 16-byte boundary (the kernel reads them by "
+                         "TMA)")
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    if x.numel():
+        build.launch("uc2_fused_ffn_block_partial", x.data_ptr(),
+                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                     out.data_ptr(), x.numel() // H, Fi, device=dev)
+        fused_ffn_block_partial.launches += 1
+    return out
+
+
+fused_ffn_block_partial.launches = 0
 
 
 def fused_layer_block_plain(q, k, v, bias, x, wo, bo, g1, be1, w1, b1, w2,

@@ -8,10 +8,13 @@ seed and the global index of each score, so the forward and the backward
 draw the same mask whatever tiles they use:
 
     key     = (seed, 0)
-    counter = (j // 4, i, b * n + h, 0)
+    counter = (j // 4, i, b * n_tot + h0 + h, 0)
     bits    = word j % 4 of Philox4x32-10(counter, key)
 
-for score (batch b, head h, query i, key j), and a score is kept when
+for score (batch b, head h, query i, key j) of a launch over the heads
+h0 .. h0 + n - 1 of n_tot (h0 = 0, n_tot = n for a whole layer; a
+tensor-parallel shard passes its offset and the layer's head count, so it
+draws the masks of those heads of the whole), and a score is kept when
 ``bits >= keep_threshold(rate)``, as the reference compares its bits.
 
 Torch has no unsigned 32-bit arithmetic, so the words are held in int64
@@ -64,14 +67,28 @@ def check_seed(seed) -> int:
     return seed
 
 
+def head_index(B: int, n: int, h0: int = 0, n_tot=None,
+               device=None) -> torch.Tensor:
+    """The masks' head index b * n_tot + h0 + h of each (b, h) of a launch
+    over heads h0 .. h0 + n - 1 of ``n_tot`` (None: n), [B * n] int64."""
+    n_tot = n if n_tot is None else int(n_tot)
+    if not (0 <= h0 and h0 + n <= n_tot):
+        raise ValueError(f"heads {h0} .. {h0 + n - 1} are not among "
+                         f"{n_tot}")
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None]
+    h = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    return (b * n_tot + h0 + h).reshape(B * n)
+
+
 def dropout_bits(seed: int, B: int, n: int, Lq: int, Lk: int,
-                 device=None) -> torch.Tensor:
-    """The 32-bit words of every score, [B, n, Lq, Lk] int64."""
+                 device=None, h0: int = 0, n_tot=None) -> torch.Tensor:
+    """The 32-bit words of every score, [B, n, Lq, Lk] int64 (heads h0 ..
+    h0 + n - 1 of ``n_tot``)."""
     dev = torch.device("cpu") if device is None else torch.device(device)
     groups = (Lk + 3) // 4
     c0 = torch.arange(groups, dtype=torch.int64, device=dev)
     c1 = torch.arange(Lq, dtype=torch.int64, device=dev)[:, None]
-    c2 = torch.arange(B * n, dtype=torch.int64, device=dev)[:, None, None]
+    c2 = head_index(B, n, h0, n_tot, dev)[:, None, None]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     words = philox4x32(c0, c1, c2, zero, check_seed(seed), 0)
     bits = torch.stack([w.expand(B * n, Lq, groups) for w in words], dim=-1)
@@ -79,9 +96,10 @@ def dropout_bits(seed: int, B: int, n: int, Lq: int, Lk: int,
 
 
 def keep_mask(seed: int, rate: float, B: int, n: int, Lq: int, Lk: int,
-              device=None) -> torch.Tensor:
+              device=None, h0: int = 0, n_tot=None) -> torch.Tensor:
     """Bool [B, n, Lq, Lk]: True where the score is kept."""
-    return dropout_bits(seed, B, n, Lq, Lk, device) >= keep_threshold(rate)
+    return (dropout_bits(seed, B, n, Lq, Lk, device, h0, n_tot)
+            >= keep_threshold(rate))
 
 
 def ffn_dropout_bits(seed: int, rows: int, H: int,

@@ -134,8 +134,10 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
 
 
 def shutdown() -> None:
-    """Destroy the process group (and the store connection of the kv
-    functions); nothing without one."""
+    """Destroy the process group, the grid's groups (``mesh.init_grid``)
+    and the store connection of the kv functions; nothing without one."""
+    from uc2_torch.parallel.mesh import reset_grid
+    reset_grid()
     if is_initialized():
         dist.destroy_process_group()
     with _KV["lock"]:
@@ -243,10 +245,13 @@ def add_dist_flags(p) -> None:
 
 def start_distributed(opts, dev):
     """Join the process group that a driver's multi-host flags (or the
-    environment) describe, over ``--dist_backend``; returns (is_main,
+    environment) describe, over ``--dist_backend``, and lay it out as
+    ``--n_model`` model groups (``mesh.init_grid``); returns (is_main,
     multi): whether this is process 0 and whether there are several."""
+    from uc2_torch.parallel.mesh import init_grid
     maybe_initialize(opts.coordinator_address, opts.num_processes,
                      opts.process_id, backend=opts.dist_backend, device=dev)
+    init_grid(getattr(opts, "n_model", 1))
     return process_index() == 0, process_count() > 1
 
 

@@ -35,13 +35,20 @@ thread assembles batches and copies them to the card) -> ``train_step``
   every process; examples are counted over all of them; process 0 writes
   the logs, milestones and ``restore.ckpt``, every process its stream
   file.
+* Tensor parallel across processes (``--n_model T``,
+  ``uc2_torch/parallel/tensor.py``): the world is ``n_data x T``; each
+  model group of T consecutive processes holds one model cut into shards
+  (the reference's ``_RULES``), reads one stripe of the data and draws one
+  set of dropout seeds (``step_seed`` folds in the replica, not the
+  process). Checkpoints hold the whole model, gathered over the group.
 
 Every task of the reference runs: mlm, tlm, tlm-ni, vmlm, mmxlm,
 vmlm-soft, mmxlm-soft (with a spec's ``img_token_soft_label`` stores when
 given), mrfr, mrm-nce, mrc, mrc-kl, itm and itm-ot (``--itm_ot_lambda``,
 ``--ot_pos_only``), with ``--itm_hard_neg`` and ``--optim
-adam|adamax|adamw``. Raising by name, for what is not ported yet:
-``--n_model > 1`` (tensor parallelism). ``--rng_impl`` and
+adam|adamax|adamw``. Raising by name, for what is not ported yet under
+``--n_model > 1``: ``UC2_ATTN_V2``, ``UC2_FFN_TRAIN=1`` and ``--quant
+int8`` (``refuse_unported``). ``--rng_impl`` and
 ``--split_step`` choose XLA programs in the reference; here they change
 nothing (one log line says so).
 ``--async_ckpt`` writes milestones from a background thread.
@@ -158,18 +165,33 @@ def build_datasets(opts, which: str = "train", shard=None):
 
 
 def refuse_unported(opts):
-    """Raise, naming the flag, for what the port cannot do yet."""
+    """Raise, naming it, for what the port cannot do yet: under
+    ``--n_model > 1`` (tensor parallelism) the routes that read whole
+    weights, ``UC2_ATTN_V2`` (#7), ``UC2_FFN_TRAIN=1`` (#9/#10) and
+    ``--quant int8``. (A width that the processes, the heads or the
+    intermediate do not divide raises where the grid and the shards are
+    made.)"""
     if opts.n_model > 1:
-        raise NotImplementedError("uc2_torch: --n_model > 1 (tensor "
-                                  "parallelism) is not ported yet")
+        if os.environ.get("UC2_ATTN_V2"):
+            raise NotImplementedError("uc2_torch: UC2_ATTN_V2 (kernel #7) "
+                                      "under --n_model > 1 is not ported")
+        if os.environ.get("UC2_FFN_TRAIN") == "1":
+            raise NotImplementedError("uc2_torch: UC2_FFN_TRAIN=1 (kernels "
+                                      "#9 and #10) under --n_model > 1 is "
+                                      "not ported")
+        if getattr(opts, "quant", "none") != "none":
+            raise NotImplementedError(f"uc2_torch: --quant {opts.quant} "
+                                      f"under --n_model > 1 is not ported")
 
 
 def step_seed(seed: int, index: int, rank: int = 0) -> int:
-    """The dropout seed of step (or micro-step) ``index`` on process
-    ``rank``: a pure function of (seed, index, rank), the counterpart of
-    the reference's ``fold_in(key(seed + 1), index)``. Process 0 keeps the
-    one-process seeds; the others fold their index in, so that the
-    processes' rows draw different masks."""
+    """The dropout seed of step (or micro-step) ``index`` on replica
+    ``rank`` (``mesh.data_index``: every process of a model group draws
+    the same seeds, or partners would drop different elements of one
+    residual stream): a pure function of (seed, index, rank), the
+    counterpart of the reference's ``fold_in(key(seed + 1), index)``.
+    Replica 0 keeps the one-process seeds; the others fold their index in,
+    so that the replicas' rows draw different masks."""
     key = [seed + 1, index] + ([rank] if rank else [])
     return int(np.random.SeedSequence(key).generate_state(1)[0])
 
@@ -203,13 +225,16 @@ def _train(opts, dev, is_main, multi):
     from uc2_torch.models.pretraining import UC2ForPretraining
     from uc2_torch.ops.dropout import DropoutRng
     from uc2_torch.parallel import mesh as M
+    from uc2_torch.parallel.tensor import place_model
     from uc2_torch.training import optim as O
     from uc2_torch.training import step as S
     from uc2_torch.training.checkpoint import (AsyncModelSaver, ModelSaver,
                                                TrainingRestorer)
     from uc2_torch.utils.misc import set_dropout
 
-    rank, world = MH.process_index(), MH.process_count()
+    # the replica (model group) and their number: the data stripe, the
+    # dropout seeds and the examples counted
+    rank, world = M.data_index(), M.data_count()
 
     # ---- model
     cfg = UC2Config.from_json_file(opts.model_config).replace(
@@ -228,12 +253,11 @@ def _train(opts, dev, is_main, multi):
         convert.load_params(model, convert.splice_early_adaptation(
             convert.params_to_jax(model.state_dict()),
             load_raw_checkpoint(opts.early_adaptation_checkpoint)))
-    M.broadcast_params(model)
+    place_model(model)
 
     # ---- data: the training databases striped over the processes;
     # validation whole on each (every process computes the same logs)
-    train, label_vocab = build_datasets(
-        opts, "train", shard=(rank, world) if multi else None)
+    train, label_vocab = build_datasets(opts, "train", shard=M.data_shard())
     val, _ = (build_datasets(opts, "val") if opts.val_datasets
               else ({}, None))
     valid_ids = label_vocab.valid_ids if label_vocab is not None else None
@@ -290,11 +314,10 @@ def _train(opts, dev, is_main, multi):
     if not opts.no_prefetch:
         meta = PrefetchLoader(meta, depth=2, device_put=put)
     saver = (AsyncModelSaver if opts.async_ckpt else ModelSaver)(
-        opts.output_dir)
+        opts.output_dir, write=is_main)
 
     def milestone(step):
-        if is_main:
-            saver.save(model, step)
+        saver.save(model, step)      # every process: a gather under TP
 
     task2loss = defaultdict(lambda: RunningMeter("loss"))
     n_examples = defaultdict(int)
@@ -609,7 +632,7 @@ def build_parser():
                    default="rbg",
                    help="the reference's PRNG choice; changes nothing here")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel width (only 1 is ported)")
+                   help="tensor-parallel width: processes a model group")
     p.add_argument("--zero1", action="store_true",
                    help="shard the optimizer's moments over the processes "
                         "(ZeRO-1)")

@@ -19,6 +19,13 @@ uc2_tpu/training/checkpoint.py).
   gathers its moments there) and writes its own stream file; only the
   writer (process 0) writes the rest.
 
+Under tensor parallelism every file holds the whole model and optimizer
+state, gathered over the model group (``parallel/tensor.py``
+``full_state_dict``), in the format a run without it writes, so every
+process enters the milestones' saves too; a restore cuts the state to the
+process's shards again. A milestone or ``restore.ckpt`` loads under any
+``--n_model``.
+
 Every file goes to a temporary name first and is renamed into place.
 The reference's flax msgpack files are not read here.
 """
@@ -32,6 +39,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from uc2_torch.parallel.tensor import full_state_dict, load_full_state_dict
 
 
 def host_copy(obj):
@@ -61,18 +70,25 @@ def save_training_meta(output_dir: str, hps: Dict):
 
 
 class ModelSaver:
-    """Milestones: ``ckpt/model_step_{N}.pt``, the model's state dict."""
+    """Milestones: ``ckpt/model_step_{N}.pt``, the model's whole state
+    dict. Every process calls ``save`` (under tensor parallelism it
+    gathers the shards); only the writer (``write``, process 0) writes."""
 
-    def __init__(self, output_dir: str, prefix: str = "model_step"):
+    def __init__(self, output_dir: str, prefix: str = "model_step",
+                 write: bool = True):
         self.dir = os.path.join(output_dir, "ckpt")
-        os.makedirs(self.dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.dir, exist_ok=True)
         self.prefix = prefix
 
     def path(self, step: int) -> str:
         return os.path.join(self.dir, f"{self.prefix}_{step}.pt")
 
     def save(self, model: torch.nn.Module, step: int):
-        save_file(self.path(step), host_copy(model.state_dict()))
+        state = full_state_dict(model)
+        if self.write:
+            save_file(self.path(step), host_copy(state))
 
     def wait(self):
         return
@@ -84,13 +100,17 @@ class AsyncModelSaver(ModelSaver):
     the parameters), one thread writes the copies in order, and ``wait``
     returns when every write is on disk (and raises the first error)."""
 
-    def __init__(self, output_dir: str, prefix: str = "model_step"):
-        super().__init__(output_dir, prefix)
+    def __init__(self, output_dir: str, prefix: str = "model_step",
+                 write: bool = True):
+        super().__init__(output_dir, prefix, write)
         self._threads: List[threading.Thread] = []
         self._errors: List[BaseException] = []
 
     def save(self, model: torch.nn.Module, step: int):
-        state = host_copy(model.state_dict())
+        state = full_state_dict(model)
+        if not self.write:
+            return
+        state = host_copy(state)
         prev = self._threads[-1] if self._threads else None
 
         def write():
@@ -174,10 +194,11 @@ class TrainingRestorer:
                 os.replace(self.stream_path, self.stream_backup)
             os.replace(tmp, self.stream_path)
         opt_state = optimizer.state_dict()     # every process: a collective
+        model_state = full_state_dict(model)   # likewise, under TP
         if not self.write:
             return
         state = {"global_step": int(global_step),
-                 "model": host_copy(model.state_dict()),
+                 "model": host_copy(model_state),
                  "optimizer": host_copy(opt_state)}
         if os.path.exists(self.restore_path):
             os.replace(self.restore_path, self.backup_path)
@@ -195,7 +216,7 @@ class TrainingRestorer:
                                    weights_only=True)
             except Exception:
                 continue
-            model.load_state_dict(state["model"])
+            load_full_state_dict(model, state["model"])
             optimizer.load_state_dict(state["optimizer"])
             return int(state["global_step"])
         raise FileNotFoundError("no restore checkpoint found")

@@ -34,6 +34,14 @@ for bit. ``state_dict`` gathers the moments to whole tensors (every
 process must enter it) and ``load_state_dict`` cuts this process's slice
 out of them, so a checkpoint reads back under either layout and any
 world size.
+
+Under tensor parallelism (``uc2_torch/parallel/tensor.py``) a sharded
+parameter's gradient, moments and update are its process's shard: the
+global norm counts each shard's squares once over the model group and each
+replicated parameter once, ZeRO-1 splits the shards over the data group,
+and ``state_dict`` gathers the moments whole over the model group too
+(``load_state_dict`` cuts them again), so a checkpoint holds the state of
+the run without tensor parallelism.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
+from uc2_torch.models.convert import shard_tensor
 from uc2_torch.parallel import mesh as M
-from uc2_torch.parallel import multihost as MH
+from uc2_torch.parallel import tensor as TP
 
 
 # -------------------------------------------------------------- schedules
@@ -141,10 +150,17 @@ def pretrained_mask(names: Iterable[str],
 
 
 # -------------------------------------------------------------- optimizer
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32, on the device."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors, sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32, on the device.
+    ``sharded`` marks the tensors that are tensor-parallel shards: their
+    squares are summed over the model group, the others' counted once."""
+    norms = torch.stack(torch._foreach_norm([t.float() for t in tensors]))
+    if TP.tp_size() == 1 or not any(sharded or ()):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(sharded, device=norms.device)
+    sq = norms.square()
+    part = TP.reduce_from_model(torch.where(mask, sq, 0.0).sum())
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + part)
 
 
 class _Part:
@@ -186,6 +202,9 @@ class Optimizer:
         mask = decay_mask(n for n, _ in named)
         pre = pre_mask if pre_lr_fn is not None else {}
         self.params = [p for _, p in named]
+        # {index: tp_kind} of the tensor-parallel shards
+        self.shards = {i: p.tp_kind for i, p in enumerate(self.params)
+                       if TP.is_sharded(p)}
         self.grad_norm = grad_norm
         self.count = 0
         self.optim = optim
@@ -194,7 +213,7 @@ class Optimizer:
         # leaves whole is updated whole on every process)
         self.parts: Dict[int, _Part] = {}
         if zero1:
-            n, r = MH.process_count(), MH.process_index()
+            n, r = M.data_count(), M.data_index()
             for i, p in enumerate(self.params):
                 axis = M.opt_partition(p.shape, n)
                 if n > 1 and axis is not None:
@@ -241,7 +260,8 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, [i in self.shards
+                                   for i in range(len(grads))])
         if self.grad_norm and self.grad_norm > 0:
             # optax: g if norm < max_norm else g / norm * max_norm
             clip = norm >= self.grad_norm
@@ -297,9 +317,10 @@ class Optimizer:
         """The update count (the schedule's step), the algorithm and its
         state: step counts and both moments of every parameter
         (``exp_avg`` and ``exp_avg_sq``, or Adamax's ``exp_inf``), whole
-        under ZeRO-1 too (a collective: every process must call it)."""
+        under ZeRO-1 and tensor parallelism too (a collective: every
+        process must call it)."""
         sd = self.opt.state_dict()
-        if self.parts and sd["state"]:
+        if (self.parts or self.shards) and sd["state"]:
             state = {k: dict(v) for k, v in sd["state"].items()}
             keys = sorted({k for i in self.parts for k, v in
                            state[self._index[i]].items()
@@ -309,6 +330,11 @@ class Optimizer:
                                       for i in self.parts})
                 for i, t in whole.items():
                     state[self._index[i]][k] = t
+            for i, kind in self.shards.items():
+                st = state.get(self._index[i], {})
+                for k, v in sorted(st.items()):
+                    if torch.is_tensor(v) and v.dim() > 0:
+                        st[k] = TP.gather_param(v, kind)
             sd = dict(sd, state=state)
         return {"count": self.count, "optim": self.optim, "state": sd}
 
@@ -321,8 +347,14 @@ class Optimizer:
                              f"{self.optim!r}")
         self.count = int(sd["count"])
         inner = sd["state"]
-        if self.parts and inner["state"]:
+        if (self.parts or self.shards) and inner["state"]:
             state = {k: dict(v) for k, v in inner["state"].items()}
+            for i, kind in self.shards.items():
+                st = state.get(self._index[i], {})
+                for k, v in st.items():
+                    if torch.is_tensor(v) and v.dim() > 0:
+                        st[k] = shard_tensor(v, kind, TP.tp_rank(),
+                                             TP.tp_size())
             for i, part in self.parts.items():
                 st = state.get(self._index[i], {})
                 for k, v in st.items():

@@ -28,7 +28,9 @@ MCAN staircase of ``--warm_int``, ``--decay_int``, ``--decay_st`` and
   whole on every process; process 0 writes the logs, milestones and
   ``restore.ckpt``.
 
-Raising by name, for what is not ported yet: ``--n_model > 1``.
+Tensor parallel under ``--n_model T`` as the pretraining driver
+(``uc2_torch/parallel/tensor.py``); raising by name, for what is not
+ported yet under it: ``UC2_ATTN_V2``, ``UC2_FFN_TRAIN=1``.
 ``--rng_impl`` chooses an XLA generator in the reference and changes
 nothing here. ``python -m uc2_torch.ve`` is this driver with three
 answers.
@@ -70,13 +72,6 @@ def start_run(opts, name: str):
 
 
 
-def data_shard():
-    """(rank, world) of this process when there are several, else None:
-    the training texts' stripe."""
-    return ((MH.process_index(), MH.process_count())
-            if MH.process_count() > 1 else None)
-
-
 
 def train_loop(opts, dev, model, opt, restorer, loader, task, run,
                on_valid):
@@ -90,8 +85,9 @@ def train_loop(opts, dev, model, opt, restorer, loader, task, run,
     from uc2_torch.data.loader import task_batch_to_device
     from uc2_torch.ops.dropout import DropoutRng
     from uc2_torch.training import step as S
+    from uc2_torch.parallel import mesh as M
     put = task_batch_to_device(dev)
-    rank, world = MH.process_index(), MH.process_count()
+    rank, world = M.data_index(), M.data_count()     # the replica's
     meter = RunningMeter(f"{task}_loss")
     pending = []               # (step, loss as a device tensor)
 
@@ -128,13 +124,13 @@ def train_loop(opts, dev, model, opt, restorer, loader, task, run,
 
 
 def optimizer_and_restore(opts, model, lr_fn):
-    """The optimizer over ``model`` (rank 0's parameters on every
-    process) and the restore: returns (optimizer, restorer, the step to
-    start from)."""
-    from uc2_torch.parallel import mesh as M
+    """The optimizer over ``model`` (cut to this process's shards under
+    ``--n_model``, the first replica's parameters on every replica) and
+    the restore: returns (optimizer, restorer, the step to start from)."""
+    from uc2_torch.parallel.tensor import place_model
     from uc2_torch.training import optim as O
     from uc2_torch.training.checkpoint import TrainingRestorer
-    M.broadcast_params(model)
+    place_model(model)
     opt = O.build_optimizer(model, lr_fn, opts.weight_decay,
                             tuple(opts.betas), grad_norm=opts.grad_norm)
     restorer = TrainingRestorer(
@@ -167,6 +163,7 @@ def _train(opts, dev):
     from uc2_torch.data.loader import TaskLoader
     from uc2_torch.models import convert
     from uc2_torch.models.finetune import UC2ForVqa
+    from uc2_torch.parallel import mesh as M
     from uc2_torch.training import optim as O
     from uc2_torch.training.checkpoint import ModelSaver
     from uc2_torch.utils.vqa_answers import load_ans2label
@@ -182,13 +179,13 @@ def _train(opts, dev):
             opts.checkpoint, opts))
 
     txt_db = TxtTokDb(opts.train_txt_db, max_txt_len=opts.max_txt_len,
-                      shard=data_shard())
+                      shard=M.data_shard())
     img_db = DetectFeatDb(opts.train_img_db, opts.conf_th, opts.max_bb,
                           opts.min_bb, opts.num_bb)
     dataset = D.VqaDataset(txt_db, img_db, num_answers=opts.num_answer)
-    # the rows a multiple of the world, rounded down as the reference
+    # the rows a multiple of the replicas, rounded down as the reference
     # rounds them to its data axis
-    world = MH.process_count()
+    world = M.data_count()
     loader = TaskLoader("vqa", dataset, [BucketSpec(
         opts.max_txt_len + 2, opts.max_bb,
         max(world, opts.train_batch_size // world * world), 0)],
@@ -202,8 +199,8 @@ def _train(opts, dev):
         lr_fn = O.get_lr_schedule(opts.decay, opts.learning_rate,
                                   opts.warmup_steps, opts.num_train_steps)
     opt, restorer, step = optimizer_and_restore(opts, model, lr_fn)
-    saver = ModelSaver(opts.output_dir)
     is_main = restorer.write
+    saver = ModelSaver(opts.output_dir, write=is_main)
     run = types.SimpleNamespace(step=step, model=model, optimizer=opt,
                                 losses=[], logs=[], val=[])
     val_data = []
@@ -218,8 +215,7 @@ def _train(opts, dev):
                     num_answers=opts.num_answer))
             run.val.append((global_step, validate(model, val_data[0], opts,
                                                   dev)))
-        if is_main:
-            saver.save(model, global_step)
+        saver.save(model, global_step)   # every process: TP gathers
 
     train_loop(opts, dev, model, opt, restorer, loader, "vqa", run, on_valid)
     LOGGER.info("training done at step %d", run.step)
@@ -268,7 +264,7 @@ def add_tail_flags(p):
                    help="the reference's PRNG choice; changes nothing here")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel width (only 1 is ported)")
+                   help="tensor-parallel width: processes a model group")
     MH.add_dist_flags(p)
 
 
