@@ -264,25 +264,35 @@ non-zero at the end, without the result lines:
      TFLOP/s; then ``uc2_torch.import_lmdb`` on a fixture in the original
      release's LMDB format (``data/synth.py`` ``reference_lmdb``) and two
      mlm steps on the card from the imported stores;
- 21. tp: tensor parallelism (``--n_model``): (a) #2's partial mode on each
-     shard of T = 2 and 4 of the heads at (64, 128), (64, 162) and
-     (32, 262) and at its tiles' edges (TP_EDGES), #3's on each shard of
-     F / T = 1536 and 768 at (64, 98 / 128 / 162), against their plain
-     versions, repeated bit for bit and timed beside the whole kernel,
-     and the partials summed with the epilogue against the whole kernel;
-     #5 and #6a on each shard of T = 2 and 4 of the heads at (128, 162)
-     and (16, 512), rate 0.1, with the head offset in their Philox key:
-     output, dQ, row statistics and keep bits bit for bit those heads of
-     the whole launch; (b) two processes on the card over gloo at
-     --n_model 2, uc2-base: scores at B = 64, L = 98 / 128 / 162 against
-     one process's on the same weights (SCORE_TOL), the partial modes'
-     launches (12 a batch where the gates open), ms/batch and the model
-     group's all-reduces; one mlm step at (TP_STEP_B, 162), dropout 0.1,
-     "pallas-train", against one process's (STEP_LOSS_TOL,
-     STEP_NORM_RTOL), ms/step and the all-reduces' ms a step; ``python
-     -m uc2_torch.pretrain --n_model 2`` on phase 18's kind of stores,
-     saved at TP_STOP and resumed to TP_STEPS bit for bit, restore.ckpt
-     the whole model, the group's dropout masks the same;
+ 21. tp: tensor parallelism (``--n_model``): (a) #2's and #7's partial
+     modes on each shard of T = 2 and 4 of the heads at (64, 128),
+     (64, 162) and (32, 262) and at their tiles' edges (TP_EDGES), #3's on
+     each shard of F / T = 1536 and 768 at (64, 98 / 128 / 162), #9's and
+     #10's on each shard of F / T = 1536 and 768 at 20736 and 5184 rows,
+     rates 0.1 and 0 (#9 at rate 0 without b2 bit for bit #3's partial
+     mode), against their plain versions, repeated bit for bit and timed
+     beside the whole kernel, and the partials summed (with the epilogue;
+     #10's dx plus dy_pre, its weight gradients gathered) against the
+     whole kernel; the int8 row-parallel product on T = 2 and 4 shards
+     from the group's maxima, codes and int32 sums bit for bit the whole
+     product's; #5 and #6a on each shard of T = 2 and 4 of the heads at
+     (128, 162) and (16, 512), rate 0.1, with the head offset in their
+     Philox key: output, dQ, row statistics and keep bits bit for bit
+     those heads of the whole launch; (b) two processes on the card over
+     gloo at --n_model 2, uc2-base: scores at B = 64, L = 98 / 128 / 162
+     on the default route, with UC2_ATTN_V2=1 and under int8, each
+     against one process's on the same weights (SCORE_TOL, then
+     TP_SCORE_TOL), the launches (12 of #2's or #7's and #3's partial
+     modes a batch where the gates open; int8: 12 of #1 on 6 heads and 48
+     int8 products), ms/batch and the model group's all-reduces; the mlm
+     step at (TP_STEP_B, 162), dropout 0.1, "pallas-train", without and
+     with UC2_FFN_TRAIN=1 (#9's and #10's partial modes), against one
+     process's (STEP_LOSS_TOL, STEP_NORM_RTOL), ms/step and the
+     all-reduces a step; ``python -m uc2_torch.pretrain --n_model 2`` on
+     phase 18's kind of stores, saved at TP_STOP and resumed to TP_STEPS
+     bit for bit, restore.ckpt the whole model, the group's dropout masks
+     the same; ``python -m uc2_torch.itm --quant int8 --n_model 2`` for
+     TP_ITM_STEPS steps with validation and a test, test_results.json;
  22. a JSON line of per-kernel numbers (launches: the main-path phases'
      counts, the pretraining driver's, the objectives', the itm driver's,
      the finetuning drivers', the distributed runs', the int8, the remat
@@ -341,14 +351,18 @@ from uc2_torch.evalu import retrieval
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
                                       UC2ForVqa)
+from uc2_torch.models.convert import shard_tensor
 from uc2_torch.models.encoder import SmallTableLookup, gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import build
 from uc2_torch.ops import int8 as int8_ops
 from uc2_torch.ops.dropout import DropoutRng, dropout
 from uc2_torch.ops.ffn_train import (
-    fused_ffn_block_train_bwd, fused_ffn_block_train_bwd_plain,
-    fused_ffn_block_train_fwd, fused_ffn_block_train_plain)
+    _forward_to_stats, fused_ffn_block_train_bwd,
+    fused_ffn_block_train_bwd_plain, fused_ffn_block_train_fwd,
+    fused_ffn_block_train_partial_bwd, fused_ffn_block_train_partial_bwd_plain,
+    fused_ffn_block_train_partial_fwd, fused_ffn_block_train_partial_plain,
+    fused_ffn_block_train_plain)
 from uc2_torch.ops.flash_attention import (
     flash_attention, flash_attention_long,
     flash_attention_long_plain, flash_attention_plain,
@@ -363,6 +377,8 @@ from uc2_torch.ops.fused_block import (block_epilogue, fused_attn_block,
                                        fused_attn_block_partial_plain,
                                        fused_attn_block_plain,
                                        fused_attn_block_v2,
+                                       fused_attn_block_v2_partial,
+                                       fused_attn_block_v2_partial_plain,
                                        fused_attn_block_v2_plain,
                                        fused_block_profitable,
                                        fused_ffn_block,
@@ -371,7 +387,8 @@ from uc2_torch.ops.fused_block import (block_epilogue, fused_attn_block,
                                        fused_ffn_block_plain,
                                        fused_ffn_profitable,
                                        fused_layer_block,
-                                       fused_layer_block_plain)
+                                       fused_layer_block_plain,
+                                       layer_norm_f32)
 from uc2_torch.ops.lab_attention import (attention_bf16_probs,
                                          attention_bf16_probs_plain)
 from uc2_torch.ops.philox import ffn_keep_mask, keep_mask
@@ -410,8 +427,10 @@ ROUTE_KERNELS = (fused_attn_block_v2, segment_flash_fwd, segment_flash_bwd_dq,
 SEGMENT_KERNELS = ROUTE_KERNELS[1:]
 # #8 and #11, which only the kernel lab runs
 LAB_KERNELS = (fused_layer_block, attention_bf16_probs)
-# #2's and #3's partial modes (tensor parallelism)
-TP_KERNELS = (fused_attn_block_partial, fused_ffn_block_partial)
+# the partial modes of #2, #3, #7, #9 and #10 (tensor parallelism)
+TP_KERNELS = (fused_attn_block_partial, fused_ffn_block_partial,
+              fused_attn_block_v2_partial, fused_ffn_block_train_partial_fwd,
+              fused_ffn_block_train_partial_bwd)
 ALL_KERNELS = (KERNELS + TRAIN_KERNELS + FFN_KERNELS + LONG_KERNELS
                + ROUTE_KERNELS + LAB_KERNELS + TP_KERNELS)
 # training buckets (B, regions), 62 text tokens, 24 prediction slots
@@ -5065,7 +5084,7 @@ def _phase_finetune(card, rows, gen):
 # ------------------------------------------- data parallelism across processes
 DIST_DIR = os.path.join("build", "dist_smoke")
 DIST_IMGS = 128
-DIST_STEPS, DIST_STOP = 3, 2
+DIST_STEPS, DIST_STOP = 2, 1
 # one step split over two processes against the same batch in one: the
 # two sum their gradients in another order (and cuBLAS picks its products
 # for 64 rows, not 128)
@@ -6159,6 +6178,18 @@ TP_ROWS = {
         name="fused_ffn_block_partial", route="cuda",
         source="uc2_torch/csrc/fused_ffn_block.cu",
         replaces="uc2_tpu/ops/fused_block.py:251"),
+    "fused_attn_block_v2_partial": dict(
+        name="fused_attn_block_v2_partial", route="cuda",
+        source="uc2_torch/csrc/fused_attn_block_v2.cu",
+        replaces="uc2_tpu/ops/fused_block.py:138"),
+    "fused_ffn_block_train_partial_fwd": dict(
+        name="fused_ffn_block_train_partial_fwd", route="cuda",
+        source="uc2_torch/csrc/fused_ffn_block.cu",
+        replaces="uc2_tpu/ops/ffn_train.py:68"),
+    "fused_ffn_block_train_partial_bwd": dict(
+        name="fused_ffn_block_train_partial_bwd", route="cuda",
+        source="uc2_torch/csrc/ffn_train_bwd.cu",
+        replaces="uc2_tpu/ops/ffn_train.py:90"),
 }
 TP_BLOCK_SHAPES = ((B, 128), (B, 162), (32, 262))
 TP_EDGES = ((1, 1), (2, 65), (3, 129), (2, 512), (67, 128))
@@ -6276,6 +6307,248 @@ def tp_partial_checks(gen):
     return rows
 
 
+def partial_v2_bytes_flops(b, L, n):
+    """#7's partial mode: x, the shard's W_qkv rows, b_qkv and Wo columns
+    and the bias read, the fp32 partial written; the shard's projection,
+    its attention over n heads and the out-projection of its n * 64
+    inputs."""
+    nd = n * D
+    return (b * L * H * 2 + 3 * nd * H * 2 + 3 * nd * 4 + b * L * 4
+            + H * nd * 2 + b * L * H * 4,
+            2 * b * L * H * 3 * nd + 4 * b * n * L * L * D
+            + 2 * b * L * nd * H)
+
+
+def partial_ffn_train_bytes_flops(rows, Fl, backward):
+    """#9's partial mode (x, W1, b1, W2, b2 read, the fp32 partial
+    written; two products) or #10's (x, W1, b1, W2 and the fp32 dy_pre
+    read; dx, dW1, db1, dW2, db2 written; five products)."""
+    if not backward:
+        return (rows * H * 2 + 2 * Fl * H * 2 + Fl * 4 + H * 4
+                + rows * H * 4, 4 * rows * H * Fl)
+    return (rows * H * 2 + 2 * Fl * H * 2 + Fl * 4 + rows * H * 4
+            + rows * H * 2 + 2 * Fl * H * 4 + Fl * 4 + H * 4,
+            10 * rows * H * Fl)
+
+
+# #9 and #10 in their partial modes: the mix bucket's rows (128 x 162) and
+# the TP step's (32 x 162); F / T = 1536 and 768
+TP_FFN_ROWS = (128 * 162, 32 * 162)
+# the int8 row-parallel product: the rows of a scored batch at (64, 98)
+TP_INT8_ROWS = B * 98
+
+
+def tp_route_checks(gen, rows):
+    """The partial modes of #7 (each shard of T = 2 and 4 of the heads),
+    #9 and #10 (each shard of F / T = 1536 and 768, rates 0.1 and 0)
+    against their plain versions, repeated bit for bit, timed beside the
+    whole kernel on the same input, and summed over the shards against
+    the whole kernel; the int8 row-parallel product's codes and int32
+    sums on T = 2 and 4 shards, from the group's maxima, bit for bit the
+    whole product's. Fills ``rows``."""
+    wq = (torch.randn(3 * H, H, generator=gen, device="cuda")
+          * 0.05).bfloat16()
+    bq = vec(gen, 3 * H, 0.05)
+    wo = (torch.randn(H, H, generator=gen, device="cuda") * 0.05).bfloat16()
+    bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
+    name = "fused_attn_block_v2_partial"
+    for b, L in TP_BLOCK_SHAPES:
+        _, _, _, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        whole = (x, wq, bq, bias, wo, bo, gamma, beta, N)
+        full = fused_attn_block_v2(*whole)
+        full_ms = time_ms(lambda: fused_attn_block_v2(*whole))
+        for T in (2, 4):
+            n = N // T
+            parts = []
+            for m in range(T):
+                args = (x, shard_tensor(wq, "qkv", m, T),
+                        shard_tensor(bq, "qkv", m, T), bias,
+                        wo[:, m * n * D:(m + 1) * n * D].contiguous(), n)
+                out = fused_attn_block_v2_partial(*args)
+                if m == 0:
+                    run_case(rows, name, b, L, fused_attn_block_v2_partial,
+                             fused_attn_block_v2_partial_plain, args,
+                             *partial_v2_bytes_flops(b, L, n),
+                             report=(T, b, L) == (2, B, 162),
+                             graph=(T, L) == (2, 162))
+                    part_ms = time_ms(
+                        lambda: fused_attn_block_v2_partial(*args))
+                    print(f"    #7 whole (12 heads) on the same input: "
+                          f"{full_ms:.4f} ms; partial n = {n} / whole "
+                          f"{part_ms / full_ms:.2f}")
+                else:
+                    err = compare(f"{name} T={T} shard {m} B={b} L={L}", out,
+                                  fused_attn_block_v2_partial_plain(*args))
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"], err)
+                if m == T - 1:
+                    repeat_bitwise(f"#7 partial T={T} shard {m} B={b} L={L}",
+                                   lambda: fused_attn_block_v2_partial(*args),
+                                   out)
+                parts.append(out)
+            compare(f"#7 partials of T={T} summed + epilogue vs #7 whole "
+                    f"B={b} L={L}",
+                    block_epilogue(sum(parts), bo, x, gamma, beta), full)
+    for b, L in TP_EDGES:
+        _, _, _, bias = heads(gen, b, L)
+        x = torch.randn(b, L, H, generator=gen, device="cuda").bfloat16()
+        for T in (2, 4):
+            n = N // T
+            args = (x, shard_tensor(wq, "qkv", T - 1, T),
+                    shard_tensor(bq, "qkv", T - 1, T), bias,
+                    wo[:, (N - n) * D:].contiguous(), n)
+            out = fused_attn_block_v2_partial(*args)
+            err = compare(f"{name} T={T} B={b} L={L}", out,
+                          fused_attn_block_v2_partial_plain(*args))
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            repeat_bitwise(f"#7 partial T={T} B={b} L={L}",
+                           lambda: fused_attn_block_v2_partial(*args), out,
+                           times=REPEATS_PAST_A_WAVE if b > 3 else 1)
+
+    w1, b1, w2, b2, g2, be2 = ffn_weights(gen)
+    fwd, bwd = ("fused_ffn_block_train_partial_fwd",
+                "fused_ffn_block_train_partial_bwd")
+    for R in TP_FFN_ROWS:
+        x = torch.randn(R, H, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(R, H, generator=gen, device="cuda").bfloat16()
+        for rate in (0.1, 0.0):
+            seed = FFN_SEED + R
+            wargs = (x, w1, b1, w2, b2, g2, be2, seed, rate)
+            full = fused_ffn_block_train_fwd(*wargs)
+            full_ms = time_ms(lambda: fused_ffn_block_train_fwd(*wargs))
+            bargs = (x, w1, b1, w2, b2, g2, seed, rate, 1e-12, dy)
+            gfull = fused_ffn_block_train_bwd(*bargs)
+            gfull_ms = time_ms(lambda: fused_ffn_block_train_bwd(*bargs))
+            # dy_pre: the LayerNorm's backward of dy, what autograd hands
+            # the shards, from the plain forward's statistics
+            *_, yhat, inv = _forward_to_stats(x, w1, b1, w2, b2, seed, rate,
+                                              1e-12)
+            dyn = dy.float() * g2
+            dy_pre = (inv * (dyn - dyn.mean(-1, keepdim=True) - yhat * (
+                dyn * yhat).mean(-1, keepdim=True))).contiguous()
+            del yhat, inv, dyn
+            for Fl in (FF // 2, FF // 4):
+                T = FF // Fl
+                tag = f"rows={R} F={Fl} rate={rate}"
+                parts, grads = [], []
+                for m in range(T):
+                    sl = slice(m * Fl, (m + 1) * Fl)
+                    sw = (w1[sl].contiguous(), b1[sl].contiguous(),
+                          w2[:, sl].contiguous())
+                    fa_ = (x, *sw, b2 if m == 0 else None, seed, rate)
+                    ba_ = (x, *sw, seed, rate, dy_pre)
+                    out = fused_ffn_block_train_partial_fwd(*fa_)
+                    err = compare(f"{fwd} shard {m} {tag}", out,
+                                  fused_ffn_block_train_partial_plain(*fa_))
+                    rows[fwd]["max_abs_err"] = max(
+                        rows[fwd].get("max_abs_err", 0.0), err)
+                    got = fused_ffn_block_train_partial_bwd(*ba_)
+                    want = fused_ffn_block_train_partial_bwd_plain(*ba_)
+                    err = compare(f"{bwd} dx_part shard {m} {tag}", got[0],
+                                  want[0])
+                    rows[bwd]["max_abs_err"] = max(
+                        rows[bwd].get("max_abs_err", 0.0), err)
+                    for gname, a, w in zip(("dW1", "db1", "dW2", "db2"),
+                                           got[1:], want[1:]):
+                        compare_norm(f"{bwd} {gname} shard {m} {tag}", a, w,
+                                     FFN_GRAD_RTOL)
+                    del want
+                    if rate == 0.0 and m > 0:
+                        same = torch.equal(out,
+                                           fused_ffn_block_partial(*fa_[:4]))
+                        print(f"  #9 partial {tag} shard {m} (no b2) bit for "
+                              f"bit #3's partial mode: {same}")
+                        if not same:
+                            fail(f"#9's partial mode at rate 0 is not #3's "
+                                 f"({tag})")
+                    if m == T - 1:
+                        repeat_bitwise(
+                            f"#9 partial shard {m} {tag}",
+                            lambda: fused_ffn_block_train_partial_fwd(*fa_),
+                            out)
+                        repeat_bitwise(
+                            f"#10 partial shard {m} {tag}",
+                            lambda: fused_ffn_block_train_partial_bwd(*ba_),
+                            got)
+                    if m == 0:
+                        for key, kern, plain, a_, back, base in (
+                                (fwd, fused_ffn_block_train_partial_fwd,
+                                 fused_ffn_block_train_partial_plain, fa_,
+                                 False, full_ms),
+                                (bwd, fused_ffn_block_train_partial_bwd,
+                                 fused_ffn_block_train_partial_bwd_plain,
+                                 ba_, True, gfull_ms)):
+                            t = dict(ms=time_ms(lambda: kern(*a_)),
+                                     plain_ms=time_ms(lambda: plain(*a_),
+                                                      iters=3),
+                                     library_ms=None)
+                            t["bound_ms"], t["bound_by"] = bound(
+                                *partial_ffn_train_bytes_flops(R, Fl, back))
+                            g_ms = graph_ms(lambda: kern(*a_))
+                            print(f"    {key} {tag}: kernel {t['ms']:.4f} "
+                                  f"ms (graph {g_ms:.4f}), plain "
+                                  f"{t['plain_ms']:.4f} ms, bound "
+                                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+                                  f"; whole kernel (F = {FF}) on the same "
+                                  f"input {base:.4f} ms, partial / whole "
+                                  f"{t['ms'] / base:.2f}")
+                            if (R, Fl, rate) == (TP_FFN_ROWS[0], FF // 2,
+                                                 0.1):
+                                rows[key].update(t)
+                    parts.append(out)
+                    grads.append(got)
+                compare(f"#9 partials {tag} summed + residual + LayerNorm "
+                        f"vs #9 whole",
+                        layer_norm_f32(sum(parts) + x.float(), g2, be2,
+                                       1e-12).to(x.dtype), full)
+                compare(f"#10 partials {tag}: dx summed + dy_pre vs #10 "
+                        f"whole", sum(gr[0].float() for gr in grads) + dy_pre,
+                        gfull[0])
+                for i, dim, gname in ((1, 0, "dW1"), (2, 0, "db1"),
+                                      (3, 1, "dW2")):
+                    compare_norm(f"#10 partials {tag}: {gname} gathered vs "
+                                 f"#10 whole", torch.cat(
+                                     [gr[i] for gr in grads], dim),
+                                 gfull[i], FFN_GRAD_RTOL)
+                compare_norm(f"#10 partials {tag}: db2 (shard 0) vs #10 "
+                             f"whole", grads[0][4], gfull[4], FFN_GRAD_RTOL)
+                del parts, grads
+            del gfull, dy_pre
+    torch.cuda.empty_cache()
+
+    # the int8 row-parallel product at the attention output's (K = 768)
+    # and the FFN's second dense's (K = 3072) widths
+    x_all = torch.randn(TP_INT8_ROWS, FF, generator=gen, device="cuda")
+    for K in (H, FF):
+        xk = x_all[:, :K].contiguous()
+        w = torch.randn(H, K, generator=gen, device="cuda") * 0.05
+        whole_xq, _ = int8_ops.quantize_rows(xk)
+        whole_wq, _ = int8_ops.quantize_weight(w)
+        whole = int8_ops.int8_product(whole_xq, whole_wq)
+        for T in (2, 4):
+            xs, ws = xk.chunk(T, dim=1), w.chunk(T, dim=1)
+            x_max = torch.stack([int8_ops.row_maxima(p) for p in xs]).amax(0)
+            w_max = torch.stack([int8_ops.channel_maxima(p)
+                                 for p in ws]).amax(0)
+            codes, acc = True, torch.zeros_like(whole)
+            for m in range(T):
+                xq, _ = int8_ops.quantize_rows(xs[m], x_max)
+                wq_, _ = int8_ops.quantize_weight(ws[m], w_max)
+                codes &= (torch.equal(xq, whole_xq.chunk(T, dim=1)[m])
+                          and torch.equal(wq_, whole_wq.chunk(T, dim=1)[m]))
+                acc += int8_ops.int8_product(xq.contiguous(), wq_)
+            same = torch.equal(acc, whole)
+            print(f"  int8 row-parallel product, {TP_INT8_ROWS} rows, K = "
+                  f"{K} on T = {T} shards from the group's maxima: codes "
+                  f"bit for bit the whole product's {codes}, int32 sums "
+                  f"{same}")
+            if not (codes and same):
+                fail(f"the int8 row-parallel product on T = {T} shards (K = "
+                     f"{K}) is not the whole product")
+    del x_all
+
+
 def tp_head_offset_checks(gen):
     """#5 and #6a on each shard of T = 2 and 4 of the heads, with the head
     offset in their Philox key, bit for bit against the same heads of the
@@ -6337,15 +6610,32 @@ def tp_head_offset_checks(gen):
 
 TP_DIR = os.path.join("build", "tp_smoke")
 TP_STEP_B = 32              # the mlm step of (b) at (32, 162)
-TP_STEPS, TP_STOP = 4, 2    # the driver's steps, and where it is saved
-TP_SCORE_REPS = 3           # timed scored batches a bucket
+TP_STEP_COUNT = 2           # mlm steps a part of (b), the first a warm-up
+TP_STEPS, TP_STOP = 2, 1    # the driver's steps, and where it is saved
+TP_SCORE_REPS = 1           # one process's timed batches a bucket and part
+FFN_TP_KERNELS = (fused_ffn_block_train_partial_fwd,
+                  fused_ffn_block_train_partial_bwd)
+
+
+def tp_score_launches(part, L, layers):
+    """The launches of one scored batch at --n_model 2: the default route
+    #2's (or #7's under UC2_ATTN_V2) and #3's partial modes where the
+    gates open, #1 on 6 heads below L = 128; int8 #1 and the four int8
+    products in every layer, nothing fused."""
+    if part == "int8":
+        return {"flash_attention": layers, "int8_product": 4 * layers}
+    want = {"fused_ffn_block_partial": layers}
+    attn = "fused_attn_block_v2_partial" if part == "v2" else \
+        "fused_attn_block_partial"
+    want[attn if fused_block_profitable(L, N) else "flash_attention"] = layers
+    return want
 # the updated parameters read back from the two-process step
 TP_PARAM_KEYS = ("roberta.layer.0.attention.qkv.weight",
                  "roberta.layer.11.output_dense.weight",
                  "roberta.embeddings.word_embeddings.weight", "cls.bias")
 
 TP_WORKER = r"""
-import json, sys, time
+import json, os, sys, time
 import torch
 rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 from uc2_torch.parallel import mesh as M, multihost as MH, tensor as TP
@@ -6356,13 +6646,16 @@ from uc2_torch.config import UC2Config
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops import flash_attention as fa, fused_block as fb
+from uc2_torch.ops import ffn_train as ft, int8
 from uc2_torch.ops.dropout import DropoutRng
 from uc2_torch.training.optim import build_optimizer, constant
 from uc2_torch.training.step import train_step
 KS = (fa.flash_attention, fa.flash_attention_train_fwd,
       fa.flash_attention_train_bwd_dq, fa.flash_attention_train_bwd_dkdv,
       fb.fused_attn_block, fb.fused_ffn_block, fb.fused_attn_block_partial,
-      fb.fused_ffn_block_partial)
+      fb.fused_ffn_block_partial, fb.fused_attn_block_v2_partial,
+      ft.fused_ffn_block_train_partial_fwd,
+      ft.fused_ffn_block_train_partial_bwd, int8.int8_product)
 def reset():
     for k in KS:
         k.launches = 0
@@ -6388,53 +6681,119 @@ cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
 out = {}
 model = TP.place_model(UC2ForImageTextRetrieval(cfg, device="cuda", seed=0))
 batches = torch.load(f"{d}/score_batches.pt", weights_only=True)
-scores = {}
-for L, b in batches.items():
-    b = {k: v.cuda() for k, v in b.items()}
-    model.scores(b)
-    torch.cuda.synchronize()
-    reset()
-    s = model.scores(b)
-    torch.cuda.synchronize()
-    rec = {"launches": counts(), "collective": dict(spent), "ms": []}
-    for _ in range(meta["reps"]):
+batches = {L: {k: v.cuda() for k, v in b.items()} for L, b in batches.items()}
+def score(m, part, warm):
+    # one counted, timed batch a bucket (after a warm-up call where the
+    # bucket's shapes are new to the process)
+    scores = {}
+    for L, b in batches.items():
+        if warm:
+            m.scores(b)
         torch.cuda.synchronize()
+        reset()
         t0 = time.perf_counter()
-        model.scores(b)
+        s = m.scores(b)
         torch.cuda.synchronize()
-        rec["ms"].append((time.perf_counter() - t0) * 1e3)
-    scores[L] = s.float().cpu()
-    out[f"score_{L}"] = rec
-torch.save(scores, f"{d}/scores_{rank}.pt")
+        out[f"{part}_{L}"] = {"launches": counts(), "collective": dict(spent),
+                              "ms": [(time.perf_counter() - t0) * 1e3]}
+        scores[L] = s.float().cpu()
+    torch.save(scores, f"{d}/{part}_{rank}.pt")
+score(model, "score", True)
+# the kernel routes of the slice: UC2_ATTN_V2 (#7's partial mode where
+# the gate opens), and int8 serving (the row-parallel products)
+os.environ["UC2_ATTN_V2"] = "1"
+score(model, "v2", False)
+del os.environ["UC2_ATTN_V2"]
+score(model.serving("int8"), "int8", False)
 del model
 torch.cuda.empty_cache()
-model = TP.place_model(UC2ForPretraining(cfg.replace(
-    use_pallas_attention="pallas-train"), device="cuda", seed=0))
 batch = {k: v.cuda() for k, v in
          torch.load(f"{d}/mlm_batch.pt", weights_only=True).items()}
-opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
-                      betas=(0.9, 0.98), grad_norm=2.0)
-steps = []
-for i in range(meta["steps"]):
-    reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m = train_step(model, opt, batch, DropoutRng(7, "cuda"), task="mlm")
-    torch.cuda.synchronize()
-    steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                  "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
-                  "launches": counts(), "collective": dict(spent)})
-    if i == 0:
-        whole = TP.full_state_dict(model)
-        if rank == 0:
-            torch.save({k: whole[k].cpu() for k in meta["keys"]},
-                       f"{d}/params.pt")
-        del whole
-out["steps"] = steps
+def steps(n, part):
+    model = TP.place_model(UC2ForPretraining(cfg.replace(
+        use_pallas_attention="pallas-train"), device="cuda", seed=0))
+    opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                          betas=(0.9, 0.98), grad_norm=2.0)
+    recs = []
+    for i in range(n):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, batch, DropoutRng(7, "cuda"), task="mlm")
+        torch.cuda.synchronize()
+        recs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": m["loss"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "launches": counts(), "collective": dict(spent)})
+        if i == 0 and part == "steps":
+            whole = TP.full_state_dict(model)
+            if rank == 0:
+                torch.save({k: whole[k].cpu() for k in meta["keys"]},
+                           f"{d}/params.pt")
+            del whole
+    out[part] = recs
+    del model, opt
+    torch.cuda.empty_cache()
+steps(meta["steps"], "steps")
+# #9 and #10 in their partial modes
+os.environ["UC2_FFN_TRAIN"] = "1"
+steps(meta["steps"], "ffn_steps")
+del os.environ["UC2_FFN_TRAIN"]
 out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 json.dump(out, open(f"{d}/tp_{rank}.json", "w"))
 MH.shutdown()
 """
+
+# ``python -m uc2_torch.itm --quant int8 --n_model 2`` in one process of
+# the model group: its validations and tests scored through the int8
+# row-parallel products
+TP_ITM = r"""
+import json, sys, time
+import torch
+rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from uc2_torch import itm
+from uc2_torch.ops import flash_attention as fa, int8
+from uc2_torch.parallel import multihost as MH, tensor as TP
+spent = {"ms": 0.0, "n": 0}
+ar0 = TP._all_reduce
+def ar(t, *a, **k):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ar0(t, *a, **k)
+    torch.cuda.synchronize()
+    spent["ms"] += (time.perf_counter() - t0) * 1e3
+    spent["n"] += 1
+    return r
+TP._all_reduce = ar
+meta = json.load(open(f"{d}/meta.json"))
+argv = meta["itm_argv"] + [
+    "--coordinator_address", addr, "--num_processes", "2",
+    "--process_id", str(rank), "--dist_backend", "gloo", "--n_model", "2"]
+parser = itm.build_parser()
+opts = itm.parse_with_config(parser, argv)
+itm.apply_reference_config_compat(opts, parser, argv)
+fa.flash_attention.launches = int8.int8_product.launches = 0
+t0 = time.perf_counter()
+run = itm.main(opts)
+torch.cuda.synchronize()
+json.dump({"step": run.step, "val": run.val, "results": run.results,
+           "seconds": time.perf_counter() - t0,
+           "flash_attention": fa.flash_attention.launches,
+           "int8_product": int8.int8_product.launches,
+           "collective": spent,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+          open(f"{d}/itm_{rank}.json", "w"))
+MH.shutdown()
+"""
+# its stores at uc2-base's widths: training on TP_ITM_IMGS images x 2
+# captions; validation (after the last of TP_ITM_STEPS steps) on
+# TP_ITM_VAL_TXTS texts and the test on all of a store of TP_ITM_TEST
+# images x 1 caption, 10-36 regions (one bucket: a scored batch a text)
+TP_ITM_IMGS, TP_ITM_TEST, TP_ITM_VAL_TXTS, TP_ITM_STEPS = 16, 4, 2, 2
+# the UC2_ATTN_V2 and int8 scores against one process's (the default
+# route's, through #2's and #3's partial modes, read 5.9e-3 - 7.8e-3 on
+# an H100 80GB HBM3 at 700 W)
+TP_SCORE_TOL = 1e-2
 
 
 def phase_tp(card, gen):
@@ -6455,6 +6814,7 @@ def phase_tp(card, gen):
 
 def _phase_tp(card, gen):
     rows = tp_partial_checks(gen)
+    tp_route_checks(gen, rows)
     tp_head_offset_checks(gen)
     torch.cuda.empty_cache()
     launches = no_launches()
@@ -6483,37 +6843,50 @@ def _phase_tp(card, gen):
     torch.save({k: v.cpu() for k, v in mlm.items()},
                os.path.join(TP_DIR, "mlm_batch.pt"))
     with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
-        json.dump({"reps": TP_SCORE_REPS, "steps": 3,
-                   "keys": list(TP_PARAM_KEYS)}, f)
-    # one process on the same weights and inputs
+        json.dump({"steps": TP_STEP_COUNT, "keys": list(TP_PARAM_KEYS)}, f)
+    # one process on the same weights and inputs: the default route,
+    # UC2_ATTN_V2 and int8 scores, and the mlm step without and with
+    # UC2_FFN_TRAIN=1
     model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
-    with torch.no_grad():
-        one = {L: model.scores(b).float().cpu() for L, b in batches.items()}
-    one_ms = {}
-    for L, b in batches.items():
-        ts = []
-        for _ in range(TP_SCORE_REPS):
+    parts = {"score": (model, None), "v2": (model, "1"),
+             "int8": (model.serving("int8"), None)}
+    one, one_ms = {}, {}
+    for part, (m, v2) in parts.items():
+        with env_set("UC2_ATTN_V2", v2):
+            with torch.no_grad():
+                one[part] = {L: m.scores(b).float().cpu()
+                             for L, b in batches.items()}
+            for L, b in batches.items():
+                ts = []
+                for _ in range(TP_SCORE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m.scores(b)
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                one_ms[(part, L)] = ts
+    del model, parts, m
+    one_steps = {}
+    for part, ffn in (("steps", None), ("ffn_steps", "1")):
+        with env_set("UC2_FFN_TRAIN", ffn):
+            model = UC2ForPretraining(tcfg, device="cuda", seed=0)
+            opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
+                                  betas=(0.9, 0.98), grad_norm=2.0)
+            m = train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
+            rec = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+            if part == "steps":
+                sd = model.state_dict()
+                one_params = {k: sd[k].detach().float().cpu()
+                              for k in TP_PARAM_KEYS}
+                del sd
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.scores(b)
+            train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
             torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        one_ms[L] = ts
-    del model
-    model = UC2ForPretraining(tcfg, device="cuda", seed=0)
-    opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
-                          betas=(0.9, 0.98), grad_norm=2.0)
-    m = train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
-    one_loss, one_norm = m["loss"].item(), m["grad_norm"].item()
-    sd = model.state_dict()
-    one_params = {k: sd[k].detach().float().cpu() for k in TP_PARAM_KEYS}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train_step(model, opt, mlm, DropoutRng(7, "cuda"), task="mlm")
-    torch.cuda.synchronize()
-    one_step_ms = (time.perf_counter() - t0) * 1e3    # the second step
-    del model, opt, m, sd
-    torch.cuda.empty_cache()
+            rec["ms"] = (time.perf_counter() - t0) * 1e3    # the second step
+            one_steps[part] = rec
+            del model, opt, m
+            torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     addr = f"127.0.0.1:{free_port()}"
@@ -6522,73 +6895,85 @@ def _phase_tp(card, gen):
         f.write(TP_WORKER)
     res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
     worker_s = time.perf_counter() - t0
-    if spawned_ok("tp: the two-process scores and step", res):
+    if spawned_ok("tp: the two-process scores and steps", res):
         outs = []
         for r in (0, 1):
             with open(os.path.join(TP_DIR, f"tp_{r}.json")) as f:
                 outs.append(json.load(f))
-        for r in (0, 1):
-            tp_scores = torch.load(os.path.join(TP_DIR, f"scores_{r}.pt"))
-            for L, want in one.items():
-                n = rows_n[L]
-                got = tp_scores[L]
-                err = float((got[:n] - want[:n]).abs().max())
-                rec = outs[r][f"score_{L}"]
-                fused = fused_block_profitable(L, N)
-                want_k = {"fused_ffn_block_partial": layers}
-                want_k["fused_attn_block_partial" if fused
-                       else "flash_attention"] = layers
-                ok = (bool(torch.isfinite(got).all()) and err <= SCORE_TOL
-                      and rec["launches"] == want_k)
-                coll = rec["collective"]
-                print(f"  (b) scores, process {r} of 2, B = {B}, L = {L}: "
-                      f"max|n_model 2 - one process| {err:.4e} (tolerance "
-                      f"{SCORE_TOL}), launches {rec['launches']} (want "
-                      f"{want_k}); ms/batch "
-                      f"{[round(x, 1) for x in rec['ms']]} against one "
-                      f"process's {[round(x, 1) for x in one_ms[L]]}; the "
-                      f"model group's all-reduces {coll['n']} a batch, "
-                      f"{coll['mb']:.1f} MB, {coll['ms']:.1f} ms "
-                      f"{'ok' if ok else 'FAIL'} [{card}]")
-                if not ok:
-                    fail(f"tp: the scores at L = {L} (process {r}) are not "
-                         f"one process's, or a kernel was not launched")
-                if r == 0:
-                    for k, c in rec["launches"].items():
-                        launches[k] += c
+        for part, tol, what in (("score", SCORE_TOL, "default-route"),
+                                ("v2", TP_SCORE_TOL, "UC2_ATTN_V2=1"),
+                                ("int8", TP_SCORE_TOL, "int8")):
+            for r in (0, 1):
+                tp_scores = torch.load(os.path.join(TP_DIR,
+                                                    f"{part}_{r}.pt"))
+                for L, want in one[part].items():
+                    n = rows_n[L]
+                    got = tp_scores[L]
+                    err = float((got[:n] - want[:n]).abs().max())
+                    rec = outs[r][f"{part}_{L}"]
+                    want_k = tp_score_launches(part, L, layers)
+                    ok = (bool(torch.isfinite(got).all()) and err <= tol
+                          and rec["launches"] == want_k)
+                    coll = rec["collective"]
+                    print(f"  (b) {what} scores, process {r} of 2, B = {B}, "
+                          f"L = {L}: max|n_model 2 - one process| {err:.4e} "
+                          f"(tolerance {tol}; bit for bit "
+                          f"{torch.equal(got[:n], want[:n])}), launches "
+                          f"{rec['launches']} (want {want_k}); ms/batch "
+                          f"{[round(x, 1) for x in rec['ms']]} against one "
+                          f"process's "
+                          f"{[round(x, 1) for x in one_ms[(part, L)]]}; "
+                          f"the model group's all-reduces {coll['n']} a "
+                          f"batch, {coll['mb']:.1f} MB, {coll['ms']:.1f} ms "
+                          f"{'ok' if ok else 'FAIL'} [{card}]")
+                    if not ok:
+                        fail(f"tp: the {part} scores at L = {L} (process "
+                             f"{r}) are not one process's, or a kernel was "
+                             f"not launched")
+                    if r == 0:
+                        for k, c in rec["launches"].items():
+                            if k in launches:
+                                launches[k] += c
         got_params = torch.load(os.path.join(TP_DIR, "params.pt"))
         p_err = {k.split(".")[-2]: float(
             (got_params[k] - v).abs().max() / v.abs().max())
             for k, v in one_params.items()}
-        for r in (0, 1):
-            st = outs[r]["steps"]
-            first = st[0]
-            d_loss = abs(first["loss"] - one_loss)
-            d_norm = abs(first["grad_norm"] - one_norm) / one_norm
-            want_k = {k.__name__: layers for k in TRAIN_KERNELS}
-            ok = (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_NORM_RTOL
-                  and first["launches"] == want_k)
-            coll = [(x["collective"]["n"], round(x["collective"]["mb"], 1),
-                     round(x["collective"]["ms"], 1)) for x in st]
-            print(f"  (b) mlm step at ({TP_STEP_B}, {TXT_LEN + NUM_BB}), "
-                  f"dropout 0.1, pallas-train, process {r} of 2: loss "
-                  f"{first['loss']:.6f} vs one process's {one_loss:.6f} "
-                  f"(|diff| {d_loss:.2e}, tolerance {STEP_LOSS_TOL}), grad "
-                  f"norm {first['grad_norm']:.6f} vs {one_norm:.6f} "
-                  f"(relative {d_norm:.2e}, tolerance {STEP_NORM_RTOL}); "
-                  f"launches {first['launches']}; ms/step "
-                  f"{[round(x['ms'], 1) for x in st]} (the first with the "
-                  f"warm-up) against one process's second step "
-                  f"{one_step_ms:.1f}; the "
-                  f"model group's all-reduces a step (count, MB, ms) {coll}"
-                  f"; peak {outs[r]['peak_gib']:.1f} GiB "
-                  f"{'ok' if ok else 'FAIL'} [{card}]")
-            if not ok:
-                fail(f"tp: the two-process mlm step (process {r}) is not "
-                     f"the one-process step")
-            if r == 0:
-                for k, c in first["launches"].items():
-                    launches[k] += c
+        for part, extra in (("steps", ()),
+                            ("ffn_steps", FFN_TP_KERNELS)):
+            want_k = {k.__name__: layers for k in TRAIN_KERNELS + extra}
+            ref = one_steps[part]
+            for r in (0, 1):
+                st = outs[r][part]
+                first = st[0]
+                d_loss = abs(first["loss"] - ref["loss"])
+                d_norm = abs(first["grad_norm"] - ref["grad_norm"]) / ref[
+                    "grad_norm"]
+                ok = (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_NORM_RTOL
+                      and first["launches"] == want_k)
+                coll = [(x["collective"]["n"],
+                         round(x["collective"]["mb"], 1),
+                         round(x["collective"]["ms"], 1)) for x in st]
+                print(f"  (b) mlm step{' with UC2_FFN_TRAIN=1' if extra else ''}"
+                      f" at ({TP_STEP_B}, {TXT_LEN + NUM_BB}), dropout 0.1, "
+                      f"pallas-train, process {r} of 2: loss "
+                      f"{first['loss']:.6f} vs one process's "
+                      f"{ref['loss']:.6f} (|diff| {d_loss:.2e}, tolerance "
+                      f"{STEP_LOSS_TOL}), grad norm {first['grad_norm']:.6f} "
+                      f"vs {ref['grad_norm']:.6f} (relative {d_norm:.2e}, "
+                      f"tolerance {STEP_NORM_RTOL}); launches "
+                      f"{first['launches']} (want {want_k}); ms/step "
+                      f"{[round(x['ms'], 1) for x in st]} (the first with "
+                      f"the warm-up) against one process's second step "
+                      f"{ref['ms']:.1f}; the model group's all-reduces a "
+                      f"step (count, MB, ms) {coll}; peak "
+                      f"{outs[r]['peak_gib']:.1f} GiB "
+                      f"{'ok' if ok else 'FAIL'} [{card}]")
+                if not ok:
+                    fail(f"tp: the two-process mlm {part} (process {r}) is "
+                         f"not the one-process step")
+                if r == 0:
+                    for k, c in first["launches"].items():
+                        launches[k] += c
         print(f"  (b) the updated parameters after the step, gathered, "
               f"against one process's (max |diff| over max |one|): {p_err}"
               f"; {worker_s:.1f} s with the processes' start")
@@ -6668,6 +7053,70 @@ def _phase_tp(card, gen):
         if not (whole and np.array_equal(keeps[0], keeps[1])):
             fail("tp: restore.ckpt is not the whole model, or the model "
                  "group drew different dropout masks")
+
+    # python -m uc2_torch.itm --quant int8 --n_model 2: the validations
+    # and the test scored through the int8 row-parallel products
+    t0 = time.perf_counter()
+    st = synth_corpus(os.path.join(TP_DIR, "itm"), n_imgs=TP_ITM_IMGS,
+                      txt_per_img=2, seed=5)
+    te = synth_corpus(os.path.join(TP_DIR, "itm_test"), n_imgs=TP_ITM_TEST,
+                      txt_per_img=1, seed=6, max_bb=36)
+    out_dir = os.path.join(TP_DIR, "itm_out")
+    with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
+        json.dump({"itm_argv": [
+            "--model_config", "config/uc2-base.json", "--dtype", "bfloat16",
+            "--train_txt_db", st["txt_db"], "--train_img_db", st["img_db"],
+            "--val_txt_db", te["txt_db"], "--val_img_db", te["img_db"],
+            "--test_datasets", json.dumps([{"name": "t", "db": te["txt_db"],
+                                            "img": te["img_db"]}]),
+            "--output_dir", out_dir, "--quant", "int8",
+            "--train_batch_size", "40", "--gradient_accumulation_steps", "1",
+            "--num_train_steps", str(TP_ITM_STEPS), "--valid_steps",
+            str(TP_ITM_STEPS),
+            "--eval_txt_limit", str(TP_ITM_VAL_TXTS), "--eval_batch_size",
+            str(B), "--save_steps", "100", "--warmup_steps", "1",
+            "--log_steps", "1", "--seed", "0"]}, f)
+    path = os.path.join(TP_DIR, "tp_itm.py")
+    with open(path, "w") as f:
+        f.write(TP_ITM)
+    addr = f"127.0.0.1:{free_port()}"
+    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
+    itm_s = time.perf_counter() - t0
+    if spawned_ok("tp: python -m uc2_torch.itm --quant int8 --n_model 2", res):
+        outs = []
+        for r in (0, 1):
+            with open(os.path.join(TP_DIR, f"itm_{r}.json")) as f:
+                outs.append(json.load(f))
+        with open(os.path.join(out_dir, "test_results.json")) as f:
+            written = json.load(f)
+        for r, o in enumerate(outs):
+            ok = (o["step"] == TP_ITM_STEPS and len(o["val"]) == 1
+                  and o["results"] == written and set(written) == {"t"}
+                  and o["int8_product"] > 0
+                  and o["int8_product"] == 4 * o["flash_attention"]
+                  and o["val"] == outs[0]["val"])
+            print(f"  (b) python -m uc2_torch.itm --quant int8 --n_model 2, "
+                  f"process {r} of 2 (gloo; {TP_ITM_IMGS} images x 2 "
+                  f"captions, {TP_ITM_STEPS} steps, validation on "
+                  f"{TP_ITM_VAL_TXTS} texts and the test on {TP_ITM_TEST} "
+                  f"of a one-bucket store): step "
+                  f"{o['step']}, validations {o['val']}, test "
+                  f"{o['results']} (test_results.json the same "
+                  f"{o['results'] == written}); int8 products "
+                  f"{o['int8_product']}, #1 launches {o['flash_attention']} "
+                  f"(4 products a #1 launch: 12 layers a scored batch); the "
+                  f"model group's all-reduces {o['collective']['n']} in "
+                  f"{o['collective']['ms'] / 1e3:.1f} s; the run "
+                  f"{o['seconds']:.1f} s, peak {o['peak_gib']:.1f} GiB "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                fail(f"tp: itm --quant int8 --n_model 2 (process {r}) did "
+                     f"not run its steps, validations and test through the "
+                     f"int8 products")
+            if r == 0:
+                launches["flash_attention"] += o["flash_attention"]
+        print(f"  (b) the itm driver: {itm_s:.1f} s with the stores and the "
+              f"processes' start")
     return rows, launches
 
 

@@ -18,8 +18,11 @@ unnormalised bf16 probabilities (#11), the retrieval finetuning step
 (itm-rank) against the CPU and for a bitwise repeat, and tensor
 parallelism's kernel modes: #2's and #3's partial modes on shards of the
 heads and of the intermediate against their plain versions and, summed
-with the epilogue, against the whole kernels, and #5/#6a on a shard of
-the heads bit for bit those heads of the whole launch. Needs a CUDA device
+with the epilogue, against the whole kernels, #5/#6a on a shard of
+the heads bit for bit those heads of the whole launch, and #7's, #9's and
+#10's partial modes (T = 2, 3, 4 and 12 at tile edges, rates 0 and 0.1)
+against their plain versions, for a bitwise repeat and, summed over the
+shards, against the whole kernels. Needs a CUDA device
 (sm_90a); run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 from uc2_torch.config import UC2Config
+from uc2_torch.models.convert import shard_tensor
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops.dropout import DropoutRng
@@ -1481,3 +1485,123 @@ def test_attention_train_by_global_head_is_the_whole_launch(gen, B, L, T):
         assert torch.equal(sdq, dq[:, :, sl])
         assert torch.equal(sst, st[:, :, sl])
         assert torch.equal(sbits, bits[:, sl])
+
+
+@pytest.mark.parametrize("B,L,T", [(1, 1, 2), (2, 65, 3), (3, 129, 4),
+                                   (2, 162, 12), (1, 512, 2), (67, 128, 4),
+                                   (64, 162, 2)])
+def test_fused_attn_block_v2_partial_sums_to_the_whole_block(gen, B, L, T):
+    """#7's partial mode on every shard (a column half of 3, 2 or 1 heads,
+    or 1 and none at T = 12) against its plain version, repeated bit for
+    bit; the shards summed with the epilogue against the whole #7."""
+    from uc2_torch.ops.fused_block import (block_epilogue,
+                                           fused_attn_block_v2_partial,
+                                           fused_attn_block_v2_partial_plain)
+    x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n = _v2_args(gen, B, L)
+    nl = n // T
+    parts = []
+    before = fused_attn_block_v2_partial.launches
+    for m in range(T):
+        args = (x, shard_tensor(w_qkv, "qkv", m, T),
+                shard_tensor(b_qkv, "qkv", m, T), bias,
+                wo[:, m * nl * D:(m + 1) * nl * D].contiguous(), nl)
+        out = fused_attn_block_v2_partial(*args)
+        assert out.dtype == torch.float32 and out.shape == (B, L, H)
+        _close(out, fused_attn_block_v2_partial_plain(*args))
+        for _ in range(REPEATS_PAST_A_WAVE if B > 3 else 1):
+            assert torch.equal(fused_attn_block_v2_partial(*args), out)
+        parts.append(out)
+    assert fused_attn_block_v2_partial.launches > before
+    _close(block_epilogue(sum(parts), bo, x, gamma, beta),
+           fused_attn_block_v2(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n))
+
+
+FFN_PARTIAL_CASES = [(1, 2), (65, 4), (129, 3), (5184, 4), (20736, 2)]
+
+
+def _ffn_shard(args, m, T):
+    x, w1, b1, w2, b2 = args[:5]
+    Fl = w1.shape[0] // T
+    sl = slice(m * Fl, (m + 1) * Fl)
+    return (x, w1[sl].contiguous(), b1[sl].contiguous(),
+            w2[:, sl].contiguous(), b2 if m == 0 else None)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows,T", FFN_PARTIAL_CASES)
+def test_ffn_train_fwd_partial_sums_to_the_whole_kernel(gen, rows, T, rate):
+    """#9's partial mode on every shard (b2 on shard 0) against its plain
+    version; the shards summed with the residual and the LayerNorm against
+    the whole #9 on the same seed; at rate 0 a shard without b2 is #3's
+    partial mode, bit for bit."""
+    from uc2_torch.ops.ffn_train import (fused_ffn_block_train_partial_fwd,
+                                         fused_ffn_block_train_partial_plain)
+    from uc2_torch.ops.fused_block import (fused_ffn_block_partial,
+                                           layer_norm_f32)
+    args = _ffn_args(gen, rows)
+    seed = 7 + rows
+    parts = []
+    for m in range(T):
+        sargs = _ffn_shard(args, m, T)
+        out = fused_ffn_block_train_partial_fwd(*sargs, seed, rate)
+        assert out.dtype == torch.float32
+        _close_report("partial", out,
+                      fused_ffn_block_train_partial_plain(*sargs, seed, rate))
+        assert torch.equal(fused_ffn_block_train_partial_fwd(*sargs, seed,
+                                                             rate), out)
+        if rate == 0.0 and m > 0:
+            assert torch.equal(out, fused_ffn_block_partial(*sargs[:4]))
+        parts.append(out)
+    x, gamma, beta = args[0], args[5], args[6]
+    got = layer_norm_f32(sum(parts) + x.float(), gamma, beta, 1e-12)
+    _close_report("summed", got.to(x.dtype),
+                  fused_ffn_block_train_fwd(*args, seed, rate))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows,T", FFN_PARTIAL_CASES)
+def test_ffn_train_bwd_partial_sums_to_the_whole_kernel(gen, rows, T, rate):
+    """#10's partial mode on every shard against its plain version (the
+    summed gradients in relative norm), repeated bit for bit; the shards'
+    dx summed plus dy_pre, and their weight gradients gathered, against
+    the whole #10 on the same dy. The whole kernel takes dy_pre from its
+    own recomputed forward, so its bf16 dy2 and da may round another way
+    than the shards' (at one row dW1 moved by 1.07e-3 in relative norm
+    on the H100): those are held to 2^-7, as #10 against autograd."""
+    from uc2_torch.ops.ffn_train import (
+        _forward_to_stats, fused_ffn_block_train_partial_bwd,
+        fused_ffn_block_train_partial_bwd_plain)
+    args = _ffn_args(gen, rows)
+    seed, eps = 11 + rows, 1e-12
+    dy = torch.randn(rows, H, generator=gen, device="cuda").bfloat16()
+    whole = fused_ffn_block_train_bwd(*args[:6], seed, rate, eps, dy)
+    # dy_pre: the LayerNorm's backward of dy (what autograd hands the
+    # shards), from the plain forward's statistics
+    *_, yhat, inv = _forward_to_stats(*args[:5], seed, rate, eps)
+    dyn = dy.float() * args[5]
+    dy_pre = (inv * (dyn - dyn.mean(-1, keepdim=True)
+                     - yhat * (dyn * yhat).mean(-1, keepdim=True))
+              ).contiguous()
+    parts = []
+    before = fused_ffn_block_train_partial_bwd.launches
+    for m in range(T):
+        x, w1, b1, w2, _ = _ffn_shard(args, m, T)
+        got = fused_ffn_block_train_partial_bwd(x, w1, b1, w2, seed, rate,
+                                                dy_pre)
+        want = fused_ffn_block_train_partial_bwd_plain(x, w1, b1, w2, seed,
+                                                       rate, dy_pre)
+        _close_report("dx_part", got[0], want[0])
+        for name, a, b in zip(("dW1", "db1", "dW2", "db2"), got[1:],
+                              want[1:]):
+            assert _rel(a, b) <= FFN_GRAD_RTOL, (name, _rel(a, b))
+        again = fused_ffn_block_train_partial_bwd(x, w1, b1, w2, seed, rate,
+                                                  dy_pre)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        parts.append(got)
+    assert fused_ffn_block_train_partial_bwd.launches == before + 2 * T
+    _close_report("dx", sum(p[0].float() for p in parts) + dy_pre, whole[0])
+    for i, dim in ((1, 0), (2, 0), (3, 1)):       # dW1, db1, dW2 gathered
+        assert _rel(torch.cat([p[i] for p in parts], dim), whole[i]) \
+            <= 2.0 ** -7, i
+    for p in parts:                               # db2, whole on each shard
+        assert _rel(p[4], whole[4]) <= 2.0 ** -7

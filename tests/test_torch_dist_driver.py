@@ -14,8 +14,11 @@ tests/test_multihost_2proc.py, at dropout 0 in the tiny config):
 * ``python -m uc2_torch.vqa``: trains and validates; ``python -m
   uc2_torch.nlvr2``: its batch raised to the world, the prediction sweep
   over every example on both processes;
-* under ``--n_model 2`` what is left out (``UC2_ATTN_V2``) still raises,
-  before any group starts.
+* each driver at ``--n_model 2`` for one step with ``UC2_ATTN_V2=1``,
+  ``UC2_FFN_TRAIN=1`` and ``UC2_FUSE_ATTN_ALL=1`` under "pallas-train"
+  (#9/#10's partial modes in training, #7's in the validation or the
+  prediction sweep), its losses those of the same driver in one process
+  at 1e-4.
 
 Port processes import no JAX; the reference's set ``JAX_PLATFORMS=cpu``."""
 
@@ -33,7 +36,6 @@ from uc2_tpu.config import UC2Config as JaxConfig
 from uc2_tpu.data.synth import synth_corpus
 from uc2_tpu.models import convert as jax_convert
 from uc2_tpu.models.pretraining import UC2ForPretraining as JaxPretraining
-from uc2_torch import itm, nlvr2, pretrain, vqa
 from uc2_torch.config import UC2Config
 from uc2_torch.data.synth import synth_finetune_texts
 from uc2_torch.models.convert import params_to_jax
@@ -277,7 +279,8 @@ def runs(tmp_path_factory):
     def load(name):
         with open(tmp / name, "rb") as f:
             return pickle.load(f)
-    return {"ref": [load(f"ref_{p}.pkl") for p in (0, 1)],
+    return {"tmp": tmp,
+            "ref": [load(f"ref_{p}.pkl") for p in (0, 1)],
             "port": [load(f"port_{p}.pkl") for p in (0, 1)],
             "csv": (tmp / "preds.csv").read_text().splitlines(),
             "nlvr2_ids": len(json.loads(open(os.path.join(
@@ -330,17 +333,114 @@ def test_nlvr2_raises_its_batch_and_sweeps_every_example(runs):
     assert runs["csv"] == [f"{k},{v}" for k, v in p0["preds"].items()]
 
 
+ROUTES = r'''
+import json, os, pickle, sys
+pid, coord, tmp, world = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                          int(sys.argv[4]))
+os.environ.update(UC2_ATTN_V2="1", UC2_FFN_TRAIN="1", UC2_FUSE_ATTN_ALL="1")
+from tests.torch_dist_util import pretrain_argv
+from uc2_torch import itm, nlvr2, pretrain, vqa
+from uc2_torch.models import encoder as E
+from uc2_torch.parallel import multihost as MH
+meta = json.load(open(os.path.join(tmp, "meta.json")))
+cfg = meta["routes_config"]
+flags = ["--device", "cpu", "--n_model", str(world)] + (
+    ["--coordinator_address", coord, "--num_processes", "2",
+     "--process_id", str(pid)] if world == 2 else [])
+calls = {}
+def counted(name):
+    fn = getattr(E, name)
+    def call(*a, **k):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*a, **k)
+    setattr(E, name, call)
+for name in ("fused_attn_block_v2", "fused_attn_block_v2_partial",
+             "fused_ffn_block_train", "fused_ffn_block_train_partial"):
+    counted(name)
+out = {}
+def run(name, mod, argv):
+    global calls
+    calls = {}
+    r = mod.main(mod.parse_with_config(mod.build_parser(), argv + flags))
+    out[name] = {"losses": [list(x) for x in r.losses], "calls": calls}
+argv = [a for a in pretrain_argv(dict(meta, model_config=cfg),
+                                 os.path.join(tmp, f"routes_pre_{world}"))
+        if a != "--zero1"]
+run("pretrain", pretrain, argv + [
+    "--num_train_steps", "1", "--save_steps", "5", "--valid_steps", "1",
+    "--val_datasets", argv[argv.index("--train_datasets") + 1]])
+run("itm", itm, [
+    "--model_config", cfg, "--output_dir", os.path.join(tmp, f"routes_itm_{world}"),
+    "--train_txt_db", meta["txt_db"], "--train_img_db", meta["img_db"],
+    "--val_txt_db", meta["txt_db"], "--val_img_db", meta["img_db"],
+    "--max_txt_len", "18", "--max_bb", "12", "--min_bb", "4",
+    "--train_batch_size", "12", "--eval_batch_size", "8",
+    "--num_train_steps", "1", "--warmup_steps", "1", "--valid_steps", "1",
+    "--eval_txt_limit", "8", "--save_steps", "5", "--log_steps", "1",
+    "--dtype", "float32", "--seed", "0"])
+run("vqa", vqa, [
+    "--model_config", cfg, "--output_dir", os.path.join(tmp, f"routes_vqa_{world}"),
+    "--train_txt_db", meta["vqa_txt_db"], "--train_img_db", meta["img_db"],
+    "--val_txt_db", meta["vqa_txt_db"], "--val_img_db", meta["img_db"],
+    "--num_answer", "9", "--max_txt_len", "16", "--max_bb", "12",
+    "--min_bb", "4", "--train_batch_size", "8", "--num_train_steps", "1",
+    "--warmup_steps", "1", "--valid_steps", "1", "--val_batches", "1",
+    "--save_steps", "5", "--log_steps", "1", "--dtype", "float32",
+    "--seed", "0"])
+run("nlvr2", nlvr2, [
+    "--model_config", cfg, "--output_dir", os.path.join(tmp, f"routes_nl_{world}"),
+    "--train_txt_db", meta["nlvr2_txt_db"], "--train_img_db", meta["img_db"],
+    "--fmt", "paired-attn", "--max_txt_len", "16", "--max_bb", "12",
+    "--min_bb", "4", "--train_batch_size", "4", "--num_train_steps", "1",
+    "--warmup_steps", "1", "--valid_steps", "0", "--save_steps", "5",
+    "--log_steps", "1", "--pred_csv", os.path.join(tmp, f"routes_{world}.csv"),
+    "--dtype", "float32", "--seed", "0"])
+json.dump(out, open(os.path.join(tmp, f"routes_{world}_{pid}.json"), "w"))
+MH.shutdown()
+print("routes done", pid)
+'''
+
+
+@pytest.fixture(scope="module")
+def routes(runs):
+    """Every driver for one step under "pallas-train" with the kernel
+    routes' switches set, at ``--n_model 2`` in two processes and without
+    tensor parallelism in one, on ``runs``' stores and checkpoint."""
+    tmp = runs["tmp"]
+    cfgp = tmp / "tiny_routes.json"
+    cfgp.write_text(json.dumps(dict(TINY,
+                                    use_pallas_attention="pallas-train")))
+    meta = json.loads((tmp / "meta.json").read_text())
+    (tmp / "meta.json").write_text(json.dumps(dict(
+        meta, routes_config=str(cfgp))))
+    spawn(ROUTES, [f"127.0.0.1:{free_port()}", tmp, 2], 2, tmp)
+    spawn(ROUTES, ["", tmp, 1], 1, tmp)
+    return {w: [json.loads((tmp / f"routes_{w}_{p}.json").read_text())
+                for p in range(w)] for w in (1, 2)}
+
+
 @pytest.mark.parametrize("driver", ["pretrain", "itm", "vqa", "nlvr2"])
-def test_tensor_parallelism_still_raises(tmp_path, driver, monkeypatch):
-    """Tensor parallelism is ported (tests/test_torch_tp.py); what it
-    leaves out, here kernel #7's route, raises by name before any group
-    starts."""
-    monkeypatch.setenv("UC2_ATTN_V2", "1")
-    mod = {"pretrain": pretrain, "itm": itm, "vqa": vqa,
-           "nlvr2": nlvr2}[driver]
-    opts = mod.parse_with_config(mod.build_parser(), [
-        "--device", "cpu", "--n_model", "2", "--output_dir",
-        str(tmp_path), "--coordinator_address", f"127.0.0.1:{free_port()}",
-        "--num_processes", "2", "--process_id", "0"])
-    with pytest.raises(NotImplementedError, match="UC2_ATTN_V2"):
-        mod.main(opts)
+def test_tensor_parallel_drivers_take_every_route(routes, driver):
+    """Under ``--n_model 2`` the drivers take the kernel routes that raised
+    before: the training FFN block in its partial modes in every layer of
+    the step, #7's partial mode in the inference that follows (validation,
+    or nlvr2's prediction sweep); the losses are the one-process run's,
+    which takes the whole kernels, at 1e-4, the same on both processes."""
+    one = routes[1][0][driver]
+    assert one["losses"]
+    assert set(one["calls"]) == {"fused_attn_block_v2",
+                                 "fused_ffn_block_train"}
+    for p in (0, 1):
+        got = routes[2][p][driver]
+        assert set(got["calls"]) == {"fused_attn_block_v2_partial",
+                                     "fused_ffn_block_train_partial"}
+        assert got["calls"]["fused_ffn_block_train_partial"] == \
+            one["calls"]["fused_ffn_block_train"]
+        assert got["calls"]["fused_attn_block_v2_partial"] == \
+            one["calls"]["fused_attn_block_v2"]
+        assert [x[:-1] for x in got["losses"]] == \
+            [x[:-1] for x in one["losses"]]
+        np.testing.assert_allclose([x[-1] for x in got["losses"]],
+                                   [x[-1] for x in one["losses"]],
+                                   rtol=1e-4, atol=1e-4)
+    assert routes[2][0][driver]["losses"] == routes[2][1][driver]["losses"]

@@ -17,17 +17,24 @@ which two processes do not divide:
   1e-4; the mlm step at dropout 0.1 against the port's one-process step
   at 1e-5, the first layer's attention masks the same bit for bit, and
   under remat bit for bit the step without it;
+* the kernel routes at ``n_model 2``: scores under "fused-force" with
+  ``UC2_ATTN_V2=1`` (#7's partial mode in every layer) against the
+  reference's under the same; one "pallas-train" mlm step with
+  ``UC2_FFN_TRAIN=1`` (#9/#10's partial modes) against the reference's
+  ``make_train_step`` with its Pallas FFN kernel, at 1e-4; int8 scores
+  against the reference's int8 scores at 1e-4 and bit for bit the port's
+  one-process int8 scores, every process of the group missing the weight
+  cache at the same calls;
 * four processes as 2 x 2 with ZeRO-1: the gathered gradients against the
   reference's on the whole batch at 1e-4, and the replicated parameters
   bit for bit across each model group after two steps; the retrieval
   eval's score matrix, striped over the two replicas and gathered from
   one process of each model group, one process's matrix within 1e-5;
-* the combinations left out raise by name.
+* a world that ``--n_model`` does not divide raises by name.
 
 Spawned processes import nothing of JAX."""
 
 import json
-import re
 
 import numpy as np
 import pytest
@@ -48,6 +55,7 @@ from uc2_torch.evalu.retrieval import score_matrix
 from uc2_torch.models import convert
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval, UC2ForNlvr2
 from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_tpu.models.finetune import UC2ForImageTextRetrieval as JaxRetrieval
 from uc2_torch.ops import fused_block as fb
 from uc2_torch.ops.attention import xla_attention
 from uc2_torch.ops.dropout import DropoutRng
@@ -69,6 +77,8 @@ CORPUS = dict(n_imgs=8, txt_per_img=2, vocab=VOCAB, img_dim=32, min_bb=3,
               max_bb=8, max_words=4, n_classes=11)
 WORDS = {lang: [f"{lang}{i}" for i in range(10)] for lang in ("en", "de")}
 LT, NB, B = 24, 8, 8
+# the scored batches of the kernel routes: joint L = 17 and 128
+SCORE_LENGTHS = ((10, 7), (62, 66))
 TOL = dict(rtol=1e-4, atol=1e-4)
 # case -> (task, LM-head CE chunks): the chunked CE streams each process's
 # vocabulary shard
@@ -292,6 +302,60 @@ if world == 2:
     out["remat_bitwise"] = (float(again["loss"]) == out["drop"]["loss"]
                             and all(np.array_equal(v, params[k])
                                     for k, v in whole(m).items()))
+    # the kernel routes (their plain versions here), each call counted
+    import os
+    from uc2_torch.models import encoder as E
+    from uc2_torch.models.finetune import UC2ForImageTextRetrieval
+    from uc2_torch.ops import int8
+    calls = {}
+    def counted(name):
+        fn = getattr(E, name)
+        def call(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        setattr(E, name, call)
+    for name in ("fused_attn_block_v2_partial", "fused_attn_block_partial",
+                 "fused_ffn_block_partial", "fused_ffn_block_train_partial",
+                 "int8_linear_row_parallel"):
+        counted(name)
+    rsd = torch.load(f"{tmp}/retrieval.pt", weights_only=True)
+    def retrieval(**kw):
+        r = UC2ForImageTextRetrieval(UC2Config(**dict(meta["cfg"], **kw)),
+                                     device="cpu")
+        r.load_state_dict(rsd)
+        return TP.place_model(r)
+    sb = torch.load(f"{tmp}/score_batches.pt", weights_only=True)
+    os.environ["UC2_ATTN_V2"] = "1"
+    with torch.no_grad():
+        v2 = [retrieval(use_pallas_attention="fused-force").scores(b).numpy()
+              for b in sb]
+    del os.environ["UC2_ATTN_V2"]
+    out["v2_calls"], calls = calls, {}
+    r8 = retrieval(quant="int8")
+    misses = []
+    with torch.no_grad():
+        for again in range(3):
+            if again == 2:     # an update: every weight quantizes again
+                for p in r8.parameters():
+                    p.mul_(1.0)
+            n0 = int8.weight_codes.misses
+            q8 = [r8.scores(b).numpy() for b in sb]
+            misses.append(int8.weight_codes.misses - n0)
+    out["int8_calls"], calls = calls, {}
+    out["int8_misses"] = misses
+    np.savez(f"{tmp}/routes_{rank}.npz", **{f"v2_{i}": s for i, s in
+                                            enumerate(v2)},
+             **{f"q8_{i}": s for i, s in enumerate(q8)})
+    os.environ["UC2_FFN_TRAIN"] = "1"
+    m = model(use_pallas_attention="pallas-train")
+    met = S.train_step(m, optimizer(m), local("mlm"), DropoutRng(7, "cpu"),
+                       task="mlm")
+    del os.environ["UC2_FFN_TRAIN"]
+    out["ffn_train"] = {k: float(v) for k, v in met.items()}
+    out["ffn_train_calls"] = calls
+    params = whole(m)
+    if rank == 0:
+        np.savez(f"{tmp}/params_ffn_train.npz", **params)
 else:
     m = model()
     met = S.accumulate_grads(S.make_loss_fn("mlm"), m, local("mlm"), None)
@@ -368,6 +432,9 @@ def tp(tmp_path_factory):
     retrieval = UC2ForImageTextRetrieval(UC2Config(**TINY), device="cpu",
                                          seed=2).state_dict()
     torch.save(retrieval, tmp / "retrieval.pt")
+    score_batches = [_score_batch(Lt, Nb) for Lt, Nb in SCORE_LENGTHS]
+    torch.save([{k: torch.from_numpy(v) for k, v in b.items()}
+                for b in score_batches], tmp / "score_batches.pt")
     (tmp / "meta.json").write_text(json.dumps(
         {"cfg": TINY, "tasks": TASKS, "valid_ids": valid_ids,
          "lr": LR, "clip": CLIP, **stores}))
@@ -377,11 +444,29 @@ def tp(tmp_path_factory):
            for w, rs in ((2, range(2)), (4, range(4))) for r in rs}
     return {"tmp": tmp, "batches": batches, "sd": sd, "out": out,
             "valid_ids": np.asarray(valid_ids), "stores": stores,
-            "retrieval": retrieval}
+            "retrieval": retrieval, "score_batches": score_batches}
+
+
+def _score_batch(Lt, Nb, b=3, seed=1):
+    """A scored batch with padded text and regions
+    (tests/test_torch_int8.py's)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, VOCAB, (b, Lt))
+    ids[:, 0] = 0
+    ids[0, Lt - 3:] = 1
+    mask = np.ones((b, Lt + Nb), np.int64)
+    mask[0, Lt - 3:Lt] = 0
+    mask[1, Lt + Nb // 2:] = 0
+    return {"input_ids": ids,
+            "img_feat": rng.standard_normal((b, Nb, TINY["img_dim"])).astype(
+                np.float32),
+            "img_pos_feat": rng.random((b, Nb, 7)).astype(np.float32),
+            "attn_mask": mask}
 
 
 def _jax_batch(b):
-    return {k: jax.numpy.asarray(v) for k, v in b.items()}
+    return {k: jax.numpy.asarray(v, jax.numpy.int32 if v.dtype == np.int64
+                                 else None) for k, v in b.items()}
 
 
 @pytest.mark.parametrize("case", list(TASKS))
@@ -494,30 +579,96 @@ def test_a_two_by_two_grid_with_zero1(tp):
     assert len(t_ids) == 12 and set(log) >= {"img_r1", "txt_r1"}
 
 
-# ----------------------------------------------------------- refusals
-def test_what_is_left_out_raises_by_name(monkeypatch):
-    from uc2_torch import itm, pretrain
-    from uc2_torch.models.encoder import refuse_under_tp
-    opts = pretrain.parse_with_config(pretrain.build_parser(),
-                                      ["--n_model", "2"])
-    for env, name in (("UC2_ATTN_V2", "UC2_ATTN_V2"),
-                      ("UC2_FFN_TRAIN", "UC2_FFN_TRAIN=1")):
+# ------------------------------------------------------- kernel routes
+def _reference_scores(tp, monkeypatch, env=None, **kw):
+    """The reference's scores of the scored batches under ``kw``, each one
+    ``jax.jit`` program (its Pallas kernels in interpret mode)."""
+    if env:
         monkeypatch.setenv(env, "1")
-        with pytest.raises(NotImplementedError, match=re.escape(name)):
-            pretrain.refuse_unported(opts)
-        cfg = UC2Config(**dict(TINY, use_pallas_attention="pallas-train"))
-        with pytest.raises(NotImplementedError, match=re.escape(name)):
-            refuse_under_tp(cfg, training=True)
-        monkeypatch.delenv(env)
-    iopts = itm.parse_with_config(itm.build_parser(),
-                                  ["--n_model", "2", "--quant", "int8"])
-    with pytest.raises(NotImplementedError, match="--quant int8"):
-        pretrain.refuse_unported(iopts)
-    with pytest.raises(NotImplementedError, match="--quant int8"):
-        refuse_under_tp(UC2Config(**dict(TINY, quant="int8")), False)
-    pretrain.refuse_unported(pretrain.parse_with_config(
-        pretrain.build_parser(), ["--n_model", "1"]))
-    # a width the world does not divide, without a process group
+    params = jax.tree_util.tree_map(np.asarray,
+                                    convert.params_to_jax(tp["retrieval"]))
+    jm = JaxRetrieval(JaxConfig(**dict(TINY, **kw)))
+    return [np.asarray(jax.jit(jm.scores)(params, _jax_batch(b)))
+            for b in tp["score_batches"]]
+
+
+def test_attn_v2_scores_under_tensor_parallelism(tp, monkeypatch):
+    """"fused-force" with ``UC2_ATTN_V2=1`` at n_model 2: #7's partial
+    mode and #3's in every layer of both processes (no #2), the scores
+    the reference's under the same routing at 1e-4."""
+    want = _reference_scores(tp, monkeypatch, "UC2_ATTN_V2",
+                             use_pallas_attention="fused-force")
+    n = len(SCORE_LENGTHS) * TINY["num_hidden_layers"]
+    for r in (0, 1):
+        assert tp["out"][(2, r)]["v2_calls"] == {
+            "fused_attn_block_v2_partial": n, "fused_ffn_block_partial": n}
+        got = np.load(tp["tmp"] / f"routes_{r}.npz")
+        for i, w in enumerate(want):
+            np.testing.assert_allclose(got[f"v2_{i}"], w, **TOL)
+
+
+def test_int8_scores_under_tensor_parallelism(tp, monkeypatch):
+    """``quant="int8"`` at n_model 2: the row-parallel products take the
+    maxima over the model group and sum the int32 sums exactly, so the
+    scores are the port's one-process int8 scores bit for bit and the
+    reference's at 1e-4; both processes miss the weight cache at the
+    same calls (every weight at the first batches and after an update,
+    none in between)."""
+    want = _reference_scores(tp, monkeypatch, quant="int8")
+    one = UC2ForImageTextRetrieval(UC2Config(**dict(TINY, quant="int8")),
+                                   device="cpu")
+    one.load_state_dict(tp["retrieval"])
+    n_w = 4 * TINY["num_hidden_layers"]
+    for r in (0, 1):
+        o = tp["out"][(2, r)]
+        assert o["int8_misses"] == [n_w, 0, n_w]
+        assert o["int8_calls"] == {"int8_linear_row_parallel": 3 * n_w}
+        got = np.load(tp["tmp"] / f"routes_{r}.npz")
+        for i, (w, b) in enumerate(zip(want, tp["score_batches"])):
+            with torch.no_grad():
+                mine = one.scores({k: torch.from_numpy(v)
+                                   for k, v in b.items()}).numpy()
+            assert np.array_equal(got[f"q8_{i}"], mine)
+            np.testing.assert_allclose(got[f"q8_{i}"], w, **TOL)
+
+
+def test_ffn_train_step_under_tensor_parallelism(tp, monkeypatch):
+    """One mlm step under "pallas-train" with ``UC2_FFN_TRAIN=1`` at
+    n_model 2 and dropout 0 (#9/#10's partial modes in every layer)
+    against the reference's ``make_train_step`` under the same (its
+    training attention and FFN kernels in interpret mode): the loss, the
+    global norm and every updated parameter at 1e-4."""
+    monkeypatch.setenv("UC2_FFN_TRAIN", "1")
+    params = jax.tree_util.tree_map(np.asarray,
+                                    convert.params_to_jax(tp["sd"]))
+    jm = JaxPretraining(JaxConfig(**dict(
+        TINY, use_pallas_attention="pallas-train")))
+    tx = jax_optim.build_optimizer(params, jax_optim.constant(LR),
+                                   grad_norm=CLIP)
+    step = jax.jit(jax_step.make_train_step(jm, "mlm", tx, donate=False))
+    state, metrics = step(jax_step.create_train_state(params, tx),
+                          _jax_batch(tp["batches"]["mlm"]),
+                          jax.random.PRNGKey(0))
+    want = convert.params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                          state.params))
+    got = np.load(tp["tmp"] / "params_ffn_train.npz")
+    assert set(got.files) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k].numpy(), err_msg=k, **TOL)
+    for r in (0, 1):
+        o = tp["out"][(2, r)]
+        assert o["ffn_train_calls"] == {
+            "fused_ffn_block_train_partial": TINY["num_hidden_layers"]}
+        np.testing.assert_allclose(o["ffn_train"]["loss"],
+                                   float(metrics["loss"]), **TOL)
+        np.testing.assert_allclose(o["ffn_train"]["grad_norm"],
+                                   float(metrics["grad_norm"]), **TOL)
+    assert tp["out"][(2, 0)]["ffn_train"] == tp["out"][(2, 1)]["ffn_train"]
+
+
+def test_a_world_that_n_model_does_not_divide_raises():
+    """Without a process group (a world of one) ``--n_model 2`` raises by
+    name, and the grid stays at one process a model."""
     with pytest.raises(ValueError, match="--n_model 2 does not divide"):
         M.init_grid(2)
     assert M.model_count() == 1

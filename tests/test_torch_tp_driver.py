@@ -14,7 +14,10 @@ fp32, dropout 0) from one UC2 checkpoint:
 * its milestone (the whole model, gathered) loaded without tensor
   parallelism gives the scores the model group gave, within 1e-5;
 * ``python -m uc2_torch.itm --n_model 2`` against ``itm.py --n_model 2``:
-  the batches bit for bit, and the validation R@K equal.
+  the batches bit for bit, and the validation R@K equal; with ``--quant
+  int8`` (the validation scored by the int8 serving products, their
+  maxima over the model group) the losses within 1e-4 and the validation
+  R@K equal.
 
 Port processes import no JAX."""
 
@@ -155,11 +158,16 @@ resumed = {"step": restored["step"], "run2": run2.step,
 iout = os.path.join(tmp, "itm_port")
 irun = itm.main(itm.parse_with_config(itm.build_parser(), [
     a.replace("{out}", iout) for a in meta["itm_argv"]] + dist))
-pickle.dump({"batches": first,
+itm_batches = list(rank_seen)
+qout = os.path.join(tmp, "itm8_port")
+qrun = itm.main(itm.parse_with_config(itm.build_parser(), [
+    a.replace("{out}", qout) for a in meta["itm_argv"]]
+    + ["--quant", "int8"] + dist))
+pickle.dump({"itm8_losses": qrun.losses, "batches": first,
              "losses": run1.losses + run2.losses, "scores": scores,
              "logits": logits, "eval_batches": batches, "resumed": resumed,
              "itm_val": irun.val, "itm_losses": irun.losses,
-             "itm_batches": rank_seen},
+             "itm_batches": itm_batches},
             open(os.path.join(tmp, f"port_{pid}.pkl"), "wb"))
 MH.shutdown()
 print("port done", pid)
@@ -241,8 +249,14 @@ def runs(tmp_path_factory):
         iout = str(tmp / "itm_ref")
         jax_itm.main(jax_itm.parse_with_config(jax_itm.build_parser(),
                                                _itm_argv(meta, iout)))
-        ref.update(itm_losses=list(losses), itm_batches=rank_seen,
+        ref.update(itm_losses=list(losses), itm_batches=list(rank_seen),
                    itm_val=_val_logs(iout))
+        del losses[:]
+        qout = str(tmp / "itm8_ref")
+        jax_itm.main(jax_itm.parse_with_config(
+            jax_itm.build_parser(), _itm_argv(meta, qout)
+            + ["--quant", "int8"]))
+        ref.update(itm8_losses=list(losses), itm8_val=_val_logs(qout))
     finally:
         mp.undo()
         port_run.join()
@@ -253,7 +267,8 @@ def runs(tmp_path_factory):
         with open(tmp / f"port_{p}.pkl", "rb") as f:
             port.append(pickle.load(f))
     return {"tmp": tmp, "ref": ref, "port": port,
-            "port_itm_val": _val_logs(str(tmp / "itm_port"))}
+            "port_itm_val": _val_logs(str(tmp / "itm_port")),
+            "port_itm8_val": _val_logs(str(tmp / "itm8_port"))}
 
 
 def _val_logs(out):
@@ -330,4 +345,18 @@ def test_itm_validation_matches_the_reference(runs):
                                    atol=1e-4)
     want = runs["ref"]["itm_val"]
     assert want and runs["port_itm_val"] == want
+    assert {k for _, k in want} >= {"val_img_r1", "val_img_r10"}
+
+
+def test_itm_int8_validation_matches_the_reference(runs):
+    """``--quant int8 --n_model 2``: the training in fp32 as above, the
+    validation's scores through the int8 row-parallel products; the
+    losses within 1e-4 and the validation R@K equal to ``itm.py``'s."""
+    for pid in (0, 1):
+        np.testing.assert_allclose([v for _, v in
+                                    runs["port"][pid]["itm8_losses"]],
+                                   runs["ref"]["itm8_losses"], rtol=1e-4,
+                                   atol=1e-4)
+    want = runs["ref"]["itm8_val"]
+    assert want and runs["port_itm8_val"] == want
     assert {k for _, k in want} >= {"val_img_r1", "val_img_r10"}

@@ -46,8 +46,10 @@ def spawn(script, args, n, tmp_path, timeout=TIMEOUT):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {r} failed:\n{out[-4000:]}"
+    failed = [f"process {r} failed (rc {p.returncode}):\n{out[-4000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    assert not failed, "\n".join(failed)
     return outs
 
 

@@ -19,7 +19,9 @@
 //                     its second without the residual);
 //   load_heads        the producer's Q boxes and K/V ring of #2 and #8;
 //   HeadSplit         which heads each block and warpgroup computes when
-//                     a launch holds fewer than 12 (#2's partial mode).
+//                     a launch holds fewer than 12 (#2's and #7's partial
+//                     modes);
+//   store_partial     the partial modes' fp32 sums, without the epilogue.
 // Numbers as the TPU kernels compute them: fp32 scores * 1/sqrt(64) + bias
 // (in base 2: s * scale * log2 e + bias * log2 e), the softmax normalised
 // in fp32 and then rounded to bf16, the bf16 context of each head, fp32
@@ -68,7 +70,7 @@ struct RowKV {
 };
 
 // The heads of a launch over nh of them (nh = 12: a whole layer; fewer:
-// #2's partial mode, a tensor-parallel shard): column half `half` computes
+// #2's and #7's partial modes, a tensor-parallel shard): column half `half` computes
 // count(half) heads from first(half), its warpgroup 0 the first half of
 // them rounded up and warpgroup 1 the rest; the out-projection of a half
 // takes its own heads' k-boxes first, then the other half's. At nh = 12
@@ -442,6 +444,27 @@ __device__ __forceinline__ void residual_ln_store(
     for (int j = 0; j < 3; ++j) tma_store_3d(omap, stage_s + (3 * w + j) * BOX, col0 + 64 * j, q0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// The partial modes' end (#2's and #7's, tensor parallelism): warpgroup
+// w's fp32 sums y of column half `half` for the 64-row query tile at q0 of
+// batch row b, stored to out [B, L, 768] as float2 pairs, rows >= L
+// skipped
+__device__ __forceinline__ void store_partial(const float (&y)[2][48], int half, int w,
+                                              float* __restrict__ out, int b, int L, int q0) {
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int r = wl * 16 + g, col0 = 384 * half + 192 * w;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = q0 + r + 8 * hi;
+    if (row < L) {
+      float* orow = out + ((size_t)b * L + row) * HIDDEN + col0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 24; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(y[j / 12][4 * (j % 12) + 2 * hi], y[j / 12][4 * (j % 12) + 2 * hi + 1]);
+    }
   }
 }
 

@@ -37,6 +37,18 @@
 // R = 20736 (0.31 ms at 3.35 TB/s), which the products' epilogues and
 // loads overlap only across blocks. gelu'(a) is stored rather than a: the
 // same bytes, and step 4's epilogue then needs no erf.
+//
+// The partial mode (uc2_ffn_train_bwd_partial; tensor parallelism over T
+// processes, the backward of #9's partial mode): W1 and W2 hold F = F / T
+// of the intermediate columns, and the caller hands in dy_pre [R, H] fp32,
+// the gradient of the masked partial sum (autograd of the LayerNorm and
+// the residual behind the model group's all-reduce, the same on every
+// process). The chain keeps step 1, drops step 2 and turns the row pass
+// into a mask pass: dy2 = keep ? dy_pre / (1 - rate) : 0 in bf16 with its
+// tiles' column sums (db2); steps 4, 6 and 7 as above; step 5 writes
+// dx_part = bf16(da . W1), which the caller sums over the group (the
+// residual's dy_pre reaches dx through autograd). Five products of
+// 2 R H F each: 244.6 GFLOP at R = 20736, F = 1536 (0.247 ms).
 #include "gemm.cuh"
 #include "philox.cuh"
 
@@ -154,7 +166,9 @@ struct DgeluEpi {
   }
 };
 
-// 5. dx = bf16(acc + dy_pre), [M, HIDDEN]
+// 5. dx = bf16(acc + dy_pre), [M, HIDDEN]; without ADD (the partial
+//    mode) dx = bf16(acc), dy_pre not read
+template <bool ADD>
 struct ResidualEpi {
   const float* dy_pre;
   bf16* dx;
@@ -168,9 +182,14 @@ struct ResidualEpi {
         if (r >= M) continue;
         const size_t o = (size_t)r * HIDDEN + col;
         float d[8];
-        load8f(d, dy_pre + o);
+        if constexpr (ADD) {
+          load8f(d, dy_pre + o);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] += v[k][hi][i];
+          for (int i = 0; i < 8; ++i) d[i] += v[k][hi][i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) d[i] = v[k][hi][i];
+        }
         store8h(dx + o, d);
       }
     }
@@ -317,6 +336,54 @@ __global__ void __launch_bounds__(RP_THREADS)
   }
 }
 
+// The partial mode's step 3: dy_pre [R, H] fp32 in; dy2 = keep ? dy_pre
+// keep_scale : 0 as bf16 [R, H] out, and the tile's column sums of the
+// fp32 dy2 (db2) in part_db2[tiles][H]; the rows, lanes and mask of
+// rows_kernel
+template <bool DROP>
+__global__ void __launch_bounds__(RP_THREADS)
+    mask_rows_kernel(const float* __restrict__ dy_pre, bf16* __restrict__ dy2,
+                     float* __restrict__ part_db2, int R, Dropout dr) {
+  extern __shared__ float red[];  // [RP_WARPS][HIDDEN]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float p_db2[24];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) p_db2[i] = 0.f;
+
+  for (int i = 0; i < RP_ROWS / RP_WARPS; ++i) {
+    const int r = blockIdx.x * RP_ROWS + warp * (RP_ROWS / RP_WARPS) + i;
+    if (r >= R) break;
+    const size_t ro = (size_t)r * HIDDEN;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int col = 256 * j + 8 * lane;
+      float q[8];
+      load8f(q, dy_pre + ro + col);
+      if constexpr (DROP) {
+        const uint32_t k = ffn_keep_bits4(dr.seed, dr.thresh, (uint32_t)col >> 2, (uint32_t)r) |
+                           ffn_keep_bits4(dr.seed, dr.thresh, ((uint32_t)col >> 2) + 1,
+                                          (uint32_t)r) << 4;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q[e] = (k >> e) & 1u ? q[e] * dr.keep_scale : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p_db2[8 * j + e] += q[e];
+      store8h(dy2 + ro + col, q);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[warp * HIDDEN + 256 * j + 8 * lane + e] = p_db2[8 * j + e];
+  __syncthreads();
+  for (int col = threadIdx.x; col < HIDDEN; col += RP_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < RP_WARPS; ++w) s += red[w * HIDDEN + col];
+    part_db2[(size_t)blockIdx.x * HIDDEN + col] = s;
+  }
+}
+
 // ------------------------------------------------------------ 7. partials
 // out[i] = sum over p of part[p * n + i], each in a fixed order. Few
 // partials over many outputs (the weight gradients' row splits): a thread
@@ -383,7 +450,8 @@ struct Workspace {
   size_t h, gp, da, y2, dy2, pb1, pvec, pw1, pw2, total;
 };
 
-inline Workspace workspace(int rows, int F, int max_splits) {
+// partial: the partial mode's (no y2; one vector's tile sums)
+inline Workspace workspace(int rows, int F, int max_splits, bool partial) {
   const size_t R = rows, m_tiles = (rows + gemm::BM - 1) / gemm::BM,
                r_tiles = (rows + RP_ROWS - 1) / RP_ROWS, S = wgrad_splits(rows, max_splits);
   Workspace w{};
@@ -396,10 +464,10 @@ inline Workspace workspace(int rows, int F, int max_splits) {
   w.h = take(R * F * 2);
   w.gp = take(R * F * 4);
   w.da = take(R * F * 2);
-  w.y2 = take(R * HIDDEN * 4);
+  w.y2 = take(partial ? 0 : R * HIDDEN * 4);
   w.dy2 = take(R * HIDDEN * 2);
   w.pb1 = take(m_tiles * F * 4);
-  w.pvec = take(3 * r_tiles * HIDDEN * 4);
+  w.pvec = take((partial ? 1 : 3) * r_tiles * HIDDEN * 4);
   w.pw1 = take(S * F * HIDDEN * 4);
   w.pw2 = take(S * HIDDEN * F * 4);
   w.total = off;
@@ -410,9 +478,10 @@ inline Workspace workspace(int rows, int F, int max_splits) {
 }  // namespace uc2
 
 // Bytes of the backward's workspace for `rows` rows, width F and at most
-// `max_splits` row splits of the weight gradients.
-extern "C" long long uc2_ffn_train_bwd_workspace(int rows, int F, int max_splits) {
-  return (long long)uc2::ffn_bwd::workspace(rows, F, max_splits).total;
+// `max_splits` row splits of the weight gradients; partial != 0: of the
+// partial mode's.
+extern "C" long long uc2_ffn_train_bwd_workspace(int rows, int F, int max_splits, int partial) {
+  return (long long)uc2::ffn_bwd::workspace(rows, F, max_splits, partial != 0).total;
 }
 
 // x, dy [rows, 768] bf16; w1 [F, 768] and w2 [768, F] bf16 ([out, in]), F
@@ -429,7 +498,7 @@ extern "C" int uc2_ffn_train_bwd(const void* x, const void* w1, const void* b1,
   using namespace uc2;
   using namespace uc2::ffn_bwd;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Workspace w = workspace(rows, F, max_splits);
+  const Workspace w = workspace(rows, F, max_splits, false);
   uint8_t* base = static_cast<uint8_t*>(ws);
   bf16* h = reinterpret_cast<bf16*>(base + w.h);
   float* gp = reinterpret_cast<float*>(base + w.gp);
@@ -487,7 +556,7 @@ extern "C" int uc2_ffn_train_bwd(const void* x, const void* w1, const void* b1,
     return (int)err;
   // 5. dx = da W1 + dy_pre
   if ((err = gemm::run<0, 1>(da_k, w1_mn, rows, HIDDEN, F, 1,
-                             ResidualEpi{y2, static_cast<bf16*>(dx)}, st)) != cudaSuccess)
+                             ResidualEpi<true>{y2, static_cast<bf16*>(dx)}, st)) != cudaSuccess)
     return (int)err;
   // 6. dW1 = da^T x, dW2 = dy2^T h, straight into the outputs when unsplit
   float* o1 = S > 1 ? pw1 : static_cast<float*>(dw1);
@@ -507,6 +576,89 @@ extern "C" int uc2_ffn_train_bwd(const void* x, const void* w1, const void* b1,
                           static_cast<float*>(dgamma), st)) != cudaSuccess ||
       (err = sum_partials(pvec + (size_t)2 * r_tiles * HIDDEN, r_tiles, HIDDEN,
                           static_cast<float*>(dbeta), st)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaSuccess;
+}
+
+// The partial mode: x [rows, 768] bf16; w1 [F, 768] and w2 [768, F] bf16
+// (the shard's), F a multiple of 128; b1 [F] fp32; dy_pre [rows, 768] fp32
+// (16-byte aligned); writes dx [rows, 768] bf16 (da . W1 without dy_pre),
+// dw1 [F, 768], db1 [F], dw2 [768, F] and db2 [768] fp32; ws holds
+// uc2_ffn_train_bwd_workspace(rows, F, max_splits, 1) bytes. drop = 0
+// skips the mask. Returns the first CUDA error.
+extern "C" int uc2_ffn_train_bwd_partial(const void* x, const void* w1, const void* b1,
+                                         const void* w2, const void* dy_pre, void* dx, void* dw1,
+                                         void* db1, void* dw2, void* db2, void* ws, int rows,
+                                         int F, int max_splits, unsigned seed, unsigned thresh,
+                                         float keep_scale, int drop, void* stream) {
+  using namespace uc2;
+  using namespace uc2::ffn_bwd;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Workspace w = workspace(rows, F, max_splits, true);
+  uint8_t* base = static_cast<uint8_t*>(ws);
+  bf16* h = reinterpret_cast<bf16*>(base + w.h);
+  float* gp = reinterpret_cast<float*>(base + w.gp);
+  bf16* da = reinterpret_cast<bf16*>(base + w.da);
+  bf16* dy2 = reinterpret_cast<bf16*>(base + w.dy2);
+  float* pb1 = reinterpret_cast<float*>(base + w.pb1);
+  float* pvec = reinterpret_cast<float*>(base + w.pvec);
+  float* pw1 = reinterpret_cast<float*>(base + w.pw1);
+  float* pw2 = reinterpret_cast<float*>(base + w.pw2);
+  const int S = wgrad_splits(rows, max_splits);
+  const int m_tiles = (rows + gemm::BM - 1) / gemm::BM;
+  const int r_tiles = (rows + RP_ROWS - 1) / RP_ROWS;
+  constexpr int MASK_SMEM = RP_WARPS * HIDDEN * 4;
+
+  // a runtime call first (uc2_ffn_train_bwd says why)
+  auto mask_k = drop ? mask_rows_kernel<true> : mask_rows_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(mask_k, cudaFuncAttributeMaxDynamicSharedMemorySize, MASK_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap x_k, w1_k, dy2_k, w2_mn, da_k, w1_mn, da_mn, x_mn, dy2_mn, h_mn;
+  if (!gemm::operand_map(&x_k, x, HIDDEN, rows, false) ||
+      !gemm::operand_map(&w1_k, w1, HIDDEN, F, false) ||
+      !gemm::operand_map(&dy2_k, dy2, HIDDEN, rows, false) ||
+      !gemm::operand_map(&w2_mn, w2, F, HIDDEN, true) ||
+      !gemm::operand_map(&da_k, da, F, rows, false) ||
+      !gemm::operand_map(&w1_mn, w1, HIDDEN, F, true) ||
+      !gemm::operand_map(&da_mn, da, F, rows, true) ||
+      !gemm::operand_map(&x_mn, x, HIDDEN, rows, true) ||
+      !gemm::operand_map(&dy2_mn, dy2, HIDDEN, rows, true) ||
+      !gemm::operand_map(&h_mn, h, F, rows, true))
+    return (int)cudaErrorInvalidValue;
+
+  // 1. a = x W1^T + b1 -> h, gelu'(a)
+  if ((err = gemm::run<0, 0>(x_k, w1_k, rows, F, HIDDEN, 1,
+                             GeluEpi{static_cast<const float*>(b1), h, gp, F}, st)) !=
+      cudaSuccess)
+    return (int)err;
+  // 3. the mask pass
+  mask_k<<<r_tiles, RP_THREADS, MASK_SMEM, st>>>(static_cast<const float*>(dy_pre), dy2, pvec,
+                                                  rows, uc2::Dropout{seed, thresh, keep_scale});
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 4. dh = dy2 W2 -> da, db1 partials
+  if ((err = gemm::run<0, 1>(dy2_k, w2_mn, rows, F, HIDDEN, 1, DgeluEpi{gp, da, pb1, F}, st)) !=
+      cudaSuccess)
+    return (int)err;
+  // 5. dx_part = da W1
+  if ((err = gemm::run<0, 1>(da_k, w1_mn, rows, HIDDEN, F, 1,
+                             ResidualEpi<false>{nullptr, static_cast<bf16*>(dx)}, st)) !=
+      cudaSuccess)
+    return (int)err;
+  // 6. dW1 = da^T x, dW2 = dy2^T h
+  float* o1 = S > 1 ? pw1 : static_cast<float*>(dw1);
+  float* o2 = S > 1 ? pw2 : static_cast<float*>(dw2);
+  if ((err = gemm::run<1, 1>(da_mn, x_mn, F, HIDDEN, rows, S, StoreEpi{o1, HIDDEN}, st)) !=
+          cudaSuccess ||
+      (err = gemm::run<1, 1>(dy2_mn, h_mn, HIDDEN, F, rows, S, StoreEpi{o2, F}, st)) !=
+          cudaSuccess)
+    return (int)err;
+  // 7. the partials, in a fixed order
+  const long long wn = (long long)F * HIDDEN;
+  if ((S > 1 && ((err = sum_partials(pw1, S, wn, static_cast<float*>(dw1), st)) != cudaSuccess ||
+                 (err = sum_partials(pw2, S, wn, static_cast<float*>(dw2), st)) != cudaSuccess)) ||
+      (err = sum_partials(pb1, m_tiles, F, static_cast<float*>(db1), st)) != cudaSuccess ||
+      (err = sum_partials(pvec, r_tiles, HIDDEN, static_cast<float*>(db2), st)) != cudaSuccess)
     return (int)err;
   return (int)cudaSuccess;
 }

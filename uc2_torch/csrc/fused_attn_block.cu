@@ -251,19 +251,7 @@ __global__ void __launch_bounds__(Cfg2::THREADS, 1)
         return base + kb * BOX;
       },
       nh);
-  const int wl = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
-  const int r = wl * 16 + g, col0 = 384 * half + 192 * w;
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = q0 + r + 8 * hi;
-    if (row < L) {
-      float* orow = out + ((size_t)b * L + row) * HIDDEN + col0 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < 24; ++j)
-        *reinterpret_cast<float2*>(orow + 8 * j) =
-            make_float2(y[j / 12][4 * (j % 12) + 2 * hi], y[j / 12][4 * (j % 12) + 2 * hi + 1]);
-    }
-  }
+  store_partial(y, half, w, out, b, L, q0);
   cluster_sync();
 }
 

@@ -50,6 +50,18 @@
 // resident (102 of 132 SMs) at L = 162, 30 of four at L = 128; a second
 // row buffer, so that head k + 1 is written while head k is attended,
 // was no faster.
+//
+// The partial mode (PARTIAL, uc2_fused_attn_block_v2_partial; tensor
+// parallelism over T processes): the same cluster over nh = 12 / T of the
+// heads, W_qkv's rows of those heads ([q | k | v] of the shard, 3 nh 64
+// rows) and Wo's matching nh 64 input columns, writing the fp32 partial
+// ctx . Wo^T for the caller to sum over the model group (no bo, residual
+// or LayerNorm). Column half `half` takes HeadSplit{nh}'s heads of its
+// half (3 and 3 at T = 2, 2 and 1 at T = 4): the "K/V in" and "K/V free"
+// barriers count the tiles of one half only, so each half runs its own
+// head count, and the partner's context boxes arrive as that half's
+// count. Bound by operations: at B = 64, L = 162, nh = 6 it is 27.0 GFLOP
+// (0.027 ms) against 16 MB of x and 32 MB of the fp32 partial (0.015 ms).
 #include "attn_block.cuh"
 
 namespace uc2 {
@@ -82,6 +94,10 @@ struct Cfg7 {
 static_assert(Cfg7::OFF_BAR + Cfg7::N_BARS * 8 <= Cfg7::OFF_CTX, "barriers before the boxes");
 static_assert(WO_SLOT <= Cfg7::SLOT, "a Wo slot in a ring slot");
 
+// PARTIAL: a launch over nh heads (a shard); pout [B, L, 768] receives the
+// fp32 partial ctx . Wo^T, and omap, x, bo, gamma, beta are not read.
+// Without it nh is 12.
+template <bool PARTIAL>
 __global__ void __launch_bounds__(Cfg7::THREADS, 1)
     fused_attn_block_v2_kernel(const __grid_constant__ CUtensorMap xmap,
                                const __grid_constant__ CUtensorMap wmap,
@@ -90,8 +106,12 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
                                const bf16* __restrict__ x, const float* __restrict__ b_qkv,
                                const float* __restrict__ bias, const float* __restrict__ bo,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                               int L, int T, float scale_log2, float eps) {
+                               float* __restrict__ pout, int L, int T, int nh, float scale_log2,
+                               float eps) {
   using C = Cfg7;
+  // this half's heads h0 .. h0 + mine - 1 of the launch; part p (q, k, v)
+  // of head h is W_qkv's rows rows_part p + 64 h
+  const HeadSplit split{PARTIAL ? nh : 12};
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -108,6 +128,8 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
   const uint32_t partner = rank ^ 1;
   const int b = blockIdx.x / (2 * T), q0 = 64 * tile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h0 = split.half_first(half), mine = split.half_count(half);
+  const int rows_part = 64 * split.nh;
 
   for (int i = threadIdx.x; i < 64 * T; i += C::THREADS)
     sbias[i] = i < L ? bias[(size_t)b * L + i] * LOG2E : -INFINITY;
@@ -131,8 +153,8 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
     if (warp == 8 && lane == 0) {
       int s = 0;
-      for (int k = 0; k < 6; ++k) {
-        const int h = 6 * half + k;
+      for (int k = 0; k < mine; ++k) {
+        const int h = h0 + k;
         for (int ks = 0; ks < HIDDEN / 64; ++ks, ++s) {
           const int st = s % NS;
           mbar_wait(pempty + 8 * st, ((s / NS) & 1) ^ 1);
@@ -140,16 +162,16 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
           const uint32_t slot = ring + st * C::SLOT, bar = pfull + 8 * st;
           tma_load_3d(slot, &xmap, bar, 64 * ks, q0, b);
           for (int part = 0; part < 3; ++part)
-            tma_load_2d(slot + (1 + part) * BOX, &wmap, bar, 64 * ks, HIDDEN * part + 64 * h);
+            tma_load_2d(slot + (1 + part) * BOX, &wmap, bar, 64 * ks, rows_part * part + 64 * h);
         }
       }
       for (int e = s; e < s + NS; ++e)  // the ring given back, then Wo over it
         mbar_wait(pempty + 8 * (e % NS), ((e / NS) & 1) ^ 1);
-      load_wo(&wom, ring, NS, C::SLOT, wfull, wempty, half);
+      load_wo(&wom, ring, NS, C::SLOT, wfull, wempty, half, split.nh);
     }
     __syncwarp();
-    cluster_sync();  // the consumers' two LayerNorm exchanges
-    cluster_sync();
+    cluster_sync();  // the consumers' two LayerNorm exchanges (PARTIAL: the end)
+    if (!PARTIAL) cluster_sync();
     return;
   }
 
@@ -159,8 +181,8 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
   const int r = wl * 16 + g;  // this thread's rows: r and r + 8 of the tile
   if (w == 1) {  // projector
     int s = 0;
-    for (int k = 0; k < 6; ++k) {
-      const int h = 6 * half + k;
+    for (int k = 0; k < mine; ++k) {
+      const int h = h0 + k;
       float acc[2][48];
 #pragma unroll
       for (int p = 0; p < 2; ++p)
@@ -197,7 +219,7 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
         for (int cc = 0; cc < 12; ++cc) {
           const int c = WO_ROWS * p + 8 * cc + 2 * t, part = c >> 6, d = c & 63;
           const float2 bb =
-              *reinterpret_cast<const float2*>(b_qkv + HIDDEN * part + 64 * h + d);
+              *reinterpret_cast<const float2*>(b_qkv + rows_part * part + 64 * h + d);
           const uint32_t dst = part == 0 ? ctx + k * BOX
                                          : kv + ((part - 1) * T + tile) * BOX;
           uint8_t* dp = smem + (dst - base) + (((d >> 3) ^ g) << 4) + 4 * t;
@@ -222,7 +244,7 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
       }
     }
   } else {  // attender
-    for (int k = 0; k < 6; ++k) {
+    for (int k = 0; k < mine; ++k) {
       spin_wait(kvin, k & 1);
       attend(ctx + k * BOX, smem + (ctx - base) + k * BOX, sbias, T, scale_log2,
              RowKV{kv, kv + T * BOX, T});
@@ -230,28 +252,37 @@ __global__ void __launch_bounds__(Cfg7::THREADS, 1)
       if (wl == 0 && lane == 0)  // head k's row buffers free in this block
         for (int j = 0; j < T; ++j) mbar_arrive_cluster(peer_addr(kvfree, 2 * j + half));
     }
-    // the six context boxes into the partner's row buffer, once it is free
+    // the half's (six) context boxes into the partner's row buffer, once it
+    // is free
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
     if (wl == 0 && lane == 0) {
       mbar_arrive_cluster(peer_addr(pready, partner));
       spin_wait(pready, 0);
       const uint32_t pbar = peer_addr(pctx, partner);
-      mbar_arrive_expect_tx_cluster(pbar, 6 * BOX);
-      for (int k = 0; k < 6; ++k)
+      mbar_arrive_expect_tx_cluster(pbar, mine * BOX);
+      for (int k = 0; k < mine; ++k)
         bulk_copy_to_peer(peer_addr(kv + k * BOX, partner), ctx + k * BOX, BOX, pbar);
     }
   }
-  asm volatile("bar.sync 3, 256;\n" ::: "memory");  // this block's six boxes are in
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");  // this block's boxes are in
 
   float y[2][48];
-  out_projection(y, ring, NS, C::SLOT, wfull, wempty, w, [&](int i) {
-    if (i < 6) return ctx + i * BOX;
-    if (i == 6) spin_wait(pctx, 0);
-    return kv + (i - 6) * BOX;
-  });
-  residual_ln_store(y, half, w, bo, x + ((size_t)b * L + q0) * HIDDEN, L - q0, gamma, beta, eps,
-                    red, partner, smem + (ctx - base), ctx, &omap, q0, b);
+  out_projection(
+      y, ring, NS, C::SLOT, wfull, wempty, w,
+      [&](int i) {
+        if (i < mine) return ctx + i * BOX;
+        if (i == mine) spin_wait(pctx, 0);
+        return kv + (i - mine) * BOX;
+      },
+      split.nh);
+  if constexpr (PARTIAL) {
+    store_partial(y, half, w, pout, b, L, q0);
+    cluster_sync();  // every copy between the blocks has landed
+  } else {
+    residual_ln_store(y, half, w, bo, x + ((size_t)b * L + q0) * HIDDEN, L - q0, gamma, beta,
+                      eps, red, partner, smem + (ctx - base), ctx, &omap, q0, b);
+  }
 }
 
 }  // namespace blk
@@ -276,10 +307,38 @@ extern "C" int uc2_fused_attn_block_v2(const void* x, const void* w_qkv, const v
   if (!rows_map_3d(&xm, x, B, L) || !map_2d(&wm, w_qkv, HIDDEN, 3 * HIDDEN, 64) ||
       !map_2d(&wom, wo, HIDDEN, HIDDEN, blk::WO_ROWS) || !rows_map_3d(&om, out, B, L))
     return (int)cudaErrorInvalidValue;
-  return launch_clusters(blk::fused_attn_block_v2_kernel, 2 * T * B, C::THREADS, 2 * T,
+  return launch_clusters(blk::fused_attn_block_v2_kernel<false>, 2 * T * B, C::THREADS, 2 * T,
                          C::smem(T), static_cast<cudaStream_t>(stream), xm, wm, wom, om,
                          static_cast<const bf16*>(x), static_cast<const float*>(b_qkv),
                          static_cast<const float*>(bias), static_cast<const float*>(bo),
-                         static_cast<const float*>(gamma), static_cast<const float*>(beta), L,
-                         T, scale * LOG2E, eps);
+                         static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                         static_cast<float*>(nullptr), L, T, 12, scale * LOG2E, eps);
+}
+
+// #7's partial mode: x [B, L, 768] bf16 as above; w_qkv [3 n 64, 768] bf16
+// (the shard's rows: q of its n heads, then k, then v), b_qkv [3 n 64]
+// fp32, 1 <= n <= 12; bias [B, L] fp32; wo [768, n 64] bf16 (the shard's
+// input columns of Wo, [out, in]), 16-byte aligned; out [B, L, 768] fp32
+// contiguous, 8-byte aligned: ctx . Wo^T, no bias, residual or LayerNorm.
+// Returns cudaGetLastError().
+extern "C" int uc2_fused_attn_block_v2_partial(const void* x, const void* w_qkv,
+                                               const void* b_qkv, const void* bias,
+                                               const void* wo, void* out, int B, int L, int n,
+                                               float scale, void* stream) {
+  using namespace uc2;
+  using namespace uc2::stream;
+  using C = blk::Cfg7;
+  if (B < 1 || L < 1 || L > MAX_LEN || n < 1 || n * HEAD_DIM > HIDDEN)
+    return (int)cudaErrorInvalidValue;
+  const int T = (L + 63) / 64;
+  CUtensorMap xm, wm, wom, om;
+  if (!rows_map_3d(&xm, x, B, L) || !map_2d(&wm, w_qkv, HIDDEN, 3 * n * HEAD_DIM, 64) ||
+      !map_2d(&wom, wo, n * HEAD_DIM, HIDDEN, blk::WO_ROWS) || !rows_map_3d(&om, x, B, L))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(blk::fused_attn_block_v2_kernel<true>, 2 * T * B, C::THREADS, 2 * T,
+                         C::smem(T), static_cast<cudaStream_t>(stream), xm, wm, wom, om,
+                         static_cast<const bf16*>(x), static_cast<const float*>(b_qkv),
+                         static_cast<const float*>(bias), static_cast<const float*>(nullptr),
+                         static_cast<const float*>(nullptr), static_cast<const float*>(nullptr),
+                         static_cast<float*>(out), L, T, n, scale * LOG2E, 0.f);
 }

@@ -90,6 +90,15 @@
 // straight from the accumulators, no epilogue. Bound by operations: at
 // 10368 rows and F / T = 1536 it is 48.9 GFLOP (0.049 ms) against 52.5 MB
 // (0.016 ms), and the walk's weight stream halves with F.
+//
+// #9's partial mode (DROP and PARTIAL, uc2_ffn_train_fwd_partial): the
+// training forward on a shard. Dropout is elementwise and linear and its
+// mask is keyed on the global (row, column of H), which every shard sees
+// whole, so each shard applies the mask to its own partial: it writes
+// keep ? (y [+ b2]) / (1 - rate) : 0, b2 added by one shard only (b2 may
+// be null), and the sum over the shards is the masked whole product up
+// to the order of fp32 sums. At rate 0 without b2 the launch is #3's
+// partial mode, bit for bit.
 #include "ffn_walk.cuh"
 
 namespace uc2 {
@@ -97,10 +106,11 @@ namespace ffn {
 
 // PARTIAL (#3's partial mode, for tensor parallelism): W1 and W2 hold F
 // of the layer's intermediate columns, and the kernel writes the fp32
-// partial product y = bf16(gelu_erf(x . W1^T + b1)) . W2^T to pout
-// [rows, 768] after the walk (the caller sums the partials over the model
-// group, then adds b2 and the residual and normalises); omap, b2, gamma,
-// beta and dr are not read.
+// partial product y = bf16(gelu_erf(x . W1^T + b1)) . W2^T (+ b2 where b2
+// is not null) to pout [rows, 768] after the walk (the caller sums the
+// partials over the model group, then adds b2 and the residual and
+// normalises); with DROP (#9's partial mode) masked and scaled as the
+// whole epilogue masks y + b2. omap, gamma and beta are not read.
 template <bool DROP, bool PARTIAL = false>
 __global__ void __launch_bounds__(Cfg::THREADS, 1)
     fused_ffn_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -110,7 +120,6 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
                      const float* __restrict__ b2, const float* __restrict__ gamma,
                      const float* __restrict__ beta, int F, float eps, Dropout dr,
                      float* __restrict__ pout, int rows) {
-  static_assert(!(DROP && PARTIAL), "the partial mode has no dropout");
   using C = Cfg;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -164,15 +173,32 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1)
   if constexpr (PARTIAL) {
     const int col0 = C::OUT_BLOCK * rank + C::OUT_WG * wg;
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = r0 + r + 8 * hi;
-      if (row < rows) {
-        float* orow = pout + (size_t)row * HIDDEN + col0 + 2 * t;
+    for (int j = 0; j < 24; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      uint32_t keep[2] = {3u, 3u};  // rows r, r + 8: the keep bits of col, col + 1
+      if constexpr (DROP) {  // drawn as the whole epilogue draws them
+        const uint32_t mine = ffn_keep_bits4(dr.seed, dr.thresh, (uint32_t)col >> 2,
+                                             (uint32_t)(r0 + r + 8 * (t & 1)));
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+        keep[0] = ((t & 1) ? other : mine) >> (col & 3);
+        keep[1] = ((t & 1) ? mine : other) >> (col & 3);
+      }
 #pragma unroll
-        for (int j = 0; j < 24; ++j)
-          *reinterpret_cast<float2*>(orow + 8 * j) =
-              make_float2(y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi],
-                          y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi + 1]);
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = r0 + r + 8 * hi;
+        float v0 = y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi];
+        float v1 = y[j / (C::ACC / 4)][4 * (j % (C::ACC / 4)) + 2 * hi + 1];
+        if (b2 != nullptr) {
+          const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+          v0 += bb.x;
+          v1 += bb.y;
+        }
+        if constexpr (DROP) {
+          v0 = (keep[hi] & 1u) ? v0 * dr.keep_scale : 0.f;
+          v1 = (keep[hi] & 2u) ? v1 * dr.keep_scale : 0.f;
+        }
+        if (row < rows)
+          *reinterpret_cast<float2*>(pout + (size_t)row * HIDDEN + col) = make_float2(v0, v1);
       }
     }
     // the producers' two barriers; the peer's last arrivals on this
@@ -353,4 +379,21 @@ extern "C" int uc2_fused_ffn_block_partial(const void* x, const void* w1, const 
   using namespace uc2;
   return ffn::run<false, true>(x, w1, b1, w2, nullptr, nullptr, nullptr, out, rows, F, 0.f,
                                Dropout{}, static_cast<cudaStream_t>(stream));
+}
+
+// #9's partial mode: as #3's, with b2 [768] fp32 added where it is not
+// null and the output dropout of uc2_ffn_train_fwd on the sum: out =
+// keep ? (y [+ b2]) * keep_scale : 0. drop = 0 skips the mask (rate 0).
+// Returns cudaGetLastError().
+extern "C" int uc2_ffn_train_fwd_partial(const void* x, const void* w1, const void* b1,
+                                         const void* w2, const void* b2, void* out, int rows,
+                                         int F, unsigned seed, unsigned thresh,
+                                         float keep_scale, int drop, void* stream) {
+  using namespace uc2;
+  const Dropout dr{seed, thresh, keep_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return drop ? ffn::run<true, true>(x, w1, b1, w2, b2, nullptr, nullptr, out, rows, F, 0.f, dr,
+                                     st)
+              : ffn::run<false, true>(x, w1, b1, w2, b2, nullptr, nullptr, out, rows, F, 0.f,
+                                      dr, st);
 }

@@ -41,8 +41,8 @@ training model's parameters); training and mining stay in ``--dtype``, as
 in itm.py.
 
 Tensor parallel under ``--n_model T`` as the pretraining driver
-(``uc2_torch/parallel/tensor.py``); raising by name, for what is not
-ported yet under it: ``--quant int8``, ``UC2_ATTN_V2``, ``UC2_FFN_TRAIN=1``.
+(``uc2_torch/parallel/tensor.py``), ``--quant int8``, ``UC2_ATTN_V2`` and
+``UC2_FFN_TRAIN=1`` included.
 ``--rng_impl`` chooses an XLA generator in the reference and changes
 nothing here.
 """
@@ -63,7 +63,6 @@ from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
 from uc2_torch.parallel import multihost as MH
 from uc2_torch.pretrain import load_any_checkpoint, step_seed
-from uc2_torch.pretrain import refuse_unported
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
                                     close_run_logs, open_run_logs)
 
@@ -75,7 +74,6 @@ def main(opts):
     at each log boundary), ``val`` ([(step, log)] of each validation),
     ``mined`` ([(step, seconds, files)] of each mining pass) and
     ``results`` ({test name: log})."""
-    refuse_unported(opts)
     dev = resolve_device(opts.device)
     is_main, _ = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed

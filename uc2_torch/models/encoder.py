@@ -35,11 +35,14 @@ input, attention runs on the local heads (the training kernels and the
 eager dropout draw those heads' masks of the whole layer), the
 out-projection and the FFN's second product are row-parallel, their fp32
 partial products summed by ``reduce_from_model`` before the bias,
-dropout, residual and LayerNorm; on the fused route #2 and #3 run in their
-partial modes and ``block_epilogue`` follows the sum. The word table is
-vocab-parallel (``vocab_parallel_embedding``). ``UC2_ATTN_V2``, the
-training FFN kernels (``UC2_FFN_TRAIN=1``) and ``quant="int8"`` read whole
-weights and raise by name under it.
+dropout, residual and LayerNorm; on the fused route #2 (or #7 under
+``UC2_ATTN_V2``) and #3 run in their partial modes and ``block_epilogue``
+follows the sum; in training under "pallas-train" with ``UC2_FFN_TRAIN=1``
+#9 and #10 run in theirs (``fused_ffn_block_train_partial``: each shard
+masks its own partial, and the residual and LayerNorm follow the sum);
+under ``quant="int8"`` the row-parallel products are
+``int8_linear_row_parallel`` (maxima over the model group, exact integer
+sums). The word table is vocab-parallel (``vocab_parallel_embedding``).
 
 ``remat="full"`` or ``"dots"`` recomputes each layer of a training call in
 the backward (``torch.utils.checkpoint``, non-reentrant; the reference's
@@ -67,15 +70,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from uc2_torch.config import UC2Config
 from uc2_torch.ops.attention import multi_head_attention, resolve_impl
 from uc2_torch.ops.dropout import dropout
-from uc2_torch.ops.ffn_train import ffn_train_enabled, fused_ffn_block_train
+from uc2_torch.ops.ffn_train import (ffn_train_enabled, fused_ffn_block_train,
+                                     fused_ffn_block_train_partial)
 from uc2_torch.ops.fused_block import (block_epilogue, fused_attn_block,
                                        fused_attn_block_partial,
                                        fused_attn_block_v2,
+                                       fused_attn_block_v2_partial,
                                        fused_block_profitable,
                                        fused_ffn_block,
                                        fused_ffn_block_partial,
-                                       fused_ffn_profitable)
-from uc2_torch.ops.int8 import int8_linear
+                                       fused_ffn_profitable, layer_norm_f32)
+from uc2_torch.ops.int8 import int8_linear, int8_linear_row_parallel
 from uc2_torch.parallel import tensor as TP
 
 QUANTS = ("none", "int8")
@@ -141,30 +146,14 @@ def gelu(x):
     return F.gelu(x, approximate="none")
 
 
-def refuse_under_tp(cfg, training: bool) -> None:
-    """Raise, naming it, for what reads whole weights when a model is cut
-    over a model group: ``UC2_ATTN_V2`` (#7 takes the whole QKV and output
-    weights), ``UC2_FFN_TRAIN=1`` in training (#9/#10 fuse the dropout,
-    residual and LayerNorm behind the row-parallel product) and
-    ``quant="int8"`` (a row-parallel shard's scales are taken over its
-    input columns only, so its codes differ from the whole product's)."""
-    if os.environ.get("UC2_ATTN_V2"):
-        raise NotImplementedError("uc2_torch: UC2_ATTN_V2 (kernel #7) under "
-                                  "--n_model > 1 is not ported")
-    if training and cfg.use_pallas_attention == "pallas-train" \
-            and ffn_train_enabled():
-        raise NotImplementedError("uc2_torch: UC2_FFN_TRAIN=1 (kernels #9 "
-                                  "and #10) under --n_model > 1 is not "
-                                  "ported")
-    if cfg.quant != "none":
-        raise NotImplementedError(f"uc2_torch: --quant {cfg.quant} under "
-                                  f"--n_model > 1 is not ported")
-
-
-def row_parallel(x, dense: "Dense"):
+def row_parallel(x, dense: "Dense", quant: str = "none"):
     """The row-parallel product of ``x`` (this process's input columns)
     and ``dense``'s weight shard, summed over the model group in fp32, plus
-    the bias; in the compute dtype."""
+    the bias; in the compute dtype. ``quant="int8"`` takes the int8
+    serving product of the whole rows (``int8_linear_row_parallel``)."""
+    if quant == "int8":
+        return int8_linear_row_parallel(x, dense.weight, dense.bias,
+                                        dense.dtype)
     part = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)).float()
     return (TP.reduce_from_model(part) + dense.bias.float()).to(dense.dtype)
 
@@ -367,27 +356,36 @@ class EncoderLayer(nn.Module):
 
     def _forward_tp(self, x, attn_bias, rng=None):
         """The layer on this process's shards (the module's docstring): the
-        routing of ``forward``, with #2 and #3 in their partial modes."""
+        routing of ``forward``, with #2 (#7 under ``UC2_ATTN_V2``), #3 and,
+        in training, #9/#10 in their partial modes."""
         cfg = self.config
-        refuse_under_tp(cfg, rng is not None)
         dt = compute_dtype(cfg)
         eps = cfg.block_layer_norm_eps
         rate = cfg.hidden_dropout_prob
         impl = resolve_impl(cfg.use_pallas_attention)
         force = impl == "fused-force"
-        fusable = rng is None and (force or impl in ("pallas",
-                                                     "pallas-train"))
+        fusable = (rng is None and cfg.quant == "none"
+                   and (force or impl in ("pallas", "pallas-train")))
         L = x.shape[1]
         od, ln = self.attention_output_dense, self.attention_output_LayerNorm
-        q, k, v = self.attention.heads(TP.copy_to_model(x))
         if fusable and (force or fused_block_profitable(
                 L, cfg.num_attention_heads)):
-            y = fused_attn_block_partial(q, k, v, attn_bias, od.weight.to(dt))
+            xa = TP.copy_to_model(x)
+            if os.environ.get("UC2_ATTN_V2"):
+                qkv = self.attention.qkv
+                n = qkv.weight.shape[0] // (3 * cfg.head_dim)
+                y = fused_attn_block_v2_partial(xa, qkv.weight.to(dt),
+                                                qkv.bias, attn_bias,
+                                                od.weight.to(dt), n)
+            else:
+                y = fused_attn_block_partial(*self.attention.heads(xa),
+                                             attn_bias, od.weight.to(dt))
             x = block_epilogue(TP.reduce_from_model(y), od.bias, x, ln.weight,
                                ln.bias, eps)
         else:
+            q, k, v = self.attention.heads(TP.copy_to_model(x))
             attn_out = row_parallel(self.attention.attend(q, k, v, attn_bias,
-                                                          rng), od)
+                                                          rng), od, cfg.quant)
             x = ln(dropout(attn_out, rate, rng) + x)
         inter, down = self.intermediate_dense, self.output_dense
         ln = self.output_LayerNorm
@@ -397,7 +395,14 @@ class EncoderLayer(nn.Module):
                                         down.weight.to(dt))
             return block_epilogue(TP.reduce_from_model(y), down.bias, x,
                                   ln.weight, ln.bias, eps)
-        h = row_parallel(gelu(inter(xf)), down)
+        if rng is not None and impl == "pallas-train" and ffn_train_enabled():
+            seed = rng.kernel_seed() if rate > 0 else 0
+            y = fused_ffn_block_train_partial(
+                xf, inter.weight.to(dt), inter.bias, down.weight.to(dt),
+                down.bias, seed, rate, TP.tp_rank() == 0)
+            return layer_norm_f32(TP.reduce_from_model(y) + x.float(),
+                                  ln.weight, ln.bias, eps).to(x.dtype)
+        h = row_parallel(gelu(inter(xf, cfg.quant)), down, cfg.quant)
         return ln(dropout(h, rate, rng) + x)
 
 

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "uc2_ffn_train_fwd": [_P] * 8 + [_I, _I, _F, _U, _U, _F, _I, _P],
     "uc2_ffn_train_bwd": [_P] * 15 + [_I] * 3 + [_F, _U, _U, _F, _I, _P],
     "uc2_fused_attn_block_v2": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
+    "uc2_fused_attn_block_v2_partial": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "uc2_ffn_train_fwd_partial": [_P] * 6 + [_I, _I, _U, _U, _F, _I, _P],
+    "uc2_ffn_train_bwd_partial": [_P] * 11 + [_I] * 3 + [_U, _U, _F, _I, _P],
     "uc2_segment_flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "uc2_segment_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _P],
     "uc2_segment_flash_bwd_dkdv": [_P] * 9 + [_I] * 4 + [_F, _P],
@@ -135,7 +138,7 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.uc2_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uc2_cuda_error_string.restype = ctypes.c_char_p
-        lib.uc2_ffn_train_bwd_workspace.argtypes = [_I] * 3
+        lib.uc2_ffn_train_bwd_workspace.argtypes = [_I] * 4
         lib.uc2_ffn_train_bwd_workspace.restype = ctypes.c_longlong
         _lib = lib
     return _lib

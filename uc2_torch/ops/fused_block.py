@@ -22,12 +22,14 @@ uc2_tpu/ops/fused_block.py ``fused_attn_block`` and ``fused_ffn_block``).
   Its gate is off, as the reference's: only the kernel lab
   (``uc2_torch/lab.py --mode layer``) runs it.
 
-Under tensor parallelism (``uc2_torch/parallel/tensor.py``) #2 and #3 run
-in a partial mode on a process's shard: ``fused_attn_block_partial`` (its
-heads and Wo's matching input columns) and ``fused_ffn_block_partial`` (its
-intermediate columns) write the fp32 partial products without bias,
-residual or LayerNorm; the caller sums them over the model group and
-applies ``block_epilogue``, which is the kernels' epilogue in PyTorch.
+Under tensor parallelism (``uc2_torch/parallel/tensor.py``) #2, #7 and #3
+run in a partial mode on a process's shard: ``fused_attn_block_partial``
+(its heads and Wo's matching input columns), ``fused_attn_block_v2_partial``
+(the same with its heads' rows of the QKV weight) and
+``fused_ffn_block_partial`` (its intermediate columns) write the fp32
+partial products without bias, residual or LayerNorm; the caller sums them
+over the model group and applies ``block_epilogue``, which is the kernels'
+epilogue in PyTorch.
 
 Weights are in ``nn.Linear`` layout ([out, in]). Each wrapper launches its
 kernel on CUDA tensors and counts the launch (``<wrapper>.launches``); on
@@ -257,6 +259,72 @@ def fused_attn_block_v2(x, w_qkv, b_qkv, bias, wo, bo, gamma, beta, n: int,
 
 
 fused_attn_block_v2.launches = 0
+
+
+def fused_attn_block_v2_partial_plain(x, w_qkv, b_qkv, bias, wo, n: int):
+    """#7's partial mode in plain PyTorch: q, k, v = bf16(fp32(x.W^T) + b)
+    for the shard's n heads, then ``fused_attn_block_partial_plain``."""
+    B, L, _ = x.shape
+    nd = w_qkv.shape[0] // 3
+    qkv = (x.float() @ w_qkv.float().t() + b_qkv.float()).to(x.dtype)
+    q, k, v = (t.reshape(B, L, n, nd // n) for t in qkv.split(nd, dim=-1))
+    return fused_attn_block_partial_plain(q, k, v, bias, wo)
+
+
+def fused_attn_block_v2_partial(x, w_qkv, b_qkv, bias, wo, n: int):
+    """#7's partial mode, for a tensor-parallel shard of the heads: x
+    [B, L, H] the whole block input; w_qkv [3 n d, H] and b_qkv [3 n d]
+    the shard's rows in ``shard_tensor``'s "qkv" layout (q of its n heads,
+    then k, then v); bias [B, 1, 1, L] additive mask; wo [H, n d] ([out,
+    in], Wo's input columns of these heads). Returns the fp32 partial
+    ctx . wo^T [B, L, H]: its sum over the shards plus bo and the
+    residual, normalised (``block_epilogue``), is ``fused_attn_block_v2``'s
+    output. The [B, L, 3 n d] projection never reaches device memory."""
+    if x.dim() != 3:
+        raise ValueError(f"fused_attn_block_v2_partial: x must be [B, L, H], "
+                         f"got {tuple(x.shape)}")
+    B, L, H = x.shape
+    nd = wo.shape[1] if wo.dim() == 2 else -1
+    if (n < 1 or nd % n or tuple(wo.shape) != (H, nd)
+            or tuple(w_qkv.shape) != (3 * nd, H)
+            or tuple(b_qkv.shape) != (3 * nd,)
+            or tuple(bias.shape) != (B, 1, 1, L)):
+        raise ValueError(f"fused_attn_block_v2_partial: wo must be [H, n d], "
+                         f"w_qkv [3 n d, H], b_qkv [3 n d] and bias "
+                         f"[B, 1, 1, L] for n = {n} heads, got "
+                         f"{tuple(wo.shape)}, {tuple(w_qkv.shape)}, "
+                         f"{tuple(b_qkv.shape)}, {tuple(bias.shape)}")
+    dev = check_device((x, w_qkv, b_qkv, bias, wo),
+                       "fused_attn_block_v2_partial")
+    if dev.type == "cpu":
+        return fused_attn_block_v2_partial_plain(x, w_qkv, b_qkv, bias, wo, n)
+    check_kernel_inputs("fused_attn_block_v2_partial", bf16=(x, w_qkv, wo),
+                        fp32=(b_qkv, bias))
+    if nd // n != HEAD_DIM or H != HIDDEN or nd > HIDDEN:
+        raise ValueError(f"fused_attn_block_v2_partial: the kernel takes "
+                         f"head_dim {HEAD_DIM}, at most {HIDDEN // HEAD_DIM} "
+                         f"heads and hidden {HIDDEN}, got {nd // n}, {n}, "
+                         f"{H}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"fused_attn_block_v2_partial: the kernel takes "
+                         f"joint lengths 1..{MAX_LEN}, got {L}")
+    if not all(t.is_contiguous() for t in (x, w_qkv, wo)):
+        raise ValueError("fused_attn_block_v2_partial: x, w_qkv and wo must "
+                         "be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, w_qkv, wo)):
+        raise ValueError("fused_attn_block_v2_partial: x, w_qkv and wo must "
+                         "start on a 16-byte boundary (the kernel reads them "
+                         "by TMA)")
+    out = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    build.launch("uc2_fused_attn_block_v2_partial", x.data_ptr(),
+                 w_qkv.data_ptr(), b_qkv.data_ptr(), bias.data_ptr(),
+                 wo.data_ptr(), out.data_ptr(), B, L, n,
+                 1.0 / math.sqrt(HEAD_DIM), device=dev)
+    fused_attn_block_v2_partial.launches += 1
+    return out
+
+
+fused_attn_block_v2_partial.launches = 0
 
 
 def fused_ffn_block_plain(x, w1, b1, w2, b2, gamma, beta, eps: float = 1e-12):

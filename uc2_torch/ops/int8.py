@@ -26,6 +26,20 @@ reference's XLA hoists them out of its eval programs: the cache is keyed
 on the parameter itself, its storage and its version counter, so an
 optimizer step (an in-place update) between two validations quantizes
 again.
+
+Under tensor parallelism (``uc2_torch/parallel/tensor.py``) the reference's
+GSPMD takes its row and channel maxima over whole rows and channels, and
+its int32 sums are exact, so its codes are the unsharded model's. The
+column-parallel products (QKV, the FFN's first dense) see whole rows and
+whole input columns and stay ``int8_linear``; the row-parallel ones (the
+attention output, the FFN's second dense) run ``int8_linear_row_parallel``:
+the activation row maxima and the weight channel maxima taken over the
+model group (``max_over_model``; the weights' cached as above, so every
+process of the group misses the cache at the same call, the weights
+changing in lockstep), each shard's int32 sums summed over the group in
+int32, which is exact (the whole sum is bounded by 127^2 * 3072 < 2^31),
+then the one-process scaling and bias. ``quantize_rows`` and ``quantize_weight`` take given
+maxima, so that shards can be quantized without a process group.
 """
 
 from __future__ import annotations
@@ -33,11 +47,14 @@ from __future__ import annotations
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from uc2_torch.parallel import tensor as TP
+
 QMAX = 127.0
 X_SCALE_MIN = 1e-8
 W_SCALE_MIN = 1e-12
 
-# parameter -> (version, data pointer, device, codes [out, in], scales [out])
+# parameter -> ((version, data pointer, device, over the group), (codes
+# [out, in], scales [out]))
 _WEIGHT_CODES = WeakIdKeyDictionary()
 
 
@@ -49,34 +66,59 @@ def _over_qmax(t):
     return t / torch.full((), QMAX, device=t.device)
 
 
-def quantize_rows(x2):
+def row_maxima(x2):
+    """amax |x2| of each row of ``x2`` [rows, K], fp32 [rows, 1]."""
+    return x2.float().abs().amax(dim=-1, keepdim=True)
+
+
+def channel_maxima(weight):
+    """amax |W| of each output channel of ``weight`` [out, in], fp32
+    [out]."""
+    return weight.detach().float().abs().amax(dim=1)
+
+
+def quantize_rows(x2, amax=None):
     """(int8 codes, fp32 scales [rows, 1]) of ``x2`` [rows, K], one scale
-    a row."""
+    a row, from the rows' maxima ``amax`` [rows, 1] (``row_maxima(x2)``
+    when None)."""
     x32 = x2.float()
-    s_x = _over_qmax(x32.abs().amax(dim=-1, keepdim=True)).clamp_min(
-        X_SCALE_MIN)
+    if amax is None:
+        amax = row_maxima(x32)
+    s_x = _over_qmax(amax).clamp_min(X_SCALE_MIN)
     return torch.clamp(torch.round(x32 / s_x), -QMAX, QMAX).to(
         torch.int8), s_x
 
 
-def quantize_weight(weight):
+def quantize_weight(weight, amax=None):
     """(int8 codes [out, in], fp32 scales [out]) of an fp32 ``weight``
-    [out, in], one scale an output channel."""
+    [out, in], one scale an output channel, from the channels' maxima
+    ``amax`` [out] (``channel_maxima(weight)`` when None)."""
     w = weight.detach().float()
-    s_w = _over_qmax(w.abs().amax(dim=1)).clamp_min(W_SCALE_MIN)
+    if amax is None:
+        amax = channel_maxima(w)
+    s_w = _over_qmax(amax).clamp_min(W_SCALE_MIN)
     return torch.clamp(torch.round(w / s_w[:, None]), -QMAX, QMAX).to(
         torch.int8).contiguous(), s_w
 
 
-def weight_codes(weight):
-    """``quantize_weight(weight)``, cached until ``weight`` changes."""
-    key = (weight._version, weight.data_ptr(), weight.device)
+def weight_codes(weight, over_model: bool = False):
+    """``quantize_weight(weight)``, cached until ``weight`` changes; with
+    ``over_model`` (a row-parallel shard) from the channel maxima over the
+    model group, a collective on a miss. Counts its misses
+    (``weight_codes.misses``)."""
+    key = (weight._version, weight.data_ptr(), weight.device, over_model)
     hit = _WEIGHT_CODES.get(weight)
     if hit is not None and hit[0] == key:
         return hit[1]
-    codes = quantize_weight(weight)
+    amax = channel_maxima(weight)
+    codes = quantize_weight(weight,
+                            TP.max_over_model(amax) if over_model else amax)
     _WEIGHT_CODES[weight] = (key, codes)
+    weight_codes.misses += 1
     return codes
+
+
+weight_codes.misses = 0
 
 
 def int8_product_plain(x_q, w_q):
@@ -98,13 +140,35 @@ def int8_product(x_q, w_q):
 int8_product.launches = 0
 
 
+def int8_output(acc, s_x, s_w, bias, dtype):
+    """The int32 sums ``acc`` [rows, out] scaled, ``(acc * s_x) * s_w`` in fp32, cast to ``dtype``, plus
+    ``bias`` (or None) in ``dtype``."""
+    y = (acc.float() * s_x * s_w).to(dtype)
+    return y if bias is None else y + bias.to(dtype)
+
+
 def int8_linear(x, weight, bias, dtype):
     """x [..., in] through the int8 serving product with ``weight``
     [out, in] (fp32) and ``bias`` [out] (or None); output in ``dtype``."""
     shape = x.shape
     x_q, s_x = quantize_rows(x.reshape(-1, shape[-1]))
     w_q, s_w = weight_codes(weight)
-    y = (int8_product(x_q, w_q).float() * s_x * s_w).to(dtype)
-    if bias is not None:
-        y = y + bias.to(dtype)
+    y = int8_output(int8_product(x_q, w_q), s_x, s_w, bias, dtype)
+    return y.reshape(*shape[:-1], weight.shape[0])
+
+
+def int8_linear_row_parallel(x, weight, bias, dtype):
+    """``int8_linear`` of a row-parallel product under tensor parallelism:
+    x [..., in_s] this process's input columns, ``weight`` [out, in_s] its
+    shard (fp32), ``bias`` [out] replicated (or None). The row and channel
+    maxima are taken over the model group and the int32 sums summed over
+    it exactly, so the result is the whole product's ``int8_linear``, the
+    same on every process. Collectives: one maximum and one sum a call,
+    and one maximum on a miss of the weight cache."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    x_q, s_x = quantize_rows(x2, TP.max_over_model(row_maxima(x2)))
+    w_q, s_w = weight_codes(weight, over_model=True)
+    acc = TP.sum_over_model(int8_product(x_q, w_q))
+    y = int8_output(acc, s_x, s_w, bias, dtype)
     return y.reshape(*shape[:-1], weight.shape[0])

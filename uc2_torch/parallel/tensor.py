@@ -16,6 +16,8 @@ computes the step without it, up to the order of floating-point sums.
 * ``reduce_from_model``: all-reduce forward, identity backward (the
   partial outputs of a row-parallel product; every process then computes
   the same thing from the sum, so each keeps its own gradient);
+* ``max_over_model``, ``sum_over_model``: the same without a gradient
+  (the int8 serving products' maxima and exact integer sums);
 * ``vocab_parallel_embedding``, ``vocab_parallel_rows``,
   ``vocab_parallel_cross_entropy``: the word table's lookup, the
   restricted decoder's rows and the LM head's CE over a vocabulary split
@@ -90,6 +92,13 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise maximum over the model group (no gradient)."""
     x = x.detach().clone()
     return x if tp_size() == 1 else _all_reduce(x, dist.ReduceOp.MAX)
+
+
+@torch.no_grad()
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum over the model group (no gradient)."""
+    x = x.detach().clone()
+    return x if tp_size() == 1 else _all_reduce(x)
 
 
 def _pieces(t: torch.Tensor, dim: int) -> List[torch.Tensor]:

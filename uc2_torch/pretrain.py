@@ -46,9 +46,8 @@ Every task of the reference runs: mlm, tlm, tlm-ni, vmlm, mmxlm,
 vmlm-soft, mmxlm-soft (with a spec's ``img_token_soft_label`` stores when
 given), mrfr, mrm-nce, mrc, mrc-kl, itm and itm-ot (``--itm_ot_lambda``,
 ``--ot_pos_only``), with ``--itm_hard_neg`` and ``--optim
-adam|adamax|adamw``. Raising by name, for what is not ported yet under
-``--n_model > 1``: ``UC2_ATTN_V2``, ``UC2_FFN_TRAIN=1`` and ``--quant
-int8`` (``refuse_unported``). ``--rng_impl`` and
+adam|adamax|adamw``, also under ``--n_model > 1`` with ``UC2_ATTN_V2``
+and ``UC2_FFN_TRAIN=1``. ``--rng_impl`` and
 ``--split_step`` choose XLA programs in the reference; here they change
 nothing (one log line says so).
 ``--async_ckpt`` writes milestones from a background thread.
@@ -164,26 +163,6 @@ def build_datasets(opts, which: str = "train", shard=None):
     return out, label_vocab
 
 
-def refuse_unported(opts):
-    """Raise, naming it, for what the port cannot do yet: under
-    ``--n_model > 1`` (tensor parallelism) the routes that read whole
-    weights, ``UC2_ATTN_V2`` (#7), ``UC2_FFN_TRAIN=1`` (#9/#10) and
-    ``--quant int8``. (A width that the processes, the heads or the
-    intermediate do not divide raises where the grid and the shards are
-    made.)"""
-    if opts.n_model > 1:
-        if os.environ.get("UC2_ATTN_V2"):
-            raise NotImplementedError("uc2_torch: UC2_ATTN_V2 (kernel #7) "
-                                      "under --n_model > 1 is not ported")
-        if os.environ.get("UC2_FFN_TRAIN") == "1":
-            raise NotImplementedError("uc2_torch: UC2_FFN_TRAIN=1 (kernels "
-                                      "#9 and #10) under --n_model > 1 is "
-                                      "not ported")
-        if getattr(opts, "quant", "none") != "none":
-            raise NotImplementedError(f"uc2_torch: --quant {opts.quant} "
-                                      f"under --n_model > 1 is not ported")
-
-
 def step_seed(seed: int, index: int, rank: int = 0) -> int:
     """The dropout seed of step (or micro-step) ``index`` on replica
     ``rank`` (``mesh.data_index``: every process of a model group draws
@@ -202,7 +181,6 @@ def main(opts):
     ([(step, host time, examples)] at each log boundary), ``val`` ({task:
     log} of the last validation), ``save_seconds`` (each restore.ckpt
     save) and ``sustained``."""
-    refuse_unported(opts)
     dev = resolve_device(opts.device)
     is_main, multi = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed

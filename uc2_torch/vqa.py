@@ -49,18 +49,16 @@ import torch
 from uc2_torch import resolve_device
 from uc2_torch.config import UC2Config, parse_with_config
 from uc2_torch.parallel import multihost as MH
-from uc2_torch.pretrain import (load_any_checkpoint, refuse_unported,
-                               step_seed)
+from uc2_torch.pretrain import load_any_checkpoint, step_seed
 from uc2_torch.utils.logger import (LOGGER, TB_LOGGER, RunningMeter,
                                     close_run_logs, open_run_logs)
 
 
 def start_run(opts, name: str):
-    """The common start of the finetuning drivers: refuse what is not
-    ported, join the process group the flags describe, seed, and on
-    process 0 write ``log/hps.json`` and open the scalar log and the log
-    file. Returns (device, the log file's handler)."""
-    refuse_unported(opts)
+    """The common start of the finetuning drivers: join the process group
+    the flags describe, seed, and on process 0 write ``log/hps.json`` and
+    open the scalar log and the log file. Returns (device, the log file's
+    handler)."""
     dev = resolve_device(opts.device)
     is_main, _ = MH.start_distributed(opts, dev)
     from uc2_torch.utils.misc import set_random_seed
