@@ -15,8 +15,9 @@ the attention dispatch beyond the default: scoring with UC2_ATTN_V2=1
 (the QKV projection inside the attention block) and
 use_pallas_attention="flash" (scoring, and training at attention dropout
 0), and the port's kernel lab (python -m uc2_torch.lab, every mode) with
-the two kernels only it runs, the mlm step under remat (full, dots) and
-the LMDB importer.
+the two kernels only it runs, the mlm step under remat (full, dots), the
+LMDB importer and the real-checkpoint runbook (python -m
+uc2_torch.verify_real_ckpt) with the collate bench.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -293,14 +294,30 @@ non-zero at the end, without the result lines:
      bit for bit, restore.ckpt the whole model, the group's dropout masks
      the same; ``python -m uc2_torch.itm --quant int8 --n_model 2`` for
      TP_ITM_STEPS steps with validation and a test, test_results.json;
- 22. a JSON line of per-kernel numbers (launches: the main-path phases'
+ 22. runbook: ``python -m uc2_torch.make_demo_data`` under build/ (64
+     images x 2 captions, 2048-d features, 10-100 boxes), its en stores
+     re-encoded in the release's LMDB format (``data/synth.py``
+     ``reference_lmdb``) and a uc2-base ``.pt`` under the release's key
+     names without ``rank_output`` (the port's seed-0 init plus 0.02
+     N(0, 1) from ``torch.manual_seed(0)``); ``python -m
+     uc2_torch.verify_real_ckpt`` run twice in this process: at its
+     defaults from the LMDB databases with --quant int8 (num_bb 36:
+     L = 80, 98; the parity batch of 8 pairs against the fp32 oracle on
+     the CPU within SCORE_TOL, the leaves loaded, the rank head from the
+     ITM head, R@K finite in [0, 100] under bf16 and int8), then from the
+     imported stores with --num_bb 100 --skip_torch (L = 98, 128, 162);
+     each run's scored batches those of the buckets and its launches the
+     routing's (#1 and #3, #2 at L >= 128, int8 #1 alone), ms/batch of
+     each eval; then ``python -m uc2_torch.collate_bench --seconds 0.5``,
+     four RESULT lines above 0 ex/s. The files are deleted;
+ 23. a JSON line of per-kernel numbers (launches: the main-path phases'
      counts, the pretraining driver's, the objectives', the itm driver's,
-     the finetuning drivers', the distributed runs', the int8, the remat
-     and the tensor-parallel phases' added, the last read in its first
-     process; #3's adds the routes phase and the lab), then the last line
-     {"ok": true, "device": {...}}.
+     the finetuning drivers', the distributed runs', the int8, the
+     runbook, the remat and the tensor-parallel phases' added, the last
+     read in its first process; #3's adds the routes phase and the lab),
+     then the last line {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17, 18, 19, 20, 21, 22.
+15, 16, 17, 18, 19, 22, 20, 21, 23.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -334,8 +351,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uc2_torch import (eval_nlvr2, import_lmdb, itm, lab, nlvr2, pretrain,
-                       ve, vqa)
+from uc2_torch import (collate_bench, eval_nlvr2, import_lmdb, itm, lab,
+                       make_demo_data, nlvr2, pretrain, ve, verify_real_ckpt,
+                       vqa)
 from uc2_torch.config import UC2Config
 from uc2_torch.data import datasets, db, native_build
 from uc2_torch.data.collate import BucketSpec, default_buckets
@@ -348,6 +366,7 @@ from uc2_torch.data.store import READS as store_reads
 from uc2_torch.data.synth import (reference_lmdb, synth_corpus,
                                   synth_finetune_texts)
 from uc2_torch.evalu import retrieval
+from uc2_torch.models import convert
 from uc2_torch.models import heads as lm_heads
 from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
                                       UC2ForVqa)
@@ -649,9 +668,10 @@ def phase_kernels(gen):
             source="uc2_torch/csrc/fused_ffn_block.cu",
             replaces="uc2_tpu/ops/fused_block.py:251"),
     }
-    # 1: attention forward at the L = 98 bucket, and at the 512 limit;
-    # yardstick: one scaled_dot_product_attention call with the same mask
-    for b, L in ((B, 98), (8, 512)):
+    # 1: attention forward at the L = 80 and 98 buckets (num_bb 36 and
+    # 100), and at the 512 limit; yardstick: one
+    # scaled_dot_product_attention call with the same mask
+    for b, L in ((B, 80), (B, 98), (8, 512)):
         q, k, v, bias = heads(gen, b, L)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bias16 = bias.bfloat16()
@@ -669,13 +689,14 @@ def phase_kernels(gen):
     bo, gamma, beta = vec(gen, H, 0.02), vec(gen, H, 0.1, 1.0), vec(gen, H, 0.1)
     time_blocks(rows, gen, (wo, bo, gamma, beta), report=True)
     attn_block_edges(rows, gen, (wo, bo, gamma, beta))
-    # 3: fused FFN block at all three buckets, also replayed from CUDA
-    # graphs, beside its two products alone; then at the edges of its row
-    # tiles and waves, and at F = 128
+    # 3: fused FFN block at the L = 80 bucket (num_bb 36) and all three
+    # of num_bb 100, also replayed from CUDA graphs, beside its two
+    # products alone; then at the edges of its row tiles and waves, and at
+    # F = 128
     w1 = (torch.randn(FF, H, generator=gen, device="cuda") * 0.05).bfloat16()
     w2 = (torch.randn(H, FF, generator=gen, device="cuda") * 0.05).bfloat16()
     b1, b2 = vec(gen, FF, 0.02), vec(gen, H, 0.02)
-    for L in (98, 128, 162):
+    for L in (80, 98, 128, 162):
         x = torch.randn(B, L, H, generator=gen, device="cuda").bfloat16()
         args = (x, w1, b1, w2, b2, gamma, beta)
         run_case(rows, "fused_ffn_block", B, L, fused_ffn_block,
@@ -894,6 +915,17 @@ def bucket_batch(img_db, img_ids, txt_db, txt_id, nb):
     return {k: t.cuda() for k, t in batch.items()}, n
 
 
+def bucket_batches(n_txt, nbbs, num_bb=NUM_BB):
+    """One ``full_retrieval_eval``'s region-count buckets: their edges, the
+    images in each, and its scored batches (every one of ``n_txt`` texts
+    against each bucket's tiles of B images)."""
+    edges = retrieval.bucket_edges(TXT_LEN, num_bb)
+    per_bucket = np.bincount(
+        np.searchsorted(edges, np.minimum(nbbs, num_bb)),
+        minlength=len(edges))
+    return edges, per_bucket, [n_txt * -(-int(c) // B) for c in per_bucket]
+
+
 def phase_slice(card):
     print("== slice: uc2-base full_retrieval_eval on the card")
     cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
@@ -907,14 +939,12 @@ def phase_slice(card):
           f"{time.perf_counter() - t0:.1f} s")
 
     # launches the routing predicts: 12 layers per scored batch
-    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
-    nbbs = np.asarray([img_db.name2nbb[i] for i in img_db.name2nbb])
-    per_bucket = np.bincount(np.searchsorted(edges, nbbs),
-                             minlength=len(edges))
+    n_txt = len(txt_db.ids)
+    edges, per_bucket, batches = bucket_batches(
+        n_txt, list(img_db.name2nbb.values()))
     if (per_bucket < B).any():
         fatal(f"a bucket holds fewer than {B} images: {per_bucket}")
-    n_txt, L_of = len(txt_db.ids), [TXT_LEN + e for e in edges]
-    batches = [n_txt * -(-int(c) // B) for c in per_bucket]
+    L_of = [TXT_LEN + e for e in edges]
     layers = cfg.num_hidden_layers
     expect = no_launches()
     expect.update({
@@ -2838,12 +2868,9 @@ def phase_routes(card):
         others[impl].load_state_dict(model.state_dict())
     flash, plain = others["flash"], others[False]
     txt_db, img_db = route_gallery(cfg, seed=3)
-    edges = retrieval.bucket_edges(TXT_LEN, NUM_BB)
-    nbbs = np.asarray(list(img_db.name2nbb.values()))
-    per_bucket = np.bincount(np.searchsorted(edges, nbbs),
-                             minlength=len(edges))
-    n_txt, L_of = len(txt_db.ids), [TXT_LEN + e for e in edges]
-    batches = [n_txt * -(-int(c) // B) for c in per_bucket]
+    n_txt, nbbs = len(txt_db.ids), list(img_db.name2nbb.values())
+    edges, per_bucket, batches = bucket_batches(n_txt, nbbs)
+    L_of = [TXT_LEN + e for e in edges]
     print(f"  models and gallery ({len(nbbs)} images, {n_txt} texts; "
           f"buckets L={L_of}: {per_bucket.tolist()} images, {batches} "
           f"scored batches of {B}) ready in {time.perf_counter() - t0:.1f} s")
@@ -4134,19 +4161,39 @@ def run_itm(argv):
 
 
 @contextlib.contextmanager
-def recorded_scores(calls):
-    """Record (deterministic, joint L) of every ``scores`` call of the
-    retrieval model: the training forwards and the scored batches."""
-    orig = UC2ForImageTextRetrieval.scores
+def recorded_scores(calls, evals=None, outputs=None):
+    """Record (deterministic, quant, joint L) of every ``scores`` call of
+    the retrieval model: the training forwards and the scored batches;
+    with ``evals``, also (quant, seconds, scored batches) of every
+    ``full_retrieval_eval`` (synchronised before and after); with
+    ``outputs``, the scores of every deterministic call."""
+    orig, orig_eval = (UC2ForImageTextRetrieval.scores,
+                       retrieval.full_retrieval_eval)
 
     def scores(self, batch, deterministic=True, rng=None):
-        calls.append((deterministic, batch["attn_mask"].shape[1]))
-        return orig(self, batch, deterministic, rng)
+        calls.append((deterministic, self.config.quant,
+                      batch["attn_mask"].shape[1]))
+        out = orig(self, batch, deterministic, rng)
+        if outputs is not None and deterministic:
+            outputs.append(out.detach())
+        return out
+
+    def full_eval(model, *a, **k):
+        torch.cuda.synchronize()
+        n0, t0 = len(calls), time.perf_counter()
+        out = orig_eval(model, *a, **k)
+        torch.cuda.synchronize()
+        evals.append((model.config.quant, time.perf_counter() - t0,
+                      len(calls) - n0))
+        return out
     UC2ForImageTextRetrieval.scores = scores
+    if evals is not None:
+        retrieval.full_retrieval_eval = full_eval
     try:
         yield
     finally:
         UC2ForImageTextRetrieval.scores = orig
+        retrieval.full_retrieval_eval = orig_eval
 
 
 @contextlib.contextmanager
@@ -4172,15 +4219,15 @@ def itm_launches(what, cfg, calls, steps, accum, counts):
     micro-batch of every step, and for each scored batch the gates'
     kernels at its joint length; nothing else."""
     layers = cfg.num_hidden_layers
-    train = [L for det, L in calls if not det]
+    train = [L for det, _, L in calls if not det]
     want = no_launches()
     for k in TRAIN_KERNELS:
         want[k.__name__] = steps * accum * layers
-    for det, L in calls:
+    for det, _, L in calls:
         if det:
             for k, n in gate_launches(cfg, L).items():
                 want[k] += n
-    scored = sorted({L for det, L in calls if det})
+    scored = sorted({L for det, _, L in calls if det})
     print(f"  {what}: {len(train)} training forwards at L {sorted(set(train))}"
           f" ({steps} steps x {accum} micro-batches), "
           f"{len(calls) - len(train)} scored batches at L {scored}; launches "
@@ -5796,7 +5843,7 @@ def int8_launches(cfg, calls, steps, counts):
     want = no_launches()
     for k in TRAIN_KERNELS:
         want[k.__name__] = steps * layers
-    for det, L in calls:
+    for det, _, L in calls:
         if det:
             want["flash_attention_long" if uses_long_kernel(n, L)
                  else "flash_attention"] += layers
@@ -5988,7 +6035,7 @@ def _phase_int8(card, gen):
           f"{int8_ops.int8_product.launches}")
     itm_run_report("--quant int8", run, card, set(range(INT8_STEPS + 1)))
     int8_launches(icfg, calls, INT8_STEPS, counts)
-    scored = sum(1 for det, _ in calls if det)
+    scored = sum(1 for det, _, _ in calls if det)
     if int8_ops.int8_product.launches != 4 * icfg.num_hidden_layers * scored:
         fail(f"int8 driver: {int8_ops.int8_product.launches} int8 products "
              f"for {scored} scored batches")
@@ -5999,6 +6046,209 @@ def _phase_int8(card, gen):
     with open(os.path.join(out, "test_results.json")) as f:
         if json.load(f) != run.results:
             fail("int8 driver: test_results.json is not the run's results")
+    return total
+
+
+# ------------------------------------------------------------- runbook
+RUNBOOK_DIR = os.path.join("build", "runbook_smoke")
+RUNBOOK_NUM_BB = 100      # the second run's regions: buckets L = 98, 128, 162
+# the runbook's parity gate, tighter than SCORE_TOL: on the H100 the
+# parity batch's scores spread by a std of 8.4e-2 over its 8 pairs, and
+# the bf16 kernels came within 5.4e-3 of the fp32 oracle
+RUNBOOK_PARITY_TOL = 2e-2
+RESULT_COLLATE = re.compile(
+    r"^RESULT collate fp16=[01] mrfr_targets=[01]: (\d+) ex/s$")
+
+
+def runbook_checkpoint(path):
+    """A uc2-base checkpoint under the original UC2 key names: the port's
+    seed-0 retrieval model, every parameter plus 0.02 N(0, 1) from
+    ``torch.manual_seed(0)`` (as the runbook's CPU test perturbs its
+    oracle), written without ``rank_output`` so that the runbook takes the
+    ITM head's. Returns the leaves the runbook should load: the model's
+    but the rank head's."""
+    cfg = UC2Config.from_json_file("config/uc2-base.json")
+    model = UC2ForImageTextRetrieval(cfg, device="cuda", seed=0)
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    tree = convert.params_to_jax(model.state_dict())
+    want = (verify_real_ckpt.count_leaves(tree)
+            - verify_real_ckpt.count_leaves(tree["rank_output"]))
+    sd = convert.params_to_uc2_state_dict(model.state_dict())
+    del model, tree
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items() if not k.startswith("rank_output")},
+               path)
+    return want
+
+
+def runbook_batches(txt_dir, img_dir, num_bb):
+    """{joint L: scored batches} of one full eval over the stores."""
+    img = db.DetectFeatDb(img_dir, num_bb=num_bb)
+    edges, _, batches = bucket_batches(len(db.TxtTokDb(txt_dir).ids),
+                                       list(img.name2nbb.values()), num_bb)
+    return {TXT_LEN + e: n for e, n in zip(edges, batches) if n}
+
+
+def run_runbook(what, argv, cfg, card):
+    """``uc2_torch.verify_real_ckpt.main(argv)`` in this process, its
+    output echoed: (report, output, launches, scores calls, the first
+    scored batch's scores)."""
+    calls, evals, scores = [], [], []
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with (recorded_scores(calls, evals, scores),
+          contextlib.redirect_stdout(buf)):
+        report = verify_real_ckpt.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line[:300]}")
+    print(f"  {what}: {time.perf_counter() - t0:.1f} s; " + "; ".join(
+        f"eval {q}: {n} batches in {s:.2f} s = {s / n * 1e3:.2f} ms/batch"
+        for q, s, n in evals) + f" [{card}]")
+    want = no_launches()
+    layers = cfg.num_hidden_layers
+    for _, quant, L in calls:
+        if quant == "int8":
+            want["flash_attention_long" if uses_long_kernel(
+                cfg.num_attention_heads, L) else "flash_attention"] += layers
+        else:
+            for k, n in gate_launches(cfg, L).items():
+                want[k] += n
+    print(f"  {what}: launches {({k: v for k, v in counts.items() if v})}, "
+          f"the routing wants {({k: v for k, v in want.items() if v})}")
+    if counts != want:
+        fail(f"runbook {what}: the launches do not match the routing")
+    return report, out, counts, calls, scores[0].float().cpu().numpy()
+
+
+def check_rk(what, metrics):
+    vals = list(metrics.values())
+    ok = bool(vals) and all(np.isfinite(v) and 0 <= v <= 100 for v in vals)
+    print(f"  {what} R@K {json.dumps(metrics)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"runbook: {what} R@K not finite in [0, 100]: {metrics}")
+
+
+def phase_runbook(card):
+    """The real-checkpoint runbook ``python -m uc2_torch.verify_real_ckpt``
+    at uc2-base width on the demo corpus (``uc2_torch.make_demo_data``)
+    re-encoded in the release's LMDB format, from a checkpoint in the
+    release's key names without a rank head; then ``python -m
+    uc2_torch.collate_bench``. Returns the runbook runs' launches."""
+    print(f"== runbook: python -m uc2_torch.verify_real_ckpt on the demo "
+          f"corpus in the release's LMDB format, uc2-base at full width; "
+          f"python -m uc2_torch.collate_bench [{card}]")
+    shutil.rmtree(RUNBOOK_DIR, ignore_errors=True)
+    try:
+        return _phase_runbook(card)
+    finally:
+        shutil.rmtree(RUNBOOK_DIR, ignore_errors=True)
+
+
+def _phase_runbook(card):
+    cfg = UC2Config.from_json_file("config/uc2-base.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo = make_demo_data.main(os.path.join(RUNBOOK_DIR, "demo"))
+    t1 = time.perf_counter()
+    lmdb = reference_lmdb(demo["en"]["txt_db"], demo["en"]["img_db"],
+                          os.path.join(RUNBOOK_DIR, "lmdb"))
+    t2 = time.perf_counter()
+    ckpt = os.path.join(RUNBOOK_DIR, "uc2_base_norank.pt")
+    want_leaves = runbook_checkpoint(ckpt)
+    t3 = time.perf_counter()
+    print(f"  demo corpus (64 images x 2 captions, 2048-d, 10-100 boxes) "
+          f"{t1 - t0:.1f} s; its en stores in the release's LMDB format "
+          f"{t2 - t1:.1f} s; the checkpoint "
+          f"({os.path.getsize(ckpt) / 2 ** 30:.2f} GiB, no rank_output) "
+          f"{t3 - t2:.1f} s")
+    total = no_launches()
+
+    # 1: the defaults (num_bb 36: L = 80, 98) with --quant int8, from LMDB
+    work = os.path.join(RUNBOOK_DIR, "work")
+    report, out, counts, calls, first = run_runbook(
+        "run 1 (LMDB, num_bb 36, --quant int8)",
+        ["--checkpoint", ckpt, "--txt_db", lmdb["txt_db"],
+         "--img_db", lmdb["img_db"], "--workdir", work, "--quant", "int8"],
+        cfg, card)
+    for k, c in counts.items():
+        total[k] += c
+    txt_dir, img_dir = (os.path.join(work, "txt_db"),
+                        os.path.join(work, "img_db"))
+    diff = report.get("logit_max_abs_diff", float("inf"))
+    print(f"  parity batch (8 x L = {TXT_LEN + 36}, the port bf16 with its "
+          f"kernels, the oracle fp32 on the CPU): scores' std "
+          f"{first.std():.4e} (range {first.min():.4f}..{first.max():.4f}),"
+          f" max|d| {diff:.4e} (tolerance {RUNBOOK_PARITY_TOL}), mean|d| "
+          f"{report.get('logit_mean_abs_diff', float('nan')):.4e}, pearson "
+          f"{report.get('logit_pearson', float('nan')):.6f} (not gated); "
+          f"oracle missing {len(report.get('oracle_missing_keys', []))} "
+          f"keys, unexpected {len(report.get('oracle_unexpected_keys', []))}"
+          f"; n_loaded_params {report['n_loaded_params']} (want "
+          f"{want_leaves})")
+    if not diff <= RUNBOOK_PARITY_TOL:
+        fail(f"runbook: logit parity {diff:.4e} > {RUNBOOK_PARITY_TOL}")
+    if report["n_loaded_params"] != want_leaves:
+        fail(f"runbook: {report['n_loaded_params']} loaded leaves, not "
+             f"{want_leaves}")
+    if "[verify] rank head initialized from pretrained ITM head" not in out:
+        fail("runbook: the rank head was not taken from the ITM head")
+    if not (os.path.exists(os.path.join(txt_dir, "txt.u2s"))
+            and os.path.exists(os.path.join(img_dir, "feat.u2s"))):
+        fail("runbook: the LMDB databases were not imported")
+    check_rk("run 1 bf16", report["retrieval"])
+    check_rk("run 1 int8", report.get("retrieval_int8", {}))
+    print(f"  run 1 int8 R@K delta "
+          f"{json.dumps(report.get('retrieval_int8_delta'))}")
+    want_batches = runbook_batches(txt_dir, img_dir, 36)
+    got = {q: {} for q in ("none", "int8")}
+    for _, q, L in calls:
+        got[q][L] = got[q].get(L, 0) + 1
+    parity = {TXT_LEN + 36: 1}
+    print(f"  run 1 scored batches: bf16 {got['none']} (the parity batch "
+          f"{parity} and the buckets' {want_batches}), int8 {got['int8']}")
+    bf16_want = dict(want_batches)
+    for L, n in parity.items():
+        bf16_want[L] = bf16_want.get(L, 0) + n
+    if got["none"] != bf16_want or got["int8"] != want_batches:
+        fail("runbook: run 1 did not score the buckets' batches")
+
+    # 2: --num_bb 100 (L = 98, 128, 162) from the imported u2s stores
+    report2, _, counts, calls, _ = run_runbook(
+        f"run 2 (u2s, num_bb {RUNBOOK_NUM_BB}, --skip_torch)",
+        ["--checkpoint", ckpt, "--txt_db", txt_dir, "--img_db", img_dir,
+         "--workdir", os.path.join(RUNBOOK_DIR, "work2"),
+         "--num_bb", str(RUNBOOK_NUM_BB), "--skip_torch"], cfg, card)
+    for k, c in counts.items():
+        total[k] += c
+    check_rk("run 2 bf16", report2["retrieval"])
+    want2 = runbook_batches(txt_dir, img_dir, RUNBOOK_NUM_BB)
+    got2 = {}
+    for _, _, L in calls:
+        got2[L] = got2.get(L, 0) + 1
+    print(f"  run 2 scored batches {got2} (the buckets' {want2}); edges "
+          f"{retrieval.default_nbb_buckets(TXT_LEN, RUNBOOK_NUM_BB)}")
+    if got2 != want2 or "logit_max_abs_diff" in report2:
+        fail("runbook: run 2 did not score the buckets' batches alone")
+    os.remove(ckpt)
+
+    # collate_bench: host work only
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        collate_bench.main(["--seconds", "0.5"])
+    lines = buf.getvalue().splitlines()
+    rates = [RESULT_COLLATE.match(x) for x in lines]
+    for x in lines:
+        print(f"    | {x}")
+    if len(lines) != 4 or not all(m and int(m.group(1)) > 0 for m in rates):
+        fail(f"collate_bench: {lines}")
     return total
 
 
@@ -7189,6 +7439,7 @@ def main() -> int:
     add(timed(phase_finetune, card, rows, gen))
     add(timed(phase_dist, card, rows, gen))
     add(timed(phase_int8, card, gen))
+    add(timed(phase_runbook, card))
     add(timed(phase_remat, card))
     tp_rows, tp_launches = timed(phase_tp, card, gen)
     rows.update(tp_rows)

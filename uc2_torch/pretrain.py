@@ -508,14 +508,20 @@ def load_raw_checkpoint(path: str):
 _PORT_KEY = re.compile(r"(^|\.)layer\.\d+\.attention\.qkv\.weight$")
 
 
+def is_port_state_dict(sd) -> bool:
+    """Whether a state dict is one of the port's own milestones (its key
+    names: the fused ``qkv``), not one under the UC2 / UNITER / XLM-R
+    names."""
+    return any(_PORT_KEY.search(k) for k in sd)
+
+
 def load_any_checkpoint(path: str, opts):
     """A partial reference parameter tree from a checkpoint: the port's
-    own milestones (its key names: the fused ``qkv``) convert directly, a
-    UC2 / UNITER / XLM-R state dict through ``torch_to_params`` with the
-    partial-loading flags."""
+    own milestones convert directly, a UC2 / UNITER / XLM-R state dict
+    through ``torch_to_params`` with the partial-loading flags."""
     from uc2_torch.models import convert
     sd = load_raw_checkpoint(path)
-    if any(_PORT_KEY.search(k) for k in sd):
+    if is_port_state_dict(sd):
         return convert.params_to_jax(sd)
     return convert.torch_to_params(
         sd, load_embedding_only=opts.load_embedding_only,
