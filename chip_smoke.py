@@ -148,18 +148,19 @@ non-zero at the end, without the result lines:
      (PyTorch's, indexing's, SmallTableLookup's) with bitwise repeats,
      on U2S stores that the
      port's synth_corpus writes under build/ at the reference's widths (en
-     unpaired and de paired, 512 images x 2 captions each, 2048-d fp16
+     unpaired and de paired, 256 images x 2 captions each, 2048-d fp16
      features, 10-100 boxes, 1601 soft-label classes, vocab 250002): the
-     stores' records/s and MB/s in DetectFeatDb.prefetch; 12 steps with a
-     restore.ckpt every 6 and validation (2 batches a task) at 12, each
-     step launching #5 and #6's two passes once a layer and micro-batch
-     and each validation batch the gates' kernels (#2 + #3 at L >= 128,
-     #1 + #3 below; also over a full validation sweep), finite losses,
-     ms/step and examples/s of the loop, the seconds of each save; then
-     the run stopped after step 6 and resumed to 12 in one directory,
-     whose parameters, AdamW moments and per-step losses must equal the
-     uninterrupted run's bit for bit; every record read by the native
-     store library. The stores and checkpoints are deleted at the end;
+     stores' records/s and MB/s in DetectFeatDb.prefetch; 12 steps with
+     validation (2 batches a task) at 12 and no restore.ckpt, each step
+     launching #5 and #6's two passes once a layer and micro-batch and
+     each validation batch the gates' kernels (#2 + #3 at L >= 128, #1 +
+     #3 below; also over a full validation sweep), finite losses, ms/step
+     and examples/s of the loop; then the run stopped after step 7 (a
+     restore.ckpt every 7: its size and the seconds of its save) and
+     resumed to 12 in one directory, whose parameters, AdamW moments and
+     per-step losses must equal the uninterrupted run's bit for bit;
+     every record read by the native store library. The stores and
+     checkpoints are deleted at the end;
  15. objectives: full-width uc2-base steps at the mix's bucket (62 text
      tokens, 100 regions, B = 128; tlm-ni text only at L = 62) of mmxlm,
      vmlm-soft, mmxlm-soft, mrfr, mrc, mrc-kl, mrm-nce, itm-ot at lambda
@@ -176,9 +177,10 @@ non-zero at the end, without the result lines:
      store, de paired): config/demo_pretrain.json's mix (itm, mlm, mrfr,
      mrc, tlm) and every other task with --itm_ot_lambda 0.1 --optim
      adamax --itm_hard_neg, each 12 steps with validation of every task
-     (its keys logged) and again stopped at 6 and resumed, equal bit for
-     bit (parameters, both moments, losses), #5/#6a/#6b 12 times a
-     micro-batch. The stores and checkpoints are deleted at the end;
+     (its keys logged; no restore.ckpt) and again stopped at 7 and
+     resumed, equal bit for bit (parameters, both moments, losses),
+     #5/#6a/#6b 12 times a micro-batch. The stores and checkpoints are
+     deleted at the end;
  16. itm: ``python -m uc2_torch.itm --config config/uc2_mscoco_itm.json``
      run in this process (uc2-base at full width, the config's four
      training pairs with the zh [train2014, val2014] routing pair, 13
@@ -224,22 +226,28 @@ non-zero at the end, without the result lines:
      stores written under build/ (the kernels are built before any
      process starts): #5, #6a and #6b against their plain versions at a
      process's rows (64, 162), rates 0.1 and 0; two NCCL processes on the
-     one card refused at start, naming --dist_backend gloo; (a) ``python
-     -m uc2_torch.pretrain --coordinator_address ... --num_processes 1
-     --process_id 0 --zero1`` over NCCL for DIST_STEPS steps, its per-step
-     losses, parameters and moments bit for bit those of the same run
-     without a process group (in this process); (b) two processes on the
-     card over gloo: which collectives gloo takes on CUDA tensors; one mlm
+     one card refused at start, naming --dist_backend gloo (started
+     before (a), read after it); (a) ``python -m uc2_torch.pretrain
+     --coordinator_address 127.0.0.1:0 --num_processes 1 --process_id 0
+     --zero1`` over NCCL for DIST_STEPS steps, run in this process
+     through its own parse, its per-step losses, parameters and moments
+     bit for bit those of the same run without a process group (also in
+     this process); (b) two processes on the card over gloo, started once
+     for the three parts that follow (``pair_script``: they start with the
+     phase and import while this process runs the checks above), each
+     part's seconds printed: which collectives gloo takes on CUDA tensors;
+     one mlm
      step at dropout 0 on a (128, 162) batch split 2 x 64 against the same
      batch in one process (loss within STEP_LOSS_TOL and DIST_LOSS_RTOL,
      the masked-token count summed over the processes equal, grad norm
      within DIST_NORM_RTOL), with --zero1 the parameters bit for bit the
      replicated two-process step's, per-process ms/step and the
-     collectives' ms a step; then the driver in two processes with
-     --zero1, saved and stopped at DIST_STOP, resumed to DIST_STEPS: the
-     restored step, model and optimizer bit for bit, both processes'
-     stream files, the processes' dropout masks different (process 0's
-     the one-process masks), launches of #5/#6a/#6b, ms/step a process.
+     collectives' ms a step; then the driver with --zero1 at PAIR_LAYERS
+     of uc2-base's layers, saved and stopped at DIST_STOP, resumed to
+     DIST_STEPS: the restored step, model and optimizer bit for bit, both
+     processes' stream files, the processes' dropout masks different
+     (process 0's the one-process masks), launches of #5/#6a/#6b, ms/step
+     a process.
      The stores and checkpoints are deleted;
  19. int8: int8 serving at uc2-base width: each of a layer's four int8
      products at (64, 98) rows on the card against its plain version (the
@@ -280,7 +288,8 @@ non-zero at the end, without the result lines:
      (128, 162) and (16, 512), rate 0.1, with the head offset in their
      Philox key: output, dQ, row statistics and keep bits bit for bit
      those heads of the whole launch; (b) two processes on the card over
-     gloo at --n_model 2, uc2-base: scores at B = 64, L = 98 / 128 / 162
+     gloo at --n_model 2, uc2-base at PAIR_LAYERS of its 12 layers (and so
+     its one-process references): scores at B = 64, L = 98 / 128 / 162
      on the default route, with UC2_ATTN_V2=1 and under int8, each
      against one process's on the same weights (SCORE_TOL, then
      TP_SCORE_TOL), the launches (12 of #2's or #7's and #3's partial
@@ -289,10 +298,12 @@ non-zero at the end, without the result lines:
      step at (TP_STEP_B, 162), dropout 0.1, "pallas-train", without and
      with UC2_FFN_TRAIN=1 (#9's and #10's partial modes), against one
      process's (STEP_LOSS_TOL, STEP_NORM_RTOL), ms/step and the
-     all-reduces a step; ``python -m uc2_torch.pretrain --n_model 2`` on
-     phase 18's kind of stores, saved at TP_STOP and resumed to TP_STEPS
-     bit for bit, restore.ckpt the whole model, the group's dropout masks
-     the same; ``python -m uc2_torch.itm --quant int8 --n_model 2`` for
+     all-reduces a step; then, in the same two processes (one start for
+     the three parts, which they wait for through (a), as in phase 18),
+     ``python -m uc2_torch.pretrain --n_model 2`` on phase 18's kind of
+     stores, saved at TP_STOP and resumed to TP_STEPS bit for bit,
+     restore.ckpt the whole model, the group's dropout masks the same;
+     ``python -m uc2_torch.itm --quant int8 --n_model 2`` for
      TP_ITM_STEPS steps with validation and a test, test_results.json;
  22. runbook: ``python -m uc2_torch.make_demo_data`` under build/ (64
      images x 2 captions, 2048-d features, 10-100 boxes), its en stores
@@ -317,7 +328,10 @@ non-zero at the end, without the result lines:
      read in its first process; #3's adds the routes phase and the lab),
      then the last line {"ok": true, "device": {...}}.
 The phases run in the order 1, 2, 5, 6, 9, 12, 3, 10, 4, 7, 8, 11, 13, 14,
-15, 16, 17, 18, 19, 22, 20, 21, 23.
+15, 16, 17, 18, 19, 22, 20, 21, 23. Each prints its seconds, and the line
+before the result lines the total against the TIME_LIMIT_S limit. A
+phase's stores and checkpoints are deleted in a thread of their own
+(``discard``), which the total waits for.
 Without a GPU it exits non-zero before printing any result.
 
 `python3 chip_smoke.py --times [group ...]` runs phase 1 and then only
@@ -342,9 +356,12 @@ import json
 import os
 import re
 import shutil
-import socket
+import signal
 import subprocess
 import sys
+import tempfile
+import textwrap
+import threading
 import time
 
 import numpy as np
@@ -373,6 +390,7 @@ from uc2_torch.models.finetune import (UC2ForImageTextRetrieval, UC2ForNlvr2,
 from uc2_torch.models.convert import shard_tensor
 from uc2_torch.models.encoder import SmallTableLookup, gelu
 from uc2_torch.models.pretraining import UC2ForPretraining
+from uc2_torch.parallel import multihost as MH
 from uc2_torch.ops import build
 from uc2_torch.ops import int8 as int8_ops
 from uc2_torch.ops.dropout import DropoutRng, dropout
@@ -469,16 +487,38 @@ TRAIN_SEED = 1234
 STEP_LOSS_TOL, STEP_NORM_RTOL, STEP_FLIP_SHARE = 1.3e-3, 2.7e-3, 1e-2
 STEP_QKV_RTOL = 2.0 ** -5
 FAILURES = []
+PHASE = [None]      # the phase that runs, named in each failure
 
 
 def fail(msg: str):
-    """Record a failed check; the run goes on and exits non-zero at the end."""
-    print(f"chip_smoke: FAILED: {msg}")
-    FAILURES.append(msg)
+    """Record a failed check; the run goes on and exits non-zero at the end.
+    The line goes to standard error too, so a log that keeps only the end
+    of standard error still names the check."""
+    line = f"chip_smoke: FAILED in {PHASE[0]}: {msg}"
+    print(line)
+    print(line, file=sys.stderr, flush=True)
+    FAILURES.append(f"{PHASE[0]}: {msg}")
 
 
 def fatal(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+DISCARDS = []
+
+
+def discard(path):
+    """Delete ``path`` (a phase's stores and checkpoints) in a thread of its
+    own: it is moved aside at once, and the host's seconds of unlinking
+    large files overlap the phases after it. ``main`` waits for them."""
+    if not os.path.exists(path):
+        return
+    trash = tempfile.mkdtemp(prefix=".discard", dir=os.path.dirname(path))
+    os.rename(path, os.path.join(trash, "x"))
+    t = threading.Thread(target=shutil.rmtree, args=(trash,),
+                         kwargs={"ignore_errors": True})
+    t.start()
+    DISCARDS.append(t)
 
 
 def reset_launches():
@@ -3278,14 +3318,16 @@ def phase_lab(card):
 
 # ------------------------------------------------ the pretraining driver
 PRETRAIN_DIR = os.path.join("build", "pretrain_smoke")
-PRETRAIN_IMGS, PRETRAIN_STEPS, PRETRAIN_SAVE = 512, 12, 6
+# a restore.ckpt every PRETRAIN_SAVE steps: at 7, the run stopped there
+# resumes to 12 without another
+PRETRAIN_IMGS, PRETRAIN_STEPS, PRETRAIN_SAVE = 256, 12, 7
 PRETRAIN_EXTRA = []      # more flags of every run (none on the card)
 
 
 def pretrain_argv(out, corpus, *extra):
     """config/uc2_pretrain.json unchanged but for its stores (the port's
     synthetic en and de corpora), the output directory and a short run:
-    12 steps, a restore.ckpt every 6, validation (2 batches a task) at 12,
+    12 steps, a restore.ckpt every 7, validation (2 batches a task) at 12,
     a log line every step."""
     with open("config/uc2_pretrain.json") as f:
         cfg = json.load(f)
@@ -3418,18 +3460,18 @@ def phase_pretrain(card):
     """``python -m uc2_torch.pretrain --config config/uc2_pretrain.json``
     in this process, on U2S stores the port's synth_corpus writes at the
     reference's widths: an uninterrupted 12-step run, then the same run
-    stopped after step 6 and resumed to 12 in one output directory.
+    stopped after step 7 and resumed to 12 in one output directory.
     Returns the uninterrupted run's launches."""
     print(f"== pretrain: python -m uc2_torch.pretrain --config "
           f"config/uc2_pretrain.json on U2S stores, uc2-base at full width, "
           f"{PRETRAIN_STEPS} steps, then stopped at {PRETRAIN_SAVE} and "
           f"resumed [{card}]")
     time_embedding_backward(card)
-    shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+    discard(PRETRAIN_DIR)
     try:
         return _phase_pretrain(card)
     finally:
-        shutil.rmtree(PRETRAIN_DIR, ignore_errors=True)
+        discard(PRETRAIN_DIR)
 
 
 def _phase_pretrain(card):
@@ -3466,7 +3508,10 @@ def _phase_pretrain(card):
     torch.cuda.synchronize()
     reset_launches()
     with counted_eval_steps(calls):
-        run = run_pretrain(pretrain_argv(whole, corpus))
+        # no restore.ckpt: the resumed run, which saves, is held to this
+        # one bit for bit
+        run = run_pretrain(pretrain_argv(whole, corpus, "--save_steps",
+                                         "1000"))
     torch.cuda.synchronize()
     launches = launch_counts()
     layers = run.model.config.num_hidden_layers
@@ -3526,14 +3571,10 @@ def _phase_pretrain(card):
           f"hold no save or validation; per step (ms) "
           f"{[round(r[0], 1) for r in rows]}; the driver's sustained "
           f"{run.sustained} [{card}]")
-    size = os.path.getsize(os.path.join(whole, "restore.ckpt"))
-    print(f"  restore.ckpt {size / 1e9:.3f} GB (parameters and AdamW's "
-          f"moments); saves took {[round(t, 2) for t in run.save_seconds]} s "
-          f"(host copy and torch.save)")
     want = trained_state(run)
     want_losses = run.losses
     del run
-    shutil.rmtree(whole, ignore_errors=True)
+    discard(whole)
     torch.cuda.empty_cache()
 
     resumed = os.path.join(PRETRAIN_DIR, "resumed")
@@ -3542,6 +3583,10 @@ def _phase_pretrain(card):
                                        str(PRETRAIN_SAVE)))
     first_losses, first_saves = first.losses, first.save_seconds
     del first
+    size = os.path.getsize(os.path.join(resumed, "restore.ckpt"))
+    print(f"  restore.ckpt {size / 1e9:.3f} GB (parameters and AdamW's "
+          f"moments); saves took {[round(t, 2) for t in first_saves]} s "
+          f"(host copy and torch.save)")
     torch.cuda.empty_cache()
     second = run_pretrain(pretrain_argv(resumed, corpus))
     torch.cuda.synchronize()
@@ -3611,7 +3656,7 @@ OBJ_LIMITS = {"mmxlm": MIX_LIMITS["vmlm"], "vmlm-soft": MIX_LIMITS["vmlm"],
               "itm-ot-pos": (1.4e-3, 1.9e-2, 2.0 ** -3),
               "tlm-ni": (1.4e-3, 2.3e-3, 2.0 ** -4)}
 OBJ_DIR = os.path.join("build", "objectives_smoke")
-OBJ_IMGS, OBJ_STEPS, OBJ_SAVE = 128, 12, 6
+OBJ_IMGS, OBJ_STEPS, OBJ_SAVE = 128, 12, 7      # as PRETRAIN_SAVE
 # the driver's second run: every task the demo mix leaves out
 OBJ_DRIVER_EN = ["mmxlm", "vmlm-soft", "mmxlm-soft", "mrc-kl", "mrm-nce"]
 OBJ_DRIVER_DE = ["itm-ot", "tlm-ni"]
@@ -3802,7 +3847,7 @@ def objective_specs(stores, which):
 
 def objective_argv(out, stores, which, *extra):
     """The driver's command line for ``objective_specs``' run: 12 steps, a
-    restore.ckpt every 6, validation (2 batches a task) at 12, on
+    restore.ckpt every 7, validation (2 batches a task) at 12, on
     config/demo_pretrain.json's settings."""
     train, val, flags = objective_specs(stores, which)
     return ["--config", "config/demo_pretrain.json",
@@ -3815,7 +3860,7 @@ def objective_argv(out, stores, which, *extra):
 
 
 def objective_driver(which, stores, card):
-    """One driver run of ``which`` uninterrupted and one stopped at step 6
+    """One driver run of ``which`` uninterrupted and one stopped at step 7
     and resumed: launches per micro-batch, every task's validation keys,
     bitwise resume. Returns the runs' launches."""
     whole = os.path.join(OBJ_DIR, f"{which}_whole")
@@ -3828,8 +3873,11 @@ def objective_driver(which, stores, card):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
+    # no restore.ckpt in the uninterrupted run: the resumed one, which
+    # saves, is held to it bit for bit
     with counted_eval_steps(calls):
-        run = run_pretrain(objective_argv(whole, stores, which))
+        run = run_pretrain(objective_argv(whole, stores, which,
+                                          "--save_steps", "1000"))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
@@ -3874,7 +3922,7 @@ def objective_driver(which, stores, card):
              f"{bad}")
     want_state, want_losses = trained_state(run), run.losses
     del run
-    shutil.rmtree(whole, ignore_errors=True)
+    discard(whole)
     torch.cuda.empty_cache()
 
     resumed = os.path.join(OBJ_DIR, f"{which}_resumed")
@@ -3905,7 +3953,7 @@ def objective_driver(which, stores, card):
             fail(f"objectives driver ({which}): the resumed runs launched "
                  f"{k.__name__} {counts[k.__name__]} times, want {want}")
     del second
-    shutil.rmtree(resumed, ignore_errors=True)
+    discard(resumed)
     torch.cuda.empty_cache()
     return total
 
@@ -3919,7 +3967,7 @@ def phase_objectives(card):
           "negatives and tlm-ni (co-masked) under pallas-train with "
           "UC2_FFN_TRAIN=1; IPOT; the driver on config/demo_pretrain.json's "
           "mix and on every other task")
-    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    discard(OBJ_DIR)
     try:
         with env_set("UC2_FFN_TRAIN", "1"):
             launches, step_ms = _objective_steps(card)
@@ -3944,7 +3992,7 @@ def phase_objectives(card):
                 launches[k] += n
         return launches
     finally:
-        shutil.rmtree(OBJ_DIR, ignore_errors=True)
+        discard(OBJ_DIR)
 
 
 def _objective_steps(card):
@@ -4549,11 +4597,11 @@ def phase_itm(card, rows, gen):
     launches of its runs."""
     print(f"== itm: python -m uc2_torch.itm --config {ITM_CONFIG} on U2S "
           f"stores, uc2-base at full width [{card}]")
-    shutil.rmtree(ITM_DIR, ignore_errors=True)
+    discard(ITM_DIR)
     try:
         return _phase_itm(card, rows, gen)
     finally:
-        shutil.rmtree(ITM_DIR, ignore_errors=True)
+        discard(ITM_DIR)
 
 
 def _phase_itm(card, rows, gen):
@@ -4652,7 +4700,7 @@ def _phase_itm(card, rows, gen):
         if json.load(f) != second.results:
             fail("itm: test_results.json is not the run's results")
     del second, saved, got, restored
-    shutil.rmtree(out, ignore_errors=True)
+    discard(out)
     torch.cuda.empty_cache()
 
     # (c) with hard negatives: sample size 5, 5 steps, mined before step 1
@@ -4692,7 +4740,7 @@ def _phase_itm(card, rows, gen):
         if not pools["txt2hardimgs"] or not pools["img2hardtxts"]:
             fail(f"itm: {name} holds empty pools")
     del run
-    shutil.rmtree(out, ignore_errors=True)
+    discard(out)
     torch.cuda.empty_cache()
 
     # (e) the training kernels at the micro-batches' shapes and the
@@ -4884,11 +4932,11 @@ def phase_finetune(card, rows, gen):
     and against the eager path. Returns the launches of its runs."""
     print(f"== finetune: python -m uc2_torch.vqa / ve / nlvr2 on U2S stores, "
           f"uc2-base and uniter-base at full width [{card}]")
-    shutil.rmtree(FT_DIR, ignore_errors=True)
+    discard(FT_DIR)
     try:
         return _phase_finetune(card, rows, gen)
     finally:
-        shutil.rmtree(FT_DIR, ignore_errors=True)
+        discard(FT_DIR)
 
 
 def _phase_finetune(card, rows, gen):
@@ -5010,7 +5058,7 @@ def _phase_finetune(card, rows, gen):
     if not (0.0 <= score <= 1.0) or len(calls) != opts.val_batches:
         fail(f"vqa: validation gave {score} over {len(calls)} batches")
     del second, saved, got, restored
-    shutil.rmtree(out, ignore_errors=True)
+    discard(out)
     torch.cuda.empty_cache()
 
     # (b) VE: 3 steps
@@ -5030,7 +5078,7 @@ def _phase_finetune(card, rows, gen):
     if run.model.num_answer != 3 or run.step != FT_STOP:
         fail(f"ve: {run.model.num_answer} answers, step {run.step}")
     del run
-    shutil.rmtree(out, ignore_errors=True)
+    discard(out)
     torch.cuda.empty_cache()
 
     # (c) NLVR2 in its three formats: 3 steps each from the encoder
@@ -5090,7 +5138,7 @@ def _phase_finetune(card, rows, gen):
                      f"{len(ids)} identifiers in the CSV, scorer exit {code} "
                      f"{lines}")
             del run
-            shutil.rmtree(out, ignore_errors=True)
+            discard(out)
             torch.cuda.empty_cache()
     finally:
         nlvr2.predict = real_predict
@@ -5144,53 +5192,73 @@ DIST_NORM_RTOL = 1e-3
 # batch), whose gap the phase prints beside it
 DIST_LOSS_RTOL = 2e-6
 DIST_TIMEOUT = 600       # seconds a spawned process may take
+# the depth of the gloo pairs' runs of whole models: this phase's driver
+# and all of phase 21's (b) (its one-process references too): uc2-base's
+# width, embeddings and heads, whose gradients are most of what gloo moves
+# through host memory, and 2 of its 12 layers
+PAIR_LAYERS = 2
 
 
-def dist_config():
-    """uc2-base under "pallas-train", written under DIST_DIR."""
+def dist_config(layers=None):
+    """uc2-base under "pallas-train" (cut to ``layers`` layers), written
+    under DIST_DIR."""
     with open("config/uc2-base.json") as f:
         cfg = dict(json.load(f), use_pallas_attention="pallas-train")
-    path = os.path.join(DIST_DIR, "uc2-base-pallas-train.json")
+    name = "uc2-base-pallas-train"
+    if layers is not None:
+        cfg["num_hidden_layers"] = layers
+        name += f"-{layers}-layers"
+    path = os.path.join(DIST_DIR, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
 
 
-# free_port and spawn are kin of tests/torch_dist_util.py's, kept here
-# because this script imports nothing from tests/ and spawns commands
-# (module runs and worker scripts) that report through their exit codes
-def free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# start and finish are kin of tests/torch_dist_util.py's spawn, kept here
+# because this script imports nothing from tests/ and starts worker
+# scripts that report through their exit codes
+def start(argvs_at):
+    """Start one process per argv of ``argvs_at(addr)`` (the repository on
+    the path), each writing its output to a file of its own. ``addr`` is a
+    TCPStore that this process serves on a port the OS chose, until
+    ``finish``: the processes get TORCHELASTIC_USE_AGENT_STORE=True, so
+    process 0 joins it as the others do, and no port is picked before it
+    is bound."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                       wait_for_workers=False)
+    env = dict(os.environ, PYTHONPATH=os.getcwd(),
+               TORCHELASTIC_USE_AGENT_STORE="True")
+    procs = []
+    for a in argvs_at(f"127.0.0.1:{store.port}"):
+        log = tempfile.TemporaryFile()
+        procs.append((subprocess.Popen(a, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs, time.perf_counter(), store
 
 
-def spawn(argvs, timeout=DIST_TIMEOUT):
-    """Start one process per argv (the repository on the path), wait for
-    all; each is killed at ``timeout`` seconds. Returns [(rc, output)]."""
-    env = dict(os.environ, PYTHONPATH=os.getcwd())
-    procs = [subprocess.Popen(a, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for a in argvs]
+def finish(started, timeout=DIST_TIMEOUT):
+    """Wait for ``start``'s processes; each is killed ``timeout`` seconds
+    after the start. Returns [(rc, output)]."""
+    procs, t0, _store = started
     out = []
-    t0 = time.perf_counter()
     try:
-        for p in procs:
-            left = max(1.0, timeout - (time.perf_counter() - t0))
+        for p, log in procs:
+            note = ""
             try:
-                text, _ = p.communicate(timeout=left)
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
             except subprocess.TimeoutExpired:
                 p.kill()
-                text, _ = p.communicate()
-                text += f"\n(killed after {timeout} s)"
-            out.append((p.returncode, text))
+                p.wait()
+                note = f"\n(killed after {timeout} s)"
+            log.seek(0)
+            out.append((p.returncode,
+                        log.read().decode(errors="replace") + note))
     finally:
-        for p in procs:
+        for p, log in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+            log.close()
     return out
 
 
@@ -5199,19 +5267,100 @@ def spawned_ok(what, res):
     each process's output."""
     if all(rc == 0 for rc, _ in res):
         return True
+    kinds = []
     for r, (rc, text) in enumerate(res):
-        print(f"  {what}, process {r} (rc {rc}):\n"
-              + "\n".join("    " + ln for ln in text.splitlines()[-25:]))
-    fail(f"dist: {what} failed")
+        kind = (f"killed by signal {-rc} ({signal.Signals(-rc).name})"
+                if rc < 0 else f"exit code {rc}")
+        kinds.append(kind)
+        tail = (f"  {what}, process {r} ({kind}):\n"
+                + "\n".join("    " + ln for ln in text.splitlines()[-25:]))
+        print(tail)
+        print(tail, file=sys.stderr)
+    fail(f"dist: {what} failed: {kinds}")
     return False
 
 
-def worker(name, body):
-    """A worker script under DIST_DIR: ``python <script> rank addr dir``."""
-    path = os.path.join(DIST_DIR, f"{name}.py")
+def worker(name, body, where=DIST_DIR):
+    """A worker script under ``where``: ``python <script> rank addr dir``."""
+    path = os.path.join(where, f"{name}.py")
     with open(path, "w") as f:
         f.write(body)
     return path
+
+
+def pair_script(*parts):
+    """One worker script that runs worker bodies (``(name, body)``, each
+    written for ``python <script> rank addr dir``) in turn in one process
+    and one process group, so that the processes start once for them all,
+    and writes each part's seconds to ``parts_<rank>.json`` in ``dir``.
+    The processes start before their inputs exist: they import what the
+    parts import (the drivers' tokenizer probe imports ``transformers``),
+    make their CUDA context and wait for ``release``. Each body runs as a function of its own; it
+    leaves the group up and puts back what it patched, and the script
+    shuts the group down."""
+    lines = ["import json, os, sys, time", "import torch",
+             "from uc2_torch import itm, pretrain",
+             "from uc2_torch.parallel import mesh, multihost, tensor",
+             "for name in ('torch.distributed.fsdp', 'transformers'):",
+             "    try:",
+             "        __import__(name)",
+             "    except Exception:",
+             "        pass",
+             "torch.zeros(1, device='cuda')",
+             "rank, d = int(sys.argv[1]), sys.argv[3]",
+             "while not os.path.exists(os.path.join(d, 'ready')):",
+             "    time.sleep(0.2)",
+             "if open(os.path.join(d, 'ready')).read() != 'go':",
+             "    sys.exit(1)",
+             "seconds = {}"]
+    for name, body in parts:
+        lines += [f"def {name}():", textwrap.indent(body.strip(), "    "),
+                  "torch.cuda.reset_peak_memory_stats()",
+                  "t0 = time.perf_counter()", f"{name}()",
+                  f"seconds[{name!r}] = time.perf_counter() - t0"]
+    lines += ["json.dump(seconds, open(f'{d}/parts_{rank}.json', 'w'))",
+              "from uc2_torch.parallel import multihost as MH",
+              "MH.shutdown()"]
+    return "\n".join(lines) + "\n"
+
+
+def release(where, go=True):
+    """Let the processes of a ``pair_script`` started in ``where`` run
+    their parts (``go``) or exit."""
+    path = os.path.join(where, "ready")
+    with open(path + ".tmp", "w") as f:
+        f.write("go" if go else "stop")
+    os.replace(path + ".tmp", path)
+
+
+def run_pair(where, script, prepare, *args):
+    """Start two processes of ``script`` (a ``pair_script``) in ``where``,
+    run ``prepare(*args)`` here meanwhile, then release them and wait.
+    Returns (prepare's result, [(rc, output)], seconds from the start,
+    seconds after the release)."""
+    t0 = time.perf_counter()
+    pair = start(lambda addr: [[sys.executable, script, str(r), addr, where]
+                               for r in (0, 1)])
+    try:
+        out = prepare(*args)
+    except BaseException:
+        release(where, go=False)
+        finish(pair, timeout=60)
+        raise
+    release(where)
+    t1 = time.perf_counter()
+    res = finish(pair)
+    t2 = time.perf_counter()
+    return out, res, t2 - t0, t2 - t1
+
+
+def part_seconds(where):
+    """Each part's seconds in each process of a ``pair_script`` run."""
+    out = []
+    for r in (0, 1):
+        with open(os.path.join(where, f"parts_{r}.json")) as f:
+            out.append({k: round(v, 1) for k, v in json.load(f).items()})
+    return out
 
 
 DIST_PROBE = r"""
@@ -5219,8 +5368,7 @@ import json, sys, torch
 rank, addr, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 import torch.distributed as dist
 from uc2_torch.parallel import multihost as MH
-assert MH.maybe_initialize(addr, 2, rank, backend="gloo", device="cuda",
-                           timeout_s=30)
+assert MH.maybe_initialize(addr, 2, rank, backend="gloo", device="cuda")
 x = torch.full((8,), float(rank + 1), device="cuda")
 out = {}
 def probe(name, fn):
@@ -5244,7 +5392,6 @@ probe("reduce_scatter", lambda: dist.reduce_scatter(
     torch.empty(4, device="cuda"), list(x.chunk(2))))
 probe("all_to_all_single", lambda: dist.all_to_all_single(
     torch.empty_like(x), x))
-MH.shutdown()
 """
 
 DIST_STEP = r"""
@@ -5285,15 +5432,16 @@ def timed(name, fn):
         calls[name] += 1
         return r
     return f
-M._all_reduce = timed("all_reduce", M._all_reduce)
-M.all_gather_flat = timed("all_gather", M.all_gather_flat)
+ar0, ag0 = M._all_reduce, M.all_gather_flat
+M._all_reduce = timed("all_reduce", ar0)
+M.all_gather_flat = timed("all_gather", ag0)
 out, params = {}, {}
 for zero1 in (False, True):
     model.load_state_dict(start)
     opt = build_optimizer(model, constant(1e-4), weight_decay=0.0,
                           betas=(0.9, 0.98), grad_norm=2.0, zero1=zero1)
     rows = []
-    for i in range(3):
+    for i in range(2):      # the first with the warm-up
         for k in KS:
             k.launches = 0
         for k in spent:
@@ -5323,7 +5471,7 @@ for p in params[True]:
     sha.update(p.cpu().numpy().tobytes())
 out["sha1"] = sha.hexdigest()
 json.dump(out, open(f"{d}/step_{rank}.json", "w"))
-MH.shutdown()
+M._all_reduce, M.all_gather_flat = ar0, ag0
 """
 
 DIST_DRIVER = r"""
@@ -5411,7 +5559,8 @@ keep = D.dropout(torch.ones(1 << 16, device="cuda"), 0.1,
 np.save(f"{d}/keep_{rank}.npy", keep.cpu().numpy())
 out["collective"] = dict(spent)
 json.dump(out, open(f"{d}/driver_{rank}.json", "w"))
-MH.shutdown()
+TP._all_reduce, D.DropoutRng.__init__ = ar0, init0
+C.TrainingRestorer.restore = restore0
 """
 
 DIST_NCCL_PAIR = r"""
@@ -5459,32 +5608,55 @@ def phase_dist(card, rows, gen):
     print(f"== dist: data parallelism across processes (uc2_torch.parallel)"
           f", uc2-base under pallas-train, config/uc2_pretrain.json's mix "
           f"[{card}]")
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    discard(DIST_DIR)
     os.makedirs(DIST_DIR)
     try:
         return _phase_dist(card, rows, gen)
     finally:
-        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        discard(DIST_DIR)
         torch.cuda.empty_cache()
 
 
 def _phase_dist(card, rows, gen):
     launches = no_launches()
+    script = worker("pair", pair_script(
+        ("probe", DIST_PROBE), ("step", DIST_STEP), ("driver", DIST_DRIVER)))
+    (one_loss, one_norm, one_units, loss_lim, layers), res, pair_s, \
+        after_s = run_pair(DIST_DIR, script, dist_inputs, card, rows, gen,
+                           launches)
+    if not spawned_ok("the two-process probe, step and driver", res):
+        return launches
+    parts = part_seconds(DIST_DIR)
+    with open(os.path.join(DIST_DIR, "probe_0.json")) as f:
+        probe = json.load(f)
+    print(f"  gloo on CUDA tensors (2 processes, one card): {probe} [{card}]")
+    if probe.get("all_reduce") != "ok" or probe.get("all_gather") != "ok":
+        fail(f"dist: gloo refused all_reduce or all_gather on CUDA tensors: "
+             f"{probe}")
+    dist_reports(card, launches, one_loss, one_norm, one_units, loss_lim,
+                 layers, parts)
+    print(f"  the pair: {pair_s:.1f} s from its processes' start, "
+          f"{after_s:.1f} s of them after its inputs were ready; each "
+          f"part's seconds in processes 0 and 1 {parts}")
+    return launches
+
+
+def dist_inputs(card, rows, gen, launches):
+    """The phase's work in this process while the gloo pair starts: #5/#6
+    at a process's rows, the NCCL refusal, (a), and the pair's inputs (the
+    split batch, one process's step on it, the driver's flags). Adds (a)'s
+    launches to ``launches``; returns one process's loss, grad norm and
+    masked tokens, the split step's loss limit and the model's layers."""
     # a process's rows of the split batch
     train_kernels_at(rows, gen, ((B, TXT_LEN + NUM_BB),))
     torch.cuda.empty_cache()
     py = sys.executable
 
-    # two NCCL ranks on one card: refused at start, never a hang
-    addr = f"127.0.0.1:{free_port()}"
-    res = spawn([[py, worker("nccl_pair", DIST_NCCL_PAIR), str(r), addr]
-                 for r in (0, 1)], timeout=120)
-    named = [rc != 0 and "--dist_backend gloo" in text for rc, text in res]
-    print(f"  two NCCL ranks on one card: exit codes "
-          f"{[rc for rc, _ in res]}, refusal naming --dist_backend gloo "
-          f"{named}")
-    if not all(named):
-        fail("dist: two NCCL ranks on one card were not refused by name")
+    # two NCCL ranks on one card: refused at start, never a hang (started
+    # here, read after (a))
+    script = worker("nccl_pair", DIST_NCCL_PAIR)
+    nccl_pair = start(lambda addr: [[py, script, str(r), addr]
+                                    for r in (0, 1)])
 
     cfg_path = dist_config()
     t0 = time.perf_counter()
@@ -5494,7 +5666,8 @@ def _phase_dist(card, rows, gen):
     print(f"  stores: en and de, {DIST_IMGS} images x 2 captions each, in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # (a) a world of one over NCCL against no process group
+    # (a) a world of one over NCCL against no process group, both run in
+    # this process through the driver's own parse
     plain_out = os.path.join(DIST_DIR, "plain")
     torch.cuda.synchronize()
     reset_launches()
@@ -5510,50 +5683,49 @@ def _phase_dist(card, rows, gen):
     torch.cuda.empty_cache()
     one_out = os.path.join(DIST_DIR, "world1")
     t0 = time.perf_counter()
-    res = spawn([[py, "-m", "uc2_torch.pretrain",
-                  *dist_driver_argv(one_out, corpus, cfg_path,
-                                    "--save_steps", str(DIST_STEPS)),
-                  "--coordinator_address", f"127.0.0.1:{free_port()}",
-                  "--num_processes", "1", "--process_id", "0", "--zero1"]])
+    try:
+        run = run_pretrain([
+            *dist_driver_argv(one_out, corpus, cfg_path, "--save_steps",
+                              str(DIST_STEPS)),
+            "--coordinator_address", "127.0.0.1:0", "--num_processes", "1",
+            "--process_id", "0", "--zero1"])
+        group = (torch.distributed.get_backend(), MH.process_count())
+        del run
+    finally:
+        MH.shutdown()
     one_s = time.perf_counter() - t0
-    if spawned_ok("the world-1 NCCL run", res):
-        step, got = ckpt_state(os.path.join(one_out, "restore.ckpt"))
-        got_losses = scalars_losses(one_out)
-        diff = sorted(k for k in want if k not in got
-                      or not torch.equal(got[k], want[k]))
-        ok = (step == DIST_STEPS and not diff and len(got) == len(want)
-              and got_losses == want_losses)
-        print(f"  (a) python -m uc2_torch.pretrain --coordinator_address "
-              f"... --num_processes 1 --process_id 0 --zero1 (NCCL): "
-              f"{DIST_STEPS} steps in {one_s:.1f} s with the process's "
-              f"start; losses {[(s, t, round(v, 4)) for s, t, v in got_losses]}"
-              f"; against the run without a process group (loop ms/step "
-              f"{plain_ms}): losses equal {got_losses == want_losses}, "
-              f"{len(want) - len(diff)} of {len(want)} parameter and moment "
-              f"tensors bit for bit {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"dist: the world-1 NCCL run is not the run without a "
-                 f"process group bit for bit ({diff[:3]}, step {step})")
-        del got
-    del want
-    shutil.rmtree(one_out, ignore_errors=True)
-    shutil.rmtree(plain_out, ignore_errors=True)
+    step, got = ckpt_state(os.path.join(one_out, "restore.ckpt"))
+    got_losses = scalars_losses(one_out)
+    diff = sorted(k for k in want if k not in got
+                  or not torch.equal(got[k], want[k]))
+    ok = (step == DIST_STEPS and not diff and len(got) == len(want)
+          and got_losses == want_losses and group == ("nccl", 1))
+    print(f"  (a) python -m uc2_torch.pretrain --coordinator_address "
+          f"127.0.0.1:0 --num_processes 1 --process_id 0 --zero1 (NCCL), run "
+          f"in this process through its own parse (group {group}): "
+          f"{DIST_STEPS} steps in {one_s:.1f} s; losses "
+          f"{[(s, t, round(v, 4)) for s, t, v in got_losses]}; against the "
+          f"run without a process group (loop ms/step {plain_ms}): losses "
+          f"equal {got_losses == want_losses}, {len(want) - len(diff)} of "
+          f"{len(want)} parameter and moment tensors bit for bit "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"dist: the world-1 NCCL run is not the run without a process "
+             f"group bit for bit ({diff[:3]}, step {step}, group {group})")
+    del got, want
+    discard(one_out)
+    discard(plain_out)
 
-    # (b) two processes on the card over gloo
-    addr = f"127.0.0.1:{free_port()}"
-    res = spawn([[py, worker("probe", DIST_PROBE), str(r), addr, DIST_DIR]
-                 for r in (0, 1)], timeout=300)
-    probe = {}
-    path = os.path.join(DIST_DIR, "probe_0.json")
-    if os.path.exists(path):
-        with open(path) as f:
-            probe = json.load(f)
-    print(f"  gloo on CUDA tensors (2 processes, one card; exit codes "
-          f"{[rc for rc, _ in res]}): {probe} [{card}]")
-    if probe.get("all_reduce") != "ok" or probe.get("all_gather") != "ok":
-        fail(f"dist: gloo refused all_reduce or all_gather on CUDA tensors: "
-             f"{probe}")
+    res = finish(nccl_pair, timeout=120)
+    named = [rc != 0 and "--dist_backend gloo" in text for rc, text in res]
+    print(f"  two NCCL ranks on one card: exit codes "
+          f"{[rc for rc, _ in res]}, refusal naming --dist_backend gloo "
+          f"{named}")
+    if not all(named):
+        fail("dist: two NCCL ranks on one card were not refused by name")
 
+    # (b) two processes on the card over gloo, which run the collectives'
+    # probe, the split step and the driver in turn (one start)
     cfg0 = set_dropout(UC2Config.from_json_file(cfg_path).replace(
         dtype="bfloat16"), 0.0)
     batch = mix_batches(cfg0, 1, TRAIN_SEED)[0]["mlm"][0]
@@ -5580,125 +5752,121 @@ def _phase_dist(card, rows, gen):
           f"loss limit {loss_lim:.2e} "
           f"{'sees' if local_gap > loss_lim else 'does NOT see'} it)")
     torch.cuda.empty_cache()
+    driver_cfg = dist_config(PAIR_LAYERS)
     meta = {"model_config": cfg_path, "stop": DIST_STOP,
             "driver_out": os.path.join(DIST_DIR, "driver"),
             "driver_argv": dist_driver_argv(
-                os.path.join(DIST_DIR, "driver"), corpus, cfg_path,
+                os.path.join(DIST_DIR, "driver"), corpus, driver_cfg,
                 "--save_steps", str(DIST_STOP),
                 # each process's micro-batches half the one-process size:
                 # the global batch of the one-process run
                 "--train_batch_size", "5120")}
     with open(os.path.join(DIST_DIR, "meta.json"), "w") as f:
         json.dump(meta, f)
-    addr = f"127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    res = spawn([[py, worker("step", DIST_STEP), str(r), addr, DIST_DIR]
-                 for r in (0, 1)])
-    step_s = time.perf_counter() - t0
-    if spawned_ok("the two-process step", res):
-        outs = []
-        for r in (0, 1):
-            with open(os.path.join(DIST_DIR, f"step_{r}.json")) as f:
-                outs.append(json.load(f))
-        for mode in ("replicated", "zero1"):
-            for r, o in enumerate(outs):
-                rws = o[mode]
-                first = rws[0]
-                d_loss = abs(first["loss"] - one_loss)
-                d_norm = abs(first["grad_norm"] - one_norm) / one_norm
-                ok = (d_loss <= loss_lim and d_norm <= DIST_NORM_RTOL
-                      and first["n_units"] == one_units
-                      and all(n == cfg0.num_hidden_layers
-                              for n in first["launches"].values()))
-                ms = [round(x["ms"], 1) for x in rws]
-                coll = [{k: round(v, 1) for k, v in x["collective_ms"].items()}
-                        for x in rws]
-                print(f"  (b) {mode}, process {r} of 2 (gloo, 64 of the 128 "
-                      f"rows at L = 162, dropout 0): loss {first['loss']:.6f} "
-                      f"vs one process's {one_loss:.6f} (|diff| "
-                      f"{d_loss:.2e}, tolerance {loss_lim:.2e}), masked "
-                      f"tokens over the processes {first['n_units']:g} vs "
-                      f"{one_units:g}, grad norm "
-                      f"{first['grad_norm']:.6f} vs {one_norm:.6f} (relative "
-                      f"{d_norm:.2e}, tolerance {DIST_NORM_RTOL:g}); launches "
-                      f"{first['launches']}; ms/step {ms} (the first with "
-                      f"the warm-up); collectives' ms a step {coll}, "
-                      f"{first['collectives']} a step; moments kept "
-                      f"{o[mode + '_moments']} of {o['total']} "
-                      f"{'ok' if ok else 'FAIL'} [{card}]")
-                if not ok:
-                    fail(f"dist: the two-process {mode} step (process {r}) "
-                         f"is not the one-process step")
-                for name, n in first["launches"].items():
-                    launches[name] += n
-        ok = all(o["bitwise"] for o in outs) and outs[0]["sha1"] == \
-            outs[1]["sha1"]
-        share = [o["zero1_moments"] / o["total"] for o in outs]
-        print(f"  --zero1 parameters after the step bit for bit the "
-              f"replicated step's on both processes, and the processes' "
-              f"alike: {ok}; each process keeps {share} of the moments; "
-              f"{step_s:.1f} s with the processes' start")
-        if not ok:
-            fail("dist: the --zero1 step is not the replicated step bit for "
-                 "bit")
+    return one_loss, one_norm, one_units, loss_lim, cfg0.num_hidden_layers
 
-    addr = f"127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    res = spawn([[py, worker("driver", DIST_DRIVER), str(r), addr, DIST_DIR]
-                 for r in (0, 1)])
-    drv_s = time.perf_counter() - t0
-    if spawned_ok("the two-process driver", res):
-        outs = []
-        for r in (0, 1):
-            with open(os.path.join(DIST_DIR, f"driver_{r}.json")) as f:
-                outs.append(json.load(f))
-        keeps = [np.load(os.path.join(DIST_DIR, f"keep_{r}.npy"))
-                 for r in (0, 1)]
-        seed = json.load(open("config/uc2_pretrain.json"))["seed"]
-        one = (dropout(torch.ones(1 << 16, device="cuda"), 0.1, DropoutRng(
-            pretrain.step_seed(seed, 0), "cuda")) > 0).cpu().numpy()
-        masks_ok = (np.array_equal(keeps[0], one)
-                    and not np.array_equal(keeps[0], keeps[1]))
-        with open("config/uc2_pretrain.json") as f:
-            accum = json.load(f)["gradient_accumulation_steps"]
+
+def dist_reports(card, launches, one_loss, one_norm, one_units, loss_lim,
+                 layers, parts):
+    """The gloo pair's split step and driver against one process's, their
+    launches added to ``launches``."""
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(DIST_DIR, f"step_{r}.json")) as f:
+            outs.append(json.load(f))
+    for mode in ("replicated", "zero1"):
         for r, o in enumerate(outs):
-            want_n = DIST_STOP * cfg0.num_hidden_layers * accum
-            ok = (o["restored_step"] == DIST_STOP and o["model_bitwise"]
-                  and o["optimizer_bitwise"] and all(o["streams"])
-                  and o["second"]["step"] == DIST_STEPS
-                  and all(n == want_n for n in o["launches_first"].values())
-                  and all(np.isfinite(v) for part in ("first", "second")
-                          for _, _, v in o[part]["losses"]))
-            logs = o["first"]["logs"] + o["second"]["logs"]
-            ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
-                  for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
-                  if s1 > s0 and s0 != DIST_STOP]
-            print(f"  (b) driver, process {r} of 2 (gloo, --zero1, "
-                  f"--train_batch_size 5120): steps 1-{DIST_STOP}, saved, "
-                  f"resumed to {o['second']['step']}; losses "
-                  f"{[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
-                  f"; restored step {o['restored_step']}, model bit for bit "
-                  f"{o['model_bitwise']}, optimizer bit for bit "
-                  f"{o['optimizer_bitwise']}; stream files {o['streams']}; "
-                  f"launches of steps 1-{DIST_STOP} {o['launches_first']} "
-                  f"(want {want_n} each); moments kept {o['own_moments']} of "
-                  f"{o['total']}; loop ms/step {ms}; saves "
-                  f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
-                  f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
-                  f" [{card}]")
+            rws = o[mode]
+            first = rws[0]
+            d_loss = abs(first["loss"] - one_loss)
+            d_norm = abs(first["grad_norm"] - one_norm) / one_norm
+            ok = (d_loss <= loss_lim and d_norm <= DIST_NORM_RTOL
+                  and first["n_units"] == one_units
+                  and all(n == layers
+                          for n in first["launches"].values()))
+            ms = [round(x["ms"], 1) for x in rws]
+            coll = [{k: round(v, 1) for k, v in x["collective_ms"].items()}
+                    for x in rws]
+            print(f"  (b) {mode}, process {r} of 2 (gloo, 64 of the 128 "
+                  f"rows at L = 162, dropout 0): loss {first['loss']:.6f} "
+                  f"vs one process's {one_loss:.6f} (|diff| "
+                  f"{d_loss:.2e}, tolerance {loss_lim:.2e}), masked "
+                  f"tokens over the processes {first['n_units']:g} vs "
+                  f"{one_units:g}, grad norm "
+                  f"{first['grad_norm']:.6f} vs {one_norm:.6f} (relative "
+                  f"{d_norm:.2e}, tolerance {DIST_NORM_RTOL:g}); launches "
+                  f"{first['launches']}; ms/step {ms} (the first with "
+                  f"the warm-up); collectives' ms a step {coll}, "
+                  f"{first['collectives']} a step; moments kept "
+                  f"{o[mode + '_moments']} of {o['total']} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]")
             if not ok:
-                fail(f"dist: the two-process driver run (process {r}) did not "
-                     f"resume bit for bit or missed a launch")
-            for name, n in o["launches_first"].items():
+                fail(f"dist: the two-process {mode} step (process {r}) "
+                     f"is not the one-process step")
+            for name, n in first["launches"].items():
                 launches[name] += n
-        print(f"  the processes' first dropout masks: process 0's are the "
-              f"one-process masks {np.array_equal(keeps[0], one)}, process "
-              f"1's differ from them {not np.array_equal(keeps[0], keeps[1])}"
-              f"; keep rates {[round(float(k.mean()), 4) for k in keeps]}; "
-              f"{drv_s:.1f} s with the processes' start")
-        if not masks_ok:
-            fail("dist: the processes' dropout masks are not per process")
-    return launches
+    ok = all(o["bitwise"] for o in outs) and outs[0]["sha1"] == \
+        outs[1]["sha1"]
+    share = [o["zero1_moments"] / o["total"] for o in outs]
+    print(f"  --zero1 parameters after the step bit for bit the "
+          f"replicated step's on both processes, and the processes' "
+          f"alike: {ok}; each process keeps {share} of the moments; "
+          f"{parts[0]['step']} s in the processes")
+    if not ok:
+        fail("dist: the --zero1 step is not the replicated step bit for "
+             "bit")
+
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(DIST_DIR, f"driver_{r}.json")) as f:
+            outs.append(json.load(f))
+    keeps = [np.load(os.path.join(DIST_DIR, f"keep_{r}.npy"))
+             for r in (0, 1)]
+    seed = json.load(open("config/uc2_pretrain.json"))["seed"]
+    one = (dropout(torch.ones(1 << 16, device="cuda"), 0.1, DropoutRng(
+        pretrain.step_seed(seed, 0), "cuda")) > 0).cpu().numpy()
+    masks_ok = (np.array_equal(keeps[0], one)
+                and not np.array_equal(keeps[0], keeps[1]))
+    with open("config/uc2_pretrain.json") as f:
+        accum = json.load(f)["gradient_accumulation_steps"]
+    for r, o in enumerate(outs):
+        want_n = DIST_STOP * PAIR_LAYERS * accum
+        ok = (o["restored_step"] == DIST_STOP and o["model_bitwise"]
+              and o["optimizer_bitwise"] and all(o["streams"])
+              and o["second"]["step"] == DIST_STEPS
+              and all(n == want_n for n in o["launches_first"].values())
+              and all(np.isfinite(v) for part in ("first", "second")
+                      for _, _, v in o[part]["losses"]))
+        logs = o["first"]["logs"] + o["second"]["logs"]
+        ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
+              for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
+              if s1 > s0 and s0 != DIST_STOP]
+        print(f"  (b) driver, process {r} of 2 (gloo, --zero1, "
+              f"--train_batch_size 5120, {PAIR_LAYERS} layers): steps "
+              f"1-{DIST_STOP}, saved, "
+              f"resumed to {o['second']['step']}; losses "
+              f"{[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
+              f"; restored step {o['restored_step']}, model bit for bit "
+              f"{o['model_bitwise']}, optimizer bit for bit "
+              f"{o['optimizer_bitwise']}; stream files {o['streams']}; "
+              f"launches of steps 1-{DIST_STOP} {o['launches_first']} "
+              f"(want {want_n} each); moments kept {o['own_moments']} of "
+              f"{o['total']}; loop ms/step {ms}; saves "
+              f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
+              f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
+              f" [{card}]")
+        if not ok:
+            fail(f"dist: the two-process driver run (process {r}) did not "
+                 f"resume bit for bit or missed a launch")
+        for name, n in o["launches_first"].items():
+            launches[name] += n
+    print(f"  the processes' first dropout masks: process 0's are the "
+          f"one-process masks {np.array_equal(keeps[0], one)}, process "
+          f"1's differ from them {not np.array_equal(keeps[0], keeps[1])}"
+          f"; keep rates {[round(float(k.mean()), 4) for k in keeps]}; "
+          f"{parts[0]['driver']} s in the processes")
+    if not masks_ok:
+        fail("dist: the processes' dropout masks are not per process")
 
 
 # ------------------------------------------------------- int8 serving
@@ -5862,13 +6030,13 @@ def phase_int8(card, gen):
     the launches of its scoring and driver runs."""
     print(f"== int8: serving products, scoring and the itm driver with "
           f"--quant int8, uc2-base at full width [{card}]")
-    shutil.rmtree(INT8_DIR, ignore_errors=True)
-    shutil.rmtree(ITM_DIR, ignore_errors=True)
+    discard(INT8_DIR)
+    discard(ITM_DIR)
     try:
         return _phase_int8(card, gen)
     finally:
-        shutil.rmtree(INT8_DIR, ignore_errors=True)
-        shutil.rmtree(ITM_DIR, ignore_errors=True)
+        discard(INT8_DIR)
+        discard(ITM_DIR)
 
 
 def _phase_int8(card, gen):
@@ -6145,11 +6313,11 @@ def phase_runbook(card):
     print(f"== runbook: python -m uc2_torch.verify_real_ckpt on the demo "
           f"corpus in the release's LMDB format, uc2-base at full width; "
           f"python -m uc2_torch.collate_bench [{card}]")
-    shutil.rmtree(RUNBOOK_DIR, ignore_errors=True)
+    discard(RUNBOOK_DIR)
     try:
         return _phase_runbook(card)
     finally:
-        shutil.rmtree(RUNBOOK_DIR, ignore_errors=True)
+        discard(RUNBOOK_DIR)
 
 
 def _phase_runbook(card):
@@ -6283,12 +6451,12 @@ def phase_remat(card):
     the launches of its steps."""
     print(f"== remat: the mlm step at ({REMAT_B}, {TRAIN_TXT + REMAT_NB}) "
           f"under remat none / full / dots, then the LMDB importer [{card}]")
-    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    discard(IMPORT_DIR)
     with env_set("UC2_FFN_TRAIN", None):
         try:
             return _phase_remat(card)
         finally:
-            shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+            discard(IMPORT_DIR)
 
 
 def _phase_remat(card):
@@ -6881,7 +7049,7 @@ def tp_score_launches(part, L, layers):
     return want
 # the updated parameters read back from the two-process step
 TP_PARAM_KEYS = ("roberta.layer.0.attention.qkv.weight",
-                 "roberta.layer.11.output_dense.weight",
+                 f"roberta.layer.{PAIR_LAYERS - 1}.output_dense.weight",
                  "roberta.embeddings.word_embeddings.weight", "cls.bias")
 
 TP_WORKER = r"""
@@ -6926,7 +7094,7 @@ def ar(t, *a, **k):
     return r
 TP._all_reduce = ar
 meta = json.load(open(f"{d}/meta.json"))
-cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
+cfg = UC2Config.from_json_file(meta["model_config"]).replace(
     dtype="bfloat16")
 out = {}
 model = TP.place_model(UC2ForImageTextRetrieval(cfg, device="cuda", seed=0))
@@ -6991,7 +7159,7 @@ steps(meta["steps"], "ffn_steps")
 del os.environ["UC2_FFN_TRAIN"]
 out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 json.dump(out, open(f"{d}/tp_{rank}.json", "w"))
-MH.shutdown()
+TP._all_reduce = ar0
 """
 
 # ``python -m uc2_torch.itm --quant int8 --n_model 2`` in one process of
@@ -7033,7 +7201,7 @@ json.dump({"step": run.step, "val": run.val, "results": run.results,
            "collective": spent,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
           open(f"{d}/itm_{rank}.json", "w"))
-MH.shutdown()
+TP._all_reduce = ar0
 """
 # its stores at uc2-base's widths: training on TP_ITM_IMGS images x 2
 # captions; validation (after the last of TP_ITM_STEPS steps) on
@@ -7052,26 +7220,28 @@ def phase_tp(card, gen):
     launches of the model group's runs)."""
     print(f"== tp: tensor parallelism, (a) the kernels' partial modes and "
           f"head offsets, (b) two processes over gloo on the one card at "
-          f"--n_model 2 [{card}]")
-    shutil.rmtree(TP_DIR, ignore_errors=True)
+          f"--n_model 2, uc2-base cut to {PAIR_LAYERS} layers [{card}]")
+    discard(TP_DIR)
     os.makedirs(TP_DIR)
     try:
         return _phase_tp(card, gen)
     finally:
-        shutil.rmtree(TP_DIR, ignore_errors=True)
+        discard(TP_DIR)
         torch.cuda.empty_cache()
 
 
-def _phase_tp(card, gen):
-    rows = tp_partial_checks(gen)
-    tp_route_checks(gen, rows)
-    tp_head_offset_checks(gen)
-    torch.cuda.empty_cache()
-    launches = no_launches()
-    py = sys.executable
+def tp_inputs():
+    """The pair's inputs, made in this process while its processes start:
+    scored batches of B = 64 at the three buckets and one mlm batch, one
+    process's scores (default route, UC2_ATTN_V2, int8) and mlm steps
+    (without and with UC2_FFN_TRAIN=1) on the same weights, and the two
+    drivers' stores and flags. Returns what the reports hold them to."""
     cfg = UC2Config.from_json_file("config/uc2-base.json").replace(
-        dtype="bfloat16")
+        dtype="bfloat16", num_hidden_layers=PAIR_LAYERS)
     layers = cfg.num_hidden_layers
+    model_config = os.path.join(TP_DIR, "uc2-base-bf16.json")
+    with open(model_config, "w") as f:
+        json.dump(cfg.to_dict(), f)
     # scored batches of B = 64 at the three buckets, and one mlm batch
     txt_db, img_db = synth_gallery(seed=3, n_imgs=N_IMGS, txt_per_img=1,
                                    vocab=cfg.vocab_size, img_dim=cfg.img_dim)
@@ -7092,8 +7262,6 @@ def _phase_tp(card, gen):
                os.path.join(TP_DIR, "score_batches.pt"))
     torch.save({k: v.cpu() for k, v in mlm.items()},
                os.path.join(TP_DIR, "mlm_batch.pt"))
-    with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
-        json.dump({"steps": TP_STEP_COUNT, "keys": list(TP_PARAM_KEYS)}, f)
     # one process on the same weights and inputs: the default route,
     # UC2_ATTN_V2 and int8 scores, and the mlm step without and with
     # UC2_FFN_TRAIN=1
@@ -7138,97 +7306,11 @@ def _phase_tp(card, gen):
             del model, opt, m
             torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    addr = f"127.0.0.1:{free_port()}"
-    path = os.path.join(TP_DIR, "tp_worker.py")
-    with open(path, "w") as f:
-        f.write(TP_WORKER)
-    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
-    worker_s = time.perf_counter() - t0
-    if spawned_ok("tp: the two-process scores and steps", res):
-        outs = []
-        for r in (0, 1):
-            with open(os.path.join(TP_DIR, f"tp_{r}.json")) as f:
-                outs.append(json.load(f))
-        for part, tol, what in (("score", SCORE_TOL, "default-route"),
-                                ("v2", TP_SCORE_TOL, "UC2_ATTN_V2=1"),
-                                ("int8", TP_SCORE_TOL, "int8")):
-            for r in (0, 1):
-                tp_scores = torch.load(os.path.join(TP_DIR,
-                                                    f"{part}_{r}.pt"))
-                for L, want in one[part].items():
-                    n = rows_n[L]
-                    got = tp_scores[L]
-                    err = float((got[:n] - want[:n]).abs().max())
-                    rec = outs[r][f"{part}_{L}"]
-                    want_k = tp_score_launches(part, L, layers)
-                    ok = (bool(torch.isfinite(got).all()) and err <= tol
-                          and rec["launches"] == want_k)
-                    coll = rec["collective"]
-                    print(f"  (b) {what} scores, process {r} of 2, B = {B}, "
-                          f"L = {L}: max|n_model 2 - one process| {err:.4e} "
-                          f"(tolerance {tol}; bit for bit "
-                          f"{torch.equal(got[:n], want[:n])}), launches "
-                          f"{rec['launches']} (want {want_k}); ms/batch "
-                          f"{[round(x, 1) for x in rec['ms']]} against one "
-                          f"process's "
-                          f"{[round(x, 1) for x in one_ms[(part, L)]]}; "
-                          f"the model group's all-reduces {coll['n']} a "
-                          f"batch, {coll['mb']:.1f} MB, {coll['ms']:.1f} ms "
-                          f"{'ok' if ok else 'FAIL'} [{card}]")
-                    if not ok:
-                        fail(f"tp: the {part} scores at L = {L} (process "
-                             f"{r}) are not one process's, or a kernel was "
-                             f"not launched")
-                    if r == 0:
-                        for k, c in rec["launches"].items():
-                            if k in launches:
-                                launches[k] += c
-        got_params = torch.load(os.path.join(TP_DIR, "params.pt"))
-        p_err = {k.split(".")[-2]: float(
-            (got_params[k] - v).abs().max() / v.abs().max())
-            for k, v in one_params.items()}
-        for part, extra in (("steps", ()),
-                            ("ffn_steps", FFN_TP_KERNELS)):
-            want_k = {k.__name__: layers for k in TRAIN_KERNELS + extra}
-            ref = one_steps[part]
-            for r in (0, 1):
-                st = outs[r][part]
-                first = st[0]
-                d_loss = abs(first["loss"] - ref["loss"])
-                d_norm = abs(first["grad_norm"] - ref["grad_norm"]) / ref[
-                    "grad_norm"]
-                ok = (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_NORM_RTOL
-                      and first["launches"] == want_k)
-                coll = [(x["collective"]["n"],
-                         round(x["collective"]["mb"], 1),
-                         round(x["collective"]["ms"], 1)) for x in st]
-                print(f"  (b) mlm step{' with UC2_FFN_TRAIN=1' if extra else ''}"
-                      f" at ({TP_STEP_B}, {TXT_LEN + NUM_BB}), dropout 0.1, "
-                      f"pallas-train, process {r} of 2: loss "
-                      f"{first['loss']:.6f} vs one process's "
-                      f"{ref['loss']:.6f} (|diff| {d_loss:.2e}, tolerance "
-                      f"{STEP_LOSS_TOL}), grad norm {first['grad_norm']:.6f} "
-                      f"vs {ref['grad_norm']:.6f} (relative {d_norm:.2e}, "
-                      f"tolerance {STEP_NORM_RTOL}); launches "
-                      f"{first['launches']} (want {want_k}); ms/step "
-                      f"{[round(x['ms'], 1) for x in st]} (the first with "
-                      f"the warm-up) against one process's second step "
-                      f"{ref['ms']:.1f}; the model group's all-reduces a "
-                      f"step (count, MB, ms) {coll}; peak "
-                      f"{outs[r]['peak_gib']:.1f} GiB "
-                      f"{'ok' if ok else 'FAIL'} [{card}]")
-                if not ok:
-                    fail(f"tp: the two-process mlm {part} (process {r}) is "
-                         f"not the one-process step")
-                if r == 0:
-                    for k, c in first["launches"].items():
-                        launches[k] += c
-        print(f"  (b) the updated parameters after the step, gathered, "
-              f"against one process's (max |diff| over max |one|): {p_err}"
-              f"; {worker_s:.1f} s with the processes' start")
-
-    # the pretraining driver at --n_model 2: saved at TP_STOP, resumed
+    # the stores and flags of the two drivers the processes run after the
+    # scores and steps: the pretraining driver at --n_model 2, saved at
+    # TP_STOP and resumed; python -m uc2_torch.itm --quant int8 --n_model 2,
+    # its validations and test scored through the int8 row-parallel
+    # products
     t0 = time.perf_counter()
     cfg_path = os.path.join(TP_DIR, "uc2-base-pallas-train.json")
     with open(cfg_path, "w") as f:
@@ -7237,136 +7319,235 @@ def _phase_tp(card, gen):
                            txt_per_img=2, seed=seed, paired=lang == "de")
               for lang, seed in (("en", 0), ("de", 1))]
     out_dir = os.path.join(TP_DIR, "driver")
-    meta = {"stop": TP_STOP, "driver_out": out_dir, "extra": [
-        "--n_model", "2"], "driver_argv": dist_driver_argv(
-            out_dir, corpus, cfg_path, "--save_steps", str(TP_STOP),
-            "--num_train_steps", str(TP_STEPS),
-            "--train_batch_size", "5120")}
-    with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    path = os.path.join(TP_DIR, "driver.py")
-    with open(path, "w") as f:
-        f.write(DIST_DRIVER)
-    addr = f"127.0.0.1:{free_port()}"
-    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
-    drv_s = time.perf_counter() - t0
-    if spawned_ok("tp: the two-process driver at --n_model 2", res):
-        outs = []
-        for r in (0, 1):
-            with open(os.path.join(TP_DIR, f"driver_{r}.json")) as f:
-                outs.append(json.load(f))
-        keeps = [np.load(os.path.join(TP_DIR, f"keep_{r}.npy"))
-                 for r in (0, 1)]
-        with open("config/uc2_pretrain.json") as f:
-            accum = json.load(f)["gradient_accumulation_steps"]
-        for r, o in enumerate(outs):
-            want_n = TP_STOP * layers * accum
-            ok = (o["restored_step"] == TP_STOP and o["model_bitwise"]
-                  and o["optimizer_bitwise"] and all(o["streams"])
-                  and o["second"]["step"] == TP_STEPS
-                  and all(n == want_n for n in o["launches_first"].values())
-                  and all(np.isfinite(v) for part in ("first", "second")
-                          for _, _, v in o[part]["losses"]))
-            logs = o["first"]["logs"] + o["second"]["logs"]
-            ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
-                  for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
-                  if s1 > s0 and s0 != TP_STOP]
-            print(f"  (b) python -m uc2_torch.pretrain --n_model 2, process "
-                  f"{r} of 2 (gloo, --train_batch_size 5120): steps "
-                  f"1-{TP_STOP}, saved, resumed to {o['second']['step']}; "
-                  f"losses {[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
-                  f"; restored step {o['restored_step']}, shards bit for bit "
-                  f"{o['model_bitwise']}, optimizer (gathered) bit for bit "
-                  f"{o['optimizer_bitwise']}; launches of steps 1-{TP_STOP}"
-                  f" {o['launches_first']} (want {want_n} each); loop "
-                  f"ms/step {ms}; the model group's all-reduces over the two "
-                  f"runs {o['collective']['n']} in "
-                  f"{o['collective']['ms'] / 1e3:.1f} s; saves "
-                  f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
-                  f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
-                  f" [{card}]")
-            if not ok:
-                fail(f"tp: the driver at --n_model 2 (process {r}) did not "
-                     f"resume bit for bit or missed a launch")
-            if r == 0:
-                for name, n in o["launches_first"].items():
-                    launches[name] += n
-        step, ckpt = ckpt_state(os.path.join(out_dir, "restore.ckpt"))
-        V = cfg.vocab_size
-        whole = (step == TP_STEPS and ckpt[
-            "param roberta.embeddings.word_embeddings.weight"].shape[0] == V
-            and ckpt["param cls.bias"].shape[0] == V)
-        print(f"  restore.ckpt of step {step}: the whole model (vocabulary "
-              f"rows {V}) {whole}; both processes drew the same dropout "
-              f"masks {np.array_equal(keeps[0], keeps[1])}; "
-              f"{drv_s:.1f} s with the stores and the processes' start")
-        if not (whole and np.array_equal(keeps[0], keeps[1])):
-            fail("tp: restore.ckpt is not the whole model, or the model "
-                 "group drew different dropout masks")
-
-    # python -m uc2_torch.itm --quant int8 --n_model 2: the validations
-    # and the test scored through the int8 row-parallel products
-    t0 = time.perf_counter()
     st = synth_corpus(os.path.join(TP_DIR, "itm"), n_imgs=TP_ITM_IMGS,
                       txt_per_img=2, seed=5)
     te = synth_corpus(os.path.join(TP_DIR, "itm_test"), n_imgs=TP_ITM_TEST,
                       txt_per_img=1, seed=6, max_bb=36)
-    out_dir = os.path.join(TP_DIR, "itm_out")
+    itm_out = os.path.join(TP_DIR, "itm_out")
+    meta = {"model_config": model_config, "steps": TP_STEP_COUNT,
+            "keys": list(TP_PARAM_KEYS), "stop": TP_STOP,
+            "driver_out": out_dir,
+            "extra": ["--n_model", "2"], "driver_argv": dist_driver_argv(
+                out_dir, corpus, cfg_path, "--save_steps", str(TP_STOP),
+                "--num_train_steps", str(TP_STEPS),
+                "--train_batch_size", "5120"),
+            "itm_argv": [
+                "--model_config", model_config, "--dtype",
+                "bfloat16", "--train_txt_db", st["txt_db"],
+                "--train_img_db", st["img_db"], "--val_txt_db",
+                te["txt_db"], "--val_img_db", te["img_db"],
+                "--test_datasets", json.dumps([{"name": "t",
+                                                "db": te["txt_db"],
+                                                "img": te["img_db"]}]),
+                "--output_dir", itm_out, "--quant", "int8",
+                "--train_batch_size", "40", "--gradient_accumulation_steps",
+                "1", "--num_train_steps", str(TP_ITM_STEPS),
+                "--valid_steps", str(TP_ITM_STEPS),
+                "--eval_txt_limit", str(TP_ITM_VAL_TXTS),
+                "--eval_batch_size", str(B), "--save_steps", "100",
+                "--warmup_steps", "1", "--log_steps", "1", "--seed", "0"]}
     with open(os.path.join(TP_DIR, "meta.json"), "w") as f:
-        json.dump({"itm_argv": [
-            "--model_config", "config/uc2-base.json", "--dtype", "bfloat16",
-            "--train_txt_db", st["txt_db"], "--train_img_db", st["img_db"],
-            "--val_txt_db", te["txt_db"], "--val_img_db", te["img_db"],
-            "--test_datasets", json.dumps([{"name": "t", "db": te["txt_db"],
-                                            "img": te["img_db"]}]),
-            "--output_dir", out_dir, "--quant", "int8",
-            "--train_batch_size", "40", "--gradient_accumulation_steps", "1",
-            "--num_train_steps", str(TP_ITM_STEPS), "--valid_steps",
-            str(TP_ITM_STEPS),
-            "--eval_txt_limit", str(TP_ITM_VAL_TXTS), "--eval_batch_size",
-            str(B), "--save_steps", "100", "--warmup_steps", "1",
-            "--log_steps", "1", "--seed", "0"]}, f)
-    path = os.path.join(TP_DIR, "tp_itm.py")
-    with open(path, "w") as f:
-        f.write(TP_ITM)
-    addr = f"127.0.0.1:{free_port()}"
-    res = spawn([[py, path, str(r), addr, TP_DIR] for r in (0, 1)])
-    itm_s = time.perf_counter() - t0
-    if spawned_ok("tp: python -m uc2_torch.itm --quant int8 --n_model 2", res):
-        outs = []
+        json.dump(meta, f)
+    stores_s = time.perf_counter() - t0
+
+    return (one, one_ms, one_steps, one_params, rows_n, layers, out_dir,
+            itm_out, stores_s)
+
+
+def tp_checks_and_inputs(gen):
+    """(a), then the pair's inputs (``tp_inputs``), here while the pair's
+    processes start. Returns (a)'s JSON rows and ``tp_inputs``' result."""
+    rows = tp_partial_checks(gen)
+    tp_route_checks(gen, rows)
+    tp_head_offset_checks(gen)
+    torch.cuda.empty_cache()
+    return rows, tp_inputs()
+
+
+def _phase_tp(card, gen):
+    launches = no_launches()
+    script = worker("pair", pair_script(
+        ("scores_and_steps", TP_WORKER), ("driver", DIST_DRIVER),
+        ("itm", TP_ITM)), TP_DIR)
+    (rows, (one, one_ms, one_steps, one_params, rows_n, layers, out_dir,
+            itm_out, stores_s)), res, pair_s, after_s = run_pair(
+        TP_DIR, script, tp_checks_and_inputs, gen)
+    if not spawned_ok("tp: the two processes at --n_model 2", res):
+        return rows, launches
+    parts = part_seconds(TP_DIR)
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(TP_DIR, f"tp_{r}.json")) as f:
+            outs.append(json.load(f))
+    for part, tol, what in (("score", SCORE_TOL, "default-route"),
+                            ("v2", TP_SCORE_TOL, "UC2_ATTN_V2=1"),
+                            ("int8", TP_SCORE_TOL, "int8")):
         for r in (0, 1):
-            with open(os.path.join(TP_DIR, f"itm_{r}.json")) as f:
-                outs.append(json.load(f))
-        with open(os.path.join(out_dir, "test_results.json")) as f:
-            written = json.load(f)
-        for r, o in enumerate(outs):
-            ok = (o["step"] == TP_ITM_STEPS and len(o["val"]) == 1
-                  and o["results"] == written and set(written) == {"t"}
-                  and o["int8_product"] > 0
-                  and o["int8_product"] == 4 * o["flash_attention"]
-                  and o["val"] == outs[0]["val"])
-            print(f"  (b) python -m uc2_torch.itm --quant int8 --n_model 2, "
-                  f"process {r} of 2 (gloo; {TP_ITM_IMGS} images x 2 "
-                  f"captions, {TP_ITM_STEPS} steps, validation on "
-                  f"{TP_ITM_VAL_TXTS} texts and the test on {TP_ITM_TEST} "
-                  f"of a one-bucket store): step "
-                  f"{o['step']}, validations {o['val']}, test "
-                  f"{o['results']} (test_results.json the same "
-                  f"{o['results'] == written}); int8 products "
-                  f"{o['int8_product']}, #1 launches {o['flash_attention']} "
-                  f"(4 products a #1 launch: 12 layers a scored batch); the "
-                  f"model group's all-reduces {o['collective']['n']} in "
-                  f"{o['collective']['ms'] / 1e3:.1f} s; the run "
-                  f"{o['seconds']:.1f} s, peak {o['peak_gib']:.1f} GiB "
+            tp_scores = torch.load(os.path.join(TP_DIR,
+                                                f"{part}_{r}.pt"))
+            for L, want in one[part].items():
+                n = rows_n[L]
+                got = tp_scores[L]
+                err = float((got[:n] - want[:n]).abs().max())
+                rec = outs[r][f"{part}_{L}"]
+                want_k = tp_score_launches(part, L, layers)
+                ok = (bool(torch.isfinite(got).all()) and err <= tol
+                      and rec["launches"] == want_k)
+                coll = rec["collective"]
+                print(f"  (b) {what} scores, process {r} of 2, B = {B}, "
+                      f"L = {L}: max|n_model 2 - one process| {err:.4e} "
+                      f"(tolerance {tol}; bit for bit "
+                      f"{torch.equal(got[:n], want[:n])}), launches "
+                      f"{rec['launches']} (want {want_k}); ms/batch "
+                      f"{[round(x, 1) for x in rec['ms']]} against one "
+                      f"process's "
+                      f"{[round(x, 1) for x in one_ms[(part, L)]]}; "
+                      f"the model group's all-reduces {coll['n']} a "
+                      f"batch, {coll['mb']:.1f} MB, {coll['ms']:.1f} ms "
+                      f"{'ok' if ok else 'FAIL'} [{card}]")
+                if not ok:
+                    fail(f"tp: the {part} scores at L = {L} (process "
+                         f"{r}) are not one process's, or a kernel was "
+                         f"not launched")
+                if r == 0:
+                    for k, c in rec["launches"].items():
+                        if k in launches:
+                            launches[k] += c
+    got_params = torch.load(os.path.join(TP_DIR, "params.pt"))
+    p_err = {k.split(".")[-2]: float(
+        (got_params[k] - v).abs().max() / v.abs().max())
+        for k, v in one_params.items()}
+    for part, extra in (("steps", ()),
+                        ("ffn_steps", FFN_TP_KERNELS)):
+        want_k = {k.__name__: layers for k in TRAIN_KERNELS + extra}
+        ref = one_steps[part]
+        for r in (0, 1):
+            st = outs[r][part]
+            first = st[0]
+            d_loss = abs(first["loss"] - ref["loss"])
+            d_norm = abs(first["grad_norm"] - ref["grad_norm"]) / ref[
+                "grad_norm"]
+            ok = (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_NORM_RTOL
+                  and first["launches"] == want_k)
+            coll = [(x["collective"]["n"],
+                     round(x["collective"]["mb"], 1),
+                     round(x["collective"]["ms"], 1)) for x in st]
+            print(f"  (b) mlm step{' with UC2_FFN_TRAIN=1' if extra else ''}"
+                  f" at ({TP_STEP_B}, {TXT_LEN + NUM_BB}), dropout 0.1, "
+                  f"pallas-train, process {r} of 2: loss "
+                  f"{first['loss']:.6f} vs one process's "
+                  f"{ref['loss']:.6f} (|diff| {d_loss:.2e}, tolerance "
+                  f"{STEP_LOSS_TOL}), grad norm {first['grad_norm']:.6f} "
+                  f"vs {ref['grad_norm']:.6f} (relative {d_norm:.2e}, "
+                  f"tolerance {STEP_NORM_RTOL}); launches "
+                  f"{first['launches']} (want {want_k}); ms/step "
+                  f"{[round(x['ms'], 1) for x in st]} (the first with "
+                  f"the warm-up) against one process's second step "
+                  f"{ref['ms']:.1f}; the model group's all-reduces a "
+                  f"step (count, MB, ms) {coll}; peak "
+                  f"{outs[r]['peak_gib']:.1f} GiB "
                   f"{'ok' if ok else 'FAIL'} [{card}]")
             if not ok:
-                fail(f"tp: itm --quant int8 --n_model 2 (process {r}) did "
-                     f"not run its steps, validations and test through the "
-                     f"int8 products")
+                fail(f"tp: the two-process mlm {part} (process {r}) is "
+                     f"not the one-process step")
             if r == 0:
-                launches["flash_attention"] += o["flash_attention"]
-        print(f"  (b) the itm driver: {itm_s:.1f} s with the stores and the "
-              f"processes' start")
+                for k, c in first["launches"].items():
+                    launches[k] += c
+    print(f"  (b) the updated parameters after the step, gathered, "
+          f"against one process's (max |diff| over max |one|): {p_err}"
+          f"; {parts[0]['scores_and_steps']} s in the processes")
+
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(TP_DIR, f"driver_{r}.json")) as f:
+            outs.append(json.load(f))
+    keeps = [np.load(os.path.join(TP_DIR, f"keep_{r}.npy"))
+             for r in (0, 1)]
+    with open("config/uc2_pretrain.json") as f:
+        accum = json.load(f)["gradient_accumulation_steps"]
+    for r, o in enumerate(outs):
+        want_n = TP_STOP * PAIR_LAYERS * accum
+        ok = (o["restored_step"] == TP_STOP and o["model_bitwise"]
+              and o["optimizer_bitwise"] and all(o["streams"])
+              and o["second"]["step"] == TP_STEPS
+              and all(n == want_n for n in o["launches_first"].values())
+              and all(np.isfinite(v) for part in ("first", "second")
+                      for _, _, v in o[part]["losses"]))
+        logs = o["first"]["logs"] + o["second"]["logs"]
+        ms = [round((t1 - t0_) * 1e3 / (s1 - s0), 1)
+              for (s0, t0_, _), (s1, t1, _) in zip(logs, logs[1:])
+              if s1 > s0 and s0 != TP_STOP]
+        print(f"  (b) python -m uc2_torch.pretrain --n_model 2, process "
+              f"{r} of 2 (gloo, --train_batch_size 5120, {PAIR_LAYERS} "
+              f"layers): steps "
+              f"1-{TP_STOP}, saved, resumed to {o['second']['step']}; "
+              f"losses {[(s, t, round(v, 4)) for p in ('first', 'second') for s, t, v in o[p]['losses']]}"
+              f"; restored step {o['restored_step']}, shards bit for bit "
+              f"{o['model_bitwise']}, optimizer (gathered) bit for bit "
+              f"{o['optimizer_bitwise']}; launches of steps 1-{TP_STOP}"
+              f" {o['launches_first']} (want {want_n} each); loop "
+              f"ms/step {ms}; the model group's all-reduces over the two "
+              f"runs {o['collective']['n']} in "
+              f"{o['collective']['ms'] / 1e3:.1f} s; saves "
+              f"{[round(t, 2) for t in o['first']['saves'] + o['second']['saves']]}"
+              f" s; peak {o['peak_gib']:.1f} GiB {'ok' if ok else 'FAIL'}"
+              f" [{card}]")
+        if not ok:
+            fail(f"tp: the driver at --n_model 2 (process {r}) did not "
+                 f"resume bit for bit or missed a launch")
+        if r == 0:
+            for name, n in o["launches_first"].items():
+                launches[name] += n
+    step, ckpt = ckpt_state(os.path.join(out_dir, "restore.ckpt"))
+    V = UC2Config.from_json_file("config/uc2-base.json").vocab_size
+    whole = (step == TP_STEPS and ckpt[
+        "param roberta.embeddings.word_embeddings.weight"].shape[0] == V
+        and ckpt["param cls.bias"].shape[0] == V)
+    print(f"  restore.ckpt of step {step}: the whole model (vocabulary "
+          f"rows {V}) {whole}; both processes drew the same dropout "
+          f"masks {np.array_equal(keeps[0], keeps[1])}; "
+          f"{parts[0]['driver']} s in the processes")
+    if not (whole and np.array_equal(keeps[0], keeps[1])):
+        fail("tp: restore.ckpt is not the whole model, or the model "
+             "group drew different dropout masks")
+
+    outs = []
+    for r in (0, 1):
+        with open(os.path.join(TP_DIR, f"itm_{r}.json")) as f:
+            outs.append(json.load(f))
+    with open(os.path.join(itm_out, "test_results.json")) as f:
+        written = json.load(f)
+    for r, o in enumerate(outs):
+        ok = (o["step"] == TP_ITM_STEPS and len(o["val"]) == 1
+              and o["results"] == written and set(written) == {"t"}
+              and o["int8_product"] > 0
+              and o["int8_product"] == 4 * o["flash_attention"]
+              and o["val"] == outs[0]["val"])
+        print(f"  (b) python -m uc2_torch.itm --quant int8 --n_model 2, "
+              f"process {r} of 2 (gloo; {TP_ITM_IMGS} images x 2 "
+              f"captions, {TP_ITM_STEPS} steps, validation on "
+              f"{TP_ITM_VAL_TXTS} texts and the test on {TP_ITM_TEST} "
+              f"of a one-bucket store): step "
+              f"{o['step']}, validations {o['val']}, test "
+              f"{o['results']} (test_results.json the same "
+              f"{o['results'] == written}); int8 products "
+              f"{o['int8_product']}, #1 launches {o['flash_attention']} "
+              f"(4 products a #1 launch: {layers} layers a scored batch); the "
+              f"model group's all-reduces {o['collective']['n']} in "
+              f"{o['collective']['ms'] / 1e3:.1f} s; the run "
+              f"{o['seconds']:.1f} s, peak {o['peak_gib']:.1f} GiB "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            fail(f"tp: itm --quant int8 --n_model 2 (process {r}) did "
+                 f"not run its steps, validations and test through the "
+                 f"int8 products")
+        if r == 0:
+            launches["flash_attention"] += o["flash_attention"]
+    print(f"  (b) the itm driver: {parts[0]['itm']} s in the processes")
+    print(f"  the pair: {pair_s:.1f} s from its processes' start, "
+          f"{after_s:.1f} s of them after its inputs were ready (the "
+          f"drivers' stores {stores_s:.1f} s of the wait); each part's "
+          f"seconds in processes 0 and 1 {parts}")
     return rows, launches
 
 
@@ -7379,6 +7560,10 @@ TIMES = {"stream": (phase_stream_times, "gen"),
          "layer": (phase_layer_times, "gen", "card"),
          "embed": (time_embedding_backward, "card"),
          "step": (time_mlm_step, "card")}
+
+
+# seconds the whole script may take on the card, the kernels' build included
+TIME_LIMIT_S = 1200
 
 
 def main() -> int:
@@ -7396,6 +7581,7 @@ def main() -> int:
 
     def timed(phase, *args):
         """Run one phase and print its wall time."""
+        PHASE[0] = phase.__name__
         t0 = time.perf_counter()
         out = phase(*args)
         print(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
@@ -7444,11 +7630,16 @@ def main() -> int:
     tp_rows, tp_launches = timed(phase_tp, card, gen)
     rows.update(tp_rows)
     add(tp_launches)
-    print(f"  [all phases: {time.perf_counter() - start:.1f} s]")
+    for t in DISCARDS:
+        t.join()
+    print(f"  [all phases: {time.perf_counter() - start:.1f} s of the "
+          f"{TIME_LIMIT_S} s limit]")
     for r in rows.values():
         r["launches"] = launches[r["name"]]
     if FAILURES:
-        print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}")
+        for out in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",
+                  file=out, flush=True)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -37,7 +37,7 @@ from uc2_torch.models.pretraining import UC2ForPretraining
 from uc2_torch.ops.dropout import DropoutRng, dropout
 from uc2_torch.parallel import multihost as MH
 from uc2_torch.pretrain import step_seed
-from tests.torch_dist_util import free_port, spawn
+from tests.torch_dist_util import STORE, spawn
 
 VOCAB = 1000
 TINY = dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
@@ -107,7 +107,7 @@ print("collectives ok", rank)
 
 
 def test_collectives_at_world_two(tmp_path):
-    outs = spawn(COLLECTIVES, [f"127.0.0.1:{free_port()}"], 2, tmp_path)
+    outs = spawn(COLLECTIVES, [STORE], 2, tmp_path)
     assert all("collectives ok" in o for o in outs)
 
 
@@ -119,18 +119,18 @@ def test_collectives_at_world_one_and_from_the_environment(monkeypatch):
     with pytest.raises(ValueError, match="coordinator_address"):
         MH.maybe_initialize(None, 2, 0, device="cpu")
     with pytest.raises(ValueError, match="dist_backend gloo"):
-        MH.maybe_initialize(f"127.0.0.1:{free_port()}", 1, 0,
+        MH.maybe_initialize("127.0.0.1:0", 1, 0,
                             backend="nccl", device="cpu")
     for how in ("flags", "env"):
-        port = free_port()
+        # port 0: the store of a group of one binds a port the OS chooses
         if how == "env":
             monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-            monkeypatch.setenv("MASTER_PORT", str(port))
+            monkeypatch.setenv("MASTER_PORT", "0")
             monkeypatch.setenv("WORLD_SIZE", "1")
             monkeypatch.setenv("RANK", "0")
             args = ()
         else:
-            args = (f"127.0.0.1:{port}", 1, 0)
+            args = ("127.0.0.1:0", 1, 0)
         try:
             assert MH.maybe_initialize(*args, device="cpu")
             assert (MH.process_count(), MH.process_index()) == (1, 0)
@@ -164,16 +164,17 @@ print("torchrun ok", r)
 
 
 def test_torchrun_environment_starts_the_group(tmp_path):
-    """Under torchrun the agent serves the store at MASTER_PORT: the
-    processes join it as clients."""
+    """Under torchrun (``--standalone``: the agent binds a port the OS
+    chooses) the agent serves the store at MASTER_PORT: the processes join
+    it as clients."""
     script = tmp_path / "tr.py"
     script.write_text(TORCHRUN)
     out = spawn("import runpy, sys\n"
                 "sys.argv = ['torchrun'] + sys.argv[2:]\n"
                 "runpy.run_module('torch.distributed.run', "
                 "run_name='__main__')\n",
-                ["--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-                 "--master_port", free_port(), script], 1, tmp_path)
+                ["--nproc_per_node", "2", "--standalone", script], 1,
+                tmp_path)
     assert out[0].count("torchrun ok") == 2
 
 
@@ -313,7 +314,7 @@ def two(tmp_path_factory):
     torch.save(sd, tmp / "init.pt")
     (tmp / "meta.json").write_text(json.dumps(
         {"cfg": TINY, "tasks": {k: list(v) for k, v in TASKS.items()}}))
-    spawn(STEPS, [f"127.0.0.1:{free_port()}", tmp], 2, tmp)
+    spawn(STEPS, [STORE, tmp], 2, tmp)
     out = [json.loads((tmp / f"out_{r}.json").read_text()) for r in (0, 1)]
     return {"tmp": tmp, "batches": batches, "sd": sd, "out": out}
 

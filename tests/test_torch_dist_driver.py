@@ -31,7 +31,7 @@ import pytest
 import torch
 import jax
 
-from tests.torch_dist_util import free_port, spawn
+from tests.torch_dist_util import COORDINATOR, STORE, spawn
 from uc2_tpu.config import UC2Config as JaxConfig
 from uc2_tpu.data.synth import synth_corpus
 from uc2_tpu.models import convert as jax_convert
@@ -41,6 +41,9 @@ from uc2_torch.data.synth import synth_finetune_texts
 from uc2_torch.models.convert import params_to_jax
 from uc2_torch.models.finetune import UC2ForImageTextRetrieval
 
+# seconds the reference's two JAX processes may take: they compile their
+# programs on the CPU, 122-126 s beside the other spawning files at -n 6
+REFERENCE_TIMEOUT = 360
 TINY = {"vocab_size": 512, "hidden_size": 32, "num_hidden_layers": 1,
         "num_attention_heads": 2, "intermediate_size": 64,
         "max_position_embeddings": 64, "img_dim": 16, "img_label_dim": 11,
@@ -273,8 +276,8 @@ def runs(tmp_path_factory):
         "vqa_txt_db": vqa_db, "nlvr2_txt_db": nl_db,
         "model_config": str(cfgp),
         "ckpt": str(tmp / "uc2.pt")}))
-    spawn(REFERENCE, [f"127.0.0.1:{free_port()}", tmp], 2, tmp)
-    spawn(PORT, [f"127.0.0.1:{free_port()}", tmp], 2, tmp)
+    spawn(REFERENCE, [COORDINATOR, tmp], 2, tmp, timeout=REFERENCE_TIMEOUT)
+    spawn(PORT, [STORE, tmp], 2, tmp)
 
     def load(name):
         with open(tmp / name, "rb") as f:
@@ -413,7 +416,7 @@ def routes(runs):
     meta = json.loads((tmp / "meta.json").read_text())
     (tmp / "meta.json").write_text(json.dumps(dict(
         meta, routes_config=str(cfgp))))
-    spawn(ROUTES, [f"127.0.0.1:{free_port()}", tmp, 2], 2, tmp)
+    spawn(ROUTES, [STORE, tmp, 2], 2, tmp)
     spawn(ROUTES, ["", tmp, 1], 1, tmp)
     return {w: [json.loads((tmp / f"routes_{w}_{p}.json").read_text())
                 for p in range(w)] for w in (1, 2)}

@@ -46,7 +46,6 @@ from uc2_torch.data.synth import synth_corpus, synth_finetune_texts
 from uc2_torch.models import finetune
 from uc2_torch.parallel import multihost as MH
 from uc2_torch.training import checkpoint
-from tests.torch_dist_util import free_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"vocab_size": 512, "hidden_size": 32, "num_hidden_layers": 1,
@@ -389,7 +388,7 @@ UNPORTED = [(["--n_model", "2"], "--n_model"),
 # the distribution flags at a world of one: the coordinator's flags start
 # a process group of one over gloo
 WORLD_OF_ONE = {
-    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:0",
                               "--num_processes", "1", "--process_id", "0"],
     "--num_processes": ["--num_processes", "1"],
     "--process_id": ["--process_id", "0"]}
@@ -429,7 +428,7 @@ def test_unported_flags_raise_by_name(setup, tmp_path, driver, extra, name,
             _short_run(setup, out, driver, extra)
         return
     want = request.getfixturevalue("undistributed")[driver]
-    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    flags = WORLD_OF_ONE[name]
     try:
         got = _short_run(setup, out, driver, flags)
         assert MH.process_count() == 1

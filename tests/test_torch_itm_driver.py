@@ -36,7 +36,6 @@ from uc2_tpu.utils import logger as jax_logger
 from uc2_torch import itm
 from uc2_torch.data import loader
 from uc2_torch.parallel import multihost as MH
-from tests.torch_dist_util import free_port
 from uc2_torch.data.synth import synth_corpus
 from uc2_torch.training import checkpoint
 
@@ -302,7 +301,7 @@ UNPORTED = [
 # a process group of one over gloo
 WORLD_OF_ONE = {
     "--zero1": ["--zero1"],
-    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:0",
                               "--num_processes", "1", "--process_id", "0"],
     "--num_processes": ["--num_processes", "1"],
     "--process_id": ["--process_id", "0"]}
@@ -340,7 +339,7 @@ def test_unported_flags_raise_by_name(setup, tmp_path, extra, name,
             _port(setup, tmp_path / "out", extra)
         return
     want = request.getfixturevalue("undistributed")
-    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    flags = WORLD_OF_ONE[name]
     try:
         got = _port(setup, tmp_path / "out", SHORT + flags)
         assert MH.process_count() == 1

@@ -36,7 +36,6 @@ from uc2_torch import pretrain
 from uc2_torch.data import loader
 from uc2_torch.models import convert
 from uc2_torch.parallel import multihost as MH
-from tests.torch_dist_util import free_port
 
 TINY = {"vocab_size": 250002, "hidden_size": 32, "num_hidden_layers": 1,
         "num_attention_heads": 2, "intermediate_size": 64,
@@ -315,7 +314,7 @@ UNPORTED = [
 # a process group of one over gloo
 WORLD_OF_ONE = {
     "--zero1": ["--zero1"],
-    "--coordinator_address": ["--coordinator_address", "127.0.0.1:{port}",
+    "--coordinator_address": ["--coordinator_address", "127.0.0.1:0",
                               "--num_processes", "1", "--process_id", "0"],
     "--num_processes": ["--num_processes", "1"],
     "--process_id": ["--process_id", "0"]}
@@ -346,7 +345,7 @@ def test_unported_flags_and_tasks_raise_by_name(setup, tmp_path, extra,
             pretrain.main(opts)
         return
     want = request.getfixturevalue("undistributed")
-    flags = [f.format(port=free_port()) for f in WORLD_OF_ONE[name]]
+    flags = WORLD_OF_ONE[name]
     try:
         got = _port(setup, tmp_path / "out", SHORT + flags)
         assert MH.process_count() == 1

@@ -65,7 +65,7 @@ from uc2_torch.parallel import mesh as M
 from uc2_torch.parallel import tensor as TP
 from uc2_torch.training import optim
 from uc2_torch.training.step import train_step
-from tests.torch_dist_util import free_port, spawn
+from tests.torch_dist_util import STORE, spawn
 
 VOCAB = 511
 TINY = dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
@@ -438,8 +438,8 @@ def tp(tmp_path_factory):
     (tmp / "meta.json").write_text(json.dumps(
         {"cfg": TINY, "tasks": TASKS, "valid_ids": valid_ids,
          "lr": LR, "clip": CLIP, **stores}))
-    spawn(WORKER, [f"127.0.0.1:{free_port()}", tmp, 2, 2], 2, tmp)
-    spawn(WORKER, [f"127.0.0.1:{free_port()}", tmp, 4, 2], 4, tmp)
+    spawn(WORKER, [STORE, tmp, 2, 2], 2, tmp)
+    spawn(WORKER, [STORE, tmp, 4, 2], 4, tmp)
     out = {(w, r): json.loads((tmp / f"out_{w}_{r}.json").read_text())
            for w, rs in ((2, range(2)), (4, range(4))) for r in rs}
     return {"tmp": tmp, "batches": batches, "sd": sd, "out": out,

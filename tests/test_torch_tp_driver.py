@@ -24,7 +24,6 @@ Port processes import no JAX."""
 import json
 import os
 import pickle
-import subprocess
 import threading
 
 import numpy as np
@@ -34,7 +33,7 @@ import jax
 
 import itm as jax_itm
 import pretrain as jax_pretrain
-from tests.torch_dist_util import free_port, pretrain_argv, spawn
+from tests.torch_dist_util import STORE, pretrain_argv, spawn
 from uc2_tpu.config import UC2Config as JaxConfig
 from uc2_tpu.data import loader as jax_loader
 from uc2_tpu.data.synth import synth_corpus
@@ -207,9 +206,9 @@ def runs(tmp_path_factory):
 
     def run_port():
         try:
-            spawn(PORT, [f"127.0.0.1:{free_port()}", tmp], 2, tmp)
-        except (AssertionError, subprocess.TimeoutExpired) as e:
-            failed.append(e)             # a process failed, or hung
+            spawn(PORT, [STORE, tmp], 2, tmp)
+        except AssertionError as e:
+            failed.append(e)     # a process failed, hung or was killed
     port_run = threading.Thread(target=run_port)
     port_run.start()
     # the reference: pretrain.py for 2 steps; itm.py

@@ -129,7 +129,7 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
                     f"run several ranks on one GPU")
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world, timeout=timeout)
-    _KV["addr"] = (host, int(port), timeout)
+    _KV["addr"] = (host, store.port, timeout)
     return True
 
 
