@@ -14,6 +14,14 @@ each image; both rank a score matrix with functions of the matrix alone
 (``pool_ranks``, ``hard_negative_pools``). Across processes
 ``full_retrieval_eval`` scores each process's stride of the texts and
 gathers the rows into the whole matrix on every process.
+
+Under a profiler ``score_matrix`` records its spans
+(``uc2_torch.utils.profiling``): ``score.call`` around the call, counting
+``pairs`` (captions x images) and ``slots`` (captions x tiles x batch
+size, padding included); ``score.gallery``, the gallery's and the
+captions' rows; ``score.upload``, a bucket's padded tiles put on the
+device; ``score.chunk``, a chunk of captions queued against a bucket and
+its one host pull.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from uc2_torch import resolve_device
 from uc2_torch.data.datasets import ItmEvalDataset
 from uc2_torch.evalu.itm_metrics import itm_eval
+from uc2_torch.utils.profiling import count, span
 
 
 def load_image_gallery(img_db, img_ids: Sequence[str], num_bb: int):
@@ -73,6 +82,27 @@ def _text_rows(txt_db, txt_ids, txt_len):
     return txt_arr, txt_m
 
 
+def _bucket_tiles(feats, bb7, nbbs, sel, nb, n_tiles, batch_size,
+                  model_dev):
+    """The bucket ``sel``'s features, boxes and region masks cut to ``nb``
+    regions, padded to ``n_tiles`` tiles of ``batch_size`` images and put
+    on ``model_dev`` as [n_tiles, batch_size, nb, ...]."""
+    pad = n_tiles * batch_size - sel.size
+    f = np.zeros((n_tiles * batch_size, nb, feats.shape[2]), np.float32)
+    b7 = np.zeros((n_tiles * batch_size, nb, 7), np.float32)
+    f[:sel.size] = feats[sel][:, :nb]
+    b7[:sel.size] = bb7[sel][:, :nb]
+    rmask = (np.arange(nb)[None, :]
+             < np.concatenate([nbbs[sel], np.zeros(pad, np.int32)])[:, None])
+    f_tiles = torch.from_numpy(f).to(model_dev).view(
+        n_tiles, batch_size, nb, -1)
+    b7_tiles = torch.from_numpy(b7).to(model_dev).view(
+        n_tiles, batch_size, nb, 7)
+    rm_tiles = torch.from_numpy(rmask.astype(np.int64)).to(
+        model_dev).view(n_tiles, batch_size, nb)
+    return f_tiles, b7_tiles, rm_tiles
+
+
 def score_matrix(model, txt_db, img_db, txt_ids: Sequence[str],
                  img_ids: Sequence[str], txt_len: int, num_bb: int,
                  batch_size: int = 64,
@@ -85,45 +115,42 @@ def score_matrix(model, txt_db, img_db, txt_ids: Sequence[str],
     if model_dev.type != dev.type:
         raise ValueError(f"score_matrix: the model is on {model_dev}, not "
                          f"on {dev}")
-    feats, bb7, nbbs = load_image_gallery(img_db, img_ids, num_bb)
     n_txt, n_img = len(txt_ids), len(img_ids)
-    edges = bucket_edges(txt_len, num_bb, nbb_buckets)
-    img_bucket = np.searchsorted(np.asarray(edges), nbbs)
-    out = np.zeros((n_txt, n_img), np.float32)
-    txt_arr, txt_m = _text_rows(txt_db, txt_ids, txt_len)
-    txt_arr = torch.from_numpy(txt_arr).to(model_dev)
-    txt_m = torch.from_numpy(txt_m).to(model_dev)
+    with span("score.call"):
+        count("pairs", n_txt * n_img)
+        with span("score.gallery"):
+            feats, bb7, nbbs = load_image_gallery(img_db, img_ids, num_bb)
+            txt_arr, txt_m = _text_rows(txt_db, txt_ids, txt_len)
+            txt_arr = torch.from_numpy(txt_arr).to(model_dev)
+            txt_m = torch.from_numpy(txt_m).to(model_dev)
+        edges = bucket_edges(txt_len, num_bb, nbb_buckets)
+        img_bucket = np.searchsorted(np.asarray(edges), nbbs)
+        out = np.zeros((n_txt, n_img), np.float32)
 
-    for bi, nb in enumerate(edges):
-        sel = np.flatnonzero(img_bucket == bi)
-        if sel.size == 0:
-            continue
-        n_tiles = -(-sel.size // batch_size)
-        pad = n_tiles * batch_size - sel.size
-        f = np.zeros((n_tiles * batch_size, nb, feats.shape[2]), np.float32)
-        b7 = np.zeros((n_tiles * batch_size, nb, 7), np.float32)
-        f[:sel.size] = feats[sel][:, :nb]
-        b7[:sel.size] = bb7[sel][:, :nb]
-        rmask = (np.arange(nb)[None, :]
-                 < np.concatenate([nbbs[sel], np.zeros(pad, np.int32)])[:, None])
-        f_tiles = torch.from_numpy(f).to(model_dev).view(
-            n_tiles, batch_size, nb, -1)
-        b7_tiles = torch.from_numpy(b7).to(model_dev).view(
-            n_tiles, batch_size, nb, 7)
-        rm_tiles = torch.from_numpy(rmask.astype(np.int64)).to(
-            model_dev).view(n_tiles, batch_size, nb)
-        for c0 in range(0, n_txt, txt_chunk):
-            rows = []
-            for i in range(c0, min(c0 + txt_chunk, n_txt)):
-                ids = txt_arr[i].expand(batch_size, txt_len)
-                tmask = txt_m[i].expand(batch_size, txt_len)
-                rows.append(torch.cat([model.scores({
-                    "input_ids": ids, "img_feat": f_tiles[j],
-                    "img_pos_feat": b7_tiles[j],
-                    "attn_mask": torch.cat([tmask, rm_tiles[j]], dim=1)})
-                    for j in range(n_tiles)]))
-            s = torch.stack(rows).cpu().numpy()       # one pull per chunk
-            out[c0:c0 + len(rows), sel] = s[:, :sel.size]
+        for bi, nb in enumerate(edges):
+            sel = np.flatnonzero(img_bucket == bi)
+            if sel.size == 0:
+                continue
+            n_tiles = -(-sel.size // batch_size)
+            count("slots", n_txt * n_tiles * batch_size)
+            with span("score.upload"):
+                f_tiles, b7_tiles, rm_tiles = _bucket_tiles(
+                    feats, bb7, nbbs, sel, nb, n_tiles, batch_size,
+                    model_dev)
+            for c0 in range(0, n_txt, txt_chunk):
+                with span("score.chunk"):
+                    rows = []
+                    for i in range(c0, min(c0 + txt_chunk, n_txt)):
+                        ids = txt_arr[i].expand(batch_size, txt_len)
+                        tmask = txt_m[i].expand(batch_size, txt_len)
+                        rows.append(torch.cat([model.scores({
+                            "input_ids": ids, "img_feat": f_tiles[j],
+                            "img_pos_feat": b7_tiles[j],
+                            "attn_mask": torch.cat([tmask, rm_tiles[j]],
+                                                   dim=1)})
+                            for j in range(n_tiles)]))
+                    s = torch.stack(rows).cpu().numpy()  # one pull a chunk
+                    out[c0:c0 + len(rows), sel] = s[:, :sel.size]
     return out
 
 

@@ -29,6 +29,7 @@ from uc2_torch.models import heads as H
 from uc2_torch.models.encoder import UC2Model, init_weights
 from uc2_torch.models.ot import optimal_transport_dist
 from uc2_torch.parallel import tensor as TP
+from uc2_torch.utils.profiling import span
 
 
 def gather_slots(seq, pos):
@@ -92,29 +93,31 @@ class UC2ForPretraining(nn.Module):
         ``masked_weight``: (loss_sum, n_slots); with ``compute_loss=False``
         the logits [B, M, V] instead. Under tensor parallelism the head
         gives the vocabulary shard's logits: the CE is the vocab-parallel
-        one and the returned logits are gathered whole."""
-        h = gather_slots(seq, batch["masked_pos"])
-        emb = self.roberta.embeddings.word_embeddings.weight
-        if not compute_loss:
-            return TP.gather_from_model(self.cls(h, emb))
-        w = batch["masked_weight"]
-        if self.lm_ce_chunks:
-            B, M, _ = h.shape
-            x = self.cls(h, emb, transform_only=True)
-            loss = H.chunked_softmax_cross_entropy(
-                x.reshape(B * M, -1), emb, self.cls.bias,
-                batch["txt_labels"].reshape(B * M), w.reshape(B * M),
-                n_chunks=self.lm_ce_chunks,
-                vocab_size=self.config.vocab_size)
+        one and the returned logits are gathered whole. Under a profiler
+        it is the span ``train.lm_head``, marked on the card's stream."""
+        with span("train.lm_head", stream=True):
+            h = gather_slots(seq, batch["masked_pos"])
+            emb = self.roberta.embeddings.word_embeddings.weight
+            if not compute_loss:
+                return TP.gather_from_model(self.cls(h, emb))
+            w = batch["masked_weight"]
+            if self.lm_ce_chunks:
+                B, M, _ = h.shape
+                x = self.cls(h, emb, transform_only=True)
+                loss = H.chunked_softmax_cross_entropy(
+                    x.reshape(B * M, -1), emb, self.cls.bias,
+                    batch["txt_labels"].reshape(B * M), w.reshape(B * M),
+                    n_chunks=self.lm_ce_chunks,
+                    vocab_size=self.config.vocab_size)
+                return loss.sum(), w.sum()
+            if TP.tp_size() > 1:
+                loss = TP.vocab_parallel_cross_entropy(
+                    self.cls(h, emb), batch["txt_labels"],
+                    self.config.vocab_size, w)
+            else:
+                loss = H.cross_entropy_with_logits(self.cls(h, emb),
+                                                   batch["txt_labels"], w)
             return loss.sum(), w.sum()
-        if TP.tp_size() > 1:
-            loss = TP.vocab_parallel_cross_entropy(
-                self.cls(h, emb), batch["txt_labels"], self.config.vocab_size,
-                w)
-        else:
-            loss = H.cross_entropy_with_logits(self.cls(h, emb),
-                                               batch["txt_labels"], w)
-        return loss.sum(), w.sum()
 
     def forward_mlm(self, batch, deterministic=True, rng=None,
                     with_image=True, compute_loss=True):

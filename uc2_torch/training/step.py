@@ -23,11 +23,18 @@ all-reduce) before the update: the step is the step on the concatenation
 of the processes' batches. Each process's metrics are its share of the
 global ones (its sums over the global counts; ``n_units`` its own count),
 so their sums are the global metrics.
+
+Under a profiler both training steps record their spans
+(``uc2_torch.utils.profiling``), each marked on the card's stream:
+``train.step`` around the call; in it ``train.forward`` (the loss
+function) and ``train.backward`` of each micro-batch, and
+``train.update`` (the mean over the micro-batches, ``reduce_grads`` and
+the optimizer's step).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -35,6 +42,7 @@ from uc2_torch.models.heads import cross_entropy_with_logits, \
     kl_div_with_logits
 from uc2_torch.parallel.mesh import global_count, reduce_grads
 from uc2_torch.training.optim import Optimizer
+from uc2_torch.utils.profiling import span
 
 _MLM_TASKS = {"mlm": True, "tlm": True, "tlm-ni": False}  # task -> with_image
 TASKS = tuple(_MLM_TASKS) + ("vmlm", "mmxlm", "vmlm-soft", "mmxlm-soft",
@@ -134,33 +142,58 @@ def is_stacked(batch) -> bool:
     return batch["input_ids"].dim() == 3
 
 
+def _micro_batches(batch, rng) -> list:
+    """[(batch, rng)]: a plain batch, or each micro-batch of a stacked
+    one."""
+    if not is_stacked(batch):
+        return [(batch, rng)]
+    return [({k: v[a] for k, v in batch.items()}, rng)
+            for a in range(batch["input_ids"].shape[0])]
+
+
+def _sum_grads(loss_fn: Callable, model, micro) -> Dict:
+    """Leave in ``.grad`` the sum of the gradients of the micro-batches
+    ``micro`` ([(batch, rng)], taken in order) and return the sum of their
+    metrics."""
+    total = None
+    for batch, rng in micro:
+        with span("train.forward", stream=True):
+            loss, m = loss_fn(model, batch, rng)
+        with span("train.backward", stream=True):
+            loss.backward()
+        total = m if total is None else {k: total[k] + m[k] for k in m}
+    return total
+
+
+def _divide(model, metrics: Dict, n: int) -> Dict:
+    """Divide ``.grad`` and ``metrics`` by the count of micro-batches."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(n)
+    return {k: v / n for k, v in metrics.items()}
+
+
 def accumulate_grads(loss_fn: Callable, model, batch, rng) -> Dict:
     """Leave in ``.grad`` the gradients of the loss of a plain batch, or
     their mean over the micro-batches of a stacked one; return the metrics
     (their mean likewise). The ``.grad`` fields must be None on entry."""
-    if not is_stacked(batch):
-        loss, metrics = loss_fn(model, batch, rng)
-        loss.backward()
-        return metrics
-    return mean_grads(loss_fn, model, [
-        ({k: v[a] for k, v in batch.items()}, rng)
-        for a in range(batch["input_ids"].shape[0])])
+    micro = _micro_batches(batch, rng)
+    metrics = _sum_grads(loss_fn, model, micro)
+    return _divide(model, metrics, len(micro)) if is_stacked(batch) \
+        else metrics
 
 
-def mean_grads(loss_fn: Callable, model, micro) -> Dict:
-    """Leave in ``.grad`` the mean of the gradients of the micro-batches
-    ``micro`` ([(batch, rng)], taken in order) and return the mean of
-    their metrics. The ``.grad`` fields must be None on entry."""
-    total = None
-    for batch, rng in micro:
-        loss, m = loss_fn(model, batch, rng)
-        loss.backward()
-        total = m if total is None else {k: total[k] + m[k] for k in m}
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(len(micro))
-    return {k: v / len(micro) for k, v in total.items()}
+def _update(model, opt: Optimizer, metrics: Dict,
+            n: Optional[int]) -> Dict[str, torch.Tensor]:
+    """After the last backward: the mean over ``n`` micro-batches (None: a
+    plain batch), the sum over the processes and the optimizer's step."""
+    with span("train.update", stream=True):
+        if n is not None:
+            metrics = _divide(model, metrics, n)
+        metrics = reduce_grads(opt.params, metrics)
+        metrics["grad_norm"] = opt.step()
+    return metrics
 
 
 def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
@@ -172,12 +205,12 @@ def train_step(model, opt: Optimizer, batch: Dict[str, torch.Tensor], rng,
     function's metrics (``loss``, ``n_units``, ...) and ``grad_norm`` (the
     global norm of the unclipped gradients) as device tensors, so the step
     never waits for the card."""
-    opt.zero_grad()
-    metrics = accumulate_grads(make_loss_fn(task, **loss_kw), model, batch,
-                               rng)
-    metrics = reduce_grads(opt.params, metrics)
-    metrics["grad_norm"] = opt.step()
-    return metrics
+    with span("train.step", stream=True):
+        opt.zero_grad()
+        micro = _micro_batches(batch, rng)
+        metrics = _sum_grads(make_loss_fn(task, **loss_kw), model, micro)
+        return _update(model, opt, metrics,
+                       len(micro) if is_stacked(batch) else None)
 
 
 def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm",
@@ -186,11 +219,10 @@ def train_step_micro(model, opt: Optimizer, micro, task: str = "mlm",
     their buckets may differ): ``micro`` is [(batch, rng)], and the
     gradients and metrics are the mean over them, as ``train_step`` takes
     them over a stacked batch."""
-    opt.zero_grad()
-    metrics = mean_grads(make_loss_fn(task, **loss_kw), model, micro)
-    metrics = reduce_grads(opt.params, metrics)
-    metrics["grad_norm"] = opt.step()
-    return metrics
+    with span("train.step", stream=True):
+        opt.zero_grad()
+        metrics = _sum_grads(make_loss_fn(task, **loss_kw), model, micro)
+        return _update(model, opt, metrics, len(micro))
 
 
 def _soft_ce(logits, t, w):
